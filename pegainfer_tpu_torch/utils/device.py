@@ -1,0 +1,18 @@
+"""Device choice for the port's entry points."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks for
+    another. Raises when CUDA is asked for (or defaulted to) and no card is
+    present; never falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device found; pass device='cpu' to run on the CPU")
+    return dev
