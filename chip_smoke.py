@@ -5,30 +5,57 @@
 Phases, each printed as it runs; any failure exits non-zero:
 
 1. the card (name, power limit) and the torch / CUDA versions;
-2. build the hand-written kernels from ``pegainfer_tpu_torch/csrc`` with
-   nvcc for sm_90a and print ptxas's registers / shared memory / spills;
-3. hold each kernel against its plain PyTorch version at the main path's
-   shapes (bf16 tolerances of the JAX package's kernel tests: 3e-2 decode,
-   2e-2 prefill);
-4. serve Qwen3-4B (full width and depth, random weights from a seed) through
-   ``start_engine_from_params`` -> ``EngineHandle.submit``: one greedy
-   1024-token prompt with 256 output tokens, then two shorter requests at
-   once so decode runs at batch 2;
+2. build the five hand-written kernels from ``pegainfer_tpu_torch/csrc``
+   (one nvcc per source, all at once, sm_90a) and print ptxas's registers /
+   shared memory / spills;
+
+Qwen3-4B bf16 (full width and depth, random weights from a seed):
+
+3. hold K1 and K2 against their plain versions at the main path's shapes
+   (bf16 tolerances of the JAX package's kernel tests: 3e-2 decode, 2e-2
+   prefill);
+4. serve through ``start_engine_from_params`` -> ``EngineHandle.submit``:
+   one greedy 1024-token prompt with 256 output tokens, then two shorter
+   requests at once so decode runs at batch 2;
 5. every request must end in ``Finished`` with its full token count;
-6. the kernels' launch counters must equal 36 x prefills (flash prefill)
-   and 36 x decode steps (paged decode);
+6. the launch counters must equal 36 x prefills (K2) and 36 x decode steps
+   (K1);
 7. the 1024-token prefill's last logits with the kernels against the same
    model with the plain attention: max |diff| <= LOGITS_RTOL x max |logit|,
    and the argmax agrees unless the plain run's top-2 gap is below the diff;
-8. timings: TTFT and TPOT p50 of the 1024/256 request, and each kernel's
-   time against its bound, its plain version and a library call.
+8. timings: TTFT and TPOT of the 1024/256 request, a torch.profiler step
+   profile, and each kernel's time against its bound, its plain version and
+   a library call. The engine, weights and KV pool are then freed.
 
-The last lines are the kernels' JSON record, the card line from nvidia-smi
-and ``{"ok": true, "device": {...}}``.
+DeepSeek-V4-Flash, 8 layers at full width, random resident fp8 / packed-fp4
+weights made on the card from the seed:
+
+9. build the weights (about 33 GB);
+10. hold K3, K4 and K5 against their plain versions on the model's weights
+    at the path's shapes and at ragged cases (repeated experts; M = 1, 2,
+    8 and wo_b's IN of 8192; skewed routing with empty experts, segments
+    across tiles, a tile of 56 rows);
+11. serve through ``dsv4_engine.start_engine_from_params`` (2 slots,
+    max_model_len 2048): a 16/4 warm-up, the greedy 1024/64 request, then
+    300/32, 500/32 and 200/16 at once;
+12. every request ends in ``Finished`` with its count; the third concurrent
+    request is prefilled only after a slot frees, and the first two decode
+    at B = 2; launches equal 24 x prefills (K5), 24 x decode steps (K3) and
+    59 x decode steps (K4); the 1024-token prefill's last logits, and one
+    decode step after it from the plain prefill's caches, with the kernels
+    against ``plain_kernels=True``, the kernel run routed as the plain run
+    (same rule as 7, DSV4_LOGITS_RTOL);
+13. timings: TTFT and TPOT of the 1024/64 request, a torch.profiler step
+    profile of one prefill and one B = 1 decode step, and K3-K5 against
+    their bounds, plain versions and (K4) a library call.
+
+The last lines are the kernels' JSON record (K1-K5), the card line from
+nvidia-smi and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -52,6 +79,24 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12
 TOP_OPS = 8  # device operations listed per profiled step, by device time
 SLEEP_CYCLES = 100_000_000  # about 50 ms of device sleep at H100 clocks
+
+# DeepSeek-V4-Flash phases
+DSV4_LAYERS = 8
+DSV4_SLOTS = 2
+DSV4_MAX_MODEL_LEN = 2048
+DSV4_WARMUP = (16, 4)
+DSV4_PROMPT, DSV4_OUT = 1024, 64  # scripts/dsv4_flagship_engine.py's defaults
+DSV4_CONCURRENT = ((300, 32), (500, 32), (200, 16))  # the third waits for a slot
+# K3 / K4 form the same exact f32 products as their plain versions, in
+# another summation order (the JAX kernel tests' atol, on unit-RMS outputs);
+# K5 multiplies on the tensor cores (the JAX test's 2e-2 of max |y|)
+QUANT_GEMV_TOL = 2e-5
+GROUPED_RTOL = 2e-2
+# the kernel run is routed as the plain run (RoutingReplay); through 8
+# random layers bf16 roundings of the activations (in both runs) turn the
+# kernels' f32 sum-order differences into bf16-ulp differences; as for
+# Qwen3, 5% of max |logit|
+DSV4_LOGITS_RTOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -245,13 +290,7 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))  # the checkout's package, not an installed one
-    from pegainfer_tpu_torch.engine import contract
-    from pegainfer_tpu_torch.models import qwen3 as q3
-    from pegainfer_tpu_torch.models.qwen3_engine import start_engine_from_params
-    from pegainfer_tpu_torch.ops import attention as att
     from pegainfer_tpu_torch.ops.cuda import build
-    from pegainfer_tpu_torch.ops.cuda import flash_prefill as fp
-    from pegainfer_tpu_torch.ops.cuda import paged_decode as pd
 
     t_start = time.perf_counter()
     card = card_line()
@@ -259,7 +298,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t = time.perf_counter()
-    build.load("paged_decode")
+    build.load("paged_decode")  # builds every source, in parallel
     log(f"[2] kernels built and loaded in {time.perf_counter() - t:.1f} s")
     for name, text in build.build_logs.items():
         log(f"  --- ptxas: {name} ---")
@@ -267,6 +306,32 @@ def main() -> int:
             if "ptxas" in line and ("registers" in line or "spill" in line
                                     or "Compiling entry" in line):
                 log("  " + line.strip())
+
+    q_records, q_serving, q_steps = run_qwen3()
+    # the Qwen3 engine, weights and KV pool are gone with run_qwen3's frame
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  Qwen3 freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+    d_records, d_serving, d_steps = run_dsv4()
+    log(f"  total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": q_records + d_records,
+                      "serving": q_serving, "steps": q_steps,
+                      "dsv4": {"serving": d_serving, "steps": d_steps}}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_qwen3():
+    """Phases 3-8 on Qwen3-4B. Returns (K1/K2 records, serving, steps)."""
+    from pegainfer_tpu_torch.engine import contract
+    from pegainfer_tpu_torch.models import qwen3 as q3
+    from pegainfer_tpu_torch.models.qwen3_engine import start_engine_from_params
+    from pegainfer_tpu_torch.ops import attention as att
+    from pegainfer_tpu_torch.ops.cuda import flash_prefill as fp
+    from pegainfer_tpu_torch.ops.cuda import paged_decode as pd
 
     cfg = qwen3_4b_config(q3)
     log("[3] kernels against their plain versions")
@@ -314,6 +379,7 @@ def main() -> int:
     finally:
         handle.shutdown()
         handle._thread.join(timeout=60)
+    del handle, ex  # the executor holds the KV pool
 
     L = cfg.num_hidden_layers
     log(f"[5] all requests Finished with their token counts; the concurrent pair "
@@ -336,16 +402,8 @@ def main() -> int:
     torch.cuda.synchronize()
     if not (bool(torch.isfinite(lk).all()) and lk.shape == (cfg.vocab_size,)):
         raise SystemExit("kernel-path logits are not finite [V]")
-    diff = (lk - lp).abs().max().item()
-    scale = lp.abs().max().item()
-    top2 = torch.topk(lp, 2).values
-    gap = (top2[0] - top2[1]).item()
-    argmax_same = int(lk.argmax()) == int(lp.argmax())
-    log(f"  max |diff| {diff:.4e}, max |logit| {scale:.4e}, tolerance "
-        f"{LOGITS_RTOL} x max |logit| = {LOGITS_RTOL * scale:.4e}; argmax agrees: "
-        f"{argmax_same} (plain top-2 gap {gap:.4e})")
-    if diff > LOGITS_RTOL * scale or (not argmax_same and gap > diff):
-        raise SystemExit("kernel-path logits disagree with the plain-attention model")
+    check_logits(lk, lp, LOGITS_RTOL, "kernel-path logits disagree with the "
+                 "plain-attention model")
     del kv
 
     log("[8] timings")
@@ -354,25 +412,45 @@ def main() -> int:
     tpot95 = float(np.percentile(gaps, 95))  # 12 of the 255 gaps lie beyond it
     log(f"  main {PROMPT}/{OUT}: TTFT {ttft_ms:.3f} ms, TPOT p50 {tpot:.3f} ms, "
         f"p95 {tpot95:.3f} ms over {len(gaps)} gaps (host clock, per streamed token)")
+    log_steps(steps)
+    records = time_kernels(cfg, pd, fp, att, errs, launches)
+    log_records(records)
+    serving = {"ttft_ms": ttft_ms, "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
+               "prompt": PROMPT, "output": OUT}
+    return records, serving, steps_json(steps)
+
+
+def check_logits(lk, lp, rtol, message):
+    """max |diff| <= rtol x max |logit| of the plain run, and the argmax
+    agrees unless the plain run's top-2 gap is below the diff."""
+    diff = (lk - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    top2 = torch.topk(lp, 2).values
+    gap = (top2[0] - top2[1]).item()
+    argmax_same = int(lk.argmax()) == int(lp.argmax())
+    log(f"  max |diff| {diff:.4e}, max |logit| {scale:.4e}, tolerance "
+        f"{rtol} x max |logit| = {rtol * scale:.4e}; argmax agrees: "
+        f"{argmax_same} (plain top-2 gap {gap:.4e})")
+    if diff > rtol * scale or (not argmax_same and gap > diff):
+        raise SystemExit(message)
+
+
+def log_steps(steps):
     for name, (wall, dev, n) in steps.items():
         log(f"  {name}: wall {wall:.3f} ms, device time {dev:.3f} ms in {n:.0f} "
             f"kernels and copies (torch.profiler), device idle {1 - dev / wall:.1%}")
-    records = time_kernels(cfg, pd, fp, att, errs, launches)
+
+
+def steps_json(steps):
+    return {k: {"wall_ms": w, "device_ms": d, "device_ops": n}
+            for k, (w, d, n) in steps.items()}
+
+
+def log_records(records):
     for r in records:
         log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us vs bound {r['bound_ms'] * 1e3:.2f} us "
             f"({r['bound_by']}), plain {r['plain_ms'] * 1e3:.2f} us, library "
             + (f"{r['library_ms'] * 1e3:.2f} us" if r["library_ms"] is not None else "none"))
-    log(f"  total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": records, "serving": {
-        "ttft_ms": ttft_ms, "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
-        "prompt": PROMPT, "output": OUT},
-        "steps": {k: {"wall_ms": w, "device_ms": d, "device_ops": n}
-                  for k, (w, d, n) in steps.items()}}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 def step_profile(cfg, q3, params, prompt_t, first_token, iters=5):
@@ -483,6 +561,447 @@ def time_kernels(cfg, pd, fp, att, errs, launches):
          "launches": launches["flash_prefill"], "max_abs_err": errs["flash_prefill"],
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": k2_lib_ms},
+    ]
+
+
+# ── DeepSeek-V4-Flash, 8 layers, resident fp8 / fp4 weights ────────────
+
+
+def dsv4_flash_config(d4):
+    """DeepSeek-V4-Flash at its published widths (huggingface.co/deepseek-ai/
+    DeepSeek-V4-Flash config.json, as scripts/dsv4_flagship_probe.py sets
+    them: hidden 4096, 64 heads of 512, q-LoRA 1024, o-LoRA 8 x 1024, rope
+    64, window 128, 256 routed experts top-6 of width 2048, indexer 64 x 128
+    top-512, vocab 129,280, 3 hash layers), cut to its first 8 layers; their
+    compress ratios [0, 0, 4, 128, 4, 128, 4, 128] cover every attention
+    class and both gates."""
+    return d4.DSv4Config(
+        vocab_size=129280, dim=4096, moe_inter_dim=2048, n_layers=DSV4_LAYERS,
+        num_attention_heads=64, head_dim=512, q_lora_rank=1024, qk_rope_head_dim=64,
+        o_groups=8, o_lora_rank=1024, sliding_window=128, n_routed_experts=256,
+        n_shared_experts=1, n_activated_experts=6, n_hash_layers=3,
+        routed_scaling_factor=1.5, swiglu_limit=7.0, rms_norm_eps=1e-6,
+        index_n_heads=64, index_head_dim=128, index_topk=512,
+        max_position_embeddings=1048576, rope_theta=10000.0, compress_rope_theta=10000.0,
+        compress_ratios=(0, 0, 4, 128, 4, 128, 4, 128), yarn_original_seq_len=65536,
+        yarn_factor=16.0)
+
+
+def fp8_per_decode_step(cfg):
+    """K4 launches in one decode step: 7 fp8 linears a layer (wq_a, wq_b,
+    wkv, wo_b, shared w1 / w3 / w2) and idx_wq_b on the ratio-4 layers."""
+    return sum(7 + (r == 4) for r in cfg.compress_ratios)
+
+
+def run_dsv4():
+    """Phases 9-13 on DeepSeek-V4-Flash. Returns (K3-K5 records, serving,
+    steps)."""
+    from pegainfer_tpu_torch.engine import contract
+    from pegainfer_tpu_torch.models import dsv4 as d4
+    from pegainfer_tpu_torch.models import dsv4_engine as d4e
+    from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
+    from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
+    from pegainfer_tpu_torch.ops.cuda import fp8_gemv as k4
+
+    cfg = dsv4_flash_config(d4)
+    log(f"[9] DeepSeek-V4-Flash, {cfg.n_layers} layers at full width, random resident "
+        f"fp8 / fp4 weights (seed {SEED})")
+    t = time.perf_counter()
+    params = d4.init_random_resident_device(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    log(f"  weights: {d4.params_bytes(params) / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    log("[10] K3, K4, K5 against their plain versions on the model's weights")
+    errs = check_quant_kernels(cfg, params, k3, k4, k5)
+
+    log(f"[11] serving through dsv4_engine.start_engine_from_params "
+        f"({DSV4_SLOTS} slots, max_model_len {DSV4_MAX_MODEL_LEN})")
+    handle = d4e.start_engine_from_params(
+        cfg, params, contract.EngineLoadOptions(
+            max_batch_size=DSV4_SLOTS, max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED),
+        device="cuda")
+    ex = handle._scheduler.executor
+    events = record_slot_events(ex)
+    rng = np.random.default_rng(SEED + 3)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    try:
+        ch, _ = run_request(contract, handle, prompt(DSV4_WARMUP[0]), DSV4_WARMUP[1])
+        toks, fin, _ = drain(contract, ch)
+        expect_finished(contract, "warm-up %d/%d" % DSV4_WARMUP, toks, fin, DSV4_WARMUP[1])
+
+        k3.launches = k4.launches = k5.launches = 0
+        ex.prefills = ex.decode_steps = 0
+        events.clear()
+        main_prompt = prompt(DSV4_PROMPT)
+        ch, t0 = run_request(contract, handle, main_prompt, DSV4_OUT)
+        toks, fin, times = drain(contract, ch)
+        expect_finished(contract, f"main {DSV4_PROMPT}/{DSV4_OUT}", toks, fin, DSV4_OUT)
+        ttft_ms = (times[0] - t0) * 1e3
+        gaps = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+        events.clear()
+        chans = [(run_request(contract, handle, prompt(n), m)[0], n, m)
+                 for n, m in DSV4_CONCURRENT]
+        for ch, n, m in chans:
+            toks_c, fin_c, _ = drain(contract, ch)
+            expect_finished(contract, f"concurrent {n}/{m}", toks_c, fin_c, m)
+        launches = {"moe_fp4_gemv": k3.launches, "fp8_gemv": k4.launches,
+                    "moe_fp4_grouped": k5.launches}
+        prefills, decode_steps = ex.prefills, ex.decode_steps
+    finally:
+        handle.shutdown()
+        handle._thread.join(timeout=60)
+    del handle, ex
+
+    rids = sorted({rid for kind, rid in events if kind == "prefill"})
+    third = events.index(("prefill", rids[2]))
+    freed = [i for i, (kind, rid) in enumerate(events)
+             if kind == "release" and rid in rids[:2]]
+    batches = [n for kind, n in events if kind == "decode"]
+    log(f"[12] all requests Finished with their token counts; the third concurrent "
+        f"request was prefilled at event {third}, after a slot freed at event "
+        f"{freed[0] if freed else None}; decode batch sizes {sorted(set(batches))}")
+    if not freed or third < freed[0]:
+        raise SystemExit("the third request was scheduled before a slot freed")
+    if DSV4_SLOTS not in batches:
+        raise SystemExit(f"the first two requests never decoded at B = {DSV4_SLOTS}")
+    L = cfg.n_layers
+    want = {"moe_fp4_gemv": 3 * L * decode_steps,
+            "fp8_gemv": fp8_per_decode_step(cfg) * decode_steps,
+            "moe_fp4_grouped": 3 * L * prefills}
+    log(f"  launches {launches}; expected {want} ({prefills} prefills, {decode_steps} "
+        f"decode steps, {L} layers, {fp8_per_decode_step(cfg)} fp8 linears a step)")
+    if launches != want:
+        raise SystemExit("DSv4 kernel launch counts do not match the path")
+
+    log(f"  {DSV4_PROMPT}-token prefill and one decode step: kernels vs plain versions, "
+        f"the kernel run routed as the plain run")
+    toks_t = torch.tensor(main_prompt, dtype=torch.int32, device="cuda")
+    blocks = d4e.max_blocks_for(cfg, DSV4_MAX_MODEL_LEN)
+    state_k = d4.make_state(cfg, 1, blocks, dtype=torch.bfloat16, device="cuda")
+    state_p = d4.make_state(cfg, 1, blocks, dtype=torch.bfloat16, device="cuda")
+    replay = RoutingReplay(d4)
+    try:
+        with torch.no_grad():
+            replay.record()
+            lp, _ = d4.prefill(cfg, params, toks_t, state=state_p, slot=0, last_only=True,
+                               plain_kernels=True)
+            replay.replay()
+            lk, _ = d4.prefill(cfg, params, toks_t, state=state_k, slot=0, last_only=True)
+            torch.cuda.synchronize()
+            if not (bool(torch.isfinite(lk).all()) and lk.shape == (1, cfg.vocab_size)):
+                raise SystemExit("DSv4 kernel-path prefill logits are not finite [1, V]")
+            replay.report("prefill")
+            check_logits(lk[0], lp[0], DSV4_LOGITS_RTOL,
+                         "DSv4 kernel-path prefill logits disagree with the plain versions")
+            # the decode step starts both runs from the plain prefill's
+            # caches, so it holds K3 and K4 alone against their plain versions
+            for ls_k, ls_p in zip(state_k["layers"], state_p["layers"]):
+                for key, cache in ls_p.items():
+                    ls_k[key].copy_(cache)
+            step = [torch.tensor([x], dtype=torch.int32, device="cuda")
+                    for x in (int(lp.argmax()), DSV4_PROMPT, 0)]
+            replay.record()
+            dp = d4.decode(cfg, params, state_p, *step, plain_kernels=True)
+            replay.replay()
+            dk = d4.decode(cfg, params, state_k, *step)
+            torch.cuda.synchronize()
+            if not (bool(torch.isfinite(dk).all()) and dk.shape == (1, cfg.vocab_size)):
+                raise SystemExit("DSv4 kernel-path decode logits are not finite [1, V]")
+            replay.report("decode step")
+            check_logits(dk[0], dp[0], DSV4_LOGITS_RTOL,
+                         "DSv4 kernel-path decode logits disagree with the plain versions")
+    finally:
+        replay.restore()
+    del state_p, lk, lp, dk, dp
+
+    log("[13] DSv4 timings")
+    steps = dsv4_step_profile(cfg, d4, params, toks_t, state_k, step)
+    tpot = statistics.median(gaps)
+    tpot95 = float(np.percentile(gaps, 95))
+    log(f"  main {DSV4_PROMPT}/{DSV4_OUT}: TTFT {ttft_ms:.3f} ms, TPOT p50 {tpot:.3f} ms, "
+        f"p95 {tpot95:.3f} ms over {len(gaps)} gaps (host clock, per streamed token)")
+    log_steps(steps)
+    records = time_quant_kernels(cfg, params, k3, k4, k5, errs, launches)
+    log_records(records)
+    serving = {"ttft_ms": ttft_ms, "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
+               "prompt": DSV4_PROMPT, "output": DSV4_OUT}
+    return records, serving, steps_json(steps)
+
+
+class RoutingReplay:
+    """Score-gate decisions of one run handed to the next. The plain run
+    records each call's (weights, experts); the kernel run then routes as
+    the plain run did and counts the token-layer decisions where its own
+    choice of experts differs. A decision whose 6th and 7th expert scores
+    are closer than the kernels' error (1e-6) flips on that error and swaps
+    an expert, which moves the logits by far more than the kernels' error;
+    replaying the routing keeps the comparison on the kernels."""
+
+    def __init__(self, d4):
+        self.d4, self.gate = d4, d4.score_gate
+        self.saved, self.flips, self.decisions = [], 0, 0
+
+    def record(self):
+        self.saved.clear()
+
+        def gate(*args, **kwargs):
+            out = self.gate(*args, **kwargs)
+            self.saved.append(out)
+            return out
+
+        self.d4.score_gate = gate
+
+    def replay(self):
+        saved = iter(self.saved)
+        self.flips = self.decisions = 0
+
+        def gate(*args, **kwargs):
+            _, own = self.gate(*args, **kwargs)
+            weights, experts = next(saved)
+            same = (torch.sort(own, dim=-1).values
+                    == torch.sort(experts, dim=-1).values).all(dim=-1)
+            self.flips += int((~same).sum())
+            self.decisions += same.numel()
+            return weights, experts
+
+        self.d4.score_gate = gate
+
+    def report(self, label):
+        log(f"  {label}: the kernel run's own routing differs in {self.flips} of "
+            f"{self.decisions} token-layer decisions")
+
+    def restore(self):
+        self.d4.score_gate = self.gate
+
+
+def record_slot_events(ex):
+    """Log the executor's prefills (request id), releases (request id) and
+    decode steps (batch size), in order."""
+    events = []
+    prefill_one, release, decode = ex._prefill_one, ex.release_request, ex.execute_decode
+
+    def logged_prefill(item):
+        events.append(("prefill", item.request_id))
+        return prefill_one(item)
+
+    def logged_release(request_id):
+        events.append(("release", request_id))
+        release(request_id)
+
+    def logged_decode(plan):
+        if plan.requests:
+            events.append(("decode", len(plan.requests)))
+        return decode(plan)
+
+    ex._prefill_one, ex.release_request, ex.execute_decode = (
+        logged_prefill, logged_release, logged_decode)
+    return events
+
+
+def _routing(gen, M, E, skew):
+    """Sorted expert ids of M routed rows: skewed onto a few experts (the
+    rest empty, long segments crossing tiles) or spread over all."""
+    if skew:
+        hot = torch.tensor([0, 3, 3, 3, 3, 3, 7, E * 25 // 32, E - 1], device="cuda")
+        ids = hot[torch.randint(0, len(hot), (M,), generator=gen, device="cuda")]
+    else:
+        ids = torch.randint(0, E, (M,), generator=gen, device="cuda")
+    return torch.sort(ids).values.to(torch.int32)
+
+
+def grouped_inputs(gen, M, IN, E, skew):
+    """x_sorted, tm and segments of one K5 call for M routed rows, padded as
+    models/dsv4.py pads them."""
+    from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
+
+    tm = 128 if M >= 128 else -(-M // 8) * 8
+    Mp = -(-M // tm) * tm
+    e = _routing(gen, M, E, skew)
+    e = torch.cat([e, e[-1:].expand(Mp - M)])
+    x = torch.randn((Mp, IN), generator=gen, device="cuda").to(torch.bfloat16)
+    return x, tm, e, k5.tile_segments(e, tm, E)
+
+
+def check_quant_kernels(cfg, params, k3, k4, k5):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    errs = {"moe_fp4_gemv": 0.0, "fp8_gemv": 0.0, "moe_fp4_grouped": 0.0}
+    lw, lw4 = params["layers"][3], params["layers"][2]
+
+    def verdict(name, label, err, tol):
+        ok = err <= tol
+        log(f"  {name} {label}: max_abs_err {err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name} disagrees with its plain version")
+        errs[name] = max(errs[name], err)
+
+    for key, w, Ms in (("wq_b", lw["wq_b"], (1, 2, 8)), ("wo_b", lw["wo_b"], (1, 2, 8)),
+                       ("wq_a", lw["wq_a"], (2,)), ("wkv", lw["wkv"], (1,)),
+                       ("shared_w2", lw["shared_w2"], (2,)),
+                       ("idx_wq_b", lw4["idx_wq_b"], (1,))):
+        for M in Ms:
+            x = torch.randn((M, w["q"].shape[1]), generator=gen, device="cuda")
+            y = k4.fp8_gemv(x, w["q"], w["s"])
+            torch.cuda.synchronize()
+            err = (y - k4.fp8_gemv_plain(x, w["q"], w["s"])).abs().max().item()
+            verdict("fp8_gemv", f"{key} {tuple(w['q'].shape)} M={M}", err, QUANT_GEMV_TOL)
+
+    E = cfg.n_routed_experts
+    for key, M, repeat in (("experts_w1", 6, False), ("experts_w1", 12, True),
+                           ("experts_w2", 12, True), ("experts_w3", 12, False)):
+        w = lw[key]
+        idx = torch.randperm(E, generator=gen, device="cuda")[:M].to(torch.int32)
+        if repeat:
+            idx[M // 2:] = idx[: M - M // 2]
+        x = torch.randn((M, 2 * w["q"].shape[2]), generator=gen, device="cuda")
+        y = k3.moe_fp4_gemv(x, w["q"], w["s"], idx)
+        torch.cuda.synchronize()
+        err = (y - k3.moe_fp4_gemv_plain(x, w["q"], w["s"], idx)).abs().max().item()
+        verdict("moe_fp4_gemv", f"{key} M={M}{' repeated experts' if repeat else ''}",
+                err, QUANT_GEMV_TOL)
+
+    for key, M, skew in (("experts_w1", 6 * DSV4_PROMPT, False),
+                         ("experts_w2", 6 * DSV4_PROMPT, True),
+                         ("experts_w3", 54, True), ("experts_w1", 300, False)):
+        w = lw[key]
+        x, tm, _, seg = grouped_inputs(gen, M, 2 * w["q"].shape[2], E, skew)
+        y = k5.moe_fp4_grouped(x, w["q"], w["s"], *seg, tm=tm)
+        torch.cuda.synchronize()
+        ref = k5.moe_fp4_grouped_plain(x, w["q"], w["s"], *seg, tm=tm)
+        err = (y - ref).abs().max().item()
+        label = (f"{key} M={M} tm={tm} {'skewed, empty experts' if skew else 'spread'}, "
+                 f"{int((seg[3]).max())} segments at most in a tile")
+        verdict("moe_fp4_grouped", label, err, GROUPED_RTOL * ref.abs().max().item())
+    return errs
+
+
+def dsv4_step_profile(cfg, d4, params, prompt_t, state, step, iters=3):
+    """Wall time (host clock, each call ending in a synchronize), device time
+    and device operations (torch.profiler, CUDA activity) of one
+    1,024-token prefill into a slot and one B = 1 decode step at context
+    1,025, called directly on the model."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = {
+        f"dsv4 prefill {DSV4_PROMPT}": lambda: d4.prefill(
+            cfg, params, prompt_t, state=state, slot=0, last_only=True),
+        f"dsv4 decode step B=1 ctx {DSV4_PROMPT + 1}": lambda: d4.decode(
+            cfg, params, state, *step),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(iters):
+                fn()
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) / iters * 1e3
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                    torch.cuda.synchronize()
+            ka = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                        key=lambda e: -e.self_device_time_total)
+            dev = sum(e.self_device_time_total for e in ka) / iters / 1e3
+            out[name] = (wall, dev, sum(e.count for e in ka) / iters)
+            for e in ka[:TOP_OPS]:
+                log(f"    {name}: {e.self_device_time_total / iters / 1e3:7.3f} ms in "
+                    f"{e.count / iters:5.0f} x {e.key[:90]}")
+    return out
+
+
+def time_synced_ms(fn, iters: int) -> float:
+    """Host clock over calls that each end in a synchronize: for a plain
+    version that reads back to the host inside the call (K5's picks its
+    experts on the host), where the device-sleep timing cannot apply."""
+    fn(0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) / iters * 1e3
+
+
+def time_quant_kernels(cfg, params, k3, k4, k5, errs, launches):
+    """K3, K4 and K5 at the main path's shapes, each call on the next layer's
+    weights so that the weights come from device memory as in a step (eight
+    layers of wq_b are 268 MB, beyond the 50 MB L2); bounds from these
+    inputs, at the bf16 peak for the operations (the products are of bf16
+    values); the plain versions; K4's library yardstick."""
+    from pegainfer_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    layers = params["layers"]
+    L, E = len(layers), cfg.n_routed_experts
+
+    # K4: wq_b (32768 x 1024, the largest decode linear) at B = 1
+    ws = [lw["wq_b"] for lw in layers]
+    OUT, IN = ws[0]["q"].shape
+    x = torch.randn((1, IN), generator=gen, device="cuda").to(torch.bfloat16)
+    saved = k4.launches
+    k4_ms = time_ms(lambda i: k4.fp8_gemv(x, ws[i % L]["q"], ws[i % L]["s"]), 200)
+    k4.launches = saved
+    k4_plain_ms = time_ms(lambda i: k4.fp8_gemv_plain(x, ws[i % L]["q"], ws[i % L]["s"]), 16)
+    wd = [quant.dequant_any(w, torch.bfloat16) for w in ws[:2]]  # outside the timed call
+    k4_lib_ms = time_ms(lambda i: torch.matmul(x, wd[i % 2].T), 100)
+    del wd
+    b4 = OUT * IN + ws[0]["s"].numel() * 2 + IN * 2 + OUT * 4
+    k4_bound, k4_by = bound(b4, 2 * OUT * IN)
+
+    # K3: experts_w1 at B = 1 (6 routed rows, distinct experts)
+    w1 = [lw["experts_w1"] for lw in layers]
+    _, O3, IN2 = w1[0]["q"].shape
+    S3 = w1[0]["s"].shape[2]
+    xs = torch.randn((6, 2 * IN2), generator=gen, device="cuda")
+    idxs = [torch.randperm(E, generator=gen, device="cuda")[:6].to(torch.int32)
+            for _ in range(L)]
+    saved = k3.launches
+    k3_ms = time_ms(lambda i: k3.moe_fp4_gemv(xs, w1[i % L]["q"], w1[i % L]["s"],
+                                              idxs[i % L]), 200)
+    k3.launches = saved
+    k3_plain_ms = time_ms(lambda i: k3.moe_fp4_gemv_plain(
+        xs, w1[i % L]["q"], w1[i % L]["s"], idxs[i % L]), 16)
+    b3 = 6 * (O3 * IN2 + O3 * S3 * 2) + xs.numel() * xs.element_size() + 6 * O3 * 4
+    k3_bound, k3_by = bound(b3, 2 * 6 * O3 * 2 * IN2)
+
+    # K5: experts_w1 over a 1,024-token prefill (6,144 routed rows)
+    M = 6 * DSV4_PROMPT
+    x5, tm, e5, seg = grouped_inputs(gen, M, 2 * IN2, E, skew=False)
+    saved = k5.launches
+    k5_ms = time_ms(lambda i: k5.moe_fp4_grouped(x5, w1[i % L]["q"], w1[i % L]["s"], *seg,
+                                                 tm=tm), 24)
+    k5.launches = saved
+    k5_plain_ms = time_synced_ms(lambda i: k5.moe_fp4_grouped_plain(
+        x5, w1[i % L]["q"], w1[i % L]["s"], *seg, tm=tm), 3)
+    hit = int(torch.unique(e5).numel())
+    b5 = hit * (O3 * IN2 + O3 * S3 * 2) + x5.numel() * 2 + x5.shape[0] * O3 * 4
+    k5_bound, k5_by = bound(b5, 2 * M * O3 * 2 * IN2)
+    log(f"  K5 timing input: {M} rows over {hit} experts, {x5.shape[0] // tm} tiles of {tm}")
+
+    fp4_src = "pegainfer_tpu/ops/pallas/fp4_gemm.py"
+    return [
+        {"name": "moe_fp4_gemv", "route": "cuda",
+         "source": "pegainfer_tpu_torch/csrc/fp4_gemv.cu", "replaces": f"{fp4_src}:1139",
+         "launches": launches["moe_fp4_gemv"], "max_abs_err": errs["moe_fp4_gemv"],
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": None},
+        {"name": "fp8_gemv", "route": "cuda",
+         "source": "pegainfer_tpu_torch/csrc/fp8_gemv.cu", "replaces": f"{fp4_src}:410",
+         "launches": launches["fp8_gemv"], "max_abs_err": errs["fp8_gemv"],
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
+         "library_ms": k4_lib_ms},
+        {"name": "moe_fp4_grouped", "route": "cuda",
+         "source": "pegainfer_tpu_torch/csrc/fp4_grouped.cu", "replaces": f"{fp4_src}:283",
+         "launches": launches["moe_fp4_grouped"], "max_abs_err": errs["moe_fp4_grouped"],
+         "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound, "bound_by": k5_by,
+         "library_ms": None},
     ]
 
 

@@ -181,6 +181,15 @@ class Scheduler:
         self.deferred = outcome.deferred
         pending = outcome.pending
 
+        # a page-less model's state slots are a second admission resource:
+        # overflow waits (its page budget is evaluated again next step)
+        free_slots_fn = getattr(self.executor, "free_slots", None)
+        if free_slots_fn is not None:
+            n = free_slots_fn()
+            if len(pending) > n:
+                self.deferred = pending[n:] + self.deferred
+                pending = pending[:n]
+
         plan_kind = build_next_plan(bool(self.active), pending)
         if plan_kind is None:
             return False

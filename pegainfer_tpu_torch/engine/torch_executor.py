@@ -62,6 +62,44 @@ def check_supported(opts: EngineLoadOptions) -> None:
         raise ValueError(f"max_batch_size above {BATCH_BUCKETS[-1]}")
 
 
+def sample_tokens(logits, items) -> Tuple[List[int], torch.Tensor]:
+    """Sample one token per row of ``logits`` [n, V] (on the device) by each
+    item's params and ``random_val``. Returns (host tokens, device tokens)."""
+    if all(it.params.is_greedy for it in items):
+        toks = smp.sample_greedy(logits)
+    else:
+        def col(f, dtype):
+            return torch.tensor([f(it) for it in items], dtype=dtype, device=logits.device)
+
+        toks = smp.sample(
+            logits,
+            col(lambda it: it.params.temperature, torch.float32),
+            col(lambda it: it.params.top_k, torch.int32),
+            col(lambda it: it.params.top_p, torch.float32),
+            col(lambda it: it.random_val, torch.float32),
+        )
+    return toks.tolist(), toks
+
+
+def token_logprobs(logits, toks, items) -> List[Optional[TokenLogprob]]:
+    """The logprob of each sampled token and the top ``item.logprobs``
+    alternatives, for the items that ask for them (None elsewhere)."""
+    out: List[Optional[TokenLogprob]] = [None] * len(items)
+    n_top = max(it.logprobs for it in items)
+    if n_top <= 0:
+        return out
+    chosen = smp.token_logprob(logits, toks).tolist()
+    vals, ids = smp.top_logprobs(logits, n_top)
+    vals, ids = vals.tolist(), ids.tolist()
+    for i, it in enumerate(items):
+        if it.logprobs > 0:
+            out[i] = TokenLogprob(
+                logprob=chosen[i],
+                top_logprobs=[(ids[i][j], vals[i][j]) for j in range(it.logprobs)],
+            )
+    return out
+
+
 class TorchExecutor:
     """Continuous-batching executor for one Qwen3 model on one device."""
 
@@ -101,42 +139,6 @@ class TorchExecutor:
     def release_request(self, request_id: int) -> None:
         self.acct.release(request_id)
 
-    # ── sampling ─────────────────────────────────────────────────────
-
-    def _sample(self, logits, items) -> Tuple[List[int], torch.Tensor]:
-        """logits: [n, V] on the device. Returns (host tokens, device tokens)."""
-        if all(it.params.is_greedy for it in items):
-            toks = smp.sample_greedy(logits)
-        else:
-            def col(f, dtype):
-                return torch.tensor([f(it) for it in items], dtype=dtype,
-                                    device=logits.device)
-
-            toks = smp.sample(
-                logits,
-                col(lambda it: it.params.temperature, torch.float32),
-                col(lambda it: it.params.top_k, torch.int32),
-                col(lambda it: it.params.top_p, torch.float32),
-                col(lambda it: it.random_val, torch.float32),
-            )
-        return toks.tolist(), toks
-
-    def _logprobs(self, logits, toks, items) -> List[Optional[TokenLogprob]]:
-        out: List[Optional[TokenLogprob]] = [None] * len(items)
-        n_top = max(it.logprobs for it in items)
-        if n_top <= 0:
-            return out
-        chosen = smp.token_logprob(logits, toks).tolist()
-        vals, ids = smp.top_logprobs(logits, n_top)
-        vals, ids = vals.tolist(), ids.tolist()
-        for i, it in enumerate(items):
-            if it.logprobs > 0:
-                out[i] = TokenLogprob(
-                    logprob=chosen[i],
-                    top_logprobs=[(ids[i][j], vals[i][j]) for j in range(it.logprobs)],
-                )
-        return out
-
     # ── prefill ──────────────────────────────────────────────────────
 
     def _prefill_one(self, item) -> PrefillRequestResult:
@@ -151,11 +153,11 @@ class TorchExecutor:
         st.advance(T)
         self.prefills += 1
         logits = last_logits[None, :]
-        host, dev = self._sample(logits, [item])
+        host, dev = sample_tokens(logits, [item])
         return PrefillRequestResult(
             request_id=item.request_id,
             first_token=host[0],
-            first_token_logprob=self._logprobs(logits, dev, [item])[0],
+            first_token_logprob=token_logprobs(logits, dev, [item])[0],
         )
 
     def execute_prefill(self, plan: PrefillPlan) -> PrefillResult:
@@ -202,8 +204,8 @@ class TorchExecutor:
             st.advance(1)
         self.decode_steps += 1
         logits = logits[: len(items)]
-        host, dev = self._sample(logits, items)
-        lps = self._logprobs(logits, dev, items)
+        host, dev = sample_tokens(logits, items)
+        lps = token_logprobs(logits, dev, items)
         return DecodeResult(requests=[
             DecodeRequestResult(request_id=it.request_id, token=host[i], logprob=lps[i])
             for i, it in enumerate(items)

@@ -36,6 +36,7 @@ from pegainfer_tpu_torch.ops.cuda.flash_prefill import flash_prefill
 from pegainfer_tpu_torch.ops.cuda.paged_decode import paged_attention_decode
 from pegainfer_tpu_torch.ops.norm import rms_norm
 from pegainfer_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
+from pegainfer_tpu_torch.utils.weights import numpy_to_torch
 
 
 @dataclass(frozen=True)
@@ -134,11 +135,7 @@ _LAYER_KEYS = ("input_ln", "wq", "wk", "wv", "q_norm", "k_norm", "wo", "post_ln"
 def _to_torch(x, dtype, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
-    arr = np.asarray(x)
-    if arr.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret the bits
-        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(arr))  # a writable copy
+    t = numpy_to_torch(x)
     return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
 
 

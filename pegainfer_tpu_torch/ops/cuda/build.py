@@ -20,7 +20,7 @@ from typing import Dict
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build"
-SOURCES = ("paged_decode", "flash_prefill")
+SOURCES = ("paged_decode", "flash_prefill", "fp8_gemv", "fp4_gemv", "fp4_grouped")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -98,6 +98,21 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     fn.argtypes = [p, p, p, p,  # q, k, v, out
                    i, i, i, i, i, i, i,  # T, S, Hkv, G, HD, kv_valid, q_offset
                    f, p]  # scale, stream
+    fn.restype = i
+    fn = libs["fp8_gemv"].fp8_gemv
+    fn.argtypes = [p, p, p, p,  # x, q, s, y
+                   i, i, i, i, i, i, i,  # M, OUT, IN, ro, ri, Si, blocks
+                   p]  # stream
+    fn.restype = i
+    fn = libs["fp4_gemv"].fp4_gemv
+    fn.argtypes = [p, p, p, p, p,  # x, q, s, idx, y
+                   i, i, i, i, i,  # M, E, OUT, IN, S
+                   p]  # stream
+    fn.restype = i
+    fn = libs["fp4_grouped"].fp4_grouped
+    fn.argtypes = [p, p, p, p, p, p, p, p,  # x, q, s, seg_expert/lo/hi, n_seg, y
+                   i, i, i, i, i, i,  # Mp, E, OUT, IN, S, tm
+                   p]  # stream
     fn.restype = i
 
 

@@ -3,7 +3,12 @@ the card. Marked ``cuda``: run with ``python -m pytest -m cuda tests/``
 on a machine with an NVIDIA Hopper card; elsewhere each test skips.
 
 bf16 tolerances are the JAX package's for these kernels
-(tests/test_pallas_kernels.py): 3e-2 for decode, 2e-2 for prefill.
+(tests/test_pallas_kernels.py): 3e-2 for decode, 2e-2 for prefill. The
+quantized GEMV kernels K3 and K4 form the same exact f32 products as their
+plain versions and differ only in the order of the f32 sums: atol 2e-5 (the
+JAX tests' tolerance) on outputs of about unit RMS. K5 multiplies on the
+tensor cores: 2e-2 of max |y|, the JAX test's tolerance. Shapes are those of
+chip_smoke.py's kernel phase (DeepSeek-V4-Flash's full widths).
 """
 
 import numpy as np
@@ -11,12 +16,17 @@ import pytest
 import torch
 
 from pegainfer_tpu_torch.ops.cuda import flash_prefill as fp
+from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
+from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
+from pegainfer_tpu_torch.ops.cuda import fp8_gemv as k4
 from pegainfer_tpu_torch.ops.cuda import paged_decode as pd
 
 pytestmark = pytest.mark.cuda
 
 DECODE_TOL = 3e-2
 PREFILL_TOL = 2e-2
+GEMV_TOL = 2e-5
+GROUPED_RTOL = 2e-2
 
 
 @pytest.fixture
@@ -88,3 +98,96 @@ def test_kernels_refuse_unsupported_shapes(dev):
         fp.flash_prefill(q, k, k, 4, 48 ** -0.5)
     with pytest.raises(ValueError):
         fp.flash_prefill(q.float(), k.float(), k.float(), 4, 48 ** -0.5)
+
+
+def _gen(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _fp8(dev, gen, out_dim, in_dim, block=128):
+    """E4M3 codes from N(0, 1) and power-of-two block scales around
+    1/sqrt(in_dim), so y has about unit RMS."""
+    q = torch.randn((out_dim, in_dim), generator=gen, device=dev).to(torch.float8_e4m3fn)
+    e = torch.randint(-1, 2, (out_dim // block, in_dim // block), generator=gen, device=dev)
+    s = torch.exp2(e.float() - round(np.log2(in_dim) / 2)).to(torch.bfloat16)
+    return q, s
+
+
+def _fp4(dev, gen, E, out_dim, in_dim):
+    q = torch.randint(0, 256, (E, out_dim, in_dim // 2), dtype=torch.uint8, generator=gen,
+                      device=dev)
+    e = torch.randint(-1, 2, (E, out_dim, in_dim // 32), generator=gen, device=dev)
+    s = torch.exp2(e.float() - round(np.log2(2.93 * in_dim ** 0.5))).to(torch.bfloat16)
+    return q, s
+
+
+@pytest.mark.parametrize("M", [1, 2, 8])
+@pytest.mark.parametrize("OUT,IN", [(32768, 1024), (4096, 8192), (512, 4096), (256, 384)])
+def test_fp8_gemv_kernel_matches_plain(dev, M, OUT, IN):
+    gen = _gen(dev, OUT + IN + M)
+    q, s = _fp8(dev, gen, OUT, IN)
+    x = torch.randn((M, IN), generator=gen, device=dev).to(torch.bfloat16)
+    before = k4.launches
+    y = k4.fp8_gemv(x, q, s)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1 and y.shape == (M, OUT) and y.dtype == torch.float32
+    assert (y - k4.fp8_gemv_plain(x, q, s)).abs().max().item() <= GEMV_TOL
+
+
+@pytest.mark.parametrize("M,OUT,IN", [(6, 2048, 4096), (12, 4096, 2048), (12, 2048, 4096)])
+def test_fp4_gemv_kernel_matches_plain(dev, M, OUT, IN):
+    gen = _gen(dev, M + OUT)
+    q, s = _fp4(dev, gen, 256, OUT, IN)
+    x = torch.randn((M, IN), generator=gen, device=dev)
+    idx = torch.randint(0, 256, (M,), generator=gen, device=dev, dtype=torch.int32)
+    idx[M // 2:] = idx[: M - M // 2]  # repeated experts
+    before = k3.launches
+    y = k3.moe_fp4_gemv(x, q, s, idx)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1 and y.shape == (M, OUT)
+    assert (y - k3.moe_fp4_gemv_plain(x, q, s, idx)).abs().max().item() <= GEMV_TOL
+
+
+def _routing(gen, dev, M, E, skew):
+    """Sorted expert ids for M rows: skewed toward a few experts (most
+    experts empty), or spread over all of them."""
+    if skew:
+        hot = torch.tensor([0, 3, 3, 3, 3, 7, 200, 255], device=dev)
+        pick = torch.randint(0, len(hot), (M,), generator=gen, device=dev)
+        return torch.sort(hot[pick]).values.to(torch.int32)
+    return torch.sort(torch.randint(0, E, (M,), generator=gen, device=dev)).values.to(
+        torch.int32)
+
+
+@pytest.mark.parametrize("M,OUT,IN,skew", [(6144, 2048, 4096, False), (6144, 4096, 2048, True),
+                                           (54, 2048, 4096, True), (300, 4096, 2048, False)])
+def test_fp4_grouped_kernel_matches_plain(dev, M, OUT, IN, skew):
+    gen = _gen(dev, M + OUT)
+    E = 256
+    q, s = _fp4(dev, gen, E, OUT, IN)
+    tm = 128 if M >= 128 else -(-M // 8) * 8
+    Mp = -(-M // tm) * tm
+    e = _routing(gen, dev, M, E, skew)
+    e = torch.cat([e, e[-1:].expand(Mp - M)])  # pad rows carry the last expert
+    seg = k5.tile_segments(e, tm, E)
+    x = torch.randn((Mp, IN), generator=gen, device=dev).to(torch.bfloat16)
+    before = k5.launches
+    y = k5.moe_fp4_grouped(x, q, s, *seg, tm=tm)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1 and y.shape == (Mp, OUT)
+    ref = k5.moe_fp4_grouped_plain(x, q, s, *seg, tm=tm)
+    assert (y - ref).abs().max().item() <= GROUPED_RTOL * ref.abs().max().item()
+
+
+def test_quantized_kernels_refuse_unsupported_shapes(dev):
+    gen = _gen(dev, 0)
+    q, s = _fp8(dev, gen, 256, 384)
+    with pytest.raises(ValueError):  # more than 8 rows
+        k4.fp8_gemv(torch.zeros((9, 384), device=dev), q, s)
+    q4, s4 = _fp4(dev, gen, 2, 64, 256)
+    with pytest.raises(ValueError):  # idx of another length
+        k3.moe_fp4_gemv(torch.zeros((3, 256), device=dev), q4, s4,
+                        torch.zeros(2, dtype=torch.int32, device=dev))
+    seg = k5.tile_segments(torch.zeros(12, dtype=torch.int32, device=dev), 12, 2)
+    with pytest.raises(ValueError):  # tm not a multiple of 8
+        k5.moe_fp4_grouped(torch.zeros((12, 256), device=dev), q4, s4, *seg, tm=12)
