@@ -11,9 +11,11 @@ Whole-prompt prefill writes the request's slot in place; a decode step runs
 the active requests with the batch padded to its bucket by dead-slot rows
 at position 0. Sampling and logprobs are ``TorchExecutor``'s.
 
-Not here yet, and refused with ``NotImplementedError``: bf16 (dequantized
-at load) and int8-expert weights, the slot prefix cache, chunked prefill,
-multi-token decode blocks and echo.
+``quantize="int8-experts"`` serves experts requantized to int8 at load
+(``models/dsv4_engine.py``); ``moe_chain`` is handed to every prefill and
+decode step (``models/dsv4.py``). Not here yet, and refused with
+``NotImplementedError``: bf16 weights (dequantized at load), the slot
+prefix cache, chunked prefill, multi-token decode blocks and echo.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from pegainfer_tpu_torch.models import dsv4
 def check_supported(opts: EngineLoadOptions) -> None:
     """Refuse the JAX DSv4 engine's options the port does not implement."""
     unsupported = {
-        f"quantize={opts.quantize!r}": opts.quantize is not None,
+        f"quantize={opts.quantize!r}": opts.quantize not in (None, "int8-experts"),
         "enable_prefix_cache (slot prefix cache)": opts.enable_prefix_cache,
         "prefill_chunk": opts.prefill_chunk is not None,
         "decode_block": opts.decode_block != 1,
@@ -62,11 +64,13 @@ class SlotExecutor:
     on one device."""
 
     def __init__(self, cfg: dsv4.DSv4Config, params, state, max_slots: int,
-                 max_model_len: int, options: Optional[EngineLoadOptions] = None):
+                 max_model_len: int, options: Optional[EngineLoadOptions] = None,
+                 moe_chain: Optional[bool] = None):
         opts = options or EngineLoadOptions()
         check_supported(opts)
         self.cfg = cfg
         self.params = params
+        self.moe_chain = moe_chain
         self.state = state
         self.device = params["embed"].device
         self.max_slots = max_slots
@@ -123,7 +127,7 @@ class SlotExecutor:
         slot = self._slot(item.request_id)
         tokens = torch.tensor(item.prompt_tokens, dtype=torch.int32, device=self.device)
         logits, _ = dsv4.prefill(self.cfg, self.params, tokens, state=self.state,
-                                 slot=slot, last_only=True)
+                                 slot=slot, last_only=True, moe_chain=self.moe_chain)
         st.advance(T)
         self.prefills += 1
         host, dev = sample_tokens(logits, [item])
@@ -160,7 +164,8 @@ class SlotExecutor:
         if len(items) > self.max_batch:
             raise RuntimeError(f"decode batch {len(items)} exceeds the {self.max_batch} slots")
         (tokens, positions, slots), states = self._decode_inputs(items)
-        logits = dsv4.decode(self.cfg, self.params, self.state, tokens, positions, slots)
+        logits = dsv4.decode(self.cfg, self.params, self.state, tokens, positions, slots,
+                             moe_chain=self.moe_chain)
         for st in states:
             st.advance(1)
         self.decode_steps += 1

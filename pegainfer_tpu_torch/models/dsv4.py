@@ -10,14 +10,18 @@ ratio-4 cache with the lightning indexer's top-k; MoE with hash routing
 routed experts; the residual stream is ``hc_mult`` hyper-connection streams.
 
 Weights are served resident as in the checkpoint: fp8 dense projections and
-packed-fp4 routed experts ({"q","s"} containers, ``ops/quant.py``). The
-quantized products go through the kernel wrappers: fp8 linears with at most
-8 rows (decode) through K4 (``quant.qlinear``), routed experts through K3
-below 8 tokens and K5 from 8 tokens on, the JAX engine's default routes on
-the TPU. On a CPU tensor each wrapper runs its plain version;
-``plain_kernels=True`` runs the plain versions on any device (the oracle of
-the kernels). Everything else is plain torch, as the JAX package leaves it
-to XLA.
+packed-fp4 routed experts ({"q","s"} containers, ``ops/quant.py``), or with
+the experts requantized to int8 at load (the int8-experts mode). The
+quantized products go through the kernel wrappers, on the JAX engine's
+default routes on the TPU: fp8 linears with at most 8 rows (decode) through
+K4 (``quant.qlinear``); routed experts from 8 tokens on through the grouped
+GEMMs (K5 fp4, K7 int8) and below through the GEMVs (K3 fp4, K6 int8) or
+one fused chain launch a layer (K8 int8, K9 fp4) while M = T x K <= 16 and
+the chain is on. ``moe_chain`` sets the chain: None takes the JAX default
+for the format (on for int8, off for fp4), True or False forces it. On a
+CPU tensor each wrapper runs its plain version; ``plain_kernels=True`` runs
+the plain versions on any device (the oracle of the kernels). Everything
+else is plain torch, as the JAX package leaves it to XLA.
 
 Layers run as a Python loop, one entry per layer (the JAX package's segment
 grouping only keeps XLA's compile time down). Caches update in place:
@@ -33,15 +37,19 @@ import json
 import math
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from pegainfer_tpu_torch.ops import dsa, hc, quant
+from pegainfer_tpu_torch.ops.cuda import fp4_chain as k9
 from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
 from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
+from pegainfer_tpu_torch.ops.cuda import int8_chain as k8
+from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
+from pegainfer_tpu_torch.ops.cuda import int8_grouped as k7
 from pegainfer_tpu_torch.utils.weights import numpy_to_torch
 
 PREFILL_MOE_TOKENS = 8  # from this many tokens on, routed experts run grouped
@@ -146,7 +154,7 @@ def _inv_freq(cfg: DSv4Config, layer: int, device: torch.device) -> torch.Tensor
 #  "layers": [per layer: norms, hc_{attn,ffn}_{fn,base,scale}, attn_sink,
 #     wq_a, wq_b, wkv, wo_b, shared_w{1,2,3}, idx_wq_b (fp8 containers when
 #     resident), wo_a, gate_weight, gate_tid2eid | gate_bias, comp, idx_comp,
-#     idx_weights_proj, experts_w{1,2,3} (packed-fp4 containers)]}
+#     idx_weights_proj, experts_w{1,2,3} (packed-fp4 or int8 containers)]}
 # Linear weights are [out, in] (y = x @ W.T), as in the JAX package.
 
 # tensors the checkpoint holds fp8-blocked, and the fp4 expert stacks
@@ -230,11 +238,14 @@ def init_random_params(cfg: DSv4Config, seed: int = 0, dtype=torch.bfloat16,
     }
 
 
-def quantize_params_resident(params: Dict[str, Any]) -> Dict[str, Any]:
+def quantize_params_resident(params: Dict[str, Any], experts: str = "fp4") -> Dict[str, Any]:
     """Host params tree -> resident tree: fp8 containers on FP8_KEYS and
-    packed-fp4 containers on the expert stacks, everything else untouched
-    (the JAX package's ``quantize_params_resident`` with fp4 experts; its
-    int8 experts are not ported yet)."""
+    packed-fp4 (``experts="fp4"``) or int8 (``"int8"``) containers on the
+    expert stacks, everything else untouched (the JAX package's
+    ``quantize_params_resident``)."""
+    if experts not in ("fp4", "int8"):
+        raise ValueError(f"experts must be 'fp4' or 'int8', got {experts!r}")
+    quantize = quant.quantize_int8_stack if experts == "int8" else quant.quantize_fp4_stack
     out = {k: v for k, v in params.items() if k != "layers"}
     out["layers"] = []
     for lw in params["layers"]:
@@ -244,9 +255,27 @@ def quantize_params_resident(params: Dict[str, Any]) -> Dict[str, Any]:
                 nlw[k] = quant.quantize_fp8_tensor(nlw[k].float().numpy())
         for k in FP4_KEYS:
             if k in nlw:
-                nlw[k] = quant.quantize_fp4_stack(nlw[k].float().numpy())
+                nlw[k] = quantize(nlw[k].float().numpy())
         out["layers"].append(nlw)
     return out
+
+
+def requantize_experts_int8(params) -> None:
+    """Requantize every packed-fp4 expert stack of a resident tree to int8,
+    in place, one stack at a time on its own device (the JAX engine's
+    ``quantize="int8-experts"`` load step, ``dsv4_engine.py:208-212``).
+    Stacks that are already int8 stay as they are. On the card the freed
+    fp4 blocks (1.2 GB at full width) are smaller than the int8 stack that
+    replaces them (2.1 GB), so the allocator's cache is emptied after each
+    stack, or its reserve would grow past the card."""
+    for lw in params["layers"]:
+        for k in FP4_KEYS:
+            w = lw.get(k)
+            if quant.is_quantized(w) and w["q"].dtype == torch.uint8:
+                lw[k] = quant.requantize_int8_stack(w)
+                del w
+                if lw[k]["q"].is_cuda:
+                    torch.cuda.empty_cache()
 
 
 def params_from_jax(jax_params, device="cpu"):
@@ -495,20 +524,32 @@ def score_gate(xf32, gate_weight, gate_bias, k: int, topk_scale: float):
     return torch.where(wsum > 0, w / wsum, 0.0) * topk_scale, order
 
 
-def _routed_fp4(lw):
-    for key in FP4_KEYS:
-        w = lw[key]
-        if not (quant.is_quantized(w) and w["q"].dtype == torch.uint8):
-            raise NotImplementedError(
-                "the port serves packed-fp4 routed experts only (bf16 and int8 "
-                "experts are not ported yet)")
-    return lw["experts_w1"], lw["experts_w2"], lw["experts_w3"]
+def _routed_experts(lw) -> str:
+    """The routed experts' format, "fp4" (packed) or "int8"; plain bf16
+    stacks are not ported."""
+    kinds = {lw[k]["q"].dtype if quant.is_quantized(lw[k]) else None for k in FP4_KEYS}
+    if kinds == {torch.uint8}:
+        return "fp4"
+    if kinds == {torch.int8}:
+        return "int8"
+    raise NotImplementedError(
+        "the port serves packed-fp4 or int8 routed experts only (bf16 expert stacks, "
+        "the JAX engine's quantize='bf16', are not ported yet)")
 
 
-def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False):
+def _int8_srows(w, e: torch.Tensor) -> torch.Tensor:
+    """Each row's per-output-channel scales s[e(row)], f32 [rows, OUT]: the
+    int8 kernels return unscaled products and the scale commutes with the
+    dot."""
+    return w["s"][e.long()].float()
+
+
+def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
+         moe_chain: Optional[bool] = None):
     """x: [T, D] -> MoE output [T, D] (shared + routed experts)."""
     T = x.shape[0]
     E, K = cfg.n_routed_experts, cfg.n_activated_experts
+    limit = cfg.swiglu_limit
     xf32 = x.float()
     if is_hash:
         weights, route_idx = hash_gate(xf32, lw["gate_weight"], lw["gate_tid2eid"],
@@ -517,25 +558,20 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False):
         weights, route_idx = score_gate(xf32, lw["gate_weight"], lw["gate_bias"], K,
                                         cfg.routed_scaling_factor)
 
-    def swiglu(gate, up):
-        limit = cfg.swiglu_limit
-        if limit > 0:
-            gate = torch.clamp(gate, max=limit)
-            up = torch.clamp(up, -limit, limit)
-        return torch.sigmoid(gate) * gate * up
-
     g = quant.qlinear(x, lw["shared_w1"], plain).float()
     u = quant.qlinear(x, lw["shared_w3"], plain).float()
-    shared = quant.qlinear(swiglu(g, u).to(x.dtype), lw["shared_w2"], plain)
+    shared = quant.qlinear(k8.swiglu(g, u, limit).to(x.dtype), lw["shared_w2"], plain)
 
-    w1, w2, w3 = _routed_fp4(lw)
+    fmt = _routed_experts(lw)
+    w1, w2, w3 = lw["experts_w1"], lw["experts_w2"], lw["experts_w3"]
     M = T * K
     flat_e = route_idx.reshape(M).to(torch.int32)
     flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
     flat_w = weights.reshape(M)
     if T >= PREFILL_MOE_TOKENS:
         # rows sorted by expert in tiles of tm, pad rows carrying the last
-        # expert id; K5 runs each tile's expert segments
+        # expert id; K5 (fp4) or K7 (int8, scaled after) runs each tile's
+        # expert segments
         order = torch.argsort(flat_e, stable=True)
         src_t = flat_t[order]
         e_sorted = flat_e[order]
@@ -544,24 +580,45 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False):
         xs = F.pad(x.to(torch.bfloat16)[src_t], (0, 0, 0, Mp - M))
         e_pad = torch.cat([e_sorted, e_sorted[-1:].expand(Mp - M)])
         seg = k5.tile_segments(e_pad, tm, E)
-        grouped = k5.moe_fp4_grouped_plain if plain else k5.moe_fp4_grouped
+        if fmt == "int8":
+            grouped8 = k7.moe_int8_grouped_plain if plain else k7.moe_int8_grouped
 
-        def gemm(rows, w):
-            return grouped(rows, w["q"], w["s"], *seg, tm=tm)
+            def gemm(rows, w):
+                return grouped8(rows, w["q"], *seg, tm=tm) * _int8_srows(w, e_pad)
+        else:
+            grouped = k5.moe_fp4_grouped_plain if plain else k5.moe_fp4_grouped
 
-        act = swiglu(gemm(xs, w1), gemm(xs, w3))  # [Mp, I] f32
+            def gemm(rows, w):
+                return grouped(rows, w["q"], w["s"], *seg, tm=tm)
+
+        act = k8.swiglu(gemm(xs, w1), gemm(xs, w3), limit)  # [Mp, I] f32
         per = torch.empty((M, x.shape[1]), dtype=torch.float32, device=x.device)
         per[order] = gemm(act.to(torch.bfloat16), w2)[:M]  # back to token order
     else:
-        # decode: only the routed experts' weights are read (K3)
+        # decode: only the routed experts' weights are read, by one chain
+        # launch a layer (K8 / K9) or three GEMVs (K6 / K3)
         xs = xf32[flat_t]
-        gemv = k3.moe_fp4_gemv_plain if plain else k3.moe_fp4_gemv
+        chain = (fmt == "int8") if moe_chain is None else moe_chain
+        if fmt == "int8" and chain and k8.int8_chain_supported(w1, w2, M):
+            fn = k8.moe_int8_chain_plain if plain else k8.moe_int8_chain
+            per = fn(xs, w1["q"], w3["q"], w2["q"], w1["s"], w3["s"], w2["s"], flat_e, limit)
+        elif fmt == "fp4" and chain and k9.fp4_chain_supported(w1, w2, M):
+            fn = k9.moe_fp4_chain_plain if plain else k9.moe_fp4_chain
+            per = fn(xs, w1, w3, w2, flat_e, limit)
+        else:
+            if fmt == "int8":
+                gemv8 = k6.moe_int8_gemv_plain if plain else k6.moe_int8_gemv
 
-        def rows(inp, w):
-            return gemv(inp, w["q"], w["s"], flat_e)
+                def rows(inp, w):
+                    return gemv8(inp, w["q"], flat_e) * _int8_srows(w, flat_e)
+            else:
+                gemv = k3.moe_fp4_gemv_plain if plain else k3.moe_fp4_gemv
 
-        act = swiglu(rows(xs, w1), rows(xs, w3))  # [M, I] f32
-        per = rows(act, w2)
+                def rows(inp, w):
+                    return gemv(inp, w["q"], w["s"], flat_e)
+
+            act = k8.swiglu(rows(xs, w1), rows(xs, w3), limit)  # [M, I] f32
+            per = rows(act, w2)
     # each token's K routed rows, weighted and summed in a fixed order (no
     # atomics, so a run repeats to the bit)
     routed = (per * flat_w[:, None]).reshape(T, K, -1).sum(dim=1)
@@ -580,12 +637,13 @@ def _hc_branch(cfg, lw, streams, name):
 
 
 def prefill(cfg: DSv4Config, params, tokens, state=None, slot=None,
-            last_only: bool = False, plain_kernels: bool = False):
+            last_only: bool = False, plain_kernels: bool = False,
+            moe_chain: Optional[bool] = None):
     """Prefill one (unpadded) prompt. Returns (logits, caches | state):
     logits [T, V] f32, or [1, V] for the last token with ``last_only``.
     Without ``state`` the second value is the per-layer cache dicts; with
     ``state`` and ``slot``, the slot's decode caches are written in place
-    and ``state`` is returned."""
+    and ``state`` is returned. ``moe_chain``: see the module docstring."""
     T = tokens.shape[0]
     positions = torch.arange(T, device=tokens.device)
     streams = hc.hc_expand(params["embed"][tokens.long()], cfg.hc_mult)
@@ -593,7 +651,8 @@ def prefill(cfg: DSv4Config, params, tokens, state=None, slot=None,
     for li, lw in enumerate(params["layers"]):
         streams, cache = _prefill_layer(
             cfg, lw, streams, tokens, positions, cfg.compress_ratios[li],
-            li < cfg.n_hash_layers, _inv_freq(cfg, li, tokens.device), plain_kernels)
+            li < cfg.n_hash_layers, _inv_freq(cfg, li, tokens.device), plain_kernels,
+            moe_chain)
         caches.append(cache)
     logits = _head_logits(cfg, params, streams[-1:] if last_only else streams)
     if state is None:
@@ -602,7 +661,8 @@ def prefill(cfg: DSv4Config, params, tokens, state=None, slot=None,
     return logits, state
 
 
-def _prefill_layer(cfg, lw, streams, tokens, positions, ratio, is_hash, inv_freq, plain):
+def _prefill_layer(cfg, lw, streams, tokens, positions, ratio, is_hash, inv_freq, plain,
+                   moe_chain):
     T = tokens.shape[0]
     h_in, post, comb = _hc_branch(cfg, lw, streams, "attn")
     h_norm = _rms(h_in, lw["attn_norm"], cfg.rms_norm_eps)
@@ -637,7 +697,7 @@ def _prefill_layer(cfg, lw, streams, tokens, positions, ratio, is_hash, inv_freq
 
     f_in, post, comb = _hc_branch(cfg, lw, streams, "ffn")
     f_norm = _rms(f_in, lw["ffn_norm"], cfg.rms_norm_eps)
-    ffn_out = _moe(cfg, lw, is_hash, f_norm, tokens, plain)
+    ffn_out = _moe(cfg, lw, is_hash, f_norm, tokens, plain, moe_chain)
     return hc.hc_post(ffn_out, streams, post, comb), cache
 
 
@@ -678,7 +738,7 @@ def _seed_state(cfg: DSv4Config, state, caches, seq_len: int, slot: int) -> None
 
 
 def _decode_layer(cfg, lw, ls, streams, tokens, positions, slots, ratio, is_hash,
-                  inv_freq, plain):
+                  inv_freq, plain, moe_chain):
     """One decode layer; updates this layer's slot caches ``ls`` in place."""
     W = cfg.sliding_window
     pos, sl = positions.long(), slots.long()
@@ -739,7 +799,7 @@ def _decode_layer(cfg, lw, ls, streams, tokens, positions, slots, ratio, is_hash
 
     f_in, post, comb = _hc_branch(cfg, lw, streams, "ffn")
     f_norm = _rms(f_in, lw["ffn_norm"], cfg.rms_norm_eps)
-    ffn_out = _moe(cfg, lw, is_hash, f_norm, tokens, plain)
+    ffn_out = _moe(cfg, lw, is_hash, f_norm, tokens, plain, moe_chain)
     return hc.hc_post(ffn_out, streams, post, comb)
 
 
@@ -752,14 +812,14 @@ def _head_logits(cfg: DSv4Config, params, streams):
 
 
 def decode(cfg: DSv4Config, params, state, tokens, positions, slots,
-           plain_kernels: bool = False):
+           plain_kernels: bool = False, moe_chain: Optional[bool] = None):
     """One decode step for a batch. tokens/positions/slots: [B] int32
     (padding rows: the dead slot, position 0). Updates ``state`` in place;
-    returns logits [B, V] f32."""
+    returns logits [B, V] f32. ``moe_chain``: see the module docstring."""
     streams = hc.hc_expand(params["embed"][tokens.long()], cfg.hc_mult)
     for li, lw in enumerate(params["layers"]):
         streams = _decode_layer(
             cfg, lw, state["layers"][li], streams, tokens, positions, slots,
             cfg.compress_ratios[li], li < cfg.n_hash_layers,
-            _inv_freq(cfg, li, tokens.device), plain_kernels)
+            _inv_freq(cfg, li, tokens.device), plain_kernels, moe_chain)
     return _head_logits(cfg, params, streams)

@@ -2,14 +2,17 @@
 scheduler. Counterpart of ``pegainfer_tpu/models/dsv4_engine.py``.
 
 It serves resident fp8 / packed-fp4 weights (the JAX engine's
-``quantize=None``, checkpoint-exact, with its fused kernels on). Runs on
-``cuda`` unless the caller passes another device; with no card it raises
-instead of running on the CPU.
+``quantize=None``, checkpoint-exact, with its fused kernels on), or with
+``quantize="int8-experts"`` the same weights with the routed experts
+requantized to int8 per output channel at start (the JAX engine's speed
+mode). Runs on ``cuda`` unless the caller passes another device; with no
+card it raises instead of running on the CPU.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from typing import Optional
 
 import torch
@@ -36,21 +39,30 @@ def max_blocks_for(cfg: dsv4.DSv4Config, max_model_len: int) -> int:
 
 def start_engine_from_params(cfg: dsv4.DSv4Config, params,
                              options: Optional[EngineLoadOptions] = None,
-                             device=None) -> EngineHandle:
+                             device=None, moe_chain: Optional[bool] = None) -> EngineHandle:
     """Serve resident ``params`` (already on ``device``) with bf16 slot
-    state. Returns the submit handle; ``handle._scheduler.executor`` is the
-    ``SlotExecutor``."""
+    state. With ``quantize="int8-experts"`` the packed-fp4 expert stacks of
+    ``params`` are requantized to int8 in place first (stacks already int8
+    stay). ``moe_chain`` picks the fused decode chain (None: on for int8
+    experts, off for fp4; ``models/dsv4.py``). Returns the submit handle;
+    ``handle._scheduler.executor`` is the ``SlotExecutor``."""
     opts = options or EngineLoadOptions()
     check_supported(opts)
     dev = resolve_device(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params are on {params['embed'].device}, engine on {dev}")
+    if opts.quantize == "int8-experts":
+        before, t = dsv4.params_bytes(params), time.perf_counter()
+        dsv4.requantize_experts_int8(params)
+        log.info("DSv4 experts requantized to int8 per output channel in %.1f s: "
+                 "%.2f GB -> %.2f GB of params", time.perf_counter() - t, before / 1e9,
+                 dsv4.params_bytes(params) / 1e9)
     max_slots = min(opts.max_batch_size, MAX_SLOTS)
     max_model_len = opts.max_model_len or DEFAULT_MAX_MODEL_LEN
     state = dsv4.make_state(cfg, max_slots, max_blocks_for(cfg, max_model_len),
                             dtype=torch.bfloat16, device=dev)
     log.info("DSv4: %d slots, max_model_len %d", max_slots, max_model_len)
-    executor = SlotExecutor(cfg, params, state, max_slots, max_model_len, opts)
+    executor = SlotExecutor(cfg, params, state, max_slots, max_model_len, opts, moe_chain)
     return start_scheduler(executor, seed=opts.seed)
 
 

@@ -20,7 +20,8 @@ from typing import Dict
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build"
-SOURCES = ("paged_decode", "flash_prefill", "fp8_gemv", "fp4_gemv", "fp4_grouped")
+SOURCES = ("paged_decode", "flash_prefill", "fp8_gemv", "fp4_gemv", "fp4_grouped",
+           "int8_gemv", "int8_grouped", "int8_chain", "fp4_chain")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -112,6 +113,26 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     fn = libs["fp4_grouped"].fp4_grouped
     fn.argtypes = [p, p, p, p, p, p, p, p,  # x, q, s, seg_expert/lo/hi, n_seg, y
                    i, i, i, i, i, i,  # Mp, E, OUT, IN, S, tm
+                   p]  # stream
+    fn.restype = i
+    fn = libs["int8_gemv"].int8_gemv
+    fn.argtypes = [p, p, p, p,  # x, q, idx, y
+                   i, i, i, i,  # M, E, OUT, IN
+                   p]  # stream
+    fn.restype = i
+    fn = libs["int8_grouped"].int8_grouped
+    fn.argtypes = [p, p, p, p, p, p, p,  # x, q, seg_expert/lo/hi, n_seg, y
+                   i, i, i, i, i,  # Mp, E, OUT, IN, tm
+                   p]  # stream
+    fn.restype = i
+    fn = libs["int8_chain"].int8_chain
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, p,  # x, w1, w3, w2, s1, s3, s2, idx, act, y
+                   i, i, i, i, f,  # M, E, I, D, limit
+                   p]  # stream
+    fn.restype = i
+    fn = libs["fp4_chain"].fp4_chain
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, p,  # x, w1, s1, w3, s3, w2, s2, idx, act, y
+                   i, i, i, i, i, i, f, i,  # M, E, I, D, S1, S2, limit, perm13
                    p]  # stream
     fn.restype = i
 

@@ -1,4 +1,4 @@
-"""Block-scaled weights: fp8 (E4M3) and packed fp4 (E2M1) containers.
+"""Block-scaled weights: fp8 (E4M3), packed fp4 (E2M1) and int8 containers.
 
 The port's counterpart of ``pegainfer_tpu/ops/quant.py`` for the resident
 DeepSeek-V4 formats. A quantized weight travels the params tree as
@@ -8,7 +8,10 @@ DeepSeek-V4 formats. A quantized weight travels the params tree as
   ``[.., out/bo, in/bi]`` (128 x 128 blocks in the checkpoint);
 - ``torch.uint8`` ``[.., out, in/2]``: two E2M1 codes per byte, the low
   nibble holding the even element, with bf16 scales ``[.., out, in/g]``
-  (g = 32 in the checkpoint).
+  (g = 32 in the checkpoint);
+- ``torch.int8`` ``[.., out, in]`` with one f32 scale per output channel
+  ``[.., out]``: the int8-experts mode, a requantization of the fp4 expert
+  stacks at load (``quantize_int8_stack``, ``requantize_int8_stack``).
 
 Block and group sizes follow from the shape ratios, as in the JAX package.
 Scales are bf16 powers of two, so a decoded weight ``code x scale`` is exact
@@ -91,6 +94,10 @@ def dequant_any(w, dtype=torch.bfloat16) -> torch.Tensor:
     """Dequantize a {"q","s"} container (any leading batch dims)."""
     q, s = w["q"], w["s"]
     sf = s.float()
+    if q.dtype == torch.int8:  # per-output-channel scale
+        if q.shape[:-1] != s.shape:
+            raise ValueError(f"int8 q {tuple(q.shape)} / s {tuple(s.shape)} disagree")
+        return (q.float() * sf[..., None]).to(dtype)
     if q.dtype == torch.uint8:  # packed fp4, per-row groups
         if q.shape[:-1] != s.shape[:-1]:
             raise ValueError(f"fp4 q {tuple(q.shape)} / s {tuple(s.shape)} disagree")
@@ -159,3 +166,43 @@ def quantize_fp4_stack(w, group: int = 32) -> dict:
     vals = (grouped / scales[..., None]).reshape(arr.shape)
     return {"q": torch.from_numpy(pack_fp4(vals)),
             "s": torch.from_numpy(scales).to(SCALE_DTYPE)}
+
+
+def quantize_int8_stack(w) -> dict:
+    """[E, out, in] expert stack -> int8 container ({"q": int8 [E, out, in],
+    "s": f32 [E, out]}), host numpy, bit for bit the JAX package's
+    ``quantize_int8_stack``: a symmetric scale amax / 127 per output channel
+    (1 where the channel is all zero), values rounded half to even and
+    clipped to +-127."""
+    wf = np.asarray(w, np.float32)
+    amax = np.abs(wf).max(axis=-1)
+    scale = np.where(amax > 0, amax / np.float32(127.0), np.float32(1.0)).astype(np.float32)
+    q = np.clip(np.rint(wf / scale[..., None]), -127, 127).astype(np.int8)
+    return {"q": torch.from_numpy(q), "s": torch.from_numpy(scale)}
+
+
+def requantize_int8_stack(w, chunk: int = 8) -> dict:
+    """A packed-fp4 expert stack -> the int8 container of its f32
+    dequantization, on the stack's own device, ``chunk`` experts at a time
+    (a whole full-width stack in f32 would take 8.6 GB). The same
+    arithmetic as ``quantize_int8_stack``: the f32 dequantization is exact,
+    the divisions are true f32 divisions (a divisor held as a tensor: torch
+    multiplies by the reciprocal of a Python scalar on the card) and
+    ``torch.round`` rounds half to even like ``np.rint``, so the codes and
+    scales equal the host path's bit for bit."""
+    q4, s4 = w["q"], w["s"]
+    if q4.dtype != torch.uint8:
+        raise ValueError(f"requantize_int8_stack takes a packed-fp4 stack, got {q4.dtype}")
+    E, OUT = q4.shape[0], q4.shape[1]
+    q8 = torch.empty((E, OUT, 2 * q4.shape[2]), dtype=torch.int8, device=q4.device)
+    s8 = torch.empty((E, OUT), dtype=torch.float32, device=q4.device)
+    div = torch.tensor(127.0, dtype=torch.float32, device=q4.device)
+    for e0 in range(0, E, chunk):
+        wf = dequant_any({"q": q4[e0:e0 + chunk], "s": s4[e0:e0 + chunk]}, torch.float32)
+        amax = wf.abs().amax(dim=-1)
+        scale = torch.where(amax > 0, amax / div, torch.ones_like(amax))
+        q8[e0:e0 + chunk] = torch.clamp(torch.round(wf / scale[..., None]), -127, 127).to(
+            torch.int8)
+        s8[e0:e0 + chunk] = scale
+        del wf
+    return {"q": q8, "s": s8}

@@ -302,9 +302,8 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         tengine.start_engine("/nonexistent/model", device="cpu")
 
 
-@pytest.mark.parametrize("option", [dict(quantize="bf16"), dict(quantize="int8-experts"),
-                                    dict(enable_prefix_cache=True), dict(prefill_chunk=256),
-                                    dict(decode_block=4)])
+@pytest.mark.parametrize("option", [dict(quantize="bf16"), dict(enable_prefix_cache=True),
+                                    dict(prefill_chunk=256), dict(decode_block=4)])
 def test_unsupported_options_raise(option):
     _, tcfg, _, tparams = _models("tiny")
     with pytest.raises(NotImplementedError):
@@ -315,7 +314,7 @@ def test_unsupported_options_raise(option):
 def test_unported_expert_formats_raise():
     _, tcfg, _, _ = _models("tiny")
     plain = tdsv4.init_random_params(tcfg, seed=1, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="packed-fp4"):
+    with pytest.raises(NotImplementedError, match="packed-fp4 or int8"):
         tdsv4.prefill(tcfg, plain, torch.arange(2, 12, dtype=torch.int32))
 
 

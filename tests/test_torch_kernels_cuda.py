@@ -9,6 +9,12 @@ plain versions and differ only in the order of the f32 sums: atol 2e-5 (the
 JAX tests' tolerance) on outputs of about unit RMS. K5 multiplies on the
 tensor cores: 2e-2 of max |y|, the JAX test's tolerance. Shapes are those of
 chip_smoke.py's kernel phase (DeepSeek-V4-Flash's full widths).
+
+The int8 kernels: K6 forms the plain version's exact f32 products in
+another order, on unscaled outputs of magnitude 1e4 (codes up to 127):
+1e-5 of max |y|; K7 as K5. The chains K8 and K9 round act to bf16, where an
+f32 sum-order difference moves an element by one bf16 ulp now and then:
+2e-3 of max |y|. Routed experts are drawn from a 16-expert stack.
 """
 
 import numpy as np
@@ -16,9 +22,13 @@ import pytest
 import torch
 
 from pegainfer_tpu_torch.ops.cuda import flash_prefill as fp
+from pegainfer_tpu_torch.ops.cuda import fp4_chain as k9
 from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
 from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
 from pegainfer_tpu_torch.ops.cuda import fp8_gemv as k4
+from pegainfer_tpu_torch.ops.cuda import int8_chain as k8
+from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
+from pegainfer_tpu_torch.ops.cuda import int8_grouped as k7
 from pegainfer_tpu_torch.ops.cuda import paged_decode as pd
 
 pytestmark = pytest.mark.cuda
@@ -27,6 +37,9 @@ DECODE_TOL = 3e-2
 PREFILL_TOL = 2e-2
 GEMV_TOL = 2e-5
 GROUPED_RTOL = 2e-2
+INT8_GEMV_RTOL = 1e-5
+CHAIN_RTOL = 2e-3
+LIMIT = 7.0
 
 
 @pytest.fixture
@@ -191,3 +204,118 @@ def test_quantized_kernels_refuse_unsupported_shapes(dev):
     seg = k5.tile_segments(torch.zeros(12, dtype=torch.int32, device=dev), 12, 2)
     with pytest.raises(ValueError):  # tm not a multiple of 8
         k5.moe_fp4_grouped(torch.zeros((12, 256), device=dev), q4, s4, *seg, tm=12)
+
+
+def _int8(dev, gen, E, out_dim, in_dim):
+    """int8 codes over the whole range and per-channel f32 scales around
+    1 / (73 sqrt(in_dim)) (uniform codes have RMS 73), so y has about unit
+    RMS once scaled."""
+    q = torch.randint(-127, 128, (E, out_dim, in_dim), dtype=torch.int8, generator=gen,
+                      device=dev)
+    s = torch.rand((E, out_dim), generator=gen, device=dev) * 2 / (73 * in_dim ** 0.5)
+    return q, s
+
+
+def _rel_err(y, ref):
+    return (y - ref).abs().max().item() / ref.abs().max().item()
+
+
+def _idx(gen, dev, M, E, repeat):
+    idx = torch.randint(0, E, (M,), generator=gen, device=dev, dtype=torch.int32)
+    if repeat:
+        idx[M // 2:] = idx[: M - M // 2]
+    return idx
+
+
+@pytest.mark.parametrize("M,repeat", [(1, False), (6, False), (12, True), (18, True)])
+@pytest.mark.parametrize("OUT,IN", [(2048, 4096), (4096, 2048)])
+def test_int8_gemv_kernel_matches_plain(dev, M, repeat, OUT, IN):
+    gen = _gen(dev, M + OUT)
+    q, _ = _int8(dev, gen, 16, OUT, IN)
+    x = torch.randn((M, IN), generator=gen, device=dev)
+    idx = _idx(gen, dev, M, 16, repeat)
+    before = k6.launches
+    y = k6.moe_int8_gemv(x, q, idx)
+    torch.cuda.synchronize()
+    assert k6.launches == before + 1 and y.shape == (M, OUT) and y.dtype == torch.float32
+    assert _rel_err(y, k6.moe_int8_gemv_plain(x, q, idx)) <= INT8_GEMV_RTOL
+
+
+@pytest.mark.parametrize("M,OUT,IN,skew", [(6144, 2048, 4096, False), (6144, 4096, 2048, True),
+                                           (54, 2048, 4096, True), (300, 4096, 2048, False)])
+def test_int8_grouped_kernel_matches_plain(dev, M, OUT, IN, skew):
+    gen = _gen(dev, M + OUT)
+    E = 256
+    q, _ = _int8(dev, gen, E, OUT, IN)
+    tm = 128 if M >= 128 else -(-M // 8) * 8
+    Mp = -(-M // tm) * tm
+    e = _routing(gen, dev, M, E, skew)
+    e = torch.cat([e, e[-1:].expand(Mp - M)])
+    seg = k5.tile_segments(e, tm, E)
+    x = torch.randn((Mp, IN), generator=gen, device=dev).to(torch.bfloat16)
+    before = k7.launches
+    y = k7.moe_int8_grouped(x, q, *seg, tm=tm)
+    torch.cuda.synchronize()
+    assert k7.launches == before + 1 and y.shape == (Mp, OUT)
+    assert _rel_err(y, k7.moe_int8_grouped_plain(x, q, *seg, tm=tm)) <= GROUPED_RTOL
+
+
+@pytest.mark.parametrize("M,I,D,repeat", [(1, 2048, 4096, False), (6, 2048, 4096, False),
+                                          (12, 2048, 4096, True), (16, 2048, 4096, False),
+                                          (5, 384, 512, False)])  # 384: three 128-wide tiles
+def test_int8_chain_kernel_matches_plain(dev, M, I, D, repeat):
+    gen = _gen(dev, M + I)
+    E = 16
+    w1, s1 = _int8(dev, gen, E, I, D)
+    w3, s3 = _int8(dev, gen, E, I, D)
+    w2, s2 = _int8(dev, gen, E, D, I)
+    x = torch.randn((M, D), generator=gen, device=dev)
+    idx = _idx(gen, dev, M, E, repeat)
+    args = (x, w1, w3, w2, s1 * 3, s3 * 3, s2, idx, LIMIT)  # g, u of RMS 3 meet the clamp
+    before = k8.launches
+    y = k8.moe_int8_chain(*args)
+    torch.cuda.synchronize()
+    assert k8.launches == before + 1 and y.shape == (M, D)
+    assert _rel_err(y, k8.moe_int8_chain_plain(*args)) <= CHAIN_RTOL
+
+
+@pytest.mark.parametrize("perm13", [False, True])
+@pytest.mark.parametrize("M,I,D", [(1, 2048, 4096), (6, 2048, 4096), (16, 2048, 4096),
+                                   (5, 256, 512)])
+def test_fp4_chain_kernel_matches_plain(dev, perm13, M, I, D):
+    gen = _gen(dev, M + I + perm13)
+    E = 16
+    w1, w3, w2 = ({"q": q, "s": s} for q, s in (_fp4(dev, gen, E, I, D), _fp4(dev, gen, E, I, D),
+                                                _fp4(dev, gen, E, D, I)))
+    if perm13:
+        w1, w3 = k9.permute_w13(w1), k9.permute_w13(w3)
+    x = torch.randn((M, D), generator=gen, device=dev)
+    idx = _idx(gen, dev, M, E, repeat=M > 8)
+    before = k9.launches
+    y = k9.moe_fp4_chain(x, w1, w3, w2, idx, LIMIT, perm13=perm13)
+    torch.cuda.synchronize()
+    assert k9.launches == before + 1 and y.shape == (M, D)
+    assert _rel_err(y, k9.moe_fp4_chain_plain(x, w1, w3, w2, idx, LIMIT, perm13)) <= CHAIN_RTOL
+
+
+def test_int8_and_chain_kernels_refuse_unsupported_shapes(dev):
+    gen = _gen(dev, 1)
+    w1, s1 = _int8(dev, gen, 2, 256, 256)
+    w2, s2 = _int8(dev, gen, 2, 256, 256)
+    x = torch.zeros((17, 256), device=dev)
+    idx = torch.zeros(17, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # M = 17: outside int8_chain_supported
+        k8.moe_int8_chain(x, w1, w1, w2, s1, s1, s2, idx, LIMIT)
+    w13, s13 = _int8(dev, gen, 2, 200, 256)
+    w8, s8 = _int8(dev, gen, 2, 256, 200)
+    with pytest.raises(ValueError):  # I = 200: outside the gate
+        k8.moe_int8_chain(x[:2], w13, w13, w8, s13, s13, s8, idx[:2], LIMIT)
+    with pytest.raises(ValueError):  # IN = 200, not a multiple of 16
+        k6.moe_int8_gemv(torch.zeros((2, 200), device=dev), w8, idx[:2])
+    c = {"q": torch.zeros((2, 256, 128), dtype=torch.uint8, device=dev),
+         "s": torch.ones((2, 256, 8), dtype=torch.bfloat16, device=dev)}
+    with pytest.raises(ValueError):  # M = 17
+        k9.moe_fp4_chain(torch.zeros((17, 256), device=dev), c, c, c, idx, LIMIT)
+    seg = k5.tile_segments(torch.zeros(12, dtype=torch.int32, device=dev), 12, 2)
+    with pytest.raises(ValueError):  # tm not a multiple of 8
+        k7.moe_int8_grouped(torch.zeros((12, 256), device=dev), w1, *seg, tm=12)
