@@ -5,7 +5,7 @@
 Phases, each printed as it runs; any failure exits non-zero:
 
 1. the card (name, power limit) and the torch / CUDA versions;
-2. build the five hand-written kernels from ``pegainfer_tpu_torch/csrc``
+2. build the nine hand-written kernels from ``pegainfer_tpu_torch/csrc``
    (one nvcc per source, all at once, sm_90a) and print ptxas's registers /
    shared memory / spills;
 
@@ -70,8 +70,8 @@ On the same weights, the opt-in fp4 chain and then the int8-experts mode:
     logits against the plain versions; then the 300/32 + 500/32 pair with
     ``moe_chain=False`` (3L x decode steps K6, no K8);
 18. timings: TTFT and TPOT of the int8 1024/64 request, a torch.profiler
-    step profile, and K6-K9 against their bounds, plain versions and (K6)
-    a library call.
+    step profile, and K6-K9 against their bounds, plain versions and (K6,
+    K7) a library call.
 
 The last lines are the kernels' JSON record (K1-K9), the card line from
 nvidia-smi and ``{"ok": true, "device": {...}}``.
@@ -1065,7 +1065,8 @@ def time_int8_kernels(cfg, params, k6, k7, k8, errs, launches):
     bf16 peak for the operations; the plain versions; K6's library
     yardsticks: ``torch.bmm`` on the 12 experts' weights gathered and
     converted to bf16 outside the timed call, and at one row ``torch.matmul``
-    on the expert's bf16 weight."""
+    on the expert's bf16 weight; K7's: one bf16 grouped GEMM
+    (``grouped_mm_library``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     layers, E, D, limit = params["layers"], cfg.n_routed_experts, cfg.dim, cfg.swiglu_limit
     L = len(layers)
@@ -1108,6 +1109,10 @@ def time_int8_kernels(cfg, params, k6, k7, k8, errs, launches):
     hit = int(torch.unique(e7).numel())
     b7 = hit * OUT * IN + x7.numel() * 2 + x7.shape[0] * OUT * 4
     k7_bound, k7_by = bound(b7, 2 * M7 * OUT * IN)
+    y7 = k7.moe_int8_grouped(x7, w1[0]["q"], *seg, tm=tm)
+    k7.launches = saved
+    k7_lib_ms, k7_lib_call = grouped_mm_library(x7, e7, w1[0]["q"], y7)
+    del y7
 
     # K8: B = 1, 6 distinct rows
     ws = [(lw["experts_w1"], lw["experts_w3"], lw["experts_w2"]) for lw in layers]
@@ -1136,15 +1141,53 @@ def time_int8_kernels(cfg, params, k6, k7, k8, errs, launches):
          "source": "pegainfer_tpu_torch/csrc/int8_grouped.cu", "replaces": f"{src}:644",
          "launches": launches["moe_int8_grouped"], "max_abs_err": errs["moe_int8_grouped"],
          "ms": k7_ms, "plain_ms": k7_plain_ms, "bound_ms": k7_bound, "bound_by": k7_by,
-         "library_ms": None},
+         "library_ms": k7_lib_ms},
         {"name": "moe_int8_chain", "route": "cuda",
          "source": "pegainfer_tpu_torch/csrc/int8_chain.cu", "replaces": f"{src}:787",
          "launches": launches["moe_int8_chain"], "max_abs_err": errs["moe_int8_chain"],
          "ms": k8_ms, "plain_ms": k8_plain_ms, "bound_ms": k8_bound, "bound_by": k8_by,
          "library_ms": None},
     ]
-    extra = {"k6_m1": {"ms": k6_m1_ms, "bound_ms": k6_m1_bound, "library_ms": k6_m1_lib_ms}}
+    extra = {"k6_m1": {"ms": k6_m1_ms, "bound_ms": k6_m1_bound, "library_ms": k6_m1_lib_ms},
+             "k7_library_call": k7_lib_call}
     return records, extra
+
+
+def grouped_mm_library(x_sorted, e_sorted, q, y_ref):
+    """K7's library yardstick: the device time of one PyTorch grouped GEMM
+    (``torch.nn.functional.grouped_mm``, else ``torch._grouped_mm``) of the
+    rows of ``x_sorted`` (bf16, sorted by expert ``e_sorted``) with q's codes,
+    converted to bf16 [E, IN, OUT] outside the timed call; the same unscaled
+    function as K7, held against K7's output ``y_ref`` at GROUPED_RTOL. Its
+    output is bf16 (torch 2.11 refuses an f32 output for bf16 inputs).
+    Returns (ms, what was called), or (None, why not) where this torch has
+    no such call, it refuses these inputs or it disagrees."""
+    fn = getattr(torch.nn.functional, "grouped_mm", None)
+    name = "torch.nn.functional.grouped_mm"
+    if fn is None:
+        fn, name = getattr(torch, "_grouped_mm", None), "torch._grouped_mm"
+    if fn is None:
+        log("  K7 library: this torch has no grouped_mm")
+        return None, "none: this torch has no grouped_mm"
+    E = q.shape[0]
+    offs = torch.cumsum(torch.bincount(e_sorted.long(), minlength=E), 0).to(torch.int32)
+    wb = q.to(torch.bfloat16).transpose(1, 2)  # [E, IN, OUT], column-major per expert
+    try:
+        y = fn(x_sorted, wb, offs=offs)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as exc:
+        log(f"  K7 library: {name} refused: {str(exc).splitlines()[0][:200]}")
+        return None, f"none: {name} refused these inputs"
+    err = (y.float() - y_ref).abs().max().item()
+    tol = GROUPED_RTOL * y_ref.abs().max().item()
+    del y
+    if not err <= tol:
+        log(f"  K7 library: {name} disagrees with K7 by {err:.4g} (tol {tol:.4g})")
+        return None, f"none: {name} disagrees with K7"
+    ms = time_ms(lambda i: fn(x_sorted, wb, offs=offs), 24)
+    log(f"  K7 library: {name} (bf16 out) on the bf16-converted w1, {x_sorted.shape[0]} "
+        f"rows: {ms * 1e3:.2f} us (max |diff| to K7 {err:.4g}, tol {tol:.4g})")
+    return ms, name
 
 
 class RoutingReplay:

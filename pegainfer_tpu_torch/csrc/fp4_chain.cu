@@ -38,29 +38,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kMaxRows = 16;
-
-__constant__ float kE2M1[16] = {0.f,  0.5f,  1.f,  1.5f,  2.f,  3.f,  4.f,  6.f,
-                                -0.f, -0.5f, -1.f, -1.5f, -2.f, -3.f, -4.f, -6.f};
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void unpack_bf16x8(const uint4 raw, float* out) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(p[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 
 // 16 packed bytes under one scale -> lo[b], hi[b]: the low and high nibble
 // of byte b, decoded and rounded as K3 does
@@ -76,12 +61,6 @@ __device__ __forceinline__ void decode_fp4x32(const uint4 raw, float sc, const f
       hi[4 * h + b] = bf16_round(lut[byte >> 4] * sc);
     }
   }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 template <bool kPerm13>

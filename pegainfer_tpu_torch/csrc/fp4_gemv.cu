@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -38,23 +40,6 @@ constexpr int kUnitsPerChunk = 4;  // 32 bf16 of x (64 B) per 16 packed bytes
 __device__ __forceinline__ int swz(int u) {
   return u ^ ((u >> 3) & (kUnitsPerChunk - 1));
 }
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void unpack_bf16x8(const uint4 raw, float* out) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(p[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__constant__ float kE2M1[16] = {0.f,  0.5f,  1.f,  1.5f,  2.f,  3.f,  4.f,  6.f,
-                                -0.f, -0.5f, -1.f, -1.5f, -2.f, -3.f, -4.f, -6.f};
 
 __global__ void __launch_bounds__(kWarps * 32)
 fp4_gemv_kernel(const __nv_bfloat16* __restrict__ x,
@@ -101,8 +86,7 @@ fp4_gemv_kernel(const __nv_bfloat16* __restrict__ x,
         }
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    acc = warp_sum(acc);
     if (lane == 0) y[static_cast<size_t>(m) * OUT + o] = acc;
   }
 }

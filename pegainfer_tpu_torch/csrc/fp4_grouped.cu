@@ -35,6 +35,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -44,14 +46,6 @@ constexpr int kTileRows = 128;  // largest tm
 constexpr int kTileOut = 64;
 constexpr int kStepK = 64;
 constexpr int kLd = kStepK + 8;  // padded shared row (bf16 elements)
-
-__constant__ float kE2M1[16] = {0.f,  0.5f,  1.f,  1.5f,  2.f,  3.f,  4.f,  6.f,
-                                -0.f, -0.5f, -1.f, -1.5f, -2.f, -3.f, -4.f, -6.f};
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
 
 __global__ void __launch_bounds__(kWarps * 32)
 fp4_grouped_kernel(const __nv_bfloat16* __restrict__ x,

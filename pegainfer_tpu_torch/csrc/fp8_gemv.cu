@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -39,20 +41,6 @@ constexpr int kUnitsPerChunk = 2;  // 16 bf16 of x (32 B) per 16 fp8 weights
 // physical 16-byte unit of logical unit u in a swizzled x row
 __device__ __forceinline__ int swz(int u) {
   return u ^ ((u >> 3) & (kUnitsPerChunk - 1));
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void unpack_bf16x8(const uint4 raw, float* out) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(p[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
 }
 
 // 16 E4M3 codes -> 16 floats
@@ -115,9 +103,7 @@ fp8_gemv_kernel(const __nv_bfloat16* __restrict__ x,
     }
 #pragma unroll
     for (int m = 0; m < M; ++m) {
-      float v = acc[m];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      const float v = warp_sum(acc[m]);
       if (lane == 0) y[static_cast<size_t>(m) * OUT + o] = v;
     }
   }

@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -39,29 +41,6 @@ constexpr int kUnitsPerChunk = 2;   // 16 bf16 of x (32 B) per 16 codes
 
 __device__ __forceinline__ int swz(int u) {
   return u ^ ((u >> 3) & (kUnitsPerChunk - 1));
-}
-
-__device__ __forceinline__ void unpack_bf16x8(const uint4 raw, float* out) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(p[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-// 16 int8 codes -> 16 exact floats
-__device__ __forceinline__ void decode_s8x16(const uint4 raw, float* w) {
-  const uint32_t wd[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u,
-                          raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      w[4 * i + j] = __uint_as_float(__byte_perm(wd[i], 0x4B000000u, 0x7440 | j)) -
-                     8388736.f;
-  }
 }
 
 __global__ void __launch_bounds__(kWarps * 32)
@@ -126,9 +105,7 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int r = 0; r < kGroup; ++r) {
         if (r < n) {
-          float v = acc[r];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+          const float v = warp_sum(acc[r]);
           if (lane == 0) y[static_cast<size_t>(rows[r]) * OUT + o] = v;
         }
       }

@@ -37,6 +37,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -46,17 +48,6 @@ constexpr int kTileRows = 128;  // largest tm
 constexpr int kTileOut = 64;
 constexpr int kStepK = 64;
 constexpr int kLd = kStepK + 8;  // padded shared row (bf16 elements)
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// int8 code j of a 4-code word -> its exact float value
-__device__ __forceinline__ float s8_at(uint32_t word, int j) {
-  return __uint_as_float(__byte_perm(word ^ 0x80808080u, 0x4B000000u, 0x7440 | j)) -
-         8388736.f;
-}
 
 __global__ void __launch_bounds__(kWarps * 32)
 int8_grouped_kernel(const __nv_bfloat16* __restrict__ x,

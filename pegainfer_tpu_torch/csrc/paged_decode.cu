@@ -29,24 +29,12 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kUnroll = 4;  // token rows per lane loaded before use
-
-__device__ __forceinline__ void unpack8(const uint4 raw, float* out) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(p[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 template <int HD, int G>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -81,9 +69,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv*G, HD]
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     float raw[8];
-    unpack8(*reinterpret_cast<const uint4*>(q + (qrow + g) * HD + d0), raw);
+    unpack_bf16x8(*reinterpret_cast<const uint4*>(q + (qrow + g) * HD + d0), raw);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) qf[g][i] = round_bf16(raw[i] * scale);
+    for (int i = 0; i < 8; ++i) qf[g][i] = bf16_round(raw[i] * scale);
   }
   float m[G], l[G], acc[G][8];
 #pragma unroll
@@ -126,8 +114,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv*G, HD]
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       float kf[8], vf[8];
-      unpack8(kraw[u], kf);
-      unpack8(vraw[u], vf);
+      unpack_bf16x8(kraw[u], kf);
+      unpack_bf16x8(vraw[u], vf);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float s = 0.f;
@@ -141,7 +129,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv*G, HD]
           const float m_new = fmaxf(m[g], s);
           const float corr = __expf(m[g] - m_new);  // 0 while m is -inf
           const float p = __expf(s - m_new);
-          const float pb = round_bf16(p);
+          const float pb = bf16_round(p);
           l[g] = l[g] * corr + p;
 #pragma unroll
           for (int i = 0; i < 8; ++i) acc[g][i] = acc[g][i] * corr + pb * vf[i];

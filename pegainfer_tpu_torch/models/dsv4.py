@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from pegainfer_tpu_torch.ops import dsa, hc, quant
+from pegainfer_tpu_torch.ops.moe import swiglu
 from pegainfer_tpu_torch.ops.cuda import fp4_chain as k9
 from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
 from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
@@ -560,7 +561,7 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
 
     g = quant.qlinear(x, lw["shared_w1"], plain).float()
     u = quant.qlinear(x, lw["shared_w3"], plain).float()
-    shared = quant.qlinear(k8.swiglu(g, u, limit).to(x.dtype), lw["shared_w2"], plain)
+    shared = quant.qlinear(swiglu(g, u, limit).to(x.dtype), lw["shared_w2"], plain)
 
     fmt = _routed_experts(lw)
     w1, w2, w3 = lw["experts_w1"], lw["experts_w2"], lw["experts_w3"]
@@ -591,7 +592,7 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
             def gemm(rows, w):
                 return grouped(rows, w["q"], w["s"], *seg, tm=tm)
 
-        act = k8.swiglu(gemm(xs, w1), gemm(xs, w3), limit)  # [Mp, I] f32
+        act = swiglu(gemm(xs, w1), gemm(xs, w3), limit)  # [Mp, I] f32
         per = torch.empty((M, x.shape[1]), dtype=torch.float32, device=x.device)
         per[order] = gemm(act.to(torch.bfloat16), w2)[:M]  # back to token order
     else:
@@ -617,7 +618,7 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
                 def rows(inp, w):
                     return gemv(inp, w["q"], w["s"], flat_e)
 
-            act = k8.swiglu(rows(xs, w1), rows(xs, w3), limit)  # [M, I] f32
+            act = swiglu(rows(xs, w1), rows(xs, w3), limit)  # [M, I] f32
             per = rows(act, w2)
     # each token's K routed rows, weighted and summed in a fixed order (no
     # atomics, so a run repeats to the bit)

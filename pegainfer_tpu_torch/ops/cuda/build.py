@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles with one ``nvcc`` call into
 ``build/lib<name>.so`` at the root of the checkout, with a plain C interface
-that ``ctypes`` loads (no PyTorch headers, so a build takes seconds). The
-sources build in parallel on first use, and again whenever a source is newer
-than its library. A failed build raises; nothing falls back.
+that ``ctypes`` loads (no PyTorch headers, so a build takes seconds); the
+device helpers they share are in ``csrc/common.cuh``. The sources build in
+parallel on first use, and again whenever a source or a header of ``csrc/``
+is newer than its library. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ def _nvcc() -> str:
 
 def _stale(name: str) -> bool:
     lib = BUILD_DIR / f"lib{name}.so"
-    return not lib.exists() or lib.stat().st_mtime < (CSRC_DIR / f"{name}.cu").stat().st_mtime
+    inputs = (CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh"))
+    return not lib.exists() or lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build_all() -> Dict[str, str]:

@@ -27,7 +27,7 @@ import torch
 
 from pegainfer_tpu_torch.ops.cuda import build
 from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
-from pegainfer_tpu_torch.ops.cuda.int8_chain import KERNEL_TILE, MAX_ROWS, swiglu
+from pegainfer_tpu_torch.ops.moe import CHAIN_KERNEL_TILE, CHAIN_MAX_ROWS, swiglu
 
 launches = 0
 
@@ -45,7 +45,7 @@ def fp4_chain_supported(w1, w2, M: int, in_tile: int = 256, out_tile: int = 256)
     S1, S2 = w1["s"].shape[-1], w2["s"].shape[-1]
     if S1 == 0 or S2 == 0:
         return False
-    return (M <= MAX_ROWS and I % min(in_tile, I) == 0 and D2 % 128 == 0
+    return (M <= CHAIN_MAX_ROWS and I % min(in_tile, I) == 0 and D2 % 128 == 0
             and D % min(out_tile, D) == 0 and I2 % 128 == 0
             and D2 % S1 == 0 and I2 % S2 == 0 and D2 // S1 == I2 // S2)
 
@@ -116,7 +116,7 @@ def _launch(x, w1, w3, w2, idx, limit, perm13):
     if s1.shape != (E, I, S1) or s3.shape != s1.shape or s2.shape != (E, D, S2):
         raise ValueError(f"scales s1 {tuple(s1.shape)} / s3 {tuple(s3.shape)} / s2 "
                          f"{tuple(s2.shape)} do not fit")
-    if not fp4_chain_supported(w1, w2, M, KERNEL_TILE, KERNEL_TILE):
+    if not fp4_chain_supported(w1, w2, M, CHAIN_KERNEL_TILE, CHAIN_KERNEL_TILE):
         raise ValueError(f"moe_fp4_chain kernel: M={M}, I={I}, D={D}, scale groups "
                          f"{S1} / {S2} are outside fp4_chain_supported")
     if (D // S1) % 32:

@@ -1,6 +1,5 @@
 """Fused int8 routed-expert chain for decode: kernel K8
-(``csrc/int8_chain.cu``), with its gate ``int8_chain_supported`` and the
-clamped SwiGLU of the DeepSeek-V4 experts.
+(``csrc/int8_chain.cu``), with its gate ``int8_chain_supported``.
 
 Replaces the TPU kernel ``pegainfer_tpu/ops/pallas/fp4_gemm.py::
 moe_int8_chain``. One launch per layer computes, for every routed row m with
@@ -19,24 +18,9 @@ import torch
 
 from pegainfer_tpu_torch.ops.cuda import build
 from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
+from pegainfer_tpu_torch.ops.moe import CHAIN_KERNEL_TILE, CHAIN_MAX_ROWS, swiglu
 
 launches = 0
-
-MAX_ROWS = 16  # csrc/int8_chain.cu kMaxRows
-# The chain kernels (K8, K9) walk I and D one channel a warp, so any multiple
-# of 128 fits them: their wrappers hold a shape to the JAX gate at 128-wide
-# tiles, while the model routes by the gate's 256-wide defaults, as the JAX
-# package does (a shape the model sends to a chain always fits its kernel).
-KERNEL_TILE = 128
-
-
-def swiglu(gate, up, limit: float):
-    """silu(gate) * up in f32, gate clamped from above and up on both sides
-    by ``limit`` when it is > 0 (the JAX package's ``_moe`` swiglu)."""
-    if limit > 0:
-        gate = torch.clamp(gate, max=limit)
-        up = torch.clamp(up, -limit, limit)
-    return torch.sigmoid(gate) * gate * up
 
 
 def int8_chain_supported(w1, w2, M: int, in_tile: int = 256, out_tile: int = 256) -> bool:
@@ -49,7 +33,7 @@ def int8_chain_supported(w1, w2, M: int, in_tile: int = 256, out_tile: int = 256
     D2, I2 = w2["q"].shape[-2:]
     if (D, I) != (D2, I2):
         return False
-    return (M <= MAX_ROWS and I % min(in_tile, I) == 0 and D % 128 == 0
+    return (M <= CHAIN_MAX_ROWS and I % min(in_tile, I) == 0 and D % 128 == 0
             and D % min(out_tile, D) == 0 and I % 128 == 0)
 
 
@@ -82,7 +66,7 @@ def _launch(x, w1, w3, w2, s1, s3, s2, idx, limit):
     if s1.shape != (E, I) or s3.shape != (E, I) or s2.shape != (E, D):
         raise ValueError(f"scales s1 {tuple(s1.shape)} / s3 {tuple(s3.shape)} / s2 "
                          f"{tuple(s2.shape)} do not fit [E, I] / [E, D]")
-    if not int8_chain_supported({"q": w1}, {"q": w2}, M, KERNEL_TILE, KERNEL_TILE):
+    if not int8_chain_supported({"q": w1}, {"q": w2}, M, CHAIN_KERNEL_TILE, CHAIN_KERNEL_TILE):
         raise ValueError(f"moe_int8_chain kernel: M={M}, I={I}, D={D} is outside "
                          "int8_chain_supported")
     if (any(t.dtype != torch.float32 for t in (s1, s3, s2)) or idx.dtype != torch.int32):

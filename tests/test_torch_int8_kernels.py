@@ -32,6 +32,7 @@ from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
 from pegainfer_tpu_torch.ops.cuda import int8_chain as k8
 from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
 from pegainfer_tpu_torch.ops.cuda import int8_grouped as k7
+from pegainfer_tpu_torch.ops.moe import swiglu
 from pegainfer_tpu_torch.utils.weights import numpy_to_torch
 
 SUM_RTOL = 1e-5
@@ -174,7 +175,7 @@ def test_int8_chain_plain_matches_pallas(E, I, D, M, in_tile):
                                torch.from_numpy(idx)) * torch.from_numpy(s1)[e]
     u = k6.moe_int8_gemv_plain(torch.from_numpy(x), torch.from_numpy(w3),
                                torch.from_numpy(idx)) * torch.from_numpy(s3)[e]
-    y = k6.moe_int8_gemv_plain(k8.swiglu(g, u, LIMIT), torch.from_numpy(w2),
+    y = k6.moe_int8_gemv_plain(swiglu(g, u, LIMIT), torch.from_numpy(w2),
                                torch.from_numpy(idx)) * torch.from_numpy(s2)[e]
     assert torch.equal(out, y)
 
@@ -240,7 +241,7 @@ def test_fp4_chain_forms_agree_and_match_three_k3_calls():
     idx = torch.from_numpy(rng.integers(0, E, M).astype(np.int32))
     g = k3.moe_fp4_gemv_plain(x, t1["q"], t1["s"], idx)
     u = k3.moe_fp4_gemv_plain(x, t3["q"], t3["s"], idx)
-    three = k3.moe_fp4_gemv_plain(k8.swiglu(g, u, LIMIT), t2["q"], t2["s"], idx)
+    three = k3.moe_fp4_gemv_plain(swiglu(g, u, LIMIT), t2["q"], t2["s"], idx)
     natural = k9.moe_fp4_chain(x, t1, t3, t2, idx, LIMIT)
     permuted = k9.moe_fp4_chain(x, k9.permute_w13(t1), k9.permute_w13(t3), t2, idx, LIMIT,
                                 perm13=True)
