@@ -25,7 +25,8 @@ Qwen3-4B bf16 (full width and depth, random weights from a seed):
    and the argmax agrees unless the plain run's top-2 gap is below the diff;
 8. timings: TTFT and TPOT of the 1024/256 request, a torch.profiler step
    profile, and each kernel's time against its bound, its plain version and
-   a library call. The engine, weights and KV pool are then freed.
+   a library call (SDPA for both; K1 also at K1_SHAPES). The engine, weights
+   and KV pool are then freed.
 
 DeepSeek-V4-Flash, 8 layers at full width, random resident fp8 / packed-fp4
 weights made on the card from the seed:
@@ -47,7 +48,8 @@ weights made on the card from the seed:
     (same rule as 7, DSV4_LOGITS_RTOL);
 13. timings: TTFT and TPOT of the 1024/64 request, a torch.profiler step
     profile of one prefill and one B = 1 decode step, and K3-K5 against
-    their bounds, plain versions and (K4) a library call.
+    their bounds, plain versions and a library call each (bmm, matmul,
+    grouped_mm on bf16 weights).
 
 On the same weights, the opt-in fp4 chain and then the int8-experts mode:
 
@@ -95,6 +97,8 @@ SEED = 1234
 PAGE = 64
 PROMPT, OUT = 1024, 256  # the main path's traffic
 SHORT = ((300, 64), (500, 64))  # two concurrent requests: decode at B = 2
+# K1 is also timed at the concurrent pair's contexts and at one long context
+K1_SHAPES = ([300, 500], [8192])
 DECODE_TOL, PREFILL_TOL = 3e-2, 2e-2
 # bf16 activations through 36 layers: the kernels round where the f32 plain
 # attention does not (its output is cast to bf16 once), and each layer's
@@ -237,6 +241,13 @@ def check_kernels(cfg, pd, fp):
         ("B=5 ragged {1,63,700,1280} + dead row, pool + layer_id + cur",
          [1, 63, 700, 1280, 0], "pool_cur"),
         ("B=5 ragged + dead row, per-layer pages + cur", [1, 63, 700, 1280, 0], "layer_cur"),
+        # long contexts (many pages a split), a row shorter than one split
+        # beside a long one, and 64 rows (one split, no merge)
+        ("B=2 ctx 8192 + dead row, pool + layer_id + cur", [8192, 0], "pool_cur"),
+        ("B=1 ctx 16384, per-layer pages", [16384], "layer"),
+        ("B=3 {40, 3000} + dead row, pool + layer_id + cur", [40, 3000, 0], "pool_cur"),
+        ("B=64 ragged + dead row, pool + layer_id + cur",
+         [(37 * i) % 900 + 1 for i in range(63)] + [0], "pool_cur"),
     ]
     for name, seq_lens, form in decode_cases:
         a = decode_case(gen, cfg, seq_lens, form)
@@ -449,10 +460,10 @@ def run_qwen3():
     log(f"  main {PROMPT}/{OUT}: TTFT {ttft_ms:.3f} ms, TPOT p50 {tpot:.3f} ms, "
         f"p95 {tpot95:.3f} ms over {len(gaps)} gaps (host clock, per streamed token)")
     log_steps(steps)
-    records = time_kernels(cfg, pd, fp, att, errs, launches)
+    records, k1_shapes = time_kernels(cfg, pd, fp, att, errs, launches)
     log_records(records)
     serving = {"ttft_ms": ttft_ms, "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
-               "prompt": PROMPT, "output": OUT}
+               "prompt": PROMPT, "output": OUT, "paged_decode_shapes": k1_shapes}
     return records, serving, steps_json(steps)
 
 
@@ -486,7 +497,8 @@ def log_records(records):
     for r in records:
         log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us vs bound {r['bound_ms'] * 1e3:.2f} us "
             f"({r['bound_by']}), plain {r['plain_ms'] * 1e3:.2f} us, library "
-            + (f"{r['library_ms'] * 1e3:.2f} us" if r["library_ms"] is not None else "none"))
+            + (f"{r['library_ms'] * 1e3:.2f} us" if r["library_ms"] is not None
+               else r.get("library_call", "none")))
 
 
 def step_profile(cfg, q3, params, prompt_t, first_token, iters=5):
@@ -529,39 +541,125 @@ def step_profile(cfg, q3, params, prompt_t, first_token, iters=5):
     return out
 
 
-def time_kernels(cfg, pd, fp, att, errs, launches):
-    """Each kernel at the main path's shape, its bound from these inputs,
-    its plain version and (K2) one library call on the same inputs."""
+def time_decode(gen, cfg, pd, seq_lens, plain=False):
+    """K1 at one shape: rows of contexts ``seq_lens``, each row's last token
+    in flight, read from the full 36-layer pool with the layer cycled so the
+    pages stay out of L2, as in a decode step; its bound from these inputs;
+    with ``plain`` its plain version; and the SDPA yardstick
+    (``sdpa_decode_library``)."""
     L, Hq, Hkv, hd = (cfg.num_hidden_layers, cfg.num_attention_heads,
                       cfg.num_key_value_heads, cfg.head_dim)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    # K1: B = 1 in mid-decode (context 1152 = 1024 + 128), full pool with
-    # layer_id and the in-flight token as the main path calls it; cycling
-    # the layer over all 36 keeps the pages out of L2, as in a real step
-    ctx = PROMPT + OUT // 2
-    a = decode_case(gen, cfg, [ctx], "pool_cur", layers=L)
-    pool = a["k_pages"]
+    a = decode_case(gen, cfg, seq_lens, "pool_cur", layers=L)
 
     def k1(i):
         a["layer_id"] = i % L
-        pd.paged_attention_decode(**a)
+        return pd.paged_attention_decode(**a)
 
     def k1_plain(i):
         a["layer_id"] = i % L
         pd.paged_attention_decode_plain(**a)
 
     saved = pd.launches
-    k1_ms = time_ms(k1, 360)
+    out = {"seq_lens": list(seq_lens), "ms": time_ms(k1, 360)}
+    if plain:
+        out["plain_ms"] = time_ms(k1_plain, 12)
+    B = len(seq_lens)
+    nbytes = (2 * B * Hq * hd * 2  # q in, out
+              + sum(2 * (s - 1) * Hkv * hd * 2 for s in seq_lens)  # live k and v rows
+              + 2 * B * Hkv * hd * 2  # cur k, v
+              + a["page_tables"].numel() * 4 + B * 4)
+    out["bound_ms"], out["bound_by"] = bound(nbytes, sum(2 * 2 * Hq * hd * s for s in seq_lens))
+    out["library_ms"], out["library_call"] = sdpa_decode_library(a, L, k1(0))
     pd.launches = saved
-    k1_plain_ms = time_ms(k1_plain, 12)
-    past = ctx - 1
-    b1 = (2 * Hq * hd * 2  # q in, out
-          + 2 * past * Hkv * hd * 2  # live k and v rows
-          + 2 * Hkv * hd * 2  # cur k, v
-          + a["page_tables"].numel() * 4 + 4)
-    f1 = 2 * 2 * Hq * hd * ctx
-    k1_bound, k1_by = bound(b1, f1)
-    del pool, a
+    return out
+
+
+def sdpa_decode_library(a, L, ref):
+    """K1's library yardstick: the device time of one
+    ``torch.nn.functional.scaled_dot_product_attention`` call on the
+    [B, Hq, 1, hd] queries and one layer's live K / V (paged tokens, then the
+    in-flight one), gathered out of the pages into contiguous
+    [B, Hkv, ctx, hd] tensors per layer before the timed call, the layer
+    cycled as K1's is; rows shorter than the longest are masked.
+    ``is_causal`` stays False: with one query row a causal mask aligns
+    top-left and leaves that query only the first key. Held against K1's
+    output on layer 0 (``ref``) at DECODE_TOL. The call takes
+    ``enable_gqa=True``; where this torch refuses it, or where rows are
+    masked (a masked call may leave the fused backends), the call on K / V
+    whose kv heads are repeated outside the timed call (bytes counted in no
+    bound) is timed too, and the faster call is the yardstick. Returns (ms,
+    what was called), or (None, "none: why")."""
+    q, pool, tables, seq_lens = a["q"], a["k_pages"], a["page_tables"], a["seq_lens"]
+    B, Hq, hd = q.shape
+    Hkv, ps = pool.shape[1], pool.shape[4]
+    lens = seq_lens.tolist()
+    ctx = max(lens)
+    ks, vs = [], []
+    for layer in range(L):
+        k = torch.zeros((B, Hkv, ctx, hd), dtype=q.dtype, device=q.device)
+        v = torch.zeros_like(k)
+        for b, n in enumerate(lens):
+            pages = pool[layer][:, tables[b, : -(-n // ps)].long()]  # [Hkv, n, 2, ps, hd]
+            k[b, :, : n - 1] = pages[:, :, 0].reshape(Hkv, -1, hd)[:, : n - 1]
+            v[b, :, : n - 1] = pages[:, :, 1].reshape(Hkv, -1, hd)[:, : n - 1]
+            k[b, :, n - 1], v[b, :, n - 1] = a["cur_k"][b], a["cur_v"][b]
+        ks.append(k)
+        vs.append(v)
+    mask = None
+    if min(lens) < ctx:
+        mask = (torch.arange(ctx, device=q.device)[None, :] < seq_lens[:, None])[:, None, None]
+    qh = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # a masked call of several launches must still fit time_ms's sleep window
+    iters = 360 if mask is None else 32
+    got, why = {}, []
+
+    def attempt(name, kk, vv, kw):
+        try:
+            y = sdpa(qh, kk[0], vv[0], attn_mask=mask, scale=a["scale"], **kw)
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError) as exc:
+            log(f"  K1 library: {name} refused ({str(exc).splitlines()[0][:160]})")
+            why.append(f"{name} refused")
+            return
+        err = (y[:, :, 0].float() - ref.float()).abs().max().item()
+        if not err <= DECODE_TOL:
+            log(f"  K1 library: {name} disagrees with K1 by {err:.4g} (tol {DECODE_TOL})")
+            why.append(f"{name} disagrees with K1")
+            return
+        got[name] = time_ms(lambda i: sdpa(qh, kk[i % L], vv[i % L], attn_mask=mask,
+                                           scale=a["scale"], **kw), iters)
+        log(f"  K1 library: {name}{' masked' if mask is not None else ''} on contexts {lens}: "
+            f"{got[name] * 1e3:.2f} us (max |diff| to K1 {err:.3e}, tol {DECODE_TOL})")
+
+    attempt("scaled_dot_product_attention(enable_gqa=True)", ks, vs, {"enable_gqa": True})
+    if not got or mask is not None:
+        G = Hq // Hkv
+        ks = [k.repeat_interleave(G, dim=1) for k in ks]
+        vs = [v.repeat_interleave(G, dim=1) for v in vs]
+        attempt("scaled_dot_product_attention (kv heads repeated)", ks, vs, {})
+    if not got:
+        return None, "none: " + "; ".join(why)
+    name = min(got, key=got.get)
+    return got[name], name
+
+
+def time_kernels(cfg, pd, fp, att, errs, launches):
+    """Each kernel at the main path's shape, its bound from these inputs,
+    its plain version and one library call on the same inputs; K1 also at
+    K1_SHAPES. Returns (records, K1 at K1_SHAPES)."""
+    Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    # K1: B = 1 in mid-decode (context 1152 = 1024 + 128), full pool with
+    # layer_id and the in-flight token as the main path calls it
+    k1 = time_decode(gen, cfg, pd, [PROMPT + OUT // 2], plain=True)
+    shapes = [time_decode(gen, cfg, pd, s) for s in K1_SHAPES]
+    for r in shapes:
+        log(f"  paged_decode at contexts {r['seq_lens']}: {r['ms'] * 1e3:.2f} us vs bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), library "
+            + (f"{r['library_ms'] * 1e3:.2f} us" if r["library_ms"] is not None
+               else r["library_call"]))
+    torch.cuda.empty_cache()
 
     # K2: whole 1024-token prompt
     T = PROMPT
@@ -589,15 +687,16 @@ def time_kernels(cfg, pd, fp, att, errs, launches):
          "source": "pegainfer_tpu_torch/csrc/paged_decode.cu",
          "replaces": "pegainfer_tpu/ops/pallas/paged_decode.py:248",
          "launches": launches["paged_decode"], "max_abs_err": errs["paged_decode"],
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None},
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
+         "library_call": k1["library_call"]},
         {"name": "flash_prefill", "route": "cuda",
          "source": "pegainfer_tpu_torch/csrc/flash_prefill.cu",
          "replaces": "pegainfer_tpu/ops/pallas/flash_prefill.py:114",
          "launches": launches["flash_prefill"], "max_abs_err": errs["flash_prefill"],
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": k2_lib_ms},
-    ]
+    ], shapes
 
 
 # ── DeepSeek-V4-Flash, 8 layers, resident fp8 / fp4 weights ────────────
@@ -1111,7 +1210,10 @@ def time_int8_kernels(cfg, params, k6, k7, k8, errs, launches):
     k7_bound, k7_by = bound(b7, 2 * M7 * OUT * IN)
     y7 = k7.moe_int8_grouped(x7, w1[0]["q"], *seg, tm=tm)
     k7.launches = saved
-    k7_lib_ms, k7_lib_call = grouped_mm_library(x7, e7, w1[0]["q"], y7)
+    # w1's codes converted to bf16 [E, IN, OUT] (column-major per expert):
+    # the same unscaled function as K7
+    k7_lib_ms, k7_lib_call = grouped_mm_library(
+        "K7", x7, e7, w1[0]["q"].to(torch.bfloat16).transpose(1, 2), y7)
     del y7
 
     # K8: B = 1, 6 distinct rows
@@ -1141,53 +1243,68 @@ def time_int8_kernels(cfg, params, k6, k7, k8, errs, launches):
          "source": "pegainfer_tpu_torch/csrc/int8_grouped.cu", "replaces": f"{src}:644",
          "launches": launches["moe_int8_grouped"], "max_abs_err": errs["moe_int8_grouped"],
          "ms": k7_ms, "plain_ms": k7_plain_ms, "bound_ms": k7_bound, "bound_by": k7_by,
-         "library_ms": k7_lib_ms},
+         "library_ms": k7_lib_ms, "library_call": k7_lib_call},
         {"name": "moe_int8_chain", "route": "cuda",
          "source": "pegainfer_tpu_torch/csrc/int8_chain.cu", "replaces": f"{src}:787",
          "launches": launches["moe_int8_chain"], "max_abs_err": errs["moe_int8_chain"],
          "ms": k8_ms, "plain_ms": k8_plain_ms, "bound_ms": k8_bound, "bound_by": k8_by,
          "library_ms": None},
     ]
-    extra = {"k6_m1": {"ms": k6_m1_ms, "bound_ms": k6_m1_bound, "library_ms": k6_m1_lib_ms},
-             "k7_library_call": k7_lib_call}
+    extra = {"k6_m1": {"ms": k6_m1_ms, "bound_ms": k6_m1_bound, "library_ms": k6_m1_lib_ms}}
     return records, extra
 
 
-def grouped_mm_library(x_sorted, e_sorted, q, y_ref):
-    """K7's library yardstick: the device time of one PyTorch grouped GEMM
-    (``torch.nn.functional.grouped_mm``, else ``torch._grouped_mm``) of the
-    rows of ``x_sorted`` (bf16, sorted by expert ``e_sorted``) with q's codes,
-    converted to bf16 [E, IN, OUT] outside the timed call; the same unscaled
-    function as K7, held against K7's output ``y_ref`` at GROUPED_RTOL. Its
-    output is bf16 (torch 2.11 refuses an f32 output for bf16 inputs).
-    Returns (ms, what was called), or (None, why not) where this torch has
-    no such call, it refuses these inputs or it disagrees."""
+def grouped_mm_library(label, x_sorted, e_sorted, wb, y_ref):
+    """The library yardstick of a grouped GEMM kernel (K5, K7): the device
+    time of one PyTorch grouped GEMM (``torch.nn.functional.grouped_mm``,
+    else ``torch._grouped_mm``) of the rows of ``x_sorted`` (bf16, sorted by
+    expert ``e_sorted``, no tile padding) with ``wb``, the weight stack in
+    bf16 [E, IN, OUT], made outside the timed call; held against the
+    kernel's output ``y_ref`` at GROUPED_RTOL. Its output is bf16 (torch
+    2.11 refuses an f32 output for bf16 inputs). Returns (ms, what was
+    called), or (None, why not) where this torch has no such call, it
+    refuses these inputs or it disagrees."""
     fn = getattr(torch.nn.functional, "grouped_mm", None)
     name = "torch.nn.functional.grouped_mm"
     if fn is None:
         fn, name = getattr(torch, "_grouped_mm", None), "torch._grouped_mm"
     if fn is None:
-        log("  K7 library: this torch has no grouped_mm")
+        log(f"  {label} library: this torch has no grouped_mm")
         return None, "none: this torch has no grouped_mm"
-    E = q.shape[0]
+    E = wb.shape[0]
     offs = torch.cumsum(torch.bincount(e_sorted.long(), minlength=E), 0).to(torch.int32)
-    wb = q.to(torch.bfloat16).transpose(1, 2)  # [E, IN, OUT], column-major per expert
     try:
         y = fn(x_sorted, wb, offs=offs)
         torch.cuda.synchronize()
     except (RuntimeError, TypeError, ValueError) as exc:
-        log(f"  K7 library: {name} refused: {str(exc).splitlines()[0][:200]}")
+        log(f"  {label} library: {name} refused: {str(exc).splitlines()[0][:200]}")
         return None, f"none: {name} refused these inputs"
     err = (y.float() - y_ref).abs().max().item()
     tol = GROUPED_RTOL * y_ref.abs().max().item()
     del y
     if not err <= tol:
-        log(f"  K7 library: {name} disagrees with K7 by {err:.4g} (tol {tol:.4g})")
-        return None, f"none: {name} disagrees with K7"
+        log(f"  {label} library: {name} disagrees with {label} by {err:.4g} (tol {tol:.4g})")
+        return None, f"none: {name} disagrees with {label}"
     ms = time_ms(lambda i: fn(x_sorted, wb, offs=offs), 24)
-    log(f"  K7 library: {name} (bf16 out) on the bf16-converted w1, {x_sorted.shape[0]} "
-        f"rows: {ms * 1e3:.2f} us (max |diff| to K7 {err:.4g}, tol {tol:.4g})")
+    log(f"  {label} library: {name} (bf16 out) on w1 in bf16, {x_sorted.shape[0]} rows: "
+        f"{ms * 1e3:.2f} us (max |diff| to {label} {err:.4g}, tol {tol:.4g})")
     return ms, name
+
+
+def dequant_stack_bf16(w):
+    """An fp4 / fp8 / int8 expert stack {"q", "s"} -> bf16 [E, OUT, IN] with
+    its scales applied, 16 experts at a time (one f32 intermediate of the
+    whole stack would take 8.6 GB at DSv4-Flash's w1)."""
+    from pegainfer_tpu_torch.ops import quant
+
+    chunk = 16
+    E = w["q"].shape[0]
+    first = quant.dequant_any({"q": w["q"][:1], "s": w["s"][:1]}, torch.bfloat16)
+    out = torch.empty((E, *first.shape[1:]), dtype=torch.bfloat16, device=first.device)
+    for i in range(0, E, chunk):
+        out[i:i + chunk] = quant.dequant_any({"q": w["q"][i:i + chunk], "s": w["s"][i:i + chunk]},
+                                             torch.bfloat16)
+    return out
 
 
 class RoutingReplay:
@@ -1385,7 +1502,9 @@ def time_quant_kernels(cfg, params, k3, k4, k5, errs, launches):
     weights so that the weights come from device memory as in a step (eight
     layers of wq_b are 268 MB, beyond the 50 MB L2); bounds from these
     inputs, at the bf16 peak for the operations (the products are of bf16
-    values); the plain versions; K4's library yardstick."""
+    values); the plain versions; the library yardsticks: K4 ``torch.matmul``
+    on the bf16 weight, K3 ``torch.bmm`` (``bmm_library``), K5 one bf16
+    grouped GEMM (``grouped_mm_library``)."""
     from pegainfer_tpu_torch.ops import quant
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -1421,6 +1540,7 @@ def time_quant_kernels(cfg, params, k3, k4, k5, errs, launches):
         xs, w1[i % L]["q"], w1[i % L]["s"], idxs[i % L]), 16)
     b3 = 6 * (O3 * IN2 + O3 * S3 * 2) + xs.numel() * xs.element_size() + 6 * O3 * 4
     k3_bound, k3_by = bound(b3, 2 * 6 * O3 * 2 * IN2)
+    k3_lib_ms, k3_lib_call = bmm_library(k3, xs, w1, idxs)
 
     # K5: experts_w1 over a 1,024-token prefill (6,144 routed rows)
     M = 6 * DSV4_PROMPT
@@ -1428,13 +1548,19 @@ def time_quant_kernels(cfg, params, k3, k4, k5, errs, launches):
     saved = k5.launches
     k5_ms = time_ms(lambda i: k5.moe_fp4_grouped(x5, w1[i % L]["q"], w1[i % L]["s"], *seg,
                                                  tm=tm), 24)
-    k5.launches = saved
     k5_plain_ms = time_synced_ms(lambda i: k5.moe_fp4_grouped_plain(
         x5, w1[i % L]["q"], w1[i % L]["s"], *seg, tm=tm), 3)
     hit = int(torch.unique(e5).numel())
     b5 = hit * (O3 * IN2 + O3 * S3 * 2) + x5.numel() * 2 + x5.shape[0] * O3 * 4
     k5_bound, k5_by = bound(b5, 2 * M * O3 * 2 * IN2)
     log(f"  K5 timing input: {M} rows over {hit} experts, {x5.shape[0] // tm} tiles of {tm}")
+    y5 = k5.moe_fp4_grouped(x5, w1[0]["q"], w1[0]["s"], *seg, tm=tm)[:M]
+    k5.launches = saved
+    # w1 dequantized to bf16 with its block scales, [E, IN, OUT] (4.3 GB)
+    wb = dequant_stack_bf16(w1[0])
+    k5_lib_ms, k5_lib_call = grouped_mm_library("K5", x5[:M], e5[:M], wb.transpose(1, 2), y5)
+    del wb, y5
+    torch.cuda.empty_cache()
 
     fp4_src = "pegainfer_tpu/ops/pallas/fp4_gemm.py"
     return [
@@ -1442,7 +1568,7 @@ def time_quant_kernels(cfg, params, k3, k4, k5, errs, launches):
          "source": "pegainfer_tpu_torch/csrc/fp4_gemv.cu", "replaces": f"{fp4_src}:1139",
          "launches": launches["moe_fp4_gemv"], "max_abs_err": errs["moe_fp4_gemv"],
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": None},
+         "library_ms": k3_lib_ms, "library_call": k3_lib_call},
         {"name": "fp8_gemv", "route": "cuda",
          "source": "pegainfer_tpu_torch/csrc/fp8_gemv.cu", "replaces": f"{fp4_src}:410",
          "launches": launches["fp8_gemv"], "max_abs_err": errs["fp8_gemv"],
@@ -1452,8 +1578,35 @@ def time_quant_kernels(cfg, params, k3, k4, k5, errs, launches):
          "source": "pegainfer_tpu_torch/csrc/fp4_grouped.cu", "replaces": f"{fp4_src}:283",
          "launches": launches["moe_fp4_grouped"], "max_abs_err": errs["moe_fp4_grouped"],
          "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound, "bound_by": k5_by,
-         "library_ms": None},
+         "library_ms": k5_lib_ms, "library_call": k5_lib_call},
     ]
+
+
+def bmm_library(k3, xs, w1, idxs):
+    """K3's library yardstick: the device time of one ``torch.bmm`` of the
+    routed experts of w1, gathered and dequantized to bf16 outside the timed
+    call (two layers, alternated, so the 100 MB of one call come from device
+    memory), with x cast to bf16; held against K3's output at GROUPED_RTOL
+    x max |y| (the call rounds its products and output to bf16, which
+    QUANT_GEMV_TOL does not allow for). Returns (ms, what was called), or
+    (None, "none: why")."""
+    from pegainfer_tpu_torch.ops import quant
+
+    saved = k3.launches
+    ref = k3.moe_fp4_gemv(xs, w1[0]["q"], w1[0]["s"], idxs[0])
+    k3.launches = saved
+    wg = [quant.gather_dequant(w1[i], idxs[i].long(), torch.bfloat16) for i in range(2)]
+    xb = xs.to(torch.bfloat16)[:, :, None]
+    y = torch.bmm(wg[0], xb)[:, :, 0]
+    err = (y.float() - ref).abs().max().item()
+    tol = GROUPED_RTOL * ref.abs().max().item()
+    if not err <= tol:
+        log(f"  K3 library: torch.bmm disagrees with K3 by {err:.4g} (tol {tol:.4g})")
+        return None, "none: torch.bmm disagrees with K3"
+    ms = time_ms(lambda i: torch.bmm(wg[i % 2], xb), 100)
+    log(f"  K3 library: torch.bmm on {xs.shape[0]} gathered bf16 experts: {ms * 1e3:.2f} us "
+        f"(max |diff| to K3 {err:.4g}, tol {tol:.4g})")
+    return ms, "torch.bmm"
 
 
 if __name__ == "__main__":

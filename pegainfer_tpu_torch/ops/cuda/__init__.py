@@ -2,7 +2,7 @@
 
 | kernel | source | replaces (TPU) |
 |---|---|---|
-| K1 paged decode attention | csrc/paged_decode.cu | ops/pallas/paged_decode.py::paged_attention_decode |
+| K1 paged decode attention (split-KV: the context across blocks) | csrc/paged_decode.cu | ops/pallas/paged_decode.py::paged_attention_decode |
 | K2 flash prefill attention | csrc/flash_prefill.cu | ops/pallas/flash_prefill.py::flash_attention |
 | K3 fp4 expert GEMV (decode MoE) | csrc/fp4_gemv.cu | ops/pallas/fp4_gemm.py::moe_fp4_gemv |
 | K4 fp8 dense GEMV (decode linears) | csrc/fp8_gemv.cu | ops/pallas/fp4_gemm.py::fp8_gemv |

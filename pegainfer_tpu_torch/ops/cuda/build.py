@@ -94,7 +94,8 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     fn = libs["paged_decode"].paged_decode_bf16
     fn.argtypes = [p, p, p, p, p, p, p, p,  # q, k, v, cur_k, cur_v, tables, seq_lens, out
-                   i, i, i, i, i, i,  # B, Hkv, G, HD, P, ps
+                   p, p, p,  # split scratch: part_acc, part_ml, tickets
+                   i, i, i, i, i, i, i, i,  # B, Hkv, G, HD, P, ps, S, pages per split
                    ll, ll, f, i, p]  # head/page strides, scale, has_cur, stream
     fn.restype = i
     fn = libs["flash_prefill"].flash_prefill_bf16

@@ -4,10 +4,18 @@ Replaces the TPU kernel ``pegainfer_tpu/ops/pallas/paged_decode.py::
 paged_attention_decode``. The wrapper dispatches on the device of ``q``: a
 CPU tensor takes the plain version (``ops.attention.paged_attention_decode``),
 a CUDA tensor launches the kernel or raises. ``launches`` counts kernel
-launches.
+launches (one a call).
+
+The kernel splits each row's context across blocks (split-KV);
+``plan_splits`` picks the split from shapes alone, so a call reads no
+device value and never waits for the card. The splits of a (row, kv head)
+meet through a ticket counter per device (``_tickets``) that the kernel
+leaves at 0: calls on one device must run in one stream order.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -18,6 +26,38 @@ launches = 0
 
 HEAD_DIMS = (64, 128, 256)
 GROUP_SIZES = (1, 2, 4, 8)
+BLOCKS_PER_SM = 2  # the grid aims at about this many blocks an SM
+MAX_SPLITS = 256  # csrc/paged_decode.cu kMaxSplits
+MIN_SPLIT_TOKENS = 64  # a split holds at least one tile of K/V (hd <= 128)
+
+_tickets: dict = {}  # device -> int32 zeros, one per (row, kv head)
+
+
+def plan_splits(B: int, Hkv: int, P: int, ps: int, sm_count: int):
+    """(S, pps): split a [B, P] page table's rows into S splits of pps
+    pages; split s covers pages [s * pps, min((s + 1) * pps, P)). From
+    shapes alone: the grid (B, Hkv, S) aims at BLOCKS_PER_SM blocks an SM,
+    never more splits than pages (nor MAX_SPLITS), at least
+    MIN_SPLIT_TOKENS tokens a split, and S = 1 once the B * Hkv blocks
+    alone fill the card."""
+    rows = B * Hkv
+    if P <= 1 or rows >= sm_count:
+        return 1, max(P, 1)
+    want = min(P, MAX_SPLITS, -(-BLOCKS_PER_SM * sm_count // rows))
+    pps = max(-(-P // want), -(-MIN_SPLIT_TOKENS // ps))
+    return -(-P // pps), pps
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    t = _tickets.get(device)
+    if t is None or t.numel() < n:
+        t = _tickets[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return t
 
 
 def paged_attention_decode_plain(q, k_pages, v_pages, page_tables, seq_lens, scale,
@@ -102,14 +142,29 @@ def _launch(q, k_pages, v_pages, page_tables, seq_lens, scale, cur_k, cur_v, lay
         raise ValueError("page tables and seq_lens must be int32")
     if page_tables.shape[0] != B or seq_lens.shape != (B,):
         raise ValueError("page tables / seq_lens do not match the batch")
+    # the kernel copies K/V and cur rows 16 bytes at a time
+    ptrs = [q.data_ptr(), k_ptr, v_ptr] + ([cur_k.data_ptr(), cur_v.data_ptr()] if has_cur else [])
+    if any(p % 16 for p in ptrs) or head_stride % 8 or page_stride % 8:
+        raise ValueError("paged decode kernel needs 16-byte aligned q, pages and cur_k/cur_v")
 
     out = torch.empty_like(q)
+    if B == 0:
+        return out
+    P = page_tables.shape[1]
+    S, pps = plan_splits(B, Hkv, P, ps, _sm_count(q.device))
+    part_acc = part_ml = tickets = None
+    if S > 1:
+        n = B * Hkv * S * G
+        part = torch.empty(n * (hd + 2), dtype=torch.float32, device=q.device)
+        part_acc, part_ml = part[: n * hd], part[n * hd:]
+        tickets = _ticket_buffer(q.device, B * Hkv)
     lib = build.load("paged_decode")
     err = lib.paged_decode_bf16(
         q.data_ptr(), k_ptr, v_ptr,
         cur_k.data_ptr() if has_cur else None, cur_v.data_ptr() if has_cur else None,
         page_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        B, Hkv, G, hd, page_tables.shape[1], ps, head_stride, page_stride,
+        *(t.data_ptr() if t is not None else None for t in (part_acc, part_ml, tickets)),
+        B, Hkv, G, hd, P, ps, S, pps, head_stride, page_stride,
         float(scale), int(has_cur), torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check_launch("paged_decode", err)

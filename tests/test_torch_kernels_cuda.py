@@ -54,20 +54,35 @@ def _bf16(rng, shape, dev):
         dev, torch.bfloat16)
 
 
-@pytest.mark.parametrize("form", ["layer", "layer_cur", "pool", "pool_cur"])
-@pytest.mark.parametrize("hd,Hq,Hkv", [(128, 32, 8), (64, 8, 4)])
-def test_paged_decode_kernel_matches_plain(dev, form, hd, Hq, Hkv):
-    rng = np.random.default_rng(hd + Hq)
-    ps, L, num_pages = 64, 2, 64
-    seq_lens = [1, 63, 700, 1280, 0]
-    B, P = len(seq_lens), 21
-    pool = _bf16(rng, (L, Hkv, num_pages, 2, ps, hd), dev)
+RAGGED = [1, 63, 700, 1280, 0]
+# each case ends in a dead row; the split plan (ops/cuda/paged_decode.py::
+# plan_splits) on 132 SMs is noted beside it
+DECODE_CASES = [
+    pytest.param(128, 32, 8, RAGGED, id="hd128-G4-ragged"),  # 7 splits of 3 pages
+    pytest.param(64, 8, 4, RAGGED, id="hd64-G2-ragged"),  # 10 splits of 2 pages
+    pytest.param(128, 32, 8, [4096, 0], id="hd128-G4-ctx4096"),  # 16 splits of 4 pages
+    pytest.param(128, 32, 8, [16384, 0], id="hd128-G4-ctx16384"),  # 16 splits of 16 pages
+    # a row shorter than one split beside a long one: 10 splits of 5 pages
+    pytest.param(128, 32, 8, [40, 3000, 0], id="hd128-G4-short-beside-long"),
+    # 64 rows fill the card alone: one split, no scratch
+    pytest.param(128, 32, 8, [(37 * i) % 900 + 1 for i in range(63)] + [0], id="hd128-G4-B64"),
+    pytest.param(256, 16, 2, RAGGED, id="hd256-G8-ragged"),  # 20 splits of 1 page
+]
+
+
+def _decode_inputs(rng, dev, form, hd, Hq, Hkv, seq_lens, ps=64, L=2):
+    """Arguments of one paged-decode call: a two-layer k/v-adjacent pool with
+    each row's pages in order, in ``form`` (per-layer pages or the pool with
+    layer_id, with or without the in-flight token)."""
+    B = len(seq_lens)
+    P = max(1, max(-(-s // ps) for s in seq_lens))
     tables = np.zeros((B, P), np.int32)
     nxt = 1
     for b, s in enumerate(seq_lens):
         n = -(-s // ps)
         tables[b, :n] = np.arange(nxt, nxt + n)
         nxt += n
+    pool = _bf16(rng, (L, Hkv, nxt, 2, ps, hd), dev)
     tables = torch.from_numpy(tables).to(dev)
     sl = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
     q = _bf16(rng, (B, Hq, hd), dev)
@@ -76,9 +91,17 @@ def test_paged_decode_kernel_matches_plain(dev, form, hd, Hq, Hkv):
         kw = dict(cur_k=_bf16(rng, (B, Hkv, hd), dev), cur_v=_bf16(rng, (B, Hkv, hd), dev))
     if form.startswith("pool"):
         args = (q, pool, pool, tables, sl, hd ** -0.5)
-        kw["layer_id"] = 1
+        kw["layer_id"] = L - 1
     else:
-        args = (q, pool[1, :, :, 0], pool[1, :, :, 1], tables, sl, hd ** -0.5)
+        args = (q, pool[L - 1, :, :, 0], pool[L - 1, :, :, 1], tables, sl, hd ** -0.5)
+    return args, kw
+
+
+@pytest.mark.parametrize("form", ["layer", "layer_cur", "pool", "pool_cur"])
+@pytest.mark.parametrize("hd,Hq,Hkv,seq_lens", DECODE_CASES)
+def test_paged_decode_kernel_matches_plain(dev, form, hd, Hq, Hkv, seq_lens):
+    rng = np.random.default_rng(hd + Hq + len(seq_lens))
+    args, kw = _decode_inputs(rng, dev, form, hd, Hq, Hkv, seq_lens)
     before = pd.launches
     out = pd.paged_attention_decode(*args, **kw)
     torch.cuda.synchronize()
@@ -86,6 +109,25 @@ def test_paged_decode_kernel_matches_plain(dev, form, hd, Hq, Hkv):
     ref = pd.paged_attention_decode_plain(*args, **kw)
     assert (out.float() - ref.float()).abs().max().item() < DECODE_TOL
     assert out[-1].abs().max().item() == 0.0  # dead row
+
+
+def test_paged_decode_wrapper_makes_no_host_sync(dev):
+    """The wrapper plans its splits from shapes alone: a host read of a
+    device value (seq_lens, say) would raise under this sync debug mode.
+    One call that splits (B = 1, context 1,152) and one that does not
+    (64 rows), each still right."""
+    rng = np.random.default_rng(5)
+    calls = [_decode_inputs(rng, dev, "pool_cur", 128, 32, 8, seq_lens)
+             for seq_lens in ([1152], DECODE_CASES[5].values[3])]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [pd.paged_attention_decode(*args, **kw) for args, kw in calls]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for out, (args, kw) in zip(outs, calls):
+        ref = pd.paged_attention_decode_plain(*args, **kw)
+        assert (out.float() - ref.float()).abs().max().item() < DECODE_TOL
 
 
 @pytest.mark.parametrize("T,S,kv_valid,q_offset", [(1024, 1024, 1024, 0), (1000, 1000, 1000, 0),
