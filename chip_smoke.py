@@ -100,6 +100,11 @@ SHORT = ((300, 64), (500, 64))  # two concurrent requests: decode at B = 2
 # K1 is also timed at the concurrent pair's contexts and at one long context
 K1_SHAPES = ([300, 500], [8192])
 DECODE_TOL, PREFILL_TOL = 3e-2, 2e-2
+# K1 is held row by row to min(DECODE_TOL, DECODE_RTOL x the row's max
+# |ref|): a decode output averages n tokens' values and is about sqrt(e / n)
+# in size (0.013 at 16,384), below a fixed 3e-2; 2e-2 of the row's largest
+# output is about 2.5 bf16 ulps of it
+DECODE_RTOL = 2e-2
 # bf16 activations through 36 layers: the kernels round where the f32 plain
 # attention does not (its output is cast to bf16 once), and each layer's
 # difference rides the residual stream to the logits
@@ -230,6 +235,16 @@ def decode_case(gen, cfg, seq_lens, form, layers=2):
     return args
 
 
+def decode_err(out, ref):
+    """K1's max |diff| to its plain version and the worst row's share of
+    its limit, min(DECODE_TOL, DECODE_RTOL x the row's max |ref|). A dead
+    row's limit is 0: it must be exactly 0."""
+    d = (out.float() - ref.float()).abs().amax(dim=(1, 2))
+    lim = torch.clamp(DECODE_RTOL * ref.float().abs().amax(dim=(1, 2)), max=DECODE_TOL)
+    share = torch.where(d > 0, d / lim, torch.zeros_like(d))  # d > 0 at lim 0: inf
+    return d.max().item(), share.max().item()
+
+
 def check_kernels(cfg, pd, fp):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -254,11 +269,12 @@ def check_kernels(cfg, pd, fp):
         out = pd.paged_attention_decode(**a)
         torch.cuda.synchronize()
         ref = pd.paged_attention_decode_plain(**a)
-        err = (out.float() - ref.float()).abs().max().item()
+        err, share = decode_err(out, ref)
         dead = [b for b, s in enumerate(seq_lens) if s == 0]
         dead_ok = all(out[b].abs().max().item() == 0.0 for b in dead)
-        ok = err <= DECODE_TOL and dead_ok and bool(torch.isfinite(out).all())
-        log(f"  K1 paged_decode  {name}: max_abs_err {err:.3e} (tol {DECODE_TOL})"
+        ok = share <= 1.0 and dead_ok and bool(torch.isfinite(out).all())
+        log(f"  K1 paged_decode  {name}: max_abs_err {err:.3e}, worst row at {share:.3f} of "
+            f"its limit min({DECODE_TOL}, {DECODE_RTOL} x max |ref|)"
             f"{' dead row 0' if dead else ''} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit("paged decode kernel disagrees with its plain version")
@@ -575,20 +591,21 @@ def time_decode(gen, cfg, pd, seq_lens, plain=False):
 
 
 def sdpa_decode_library(a, L, ref):
-    """K1's library yardstick: the device time of one
-    ``torch.nn.functional.scaled_dot_product_attention`` call on the
+    """K1's library yardstick: the device time of
+    ``torch.nn.functional.scaled_dot_product_attention`` on the
     [B, Hq, 1, hd] queries and one layer's live K / V (paged tokens, then the
     in-flight one), gathered out of the pages into contiguous
     [B, Hkv, ctx, hd] tensors per layer before the timed call, the layer
-    cycled as K1's is; rows shorter than the longest are masked.
-    ``is_causal`` stays False: with one query row a causal mask aligns
-    top-left and leaves that query only the first key. Held against K1's
-    output on layer 0 (``ref``) at DECODE_TOL. The call takes
-    ``enable_gqa=True``; where this torch refuses it, or where rows are
-    masked (a masked call may leave the fused backends), the call on K / V
-    whose kv heads are repeated outside the timed call (bytes counted in no
-    bound) is timed too, and the faster call is the yardstick. Returns (ms,
-    what was called), or (None, "none: why")."""
+    cycled as K1's is. ``is_causal`` stays False: with one query row a
+    causal mask aligns top-left and leaves that query only the first key.
+    Held against K1's output on layer 0 (``ref``) at DECODE_TOL. The call
+    takes ``enable_gqa=True``. Where this torch refuses it, or where rows of
+    unequal length are masked (a masked call may leave the fused backends),
+    the call on K / V whose kv heads are repeated outside the timed call
+    (bytes counted in no bound) is timed too; with a mask, so is one
+    unmasked call a row on that row's own keys (the B calls timed as one).
+    The fastest is the yardstick. Returns (ms, what was called), or (None,
+    "none: why")."""
     q, pool, tables, seq_lens = a["q"], a["k_pages"], a["page_tables"], a["seq_lens"]
     B, Hq, hd = q.shape
     Hkv, ps = pool.shape[1], pool.shape[4]
@@ -609,14 +626,14 @@ def sdpa_decode_library(a, L, ref):
     if min(lens) < ctx:
         mask = (torch.arange(ctx, device=q.device)[None, :] < seq_lens[:, None])[:, None, None]
     qh = q[:, :, None, :]
+    scale = a["scale"]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    # a masked call of several launches must still fit time_ms's sleep window
-    iters = 360 if mask is None else 32
     got, why = {}, []
 
-    def attempt(name, kk, vv, kw):
+    def attempt(name, call, iters):
+        """``call(layer)`` returns the outputs of its rows, in order."""
         try:
-            y = sdpa(qh, kk[0], vv[0], attn_mask=mask, scale=a["scale"], **kw)
+            y = torch.cat(call(0))
             torch.cuda.synchronize()
         except (RuntimeError, TypeError) as exc:
             log(f"  K1 library: {name} refused ({str(exc).splitlines()[0][:160]})")
@@ -627,17 +644,28 @@ def sdpa_decode_library(a, L, ref):
             log(f"  K1 library: {name} disagrees with K1 by {err:.4g} (tol {DECODE_TOL})")
             why.append(f"{name} disagrees with K1")
             return
-        got[name] = time_ms(lambda i: sdpa(qh, kk[i % L], vv[i % L], attn_mask=mask,
-                                           scale=a["scale"], **kw), iters)
-        log(f"  K1 library: {name}{' masked' if mask is not None else ''} on contexts {lens}: "
-            f"{got[name] * 1e3:.2f} us (max |diff| to K1 {err:.3e}, tol {DECODE_TOL})")
+        got[name] = time_ms(lambda i: call(i % L), iters)
+        log(f"  K1 library: {name} on contexts {lens}: {got[name] * 1e3:.2f} us "
+            f"(max |diff| to K1 {err:.3e}, tol {DECODE_TOL})")
 
-    attempt("scaled_dot_product_attention(enable_gqa=True)", ks, vs, {"enable_gqa": True})
+    # a masked call of several launches must still fit time_ms's sleep window
+    iters = 360 if mask is None else 32
+    masked = " masked" if mask is not None else ""
+    attempt(f"scaled_dot_product_attention(enable_gqa=True){masked}",
+            lambda l: [sdpa(qh, ks[l], vs[l], attn_mask=mask, scale=scale, enable_gqa=True)],
+            iters)
+    if mask is not None:
+        rows = [[(k[b:b + 1, :, :n].contiguous(), v[b:b + 1, :, :n].contiguous())
+                 for b, n in enumerate(lens)] for k, v in zip(ks, vs)]
+        attempt("scaled_dot_product_attention(enable_gqa=True), one unmasked call a row",
+                lambda l: [sdpa(qh[b:b + 1], kb, vb, scale=scale, enable_gqa=True)
+                           for b, (kb, vb) in enumerate(rows[l])], 360 // B)
     if not got or mask is not None:
         G = Hq // Hkv
-        ks = [k.repeat_interleave(G, dim=1) for k in ks]
-        vs = [v.repeat_interleave(G, dim=1) for v in vs]
-        attempt("scaled_dot_product_attention (kv heads repeated)", ks, vs, {})
+        kr = [k.repeat_interleave(G, dim=1) for k in ks]
+        vr = [v.repeat_interleave(G, dim=1) for v in vs]
+        attempt(f"scaled_dot_product_attention (kv heads repeated){masked}",
+                lambda l: [sdpa(qh, kr[l], vr[l], attn_mask=mask, scale=scale)], iters)
     if not got:
         return None, "none: " + "; ".join(why)
     name = min(got, key=got.get)

@@ -33,7 +33,8 @@
 //   had every thread compute and issue its own 16-byte cp.async copies:
 //   with about one warp per scheduler at B = 1, those dependent address
 //   chains (a division by the page size each) held a tile's arrival to
-//   about 4.7 us (scripts/k1_split_study.py's phase trace).
+//   about 4.7 us on an H100, against 2.1 us with TMA (per-block
+//   %globaltimer stamps at B = 1, a context of 1,152).
 // - Softmax once per tile, not once per token: all scores q·k of the tile
 //   for the G heads first (TPT threads a token, q pre-scaled in shared
 //   memory; row r starts its chunks at r·TPT, so unpadded rows are read
@@ -44,13 +45,17 @@
 // - Merge: with S > 1 each split writes f32 (m, l, acc[G][HD]) to scratch
 //   and thread 0 takes a ticket on its (b, h) with one acq_rel atomic after
 //   the block's barrier (a __threadfence in every thread before the ticket
-//   and another in the merging block took 1.4 us of the trace against
-//   0.75 us); the block that takes the last ticket merges the S partials
-//   (each thread folds its splits four at a time, their loads in flight
-//   together), writes out and resets the ticket to 0 for the next call.
+//   and another in the merging block took 1.4 us of a call against
+//   0.75 us, same stamps); the block that takes the last ticket merges the
+//   S partials (each thread folds its splits four at a time, their loads in
+//   flight together), writes out and resets the ticket to 0 for the next
+//   call.
 //   Chosen over a second merge kernel, which adds a launch and its gap
 //   (about 2 us on this card) to a kernel of about 10 us. With S = 1 the
-//   block writes out directly and touches no scratch.
+//   block writes out directly and touches no scratch. The tickets are
+//   shared by every call that is given them, so calls sharing a ticket
+//   buffer must run in one stream order: the wrapper keeps one buffer per
+//   (device, stream).
 //
 // Numerics follow the TPU kernel: q is pre-scaled in f32 and rounded to
 // bf16, dots accumulate in f32, p is rounded to bf16 before it multiplies
@@ -133,23 +138,6 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t by
       : "memory");
 }
 
-#ifdef PD_TRACE
-// scripts/k1_split_study.py builds this source with -DPD_TRACE: thread 0 of
-// each block stamps %globaltimer (ns) at the phases of the kernel
-constexpr int kTraceBlocks = 4096, kTraceMarks = 12;
-__device__ unsigned long long pd_trace[kTraceBlocks * kTraceMarks];
-__device__ __forceinline__ void mark(int k) {
-  const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  if (threadIdx.x == 0 && blk < kTraceBlocks) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    pd_trace[blk * kTraceMarks + k] = t;
-  }
-}
-#else
-__device__ __forceinline__ void mark(int) {}
-#endif
-
 // ticket counter of a (b, h): returns the count before this arrival;
 // acq_rel at gpu scope, so it both publishes what the block wrote before it
 // and, for the block that arrives last, makes the others' writes visible
@@ -195,7 +183,6 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv*G, HD]
                     int* __restrict__ tickets,         // [B*Hkv], 0 between calls
                     int Hkv, int P, int ps, int pps, long long head_stride,
                     long long page_stride, float scale, int has_cur) {
-  mark(0);
   using C = Cfg<HD>;
   constexpr int kTile = C::kTile, TPT = C::TPT, CPR = C::CPR;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -225,7 +212,6 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv*G, HD]
   const int n = max(t1 - t0, 0);  // tokens of this split; t1 - 1 may be the in-flight one
   const int n_tiles = (n + kTile - 1) / kTile;
   __syncthreads();
-  mark(1);
 
   // thread 0 brings tile `tile` into its ring slot: one bulk copy of K and
   // one of V for each page the tile meets, and the in-flight token's rows
@@ -283,7 +269,6 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv*G, HD]
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     mbar_wait(&bars[tile % kStages], (tile / kStages) & 1);
-    if (tile == 0) mark(2);
     const auto* ks =
         reinterpret_cast<const __nv_bfloat16*>(smem + (tile % kStages) * C::kStageBytes);
     const __nv_bfloat16* vs = ks + kTile * HD;
@@ -371,7 +356,6 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv*G, HD]
     __syncthreads();  // the slot and the scores are free again
     if (tid == 0 && tile + kStages < n_tiles) issue(tile + kStages);
   }
-  mark(3);
 
   // sum the token subsets: red[sub][g][HD] over the ring's shared memory
   float* red = reinterpret_cast<float*>(smem);
@@ -384,7 +368,6 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv*G, HD]
     }
   }
   __syncthreads();
-  mark(4);
   if (S == 1) {
     for (int idx = tid; idx < G * HD; idx += kThreads) {
       const float l = st[G + idx / HD];
@@ -412,16 +395,12 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv*G, HD]
       part_acc[part * G * HD + idx] = a;
     }
   }
-  mark(5);
   __syncthreads();
-  mark(6);
   // thread 0's ticket releases the block's partial (ordered before it by
   // the barrier) and, for the last block, acquires the other splits'
   if (tid == 0) is_last = ticket(&tickets[bh]) == S - 1;
   __syncthreads();
-  mark(7);
   if (!is_last) return;
-  mark(8);
 
   // the last split of (b, h) merges. TPS adjacent threads share 4 outputs
   // of one head: each folds its share of the splits four at a time (their
@@ -461,7 +440,6 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv*G, HD]
       }
       fold(m, l, a, mb, lb, ab);
     }
-    mark(9);
 #pragma unroll
     for (int off = TPS / 2; off > 0; off /= 2) {
       const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
@@ -483,7 +461,6 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv*G, HD]
     }
   }
   if (tid == 0) tickets[bh] = 0;
-  mark(10);
 }
 
 struct Args {
@@ -531,13 +508,6 @@ cudaError_t launch_hd(int G, dim3 grid, cudaStream_t stream, const Args& a) {
 }
 
 }  // namespace
-
-#ifdef PD_TRACE
-// copies the first `bytes` of the phase stamps of the last launch to `host`
-extern "C" int paged_decode_trace(void* host, size_t bytes) {
-  return cudaMemcpyFromSymbol(host, pd_trace, bytes);
-}
-#endif
 
 // S splits of pps pages each (S = ceil(P / pps)). With S > 1, part_acc /
 // part_ml are f32 scratch of B*Hkv*S*G*HD and B*Hkv*S*G*2 values and

@@ -8,9 +8,14 @@ launches (one a call).
 
 The kernel splits each row's context across blocks (split-KV);
 ``plan_splits`` picks the split from shapes alone, so a call reads no
-device value and never waits for the card. The splits of a (row, kv head)
-meet through a ticket counter per device (``_tickets``) that the kernel
-leaves at 0: calls on one device must run in one stream order.
+device value and never waits for the card. It splits the table width P,
+not the live length: the plan assumes tables as wide as the longest live
+row (as ``engine/torch_executor.py`` builds them). In a table much wider
+than its rows the live tokens fall into the first splits and the kernel
+slows toward its one-split time. The splits of a (row, kv head) meet
+through a ticket counter that the kernel leaves at 0; calls that share
+counters must run in one stream order, so each (device, stream) has its
+own (``_tickets``).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ BLOCKS_PER_SM = 2  # the grid aims at about this many blocks an SM
 MAX_SPLITS = 256  # csrc/paged_decode.cu kMaxSplits
 MIN_SPLIT_TOKENS = 64  # a split holds at least one tile of K/V (hd <= 128)
 
-_tickets: dict = {}  # device -> int32 zeros, one per (row, kv head)
+_tickets: dict = {}  # (device, stream handle) -> int32 zeros, one per (row, kv head)
 
 
 def plan_splits(B: int, Hkv: int, P: int, ps: int, sm_count: int):
@@ -39,7 +44,9 @@ def plan_splits(B: int, Hkv: int, P: int, ps: int, sm_count: int):
     shapes alone: the grid (B, Hkv, S) aims at BLOCKS_PER_SM blocks an SM,
     never more splits than pages (nor MAX_SPLITS), at least
     MIN_SPLIT_TOKENS tokens a split, and S = 1 once the B * Hkv blocks
-    alone fill the card."""
+    alone fill the card. P stands in for the live length, which only the
+    card knows: a table much wider than its longest row gets too few live
+    splits."""
     rows = B * Hkv
     if P <= 1 or rows >= sm_count:
         return 1, max(P, 1)
@@ -53,10 +60,13 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
-    t = _tickets.get(device)
+def _ticket_buffer(device: torch.device, stream: torch.cuda.Stream, n: int) -> torch.Tensor:
+    """The ticket counters of ``stream``: the stream orders every call
+    that uses them, so the splits of one call never meet another's."""
+    key = (device, stream.cuda_stream)
+    t = _tickets.get(key)
     if t is None or t.numel() < n:
-        t = _tickets[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        t = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
     return t
 
 
@@ -152,12 +162,13 @@ def _launch(q, k_pages, v_pages, page_tables, seq_lens, scale, cur_k, cur_v, lay
         return out
     P = page_tables.shape[1]
     S, pps = plan_splits(B, Hkv, P, ps, _sm_count(q.device))
+    stream = torch.cuda.current_stream(q.device)
     part_acc = part_ml = tickets = None
     if S > 1:
         n = B * Hkv * S * G
         part = torch.empty(n * (hd + 2), dtype=torch.float32, device=q.device)
         part_acc, part_ml = part[: n * hd], part[n * hd:]
-        tickets = _ticket_buffer(q.device, B * Hkv)
+        tickets = _ticket_buffer(q.device, stream, B * Hkv)
     lib = build.load("paged_decode")
     err = lib.paged_decode_bf16(
         q.data_ptr(), k_ptr, v_ptr,
@@ -165,7 +176,7 @@ def _launch(q, k_pages, v_pages, page_tables, seq_lens, scale, cur_k, cur_v, lay
         page_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
         *(t.data_ptr() if t is not None else None for t in (part_acc, part_ml, tickets)),
         B, Hkv, G, hd, P, ps, S, pps, head_stride, page_stride,
-        float(scale), int(has_cur), torch.cuda.current_stream(q.device).cuda_stream,
+        float(scale), int(has_cur), stream.cuda_stream,
     )
     build.check_launch("paged_decode", err)
     launches += 1

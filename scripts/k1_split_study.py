@@ -3,40 +3,65 @@
     python3 scripts/k1_split_study.py
 
 Times K1 (``pegainfer_tpu_torch/csrc/paged_decode.cu``) at Qwen3-4B's head
-shapes (32 query heads, 8 kv heads, hd 128, pages of 64) through
-``chip_smoke.time_decode``'s set-up, with CUDA events over back-to-back
-launches:
+shapes (32 query heads, 8 kv heads, hd 128, pages of 64) on
+``chip_smoke.decode_case``'s inputs (the 36-layer pool, the last token in
+flight), with CUDA events over back-to-back launches:
 
 - the floor: one launch of a one-element add;
 - B = 1 at a context of 1,152 and 8,192 under forced split plans (S splits
-  of pps pages), the planner's own first; each row of the grid (1, 8, S);
-- the same shape with the pages L2-hot (one layer) against cold (36 layers
-  cycled, as a decode step finds them);
+  of pps pages, through the kernel's C interface), the planner's own
+  first; each row of the grid (1, 8, S); pages L2-hot (one layer) against
+  cold (36 layers cycled, as a decode step finds them);
 - SDPA on the same inputs (``chip_smoke.sdpa_decode_library``);
 - one split (18 tiles in turn) at G = 1, 2, 4, 8 and hd 128, and G = 4 at
   hd 64: whether a tile's time follows the work or the bytes;
-- the phases of one call at 1,152 (the planner's split and one split), from
-  the same source built with -DPD_TRACE (``%globaltimer`` stamps).
+- the wrapper on a context of 1,152 in page tables wider than the row (18,
+  64 and 256 pages): the planner splits the table width, so the live
+  tokens fall into the first splits of a wide table.
 
 Prints one line per measurement, the card line, and a JSON object.
 """
 
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 from types import SimpleNamespace
 
-import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+
+
+def plan_launcher(lib, a, S, pps):
+    """One K1 launch on ``a`` (pool form with the in-flight token, layer
+    ``a["layer_id"]``) under the split plan (S, pps), through the kernel's
+    C interface, with scratch allocated per call as the wrapper does."""
+    q, pool, tables = a["q"], a["k_pages"], a["page_tables"]
+    B, Hq, hd = q.shape
+    Hkv, ps = pool.shape[1], pool.shape[4]
+    G, P, esize = Hq // Hkv, tables.shape[1], pool.element_size()
+    tickets = torch.zeros(B * Hkv, dtype=torch.int32, device=q.device)
+
+    def launch():
+        out = torch.empty_like(q)
+        n = B * Hkv * S * G
+        part = torch.empty(n * (hd + 2), dtype=torch.float32, device=q.device)
+        k_ptr = pool.data_ptr() + a["layer_id"] * pool.stride(0) * esize
+        err = lib.paged_decode_bf16(
+            q.data_ptr(), k_ptr, k_ptr + pool.stride(3) * esize, a["cur_k"].data_ptr(),
+            a["cur_v"].data_ptr(), tables.data_ptr(), a["seq_lens"].data_ptr(), out.data_ptr(),
+            part.data_ptr(), part.data_ptr() + n * hd * 4, tickets.data_ptr(), B, Hkv, G, hd, P,
+            ps, S, pps, pool.stride(1), pool.stride(2), float(a["scale"]), 1,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"paged_decode_bf16 returned {err} for plan ({S}, {pps})")
+        return out
+    return launch
 
 
 def main() -> int:
@@ -47,7 +72,7 @@ def main() -> int:
     from pegainfer_tpu_torch.ops.cuda import build
     from pegainfer_tpu_torch.ops.cuda import paged_decode as pd
 
-    build.load("paged_decode")
+    lib = build.load("paged_decode")
     cfg = cs.qwen3_4b_config(q3)
     L = cfg.num_hidden_layers
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
@@ -58,22 +83,21 @@ def main() -> int:
     result["floor_us"] = cs.time_ms(lambda i: one.add_(1), 360) * 1e3
     print(f"floor (one-element add): {result['floor_us']:.2f} us", flush=True)
 
-    planner = pd.plan_splits
     for ctx, plans in ((1152, [None, (9, 2), (6, 3), (3, 6), (1, 18)]),
                        (8192, [None, (64, 2), (128, 1), (16, 8), (8, 16)])):
         a = cs.decode_case(gen, cfg, [ctx], "pool_cur", layers=L)
         rows = []
         for plan in plans:
-            pd.plan_splits = planner if plan is None else (lambda *_, p=plan: p)
-            S, pps = pd.plan_splits(1, 8, a["page_tables"].shape[1], cs.PAGE, sms)
+            S, pps = plan or pd.plan_splits(1, 8, a["page_tables"].shape[1], cs.PAGE, sms)
+            launch = plan_launcher(lib, a, S, pps)
 
             def cold(i):
                 a["layer_id"] = i % L
-                return pd.paged_attention_decode(**a)
+                return launch()
 
             def hot(i):
                 a["layer_id"] = 0
-                return pd.paged_attention_decode(**a)
+                return launch()
 
             ref = pd.paged_attention_decode_plain(**{**a, "layer_id": 0})
             err = (hot(0).float() - ref.float()).abs().max().item()
@@ -83,7 +107,6 @@ def main() -> int:
             print(f"ctx {ctx} S={S} pps={pps}{' (planner)' if plan is None else ''}: cold "
                   f"{row['cold_us']:.2f} us, L2-hot {row['hot_us']:.2f} us, max_abs_err {err:.3e}",
                   flush=True)
-        pd.plan_splits = planner
         a["layer_id"] = 0
         lib_ms, lib_call = cs.sdpa_decode_library(a, L, pd.paged_attention_decode(**a))
         result[f"ctx{ctx}"] = {"plans": rows, "sdpa_us": lib_ms * 1e3 if lib_ms else None,
@@ -93,84 +116,44 @@ def main() -> int:
 
     # one split (18 tiles in turn a block): does a tile's time follow the
     # work (G query heads a kv head, hd) or the bytes (hd only)?
-    pd.plan_splits = lambda *_: (1, 18)
     result["one_split"] = []
     for G, hd in ((1, 128), (2, 128), (4, 128), (8, 128), (4, 64)):
         shape = SimpleNamespace(num_attention_heads=8 * G, num_key_value_heads=8, head_dim=hd)
         a = cs.decode_case(gen, shape, [1152], "pool_cur", layers=L)
+        launch = plan_launcher(lib, a, 1, 18)
+
+        def cold(i):
+            a["layer_id"] = i % L
+            return launch()
+
+        us = cs.time_ms(cold, 360) * 1e3
+        result["one_split"].append({"G": G, "hd": hd, "us": us})
+        print(f"ctx 1152 S=1 G={G} hd={hd}: {us:.2f} us", flush=True)
+        del a
+
+    # the wrapper on tables wider than the row: the plan follows the width
+    a = cs.decode_case(gen, cfg, [1152], "pool_cur", layers=L)
+    narrow = a["page_tables"]
+    result["wide_tables"] = []
+    for width in (narrow.shape[1], 64, 256):
+        a["page_tables"] = torch.nn.functional.pad(narrow, (0, width - narrow.shape[1]))
+        S, pps = pd.plan_splits(1, 8, width, cs.PAGE, sms)
+        a["layer_id"] = 0
+        ref = pd.paged_attention_decode_plain(**a)
+        err = (pd.paged_attention_decode(**a).float() - ref.float()).abs().max().item()
 
         def cold(i):
             a["layer_id"] = i % L
             return pd.paged_attention_decode(**a)
 
         us = cs.time_ms(cold, 360) * 1e3
-        result["one_split"].append({"G": G, "hd": hd, "us": us})
-        print(f"ctx 1152 S=1 G={G} hd={hd}: {us:.2f} us", flush=True)
-        del a
-    pd.plan_splits = planner
-
-    # the phases of one call, from a -DPD_TRACE build of the same source
-    a = cs.decode_case(gen, cfg, [1152], "pool_cur", layers=L)
-    lib = traced_library(build)
-    result["phases"] = {}
-    for plan in (None, (1, 18)):
-        pd.plan_splits = planner if plan is None else (lambda *_, p=plan: p)
-        S, _ = pd.plan_splits(1, 8, a["page_tables"].shape[1], cs.PAGE, sms)
-        result["phases"][f"S={S}"] = phases(lib, build, pd, a, L, 8 * S)
-        print(f"ctx 1152 S={S} phases (us, mean / max over blocks): "
-              + json.dumps(result["phases"][f"S={S}"]), flush=True)
-    pd.plan_splits = planner
+        result["wide_tables"].append({"P": width, "S": S, "pps": pps, "us": us,
+                                      "max_abs_err": err})
+        print(f"ctx 1152 in a table of {width} pages (S={S} pps={pps}): {us:.2f} us, "
+              f"max_abs_err {err:.3e}", flush=True)
     print(result["card"])
     print(json.dumps(result))
     return 0
-
-
-MARKS = ("start", "meta", "first_tile", "tiles_done", "subsets_summed", "partial_written",
-         "fenced", "ticket", "last_fenced", "folded", "merged")
-TRACE_MARKS = 12  # csrc/paged_decode.cu kTraceMarks
-
-
-def traced_library(build):
-    """csrc/paged_decode.cu built with -DPD_TRACE into build/, with the
-    production library's argtypes."""
-    so = build.BUILD_DIR / "libpaged_decode_trace.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-DPD_TRACE", "-o", str(so),
-                    str(build.CSRC_DIR / "paged_decode.cu")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    lib.paged_decode_bf16.argtypes = build.load("paged_decode").paged_decode_bf16.argtypes
-    lib.paged_decode_bf16.restype = ctypes.c_int
-    lib.paged_decode_trace.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
-    lib.paged_decode_trace.restype = ctypes.c_int
-    return lib
-
-
-def phases(lib, build, pd, a, L, n_blocks):
-    """Run 40 calls (layers cycled) through the traced library, then read the
-    stamps of the last one: each phase's mean and max over the blocks, in us
-    (``merged`` over the blocks that merged), the spread of the blocks'
-    starts, and the span from the first start to the last stamp."""
-    real = build.load
-    build.load = lambda name: lib
-    try:
-        for i in range(40):
-            a["layer_id"] = i % L
-            pd.paged_attention_decode(**a)
-        torch.cuda.synchronize()
-    finally:
-        build.load = real
-    buf = (ctypes.c_ulonglong * (n_blocks * TRACE_MARKS))()
-    if lib.paged_decode_trace(buf, ctypes.sizeof(buf)):
-        raise SystemExit("could not read the trace")
-    stamps = np.array(buf, dtype=np.int64).reshape(n_blocks, TRACE_MARKS)[:, :len(MARKS)]
-    t = (stamps - stamps[:, 0].min()).astype(np.float64) / 1e3  # us from the first start
-    out = {"start_spread": float(t[:, 0].max())}
-    for k in range(1, len(MARKS)):
-        ok = t[:, k] >= np.maximum(t[:, k - 1], 0)  # stamps of this call only
-        if ok.any():
-            d = t[ok, k] - t[ok, k - 1]
-            out[MARKS[k]] = [round(float(d.mean()), 3), round(float(d.max()), 3)]
-    out["span"] = float(t.max())
-    return out
 
 
 if __name__ == "__main__":

@@ -3,7 +3,10 @@ the card. Marked ``cuda``: run with ``python -m pytest -m cuda tests/``
 on a machine with an NVIDIA Hopper card; elsewhere each test skips.
 
 bf16 tolerances are the JAX package's for these kernels
-(tests/test_pallas_kernels.py): 3e-2 for decode, 2e-2 for prefill. The
+(tests/test_pallas_kernels.py): 3e-2 for decode, 2e-2 for prefill. Decode
+is held row by row to min(3e-2, 2e-2 of the row's max |ref|): its output
+averages n tokens' values and is about sqrt(e / n) in size, so at long
+contexts a fixed 3e-2 would pass a merge that lost a split. The
 quantized GEMV kernels K3 and K4 form the same exact f32 products as their
 plain versions and differ only in the order of the f32 sums: atol 2e-5 (the
 JAX tests' tolerance) on outputs of about unit RMS. K5 multiplies on the
@@ -34,6 +37,7 @@ from pegainfer_tpu_torch.ops.cuda import paged_decode as pd
 pytestmark = pytest.mark.cuda
 
 DECODE_TOL = 3e-2
+DECODE_RTOL = 2e-2
 PREFILL_TOL = 2e-2
 GEMV_TOL = 2e-5
 GROUPED_RTOL = 2e-2
@@ -56,26 +60,32 @@ def _bf16(rng, shape, dev):
 
 RAGGED = [1, 63, 700, 1280, 0]
 # each case ends in a dead row; the split plan (ops/cuda/paged_decode.py::
-# plan_splits) on 132 SMs is noted beside it
+# plan_splits) on 132 SMs is noted beside it. The page tables are as wide
+# as the longest row unless a width is given.
 DECODE_CASES = [
-    pytest.param(128, 32, 8, RAGGED, id="hd128-G4-ragged"),  # 7 splits of 3 pages
-    pytest.param(64, 8, 4, RAGGED, id="hd64-G2-ragged"),  # 10 splits of 2 pages
-    pytest.param(128, 32, 8, [4096, 0], id="hd128-G4-ctx4096"),  # 16 splits of 4 pages
-    pytest.param(128, 32, 8, [16384, 0], id="hd128-G4-ctx16384"),  # 16 splits of 16 pages
+    pytest.param(128, 32, 8, RAGGED, None, id="hd128-G4-ragged"),  # 7 splits of 3 pages
+    pytest.param(64, 8, 4, RAGGED, None, id="hd64-G2-ragged"),  # 10 splits of 2 pages
+    pytest.param(128, 32, 8, [4096, 0], None, id="hd128-G4-ctx4096"),  # 16 splits of 4 pages
+    pytest.param(128, 32, 8, [16384, 0], None, id="hd128-G4-ctx16384"),  # 16 of 16 pages
     # a row shorter than one split beside a long one: 10 splits of 5 pages
-    pytest.param(128, 32, 8, [40, 3000, 0], id="hd128-G4-short-beside-long"),
+    pytest.param(128, 32, 8, [40, 3000, 0], None, id="hd128-G4-short-beside-long"),
     # 64 rows fill the card alone: one split, no scratch
-    pytest.param(128, 32, 8, [(37 * i) % 900 + 1 for i in range(63)] + [0], id="hd128-G4-B64"),
-    pytest.param(256, 16, 2, RAGGED, id="hd256-G8-ragged"),  # 20 splits of 1 page
+    pytest.param(128, 32, 8, [(37 * i) % 900 + 1 for i in range(63)] + [0], None,
+                 id="hd128-G4-B64"),
+    pytest.param(256, 16, 2, RAGGED, None, id="hd256-G8-ragged"),  # 20 splits of 1 page
+    # a table far wider than its rows (19 pages at most): 11 splits of 24
+    # pages, all but the first past every row's length (empty partials)
+    pytest.param(128, 32, 8, [1152, 70, 0], 256, id="hd128-G4-wide-table"),
 ]
 
 
-def _decode_inputs(rng, dev, form, hd, Hq, Hkv, seq_lens, ps=64, L=2):
+def _decode_inputs(rng, dev, form, hd, Hq, Hkv, seq_lens, ps=64, L=2, width=None):
     """Arguments of one paged-decode call: a two-layer k/v-adjacent pool with
     each row's pages in order, in ``form`` (per-layer pages or the pool with
-    layer_id, with or without the in-flight token)."""
+    layer_id, with or without the in-flight token). The page tables are as
+    wide as the longest row, or ``width`` pages."""
     B = len(seq_lens)
-    P = max(1, max(-(-s // ps) for s in seq_lens))
+    P = width or max(1, max(-(-s // ps) for s in seq_lens))
     tables = np.zeros((B, P), np.int32)
     nxt = 1
     for b, s in enumerate(seq_lens):
@@ -97,18 +107,47 @@ def _decode_inputs(rng, dev, form, hd, Hq, Hkv, seq_lens, ps=64, L=2):
     return args, kw
 
 
+def _assert_decode_close(out, ref):
+    """Each row within min(DECODE_TOL, DECODE_RTOL x its max |ref|); a dead
+    row's limit is 0."""
+    d = (out.float() - ref.float()).abs().amax(dim=(1, 2))
+    lim = torch.clamp(DECODE_RTOL * ref.float().abs().amax(dim=(1, 2)), max=DECODE_TOL)
+    assert bool((d <= lim).all()), f"row errors {d.tolist()} over limits {lim.tolist()}"
+
+
 @pytest.mark.parametrize("form", ["layer", "layer_cur", "pool", "pool_cur"])
-@pytest.mark.parametrize("hd,Hq,Hkv,seq_lens", DECODE_CASES)
-def test_paged_decode_kernel_matches_plain(dev, form, hd, Hq, Hkv, seq_lens):
+@pytest.mark.parametrize("hd,Hq,Hkv,seq_lens,width", DECODE_CASES)
+def test_paged_decode_kernel_matches_plain(dev, form, hd, Hq, Hkv, seq_lens, width):
     rng = np.random.default_rng(hd + Hq + len(seq_lens))
-    args, kw = _decode_inputs(rng, dev, form, hd, Hq, Hkv, seq_lens)
+    args, kw = _decode_inputs(rng, dev, form, hd, Hq, Hkv, seq_lens, width=width)
     before = pd.launches
     out = pd.paged_attention_decode(*args, **kw)
     torch.cuda.synchronize()
     assert pd.launches == before + 1
-    ref = pd.paged_attention_decode_plain(*args, **kw)
-    assert (out.float() - ref.float()).abs().max().item() < DECODE_TOL
+    _assert_decode_close(out, pd.paged_attention_decode_plain(*args, **kw))
     assert out[-1].abs().max().item() == 0.0  # dead row
+
+
+def test_paged_decode_kernel_on_two_streams(dev):
+    """Calls on two streams at once, each many splits: each stream has its
+    own ticket counters, so the splits of one call never meet those of a
+    call on the other stream."""
+    rng = np.random.default_rng(7)
+    calls = [_decode_inputs(rng, dev, "pool_cur", 128, 32, 8, seq_lens)
+             for seq_lens in ([4096], [3000, 700])]
+    refs = [pd.paged_attention_decode_plain(*args, **kw) for args, kw in calls]
+    streams = [torch.cuda.Stream(dev) for _ in calls]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[] for _ in calls]
+    for _ in range(20):
+        for st, (args, kw), o in zip(streams, calls, outs):
+            with torch.cuda.stream(st):
+                o.append(pd.paged_attention_decode(*args, **kw))
+    torch.cuda.synchronize()
+    for o, ref in zip(outs, refs):
+        for out in o:
+            _assert_decode_close(out, ref)
 
 
 def test_paged_decode_wrapper_makes_no_host_sync(dev):
@@ -126,8 +165,7 @@ def test_paged_decode_wrapper_makes_no_host_sync(dev):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     for out, (args, kw) in zip(outs, calls):
-        ref = pd.paged_attention_decode_plain(*args, **kw)
-        assert (out.float() - ref.float()).abs().max().item() < DECODE_TOL
+        _assert_decode_close(out, pd.paged_attention_decode_plain(*args, **kw))
 
 
 @pytest.mark.parametrize("T,S,kv_valid,q_offset", [(1024, 1024, 1024, 0), (1000, 1000, 1000, 0),
