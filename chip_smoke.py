@@ -105,6 +105,15 @@ DECODE_TOL, PREFILL_TOL = 3e-2, 2e-2
 # in size (0.013 at 16,384), below a fixed 3e-2; 2e-2 of the row's largest
 # output is about 2.5 bf16 ulps of it
 DECODE_RTOL = 2e-2
+# K2 likewise, each query row (position, head) to min(PREFILL_TOL,
+# PREFILL_RTOL x the row's max |ref|): a late row of a 1,024-token prompt
+# averages about a thousand values and is about 0.05 in size, so a fixed 2e-2
+# passes a kernel that drops a key tile; a right kernel rounds p and the
+# output to bf16 once, a fraction of a percent of the row's largest value
+PREFILL_RTOL = 2e-2
+# K2 is also timed at a long prompt at Qwen3-4B's heads and at Qwen3.5's
+# full-attention heads (pegainfer_tpu/models/qwen35.py:285): (T, Hq, Hkv, hd)
+K2_SHAPES = ((4096, 32, 8, 128), (1024, 16, 2, 256))
 # bf16 activations through 36 layers: the kernels round where the f32 plain
 # attention does not (its output is cast to bf16 once), and each layer's
 # difference rides the residual stream to the logits
@@ -245,6 +254,14 @@ def decode_err(out, ref):
     return d.max().item(), share.max().item()
 
 
+def prefill_err(out, ref):
+    """K2's max |diff| to its plain version and the worst query row's share
+    of its limit, min(PREFILL_TOL, PREFILL_RTOL x the row's max |ref|)."""
+    d = (out.float() - ref.float()).abs().amax(dim=2)
+    lim = torch.clamp(PREFILL_RTOL * ref.float().abs().amax(dim=2), max=PREFILL_TOL)
+    return d.max().item(), (d / lim).max().item()
+
+
 def check_kernels(cfg, pd, fp):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -280,23 +297,30 @@ def check_kernels(cfg, pd, fp):
             raise SystemExit("paged decode kernel disagrees with its plain version")
         errs["paged_decode"] = max(errs["paged_decode"], err)
 
+    # (name, T, S, kv_valid, q_offset, Hq, Hkv, hd)
     prefill_cases = [
-        ("T=S=1024", 1024, 1024, 1024, 0),
-        ("T=S=1000 (not a multiple of 128)", 1000, 1000, 1000, 0),
-        ("chunk continuation T=256 at q_offset 768, S=1024", 256, 1024, 1024, 768),
-    ]
-    for name, T, S, kv_valid, q_offset in prefill_cases:
-        q = torch.randn((T, Hq, hd), generator=gen, device="cuda").to(torch.bfloat16)
-        k = torch.randn((S, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
-        v = torch.randn((S, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
-        out = fp.flash_attention(q, k, v, kv_valid, q_offset, hd ** -0.5)
+        ("T=S=1024", 1024, 1024, 1024, 0, Hq, Hkv, hd),
+        ("T=S=1000 (not a multiple of the query tile)", 1000, 1000, 1000, 0, Hq, Hkv, hd),
+        ("chunk continuation T=256 at q_offset 768, S=1024", 256, 1024, 1024, 768, Hq, Hkv, hd),
+        ("chunk T=256 at q_offset 768, kv_valid 1000 < S=1280", 256, 1280, 1000, 768, Hq, Hkv,
+         hd),
+        ("T=S=4096", 4096, 4096, 4096, 0, Hq, Hkv, hd),
+        # the end of a 32k context: there a dropped key tile stays under 2e-2
+        ("chunk T=64 at q_offset 32704, S=32768", 64, 32768, 32768, 32704, Hq, Hkv, hd),
+    ] + [(f"T=S={T}, Hq {hq}, Hkv {hkv}, hd {d}", T, T, T, 0, hq, hkv, d)
+         for T, hq, hkv, d in K2_SHAPES[1:]]
+    for name, T, S, kv_valid, q_offset, hq, hkv, d in prefill_cases:
+        q = torch.randn((T, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((S, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((S, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+        out = fp.flash_attention(q, k, v, kv_valid, q_offset, d ** -0.5)
         torch.cuda.synchronize()
-        ref = fp.att.causal_attention(q, k, v, kv_valid, q_offset, hd ** -0.5)
+        ref = fp.att.causal_attention(q, k, v, kv_valid, q_offset, d ** -0.5)
         live = min(T, kv_valid - q_offset)
-        err = (out[:live].float() - ref[:live].float()).abs().max().item()
-        ok = err <= PREFILL_TOL and bool(torch.isfinite(out[:live]).all())
-        log(f"  K2 flash_prefill {name}: max_abs_err {err:.3e} (tol {PREFILL_TOL}) "
-            f"{'ok' if ok else 'FAIL'}")
+        err, share = prefill_err(out[:live], ref[:live])
+        ok = share <= 1.0 and bool(torch.isfinite(out[:live]).all())
+        log(f"  K2 flash_prefill {name}: max_abs_err {err:.3e}, worst row at {share:.3f} of its "
+            f"limit min({PREFILL_TOL}, {PREFILL_RTOL} x max |ref|) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit("flash prefill kernel disagrees with its plain version")
         errs["flash_prefill"] = max(errs["flash_prefill"], err)
@@ -362,8 +386,8 @@ def main() -> int:
     for name, text in build.build_logs.items():
         log(f"  --- ptxas: {name} ---")
         for line in text.splitlines():
-            if "ptxas" in line and ("registers" in line or "spill" in line
-                                    or "Compiling entry" in line):
+            if "spill" in line or ("ptxas" in line and ("registers" in line
+                                                        or "Compiling entry" in line)):
                 log("  " + line.strip())
 
     q_records, q_serving, q_steps = run_qwen3()
@@ -476,10 +500,11 @@ def run_qwen3():
     log(f"  main {PROMPT}/{OUT}: TTFT {ttft_ms:.3f} ms, TPOT p50 {tpot:.3f} ms, "
         f"p95 {tpot95:.3f} ms over {len(gaps)} gaps (host clock, per streamed token)")
     log_steps(steps)
-    records, k1_shapes = time_kernels(cfg, pd, fp, att, errs, launches)
+    records, k1_shapes, k2_shapes = time_kernels(cfg, pd, fp, att, errs, launches)
     log_records(records)
     serving = {"ttft_ms": ttft_ms, "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
-               "prompt": PROMPT, "output": OUT, "paged_decode_shapes": k1_shapes}
+               "prompt": PROMPT, "output": OUT, "paged_decode_shapes": k1_shapes,
+               "flash_prefill_shapes": k2_shapes}
     return records, serving, steps_json(steps)
 
 
@@ -538,11 +563,13 @@ def step_profile(cfg, q3, params, prompt_t, first_token, iters=5):
         for name, fn in calls.items():
             fn()
             torch.cuda.synchronize()
-            t = time.perf_counter()
+            walls = []
             for _ in range(iters):
+                t = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) / iters * 1e3
+                walls.append((time.perf_counter() - t) * 1e3)
+            wall = statistics.mean(walls)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(iters):
                     fn()
@@ -551,6 +578,10 @@ def step_profile(cfg, q3, params, prompt_t, first_token, iters=5):
                         key=lambda e: -e.self_device_time_total)
             dev = sum(e.self_device_time_total for e in ka) / iters / 1e3
             out[name] = (wall, dev, sum(e.count for e in ka) / iters)
+            attn = sum(e.self_device_time_total for e in ka
+                       if "flash_prefill" in e.key or "paged_decode" in e.key) / iters / 1e3
+            log(f"    {name}: wall per call {min(walls):.3f}-{max(walls):.3f} ms over {iters} "
+                f"calls; attention kernel (K1 / K2) {attn:.3f} ms, {attn / dev:.1%} of device time")
             for e in ka[:TOP_OPS]:
                 log(f"    {name}: {e.self_device_time_total / iters / 1e3:7.3f} ms in "
                     f"{e.count / iters:4.0f} x {e.key[:90]}")
@@ -672,10 +703,113 @@ def sdpa_decode_library(a, L, ref):
     return got[name], name
 
 
+def time_prefill(gen, fp, att, T, Hq, Hkv, hd, plain=False):
+    """K2 on one whole prompt of T tokens at these heads: its time, its bound
+    from these inputs, with ``plain`` its plain version's time, and the SDPA
+    yardstick (``sdpa_prefill_library``)."""
+    q = torch.randn((T, Hq, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((T, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((T, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    scale = hd ** -0.5
+    saved = fp.launches
+    out = {"T": T, "Hq": Hq, "Hkv": Hkv, "hd": hd,
+           "ms": time_ms(lambda i: fp.flash_prefill(q, k, v, T, scale), 100)}
+    ref = fp.flash_prefill(q, k, v, T, scale)
+    fp.launches = saved
+    if plain:
+        out["plain_ms"] = time_ms(lambda i: att.prefill_attention(q, k, v, T, scale), 10)
+    nbytes = (2 * T * Hq * hd + 2 * T * Hkv * hd) * 2
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 2 * 2 * Hq * hd * (T * (T + 1) // 2))
+    out["library_ms"], out["library_call"] = sdpa_prefill_library(q, k, v, scale, ref)
+    return out
+
+
+def sdpa_prefill_library(q, k, v, scale, ref):
+    """K2's library yardstick: ``scaled_dot_product_attention(is_causal=True)``
+    on [1, H, T, hd] copies made outside the timed call, once with
+    ``enable_gqa=True`` on the Hkv heads and once on kv heads repeated to Hq
+    (bytes counted in no bound), each held against K2's output ``ref`` at
+    K2's row limit. The faster is the yardstick. Returns (ms, what was
+    called), or (None, "none: why")."""
+    T, Hq, hd = q.shape
+    G = Hq // k.shape[1]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (x.transpose(0, 1).unsqueeze(0).contiguous() for x in (q, k, v))
+    kr, vr = (x.repeat_interleave(G, dim=1) for x in (kh, vh))
+    calls = {
+        "scaled_dot_product_attention(is_causal=True, enable_gqa=True)":
+            lambda i: sdpa(qh, kh, vh, is_causal=True, scale=scale, enable_gqa=True),
+        "scaled_dot_product_attention(is_causal=True), kv heads repeated":
+            lambda i: sdpa(qh, kr, vr, is_causal=True, scale=scale),
+    }
+    got, why = {}, []
+    for name, call in calls.items():
+        try:
+            y = call(0)[0].transpose(0, 1)
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError) as exc:
+            log(f"  K2 library: {name} refused ({str(exc).splitlines()[0][:160]})")
+            why.append(f"{name} refused")
+            continue
+        err, share = prefill_err(y, ref)
+        if not share <= 1.0:
+            log(f"  K2 library: {name} disagrees with K2 (worst row at {share:.3f} of its limit)")
+            why.append(f"{name} disagrees with K2")
+            continue
+        got[name] = time_ms(call, 100)
+        log(f"  K2 library: {name} at T={T}, Hq {Hq}, hd {hd}: {got[name] * 1e3:.2f} us "
+            f"(max |diff| to K2 {err:.3e}, worst row at {share:.3f} of K2's limit)")
+    if not got:
+        return None, "none: " + "; ".join(why)
+    name = min(got, key=got.get)
+    return got[name], name
+
+
+def k2_host_cost(fp, T, Hq, Hkv, hd, iters=200):
+    """Host time of K2's launch path at one shape: one cuTensorMapEncodeTiled
+    of its Q map through libcuda by ctypes (less an empty driver call, the
+    ctypes cost), and one whole wrapper call (plan, four encodes, launch),
+    enqueued behind a device sleep. Means over ``iters`` calls, host clock."""
+    import ctypes
+    q = torch.zeros((T, Hq, hd), dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros((T, Hkv, hd), dtype=torch.bfloat16, device="cuda")
+    G = Hq // Hkv
+    cuda = ctypes.CDLL("libcuda.so.1")
+    buf = ctypes.create_string_buffer(128 + 64)
+    args = (ctypes.c_void_p((ctypes.addressof(buf) + 63) & ~63),
+            ctypes.c_int(9), ctypes.c_uint32(3), ctypes.c_void_p(q.data_ptr()),  # bf16, 3-D
+            (ctypes.c_uint64 * 3)(hd, Hq, T), (ctypes.c_uint64 * 2)(hd * 2, Hq * hd * 2),
+            (ctypes.c_uint32 * 3)(64, G, 128 // G), (ctypes.c_uint32 * 3)(1, 1, 1),
+            ctypes.c_int(0), ctypes.c_int(3), ctypes.c_int(3), ctypes.c_int(0))  # SW128, L2 256B
+    version = ctypes.c_int()
+
+    def per_call_us(fn):
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t) / iters * 1e6
+
+    if cuda.cuTensorMapEncodeTiled(*args) != 0:
+        raise SystemExit("cuTensorMapEncodeTiled refused K2's Q map")
+    encode = per_call_us(lambda: cuda.cuTensorMapEncodeTiled(*args))
+    empty = per_call_us(lambda: cuda.cuDriverGetVersion(ctypes.byref(version)))
+    saved = fp.launches
+    fp.flash_prefill(q, k, k, T, hd ** -0.5)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    call = per_call_us(lambda: fp.flash_prefill(q, k, k, T, hd ** -0.5))
+    torch.cuda.synchronize()
+    fp.launches = saved
+    log(f"  K2 host cost: cuTensorMapEncodeTiled {encode:.2f} us a call by ctypes (an empty "
+        f"driver call {empty:.2f} us), the whole wrapper {call:.2f} us a call")
+    return {"encode_us": encode, "empty_driver_call_us": empty, "wrapper_call_us": call}
+
+
 def time_kernels(cfg, pd, fp, att, errs, launches):
     """Each kernel at the main path's shape, its bound from these inputs,
     its plain version and one library call on the same inputs; K1 also at
-    K1_SHAPES. Returns (records, K1 at K1_SHAPES)."""
+    K1_SHAPES, K2 also at K2_SHAPES (and its host cost in its record).
+    Returns (records, K1 at K1_SHAPES, K2 at K2_SHAPES)."""
     Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     # K1: B = 1 in mid-decode (context 1152 = 1024 + 128), full pool with
@@ -689,27 +823,14 @@ def time_kernels(cfg, pd, fp, att, errs, launches):
                else r["library_call"]))
     torch.cuda.empty_cache()
 
-    # K2: whole 1024-token prompt
-    T = PROMPT
-    q = torch.randn((T, Hq, hd), generator=gen, device="cuda").to(torch.bfloat16)
-    k = torch.randn((T, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
-    v = torch.randn((T, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
-    scale = hd ** -0.5
-    saved = fp.launches
-    k2_ms = time_ms(lambda i: fp.flash_prefill(q, k, v, T, scale), 100)
-    fp.launches = saved
-    k2_plain_ms = time_ms(lambda i: att.prefill_attention(q, k, v, T, scale), 10)
-    # library yardstick: SDPA on [1, H, T, hd], k/v heads repeated to Hq
-    # outside the timed call
-    G = Hq // Hkv
-    qh = q.transpose(0, 1).unsqueeze(0).contiguous()
-    kh, vh = (x.repeat_interleave(G, dim=1).transpose(0, 1).unsqueeze(0).contiguous()
-              for x in (k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    k2_lib_ms = time_ms(lambda i: sdpa(qh, kh, vh, is_causal=True, scale=scale), 100)
-    b2 = (2 * T * Hq * hd + 2 * T * Hkv * hd) * 2
-    f2 = 2 * 2 * Hq * hd * (T * (T + 1) // 2)
-    k2_bound, k2_by = bound(b2, f2)
+    # K2: the whole 1024-token prompt, then K2_SHAPES
+    k2 = time_prefill(gen, fp, att, PROMPT, Hq, Hkv, hd, plain=True)
+    k2_shapes = [time_prefill(gen, fp, att, *shape) for shape in K2_SHAPES]
+    for r in k2_shapes:
+        log(f"  flash_prefill at T=S={r['T']}, Hq {r['Hq']}, Hkv {r['Hkv']}, hd {r['hd']}: "
+            f"{r['ms'] * 1e3:.2f} us vs bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
+            "library " + (f"{r['library_ms'] * 1e3:.2f} us" if r["library_ms"] is not None
+                          else r["library_call"]))
     return [
         {"name": "paged_decode", "route": "cuda",
          "source": "pegainfer_tpu_torch/csrc/paged_decode.cu",
@@ -722,9 +843,10 @@ def time_kernels(cfg, pd, fp, att, errs, launches):
          "source": "pegainfer_tpu_torch/csrc/flash_prefill.cu",
          "replaces": "pegainfer_tpu/ops/pallas/flash_prefill.py:114",
          "launches": launches["flash_prefill"], "max_abs_err": errs["flash_prefill"],
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": k2_lib_ms},
-    ], shapes
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
+         "library_call": k2["library_call"], "host": k2_host_cost(fp, PROMPT, Hq, Hkv, hd)},
+    ], shapes, k2_shapes
 
 
 # ── DeepSeek-V4-Flash, 8 layers, resident fp8 / fp4 weights ────────────

@@ -101,7 +101,7 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     fn = libs["flash_prefill"].flash_prefill_bf16
     fn.argtypes = [p, p, p, p,  # q, k, v, out
                    i, i, i, i, i, i, i,  # T, S, Hkv, G, HD, kv_valid, q_offset
-                   f, p]  # scale, stream
+                   f, i, i, i, p]  # scale, plan (bq, bk, q_tiles), stream
     fn.restype = i
     fn = libs["fp8_gemv"].fp8_gemv
     fn.argtypes = [p, p, p, p,  # x, q, s, y

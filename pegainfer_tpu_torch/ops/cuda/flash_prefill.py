@@ -5,9 +5,16 @@ flash_attention`` (and its ``flash_prefill`` wrapper). The wrapper dispatches
 on the device of ``q``: a CPU tensor takes the plain version
 (``ops.attention.causal_attention``), a CUDA tensor launches the kernel or
 raises. ``launches`` counts kernel launches.
+
+The launch plan is a function of shapes alone (``plan``): a block holds
+ROWS query rows, all G heads of a kv group for ROWS / G positions, and walks
+the key tiles of ``key_tiles``; the kernel checks the plan against the tile
+sizes it was built with.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -17,7 +24,35 @@ from pegainfer_tpu_torch.ops.cuda import build
 launches = 0
 
 HEAD_DIMS = (64, 128, 256)
-ROWS_PER_BLOCK = 64  # query (head, position) rows of one block; G must divide it
+ROWS = 128  # query (position, head) rows of a block: two warpgroups of 64
+GROUP_DIVIDES = 64  # G must divide it, so each warpgroup holds whole positions
+KEY_TILE = {64: 128, 128: 128, 256: 64}  # keys a tile, by head dim (registers at 256)
+
+
+class Plan(NamedTuple):
+    bq: int  # query positions a tile
+    bk: int  # keys a tile
+    q_tiles: int  # query tiles; the grid is q_tiles x Hkv blocks, longest first
+
+
+def plan(T: int, G: int, hd: int) -> Plan:
+    bq = ROWS // G
+    return Plan(bq, KEY_TILE[hd], -(-T // bq))
+
+
+def key_tiles(p: Plan, qt: int, T: int, S: int, kv_valid: int, q_offset: int) -> Tuple[int, int]:
+    """(tiles, unmasked) of query tile ``qt``: the block walks key tiles
+    [0, tiles), up to the causal diagonal of its last row below T and
+    min(kv_valid, S); the first ``unmasked`` lie wholly at or below its first
+    row's position and below min(kv_valid, S), so the kernel skips their
+    mask. The kernel computes the same."""
+    kv_lim = min(kv_valid, S)
+    q_lo = q_offset + qt * p.bq
+    q_hi = q_offset + min((qt + 1) * p.bq, T) - 1
+    kv_hi = min(kv_lim, q_hi + 1)
+    tiles = -(-kv_hi // p.bk) if kv_hi > 0 else 0
+    unmasked = max(0, min((q_lo + 1) // p.bk, kv_lim // p.bk))
+    return tiles, unmasked
 
 
 def flash_attention(q, k, v, kv_valid: int, q_offset: int, scale: float):
@@ -45,20 +80,26 @@ def _launch(q, k, v, kv_valid, q_offset, scale):
         raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not fit")
     G = Hq // Hkv
-    if hd not in HEAD_DIMS or ROWS_PER_BLOCK % G:
+    if hd not in HEAD_DIMS or GROUP_DIVIDES % G:
         raise ValueError(f"flash prefill kernel takes hd in {HEAD_DIMS} and G "
-                         f"dividing {ROWS_PER_BLOCK}, got hd={hd} G={G}")
+                         f"dividing {GROUP_DIVIDES}, got hd={hd} G={G}")
+    if q_offset < 0 or S == 0:
+        raise ValueError(f"flash prefill kernel takes q_offset >= 0 and S > 0, got "
+                         f"q_offset={q_offset} S={S}")
     for t in (q, k, v):
         if t.device != q.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError("flash prefill kernel takes contiguous bf16 tensors "
                              "on one device")
+        if t.data_ptr() % 16:
+            raise ValueError("flash prefill kernel takes 16-byte aligned tensors (TMA)")
     out = torch.empty_like(q)
     if T == 0:
         return out
+    p = plan(T, G, hd)
     lib = build.load("flash_prefill")
     err = lib.flash_prefill_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        T, S, Hkv, G, hd, kv_valid, q_offset, float(scale),
+        T, S, Hkv, G, hd, kv_valid, q_offset, float(scale), p.bq, p.bk, p.q_tiles,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check_launch("flash_prefill", err)

@@ -6,7 +6,12 @@ bf16 tolerances are the JAX package's for these kernels
 (tests/test_pallas_kernels.py): 3e-2 for decode, 2e-2 for prefill. Decode
 is held row by row to min(3e-2, 2e-2 of the row's max |ref|): its output
 averages n tokens' values and is about sqrt(e / n) in size, so at long
-contexts a fixed 3e-2 would pass a merge that lost a split. The
+contexts a fixed 3e-2 would pass a merge that lost a split. Prefill is
+held the same way, each query row (position, head) to min(2e-2, 2e-2 of the
+row's max |ref|): a late row averages about a thousand values and is about
+0.05 in size, so a fixed 2e-2 would pass a kernel that dropped a key tile;
+a right kernel rounds the output and p to bf16 once, a fraction of a
+percent of the row's largest value. The
 quantized GEMV kernels K3 and K4 form the same exact f32 products as their
 plain versions and differ only in the order of the f32 sums: atol 2e-5 (the
 JAX tests' tolerance) on outputs of about unit RMS. K5 multiplies on the
@@ -39,6 +44,7 @@ pytestmark = pytest.mark.cuda
 DECODE_TOL = 3e-2
 DECODE_RTOL = 2e-2
 PREFILL_TOL = 2e-2
+PREFILL_RTOL = 2e-2
 GEMV_TOL = 2e-5
 GROUPED_RTOL = 2e-2
 INT8_GEMV_RTOL = 1e-5
@@ -168,20 +174,73 @@ def test_paged_decode_wrapper_makes_no_host_sync(dev):
         _assert_decode_close(out, pd.paged_attention_decode_plain(*args, **kw))
 
 
-@pytest.mark.parametrize("T,S,kv_valid,q_offset", [(1024, 1024, 1024, 0), (1000, 1000, 1000, 0),
-                                                   (256, 768, 768, 512), (37, 37, 30, 0)])
-def test_flash_prefill_kernel_matches_plain(dev, T, S, kv_valid, q_offset):
-    rng = np.random.default_rng(T)
-    Hq, Hkv, hd = 32, 8, 128
-    q, k, v = _bf16(rng, (T, Hq, hd), dev), _bf16(rng, (S, Hkv, hd), dev), _bf16(
-        rng, (S, Hkv, hd), dev)
+# (T, S, kv_valid, q_offset, hd, Hq, Hkv): Qwen3-4B's head shape (hd 128,
+# G 4) whole-prompt, ragged and as chunks; hd 64; Qwen3.5's full attention
+# (hd 256, G 8); G 1 and G 64; one query row; a long prompt
+FLASH_CASES = [
+    pytest.param(1024, 1024, 1024, 0, 128, 32, 8, id="hd128-G4-T1024"),
+    pytest.param(1000, 1000, 1000, 0, 128, 32, 8, id="hd128-G4-T1000"),  # T % 32 != 0
+    pytest.param(256, 768, 768, 512, 128, 32, 8, id="hd128-G4-chunk"),
+    pytest.param(37, 37, 30, 0, 128, 32, 8, id="hd128-G4-kv30"),
+    # a chunk at q_offset 768 whose kv_valid ends inside it, keys past it
+    pytest.param(256, 1280, 1000, 768, 128, 32, 8, id="hd128-G4-chunk-kv-short"),
+    pytest.param(4096, 4096, 4096, 0, 128, 32, 8, id="hd128-G4-T4096"),
+    # a chunk at the end of a 32k context: one dropped key tile moves its rows
+    # by less than a fixed 2e-2
+    pytest.param(64, 32768, 32768, 32704, 128, 32, 8, id="hd128-G4-chunk-at-32k"),
+    pytest.param(1, 1, 1, 0, 128, 32, 8, id="hd128-G4-T1"),
+    pytest.param(1, 700, 700, 699, 128, 32, 8, id="hd128-G4-T1-at-699"),
+    pytest.param(1024, 1024, 1024, 0, 64, 16, 8, id="hd64-G2-T1024"),
+    pytest.param(1024, 1024, 1024, 0, 256, 16, 2, id="hd256-G8-T1024"),
+    pytest.param(300, 300, 300, 0, 256, 16, 2, id="hd256-G8-T300"),  # T % 16 != 0
+    pytest.param(200, 712, 650, 512, 256, 16, 2, id="hd256-G8-chunk"),
+    pytest.param(777, 777, 777, 0, 128, 8, 8, id="hd128-G1-T777"),
+    pytest.param(130, 130, 130, 0, 64, 64, 1, id="hd64-G64-T130"),
+]
+
+
+def _prefill_inputs(rng, dev, T, S, hd, Hq, Hkv):
+    return _bf16(rng, (T, Hq, hd), dev), _bf16(rng, (S, Hkv, hd), dev), _bf16(rng, (S, Hkv, hd), dev)
+
+
+def _assert_prefill_close(out, ref, live):
+    """Each query row (position, head) below ``live`` within min(PREFILL_TOL,
+    PREFILL_RTOL x its max |ref|)."""
+    d = (out[:live].float() - ref[:live].float()).abs().amax(dim=2)
+    lim = torch.clamp(PREFILL_RTOL * ref[:live].float().abs().amax(dim=2), max=PREFILL_TOL)
+    assert bool(torch.isfinite(out[:live]).all())
+    assert bool((d <= lim).all()), f"worst row at {(d / lim).max().item():.3f} of its limit"
+
+
+@pytest.mark.parametrize("T,S,kv_valid,q_offset,hd,Hq,Hkv", FLASH_CASES)
+def test_flash_prefill_kernel_matches_plain(dev, T, S, kv_valid, q_offset, hd, Hq, Hkv):
+    rng = np.random.default_rng(T + S + hd)
+    q, k, v = _prefill_inputs(rng, dev, T, S, hd, Hq, Hkv)
     before = fp.launches
     out = fp.flash_attention(q, k, v, kv_valid, q_offset, hd ** -0.5)
     torch.cuda.synchronize()
     assert fp.launches == before + 1
     ref = fp.att.causal_attention(q, k, v, kv_valid, q_offset, hd ** -0.5)
-    live = min(T, kv_valid - q_offset)
-    assert (out[:live].float() - ref[:live].float()).abs().max().item() < PREFILL_TOL
+    _assert_prefill_close(out, ref, min(T, kv_valid - q_offset))
+
+
+def test_flash_prefill_wrapper_makes_no_host_sync(dev):
+    """The wrapper plans from shapes alone and encodes its tensor maps on the
+    host: a host read of a device value would raise under this sync debug
+    mode. A whole prompt and a chunk, each still right."""
+    rng = np.random.default_rng(11)
+    calls = [(_prefill_inputs(rng, dev, 1024, 1024, 128, 32, 8), 1024, 0),
+             (_prefill_inputs(rng, dev, 256, 1280, 128, 32, 8), 1000, 768)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [fp.flash_attention(*qkv, kv_valid, q_offset, 128 ** -0.5)
+                for qkv, kv_valid, q_offset in calls]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for out, (qkv, kv_valid, q_offset) in zip(outs, calls):
+        ref = fp.att.causal_attention(*qkv, kv_valid, q_offset, 128 ** -0.5)
+        _assert_prefill_close(out, ref, min(out.shape[0], kv_valid - q_offset))
 
 
 def test_kernels_refuse_unsupported_shapes(dev):

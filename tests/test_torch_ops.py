@@ -162,6 +162,9 @@ FLASH_CASES = [
     (128, 128, 37, 0, 4, 4, 128, 64, 64),
     (512, 512, 512, 0, 2, 1, 64, 128, 256),
     (16, 64, 40, 24, 4, 2, 64, 16, 32),
+    # Qwen3.5's full-attention heads (hd 256, G 8), whole prompt and a chunk
+    (32, 32, 32, 0, 16, 2, 256, 16, 16),
+    (16, 48, 44, 24, 16, 2, 256, 16, 16),
 ]
 
 
