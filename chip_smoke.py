@@ -244,22 +244,26 @@ def decode_case(gen, cfg, seq_lens, form, layers=2):
     return args
 
 
-def decode_err(out, ref):
-    """K1's max |diff| to its plain version and the worst row's share of
-    its limit, min(DECODE_TOL, DECODE_RTOL x the row's max |ref|). A dead
-    row's limit is 0: it must be exactly 0."""
-    d = (out.float() - ref.float()).abs().amax(dim=(1, 2))
-    lim = torch.clamp(DECODE_RTOL * ref.float().abs().amax(dim=(1, 2)), max=DECODE_TOL)
+def row_err(out, ref, dims, tol, rtol):
+    """max |diff| of a kernel to its plain version and the worst row's share
+    of its limit, min(tol, rtol x the row's max |ref|), a row's values
+    spanning ``dims``. A row whose limit is 0 must be exactly 0."""
+    d = (out.float() - ref.float()).abs().amax(dim=dims)
+    lim = torch.clamp(rtol * ref.float().abs().amax(dim=dims), max=tol)
     share = torch.where(d > 0, d / lim, torch.zeros_like(d))  # d > 0 at lim 0: inf
     return d.max().item(), share.max().item()
 
 
+def decode_err(out, ref):
+    """K1's error: each row (request) against min(DECODE_TOL, DECODE_RTOL x
+    its max |ref|); a dead row must be exactly 0."""
+    return row_err(out, ref, (1, 2), DECODE_TOL, DECODE_RTOL)
+
+
 def prefill_err(out, ref):
-    """K2's max |diff| to its plain version and the worst query row's share
-    of its limit, min(PREFILL_TOL, PREFILL_RTOL x the row's max |ref|)."""
-    d = (out.float() - ref.float()).abs().amax(dim=2)
-    lim = torch.clamp(PREFILL_RTOL * ref.float().abs().amax(dim=2), max=PREFILL_TOL)
-    return d.max().item(), (d / lim).max().item()
+    """K2's error: each query row (position, head) against min(PREFILL_TOL,
+    PREFILL_RTOL x its max |ref|)."""
+    return row_err(out, ref, 2, PREFILL_TOL, PREFILL_RTOL)
 
 
 def check_kernels(cfg, pd, fp):

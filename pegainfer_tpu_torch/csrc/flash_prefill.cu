@@ -314,7 +314,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,  // [T, Hq, HD]
   const int kv_hi = min(kv_lim, q_hi + 1);
   const int n_tiles = kv_hi > 0 ? (kv_hi + BK - 1) / BK : 0;
   // tiles [0, n_full) lie wholly at or below the first row's position and
-  // below kv_lim: no mask (ops/cuda/flash_prefill.py::key_tiles)
+  // below kv_lim: no mask (tests/test_torch_flash_prefill_plan.py holds the rule)
   const int n_full = max(0, min((q_lo + 1) / BK, kv_lim / BK));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 

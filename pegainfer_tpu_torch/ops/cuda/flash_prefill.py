@@ -7,14 +7,13 @@ on the device of ``q``: a CPU tensor takes the plain version
 raises. ``launches`` counts kernel launches.
 
 The launch plan is a function of shapes alone (``plan``): a block holds
-ROWS query rows, all G heads of a kv group for ROWS / G positions, and walks
-the key tiles of ``key_tiles``; the kernel checks the plan against the tile
-sizes it was built with.
+ROWS query rows, all G heads of a kv group for ROWS / G positions; the kernel
+checks the plan against the tile sizes it was built with.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import torch
 
@@ -38,21 +37,6 @@ class Plan(NamedTuple):
 def plan(T: int, G: int, hd: int) -> Plan:
     bq = ROWS // G
     return Plan(bq, KEY_TILE[hd], -(-T // bq))
-
-
-def key_tiles(p: Plan, qt: int, T: int, S: int, kv_valid: int, q_offset: int) -> Tuple[int, int]:
-    """(tiles, unmasked) of query tile ``qt``: the block walks key tiles
-    [0, tiles), up to the causal diagonal of its last row below T and
-    min(kv_valid, S); the first ``unmasked`` lie wholly at or below its first
-    row's position and below min(kv_valid, S), so the kernel skips their
-    mask. The kernel computes the same."""
-    kv_lim = min(kv_valid, S)
-    q_lo = q_offset + qt * p.bq
-    q_hi = q_offset + min((qt + 1) * p.bq, T) - 1
-    kv_hi = min(kv_lim, q_hi + 1)
-    tiles = -(-kv_hi // p.bk) if kv_hi > 0 else 0
-    unmasked = max(0, min((q_lo + 1) // p.bk, kv_lim // p.bk))
-    return tiles, unmasked
 
 
 def flash_attention(q, k, v, kv_valid: int, q_offset: int, scale: float):

@@ -23,9 +23,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 COPY = ROOT / "build" / "k2_mutant"
-ANCHOR = "    reg_fence(s);\n"
-FAULT = ANCHOR + ("    if (j == 1 && qt == q_tiles - 1 && h == 0)\n"
-                  "      for (int i = 0; i < BK / 2; ++i) s[i] = -CUDART_INF_F;\n")
+ANCHOR = "// the causal and kv_valid mask, on the tiles that cross them\n"
+FAULT = ANCHOR + ("      if (j == 1 && qt == q_tiles - 1 && h == 0)\n"
+                  "        for (int i = 0; i < BK / 2; ++i) s[i] = -CUDART_INF_F;\n")
 
 # (name, T, S, kv_valid, q_offset, Hq, Hkv, hd): chip_smoke.py's K2 cases
 CASES = [

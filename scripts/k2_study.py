@@ -1,7 +1,9 @@
 """Where K2's time goes: variants of csrc/flash_prefill.cu, each with one
 part of the work taken out, timed side by side on one card.
 
-    python3 scripts/k2_study.py      (on a machine with an H100, about 60 s)
+    python3 scripts/k2_study.py           (on a machine with an H100, about 60 s)
+    python3 scripts/k2_study.py --trace   (one call's per-block phase stamps)
+    python3 scripts/k2_study.py --source FILE   (another version of the kernel, as is)
 
 Each variant is the kernel's source with one text substitution, built with
 the flags of ops/cuda/build.py into ``build/k2_study/`` (git-ignored) and
@@ -52,14 +54,53 @@ VARIANTS = {
 }
 SHAPES = ((1024, 32, 8, 128), (4096, 32, 8, 128))
 
+# the trace build: %globaltimer stamps by the first thread of each consumer
+# warpgroup (entry, Q in; per tile: K in, S done, softmax done and V in, P.V
+# done; loop end, epilogue), 64 slots a warpgroup, read back through
+# trace_read
+STAMP = "if (threadIdx.x % 128 == 0) g_trace[(blockIdx.x * 2 + threadIdx.x / 128) * 64 + (K)] = gtime();"
+TRACE = [
+    ("template <int HD>\n__global__ void __launch_bounds__",
+     "__device__ unsigned long long g_trace[4096 * 128];\n"
+     "__device__ __forceinline__ unsigned long long gtime() {\n"
+     "  unsigned long long t; asm volatile(\"mov.u64 %0, %globaltimer;\" : \"=l\"(t)); return t; }\n"
+     "template <int HD>\n__global__ void __launch_bounds__"),
+    ("const uint32_t raw = smem_u32(smem_raw);\n",
+     "const unsigned long long t_entry = gtime();\n  const uint32_t raw = smem_u32(smem_raw);\n"),
+    ("mbar_wait(q_full, 0);\n",
+     "mbar_wait(q_full, 0);\n  if (threadIdx.x % 128 == 0) {\n"
+     "    unsigned long long* tr = g_trace + (blockIdx.x * 2 + threadIdx.x / 128) * 64;\n"
+     "    unsigned sm; asm(\"mov.u32 %0, %smid;\" : \"=r\"(sm));\n"
+     "    tr[0] = t_entry; tr[62] = n_tiles; tr[63] = sm; }\n  " +
+     STAMP.replace("(K)", "1") + "\n"),
+    ("mbar_wait(k_full(st), par);\n",
+     "mbar_wait(k_full(st), par);\n    if (j < 8) " + STAMP.replace("(K)", "(2 + 4 * j)") + "\n"),
+    ("reg_fence(s);\n", "reg_fence(s);\n    if (j < 8) " + STAMP.replace("(K)", "(3 + 4 * j)") + "\n"),
+    ("mbar_wait(v_full(st), par);\n",
+     "mbar_wait(v_full(st), par);\n    if (j < 8) " + STAMP.replace("(K)", "(4 + 4 * j)") + "\n"),
+    ("    __syncwarp();\n    if (lane == 0) mbar_arrive(empty(st));\n",
+     "    if (j < 8) " + STAMP.replace("(K)", "(5 + 4 * j)") +
+     "\n    __syncwarp();\n    if (lane == 0) mbar_arrive(empty(st));\n"),
+    ("\n  // normalise, write bf16", "\n  " + STAMP.replace("(K)", "34") +
+     "\n  // normalise, write bf16"),
+    ('asm volatile("bar.sync 1, %0;\\n" ::"n"(kConsumers) : "memory");\n',
+     'asm volatile("bar.sync 1, %0;\\n" ::"n"(kConsumers) : "memory");\n  ' +
+     STAMP.replace("(K)", "35") + "\n"),
+]
+TRACE_READ = """
+extern "C" int trace_read(void* dst, unsigned long long bytes) {
+  return cudaMemcpyFromSymbol(dst, g_trace, bytes);
+}
+"""
 
-def build_variants():
-    src = (build.CSRC_DIR / "flash_prefill.cu").read_text()
+
+def build_variants(variants, src, tail=""):
+    src = src + tail
     OUT.mkdir(parents=True, exist_ok=True)
     for header in build.CSRC_DIR.glob("*.cuh"):
         (OUT / header.name).write_text(header.read_text())
     procs = {}
-    for i, (name, subs) in enumerate(VARIANTS.items()):
+    for i, (name, subs) in enumerate(variants.items()):
         text = src
         for old, new in subs:
             if text.count(old) != 1:
@@ -82,7 +123,7 @@ def build_variants():
         p, i_, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, p, p, p, i_, i_, i_, i_, i_, i_, i_, f, i_, i_, i_, p]
         fn.restype = i_
-        libs[name] = fn
+        libs[name] = lib
     return libs
 
 
@@ -91,7 +132,14 @@ def main() -> int:
         print("k2_study: no CUDA device", file=sys.stderr)
         return 2
     print(cs.card_line(), flush=True)
-    libs = build_variants()
+    args = sys.argv[1:]
+    src = build.CSRC_DIR / "flash_prefill.cu"
+    if "--source" in args:  # another version of the kernel: base only
+        src = Path(args[args.index("--source") + 1])
+    src = src.read_text()
+    if "--trace" in args:
+        return trace(build_variants({"trace": TRACE}, src, TRACE_READ)["trace"])
+    libs = build_variants({"base": []} if "--source" in args else VARIANTS, src)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     for T, Hq, Hkv, hd in SHAPES:
         q = torch.randn((T, Hq, hd), generator=gen, device="cuda").to(torch.bfloat16)
@@ -104,13 +152,67 @@ def main() -> int:
                                2 * 2 * Hq * hd * (T * (T + 1) // 2))
         print(f"T = S = {T}, Hq {Hq}, Hkv {Hkv}, hd {hd} (bound {bound_ms * 1e3:.2f} us):",
               flush=True)
-        for name, fn in libs.items():
-            def call(i, fn=fn):
+        for name, lib in libs.items():
+            def call(i, fn=lib.flash_prefill_bf16):
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), T, T, Hkv,
                          Hq // Hkv, hd, T, 0, hd ** -0.5, plan.bq, plan.bk, plan.q_tiles, stream)
                 build.check_launch(name, err)
             ms = cs.time_ms(call, 50)
             print(f"  {name:>12}: {ms * 1e3:9.2f} us", flush=True)
+    return 0
+
+
+def trace(lib, T=1024, Hq=32, Hkv=8, hd=128):
+    """One traced call at the main path's shape: where a block's time goes,
+    mean over blocks and tiles, in us."""
+    import numpy as np
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    q = torch.randn((T, Hq, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((T, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((T, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    out = torch.empty_like(q)
+    plan = fp.plan(T, Hq // Hkv, hd)
+    blocks = plan.q_tiles * Hkv
+    for _ in range(3):  # the last call's stamps are read
+        build.check_launch("trace", lib.flash_prefill_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), T, T, Hkv, Hq // Hkv,
+            hd, T, 0, hd ** -0.5, plan.bq, plan.bk, plan.q_tiles,
+            torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    buf = np.zeros(blocks * 2 * 64, np.uint64)
+    lib.trace_read.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong]
+    if lib.trace_read(buf.ctypes.data, buf.nbytes):
+        raise SystemExit("trace_read failed")
+    tr = buf.reshape(blocks, 2, 64).astype(np.int64)
+    t0 = tr[:, :, 0].min()
+    span = (tr[:, :, 35].max() - t0) / 1e3
+    print(f"span {span:.2f} us over {blocks} blocks on {len(set(tr[:, 0, 63]))} SMs", flush=True)
+    parts = {"Q in": [], "K wait": [], "turn + S": [], "softmax + V wait": [],
+             "turn + P.V": [], "epilogue": []}
+    for b in range(blocks):
+        for w in range(2):
+            r = tr[b, w]
+            n = int(r[62])
+            parts["Q in"].append(r[1] - r[0])
+            prev = r[1]
+            for j in range(min(n, 8)):
+                kin, sd, vin, pvd = r[2 + 4 * j: 6 + 4 * j]
+                parts["K wait"].append(kin - prev)
+                parts["turn + S"].append(sd - kin)
+                parts["softmax + V wait"].append(vin - sd)
+                parts["turn + P.V"].append(pvd - vin)
+                prev = pvd
+            parts["epilogue"].append(r[35] - r[34])
+    for name, xs in parts.items():
+        xs = np.asarray(xs) / 1e3
+        print(f"  {name:>18}: mean {xs.mean():.3f} us, p90 {np.percentile(xs, 90):.3f}, "
+              f"n {len(xs)}", flush=True)
+    # per SM: blocks, busy time (entry to epilogue end) and the gaps between blocks
+    for sm in sorted(set(tr[:, 0, 63]))[:4]:
+        rows = sorted((tr[b, 0, 0] - t0, tr[b, :, 35].max() - t0, int(tr[b, 0, 62]))
+                      for b in range(blocks) if tr[b, 0, 63] == sm)
+        print(f"  SM {sm}: " + ", ".join(f"[{a / 1e3:.2f}-{e / 1e3:.2f} us, {n} tiles]"
+                                         for a, e, n in rows), flush=True)
     return 0
 
 

@@ -1,16 +1,31 @@
-"""K2's launch plan (ops/cuda/flash_prefill.py::plan, key_tiles) on the CPU.
+"""K2's launch plan (ops/cuda/flash_prefill.py::plan) and tile rule on the CPU.
 
 The kernel (csrc/flash_prefill.cu) takes its tile sizes and grid from
-``plan`` and walks the key tiles of ``key_tiles``, skipping the mask on the
-first ``unmasked`` of them. These tests hold that rule against the causal
-and kv_valid mask element by element, so a tile the kernel skips or leaves
-unmasked never holds a (row, key) pair whose validity it would get wrong.
+``plan`` and walks the key tiles that ``key_tiles`` below counts, skipping
+the mask on the first ``unmasked`` of them (its n_tiles and n_full). These
+tests hold that rule against the causal and kv_valid mask element by
+element, so a tile the kernel skips or leaves unmasked never holds a (row,
+key) pair whose validity it would get wrong.
 """
 
 import numpy as np
 import pytest
 
 from pegainfer_tpu_torch.ops.cuda import flash_prefill as fp
+
+
+def key_tiles(p, qt, T, S, kv_valid, q_offset):
+    """(tiles, unmasked) of query tile ``qt``, as the kernel computes them:
+    key tiles [0, tiles) reach the causal diagonal of the tile's last row
+    below T and min(kv_valid, S); the first ``unmasked`` lie wholly at or
+    below its first row's position and below min(kv_valid, S)."""
+    kv_lim = min(kv_valid, S)
+    q_lo = q_offset + qt * p.bq
+    q_hi = q_offset + min((qt + 1) * p.bq, T) - 1
+    kv_hi = min(kv_lim, q_hi + 1)
+    tiles = -(-kv_hi // p.bk) if kv_hi > 0 else 0
+    unmasked = max(0, min((q_lo + 1) // p.bk, kv_lim // p.bk))
+    return tiles, unmasked
 
 
 @pytest.mark.parametrize("G", [1, 2, 4, 8, 16, 32, 64])
@@ -56,7 +71,7 @@ def test_key_tiles_cover_every_valid_key_and_mask_every_crossing_tile(
     for qt in range(p.q_tiles):
         rows = np.arange(qt * p.bq, min((qt + 1) * p.bq, T))
         valid = _valid(T, S, kv_valid, q_offset, rows, keys)
-        tiles, unmasked = fp.key_tiles(p, qt, T, S, kv_valid, q_offset)
+        tiles, unmasked = key_tiles(p, qt, T, S, kv_valid, q_offset)
         # no valid key lies past the tiles walked, and the last one walked
         # holds one
         assert not valid[:, tiles * p.bk:].any()
@@ -76,7 +91,7 @@ def test_grid_runs_the_longest_query_tiles_first(T, G, hd):
     the key tiles a block walks never grow, so the last wave holds the
     shortest causal rows."""
     p = fp.plan(T, G, hd)
-    order = [fp.key_tiles(p, p.q_tiles - 1 - b, T, T, T, 0)[0] for b in range(p.q_tiles)]
+    order = [key_tiles(p, p.q_tiles - 1 - b, T, T, T, 0)[0] for b in range(p.q_tiles)]
     assert order == sorted(order, reverse=True)
     assert order[0] == -(-T // p.bk) and order[-1] == 1
 
@@ -87,6 +102,6 @@ def test_main_path_work():
     key tiles of 128 keys, 256 of them masked (one a block)."""
     p = fp.plan(1024, 4, 128)
     assert (p.bq, p.bk, p.q_tiles) == (32, 128, 32)
-    per_head = [fp.key_tiles(p, qt, 1024, 1024, 1024, 0) for qt in range(p.q_tiles)]
+    per_head = [key_tiles(p, qt, 1024, 1024, 1024, 0) for qt in range(p.q_tiles)]
     assert 8 * sum(t for t, _ in per_head) == 1152
     assert all(t - u == 1 for t, u in per_head)
