@@ -8,7 +8,7 @@ part of the work taken out, timed side by side on one card.
 Each variant is the kernel's source with one text substitution, built with
 the flags of ops/cuda/build.py into ``build/k2_study/`` (git-ignored) and
 called through its C interface at Qwen3-4B's heads (Hq 32, Hkv 8, hd 128),
-T = S = 1024 and 4096; the removed parts never run (they hide behind a test
+T = S = 1024 and 4096, and at Qwen3.5's (Hq 16, Hkv 2, hd 256); the removed parts never run (they hide behind a test
 of q_offset against a value it never takes), and outputs of the variants
 other than ``base`` are wrong by design. Times are CUDA-event means
 (chip_smoke.time_ms).
@@ -52,7 +52,7 @@ VARIANTS = {
     "3 stages": [("static constexpr int STAGES = 2;",
                   "static constexpr int STAGES = HD == 256 ? 2 : 3;")],
 }
-SHAPES = ((1024, 32, 8, 128), (4096, 32, 8, 128))
+SHAPES = ((1024, 32, 8, 128), (4096, 32, 8, 128), (1024, 16, 2, 256))
 
 # the trace build: %globaltimer stamps by the first thread of each consumer
 # warpgroup (entry, Q in; per tile: K in, S done, softmax done and V in, P.V
