@@ -581,11 +581,16 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
         xs = F.pad(x.to(torch.bfloat16)[src_t], (0, 0, 0, Mp - M))
         e_pad = torch.cat([e_sorted, e_sorted[-1:].expand(Mp - M)])
         seg = k5.tile_segments(e_pad, tm, E)
-        if fmt == "int8":
-            grouped8 = k7.moe_int8_grouped_plain if plain else k7.moe_int8_grouped
+        if fmt == "int8" and plain:
+            def gemm(rows, w):
+                return (k7.moe_int8_grouped_plain(rows, w["q"], *seg, tm=tm)
+                        * _int8_srows(w, e_pad))
+        elif fmt == "int8":
+            work = k7.plan(*seg, tm, E)  # K7's work items, shared by w1, w3 and w2
 
             def gemm(rows, w):
-                return grouped8(rows, w["q"], *seg, tm=tm) * _int8_srows(w, e_pad)
+                return (k7.moe_int8_grouped(rows, w["q"], *seg, tm=tm, plan=work)
+                        * _int8_srows(w, e_pad))
         else:
             grouped = k5.moe_fp4_grouped_plain if plain else k5.moe_fp4_grouped
 

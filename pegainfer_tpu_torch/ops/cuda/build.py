@@ -124,8 +124,8 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
                    p]  # stream
     fn.restype = i
     fn = libs["int8_grouped"].int8_grouped
-    fn.argtypes = [p, p, p, p, p, p, p,  # x, q, seg_expert/lo/hi, n_seg, y
-                   i, i, i, i, i,  # Mp, E, OUT, IN, tm
+    fn.argtypes = [p, p, p, p, p, p, p,  # x, q, plan: row_e, owner, items, n_items; y
+                   i, i, i, i, i,  # Mp, E, OUT, IN, n_slots
                    p]  # stream
     fn.restype = i
     fn = libs["int8_chain"].int8_chain
