@@ -35,7 +35,8 @@ weights made on the card from the seed:
 10. hold K3, K4 and K5 against their plain versions on the model's weights
     at the path's shapes and at ragged cases (repeated experts; M = 1, 2,
     8 and wo_b's IN of 8192; skewed routing with empty experts, segments
-    across tiles, a tile of 56 rows);
+    across tiles, a tile of 56 rows; K5 also with w1's scales given random
+    bf16 mantissas), K5 each row within GROUPED_ROW_RTOL of its max |ref|;
 11. serve through ``dsv4_engine.start_engine_from_params`` (2 slots,
     max_model_len 2048): a 16/4 warm-up, the greedy 1024/64 request, then
     300/32, 500/32 and 200/16 at once;
@@ -49,7 +50,8 @@ weights made on the card from the seed:
 13. timings: TTFT and TPOT of the 1024/64 request, a torch.profiler step
     profile of one prefill and one B = 1 decode step, and K3-K5 against
     their bounds, plain versions and a library call each (bmm, matmul,
-    grouped_mm on bf16 weights).
+    grouped_mm on bf16 weights); K5 at w1, at w2 and at skewed routing,
+    each beside one grouped_mm, and its plan's time.
 
 On the same weights, the opt-in fp4 chain and then the int8-experts mode:
 
@@ -65,7 +67,7 @@ On the same weights, the opt-in fp4 chain and then the int8-experts mode:
     ``quantize_int8_stack`` (none expected);
 16. K6, K7 and K8 against their plain versions on the model's int8 weights
     (K6 at M = 6, 12, 18 with repeated experts; K7 at phase 10's skews and
-    tiles, each row within K7_ROW_RTOL of its max |ref|; K8 at M = 1, 6,
+    tiles, each row within GROUPED_ROW_RTOL of its max |ref|; K8 at M = 1, 6,
     12, 16);
 17. serve phase 11's traffic in int8 (K7 prefill, K8 decode): Finished
     counts, the slot wait, B = 2, launches (3L x prefills K7, L x decode
@@ -133,9 +135,10 @@ DSV4_WARMUP = (16, 4)
 DSV4_PROMPT, DSV4_OUT = 1024, 64  # scripts/dsv4_flagship_engine.py's defaults
 DSV4_CONCURRENT = ((300, 32), (500, 32), (200, 16))  # the third waits for a slot
 # K3 / K4 form the same exact f32 products as their plain versions, in
-# another summation order (the JAX kernel tests' atol, on unit-RMS outputs);
-# K5 multiplies on the tensor cores (the JAX test's 2e-2 of max |y|)
+# another summation order (the JAX kernel tests' atol, on unit-RMS outputs)
 QUANT_GEMV_TOL = 2e-5
+# the library yardsticks of K3, K5 and K7 round their products or outputs
+# to bf16 (the JAX grouped test's 2e-2 of max |y|)
 GROUPED_RTOL = 2e-2
 # the kernel run is routed as the plain run (RoutingReplay); through 8
 # random layers bf16 roundings of the activations (in both runs) turn the
@@ -148,12 +151,14 @@ DSV4_LOGITS_RTOL = 5e-2
 # sum-order difference moves an element by one bf16 ulp now and then
 INT8_GEMV_RTOL = 1e-5
 CHAIN_RTOL = 2e-3
-# K7 forms the same exact f32 products as its plain version on the tensor
-# cores, only summed in another order: each row within 1e-4 of the row's
-# max |ref| (rows of about 1e4); a row of zeros must be exactly 0. 2e-2 of
-# the global max passes a kernel that drops one product of one row
-# (scripts/k7_mutant_check.py)
-K7_ROW_RTOL = 1e-4
+# the grouped GEMMs K5 and K7 form the same exact f32 products as their
+# plain versions on the tensor cores (K5 rounds each weight to bf16 once, as
+# its plain version does), only summed in another order: each row within
+# 1e-4 of the row's max |ref| (rows of about 1e4 for K7's unscaled codes,
+# about 1 for K5); a row of zeros must be exactly 0. 2e-2 of the global max
+# passes a kernel that drops one product of one row
+# (scripts/k7_mutant_check.py [--kernel k5])
+GROUPED_ROW_RTOL = 1e-4
 DSV4_CHAIN_PAIR = ((300, 32), (500, 32))  # the chain-switch runs' traffic
 
 
@@ -274,9 +279,10 @@ def prefill_err(out, ref):
     return row_err(out, ref, 2, PREFILL_TOL, PREFILL_RTOL)
 
 
-def k7_err(out, ref):
-    """K7's error: each row against K7_ROW_RTOL x its max |ref| (no cap)."""
-    return row_err(out, ref, 1, float("inf"), K7_ROW_RTOL)
+def grouped_err(out, ref):
+    """K5's and K7's error: each row against GROUPED_ROW_RTOL x its max
+    |ref| (no cap)."""
+    return row_err(out, ref, 1, float("inf"), GROUPED_ROW_RTOL)
 
 
 def check_kernels(cfg, pd, fp):
@@ -1307,12 +1313,12 @@ def check_int8_kernels(cfg, params, k6, k7, k8):
         y = k7.moe_int8_grouped(x, w["q"], *seg, tm=tm)
         torch.cuda.synchronize()
         ref = k7.moe_int8_grouped_plain(x, w["q"], *seg, tm=tm)
-        err, share = k7_err(y, ref)
+        err, share = grouped_err(y, ref)
         label = (f"{key} M={M} tm={tm} {'skewed, empty experts' if skew else 'spread'}, "
                  f"{int((seg[3]).max())} segments at most in a tile (unscaled)")
         log(f"  moe_int8_grouped {label}: max_abs_err {err:.3e}, global share "
             f"{err / ref.abs().max().item():.3e}, worst row at {share:.3f} of "
-            f"{K7_ROW_RTOL:g} x its max |ref| {'ok' if share <= 1.0 else 'FAIL'}")
+            f"{GROUPED_ROW_RTOL:g} x its max |ref| {'ok' if share <= 1.0 else 'FAIL'}")
         if not share <= 1.0:
             raise SystemExit("moe_int8_grouped disagrees with its plain version")
         errs["moe_int8_grouped"] = max(errs.get("moe_int8_grouped", 0.0), err)
@@ -1336,7 +1342,7 @@ def time_int8_kernels(cfg, params, k6, k7, k8, errs, launches):
     bf16 peak for the operations; the plain versions; K6's library
     yardsticks: ``torch.bmm`` on the 12 experts' weights gathered and
     converted to bf16 outside the timed call, and at one row ``torch.matmul``
-    on the expert's bf16 weight; K7 (``time_k7``) also at w2 and at skewed
+    on the expert's bf16 weight; K7 (``time_grouped``) also at w2 and at skewed
     routing, each beside one bf16 grouped GEMM (``grouped_mm_library``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     layers, E, D, limit = params["layers"], cfg.n_routed_experts, cfg.dim, cfg.swiglu_limit
@@ -1374,17 +1380,17 @@ def time_int8_kernels(cfg, params, k6, k7, k8, errs, launches):
     # built once outside the timed calls, as models/dsv4.py shares it
     M7 = 6 * DSV4_PROMPT
     x7, tm, e7, seg = grouped_inputs(gen, M7, IN, E, skew=False)
-    k7_ms, k7_bound, k7_by, k7_lib_ms, k7_lib_call, k7_plan_ms = time_k7(
+    k7_ms, k7_bound, k7_by, k7_lib_ms, k7_lib_call, k7_plan_ms = time_grouped(
         k7, "w1", x7, tm, e7, seg, w1, E)
     k7_plain_ms = time_synced_ms(lambda i: k7.moe_int8_grouped_plain(
         x7, w1[i % L]["q"], *seg, tm=tm), 3)
     w2 = [lw["experts_w2"] for lw in layers]
     x7b = torch.randn((x7.shape[0], w2[0]["q"].shape[2]), generator=gen,
                       device="cuda").to(torch.bfloat16)
-    k7_w2 = time_k7(k7, "w2", x7b, tm, e7, seg, w2, E)
+    k7_w2 = time_grouped(k7, "w2", x7b, tm, e7, seg, w2, E)
     del x7b
     x7s, tms, e7s, segs = grouped_inputs(gen, M7, IN, E, skew=True)
-    k7_skew = time_k7(k7, "w1, skewed routing", x7s, tms, e7s, segs, w1, E)
+    k7_skew = time_grouped(k7, "w1, skewed routing", x7s, tms, e7s, segs, w1, E)
     del x7s, x7
 
     # K8: B = 1, 6 distinct rows
@@ -1429,33 +1435,42 @@ def time_int8_kernels(cfg, params, k6, k7, k8, errs, launches):
     return records, extra
 
 
-def time_k7(k7, label, x, tm, e_sorted, seg, ws, E):
-    """K7 on the rows ``x`` (sorted by ``e_sorted``, segments ``seg``), each
-    call on the next layer's stack of ``ws``, with a plan built once; its
-    bound from these inputs; the plan's own time; one bf16 grouped GEMM on
-    the first layer's codes as its library yardstick. Returns (ms, bound_ms,
-    bound_by, library_ms, library_call, plan_ms)."""
-    L = len(ws)
-    M = x.shape[0]
-    _, OUT, IN = ws[0]["q"].shape
-    work = k7.plan(*seg, tm, E)
-    saved = k7.launches
-    ms = time_ms(lambda i: k7.moe_int8_grouped(x, ws[i % L]["q"], *seg, tm=tm, plan=work), 24)
-    plan_ms = time_ms(lambda i: k7.plan(*seg, tm, E), 10)  # about 60 launches a plan
+def time_grouped(mod, label, x, tm, e_sorted, seg, ws, E):
+    """K5 (``mod`` the fp4_grouped module) or K7 (int8_grouped) on the rows
+    ``x`` (sorted by ``e_sorted``, segments ``seg``), each call on the next
+    layer's stack of ``ws``, with a plan built once; its bound from these
+    inputs (each hit expert's codes, and K5's scales, read once); the plan's
+    own time; one bf16 grouped GEMM on the first layer's stack as its
+    library yardstick (K5: dequantized with its scales; K7: its codes,
+    unscaled as K7's output is). Returns (ms, bound_ms, bound_by,
+    library_ms, library_call, plan_ms)."""
+    fp4 = hasattr(mod, "moe_fp4_grouped")
+    name = "K5" if fp4 else "K7"
+    L, (M, IN) = len(ws), x.shape
+    OUT = ws[0]["q"].shape[1]
+
+    def call(w, work):
+        if fp4:
+            return mod.moe_fp4_grouped(x, w["q"], w["s"], *seg, tm=tm, plan=work)
+        return mod.moe_int8_grouped(x, w["q"], *seg, tm=tm, plan=work)
+
+    work = mod.plan(*seg, tm, E)
+    saved = mod.launches
+    ms = time_ms(lambda i: call(ws[i % L], work), 24)
+    plan_ms = time_ms(lambda i: mod.plan(*seg, tm, E), 10)  # about 60 launches a plan
     hit = int(torch.unique(e_sorted).numel())
-    b7 = hit * OUT * IN + x.numel() * 2 + M * OUT * 4
-    b_ms, by = bound(b7, 2 * M * OUT * IN)
-    y = k7.moe_int8_grouped(x, ws[0]["q"], *seg, tm=tm, plan=work)
-    k7.launches = saved
-    log(f"  K7 at {label}: {M} rows over {hit} experts, {int(work.n_items[0])} row chunks: "
-        f"{ms * 1e3:.2f} us, {hit * OUT * IN / ms / 1e9:.3f} TB/s of codes, bound "
+    w_bytes = ws[0]["q"][0].nbytes + (ws[0]["s"][0].nbytes if fp4 else 0)  # one expert
+    b_ms, by = bound(hit * w_bytes + x.numel() * 2 + M * OUT * 4, 2 * M * OUT * IN)
+    y = call(ws[0], work)
+    mod.launches = saved
+    log(f"  {name} at {label}: {M} rows over {hit} experts, {int(work.n_items[0])} row "
+        f"chunks: {ms * 1e3:.2f} us, {hit * w_bytes / ms / 1e9:.3f} TB/s of weights, bound "
         f"{b_ms * 1e3:.2f} us ({by}; the kernel at {b_ms / ms:.1%} of the bound's rate); its "
         f"plan {plan_ms * 1e3:.2f} us")
-    # the codes converted to bf16 [E, IN, OUT] (column-major per expert):
-    # the same unscaled function as K7
-    lib_ms, lib_call = grouped_mm_library(
-        "K7", x, e_sorted, ws[0]["q"].to(torch.bfloat16).transpose(1, 2), y, label)
-    del y
+    # the stack in bf16 [E, IN, OUT] (column-major per expert; 4.3 GB at w1)
+    wb = dequant_stack_bf16(ws[0]) if fp4 else ws[0]["q"].to(torch.bfloat16)
+    lib_ms, lib_call = grouped_mm_library(name, x, e_sorted, wb.transpose(1, 2), y, label)
+    del y, wb
     torch.cuda.empty_cache()
     return ms, b_ms, by, lib_ms, lib_call, plan_ms
 
@@ -1638,18 +1653,31 @@ def check_quant_kernels(cfg, params, k3, k4, k5):
         max_err_verdict(errs, "moe_fp4_gemv", f"{key} M={M}{' repeated experts' if repeat else ''}",
                 err, QUANT_GEMV_TOL)
 
-    for key, M, skew in (("experts_w1", 6 * DSV4_PROMPT, False),
-                         ("experts_w2", 6 * DSV4_PROMPT, True),
-                         ("experts_w3", 54, True), ("experts_w1", 300, False)):
-        w = lw[key]
+    # the model's scales are powers of two; one case gives w1's scales random
+    # bf16 mantissas, so that the decode rounds each weight
+    w1 = lw["experts_w1"]
+    mant = 1 + torch.rand(w1["s"].shape, generator=gen, device="cuda")
+    w1_arb = {"q": w1["q"], "s": (w1["s"].float() * mant).to(torch.bfloat16)}
+    del mant
+    for key, w, M, skew in (("experts_w1", w1, 6 * DSV4_PROMPT, False),
+                            ("experts_w2", lw["experts_w2"], 6 * DSV4_PROMPT, True),
+                            ("experts_w3", lw["experts_w3"], 54, True),
+                            ("experts_w1", w1, 300, False),
+                            ("experts_w1 codes, bf16 scales", w1_arb, 6 * DSV4_PROMPT, False)):
         x, tm, _, seg = grouped_inputs(gen, M, 2 * w["q"].shape[2], E, skew)
         y = k5.moe_fp4_grouped(x, w["q"], w["s"], *seg, tm=tm)
         torch.cuda.synchronize()
         ref = k5.moe_fp4_grouped_plain(x, w["q"], w["s"], *seg, tm=tm)
-        err = (y - ref).abs().max().item()
+        err, share = grouped_err(y, ref)
         label = (f"{key} M={M} tm={tm} {'skewed, empty experts' if skew else 'spread'}, "
                  f"{int((seg[3]).max())} segments at most in a tile")
-        max_err_verdict(errs, "moe_fp4_grouped", label, err, GROUPED_RTOL * ref.abs().max().item())
+        log(f"  moe_fp4_grouped {label}: max_abs_err {err:.3e}, global share "
+            f"{err / ref.abs().max().item():.3e}, worst row at {share:.3f} of "
+            f"{GROUPED_ROW_RTOL:g} x its max |ref| {'ok' if share <= 1.0 else 'FAIL'}")
+        if not share <= 1.0:
+            raise SystemExit("moe_fp4_grouped disagrees with its plain version")
+        errs["moe_fp4_grouped"] = max(errs["moe_fp4_grouped"], err)
+    del w1_arb
     return errs
 
 
@@ -1709,8 +1737,9 @@ def time_quant_kernels(cfg, params, k3, k4, k5, errs, launches):
     layers of wq_b are 268 MB, beyond the 50 MB L2); bounds from these
     inputs, at the bf16 peak for the operations (the products are of bf16
     values); the plain versions; the library yardsticks: K4 ``torch.matmul``
-    on the bf16 weight, K3 ``torch.bmm`` (``bmm_library``), K5 one bf16
-    grouped GEMM (``grouped_mm_library``)."""
+    on the bf16 weight, K3 ``torch.bmm`` (``bmm_library``), K5
+    (``time_grouped``, also at w2 and at skewed routing) one bf16 grouped
+    GEMM (``grouped_mm_library``)."""
     from pegainfer_tpu_torch.ops import quant
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -1748,25 +1777,23 @@ def time_quant_kernels(cfg, params, k3, k4, k5, errs, launches):
     k3_bound, k3_by = bound(b3, 2 * 6 * O3 * 2 * IN2)
     k3_lib_ms, k3_lib_call = bmm_library(k3, xs, w1, idxs)
 
-    # K5: experts_w1 over a 1,024-token prefill (6,144 routed rows)
+    # K5 over a 1,024-token prefill (6,144 routed rows): w1 with spread
+    # routing (the record), then w2 and w1 with skewed routing; the plan is
+    # built once outside the timed calls, as models/dsv4.py shares it
     M = 6 * DSV4_PROMPT
     x5, tm, e5, seg = grouped_inputs(gen, M, 2 * IN2, E, skew=False)
-    saved = k5.launches
-    k5_ms = time_ms(lambda i: k5.moe_fp4_grouped(x5, w1[i % L]["q"], w1[i % L]["s"], *seg,
-                                                 tm=tm), 24)
+    k5_ms, k5_bound, k5_by, k5_lib_ms, k5_lib_call, k5_plan_ms = time_grouped(
+        k5, "w1", x5, tm, e5, seg, w1, E)
     k5_plain_ms = time_synced_ms(lambda i: k5.moe_fp4_grouped_plain(
         x5, w1[i % L]["q"], w1[i % L]["s"], *seg, tm=tm), 3)
-    hit = int(torch.unique(e5).numel())
-    b5 = hit * (O3 * IN2 + O3 * S3 * 2) + x5.numel() * 2 + x5.shape[0] * O3 * 4
-    k5_bound, k5_by = bound(b5, 2 * M * O3 * 2 * IN2)
-    log(f"  K5 timing input: {M} rows over {hit} experts, {x5.shape[0] // tm} tiles of {tm}")
-    y5 = k5.moe_fp4_grouped(x5, w1[0]["q"], w1[0]["s"], *seg, tm=tm)[:M]
-    k5.launches = saved
-    # w1 dequantized to bf16 with its block scales, [E, IN, OUT] (4.3 GB)
-    wb = dequant_stack_bf16(w1[0])
-    k5_lib_ms, k5_lib_call = grouped_mm_library("K5", x5[:M], e5[:M], wb.transpose(1, 2), y5)
-    del wb, y5
-    torch.cuda.empty_cache()
+    w2 = [lw["experts_w2"] for lw in layers]
+    x5b = torch.randn((x5.shape[0], 2 * w2[0]["q"].shape[2]), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    k5_more = {"w2": time_grouped(k5, "w2", x5b, tm, e5, seg, w2, E)}
+    del x5b
+    x5s, tms, e5s, segs = grouped_inputs(gen, M, 2 * IN2, E, skew=True)
+    k5_more["skewed"] = time_grouped(k5, "w1, skewed routing", x5s, tms, e5s, segs, w1, E)
+    del x5s, x5
 
     fp4_src = "pegainfer_tpu/ops/pallas/fp4_gemm.py"
     return [
@@ -1784,7 +1811,10 @@ def time_quant_kernels(cfg, params, k3, k4, k5, errs, launches):
          "source": "pegainfer_tpu_torch/csrc/fp4_grouped.cu", "replaces": f"{fp4_src}:283",
          "launches": launches["moe_fp4_grouped"], "max_abs_err": errs["moe_fp4_grouped"],
          "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound, "bound_by": k5_by,
-         "library_ms": k5_lib_ms, "library_call": k5_lib_call},
+         "library_ms": k5_lib_ms, "library_call": k5_lib_call, "plan_ms": k5_plan_ms,
+         **{name: {"ms": ms, "bound_ms": b, "bound_by": by, "library_ms": lib,
+                   "library_call": call, "plan_ms": plan}
+            for name, (ms, b, by, lib, call, plan) in k5_more.items()}},
     ]
 
 

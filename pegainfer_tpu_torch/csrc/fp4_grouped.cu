@@ -2,171 +2,322 @@
 //
 // Replaces the TPU kernel pegainfer_tpu/ops/pallas/fp4_gemm.py, function
 // moe_fp4_grouped (body _gemm_kernel; segments from tile_segments). Same
-// function and numerics: x_sorted [Mp, IN] bf16, rows sorted by expert and
-// cut into tiles of tm rows; each tile lists its expert segments
-// (seg_expert, seg_lo, seg_hi: rows [lo, hi) of the tile use that expert,
-// n_seg of them). y[r] = x_sorted[r] · dequant(q[e(r)], s[e(r)])ᵀ as f32
-// [Mp, OUT]; each weight is bf16(f32(code) · scale), products are bf16 ×
-// bf16 with f32 accumulation (tensor cores), rows of no segment give 0.
-// Exact at any routing skew: segments come from the true group sizes, with
-// no capacity factor. The TPU kernel's manual double-buffered DMA, SWAR
-// decode and one-hot scale expansion are not carried over.
+// function and numerics: x_sorted [Mp, IN] bf16, rows sorted by expert;
+// y[r] = x_sorted[r] · dequant(q[e(r)], s[e(r)])ᵀ as f32 [Mp, OUT], with q
+// [E, OUT, IN/2] packed E2M1 codes (the even k in the low nibble) and s
+// [E, OUT, IN/g] bf16 group scales. Each weight is bf16(f32(code) · scale),
+// products are bf16 × bf16 on the tensor cores with f32 accumulation, rows
+// of no segment give 0. Exact at any routing skew: the work comes from the
+// true group sizes, with no capacity factor.
 //
 // What bounds it: bytes. At 1,024 prompt tokens (6,144 routed rows over 256
 // experts) every expert is hit, so one call streams the whole packed stack:
 // 1.21 GB with scales for w1 (OUT 2048, IN 4096), 361 µs at 3.35 TB/s,
-// against 103 GFLOP (104 µs at the bf16 tensor-core peak).
+// against 103 GFLOP (104 µs at the bf16 tensor-core peak). So each expert's
+// codes are read from device memory once, and the decode has to keep up.
+// On an H100 it does not quite: at w1 the ring's copies alone take about
+// 56% of the kernel's time, and the scale loads (about 22%) and the decode
+// (about 10%) do not hide behind them (scripts/k5_tile_study.py).
 //
-// Design: one block per (row tile, 64-wide output tile), 8 warps; warp w
-// owns rows [16w, 16w + 16) of the tile and four 16 × 16 f32 accumulator
-// fragments. For each segment of the tile and each 64-wide step of IN, the
-// block decodes the expert's 64 × 64 weight tile to bf16 in shared memory
-// (each thread 8 packed bytes = 16 values under one scale, nibbles through a
-// 16-entry shared table) and loads the x rows of the segment, zero outside
-// [lo, hi); only the warps whose 16-row strip meets the segment run the
-// wmma products (bf16 16 × 16 × 16). Segments cover disjoint rows, so their
-// masked products add into the same accumulators. The output goes through a
-// small shared staging tile, so a tile whose tm is not a multiple of 16
-// never writes the next tile's rows. Simple and single-buffered: wgmma, TMA
-// and a pipelined ring are work for a later change.
+// Design: int8_grouped.cu's (K7), with the format's three differences. The
+// work comes from ops/cuda/fp4_grouped.py::plan, made on the device from the
+// segments: items of (expert, a chunk of at most kBN of its rows), and here
+// each item times kBM-wide tiles of output channels, the output tile
+// fastest, so the blocks of one expert run together and its x rows stay in
+// L2. A block streams its expert's packed [kBM, IN/2] codes once and the
+// chunk's x rows, kBK columns a stage, through a ring of kStages stages
+// filled by cp.async (16 bytes a thread; each x row is masked on its own:
+// rows of another expert or of no segment are filled with zeros by a source
+// size of 0). The products are mma.sync m16n8k16 bf16 with the operands
+// swapped: the decoded weights are A (M = output channels), the rows are B
+// (N), so an expert's 24 rows fill 3 n8 columns and empty columns are
+// skipped. Each of the 4 warps owns 32 output channels. A thread loads 16
+// consecutive codes of a channel (one 8-byte load, inside one scale group
+// since g % 16 == 0); byte 2s holds the codes of its k16 step s's k-slots
+// {2t, 2t+1}, byte 2s + 1 those of {2t+8, 2t+9}, so each byte decodes to one
+// bf16x2 A register, and x's B fragment is loaded from the same physical k
+// (a contraction is unchanged by any permutation of k applied to both
+// operands). The decode has no table in memory: two byte permutes pick each
+// E2M1 magnitude's bf16 low and high bytes from constants, a third puts the
+// sign bits in place, and one bf16x2 multiply by the group's scale rounds
+// the exact product once, as the JAX kernel's f32 product cast to bf16
+// does. The scales go straight to registers, one stage ahead (8 loads a
+// thread a stage; a stage of a channel needs only kBK/g of them, 8 bytes at
+// g 32, below cp.async's 16-byte unit). Shared rows are XOR-swizzled in
+// 16-byte units so that the fragment loads are free of bank conflicts.
+// K7's tile, 3 stages of 24 KB, with three blocks (12 warps) an SM: on an
+// H100 it took 8-15% less time than the same tile two blocks an SM (4
+// stages) and than 256 channels of 8 warps, one block an SM, which re-reads
+// each row chunk's x half as often (scripts/k5_tile_study.py). Rows are
+// written once, by the item of their owner (plan.owner), as f32 straight
+// from the accumulators.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-using namespace nvcuda;
+constexpr int kThreads = 128;  // 4 warps, 32 output channels each
+constexpr int kMinBlocks = 3;  // blocks an SM (ptxas keeps to 170 registers)
+constexpr int kBM = 128;       // output channels of a block (A rows)
+constexpr int kBN = 64;        // routed rows of a work item (B columns)
+constexpr int kBK = 128;       // k of one stage
+constexpr int kStages = 3;
+constexpr int kARow = kBK / 2;          // packed codes of a channel in a stage, bytes
+constexpr int kAStage = kBM * kARow;    // bytes
+constexpr int kBStage = kBN * kBK * 2;  // bf16 x rows, bytes
+constexpr int kStage = kAStage + kBStage;
+constexpr int kSmem = kStages * kStage;  // 72 KB: three blocks an SM
 
-constexpr int kWarps = 8;
-constexpr int kTileRows = 128;  // largest tm
-constexpr int kTileOut = 64;
-constexpr int kStepK = 64;
-constexpr int kLd = kStepK + 8;  // padded shared row (bf16 elements)
+// E2M1 magnitudes 0, 0.5, 1, 1.5, 2, 3, 4, 6 in bf16 are 0x0000, 0x3F00,
+// 0x3F80, 0x3FC0, 0x4000, 0x4040, 0x4080, 0x40C0: their low bytes (kLo0 for
+// magnitudes 0-3, kLo1 for 4-7) and high bytes (kHi0, kHi1), picked by a
+// 3-bit magnitude as a prmt selector
+constexpr uint32_t kLo0 = 0xC0800000u, kLo1 = 0xC0804000u;
+constexpr uint32_t kHi0 = 0x3F3F3F00u, kHi1 = 0x40404040u;
+// prmt selectors (a nibble a result byte; 8 + i replicates byte i's bit 7):
+// the signs of codes 0-3 / 4-7 of a word w as 0xFF bytes, from w (odd codes'
+// sign bits at bit 7 of their byte) and w << 4 (even codes'); and the
+// interleaves of low and high bytes into bf16 pairs
+constexpr uint32_t kSelNeg03 = 0x9D8Cu, kSelNeg47 = 0xBFAEu;
+constexpr uint32_t kSelPair01 = 0x5140u, kSelPair23 = 0x7362u;
 
-__global__ void __launch_bounds__(kWarps * 32)
-fp4_grouped_kernel(const __nv_bfloat16* __restrict__ x,
-                   const uint8_t* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ s,
-                   const int* __restrict__ seg_expert,
-                   const int* __restrict__ seg_lo,
-                   const int* __restrict__ seg_hi,
-                   const int* __restrict__ n_seg, float* __restrict__ y, int E,
-                   int OUT, int IN, int S, int tm) {
-  __shared__ __align__(128) __nv_bfloat16 xs[kTileRows * kLd];
-  __shared__ __align__(128) __nv_bfloat16 ws[kTileOut * kLd];
-  __shared__ __align__(128) float cst[kWarps * 16 * 16];
-  __shared__ float lut[16];
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
 
-  const int o0 = blockIdx.x * kTileOut;
-  const int t = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = IN / S;
-  const size_t row0 = static_cast<size_t>(t) * tm;
-  if (tid < 16) lut[tid] = kE2M1[tid];
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+// 8 packed codes (byte j: codes 2j in the low nibble, 2j + 1 in the high)
+// -> 4 bf16 pairs r[j] = (code 2j, code 2j + 1) · scale, each rounded once
+// from the exact product; sc holds the scale in both halves
+__device__ __forceinline__ void e2m1x8_bf16x2(uint32_t w, uint32_t sc, uint32_t* r) {
+  const uint32_t m = w & 0x77777777u;  // magnitudes (a prmt reads the low 16 bits)
+  const uint32_t w4 = w << 4;
+  const uint32_t hi03 = prmt(kHi0, kHi1, m) | (prmt(w, w4, kSelNeg03) & 0x80808080u);
+  const uint32_t hi47 = prmt(kHi0, kHi1, m >> 16) | (prmt(w, w4, kSelNeg47) & 0x80808080u);
+  const uint32_t lo03 = prmt(kLo0, kLo1, m), lo47 = prmt(kLo0, kLo1, m >> 16);
+  r[0] = mul_bf16x2(prmt(lo03, hi03, kSelPair01), sc);
+  r[1] = mul_bf16x2(prmt(lo03, hi03, kSelPair23), sc);
+  r[2] = mul_bf16x2(prmt(lo47, hi47, kSelPair01), sc);
+  r[3] = mul_bf16x2(prmt(lo47, hi47, kSelPair23), sc);
+}
+
+// the scales of stage kt for this thread's 4 channels (o, o + 8, o + 16,
+// o + 24) and the stage's two 64-wide groups (its 16-code run at 16t of
+// each), in both halves of sc[4 kg + i]; 0 past OUT or IN
+__device__ __forceinline__ void load_scales(uint32_t* sc, const uint16_t* se, int kt, int o,
+                                            int OUT, int IN, int S, int grp, int t) {
 #pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  const int nseg = n_seg[t];
-  for (int i = 0; i < nseg; ++i) {
-    const int e = seg_expert[t * tm + i];
-    const int lo = seg_lo[t * tm + i], hi = seg_hi[t * tm + i];
-    if (e < 0 || e >= E || lo >= hi) continue;  // uniform across the block
-    const int strip_lo = lo / 16, strip_hi = (hi + 15) / 16;
-    const bool active = warp >= strip_lo && warp < strip_hi;
-    // this thread's weight slice: row wr of the tile, 16 values at 16·wp
-    const int wr = tid / 4, wp = tid % 4;
-    const size_t wrow = static_cast<size_t>(e) * OUT + o0 + wr;
-    const uint8_t* qrow = q + wrow * (IN / 2);
-    const __nv_bfloat16* srow = s + wrow * S;
-
-    for (int k0 = 0; k0 < IN; k0 += kStepK) {
-      __syncthreads();  // the previous step's products are done with xs/ws
-      // x rows of the segment (zero elsewhere in its strips), 16 B per thread
-      const int n_units = (strip_hi - strip_lo) * 16 * (kStepK / 8);
-      for (int u = tid; u < n_units; u += kWarps * 32) {
-        const int r = strip_lo * 16 + u / (kStepK / 8), part = u % (kStepK / 8);
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (r >= lo && r < hi)
-          v = __ldg(reinterpret_cast<const uint4*>(x + (row0 + r) * IN + k0) + part);
-        *reinterpret_cast<uint4*>(xs + r * kLd + part * 8) = v;
-      }
-      // the expert's weight tile, decoded to bf16: [64 out][64 k]
-      {
-        const uint2 raw = __ldg(reinterpret_cast<const uint2*>(qrow + k0 / 2 + wp * 8));
-        const float sc = __bfloat162float(srow[(k0 + wp * 16) / g]);
-        const uint32_t wd[2] = {raw.x, raw.y};
-        uint32_t packed[8];
+  for (int kg = 0; kg < kBK / 64; ++kg) {
+    const int k = kt * kBK + kg * 64 + 16 * t;
+    const int j = k / grp;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const uint32_t byte = (wd[h] >> (8 * b)) & 0xFF;
-            packed[4 * h + b] = pack_bf16x2(lut[byte & 0xF] * sc, lut[byte >> 4] * sc);
-          }
-        }
-        uint4* dst = reinterpret_cast<uint4*>(ws + wr * kLd + wp * 16);
-        dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-        dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
-      }
-      __syncthreads();
-      if (active) {
-#pragma unroll
-        for (int kk = 0; kk < kStepK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, xs + warp * 16 * kLd + kk, kLd);
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-            wmma::load_matrix_sync(fb, ws + n * 16 * kLd + kk, kLd);
-            wmma::mma_sync(acc[n], fa, fb, acc[n]);
-          }
-        }
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int oi = o + (i >> 1) * 16 + (i & 1) * 8;
+      uint32_t v = 0;
+      if (oi < OUT && k < IN) v = __ldg(se + static_cast<size_t>(oi) * S + j);
+      sc[4 * kg + i] = v * 0x10001u;
     }
   }
+}
 
-  // write the strip's valid rows (rows < tm) through the staging tile
-  if (warp * 16 >= tm) return;
-  float* c = cst + warp * 256;
+// stage kt of a work item into its ring slot: the expert's packed codes for
+// channels [o0, o0 + kBM) (row o at byte o·kARow, 16-byte unit c at
+// c ^ (o & 2)) and the chunk's x rows that hold data (row n at byte n·2kBK,
+// unit c at c ^ (n & 1)); past OUT or IN, and rows not to load, get zeros
+__device__ __forceinline__ void load_stage(uint8_t* smem, int kt, const uint8_t* qe,
+                                           const uint8_t* q, const __nv_bfloat16* x,
+                                           const int* s_load, int o0, int lo, int nt,
+                                           int OUT, int IN, int tid) {
+  uint8_t* As = smem + (kt % kStages) * kStage;
+  uint8_t* Bs = As + kAStage;
+  const int k0 = kt * kBK;
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    wmma::store_matrix_sync(c, acc[n], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int j = lane; j < 256; j += 32) {
-      const int r = warp * 16 + j / 16, col = o0 + n * 16 + j % 16;
-      if (r < tm) y[(row0 + r) * OUT + col] = c[j];
+  for (int i = 0; i < kAStage / 16 / kThreads; ++i) {
+    const int c = tid + i * kThreads, row = c / (kARow / 16), u = c % (kARow / 16);
+    const bool ok = o0 + row < OUT && k0 + u * 32 < IN;
+    const uint8_t* src =
+        ok ? qe + static_cast<size_t>(o0 + row) * (IN / 2) + k0 / 2 + u * 16 : q;
+    cp_async16(As + row * kARow + ((u ^ (row & 2)) << 4), src, ok);
+  }
+  for (int c = tid; c < nt * 8 * (kBK / 8); c += kThreads) {
+    const int row = c / (kBK / 8), u = c % (kBK / 8);
+    const bool ok = s_load[row] && k0 + u * 8 < IN;
+    const __nv_bfloat16* src = ok ? x + static_cast<size_t>(lo + row) * IN + k0 + u * 8 : x;
+    cp_async16(Bs + row * (2 * kBK) + ((u ^ (row & 1)) << 4), src, ok);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fp4_grouped_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+                   const uint16_t* __restrict__ s, const int* __restrict__ row_e,
+                   const int* __restrict__ owner, const int* __restrict__ items,
+                   const int* __restrict__ n_items, float* __restrict__ y, int OUT, int IN,
+                   int S, int n_slots) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ int s_load[kBN], s_write[kBN];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_ot = (OUT + kBM - 1) / kBM;
+  const int KT = (IN + kBK - 1) / kBK;
+  const int grp = IN / S;
+  const int live = min(n_items[0], n_slots) * n_ot;
+
+  // blocks past the live count exit at once; a grid-stride loop, so rows
+  // that are not sorted (more items than the grid) still get every item
+  for (int w = blockIdx.x; w < live; w += gridDim.x) {
+    const int item = w / n_ot, o0 = (w % n_ot) * kBM;
+    const int e = items[3 * item], lo = items[3 * item + 1], hi = items[3 * item + 2];
+    const int rows = hi - lo;
+    if (tid < kBN) {
+      s_load[tid] = tid < rows && row_e[lo + tid] == e;
+      s_write[tid] = tid < rows && owner[lo + tid] == e;
     }
-    __syncwarp();
+    __syncthreads();
+    const int nt = (rows + 7) >> 3;  // n8 columns that hold rows
+    const uint8_t* qe = q + static_cast<size_t>(e) * OUT * (IN / 2);
+    const uint16_t* se = s + static_cast<size_t>(e) * OUT * S;
+    const int o_thr = o0 + warp * 32 + g;  // this thread's first channel
+
+    float acc[2][8][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][jn][i] = 0.f;
+
+    uint32_t sc[2 * kBK / 64 * 2], sc_next[2 * kBK / 64 * 2];
+    load_scales(sc, se, 0, o_thr, OUT, IN, S, grp, t);
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < KT) load_stage(smem, st, qe, q, x, s_load, o0, lo, nt, OUT, IN, tid);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < KT; ++kt) {
+      // the next stage's scales (0 past IN), loaded before the wait (2% less
+      // time on an H100 than after it, scripts/k5_tile_study.py)
+      load_scales(sc_next, se, kt + 1, o_thr, OUT, IN, S, grp, t);
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // stage kt landed for all; slot (kt - 1) % kStages is free
+      if (kt + kStages - 1 < KT)
+        load_stage(smem, kt + kStages - 1, qe, q, x, s_load, o0, lo, nt, OUT, IN, tid);
+      cp_async_commit();
+      const uint8_t* As = smem + (kt % kStages) * kStage;
+      const uint8_t* Bs = As + kAStage;
+#pragma unroll
+      for (int kg = 0; kg < kBK / 64; ++kg) {
+        // A fragments of the 4 k16 steps of this 64-wide group, both m16 tiles
+        uint32_t a[2][4][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = warp * 32 + mt * 16 + h * 8 + g;
+            const uint2 raw = *reinterpret_cast<const uint2*>(
+                As + row * kARow + (((2 * kg + (t >> 1)) ^ (row & 2)) << 4) + (t & 1) * 8);
+            uint32_t r[8];
+            e2m1x8_bf16x2(raw.x, sc[4 * kg + 2 * mt + h], r);
+            e2m1x8_bf16x2(raw.y, sc[4 * kg + 2 * mt + h], r + 4);
+#pragma unroll
+            for (int st = 0; st < 4; ++st) {
+              a[mt][st][h] = r[2 * st];
+              a[mt][st][2 + h] = r[2 * st + 1];
+            }
+          }
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          if (jn < nt) {
+            const int n = jn * 8 + g;
+            const uint8_t* bp = Bs + n * (2 * kBK);
+            const uint4 b0 = *reinterpret_cast<const uint4*>(
+                bp + (((kg * 8 + 2 * t) ^ (n & 1)) << 4));
+            const uint4 b1 = *reinterpret_cast<const uint4*>(
+                bp + (((kg * 8 + 2 * t + 1) ^ (n & 1)) << 4));
+            const uint32_t bw[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int st = 0; st < 4; ++st)
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt)
+                mma_bf16(acc[mt][jn], a[mt][st], bw[2 * st], bw[2 * st + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2 * kBK / 64 * 2; ++i) sc[i] = sc_next[i];
+    }
+
+    // acc[mt][jn][2 h + c]: channel o0 + 32 warp + 16 mt + 8 h + g, row
+    // lo + 8 jn + 2t + c; the rows this item owns, and channels below OUT
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      if (jn < nt) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int rr = jn * 8 + 2 * t + c;
+          if (!s_write[rr]) continue;
+          float* yr = y + static_cast<size_t>(lo + rr) * OUT;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int o = o_thr + mt * 16 + h * 8;
+              if (o < OUT) yr[o] = acc[mt][jn][2 * h + c];
+            }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring and the row flags are free for the next item
   }
 }
 
 }  // namespace
 
-// x_sorted [Mp, IN] bf16, q [E, OUT, IN/2] uint8, s [E, OUT, S] bf16,
-// seg_expert / seg_lo / seg_hi [Mp/tm, tm] int32, n_seg [Mp/tm] int32 ->
-// y [Mp, OUT] f32. Needs tm % 8 == 0, tm <= 128, OUT % 64 == 0,
-// IN % 64 == 0 and (IN/S) % 16 == 0. Returns cudaGetLastError() after the
-// launch (0 = launched), or cudaErrorInvalidValue for a shape it does not
-// take.
-extern "C" int fp4_grouped(const void* x, const void* q, const void* s,
-                           const void* seg_expert, const void* seg_lo,
-                           const void* seg_hi, const void* n_seg, void* y,
-                           int Mp, int E, int OUT, int IN, int S, int tm,
-                           void* stream) {
-  if (tm < 8 || tm > kTileRows || tm % 8 || Mp % tm || OUT % kTileOut ||
-      IN % kStepK || S < 1 || IN % S || (IN / S) % 16)
+// x_sorted [Mp, IN] bf16, q [E, OUT, IN/2] uint8 packed E2M1, s [E, OUT, S]
+// bf16, the plan's row_e / owner [Mp] int32, items [n_slots, 3] int32
+// (n_slots = E · ceil(Mp / 64)), n_items [1] int32 -> y [Mp, OUT] f32, every
+// row written. Needs OUT % 64 == 0, IN % 64 == 0 and (IN / S) % 16 == 0.
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a shape it does not take.
+extern "C" int fp4_grouped(const void* x, const void* q, const void* s, const void* row_e,
+                           const void* owner, const void* items, const void* n_items, void* y,
+                           int Mp, int E, int OUT, int IN, int S, int n_slots, void* stream) {
+  if (Mp <= 0 || E <= 0 || OUT <= 0 || IN <= 0 || OUT % 64 || IN % 64 || S <= 0 ||
+      IN % S || (IN / S) % 16 || n_slots != E * ((Mp + kBN - 1) / kBN))
     return cudaErrorInvalidValue;
-  const dim3 grid(OUT / kTileOut, Mp / tm);
-  fp4_grouped_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  // above 48 KB a kernel must be allowed its dynamic shared memory, once per
+  // device (the call waits for the device, so not at every launch)
+  constexpr int kMaxDevices = 64;
+  static bool allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !allowed[dev]) {
+    err = cudaFuncSetAttribute(fp4_grouped_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) allowed[dev] = true;
+  }
+  // the items of sorted rows number at most E + ceil(Mp / kBN)
+  const long long blocks =
+      static_cast<long long>((OUT + kBM - 1) / kBM) * (E + (Mp + kBN - 1) / kBN);
+  const dim3 grid(static_cast<unsigned>(blocks < 0x7fffffffLL ? blocks : 0x7fffffffLL));
+  fp4_grouped_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
-      static_cast<const __nv_bfloat16*>(s), static_cast<const int*>(seg_expert),
-      static_cast<const int*>(seg_lo), static_cast<const int*>(seg_hi),
-      static_cast<const int*>(n_seg), static_cast<float*>(y), E, OUT, IN, S, tm);
+      static_cast<const uint16_t*>(s), static_cast<const int*>(row_e),
+      static_cast<const int*>(owner), static_cast<const int*>(items),
+      static_cast<const int*>(n_items), static_cast<float*>(y), OUT, IN, S, n_slots);
   return cudaGetLastError();
 }

@@ -60,21 +60,6 @@ constexpr int kBStage = kBN * kBK * 2;  // bf16 x rows, bytes
 constexpr int kStage = kAStage + kBStage;
 constexpr int kSmem = kStages * kStage;  // 96 KB: two blocks an SM
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // 4 int8 codes -> two bf16 pairs (codes 0, 1) and (codes 2, 3), exact: an
 // integer in [-128, 127] has its f32 mantissa's low 16 bits zero, so the
 // high half of each float is its bf16
@@ -83,14 +68,6 @@ __device__ __forceinline__ void s8x4_bf16x2(uint32_t w, uint32_t& p01, uint32_t&
   const uint32_t f2 = __float_as_uint(s8_at(w, 2)), f3 = __float_as_uint(s8_at(w, 3));
   p01 = __byte_perm(f0, f1, 0x7632);
   p23 = __byte_perm(f2, f3, 0x7632);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // stage kt of a work item into its ring slot: the expert's codes for

@@ -591,11 +591,14 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
             def gemm(rows, w):
                 return (k7.moe_int8_grouped(rows, w["q"], *seg, tm=tm, plan=work)
                         * _int8_srows(w, e_pad))
+        elif plain:
+            def gemm(rows, w):
+                return k5.moe_fp4_grouped_plain(rows, w["q"], w["s"], *seg, tm=tm)
         else:
-            grouped = k5.moe_fp4_grouped_plain if plain else k5.moe_fp4_grouped
+            work = k5.plan(*seg, tm, E)  # K5's work items, shared by w1, w3 and w2
 
             def gemm(rows, w):
-                return grouped(rows, w["q"], w["s"], *seg, tm=tm)
+                return k5.moe_fp4_grouped(rows, w["q"], w["s"], *seg, tm=tm, plan=work)
 
         act = swiglu(gemm(xs, w1), gemm(xs, w3), limit)  # [Mp, I] f32
         per = torch.empty((M, x.shape[1]), dtype=torch.float32, device=x.device)

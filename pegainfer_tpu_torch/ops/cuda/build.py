@@ -114,8 +114,8 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
                    p]  # stream
     fn.restype = i
     fn = libs["fp4_grouped"].fp4_grouped
-    fn.argtypes = [p, p, p, p, p, p, p, p,  # x, q, s, seg_expert/lo/hi, n_seg, y
-                   i, i, i, i, i, i,  # Mp, E, OUT, IN, S, tm
+    fn.argtypes = [p, p, p, p, p, p, p, p,  # x, q, s, plan: row_e, owner, items, n_items; y
+                   i, i, i, i, i, i,  # Mp, E, OUT, IN, S, n_slots
                    p]  # stream
     fn.restype = i
     fn = libs["int8_gemv"].int8_gemv

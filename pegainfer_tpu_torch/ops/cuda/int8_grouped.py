@@ -9,12 +9,12 @@ f32 [Mp, OUT], rows in no segment give 0. The caller applies the
 per-output-channel scales. Numerics: x rounded to bf16, each code an exact
 bf16 value, f32 accumulation.
 
-The kernel does not walk the tiles: ``plan`` turns the segments into work
-items of one expert, a chunk of at most ``ROW_CHUNK`` of its rows and (in
-the kernel) one tile of output channels, so that each expert's codes stream
-once per row chunk. The plan is plain torch on the segments' device, from
-shapes alone (no value is read back to the host); ``models/dsv4.py`` builds
-it once per MoE layer for its three calls.
+The kernel does not walk the tiles: it takes the launch plan that K5
+shares (``fp4_grouped.plan``, re-exported here as ``plan``), work items of
+one expert, a chunk of at most ``ROW_CHUNK`` of its rows and (in the kernel)
+one tile of output channels, so that each expert's codes stream once per row
+chunk; ``models/dsv4.py`` builds it once per MoE layer for its three
+calls.
 
 The wrapper dispatches on the device of ``x_sorted``: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises. ``launches``
@@ -23,74 +23,15 @@ counts kernel launches.
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from pegainfer_tpu_torch.ops.cuda import build
-from pegainfer_tpu_torch.ops.cuda.fp4_grouped import MAX_TM, _row_experts
+from pegainfer_tpu_torch.ops.cuda.fp4_grouped import (  # noqa: F401 (Plan, plan: re-exported)
+    K_STEP, MAX_TM, OUT_STEP, ROW_CHUNK, Plan, _row_experts, check_plan, check_segments, plan)
 
 launches = 0
 
-ROW_CHUNK = 64  # csrc/int8_grouped.cu kBN: rows of one work item
 OUT_TILE = 128  # csrc/int8_grouped.cu kBM: output channels of one work item
-OUT_STEP = 64  # OUT must be a multiple of this (a last tile may be half)
-K_STEP = 64  # IN must be a multiple of this (a last k-stage may be half)
-
-
-class Plan(NamedTuple):
-    """K7's work, int32 tensors on the segments' device.
-
-    row_e: [Mp] each row's expert, -1 where no segment covers it (or its
-        expert is outside [0, E)); the kernel loads x[r] only for row_e[r].
-    owner: [Mp] the expert whose work item writes row r: its own, else the
-        nearest covered row's before it (expert 0 for leading rows), so each
-        expert's owned rows are one range [lo, hi) for sorted rows.
-    items: [E * ceil(Mp / ROW_CHUNK), 3] (expert, lo, hi) of each work item,
-        experts in order, chunks of ROW_CHUNK rows of the expert's owned
-        range; entries past the live count are (0, 0, 0).
-    n_items: [1] the live count.
-    """
-
-    row_e: torch.Tensor
-    owner: torch.Tensor
-    items: torch.Tensor
-    n_items: torch.Tensor
-
-
-def plan(seg_expert, seg_lo, seg_hi, n_seg, tm: int, E: int) -> Plan:
-    """K7's work items from the tiles' segments (see ``Plan``): about 60
-    small device operations, no value read back to the host."""
-    T = n_seg.shape[0]
-    Mp, dev = T * tm, n_seg.device
-    live = ((torch.arange(tm, device=dev) < n_seg[:, None]) & (seg_lo < seg_hi)
-            & (seg_expert.clamp(0, E - 1) == seg_expert))
-    # a difference array of one int64 a segment, (1 << 32) + expert, added at
-    # its first row and taken off past its last: its prefix sum holds, for
-    # each row, the segments covering it (high half) and their experts' sum
-    tag = torch.where(live, seg_expert.long() + (1 << 32), 0)
-    base = torch.arange(0, Mp, tm, device=dev)[:, None]
-    at = torch.cat([base + seg_lo.clamp(0, tm), base + seg_hi.clamp(0, tm)]).view(-1)
-    acc = torch.zeros(Mp + 1, dtype=torch.long, device=dev).index_add_(
-        0, at, torch.cat([tag, -tag]).view(-1)).cumsum(0)[:Mp]
-    row_e = acc & 0xFFFFFFFF
-    row_e = torch.where((acc >> 32 > 0) & (row_e < E), row_e, -1)
-    # rows of no segment go to the last covered row's expert (expert 0 before
-    # the first), which for sorted rows keeps each expert's rows one range
-    owner = torch.where(row_e >= 0, row_e, row_e.cummax(0).values.clamp(min=0))
-
-    r = torch.arange(Mp, device=dev)
-    lo_e = torch.full((E,), Mp, device=dev).scatter_reduce_(0, owner, r, "amin")
-    hi_e = torch.zeros(E, dtype=torch.long, device=dev).scatter_reduce_(0, owner, r + 1, "amax")
-    chunks = (hi_e - lo_e).clamp(min=0).add(ROW_CHUNK - 1).div(ROW_CHUNK, rounding_mode="floor")
-    ends = chunks.cumsum(0)
-    j = torch.arange(E * -(-Mp // ROW_CHUNK), device=dev)
-    e_of = torch.searchsorted(ends, j, right=True).clamp(max=E - 1)
-    # item j of expert e starts at lo_e[e] + (j - first item of e) * ROW_CHUNK
-    it_lo = (lo_e - (ends - chunks) * ROW_CHUNK)[e_of] + j * ROW_CHUNK
-    it_hi = torch.minimum(it_lo + ROW_CHUNK, hi_e[e_of])
-    items = torch.stack([e_of, it_lo, it_hi], 1) * (j < ends[-1])[:, None]
-    return Plan(row_e.int(), owner.int(), items.int(), ends[-1:].int())
 
 
 def moe_int8_grouped_plain(x_sorted, q, seg_expert, seg_lo, seg_hi, n_seg, tm=128):
@@ -123,15 +64,10 @@ def _launch(x_sorted, q, seg_expert, seg_lo, seg_hi, n_seg, tm, work):
         raise ValueError("moe_int8_grouped takes x [Mp, IN], q [E, OUT, IN]")
     Mp, IN = x_sorted.shape
     E, OUT, QIN = q.shape
-    T = Mp // tm if tm else 0
     if IN != QIN or not tm or Mp % tm:
         raise ValueError(f"x {tuple(x_sorted.shape)} / q {tuple(q.shape)} / tm {tm} "
                          "do not fit")
-    for t in (seg_expert, seg_lo, seg_hi):
-        if t.shape != (T, tm) or t.dtype != torch.int32:
-            raise ValueError("segment arrays must be int32 [Mp/tm, tm]")
-    if n_seg.shape != (T,) or n_seg.dtype != torch.int32:
-        raise ValueError("n_seg must be int32 [Mp/tm]")
+    check_segments(seg_expert, seg_lo, seg_hi, n_seg, Mp, tm)
     if tm % 8 or tm > MAX_TM or OUT % OUT_STEP or IN % K_STEP:
         raise ValueError(f"moe_int8_grouped kernel takes tm % 8 == 0 and <= {MAX_TM}, "
                          f"OUT % {OUT_STEP} and IN % {K_STEP} == 0; got tm={tm} OUT={OUT} "
@@ -142,12 +78,7 @@ def _launch(x_sorted, q, seg_expert, seg_lo, seg_hi, n_seg, tm, work):
         return torch.empty((0, OUT), dtype=torch.float32, device=x_sorted.device)
     if work is None:
         work = plan(seg_expert, seg_lo, seg_hi, n_seg, tm, E)
-    n_slots = E * -(-Mp // ROW_CHUNK)
-    if (work.row_e.shape != (Mp,) or work.owner.shape != (Mp,)
-            or work.items.shape != (n_slots, 3) or work.n_items.shape != (1,)
-            or any(t.dtype != torch.int32 for t in work)):
-        raise ValueError("plan does not fit these inputs: build it with plan(seg_expert, "
-                         "seg_lo, seg_hi, n_seg, tm, E)")
+    n_slots = check_plan(work, Mp, E, "moe_int8_grouped")
     xb = x_sorted.to(torch.bfloat16).contiguous()
     for t in (xb, q, seg_expert, seg_lo, seg_hi, n_seg, *work):
         if t.device != x_sorted.device or not t.is_contiguous():

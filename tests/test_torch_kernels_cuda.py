@@ -14,9 +14,12 @@ a right kernel rounds the output and p to bf16 once, a fraction of a
 percent of the row's largest value. The
 quantized GEMV kernels K3 and K4 form the same exact f32 products as their
 plain versions and differ only in the order of the f32 sums: atol 2e-5 (the
-JAX tests' tolerance) on outputs of about unit RMS. K5 multiplies on the
-tensor cores: 2e-2 of max |y|, the JAX test's tolerance. Shapes are those of
-chip_smoke.py's kernel phase (DeepSeek-V4-Flash's full widths).
+JAX tests' tolerance) on outputs of about unit RMS. K5 forms the same
+exact f32 products on the tensor cores (each weight rounded once to bf16,
+as the plain version rounds it), so each row is held to 1e-4 of its own
+max |y|, and its decode is checked bit for bit by rows of unit vectors.
+Shapes are those of chip_smoke.py's kernel phase (DeepSeek-V4-Flash's full
+widths).
 
 The int8 kernels: K6 forms the plain version's exact f32 products in
 another order, on unscaled outputs of magnitude 1e4 (codes up to 127):
@@ -48,8 +51,7 @@ DECODE_RTOL = 2e-2
 PREFILL_TOL = 2e-2
 PREFILL_RTOL = 2e-2
 GEMV_TOL = 2e-5
-GROUPED_RTOL = 2e-2
-K7_ROW_RTOL = 1e-4
+GROUPED_ROW_RTOL = 1e-4  # K5 and K7
 INT8_GEMV_RTOL = 1e-5
 CHAIN_RTOL = 2e-3
 LIMIT = 7.0
@@ -268,12 +270,17 @@ def _fp8(dev, gen, out_dim, in_dim, block=128):
     return q, s
 
 
-def _fp4(dev, gen, E, out_dim, in_dim):
+def _fp4(dev, gen, E, out_dim, in_dim, group=32, pow2=True):
+    """Codes over all 256 byte values and bf16 group scales around
+    1 / (2.93 sqrt(in_dim)), so y has about unit RMS: powers of two (the
+    checkpoint's), or with random mantissas."""
     q = torch.randint(0, 256, (E, out_dim, in_dim // 2), dtype=torch.uint8, generator=gen,
                       device=dev)
-    e = torch.randint(-1, 2, (E, out_dim, in_dim // 32), generator=gen, device=dev)
-    s = torch.exp2(e.float() - round(np.log2(2.93 * in_dim ** 0.5))).to(torch.bfloat16)
-    return q, s
+    e = torch.randint(-1, 2, (E, out_dim, in_dim // group), generator=gen, device=dev)
+    s = torch.exp2(e.float() - round(np.log2(2.93 * in_dim ** 0.5)))
+    if not pow2:
+        s = s * (1 + torch.rand(s.shape, generator=gen, device=dev))
+    return q, s.to(torch.bfloat16)
 
 
 @pytest.mark.parametrize("M", [1, 2, 8])
@@ -314,26 +321,6 @@ def _routing(gen, dev, M, E, skew):
         torch.int32)
 
 
-@pytest.mark.parametrize("M,OUT,IN,skew", [(6144, 2048, 4096, False), (6144, 4096, 2048, True),
-                                           (54, 2048, 4096, True), (300, 4096, 2048, False)])
-def test_fp4_grouped_kernel_matches_plain(dev, M, OUT, IN, skew):
-    gen = _gen(dev, M + OUT)
-    E = 256
-    q, s = _fp4(dev, gen, E, OUT, IN)
-    tm = 128 if M >= 128 else -(-M // 8) * 8
-    Mp = -(-M // tm) * tm
-    e = _routing(gen, dev, M, E, skew)
-    e = torch.cat([e, e[-1:].expand(Mp - M)])  # pad rows carry the last expert
-    seg = k5.tile_segments(e, tm, E)
-    x = torch.randn((Mp, IN), generator=gen, device=dev).to(torch.bfloat16)
-    before = k5.launches
-    y = k5.moe_fp4_grouped(x, q, s, *seg, tm=tm)
-    torch.cuda.synchronize()
-    assert k5.launches == before + 1 and y.shape == (Mp, OUT)
-    ref = k5.moe_fp4_grouped_plain(x, q, s, *seg, tm=tm)
-    assert (y - ref).abs().max().item() <= GROUPED_RTOL * ref.abs().max().item()
-
-
 def test_quantized_kernels_refuse_unsupported_shapes(dev):
     gen = _gen(dev, 0)
     q, s = _fp8(dev, gen, 256, 384)
@@ -346,6 +333,19 @@ def test_quantized_kernels_refuse_unsupported_shapes(dev):
     seg = k5.tile_segments(torch.zeros(12, dtype=torch.int32, device=dev), 12, 2)
     with pytest.raises(ValueError):  # tm not a multiple of 8
         k5.moe_fp4_grouped(torch.zeros((12, 256), device=dev), q4, s4, *seg, tm=12)
+    seg = k5.tile_segments(torch.zeros(16, dtype=torch.int32, device=dev), 16, 2)
+    x16 = torch.zeros((16, 256), device=dev)
+    with pytest.raises(ValueError):  # scale groups of 8
+        k5.moe_fp4_grouped(x16, q4, _fp4(dev, gen, 2, 64, 256, group=8)[1], *seg, tm=16)
+    with pytest.raises(ValueError):  # OUT not a multiple of 64
+        k5.moe_fp4_grouped(x16, *_fp4(dev, gen, 2, 96, 256), *seg, tm=16)
+    with pytest.raises(ValueError):  # IN not a multiple of 64
+        k5.moe_fp4_grouped(torch.zeros((16, 224), device=dev), *_fp4(dev, gen, 2, 64, 224),
+                           *seg, tm=16)
+    with pytest.raises(ValueError):  # f32 scales
+        k5.moe_fp4_grouped(x16, q4, s4.float(), *seg, tm=16)
+    with pytest.raises(ValueError):  # a plan of other rows
+        k5.moe_fp4_grouped(x16, q4, s4, *seg, tm=16, plan=k5.plan(*seg, 16, 3))
 
 
 def _int8(dev, gen, E, out_dim, in_dim):
@@ -415,6 +415,21 @@ def _row_share(y, ref, rtol):
     return torch.where(d > 0, d / lim, torch.zeros_like(d)).max().item()
 
 
+def _grouped_rows(gen, dev, M, IN, E, routing):
+    """x_sorted, tm and segments of one grouped-GEMM call (K5, K7) of M
+    routed rows, padded as models/dsv4.py pads them; "uncovered" is spread
+    routing with rows of no segment."""
+    tm = 128 if M >= 128 else -(-M // 8) * 8
+    Mp = -(-M // tm) * tm
+    e = _k7_routing(gen, dev, M, E, "spread" if routing == "uncovered" else routing)
+    e = torch.cat([e, e[-1:].expand(Mp - M)])  # pad rows carry the last expert
+    seg = k5.tile_segments(e, tm, E)
+    if routing == "uncovered":
+        seg = _uncover(seg, tm)
+    x = torch.randn((Mp, IN), generator=gen, device=dev).to(torch.bfloat16)
+    return x, tm, seg
+
+
 @pytest.mark.parametrize("M,OUT,IN,routing,sync_debug", [
     (6144, 2048, 4096, "spread", False), (6144, 4096, 2048, "skewed", False),
     (54, 2048, 4096, "skewed", False), (300, 4096, 2048, "spread", False),
@@ -423,20 +438,14 @@ def _row_share(y, ref, rtol):
     (88, 4096, 2048, "mid-n8", False), (6144, 2048, 4096, "spread", True)])
 def test_int8_grouped_kernel_matches_plain(dev, M, OUT, IN, routing, sync_debug):
     """K7's products are exact in f32 and only their sum order differs from
-    the plain version's: each row within K7_ROW_RTOL of its max |ref|. The
+    the plain version's: each row within GROUPED_ROW_RTOL of its max |ref|. The
     sync-debug case builds the plan in the wrapper under
     ``set_sync_debug_mode("error")``: neither reads a device value."""
     gen = _gen(dev, M + OUT)
     E = 256
     q, _ = _int8(dev, gen, E, OUT, IN)
-    tm = 128 if M >= 128 else -(-M // 8) * 8
-    Mp = -(-M // tm) * tm
-    e = _k7_routing(gen, dev, M, E, "spread" if routing == "uncovered" else routing)
-    e = torch.cat([e, e[-1:].expand(Mp - M)])
-    seg = k5.tile_segments(e, tm, E)
-    if routing == "uncovered":
-        seg = _uncover(seg, tm)
-    x = torch.randn((Mp, IN), generator=gen, device=dev).to(torch.bfloat16)
+    x, tm, seg = _grouped_rows(gen, dev, M, IN, E, routing)
+    Mp = x.shape[0]
     k7.moe_int8_grouped(x, q, *seg, tm=tm)  # built and loaded outside the sync check
     torch.cuda.synchronize()
     before = k7.launches
@@ -449,10 +458,69 @@ def test_int8_grouped_kernel_matches_plain(dev, M, OUT, IN, routing, sync_debug)
     torch.cuda.synchronize()
     assert k7.launches == before + 1 and y.shape == (Mp, OUT)
     ref = k7.moe_int8_grouped_plain(x, q, *seg, tm=tm)
-    assert _row_share(y, ref, K7_ROW_RTOL) <= 1.0
+    assert _row_share(y, ref, GROUPED_ROW_RTOL) <= 1.0
     if routing == "uncovered":
         _, covered = k5._row_experts(*seg, tm)
         assert int((~covered).sum()) > tm and not bool(y[~covered].any())
+
+
+@pytest.mark.parametrize("M,OUT,IN,routing,group,pow2,sync_debug", [
+    (6144, 2048, 4096, "spread", 32, True, False), (6144, 4096, 2048, "skewed", 32, True, False),
+    (54, 2048, 4096, "skewed", 32, True, False), (300, 4096, 2048, "spread", 32, True, False),
+    (6144, 2048, 4096, "two-experts", 32, True, False),
+    (300, 2048, 4096, "one-expert", 32, True, False), (8, 2048, 4096, "spread", 32, True, False),
+    (512, 2048, 4096, "uncovered", 32, True, False), (88, 4096, 2048, "mid-n8", 32, True, False),
+    (6144, 2048, 4096, "spread", 32, False, False), (300, 4096, 2048, "spread", 16, False, False),
+    (300, 2048, 4096, "skewed", 64, False, False), (6144, 2048, 4096, "spread", 32, True, True)])
+def test_fp4_grouped_kernel_matches_plain(dev, M, OUT, IN, routing, group, pow2, sync_debug):
+    """K5's products are exact in f32 (bf16 weights, each rounded once, times
+    bf16 x) and only their sum order differs from the plain version's: each
+    row within GROUPED_ROW_RTOL of its max |ref|, at power-of-two and at
+    arbitrary bf16 scales and groups of 16, 32, 64. The sync-debug case
+    builds the plan in the wrapper under ``set_sync_debug_mode("error")``."""
+    gen = _gen(dev, M + OUT + group)
+    E = 256
+    q, s = _fp4(dev, gen, E, OUT, IN, group=group, pow2=pow2)
+    x, tm, seg = _grouped_rows(gen, dev, M, IN, E, routing)
+    Mp = x.shape[0]
+    k5.moe_fp4_grouped(x, q, s, *seg, tm=tm)  # built and loaded outside the sync check
+    torch.cuda.synchronize()
+    before = k5.launches
+    if sync_debug:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = k5.moe_fp4_grouped(x, q, s, *seg, tm=tm)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1 and y.shape == (Mp, OUT) and y.dtype == torch.float32
+    ref = k5.moe_fp4_grouped_plain(x, q, s, *seg, tm=tm)
+    assert _row_share(y, ref, GROUPED_ROW_RTOL) <= 1.0
+    if routing == "uncovered":
+        _, covered = k5._row_experts(*seg, tm)
+        assert int((~covered).sum()) > tm and not bool(y[~covered].any())
+
+
+@pytest.mark.parametrize("pow2", [True, False], ids=["pow2-scales", "bf16-scales"])
+def test_fp4_grouped_decode_is_exact(dev, pow2):
+    """Rows that are unit vectors e_k make y[r, o] the decoded weight
+    W[o, k] itself (one product by 1, the rest by 0): the kernel's weights
+    must be ``quant.dequant_any``'s bit for bit, at power-of-two scales and
+    at arbitrary bf16 scales in the normal range."""
+    from pegainfer_tpu_torch.ops import quant
+
+    gen = _gen(dev, 17)
+    E, OUT, IN = 256, 4096, 2048
+    q, s = _fp4(dev, gen, E, OUT, IN, pow2=pow2)
+    experts = (3, 100, 255)
+    e = torch.tensor(experts, device=dev).repeat_interleave(IN).to(torch.int32)
+    x = torch.eye(IN, device=dev, dtype=torch.bfloat16).repeat(len(experts), 1)
+    seg = k5.tile_segments(e, 128, E)
+    y = k5.moe_fp4_grouped(x, q, s, *seg, tm=128)
+    torch.cuda.synchronize()
+    for i, ex in enumerate(experts):
+        w = quant.dequant_any({"q": q[ex], "s": s[ex]}, torch.bfloat16).float()
+        assert torch.equal(y[i * IN:(i + 1) * IN].T, w)
 
 
 @pytest.mark.parametrize("M,I,D,repeat", [(1, 2048, 4096, False), (6, 2048, 4096, False),
