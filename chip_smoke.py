@@ -56,11 +56,14 @@ weights made on the card from the seed:
 On the same weights, the opt-in fp4 chain and then the int8-experts mode:
 
 14. K9 (the fused fp4 chain) against its plain version on one score-gated
-    layer at M = 6 and 12, in both perm13 forms (permuted copies of the
-    layer's w1 / w3, freed after), and its timing; the 300/32 + 500/32 pair
-    served with ``moe_chain=True`` (launches: L x decode steps K9, no K3,
-    3L x prefills K5); one decode step's logits, chain vs plain, under the
-    plain run's routing;
+    layer at M = 6, 12 (repeated experts) and 16 (one expert), in both
+    perm13 forms (permuted copies of the layer's w1 / w3, freed after), each
+    row within CHAIN_ROW_RTOL of its max |ref|; its timing at B = 1 and 2
+    beside the chain-off sequence (K3, SwiGLU, K3, K3); the 300/32 + 500/32
+    pair served with ``moe_chain=True`` (launches: L x decode steps K9, no
+    K3, 3L x prefills K5); one decode step's logits, chain vs plain, under
+    the plain run's routing, and that step profiled with the chain on and
+    off;
 15. requantize the experts to int8 through ``start_engine_from_params(
     quantize="int8-experts")``: time, bytes before and after, peak reserved
     memory, and the codes of one expert that differ from the host
@@ -151,6 +154,15 @@ DSV4_LOGITS_RTOL = 5e-2
 # sum-order difference moves an element by one bf16 ulp now and then
 INT8_GEMV_RTOL = 1e-5
 CHAIN_RTOL = 2e-3
+# K9 holds each row to CHAIN_ROW_RTOL of the row's max |ref|, and a row of an
+# invalid expert id to exactly 0. A right kernel's products are exact and
+# only their f32 sum order differs (its worst row at 6e-6 of its max on an
+# H100, scripts/k9_study.py); an act element that this moves across a bf16
+# rounding boundary moves y by one ulp of it times one weight, at most
+# about 3e-4 of the row's max. One dropped product of act and w2, or one
+# act channel lost, moves y by that element times a weight, 256 times the
+# ulp (scripts/k7_mutant_check.py --kernel k9)
+CHAIN_ROW_RTOL = 1e-3
 # the grouped GEMMs K5 and K7 form the same exact f32 products as their
 # plain versions on the tensor cores (K5 rounds each weight to bf16 once, as
 # its plain version does), only summed in another order: each row within
@@ -1128,15 +1140,21 @@ def run_dsv4_fp4_chain(cfg, params):
     natural = (lw["experts_w1"], lw["experts_w3"])
     permuted = tuple(k9.permute_w13(w) for w in natural)
     for perm13, (w1, w3) in ((False, natural), (True, permuted)):
-        for M, repeat in ((6, False), (12, True)):
+        for M, routing in ((6, "distinct"), (12, "repeated experts"), (16, "one expert")):
             x = torch.randn((M, D), generator=gen, device="cuda")
-            idx = _distinct_idx(gen, E, M, repeat)
+            idx = _distinct_idx(gen, E, M, routing == "repeated experts")
+            if routing == "one expert":
+                idx[:] = idx[0]
             y = k9.moe_fp4_chain(x, w1, w3, lw["experts_w2"], idx, limit, perm13=perm13)
             torch.cuda.synchronize()
             ref = k9.moe_fp4_chain_plain(x, w1, w3, lw["experts_w2"], idx, limit, perm13)
-            max_err_verdict(errs, "moe_fp4_chain",
-                            f"M={M}{' repeated experts' if repeat else ''} perm13={perm13}",
-                            (y - ref).abs().max().item(), CHAIN_RTOL * ref.abs().max().item())
+            err, share = row_err(y, ref, 1, float("inf"), CHAIN_ROW_RTOL)
+            log(f"  moe_fp4_chain M={M} {routing} perm13={perm13}: max_abs_err {err:.3e}, "
+                f"worst row at {share:.4f} of {CHAIN_ROW_RTOL:g} x its max |ref| "
+                f"{'ok' if share <= 1.0 else 'FAIL'}")
+            if not share <= 1.0:
+                raise SystemExit("moe_fp4_chain disagrees with its plain version")
+            errs["moe_fp4_chain"] = max(errs.get("moe_fp4_chain", 0.0), err)
     del permuted
     torch.cuda.empty_cache()
     record = time_fp4_chain(cfg, params, k9, errs)
@@ -1155,35 +1173,73 @@ def run_dsv4_fp4_chain(cfg, params):
     log("  one decode step after a 300-token prefill: the chain vs its plain version, the "
         "kernel run routed as the plain run")
     prompt = np.random.default_rng(SEED + 6).integers(0, cfg.vocab_size, 300).tolist()
-    check_dsv4_logits(cfg, d4, d4e, params, torch.tensor(prompt, dtype=torch.int32,
-                                                         device="cuda"),
-                      prefill=False, moe_chain=True, label=" fp4-chain")
-    return record, {"launches": run["launches"], "decode_steps": steps, "prefills": prefills}
+    state, step = check_dsv4_logits(cfg, d4, d4e, params, torch.tensor(
+        prompt, dtype=torch.int32, device="cuda"), prefill=False, moe_chain=True,
+        label=" fp4-chain")
+    log("  one decode step at B = 1, context 301, with the chain on (K9) and off (K3)")
+    prof = {}
+    for chain in (True, False):
+        prof.update(dsv4_step_profile(cfg, d4, params, None, state, step, moe_chain=chain))
+    log_steps(prof)
+    return record, {"launches": run["launches"], "decode_steps": steps, "prefills": prefills,
+                    "steps": steps_json(prof)}
 
 
 def time_fp4_chain(cfg, params, k9, errs):
-    """K9 at B = 1 (6 distinct routed rows), each call on the next layer's
-    weights (a layer's routed bytes for 6 rows are 85 MB, beyond L2)."""
+    """K9 at B = 1 (6 distinct routed rows) and B = 2 (two tokens' top-6
+    experts, 12 rows, repeats as they fall), each call on the next layer's
+    weights (a layer's routed bytes for 6 rows are 85 MB, beyond L2), beside
+    the path's sequence with the chain off at the same rows: K3 on w1 and on
+    w3, the SwiGLU, K3 on w2 (``models/dsv4.py``). Bounds over every routed
+    row's weights and, at B = 2, over the distinct experts' alone."""
+    from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
+    from pegainfer_tpu_torch.ops.moe import swiglu
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     layers, E, D, limit = params["layers"], cfg.n_routed_experts, cfg.dim, cfg.swiglu_limit
     L = len(layers)
     ws = [(lw["experts_w1"], lw["experts_w3"], lw["experts_w2"]) for lw in layers]
-    x = torch.randn((6, D), generator=gen, device="cuda")
-    idxs = [_distinct_idx(gen, E, 6, False) for _ in range(L)]
-    saved = k9.launches
-    ms = time_ms(lambda i: k9.moe_fp4_chain(x, *ws[i % L], idxs[i % L], limit), 100)
-    k9.launches = saved
-    plain_ms = time_ms(lambda i: k9.moe_fp4_chain_plain(x, *ws[i % L], idxs[i % L], limit), 8)
     w1, w3, w2 = ws[0]
-    nbytes = 6 * sum(w["q"][0].numel() + w["s"][0].numel() * 2 for w in (w1, w3, w2)) \
-        + x.numel() * 4 + 6 * 4 + 6 * D * 4
-    flops = 2 * 6 * 3 * w1["q"].shape[1] * D
-    bound_ms, by = bound(nbytes, flops)
+    I = w1["q"].shape[1]
+    w_bytes = sum(w["q"][0].numel() + w["s"][0].numel() * 2 for w in (w1, w3, w2))
+
+    def chain_off(x, w1, w3, w2, idx):
+        act = swiglu(k3.moe_fp4_gemv(x, w1["q"], w1["s"], idx),
+                     k3.moe_fp4_gemv(x, w3["q"], w3["s"], idx), limit)
+        return k3.moe_fp4_gemv(act, w2["q"], w2["s"], idx)
+
+    out = {}
+    for label, tokens in (("B=1", 1), ("B=2", 2)):
+        M = 6 * tokens
+        x = torch.randn((M, D), generator=gen, device="cuda")
+        idxs = [torch.cat([torch.randperm(E, generator=gen, device="cuda")[:6]
+                           for _ in range(tokens)]).to(torch.int32) for _ in range(L)]
+        saved = k9.launches, k3.launches
+        ms = time_ms(lambda i: k9.moe_fp4_chain(x, *ws[i % L], idxs[i % L], limit), 100)
+        # about 10 launches a call: a window the device's queue holds
+        off_ms = time_ms(lambda i: chain_off(x, *ws[i % L], idxs[i % L]), 24)
+        k9.launches, k3.launches = saved
+        io = x.numel() * 4 + M * 4 + M * D * 4
+        flops = 2 * M * 3 * I * D
+        distinct = sum(int(torch.unique(i).numel()) for i in idxs) / L
+        bound_ms, by = bound(M * w_bytes + io, flops)
+        distinct_ms, _ = bound(distinct * w_bytes + io, flops)
+        out[label] = {"ms": ms, "chain_off_ms": off_ms, "bound_ms": bound_ms, "bound_by": by,
+                      "distinct_experts": distinct, "bound_distinct_ms": distinct_ms}
+        log(f"  moe_fp4_chain {label} ({M} rows, {distinct:.2f} distinct experts a layer): "
+            f"{ms * 1e3:.2f} us, chain off (K3, SwiGLU, K3, K3) {off_ms * 1e3:.2f} us, bound "
+            f"{bound_ms * 1e3:.2f} us over every row ({by}), {distinct_ms * 1e3:.2f} us over "
+            "the distinct experts")
+        if label == "B=1":  # the plain version at B = 1 only: it gathers and decodes
+            plain_ms = time_ms(
+                lambda i: k9.moe_fp4_chain_plain(x, *ws[i % L], idxs[i % L], limit), 8)
+    b1 = out["B=1"]
     return {"name": "moe_fp4_chain", "route": "cuda",
             "source": "pegainfer_tpu_torch/csrc/fp4_chain.cu",
             "replaces": "pegainfer_tpu/ops/pallas/fp4_gemm.py:1047",
-            "launches": None, "max_abs_err": errs["moe_fp4_chain"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+            "launches": None, "max_abs_err": errs["moe_fp4_chain"], "ms": b1["ms"],
+            "plain_ms": plain_ms, "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
+            "library_ms": None, "chain_off_ms": b1["chain_off_ms"], "b2": out["B=2"]}
 
 
 # ── phases 15-18: the int8-experts mode ─────────────────────────────────
@@ -1681,19 +1737,21 @@ def check_quant_kernels(cfg, params, k3, k4, k5):
     return errs
 
 
-def dsv4_step_profile(cfg, d4, params, prompt_t, state, step, iters=3):
+def dsv4_step_profile(cfg, d4, params, prompt_t, state, step, iters=3, moe_chain=None):
     """Wall time (host clock, each call ending in a synchronize), device time
     and device operations (torch.profiler, CUDA activity) of one
-    1,024-token prefill into a slot and one B = 1 decode step at context
-    1,025, called directly on the model."""
+    1,024-token prefill into a slot (unless ``prompt_t`` is None) and one
+    B = 1 decode step at the context of ``step``, called directly on the
+    model, with ``moe_chain`` as the model takes it."""
     from torch.profiler import ProfilerActivity, profile
 
-    calls = {
+    ctx = int(step[1]) + 1
+    calls = {} if prompt_t is None else {
         f"dsv4 prefill {DSV4_PROMPT}": lambda: d4.prefill(
-            cfg, params, prompt_t, state=state, slot=0, last_only=True),
-        f"dsv4 decode step B=1 ctx {DSV4_PROMPT + 1}": lambda: d4.decode(
-            cfg, params, state, *step),
-    }
+            cfg, params, prompt_t, state=state, slot=0, last_only=True)}
+    chain = "" if moe_chain is None else f", chain {'on' if moe_chain else 'off'}"
+    calls[f"dsv4 decode step B=1 ctx {ctx}{chain}"] = lambda: d4.decode(
+        cfg, params, state, *step, moe_chain=moe_chain)
     out = {}
     with torch.no_grad():
         for name, fn in calls.items():

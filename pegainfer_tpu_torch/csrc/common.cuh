@@ -78,6 +78,48 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The packed-fp4 decode of K5 (fp4_grouped.cu) and K9 (fp4_chain.cu), with
+// no table in memory.
+// E2M1 magnitudes 0, 0.5, 1, 1.5, 2, 3, 4, 6 in bf16 are 0x0000, 0x3F00,
+// 0x3F80, 0x3FC0, 0x4000, 0x4040, 0x4080, 0x40C0: their low bytes (kLo0 for
+// magnitudes 0-3, kLo1 for 4-7) and high bytes (kHi0, kHi1), picked by a
+// 3-bit magnitude as a prmt selector
+constexpr uint32_t kLo0 = 0xC0800000u, kLo1 = 0xC0804000u;
+constexpr uint32_t kHi0 = 0x3F3F3F00u, kHi1 = 0x40404040u;
+// prmt selectors (a nibble a result byte; 8 + i replicates byte i's bit 7):
+// the signs of codes 0-3 / 4-7 of a word w as 0xFF bytes, from w (odd codes'
+// sign bits at bit 7 of their byte) and w << 4 (even codes'); and the
+// interleaves of low and high bytes into bf16 pairs
+constexpr uint32_t kSelNeg03 = 0x9D8Cu, kSelNeg47 = 0xBFAEu;
+constexpr uint32_t kSelPair01 = 0x5140u, kSelPair23 = 0x7362u;
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// 8 packed codes (byte j: codes 2j in the low nibble, 2j + 1 in the high)
+// -> 4 bf16 pairs r[j] = (code 2j, code 2j + 1) · scale, each rounded once
+// from the exact product; sc holds the scale in both halves
+__device__ __forceinline__ void e2m1x8_bf16x2(uint32_t w, uint32_t sc, uint32_t* r) {
+  const uint32_t m = w & 0x77777777u;  // magnitudes (a prmt reads the low 16 bits)
+  const uint32_t w4 = w << 4;
+  const uint32_t hi03 = prmt(kHi0, kHi1, m) | (prmt(w, w4, kSelNeg03) & 0x80808080u);
+  const uint32_t hi47 = prmt(kHi0, kHi1, m >> 16) | (prmt(w, w4, kSelNeg47) & 0x80808080u);
+  const uint32_t lo03 = prmt(kLo0, kLo1, m), lo47 = prmt(kLo0, kLo1, m >> 16);
+  r[0] = mul_bf16x2(prmt(lo03, hi03, kSelPair01), sc);
+  r[1] = mul_bf16x2(prmt(lo03, hi03, kSelPair23), sc);
+  r[2] = mul_bf16x2(prmt(lo47, hi47, kSelPair01), sc);
+  r[3] = mul_bf16x2(prmt(lo47, hi47, kSelPair23), sc);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

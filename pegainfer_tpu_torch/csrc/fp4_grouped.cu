@@ -37,9 +37,9 @@
 // {2t, 2t+1}, byte 2s + 1 those of {2t+8, 2t+9}, so each byte decodes to one
 // bf16x2 A register, and x's B fragment is loaded from the same physical k
 // (a contraction is unchanged by any permutation of k applied to both
-// operands). The decode has no table in memory: two byte permutes pick each
-// E2M1 magnitude's bf16 low and high bytes from constants, a third puts the
-// sign bits in place, and one bf16x2 multiply by the group's scale rounds
+// operands). The decode (common.cuh's e2m1x8_bf16x2, shared with K9) has no
+// table in memory: two byte permutes pick each E2M1 magnitude's bf16 low
+// and high bytes from constants, a third puts the sign bits in place, and one bf16x2 multiply by the group's scale rounds
 // the exact product once, as the JAX kernel's f32 product cast to bf16
 // does. The scales go straight to registers, one stage ahead (8 loads a
 // thread a stage; a stage of a channel needs only kBK/g of them, 8 bytes at
@@ -71,46 +71,6 @@ constexpr int kAStage = kBM * kARow;    // bytes
 constexpr int kBStage = kBN * kBK * 2;  // bf16 x rows, bytes
 constexpr int kStage = kAStage + kBStage;
 constexpr int kSmem = kStages * kStage;  // 72 KB: three blocks an SM
-
-// E2M1 magnitudes 0, 0.5, 1, 1.5, 2, 3, 4, 6 in bf16 are 0x0000, 0x3F00,
-// 0x3F80, 0x3FC0, 0x4000, 0x4040, 0x4080, 0x40C0: their low bytes (kLo0 for
-// magnitudes 0-3, kLo1 for 4-7) and high bytes (kHi0, kHi1), picked by a
-// 3-bit magnitude as a prmt selector
-constexpr uint32_t kLo0 = 0xC0800000u, kLo1 = 0xC0804000u;
-constexpr uint32_t kHi0 = 0x3F3F3F00u, kHi1 = 0x40404040u;
-// prmt selectors (a nibble a result byte; 8 + i replicates byte i's bit 7):
-// the signs of codes 0-3 / 4-7 of a word w as 0xFF bytes, from w (odd codes'
-// sign bits at bit 7 of their byte) and w << 4 (even codes'); and the
-// interleaves of low and high bytes into bf16 pairs
-constexpr uint32_t kSelNeg03 = 0x9D8Cu, kSelNeg47 = 0xBFAEu;
-constexpr uint32_t kSelPair01 = 0x5140u, kSelPair23 = 0x7362u;
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
-  uint32_t d;
-  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-// 8 packed codes (byte j: codes 2j in the low nibble, 2j + 1 in the high)
-// -> 4 bf16 pairs r[j] = (code 2j, code 2j + 1) · scale, each rounded once
-// from the exact product; sc holds the scale in both halves
-__device__ __forceinline__ void e2m1x8_bf16x2(uint32_t w, uint32_t sc, uint32_t* r) {
-  const uint32_t m = w & 0x77777777u;  // magnitudes (a prmt reads the low 16 bits)
-  const uint32_t w4 = w << 4;
-  const uint32_t hi03 = prmt(kHi0, kHi1, m) | (prmt(w, w4, kSelNeg03) & 0x80808080u);
-  const uint32_t hi47 = prmt(kHi0, kHi1, m >> 16) | (prmt(w, w4, kSelNeg47) & 0x80808080u);
-  const uint32_t lo03 = prmt(kLo0, kLo1, m), lo47 = prmt(kLo0, kLo1, m >> 16);
-  r[0] = mul_bf16x2(prmt(lo03, hi03, kSelPair01), sc);
-  r[1] = mul_bf16x2(prmt(lo03, hi03, kSelPair23), sc);
-  r[2] = mul_bf16x2(prmt(lo47, hi47, kSelPair01), sc);
-  r[3] = mul_bf16x2(prmt(lo47, hi47, kSelPair23), sc);
-}
 
 // the scales of stage kt for this thread's 4 channels (o, o + 8, o + 16,
 // o + 24) and the stage's two 64-wide groups (its 16-code run at 16t of

@@ -18,7 +18,8 @@ a multiple of 128 with it, and w3's scale groups must be as many as w1's.
 
 The wrapper dispatches on the device of ``x``: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises, also for a shape
-outside ``fp4_chain_supported``. ``launches`` counts kernel launches.
+outside ``fp4_chain_supported``. ``launches`` counts kernel launches. A
+row whose expert id lies outside [0, E) gives 0 on either.
 """
 
 from __future__ import annotations
@@ -82,7 +83,9 @@ def _check(w1, w3, perm13: bool) -> None:
 def moe_fp4_chain_plain(x, w1, w3, w2, idx, limit: float, perm13: bool = False):
     """The kernel's function in plain PyTorch: three K3 plain products with
     the f32 SwiGLU between them; with perm13, act is put back in natural
-    order before w2."""
+    order before w2. A row whose expert id lies outside [0, E) gives 0."""
+    valid = (idx >= 0) & (idx < w1["q"].shape[0])
+    idx = torch.where(valid, idx, torch.zeros_like(idx))
     g = k3.moe_fp4_gemv_plain(x, w1["q"], w1["s"], idx)
     u = k3.moe_fp4_gemv_plain(x, w3["q"], w3["s"], idx)
     act = swiglu(g, u, limit)
@@ -90,7 +93,8 @@ def moe_fp4_chain_plain(x, w1, w3, w2, idx, limit: float, perm13: bool = False):
         natural = torch.empty_like(act)
         natural[:, perm13_rows(act.shape[1]).to(act.device)] = act
         act = natural
-    return k3.moe_fp4_gemv_plain(act, w2["q"], w2["s"], idx)
+    y = k3.moe_fp4_gemv_plain(act, w2["q"], w2["s"], idx)
+    return torch.where(valid[:, None], y, torch.zeros_like(y))
 
 
 def moe_fp4_chain(x, w1, w3, w2, idx, limit: float, perm13: bool = False):

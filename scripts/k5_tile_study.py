@@ -12,13 +12,15 @@ a copy of the source with text substituted:
 - ``256ch-8w``: 256 channels and 8 warps a block (a stage of 16 KB of
   codes, as K7's), 4 stages, half the re-reads of each row chunk's x, one
   block an SM;
-- ``no-decode``: the E2M1 decode and the scale multiply replaced by 3
-  integer operations a word (wrong values; what the decode costs);
+- ``no-decode``: the E2M1 decode and the scale multiply (``csrc/common.cuh``'s
+  ``e2m1x8_bf16x2``) replaced by 3 integer operations a word (wrong values;
+  what the decode costs);
 - ``no-scale-loads``: the scales taken as 1 and never loaded;
 - ``copies-only``: no products: the cp.async ring, its barriers and the
   epilogue alone;
 - ``against``, with ``--against FILE``: another version of the kernel's
-  source (for example an earlier commit's), as it is.
+  source (for example an earlier commit's), as it is, built where it lies
+  so that it includes the ``common.cuh`` beside it.
 
 Then, on random packed-fp4 stacks at DeepSeek-V4-Flash's widths (256
 experts, group 32, power-of-two scales; four layers of each width, each
@@ -49,9 +51,9 @@ from pegainfer_tpu_torch.ops.cuda import build  # noqa: E402
 from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5  # noqa: E402
 
 OUT_DIR = ROOT / "build" / "k5_study"
-DECODE_BODY = (
-    "  const uint32_t m = w & 0x77777777u;  // magnitudes (a prmt reads the low 16 bits)\n",
-    "  r[3] = mul_bf16x2(prmt(lo47, hi47, kSelPair23), sc);\n")
+# the two decodes of a thread's 8 code bytes (common.cuh's e2m1x8_bf16x2)
+DECODE_CALLS = ("            e2m1x8_bf16x2(raw.x, sc[4 * kg + 2 * mt + h], r);\n"
+                "            e2m1x8_bf16x2(raw.y, sc[4 * kg + 2 * mt + h], r + 4);\n")
 FOUR_STAGES = {"constexpr int kMinBlocks = 3;": "constexpr int kMinBlocks = 2;",
                "constexpr int kStages = 3;": "constexpr int kStages = 4;"}
 # name -> (substitutions, whether its output is right and checked)
@@ -61,8 +63,12 @@ VARIANTS = {
     "256ch-8w": ({**FOUR_STAGES, "constexpr int kMinBlocks = 3;": "constexpr int kMinBlocks = 1;",
                   "constexpr int kThreads = 128;": "constexpr int kThreads = 256;",
                   "constexpr int kBM = 128;": "constexpr int kBM = 256;"}, True),
-    "no-decode": ({DECODE_BODY: "  r[0] = w; r[1] = w ^ sc; r[2] = w + sc; r[3] = w - sc;\n"},
-                  False),
+    "no-decode": ({DECODE_CALLS: "".join(
+        f"            r[{4 * i}] = raw.{c};\n"
+        f"            r[{4 * i + 1}] = raw.{c} ^ sc[4 * kg + 2 * mt + h];\n"
+        f"            r[{4 * i + 2}] = raw.{c} + sc[4 * kg + 2 * mt + h];\n"
+        f"            r[{4 * i + 3}] = raw.{c} - sc[4 * kg + 2 * mt + h];\n"
+        for i, c in enumerate("xy"))}, False),
     "no-scale-loads": ({"v = __ldg(se + static_cast<size_t>(oi) * S + j);": "v = 0x3F80u;"}, False),
     "copies-only": ({"      for (int kg = 0; kg < kBK / 64; ++kg) {":
                      "      for (int kg = 0; kg < 0; ++kg) {"}, False),
@@ -79,14 +85,14 @@ def build_variants(against=None):
         VARIANTS["against"] = ({}, True)
     procs = {}
     for name, (subs, _) in VARIANTS.items():
-        src = Path(against).read_text() if name == "against" else text
+        if name == "against":  # built where it lies, beside its own common.cuh
+            procs[name] = subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-o", str(OUT_DIR / f"lib{name}.so"),
+                 str(Path(against).resolve())],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            continue
+        src = text
         for old, new in subs.items():
-            if isinstance(old, tuple):  # the lines from old[0] through old[1]
-                i, j = src.find(old[0]), src.find(old[1])
-                if i < 0 or j < i:
-                    raise SystemExit(f"{name}: '{old[0]}' .. is not in csrc/fp4_grouped.cu")
-                src = src[:i] + new + src[j + len(old[1]):]
-                continue
             if src.count(old) != 1:
                 raise SystemExit(f"{name}: '{old}' is not in csrc/fp4_grouped.cu once")
             src = src.replace(old, new)

@@ -5,9 +5,9 @@ its fragment mapping, emulated in numpy and torch.
   as the kernel walks it, gives ``moe_fp4_grouped_plain`` on the routings of
   ``test_torch_int8_grouped_plan.py``, writing each (row, output tile) once.
 - The kernel's decode (byte permutes with the constants and selectors read
-  from the source, then one bf16 multiply by the group's scale) gives the
-  same bits as ``quant.dequant_any`` for every code byte, at power-of-two
-  and at arbitrary bf16 scales.
+  from ``csrc/common.cuh``, then one bf16 multiply by the group's scale)
+  gives the same bits as ``quant.dequant_any`` for every code byte, at
+  power-of-two and at arbitrary bf16 scales.
 - Its fragment mapping (a thread's 8 code bytes to the A registers of four
   k16 steps, x's B fragment from the same physical k) gives the contraction
   of ``quant.unpack_fp4`` x ``s`` in natural k order, at groups 16, 32 and
@@ -32,7 +32,8 @@ from pegainfer_tpu_torch.utils.weights import numpy_to_torch
 from tests.test_torch_int8_grouped_plan import CASES, E, _case
 
 OUT, IN = 192, 128  # OUT: one whole output tile and a half one
-SOURCE = Path(k5.__file__).resolve().parents[2] / "csrc" / "fp4_grouped.cu"
+# the decode K5 shares with K9
+SOURCE = Path(k5.__file__).resolve().parents[2] / "csrc" / "common.cuh"
 
 
 def _stack(gen, E, out_dim, in_dim, group=32, pow2=True):

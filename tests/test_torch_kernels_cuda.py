@@ -27,7 +27,9 @@ another order, on unscaled outputs of magnitude 1e4 (codes up to 127):
 so each row is held to 1e-4 of its own max |y| (2e-2 of the global max
 passes a kernel that drops one product of one row). The chains K8
 and K9 round act to bf16, where an f32 sum-order difference moves an
-element by one bf16 ulp now and then: 2e-3 of max |y|. Routed experts are drawn from a 16-expert stack.
+element by one bf16 ulp now and then: K8 is held to 2e-3 of max |y|, K9
+each row to CHAIN_ROW_RTOL of its own max |y| (a row of an invalid expert
+id exactly 0). Routed experts are drawn from a 16-expert stack.
 """
 
 import numpy as np
@@ -53,7 +55,8 @@ PREFILL_RTOL = 2e-2
 GEMV_TOL = 2e-5
 GROUPED_ROW_RTOL = 1e-4  # K5 and K7
 INT8_GEMV_RTOL = 1e-5
-CHAIN_RTOL = 2e-3
+CHAIN_RTOL = 2e-3  # K8, of the global max
+CHAIN_ROW_RTOL = 1e-3  # K9, of each row's max (chip_smoke.py)
 LIMIT = 7.0
 
 
@@ -542,23 +545,56 @@ def test_int8_chain_kernel_matches_plain(dev, M, I, D, repeat):
     assert _rel_err(y, k8.moe_int8_chain_plain(*args)) <= CHAIN_RTOL
 
 
+def _chain_idx(gen, dev, M, E, routing):
+    """Expert ids of M routed rows for K9's cases: "distinct" experts, the
+    second half "repeat"ing the first, all on "one" expert (two n8 columns
+    at M > 8), or distinct with "invalid" ids (-1, E, E + 5) among them."""
+    idx = torch.randperm(E, generator=gen, device=dev)[:M].to(torch.int32)
+    if routing == "repeat":
+        idx[M // 2:] = idx[: M - M // 2]
+    elif routing == "one":
+        idx[:] = idx[0]
+    elif routing == "invalid":
+        idx[1::3] = torch.tensor([-1, E, E + 5], dtype=torch.int32, device=dev).repeat(M)[
+            : len(idx[1::3])]
+    return idx
+
+
+CHAIN_CASES = [  # (M, I, D, routing, group, pow2, limit)
+    *((m, 2048, 4096, r, 32, True, LIMIT) for m, r in ((1, "distinct"), (6, "distinct"),
+                                                        (12, "repeat"), (16, "distinct"))),
+    (5, 256, 512, "distinct", 32, True, LIMIT),
+    (16, 2048, 4096, "one", 32, True, LIMIT),  # two n8 columns of one expert
+    (9, 2048, 4096, "invalid", 32, True, LIMIT),
+    (6, 2048, 4096, "distinct", 32, True, 0.0),  # no clamp
+    (6, 2048, 4096, "repeat", 64, True, LIMIT),
+    (6, 2048, 4096, "distinct", 32, False, LIMIT),  # arbitrary bf16 scales
+]
+
+
 @pytest.mark.parametrize("perm13", [False, True])
-@pytest.mark.parametrize("M,I,D", [(1, 2048, 4096), (6, 2048, 4096), (16, 2048, 4096),
-                                   (5, 256, 512)])
-def test_fp4_chain_kernel_matches_plain(dev, perm13, M, I, D):
-    gen = _gen(dev, M + I + perm13)
+@pytest.mark.parametrize("M,I,D,routing,group,pow2,limit", CHAIN_CASES)
+def test_fp4_chain_kernel_matches_plain(dev, perm13, M, I, D, routing, group, pow2, limit):
+    """K9 rounds act to bf16 where an f32 sum-order difference can move one
+    element by one ulp: each row within CHAIN_ROW_RTOL of its own max |y|,
+    and rows of invalid ids exactly 0."""
+    gen = _gen(dev, M + I + group + perm13)
     E = 16
-    w1, w3, w2 = ({"q": q, "s": s} for q, s in (_fp4(dev, gen, E, I, D), _fp4(dev, gen, E, I, D),
-                                                _fp4(dev, gen, E, D, I)))
+    w1, w3, w2 = ({"q": q, "s": s} for q, s in (_fp4(dev, gen, E, I, D, group, pow2),
+                                                _fp4(dev, gen, E, I, D, group, pow2),
+                                                _fp4(dev, gen, E, D, I, group, pow2)))
     if perm13:
         w1, w3 = k9.permute_w13(w1), k9.permute_w13(w3)
     x = torch.randn((M, D), generator=gen, device=dev)
-    idx = _idx(gen, dev, M, E, repeat=M > 8)
+    idx = _chain_idx(gen, dev, M, E, routing)
     before = k9.launches
-    y = k9.moe_fp4_chain(x, w1, w3, w2, idx, LIMIT, perm13=perm13)
+    y = k9.moe_fp4_chain(x, w1, w3, w2, idx, limit, perm13=perm13)
     torch.cuda.synchronize()
     assert k9.launches == before + 1 and y.shape == (M, D)
-    assert _rel_err(y, k9.moe_fp4_chain_plain(x, w1, w3, w2, idx, LIMIT, perm13)) <= CHAIN_RTOL
+    # the plain version gives 0 for a row of an invalid id, and _row_share
+    # holds such a row to exactly 0
+    ref = k9.moe_fp4_chain_plain(x, w1, w3, w2, idx, limit, perm13)
+    assert _row_share(y, ref, CHAIN_ROW_RTOL) <= 1.0
 
 
 def test_int8_and_chain_kernels_refuse_unsupported_shapes(dev):
