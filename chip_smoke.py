@@ -5,9 +5,27 @@
 Phases, each printed as it runs; any failure exits non-zero:
 
 1. the card (name, power limit) and the torch / CUDA versions;
-2. build the nine hand-written kernels from ``pegainfer_tpu_torch/csrc``
-   (one nvcc per source, all at once, sm_90a) and print ptxas's registers /
-   shared memory / spills;
+2. build the hand-written kernels from ``pegainfer_tpu_torch/csrc`` (K1-K9
+   and the bf16 weight streams; one nvcc per source, all at once, sm_90a)
+   and print ptxas's registers / shared memory / spills;
+
+The bf16 weight streams (the TPU studies S2 and S1, at Qwen3-4B's shapes),
+while the card is empty:
+
+2a. stream_sum (bulk and ldg forms), gemv and layer_gemv against their plain
+    versions (``gemv_stream_study.check``) at the gate_up-, lm_head- and
+    qkv-like shapes, a ragged N and a ragged K; then the stream study's sweep
+    (``pegainfer_tpu_torch/studies/gemv_stream_study.py``) over bytes a
+    stage, stages and blocks an SM on the three shapes, W rotated over
+    copies beyond 2 x L2, beside torch.sum and torch's GEMV in both layouts:
+    the **read ceiling** (the best stream_sum form above L2, the median of
+    its re-timings) and the records at the wrappers' defaults;
+2b. gemv_chain, 36 layers of gate_up (3.59 GB), against its plain chain
+    (``gemv_chain_study.check``: one layer, every layer on the kernel's own
+    x, whole chains of 2 and 36 within twice the f32 plain chains' drift
+    from f64), then the five chain forms (eager torch GEMVs, their CUDA
+    graph, layer_gemv launches, their graph, gemv_chain), each with device
+    and wall time;
 
 Qwen3-4B bf16 (full width and depth, random weights from a seed):
 
@@ -82,8 +100,10 @@ On the same weights, the opt-in fp4 chain and then the int8-experts mode:
     K7) a library call; K7 at w1, at w2 and at skewed routing, each beside
     one grouped_mm, and its plan's time.
 
-The last lines are the kernels' JSON record (K1-K9), the card line from
-nvidia-smi and ``{"ok": true, "device": {...}}``.
+The last lines are the kernels' JSON record (the weight streams and K1-K9;
+with the read ceiling, and K3, K4, K6, K8 and K9 also bound by their bytes
+over it as ``measured_bound_ms``), the card line from nvidia-smi and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -128,7 +148,6 @@ LOGITS_RTOL = 5e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12
 TOP_OPS = 8  # device operations listed per profiled step, by device time
-SLEEP_CYCLES = 100_000_000  # about 50 ms of device sleep at H100 clocks
 
 # DeepSeek-V4-Flash phases
 DSV4_LAYERS = 8
@@ -173,6 +192,14 @@ CHAIN_ROW_RTOL = 1e-3
 GROUPED_ROW_RTOL = 1e-4
 DSV4_CHAIN_PAIR = ((300, 32), (500, 32))  # the chain-switch runs' traffic
 
+# phases 2a-2b: the bf16 weight streams (S2, S1). The limits of their checks
+# are the studies' (gemv_stream_study.check: stream_sum to 1e-5 of sqrt(N K)
+# max |W|, a GEMV to 1e-5 of max |y|; gemv_chain_study.check for the chain).
+CHAIN_L, CHAIN_N, CHAIN_K = 36, 19456, 2560  # Qwen3-4B's gate_up, 36 layers
+# the GEMV kernels whose byte bound the measured read ceiling restates
+MEASURED_BOUND_KERNELS = ("moe_fp4_gemv", "fp8_gemv", "moe_int8_gemv", "moe_int8_chain",
+                          "moe_fp4_chain")
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -197,32 +224,14 @@ def qwen3_4b_config(q3):
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of one call, by CUDA events over ``iters`` calls.
+    """Mean device time of one call ``fn(i)``, by CUDA events over ``iters``
+    calls, a device sleep ahead of the start event hiding the host's
+    enqueue (``pegainfer_tpu_torch/studies/timing.py::device_ms``). Keep a
+    window to a few hundred launches: more than the device's queue of
+    pending launches would block the host until the sleep ends."""
+    from pegainfer_tpu_torch.studies.timing import device_ms
 
-    A device-side sleep ahead of the start event keeps the card busy while
-    the host enqueues all calls, so a call made of many small launches is
-    timed on the device and not at the host's launch rate (which varies
-    from call to call with the load on the host). If the sleep ran out
-    before the host finished, the sleep doubles and the timing repeats.
-    Keep a window to a few hundred launches: more than the device's queue
-    of pending launches would block the host until the sleep ends."""
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    cycles = SLEEP_CYCLES
-    for _ in range(4):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for i in range(iters):
-            fn(i)
-        end.record()
-        fed = not start.query()  # the card had not reached the start yet
-        torch.cuda.synchronize()
-        if fed:
-            return start.elapsed_time(end) / iters
-        cycles *= 2
-    raise SystemExit("timing: the host could not enqueue the calls within the device sleep")
+    return device_ms(fn, iters, warmup)
 
 
 def bound(nbytes: float, flops: float):
@@ -425,6 +434,12 @@ def main() -> int:
                                                         or "Compiling entry" in line)):
                 log("  " + line.strip())
 
+    s_records, read_ceiling, s_extra, layer_err = run_streams()
+    ceiling = read_ceiling["bytes_per_s"]
+    c_records, c_extra = run_chain(layer_err)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     q_records, q_serving, q_steps = run_qwen3()
     # the Qwen3 engine, weights and KV pool are gone with run_qwen3's frame
     gc.collect()
@@ -433,8 +448,18 @@ def main() -> int:
     cfg, params, d_records, d_serving, d_steps = run_dsv4()
     k9_record, chain_serving = run_dsv4_fp4_chain(cfg, params)
     i_records, i_serving, i_steps = run_dsv4_int8(cfg, params, k9_record)
+    records = s_records + c_records + q_records + d_records + i_records
+    for r in records:
+        if r["name"] in MEASURED_BOUND_KERNELS:
+            # the same bytes over the measured ceiling (every one is bound by bytes)
+            r["measured_bound_ms"] = (r["bound_ms"] * HBM_BYTES_PER_S / ceiling
+                                      if r["bound_by"] == "bytes" else None)
+            log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us, {r['bound_ms'] / r['ms']:.1%} of its "
+                f"nominal bound, {r['bound_ms'] * HBM_BYTES_PER_S / ceiling / r['ms']:.1%} of "
+                "its bound at the measured read ceiling")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": q_records + d_records + i_records,
+    print(json.dumps({"kernels": records, "read_ceiling_bytes_per_s": ceiling,
+                      "read_ceiling": read_ceiling, "weight_streams": s_extra, "gemv_chain": c_extra,
                       "serving": q_serving, "steps": q_steps,
                       "dsv4": {"serving": d_serving, "steps": d_steps},
                       "dsv4_fp4_chain": {"serving": chain_serving},
@@ -444,6 +469,167 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ── phases 2a-2b: the bf16 weight streams ──────────────────────────────
+
+
+def stream_err(label, got, ref, limit):
+    err = (got - ref).abs().max().item()
+    log(f"  {label}: max |diff| {err:.3e} of {limit:.3e} "
+        f"{'ok' if err <= limit else 'FAIL'}")
+    if not err <= limit:
+        raise SystemExit(f"{label}: the kernel disagrees with its plain version")
+    return err
+
+
+def run_streams():
+    """Phase 2a: stream_sum (both forms), gemv and layer_gemv against their
+    plain versions (gemv_stream_study.check); then the study's sweep on the
+    three shapes (the main path, counted) and the wrappers' defaults timed.
+    Returns (records, the read ceiling, the sweep's best per shape,
+    layer_gemv's largest error)."""
+    from pegainfer_tpu_torch.ops.cuda import gemv_stream as gs
+    from pegainfer_tpu_torch.studies import gemv_stream_study as study
+
+    # the plain versions' f32 products in true f32, not TF32 (torch's
+    # default already; set so that the oracle is never looser than the kernel)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("[2a] bf16 weight streams (S2: stream_sum, gemv; S1a: layer_gemv) against their "
+        "plain versions")
+    saved = dict(gs.launches)
+    rows = study.check(seed=SEED + 11)
+    gs.launches.update(saved)
+    errs = {k: 0.0 for k in gs.launches}
+    for name, err, lim in rows:
+        log(f"  {name}: max |diff| {err:.3e} of {lim:.3e} {'ok' if err <= lim else 'FAIL'}")
+        kernel = name.split()[0]
+        errs[kernel] = max(errs[kernel], err)
+    if not all(err <= lim for _, err, lim in rows):
+        raise SystemExit("a weight-stream kernel disagrees with its plain version")
+
+    for k in gs.launches:
+        gs.launches[k] = 0
+    log(f"  sweep (pegainfer_tpu_torch/studies/gemv_stream_study.py): defaults {gs.RING}, "
+        f"{gs.LDG}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    results = []
+    for N, K in study.SHAPES:
+        W = (torch.randn((N, K), generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+        x = (torch.randn((1, K), generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+        s = torch.zeros((1, 1), device="cuda")
+        log(f"  W [{N}, {K}] = {N * K * 2 / 1e6:.1f} MB over {study.copies_for(N * K * 2)} "
+            "copies")
+        results.append(study.study_shape(W, x, s))
+        if (N, K) == study.SHAPES[0]:  # the records: gate_up, the defaults
+            records = stream_records(gs, study, W, x, s, errs, results[-1])
+        del W
+        torch.cuda.empty_cache()
+    for r in records:
+        r["launches"] = gs.launches[r["name"]]
+    ceiling = study.read_ceiling(results)
+    log(f"  read ceiling {ceiling['bytes_per_s'] / 1e12:.4f} TB/s ({ceiling['kind']} "
+        f"{ceiling['cfg']} at [{ceiling['N']}, {ceiling['K']}], median of {ceiling['retimes']} "
+        f"re-timings, range {ceiling['min_bytes_per_s'] / 1e12:.4f}-"
+        f"{ceiling['max_bytes_per_s'] / 1e12:.4f}), "
+        f"{ceiling['bytes_per_s'] / HBM_BYTES_PER_S:.1%} of {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+        f"launches {gs.launches}")
+    log_records(records)
+    for r in records:
+        if r["launches"] < 1:
+            raise SystemExit(f"{r['name']} was not launched on its path")
+    return records, ceiling, [{"N": r["N"], "K": r["K"], "copies": r["copies"],
+                               "best": r["best"], "library_call": r["library_call"]}
+                              for r in results], errs["layer_gemv"]
+
+
+def stream_records(gs, study, W, x, s, errs, res):
+    """Records of stream_sum (bulk, ldg) and gemv at the gate_up shape with
+    the wrappers' defaults, W rotated over copies beyond 2 x L2; the plain
+    versions; the library calls from the sweep's rows."""
+    N, K = W.shape
+    n = study.copies_for(N * K * 2)
+    ws = [W] + [W.clone() for _ in range(n - 1)]
+    lib = {r["kind"]: r for r in res["rows"] if r["kind"].startswith("torch")}
+    src = "pegainfer_tpu_torch/csrc/gemv_stream.cu"
+    out = []
+    for name, fn, plain, nbytes, flops, replaces, lib_kind in (
+            ("stream_sum_bulk", lambda i: gs.stream_sum(ws[i % n], s, "bulk"),
+             lambda i: gs.stream_sum_plain(ws[i % n], s), N * K * 2 + 8, N * K,
+             "scripts/gemv_stream_study.py:41", "torch.sum"),
+            ("stream_sum_ldg", lambda i: gs.stream_sum(ws[i % n], s, "ldg"),
+             lambda i: gs.stream_sum_plain(ws[i % n], s), N * K * 2 + 8, N * K,
+             "scripts/gemv_stream_study.py:41", "torch.sum"),
+            ("gemv", lambda i: gs.gemv(x, ws[i % n], s),
+             lambda i: gs.gemv_plain(x, ws[i % n], s), N * K * 2 + K * 2 + 4 + N * 4,
+             2 * N * K, "scripts/gemv_stream_study.py:90", "torch gemv [N,K]")):
+        b, by = bound(nbytes, flops)
+        out.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                    "launches": None, "max_abs_err": errs[name], "ms": time_ms(fn, 100),
+                    "plain_ms": time_ms(plain, 10), "bound_ms": b, "bound_by": by,
+                    "library_ms": lib[lib_kind]["ms"],
+                    "library_call": f"{lib_kind} {lib[lib_kind]['cfg']}", "shape": [N, K]})
+    out[-1]["library_kn_ms"] = lib["torch gemv [K,N]"]["ms"]
+    return out
+
+
+def run_chain(layer_err):
+    """Phase 2b: gemv_chain against its plain chain (gemv_chain_study.check:
+    L 1, every layer of 36 on the kernel's own x, whole chains of 2 and 36;
+    the same for a square chain of 4 layers, whose x needs every block),
+    then the study's five chain forms (the main path, counted); layer_gemv
+    timed at the chain's shape. Returns (layer_gemv and gemv_chain records,
+    the forms)."""
+    from pegainfer_tpu_torch.ops.cuda import gemv_chain as gc
+    from pegainfer_tpu_torch.ops.cuda import gemv_stream as gs
+    from pegainfer_tpu_torch.studies import gemv_chain_study as study
+    from pegainfer_tpu_torch.studies.gemv_stream_study import LIBRARY_GEMV, library_gemv
+
+    log(f"[2b] the persistent GEMV chain (S1b) against its plain chain, L {CHAIN_L}, "
+        f"N {CHAIN_N}, K {CHAIN_K}")
+    x, stack = study.card_inputs(CHAIN_L, CHAIN_N, CHAIN_K, seed=SEED)
+    saved = gc.launches
+    rows = study.check(x, stack)
+    gc.launches = saved
+    for name, err, lim in rows:
+        if not name.startswith("layer") or not err <= lim:
+            log(f"  {name}: max |diff| {err:.3e} of {lim:.3e} {'ok' if err <= lim else 'FAIL'}")
+    worst = max(rows[1:CHAIN_L], key=lambda r: r[1] / r[2])
+    log(f"  layers 1-{CHAIN_L - 1} on the kernel's own x: worst {worst[0]} at "
+        f"{worst[1] / worst[2]:.3f} of its limit")
+    if not all(err <= lim for _, err, lim in rows):
+        raise SystemExit("gemv_chain disagrees with its plain chain")
+
+    gc.launches = 0
+    gs.launches["layer_gemv"] = 0
+    log("  the five chain forms (pegainfer_tpu_torch/studies/gemv_chain_study.py):")
+    forms = study.time_forms(x, stack)
+    L = CHAIN_L
+    layer_ms = time_ms(lambda i: gs.layer_gemv(x, stack, i % L), 100)
+    launches = {"layer_gemv": gs.launches["layer_gemv"], "gemv_chain": gc.launches}
+    log(f"  launches {launches}")
+    if min(launches.values()) < 1:
+        raise SystemExit(f"a chain kernel was not launched on its path: {launches}")
+    nbytes = CHAIN_N * CHAIN_K * 2
+    lb, lby = bound(nbytes + CHAIN_K * 2 + CHAIN_N * 4, 2 * CHAIN_N * CHAIN_K)
+    cb, cby = bound(L * nbytes + CHAIN_K * 2 + CHAIN_N * 4, 2 * L * CHAIN_N * CHAIN_K)
+    records = [
+        {"name": "layer_gemv", "route": "cuda", "source": "pegainfer_tpu_torch/csrc/gemv_stream.cu",
+         "replaces": "scripts/gemv_chain_study.py:41", "launches": launches["layer_gemv"],
+         "max_abs_err": layer_err, "ms": layer_ms,
+         "plain_ms": time_ms(lambda i: gs.layer_gemv_plain(x, stack, i % L), 10),
+         "bound_ms": lb, "bound_by": lby,
+         "library_ms": time_ms(lambda i: library_gemv(x, stack[i % L].T), 100),
+         "library_call": LIBRARY_GEMV},
+        {"name": "gemv_chain", "route": "cuda", "source": "pegainfer_tpu_torch/csrc/gemv_chain.cu",
+         "replaces": "scripts/gemv_chain_study.py:96", "launches": launches["gemv_chain"],
+         "max_abs_err": max(err for _, err, _ in rows), "ms": forms["gemv_chain"]["device_ms"],
+         "plain_ms": time_ms(lambda i: gc.gemv_chain_plain(x, stack), 2),
+         "bound_ms": cb, "bound_by": cby, "library_ms": None,
+         "library_call": "none (no one call); the chain forms beside it"},
+    ]
+    log_records(records)
+    return records, {"checks": rows, "forms": forms}
 
 
 def run_qwen3():
@@ -806,6 +992,8 @@ def k2_host_cost(fp, T, Hq, Hkv, hd, iters=200):
     ctypes cost), and one whole wrapper call (plan, four encodes, launch),
     enqueued behind a device sleep. Means over ``iters`` calls, host clock."""
     import ctypes
+
+    from pegainfer_tpu_torch.studies.timing import SLEEP_CYCLES
     q = torch.zeros((T, Hq, hd), dtype=torch.bfloat16, device="cuda")
     k = torch.zeros((T, Hkv, hd), dtype=torch.bfloat16, device="cuda")
     G = Hq // Hkv

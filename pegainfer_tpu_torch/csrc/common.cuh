@@ -4,6 +4,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -25,6 +26,17 @@ __device__ __forceinline__ void unpack_bf16x8(const uint4 raw, float* out) {
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+// acc + the 8 products of two 16-byte units of bf16, in order (the bf16
+// weight streams)
+__device__ __forceinline__ float dot_bf16x8(const uint4 w, const uint4 x, float acc) {
+  float a[8], b[8];
+  unpack_bf16x8(w, a);
+  unpack_bf16x8(x, b);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc = fmaf(a[i], b[i], acc);
+  return acc;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
@@ -120,10 +132,171 @@ __device__ __forceinline__ void e2m1x8_bf16x2(uint32_t w, uint32_t sc, uint32_t*
   r[3] = mul_bf16x2(prmt(lo47, hi47, kSelPair23), sc);
 }
 
+// mbarriers (K1, K2 and the bf16 weight streams): each takes the barrier's
+// shared-memory address
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+// the issuing thread's arrival, announcing the bytes its copies will bring
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// a wait that never completes (a copy that was never issued) traps, so the
+// launch fails instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (n == (1u << 26)) __trap();
+  }
+}
+
+// one 1-D bulk copy (TMA, no tensor map) of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) from device memory into shared memory at `dst`,
+// completing on `bar`
+__device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src, uint32_t bytes,
+                                              uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
+
+// The bf16 weight ring of gemv_stream.cu and gemv_chain.cu. A block of
+// kConsumerWarps consumer warps and one producer warp streams chunks of
+// whole rows through `stages` stages of shared memory: one producer thread
+// issues chunk j as one 1-D bulk copy into stage j % stages, completing on
+// the stage's full mbarrier with the chunk's bytes (a short last chunk
+// announces fewer); the consumers release it through its empty mbarrier,
+// one arrival a warp. Dynamic shared memory: full[stages], empty[stages],
+// x (`x_bytes`, the GEMV's input), then the stages.
+namespace wring {
+
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumers = kConsumerWarps * 32;
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kMaxStages = 32;
+// a block's dynamic shared memory: 227 KB less 128 bytes of static
+constexpr int kMaxSmem = 232448 - 128;
+constexpr int kMaxDevices = 64;
+
+__host__ __device__ constexpr int align128(int b) { return (b + 127) & ~127; }
+__host__ __device__ inline int bar_bytes(int stages) { return align128(16 * stages); }
+__host__ inline size_t smem_bytes(int x_bytes, int stage_bytes, int stages) {
+  return bar_bytes(stages) + x_bytes + static_cast<size_t>(stages) * stage_bytes;
+}
+__host__ inline bool bad_ring(int K, int rows, int stages, int x_bytes) {
+  return K < 8 || K % 8 || rows < 1 || stages < 1 || stages > kMaxStages ||
+         smem_bytes(x_bytes, rows * K * 2, stages) > static_cast<size_t>(kMaxSmem);
+}
+
+// the kernel's dynamic shared memory allowed up to kMaxSmem, once a device
+// (`allowed`: the kernel's flags), so that no attribute is set while a CUDA
+// graph captures a launch
+__host__ inline cudaError_t allow_max_smem(const void* kernel, bool* allowed) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && allowed[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
+  return err;
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+struct Ring {
+  uint32_t bars;         // full[0]'s shared address; empty[0] is stages later
+  uint32_t ring;         // the first stage's shared address
+  unsigned char* ring_p;
+  unsigned char* x;      // x_bytes of x
+  int stages, stage_bytes;
+
+  __device__ Ring(unsigned char* smem, int x_bytes, int stages_, int stage_bytes_)
+      : bars(smem_u32(smem)),
+        ring(smem_u32(smem) + bar_bytes(stages_) + x_bytes),
+        ring_p(smem + bar_bytes(stages_) + x_bytes),
+        x(smem + bar_bytes(stages_)),
+        stages(stages_),
+        stage_bytes(stage_bytes_) {}
+
+  __device__ uint32_t full(int st) const { return bars + 8 * st; }
+  __device__ uint32_t empty(int st) const { return bars + 8 * (stages + st); }
+
+  // thread 0, before the block's first __syncthreads
+  __device__ void init() const {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(full(st), 1);                // the producer's arrival
+      mbar_init(empty(st), kConsumerWarps);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // the producer thread's j-th chunk: `bytes` from src, once the consumers
+  // have released what the stage held before
+  __device__ void produce(int j, const void* src, uint32_t bytes) const {
+    const int st = j % stages;
+    if (j >= stages) mbar_wait(empty(st), ((j / stages) & 1) ^ 1);
+    mbar_expect_tx(full(st), bytes);
+    bulk_copy_g2s(ring + st * stage_bytes, src, bytes, full(st));
+  }
+
+  // the consumers' j-th chunk, once it has landed
+  __device__ const uint4* acquire(int j) const {
+    const int st = j % stages;
+    mbar_wait(full(st), (j / stages) & 1);
+    return reinterpret_cast<const uint4*>(ring_p + st * stage_bytes);
+  }
+
+  // a consumer warp is done with its j-th chunk
+  __device__ void release(int j, int lane) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(j % stages));
+  }
+};
+
+// a chunk's bytes: min(rows, N - c · rows) whole rows of K bf16
+__device__ __forceinline__ uint32_t chunk_bytes(int c, int rows, int N, int K) {
+  return static_cast<uint32_t>(min(rows, N - c * rows)) * K * 2;
+}
+
+// consumer warp `warp`: y[rr] = x · row rr of the chunk + add for its rows
+// rr = warp, warp + kConsumerWarps, ... < r (lane i reads a row's 16-byte
+// units i, i + 32, ..., a shuffle reduction gives the sum, lane 0 writes)
+__device__ __forceinline__ void rows_gemv(const uint4* chunk, int r, int k8, const uint4* xs,
+                                          float add, float* y, int warp, int lane) {
+  for (int rr = warp; rr < r; rr += kConsumerWarps) {
+    const uint4* wr = chunk + rr * k8;
+    float a = 0.f;
+    for (int i = lane; i < k8; i += 32) a = dot_bf16x8(wr[i], xs[i], a);
+    a = warp_sum(a);
+    if (lane == 0) y[rr] = a + add;
+  }
+}
+
+}  // namespace wring
 
 }  // namespace

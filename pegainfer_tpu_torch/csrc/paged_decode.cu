@@ -101,10 +101,6 @@ __host__ __device__ constexpr int smem_bytes() {
   return ring_bytes<HD, G>() + (G * HD + G * Cfg<HD>::kTile + 3 * G) * 4;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
 }

@@ -11,6 +11,10 @@
 | K7 int8 grouped GEMM (prefill MoE) | csrc/int8_grouped.cu | ops/pallas/fp4_gemm.py::moe_int8_grouped |
 | K8 int8 routed-expert chain (decode MoE) | csrc/int8_chain.cu | ops/pallas/fp4_gemm.py::moe_int8_chain |
 | K9 fp4 routed-expert chain (decode MoE) | csrc/fp4_chain.cu | ops/pallas/fp4_gemm.py::moe_fp4_chain |
+| S2a bf16 weight stream, sum(W) + s (bulk ring and ldg forms) | csrc/gemv_stream.cu | scripts/gemv_stream_study.py::make_stream_sum |
+| S2b bf16 GEMV over the same ring | csrc/gemv_stream.cu | scripts/gemv_stream_study.py::make_gemv |
+| S1a one layer of an [L, N, K] stack | csrc/gemv_stream.cu | scripts/gemv_chain_study.py::make_layer_gemv |
+| S1b L dependent GEMVs, one persistent launch | csrc/gemv_chain.cu | scripts/gemv_chain_study.py::make_mega |
 
 Each wrapper takes the plain PyTorch version for CPU tensors and launches
 its kernel (or raises) for CUDA tensors; nothing is built at import time.

@@ -22,7 +22,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build"
 SOURCES = ("paged_decode", "flash_prefill", "fp8_gemv", "fp4_gemv", "fp4_grouped",
-           "int8_gemv", "int8_grouped", "int8_chain", "fp4_chain")
+           "int8_gemv", "int8_grouped", "int8_chain", "fp4_chain", "gemv_stream", "gemv_chain")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -136,6 +136,23 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     fn = libs["fp4_chain"].fp4_chain
     fn.argtypes = [p, p, p, p, p, p, p, p, p, p,  # x, w1, s1, w3, s3, w2, s2, idx, act, y
                    i, i, i, i, i, i, f, i,  # M, E, I, D, S1, S2, limit, perm13
+                   p]  # stream
+    fn.restype = i
+    lib = libs["gemv_stream"]
+    lib.stream_sum_bulk.argtypes = [p, p, p, p,  # W, s, partials, out
+                                    i, i, i, i, i,  # N, K, rows, stages, blocks
+                                    p]  # stream
+    lib.stream_sum_ldg.argtypes = [p, p, p, p,  # W, s, partials, out
+                                   ll, i, i,  # n4, unroll, blocks
+                                   p]  # stream
+    lib.gemv_bf16.argtypes = [p, p, p, p,  # x, W, s (or None), y
+                              i, i, i, i, i, i,  # N, K, layer, rows, stages, blocks
+                              p]  # stream
+    for fn in (lib.stream_sum_bulk, lib.stream_sum_ldg, lib.gemv_bf16):
+        fn.restype = i
+    fn = libs["gemv_chain"].gemv_chain
+    fn.argtypes = [p, p, p, p, p,  # x, stack, ybuf, y, barrier word
+                   i, i, i, i, i,  # L, N, K, rows, stages
                    p]  # stream
     fn.restype = i
 
