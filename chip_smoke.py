@@ -5,8 +5,9 @@
 Phases, each printed as it runs; any failure exits non-zero:
 
 1. the card (name, power limit) and the torch / CUDA versions;
-2. build the hand-written kernels from ``pegainfer_tpu_torch/csrc`` (K1-K9
-   and the bf16 weight streams; one nvcc per source, all at once, sm_90a)
+2. build the hand-written kernels from ``pegainfer_tpu_torch/csrc`` (K1-K9,
+   the bf16 weight streams, the int8 expert stream and the fp4 decode
+   variants; one nvcc per source, all at once, sm_90a)
    and print ptxas's registers / shared memory / spills;
 
 The bf16 weight streams (the TPU studies S2 and S1, at Qwen3-4B's shapes),
@@ -26,6 +27,24 @@ while the card is empty:
     from f64), then the five chain forms (eager torch GEMVs, their CUDA
     graph, layer_gemv launches, their graph, gemv_chain), each with device
     and wall time;
+
+The int8 expert stream and the fp4 decode variants (the TPU studies S3 and
+S4, at DeepSeek-V4-Flash's expert shapes), on weights made on the card from
+the seed:
+
+2c. expert_gemv (convert and native forms, 16 / 32 / 64 rows a block) and
+    expert_gemv_in_flight against their plain versions, each routed row to
+    its own limit, the native form bit for bit
+    (``expert_stream_study.check``: q int8 [256, 2048, 4096], 2.15 GB, at M
+    12 with repeated experts and M 1; a ragged OUT of 2018; sums near 2^24),
+    then the study's forms timed beside K6 and torch's bmm
+    (``pegainfer_tpu_torch/studies/expert_stream_study.py``);
+2d. fp4_variant_gemv (floor, bits_noscale, bits, arith x 16 / 32 / 64 rows)
+    against their plain versions, row by row (``fp4_kernel_study.check``:
+    q uint8 [256, 2048, 2048] and bf16 scales, 1.2 GB; the same cases;
+    bits and arith weight for weight), the scale loads of floor and
+    bits_noscale counted in the SASS, then the sweep beside K3 and its bmm
+    (``pegainfer_tpu_torch/studies/fp4_kernel_study.py``);
 
 Qwen3-4B bf16 (full width and depth, random weights from a seed):
 
@@ -100,9 +119,10 @@ On the same weights, the opt-in fp4 chain and then the int8-experts mode:
     K7) a library call; K7 at w1, at w2 and at skewed routing, each beside
     one grouped_mm, and its plan's time.
 
-The last lines are the kernels' JSON record (the weight streams and K1-K9;
-with the read ceiling, and K3, K4, K6, K8 and K9 also bound by their bytes
-over it as ``measured_bound_ms``), the card line from nvidia-smi and
+The last lines are the kernels' JSON record (the weight streams, the S3 /
+S4 kernels and K1-K9; with the read ceiling, and the S3 / S4 kernels, K3,
+K4, K6, K8 and K9 also bound by their bytes over it as
+``measured_bound_ms``), the card line from nvidia-smi and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -198,7 +218,10 @@ DSV4_CHAIN_PAIR = ((300, 32), (500, 32))  # the chain-switch runs' traffic
 CHAIN_L, CHAIN_N, CHAIN_K = 36, 19456, 2560  # Qwen3-4B's gate_up, 36 layers
 # the GEMV kernels whose byte bound the measured read ceiling restates
 MEASURED_BOUND_KERNELS = ("moe_fp4_gemv", "fp8_gemv", "moe_int8_gemv", "moe_int8_chain",
-                          "moe_fp4_chain")
+                          "moe_fp4_chain", "expert_gemv_convert", "expert_gemv_native",
+                          "expert_gemv_in_flight", "fp4_variant_floor", "fp4_variant_bits_noscale",
+                          "fp4_variant_bits", "fp4_variant_arith")
+INT8_OPS = 1979e12  # H100 SXM dense int8 (NVIDIA data sheet)
 
 
 def log(msg: str) -> None:
@@ -439,6 +462,12 @@ def main() -> int:
     c_records, c_extra = run_chain(layer_err)
     gc.collect()
     torch.cuda.empty_cache()
+    e_records, e_extra = run_expert_stream()
+    gc.collect()
+    torch.cuda.empty_cache()
+    f_records, f_extra = run_fp4_study()
+    gc.collect()
+    torch.cuda.empty_cache()
 
     q_records, q_serving, q_steps = run_qwen3()
     # the Qwen3 engine, weights and KV pool are gone with run_qwen3's frame
@@ -448,7 +477,7 @@ def main() -> int:
     cfg, params, d_records, d_serving, d_steps = run_dsv4()
     k9_record, chain_serving = run_dsv4_fp4_chain(cfg, params)
     i_records, i_serving, i_steps = run_dsv4_int8(cfg, params, k9_record)
-    records = s_records + c_records + q_records + d_records + i_records
+    records = s_records + c_records + e_records + f_records + q_records + d_records + i_records
     for r in records:
         if r["name"] in MEASURED_BOUND_KERNELS:
             # the same bytes over the measured ceiling (every one is bound by bytes)
@@ -460,6 +489,7 @@ def main() -> int:
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records, "read_ceiling_bytes_per_s": ceiling,
                       "read_ceiling": read_ceiling, "weight_streams": s_extra, "gemv_chain": c_extra,
+                      "expert_stream": e_extra, "fp4_study": f_extra,
                       "serving": q_serving, "steps": q_steps,
                       "dsv4": {"serving": d_serving, "steps": d_steps},
                       "dsv4_fp4_chain": {"serving": chain_serving},
@@ -630,6 +660,162 @@ def run_chain(layer_err):
     ]
     log_records(records)
     return records, {"checks": rows, "forms": forms}
+
+
+# ── phases 2c-2d: the int8 expert stream and the fp4 decode variants ────
+
+
+def log_checks(rows, label):
+    """Log a study's check rows; fail if one is over its limit. Returns the
+    largest error of each kernel (the first word of a row's name)."""
+    errs = {}
+    for name, err, lim in rows:
+        log(f"  {name}: max |diff| {err:.3e} of {lim:.3e} {'ok' if err <= lim else 'FAIL'}")
+        kernel = name.split()[0]
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+    if not all(err <= lim for _, err, lim in rows):
+        raise SystemExit(f"a {label} kernel disagrees with its plain version")
+    return errs
+
+
+def check_launched(launches, label):
+    log(f"  launches {launches}")
+    if min(launches.values()) < 1:
+        raise SystemExit(f"a {label} kernel was not launched on its path: {launches}")
+
+
+def run_expert_stream():
+    """Phase 2c: expert_gemv (both forms) and expert_gemv_in_flight against
+    their plain versions (expert_stream_study.check) on q int8 [256, 2048,
+    4096] made on the card; then the study's forms timed (the main path,
+    counted), K6 and torch's bmm beside them. Records at rows 32 (the
+    wrapper's default), bounds over the distinct experts of the timed calls.
+    Returns (records, the study's table)."""
+    from pegainfer_tpu_torch.ops.cuda import expert_stream as es
+    from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
+    from pegainfer_tpu_torch.studies import expert_stream_study as study
+
+    t0 = time.perf_counter()
+    E, I, D, M = study.E, study.I, study.D, study.M
+    log(f"[2c] int8 expert stream (S3: expert_gemv convert / native, expert_gemv_in_flight) "
+        f"against its plain versions, q int8 [{E}, {I}, {D}]")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    q = torch.randint(-127, 128, (E, I, D), generator=gen, dtype=torch.int8, device="cuda")
+    saved = dict(es.launches)
+    errs = log_checks(study.check(q=q, seed=SEED + 14), "expert-stream")
+    es.launches.update(saved)
+
+    x8 = torch.randint(-127, 128, (M, D), generator=gen, dtype=torch.int8, device="cuda")
+    idx_all = torch.randint(0, E, (study.ITERS, M), generator=gen, device="cuda").int()
+    for k in es.launches:
+        es.launches[k] = 0
+    k6_saved = k6.launches
+    log("  forms (pegainfer_tpu_torch/studies/expert_stream_study.py):")
+    res = study.study(q, x8, idx_all)
+    k6.launches = k6_saved
+    launches = dict(es.launches)
+    check_launched(launches, "expert-stream")
+    by = {r["form"]: r for r in res["table"]}
+    xb = x8.to(torch.bfloat16)
+    n = study.ITERS
+    plain = {"expert_gemv_convert": lambda i: es.expert_gemv_plain(xb, q, idx_all[i % n]),
+             "expert_gemv_native": lambda i: es.expert_gemv_plain(x8, q, idx_all[i % n], True)}
+    plain["expert_gemv_in_flight"] = plain["expert_gemv_convert"]
+    distinct = res["distinct_bytes"]
+    src = "pegainfer_tpu_torch/csrc/expert_stream.cu"
+    records = []
+    for name, form, replaces, peak in (
+            ("expert_gemv_convert", "convert rows 32", "scripts/expert_stream_study.py:123",
+             BF16_FLOPS),
+            ("expert_gemv_native", "native rows 32", "scripts/expert_stream_study.py:123",
+             INT8_OPS),
+            ("expert_gemv_in_flight", "in flight", "scripts/expert_stream_study.py:155",
+             BF16_FLOPS)):
+        x_bytes = M * D * (1 if name == "expert_gemv_native" else 2)
+        nbytes = distinct + x_bytes + M * 4 + M * I * 4
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * M * I * D / peak * 1e3
+        records.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": errs[name], "ms": by[form]["ms"],
+            "plain_ms": time_ms(plain[name], 10), "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": by[study.LIBRARY_CALL]["ms"], "library_call": study.LIBRARY_CALL,
+            "library_gather_ms": by[study.GATHER_CALL]["ms"], "form": form,
+            **res["bytes_in_flight"][form]})
+    log_records(records)
+    log(f"  [2c] took {time.perf_counter() - t0:.1f} s")
+    del q
+    return records, res
+
+
+def run_fp4_study():
+    """Phase 2d: fp4_variant_gemv in its four variants and three tiles
+    against their plain versions (fp4_kernel_study.check) on q uint8 [256,
+    2048, 2048] and bf16 scales made on the card, bits and arith weight for
+    weight; the scale loads of floor and bits_noscale in the SASS; then the
+    sweep (the main path, counted) beside K3 and its bmm. Records at rows 32
+    (the wrapper's default), bounds over the distinct experts of the timed
+    calls. Returns (records, the sweep's table, decode's cost, the SASS
+    counts)."""
+    from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
+    from pegainfer_tpu_torch.ops.cuda import fp4_study as fs
+    from pegainfer_tpu_torch.studies import fp4_kernel_study as study
+    from pegainfer_tpu_torch.studies.expert_stream_study import distinct_bytes
+
+    t0 = time.perf_counter()
+    E, OUT, IN, M = study.E, study.OUT, study.IN, study.M
+    S = IN // study.GROUP
+    log(f"[2d] fp4 decode variants (S4: floor, bits_noscale, bits, arith) against their plain "
+        f"versions, q uint8 [{E}, {OUT}, {IN // 2}], s bf16 [{E}, {OUT}, {S}]")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    q = torch.randint(0, 256, (E, OUT, IN // 2), generator=gen, dtype=torch.uint8, device="cuda")
+    s = study.random_scales(gen, (E, OUT, S), "cuda", pow2=True)
+    saved = dict(fs.launches)
+    errs = log_checks(study.check(q=q, s=s, seed=SEED + 16), "fp4 decode")
+    fs.launches.update(saved)
+    loads = study.scale_loads()
+    log(f"  16-bit global (scale) loads in the SASS: {loads}")
+    if not study.scale_loads_kept(loads):
+        raise SystemExit("a floor or bits_noscale kernel lost its scale loads")
+
+    xb = torch.randn((M, IN), generator=gen, device="cuda").to(torch.bfloat16)
+    idx_all = torch.randint(0, E, (study.ITERS, M), generator=gen, device="cuda").int()
+    for k in fs.launches:
+        fs.launches[k] = 0
+    k3_saved = k3.launches
+    log("  sweep (pegainfer_tpu_torch/studies/fp4_kernel_study.py):")
+    table = study.sweep(q, s, xb, idx_all)
+    k3.launches = k3_saved
+    launches = dict(fs.launches)
+    check_launched(launches, "fp4 decode")
+    cost = study.decode_cost(table)
+    log("  decode above floor (us, by rows): " + json.dumps(
+        {k: {r: round(v * 1e3, 3) for r, v in d.items()} for k, d in cost.items()
+         if k.endswith("floor")}) + f"; best {cost['best']}; K3 {cost['K3_ms'] * 1e3:.2f} us")
+    by = {r["form"]: r for r in table}
+    n = study.ITERS
+    # each distinct expert's packed codes and scales, x, idx, y
+    nbytes = (distinct_bytes(idx_all.cpu().numpy(), OUT, IN // 2 + S * 2)
+              + M * IN * 2 + M * 4 + M * OUT * 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * M * OUT * IN / BF16_FLOPS * 1e3
+    records = []
+    for v in fs.VARIANTS:
+        name = f"fp4_variant_{v}"
+        records.append({
+            "name": name, "route": "cuda", "source": "pegainfer_tpu_torch/csrc/fp4_study.cu",
+            "replaces": "scripts/fp4_kernel_study.py:105", "launches": launches[name],
+            "max_abs_err": errs[name], "ms": by[f"{v} rows 32"]["ms"],
+            "plain_ms": time_ms(
+                lambda i, v=v: fs.fp4_variant_gemv_plain(xb, q, s, idx_all[i % n], v), 10),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "library_ms": by[study.LIBRARY_CALL]["ms"],
+            "library_call": study.LIBRARY_CALL, "form": f"{v} rows 32",
+            "best_rows": cost["best"][v]["rows"], "best_ms": cost["best"][v]["ms"],
+            "scale_loads_in_sass": {k: c for k, c in loads.items() if k.split()[0] == v}})
+    log_records(records)
+    log(f"  [2d] took {time.perf_counter() - t0:.1f} s")
+    del q, s
+    return records, {"table": table, "decode_cost": cost, "scale_loads": loads}
 
 
 def run_qwen3():

@@ -118,18 +118,25 @@ __device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
 }
 
 // 8 packed codes (byte j: codes 2j in the low nibble, 2j + 1 in the high)
-// -> 4 bf16 pairs r[j] = (code 2j, code 2j + 1) · scale, each rounded once
-// from the exact product; sc holds the scale in both halves
-__device__ __forceinline__ void e2m1x8_bf16x2(uint32_t w, uint32_t sc, uint32_t* r) {
+// -> 4 bf16 pairs r[j] = (code 2j, code 2j + 1), unscaled
+__device__ __forceinline__ void e2m1x8_bf16x2_unscaled(uint32_t w, uint32_t* r) {
   const uint32_t m = w & 0x77777777u;  // magnitudes (a prmt reads the low 16 bits)
   const uint32_t w4 = w << 4;
   const uint32_t hi03 = prmt(kHi0, kHi1, m) | (prmt(w, w4, kSelNeg03) & 0x80808080u);
   const uint32_t hi47 = prmt(kHi0, kHi1, m >> 16) | (prmt(w, w4, kSelNeg47) & 0x80808080u);
   const uint32_t lo03 = prmt(kLo0, kLo1, m), lo47 = prmt(kLo0, kLo1, m >> 16);
-  r[0] = mul_bf16x2(prmt(lo03, hi03, kSelPair01), sc);
-  r[1] = mul_bf16x2(prmt(lo03, hi03, kSelPair23), sc);
-  r[2] = mul_bf16x2(prmt(lo47, hi47, kSelPair01), sc);
-  r[3] = mul_bf16x2(prmt(lo47, hi47, kSelPair23), sc);
+  r[0] = prmt(lo03, hi03, kSelPair01);
+  r[1] = prmt(lo03, hi03, kSelPair23);
+  r[2] = prmt(lo47, hi47, kSelPair01);
+  r[3] = prmt(lo47, hi47, kSelPair23);
+}
+
+// the same pairs · scale, each rounded once from the exact product; sc holds
+// the scale in both halves
+__device__ __forceinline__ void e2m1x8_bf16x2(uint32_t w, uint32_t sc, uint32_t* r) {
+  e2m1x8_bf16x2_unscaled(w, r);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) r[j] = mul_bf16x2(r[j], sc);
 }
 
 // mbarriers (K1, K2 and the bf16 weight streams): each takes the barrier's

@@ -22,7 +22,8 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build"
 SOURCES = ("paged_decode", "flash_prefill", "fp8_gemv", "fp4_gemv", "fp4_grouped",
-           "int8_gemv", "int8_grouped", "int8_chain", "fp4_chain", "gemv_stream", "gemv_chain")
+           "int8_gemv", "int8_grouped", "int8_chain", "fp4_chain", "gemv_stream", "gemv_chain",
+           "expert_stream", "fp4_study")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -153,6 +154,21 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     fn = libs["gemv_chain"].gemv_chain
     fn.argtypes = [p, p, p, p, p,  # x, stack, ybuf, y, barrier word
                    i, i, i, i, i,  # L, N, K, rows, stages
+                   p]  # stream
+    fn.restype = i
+    lib = libs["expert_stream"]
+    lib.expert_gemv.argtypes = [p, p, p, p,  # x, q, idx, y
+                                i, i, i, i, i, i,  # M, E, OUT, D, native, rows
+                                p]  # stream
+    lib.expert_gemv_in_flight.argtypes = [p, p, p, p,  # x, q, idx, y
+                                          i, i, i, i, i, i,  # M, E, OUT, D, T, copies_only
+                                          p]  # stream
+    lib.expert_stream_blocks_per_sm.argtypes = [i, i, i, i, ctypes.POINTER(i)]  # form, rows, M, D
+    for fn in (lib.expert_gemv, lib.expert_gemv_in_flight, lib.expert_stream_blocks_per_sm):
+        fn.restype = i
+    fn = libs["fp4_study"].fp4_variant_gemv
+    fn.argtypes = [p, p, p, p, p,  # x, q, s, idx, y
+                   i, i, i, i, i, i, i,  # M, E, OUT, IN, S, variant, rows
                    p]  # stream
     fn.restype = i
 
