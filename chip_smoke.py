@@ -70,10 +70,11 @@ weights made on the card from the seed:
 
 9. build the weights (about 33 GB);
 10. hold K3, K4 and K5 against their plain versions on the model's weights
-    at the path's shapes and at ragged cases (repeated experts; M = 1, 2,
-    8 and wo_b's IN of 8192; skewed routing with empty experts, segments
-    across tiles, a tile of 56 rows; K5 also with w1's scales given random
-    bf16 mantissas), K5 each row within GROUPED_ROW_RTOL of its max |ref|;
+    at the path's shapes and at ragged cases (K4 at the seven shapes of a
+    decode step at M = 1, 2 and 8; repeated experts; skewed routing with
+    empty experts, segments across tiles, a tile of 56 rows; K5 also with
+    w1's scales given random bf16 mantissas), K5 each row within
+    GROUPED_ROW_RTOL of its max |ref|;
 11. serve through ``dsv4_engine.start_engine_from_params`` (2 slots,
     max_model_len 2048): a 16/4 warm-up, the greedy 1024/64 request, then
     300/32, 500/32 and 200/16 at once;
@@ -85,10 +86,12 @@ weights made on the card from the seed:
     against ``plain_kernels=True``, the kernel run routed as the plain run
     (same rule as 7, DSV4_LOGITS_RTOL);
 13. timings: TTFT and TPOT of the 1024/64 request, a torch.profiler step
-    profile of one prefill and one B = 1 decode step, and K3-K5 against
-    their bounds, plain versions and a library call each (bmm, matmul,
-    grouped_mm on bf16 weights); K5 at w1, at w2 and at skewed routing,
-    each beside one grouped_mm, and its plan's time.
+    profile of one prefill and one B = 1 decode step (K4's device time in
+    it), and K3-K5 against their bounds, plain versions and a library call
+    each (bmm, matmul, grouped_mm on bf16 weights); K4 at each of the seven
+    shapes of a decode step and their sum over the step's launches; K5 at
+    w1, at w2 and at skewed routing, each beside one grouped_mm, and its
+    plan's time.
 
 On the same weights, the opt-in fp4 chain and then the int8-experts mode:
 
@@ -115,9 +118,9 @@ On the same weights, the opt-in fp4 chain and then the int8-experts mode:
     logits against the plain versions; then the 300/32 + 500/32 pair with
     ``moe_chain=False`` (3L x decode steps K6, no K8);
 18. timings: TTFT and TPOT of the int8 1024/64 request, a torch.profiler
-    step profile, and K6-K9 against their bounds, plain versions and (K6,
-    K7) a library call; K7 at w1, at w2 and at skewed routing, each beside
-    one grouped_mm, and its plan's time.
+    step profile (K4's device time in it), and K6-K9 against their bounds,
+    plain versions and (K6, K7) a library call; K7 at w1, at w2 and at
+    skewed routing, each beside one grouped_mm, and its plan's time.
 
 The last lines are the kernels' JSON record (the weight streams, the S3 /
 S4 kernels and K1-K9; with the read ceiling, and the S3 / S4 kernels, K3,
@@ -179,6 +182,8 @@ DSV4_CONCURRENT = ((300, 32), (500, 32), (200, 16))  # the third waits for a slo
 # K3 / K4 form the same exact f32 products as their plain versions, in
 # another summation order (the JAX kernel tests' atol, on unit-RMS outputs)
 QUANT_GEMV_TOL = 2e-5
+# K4's linears in a decode step (models/dsv4.py), one of each shape
+K4_STEP_KEYS = ("wq_a", "wq_b", "wkv", "wo_b", "shared_w1", "shared_w2", "idx_wq_b")
 # the library yardsticks of K3, K5 and K7 round their products or outputs
 # to bf16 (the JAX grouped test's 2e-2 of max |y|)
 GROUPED_RTOL = 2e-2
@@ -483,6 +488,13 @@ def main() -> int:
             # the same bytes over the measured ceiling (every one is bound by bytes)
             r["measured_bound_ms"] = (r["bound_ms"] * HBM_BYTES_PER_S / ceiling
                                       if r["bound_by"] == "bytes" else None)
+            for sub in r.get("shapes", {}).values():  # K4's shapes of a decode step
+                sub["measured_bound_ms"] = sub["bound_ms"] * HBM_BYTES_PER_S / ceiling
+            if "step_bound_ms" in r:
+                r["step_measured_bound_ms"] = r["step_bound_ms"] * HBM_BYTES_PER_S / ceiling
+                log(f"  {r['name']} over a decode step: {r['step_ms'] * 1e3:.2f} us, "
+                    f"{r['step_measured_bound_ms'] / r['step_ms']:.1%} of its bound at the "
+                    "measured read ceiling")
             log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us, {r['bound_ms'] / r['ms']:.1%} of its "
                 f"nominal bound, {r['bound_ms'] * HBM_BYTES_PER_S / ceiling / r['ms']:.1%} of "
                 "its bound at the measured read ceiling")
@@ -931,14 +943,15 @@ def check_logits(lk, lp, rtol, message):
 
 
 def log_steps(steps):
-    for name, (wall, dev, n) in steps.items():
+    for name, (wall, dev, n, *_) in steps.items():
         log(f"  {name}: wall {wall:.3f} ms, device time {dev:.3f} ms in {n:.0f} "
             f"kernels and copies (torch.profiler), device idle {1 - dev / wall:.1%}")
 
 
 def steps_json(steps):
-    return {k: {"wall_ms": w, "device_ms": d, "device_ops": n}
-            for k, (w, d, n) in steps.items()}
+    """A step's times, and its kernels' where the profile picked them out."""
+    return {k: {"wall_ms": w, "device_ms": d, "device_ops": n, **(more[0] if more else {})}
+            for k, (w, d, n, *more) in steps.items()}
 
 
 def log_records(records):
@@ -2057,11 +2070,10 @@ def check_quant_kernels(cfg, params, k3, k4, k5):
     errs = {"moe_fp4_gemv": 0.0, "fp8_gemv": 0.0, "moe_fp4_grouped": 0.0}
     lw, lw4 = params["layers"][3], params["layers"][2]
 
-    for key, w, Ms in (("wq_b", lw["wq_b"], (1, 2, 8)), ("wo_b", lw["wo_b"], (1, 2, 8)),
-                       ("wq_a", lw["wq_a"], (2,)), ("wkv", lw["wkv"], (1,)),
-                       ("shared_w2", lw["shared_w2"], (2,)),
-                       ("idx_wq_b", lw4["idx_wq_b"], (1,))):
-        for M in Ms:
+    # K4 at the seven shapes of a decode step (shared_w3 has shared_w1's)
+    for key in K4_STEP_KEYS:
+        w = (lw4 if key == "idx_wq_b" else lw)[key]
+        for M in (1, 2, 8):
             x = torch.randn((M, w["q"].shape[1]), generator=gen, device="cuda")
             y = k4.fp8_gemv(x, w["q"], w["s"])
             torch.cuda.synchronize()
@@ -2143,10 +2155,16 @@ def dsv4_step_profile(cfg, d4, params, prompt_t, state, step, iters=3, moe_chain
             ka = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
                         key=lambda e: -e.self_device_time_total)
             dev = sum(e.self_device_time_total for e in ka) / iters / 1e3
-            out[name] = (wall, dev, sum(e.count for e in ka) / iters)
+            k4 = [e for e in ka if "fp8_gemv_kernel" in e.key]
+            k4_ms = sum(e.self_device_time_total for e in k4) / iters / 1e3
+            k4_n = sum(e.count for e in k4) / iters
+            out[name] = (wall, dev, sum(e.count for e in ka) / iters,
+                         {"fp8_gemv_ms": k4_ms, "fp8_gemv_launches": k4_n})
             for e in ka[:TOP_OPS]:
                 log(f"    {name}: {e.self_device_time_total / iters / 1e3:7.3f} ms in "
                     f"{e.count / iters:5.0f} x {e.key[:90]}")
+            log(f"    {name}: fp8_gemv (K4) {k4_ms:.3f} ms in {k4_n:.0f} launches, "
+                f"{k4_ms / dev:.1%} of the device time")
     return out
 
 
@@ -2178,19 +2196,14 @@ def time_quant_kernels(cfg, params, k3, k4, k5, errs, launches):
     layers = params["layers"]
     L, E = len(layers), cfg.n_routed_experts
 
-    # K4: wq_b (32768 x 1024, the largest decode linear) at B = 1
-    ws = [lw["wq_b"] for lw in layers]
-    OUT, IN = ws[0]["q"].shape
-    x = torch.randn((1, IN), generator=gen, device="cuda").to(torch.bfloat16)
-    saved = k4.launches
-    k4_ms = time_ms(lambda i: k4.fp8_gemv(x, ws[i % L]["q"], ws[i % L]["s"]), 200)
-    k4.launches = saved
-    k4_plain_ms = time_ms(lambda i: k4.fp8_gemv_plain(x, ws[i % L]["q"], ws[i % L]["s"]), 16)
-    wd = [quant.dequant_any(w, torch.bfloat16) for w in ws[:2]]  # outside the timed call
-    k4_lib_ms = time_ms(lambda i: torch.matmul(x, wd[i % 2].T), 100)
-    del wd
-    b4 = OUT * IN + ws[0]["s"].numel() * 2 + IN * 2 + OUT * 4
-    k4_bound, k4_by = bound(b4, 2 * OUT * IN)
+    # K4 at B = 1 at each shape of a decode step; the record's own numbers
+    # are wq_b's (32768 x 1024, the largest decode linear)
+    k4_shapes = time_fp8_shapes(layers, k4, gen)
+    k4_step_ms = sum(r["launches_a_step"] * r["ms"] for r in k4_shapes.values())
+    k4_step_bound = sum(r["launches_a_step"] * r["bound_ms"] for r in k4_shapes.values())
+    log(f"  fp8_gemv over a decode step ({fp8_per_decode_step(cfg)} launches at B = 1): "
+        f"{k4_step_ms * 1e3:.2f} us against a bound of {k4_step_bound * 1e3:.2f} us")
+    wq_b = k4_shapes["wq_b"]
 
     # K3: experts_w1 at B = 1 (6 routed rows, distinct experts)
     w1 = [lw["experts_w1"] for lw in layers]
@@ -2237,8 +2250,10 @@ def time_quant_kernels(cfg, params, k3, k4, k5, errs, launches):
         {"name": "fp8_gemv", "route": "cuda",
          "source": "pegainfer_tpu_torch/csrc/fp8_gemv.cu", "replaces": f"{fp4_src}:410",
          "launches": launches["fp8_gemv"], "max_abs_err": errs["fp8_gemv"],
-         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
-         "library_ms": k4_lib_ms},
+         "ms": wq_b["ms"], "plain_ms": wq_b["plain_ms"], "bound_ms": wq_b["bound_ms"],
+         "bound_by": wq_b["bound_by"], "library_ms": wq_b["library_ms"],
+         "library_call": "torch.matmul (bf16, weight dequantized ahead)", "shapes": k4_shapes,
+         "step_ms": k4_step_ms, "step_bound_ms": k4_step_bound},
         {"name": "moe_fp4_grouped", "route": "cuda",
          "source": "pegainfer_tpu_torch/csrc/fp4_grouped.cu", "replaces": f"{fp4_src}:283",
          "launches": launches["moe_fp4_grouped"], "max_abs_err": errs["moe_fp4_grouped"],
@@ -2248,6 +2263,45 @@ def time_quant_kernels(cfg, params, k3, k4, k5, errs, launches):
                    "library_call": call, "plan_ms": plan}
             for name, (ms, b, by, lib, call, plan) in k5_more.items()}},
     ]
+
+
+def time_fp8_shapes(layers, k4, gen):
+    """K4 at B = 1 at each shape of a decode step (K4_STEP_KEYS), each call
+    on the next of the layers' weights and clones of them, as many as the
+    K4 study's copies (twice the L2; wkv's eight layers are 17 MB), so that
+    no call finds its weight there; beside its bound, its plain version and
+    ``torch.matmul`` on the weight dequantized to bf16 ahead (copies for
+    twice the L2 too). Returns {key: record}."""
+    from pegainfer_tpu_torch.ops import quant
+    from pegainfer_tpu_torch.studies.k4_study import copies
+
+    out = {}
+    for key in K4_STEP_KEYS:
+        ws = [lw[key] for lw in layers if key in lw]
+        n_step = sum(key in lw for lw in layers) * (2 if key == "shared_w1" else 1)
+        OUT, IN = ws[0]["q"].shape
+        n = len(ws)
+        for i in range(n, copies(OUT, IN)):
+            ws.append({"q": ws[i % n]["q"].clone(), "s": ws[i % n]["s"]})
+        x = torch.randn((1, IN), generator=gen, device="cuda").to(torch.bfloat16)
+        saved = k4.launches
+        ms = time_ms(lambda i: k4.fp8_gemv(x, ws[i % len(ws)]["q"], ws[i % len(ws)]["s"]), 200)
+        k4.launches = saved
+        plain_ms = time_ms(lambda i: k4.fp8_gemv_plain(x, ws[i % len(ws)]["q"],
+                                                       ws[i % len(ws)]["s"]), 16)
+        wd = [quant.dequant_any(w, torch.bfloat16)  # outside the timed call
+              for w in ws[:max(2, copies(OUT, IN) // 2)]]
+        lib_ms = time_ms(lambda i: torch.matmul(x, wd[i % len(wd)].T), 100)
+        del wd
+        b, by = bound(OUT * IN + ws[0]["s"].numel() * 2 + IN * 2 + OUT * 4, 2 * OUT * IN)
+        out[key] = {"OUT": OUT, "IN": IN, "launches_a_step": n_step, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": lib_ms}
+        log(f"  fp8_gemv {key} [{OUT}, {IN}] B = 1: {ms * 1e3:.2f} us ({b / ms:.1%} of "
+            f"{b * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, torch.matmul "
+            f"{lib_ms * 1e3:.2f} us, {n_step} launches a step")
+        del ws
+        torch.cuda.empty_cache()
+    return out
 
 
 def bmm_library(k3, xs, w1, idxs):

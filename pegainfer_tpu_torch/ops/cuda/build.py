@@ -106,7 +106,8 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     fn.restype = i
     fn = libs["fp8_gemv"].fp8_gemv
     fn.argtypes = [p, p, p, p,  # x, q, s, y
-                   i, i, i, i, i, i, i,  # M, OUT, IN, ro, ri, Si, blocks
+                   i, i, i, i, i, i,  # M, OUT, IN, ro, ri, Si
+                   i, i, i, i,  # plan: tile_rows, rt, ks, unit
                    p]  # stream
     fn.restype = i
     fn = libs["fp4_gemv"].fp4_gemv

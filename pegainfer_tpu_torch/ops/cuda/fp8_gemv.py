@@ -7,10 +7,13 @@ rounded to bf16, each weight bf16(f32(code) x scale), f32 accumulation.
 
 The wrapper dispatches on the device of ``x``: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. ``launches`` counts
-kernel launches.
+kernel launches. The launch plan (``plan``) comes from the shapes alone.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -20,8 +23,55 @@ from pegainfer_tpu_torch.ops.cuda import build
 launches = 0
 
 MAX_ROWS = 8
-BLOCKS_PER_SM = 4  # grid cap: each block stages x once, then warps stride rows
-WARPS = 8  # rows a block takes per pass (csrc/fp8_gemv.cu kWarps)
+MAX_WARPS = 16  # warps of a block (csrc/fp8_gemv.cu kMaxWarps)
+FIRST_WARPS = 8  # a block's warps before the plan adds K parts to fill the card
+BLOCKS_PER_SM = 1.5  # the plan splits until the grid holds this many blocks an SM
+
+
+class Plan(NamedTuple):
+    """A block takes ``rt`` tiles of ``tile_rows`` rows (8 or 16) and ``ks``
+    K parts of them, one warp a (tile, part). K parts are whole units of
+    ``unit`` columns."""
+    tile_rows: int
+    rt: int
+    ks: int
+    unit: int
+
+    def blocks(self, OUT: int) -> int:
+        tiles = -(-OUT // self.tile_rows)
+        return -(-tiles // self.rt)
+
+    def span(self, kp: int, IN: int) -> tuple:
+        """Columns [k0, k1) of K part ``kp`` (the kernel's formula)."""
+        nu = IN // self.unit
+        return kp * nu // self.ks * self.unit, (kp + 1) * nu // self.ks * self.unit
+
+
+def plan(OUT: int, IN: int, ri: int, sm_count: int) -> Plan:
+    """The launch plan, from shapes alone. Tiles of 16 rows where they
+    alone give each SM one (a thread then keeps twice the bytes in flight),
+    else of 8. K is cut on scale blocks (units of ri columns, when ri is a
+    multiple of 64; else not at all). Starting from blocks of 8 tiles and
+    one K part, it trades a block's tiles for K parts until the grid holds
+    BLOCKS_PER_SM blocks an SM; where the tiles are too few for that, it
+    adds K parts (more warps a block, up to MAX_WARPS), while each part
+    keeps a unit."""
+    tile_rows = 16 if -(-OUT // 16) >= sm_count else 8
+    tiles = -(-OUT // tile_rows)
+    unit = ri if ri % 64 == 0 else IN
+    nu = IN // unit
+    rt, ks = FIRST_WARPS, 1
+    want = BLOCKS_PER_SM * sm_count
+    while -(-tiles // rt) < want and rt > 1 and 2 * ks <= nu:
+        rt, ks = rt // 2, ks * 2
+    while -(-tiles // rt) < want and rt * ks < MAX_WARPS and 2 * ks <= nu:
+        ks *= 2
+    return Plan(tile_rows, rt, ks, unit)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fp8_gemv_plain(x, q, s):
@@ -60,12 +110,11 @@ def _launch(x, q, s):
             raise ValueError("fp8_gemv inputs must be contiguous, on one device")
     if xb.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("fp8_gemv needs 16-byte aligned x and q")
+    p = plan(OUT, IN, ri, _sm_count(x.device))
     y = torch.empty((M, OUT), dtype=torch.float32, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = min(-(-OUT // WARPS), BLOCKS_PER_SM * sms)
     lib = build.load("fp8_gemv")
     err = lib.fp8_gemv(xb.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
-                       M, OUT, IN, ro, ri, Si, blocks,
+                       M, OUT, IN, ro, ri, Si, *p,
                        torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch("fp8_gemv", err)
     launches += 1

@@ -45,6 +45,7 @@ from pegainfer_tpu_torch.ops.cuda import int8_chain as k8
 from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
 from pegainfer_tpu_torch.ops.cuda import int8_grouped as k7
 from pegainfer_tpu_torch.ops.cuda import paged_decode as pd
+from pegainfer_tpu_torch.studies import k4_study as k4s
 
 pytestmark = pytest.mark.cuda
 
@@ -286,8 +287,15 @@ def _fp4(dev, gen, E, out_dim, in_dim, group=32, pow2=True):
     return q, s.to(torch.bfloat16)
 
 
+# K4 at the seven shapes of a DSv4-Flash decode step (k4_study.STEP_SHAPES:
+# wq_a, wq_b, wkv, wo_b, shared w1 / w3, shared w2, idx_wq_b), whose plans
+# split K into 1 to 16 parts, and the first tests' (256, 384)
+K4_STEP_SHAPES = [(OUT, IN) for _, OUT, IN, _ in k4s.STEP_SHAPES]
+
+
 @pytest.mark.parametrize("M", [1, 2, 8])
-@pytest.mark.parametrize("OUT,IN", [(32768, 1024), (4096, 8192), (512, 4096), (256, 384)])
+@pytest.mark.parametrize("OUT,IN", [(32768, 1024), (4096, 8192), (512, 4096), (256, 384),
+                                    (1024, 4096), (2048, 4096), (4096, 2048), (8192, 1024)])
 def test_fp8_gemv_kernel_matches_plain(dev, M, OUT, IN):
     gen = _gen(dev, OUT + IN + M)
     q, s = _fp8(dev, gen, OUT, IN)
@@ -297,6 +305,44 @@ def test_fp8_gemv_kernel_matches_plain(dev, M, OUT, IN):
     torch.cuda.synchronize()
     assert k4.launches == before + 1 and y.shape == (M, OUT) and y.dtype == torch.float32
     assert (y - k4.fp8_gemv_plain(x, q, s)).abs().max().item() <= GEMV_TOL
+
+
+@pytest.mark.parametrize("M", [1, 2, 8])
+@pytest.mark.parametrize("OUT,IN", K4_STEP_SHAPES)
+def test_fp8_gemv_kernel_mantissa_scales(dev, M, OUT, IN):
+    """Block scales with random bf16 mantissas, so that the decode rounds
+    each weight (power-of-two scales never do)."""
+    gen = _gen(dev, OUT + IN + M + 1)
+    q, s = k4s.fp8_weight(gen, OUT, IN, dev, mantissa=True)
+    x = torch.randn((M, IN), generator=gen, device=dev).to(torch.bfloat16)
+    y = k4.fp8_gemv(x, q, s)
+    torch.cuda.synchronize()
+    assert (y - k4.fp8_gemv_plain(x, q, s)).abs().max().item() <= GEMV_TOL
+
+
+@pytest.mark.parametrize("M", [1, 2, 8])
+@pytest.mark.parametrize("OUT,IN,bo,bi", k4s.FULL_DIM_SHAPES)
+def test_fp8_gemv_kernel_full_dim_blocks(dev, M, OUT, IN, bo, bi):
+    """A scale block of the full dim, as quant.quantize_fp8_tensor makes it
+    where 128 does not divide the dim: IN 400 (no K split, a last chunk of
+    16 columns), OUT 1000 (a last row tile of 8 rows), and one scale a row
+    over IN 1024."""
+    gen = _gen(dev, OUT + IN + M + 2)
+    q, s = k4s.fp8_weight(gen, OUT, IN, dev, mantissa=True, bo=bo, bi=bi)
+    x = torch.randn((M, IN), generator=gen, device=dev).to(torch.bfloat16)
+    y = k4.fp8_gemv(x, q, s)
+    torch.cuda.synchronize()
+    assert (y - k4.fp8_gemv_plain(x, q, s)).abs().max().item() <= GEMV_TOL
+
+
+@pytest.mark.parametrize("OUT,IN", [(512, 4096), (32768, 1024), (4096, 8192)])
+def test_fp8_gemv_kernel_same_bits_twice(dev, OUT, IN):
+    """wkv (16 K parts a block), wq_b (none) and wo_b (4): partial sums
+    meet in a fixed order, so two calls give the same bits."""
+    gen = _gen(dev, OUT + IN + 3)
+    q, s = k4s.fp8_weight(gen, OUT, IN, dev, mantissa=True)
+    x = torch.randn((8, IN), generator=gen, device=dev).to(torch.bfloat16)
+    assert torch.equal(k4.fp8_gemv(x, q, s), k4.fp8_gemv(x, q, s))
 
 
 @pytest.mark.parametrize("M,OUT,IN", [(6, 2048, 4096), (12, 4096, 2048), (12, 2048, 4096)])
