@@ -71,10 +71,11 @@ weights made on the card from the seed:
 9. build the weights (about 33 GB);
 10. hold K3, K4 and K5 against their plain versions on the model's weights
     at the path's shapes and at ragged cases (K4 at the seven shapes of a
-    decode step at M = 1, 2 and 8; repeated experts; skewed routing with
-    empty experts, segments across tiles, a tile of 56 rows; K5 also with
-    w1's scales given random bf16 mantissas), K5 each row within
-    GROUPED_ROW_RTOL of its max |ref|;
+    decode step at M = 1, 2 and 8; K3 at M 1, 6 and 12 with repeated
+    experts, B = 2's shared experts and ids -1 and E, whose rows must be
+    exactly 0; skewed routing with empty experts, segments across tiles, a
+    tile of 56 rows; K3 and K5 also with w1's scales given random bf16
+    mantissas), K5 each row within GROUPED_ROW_RTOL of its max |ref|;
 11. serve through ``dsv4_engine.start_engine_from_params`` (2 slots,
     max_model_len 2048): a 16/4 warm-up, the greedy 1024/64 request, then
     300/32, 500/32 and 200/16 at once;
@@ -86,10 +87,12 @@ weights made on the card from the seed:
     against ``plain_kernels=True``, the kernel run routed as the plain run
     (same rule as 7, DSV4_LOGITS_RTOL);
 13. timings: TTFT and TPOT of the 1024/64 request, a torch.profiler step
-    profile of one prefill and one B = 1 decode step (K4's device time in
-    it), and K3-K5 against their bounds, plain versions and a library call
-    each (bmm, matmul, grouped_mm on bf16 weights); K4 at each of the seven
-    shapes of a decode step and their sum over the step's launches; K5 at
+    profile of one prefill and one B = 1 decode step (K4's and K3's device
+    time in it), and K3-K5 against their bounds, plain versions and a library call
+    each (bmm, matmul, grouped_mm on bf16 weights); K3 at w1 and w2 at B = 1
+    and at B = 2's shared routing, and its sum over a B = 1 step's launches;
+    K4 at each of the seven shapes of a decode step and their sum over the
+    step's launches; K5 at
     w1, at w2 and at skewed routing, each beside one grouped_mm, and its
     plan's time.
 
@@ -118,8 +121,8 @@ On the same weights, the opt-in fp4 chain and then the int8-experts mode:
     logits against the plain versions; then the 300/32 + 500/32 pair with
     ``moe_chain=False`` (3L x decode steps K6, no K8);
 18. timings: TTFT and TPOT of the int8 1024/64 request, a torch.profiler
-    step profile (K4's device time in it), and K6-K9 against their bounds,
-    plain versions and (K6, K7) a library call; K7 at w1, at w2 and at
+    step profile (K4's and K3's device time in it), and K6-K9 against their
+    bounds, plain versions and (K6, K7) a library call; K7 at w1, at w2 and at
     skewed routing, each beside one grouped_mm, and its plan's time.
 
 The last lines are the kernels' JSON record (the weight streams, the S3 /
@@ -2081,26 +2084,35 @@ def check_quant_kernels(cfg, params, k3, k4, k5):
             max_err_verdict(errs, "fp8_gemv", f"{key} {tuple(w['q'].shape)} M={M}", err,
                             QUANT_GEMV_TOL)
 
-    E = cfg.n_routed_experts
-    for key, M, repeat in (("experts_w1", 6, False), ("experts_w1", 12, True),
-                           ("experts_w2", 12, True), ("experts_w3", 12, False)):
-        w = lw[key]
-        idx = torch.randperm(E, generator=gen, device="cuda")[:M].to(torch.int32)
-        if repeat:
-            idx[M // 2:] = idx[: M - M // 2]
-        x = torch.randn((M, 2 * w["q"].shape[2]), generator=gen, device="cuda")
-        y = k3.moe_fp4_gemv(x, w["q"], w["s"], idx)
-        torch.cuda.synchronize()
-        err = (y - k3.moe_fp4_gemv_plain(x, w["q"], w["s"], idx)).abs().max().item()
-        max_err_verdict(errs, "moe_fp4_gemv", f"{key} M={M}{' repeated experts' if repeat else ''}",
-                err, QUANT_GEMV_TOL)
+    # K3: the model's scales are powers of two; w1 with random bf16 mantissas
+    # makes the decode round each weight (K5 too, below); M 1, B = 2's shared
+    # routing and ids -1 and E (rows of 0) beside the main path's rows
+    from pegainfer_tpu_torch.studies import k3_study as k3s
 
-    # the model's scales are powers of two; one case gives w1's scales random
-    # bf16 mantissas, so that the decode rounds each weight
+    E = cfg.n_routed_experts
     w1 = lw["experts_w1"]
     mant = 1 + torch.rand(w1["s"].shape, generator=gen, device="cuda")
     w1_arb = {"q": w1["q"], "s": (w1["s"].float() * mant).to(torch.bfloat16)}
     del mant
+    for key, w, M, routing in (("experts_w1", w1, 6, "distinct"),
+                               ("experts_w1", w1, 12, "repeated"),
+                               ("experts_w2", lw["experts_w2"], 12, "repeated"),
+                               ("experts_w3", lw["experts_w3"], 12, "distinct"),
+                               ("experts_w1", w1, 1, "distinct"),
+                               ("experts_w2", lw["experts_w2"], 12, "shared"),
+                               ("experts_w1 codes, bf16 scales", w1_arb, 6, "distinct"),
+                               ("experts_w1 codes, bf16 scales", w1_arb, 12, "shared"),
+                               ("experts_w2", lw["experts_w2"], 6, "invalid")):
+        idx = k3s.route(routing, M, E, torch.randperm(E, generator=gen, device="cuda"))
+        x = torch.randn((M, 2 * w["q"].shape[2]), generator=gen, device="cuda")
+        y = k3.moe_fp4_gemv(x, w["q"], w["s"], idx)
+        torch.cuda.synchronize()
+        ref = k3.moe_fp4_gemv_plain(x, w["q"], w["s"], idx)
+        err = (y - ref).abs().max().item()
+        if routing == "invalid" and not (y[(ref == 0).all(dim=1)] == 0).all():
+            err = float("inf")  # a row of an invalid id must be exactly 0
+        max_err_verdict(errs, "moe_fp4_gemv", f"{key} M={M} {routing}", err, QUANT_GEMV_TOL)
+
     for key, w, M, skew in (("experts_w1", w1, 6 * DSV4_PROMPT, False),
                             ("experts_w2", lw["experts_w2"], 6 * DSV4_PROMPT, True),
                             ("experts_w3", lw["experts_w3"], 54, True),
@@ -2128,7 +2140,8 @@ def dsv4_step_profile(cfg, d4, params, prompt_t, state, step, iters=3, moe_chain
     and device operations (torch.profiler, CUDA activity) of one
     1,024-token prefill into a slot (unless ``prompt_t`` is None) and one
     B = 1 decode step at the context of ``step``, called directly on the
-    model, with ``moe_chain`` as the model takes it."""
+    model, with ``moe_chain`` as the model takes it; K4's and K3's device
+    time and launches in each."""
     from torch.profiler import ProfilerActivity, profile
 
     ctx = int(step[1]) + 1
@@ -2155,16 +2168,20 @@ def dsv4_step_profile(cfg, d4, params, prompt_t, state, step, iters=3, moe_chain
             ka = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
                         key=lambda e: -e.self_device_time_total)
             dev = sum(e.self_device_time_total for e in ka) / iters / 1e3
-            k4 = [e for e in ka if "fp8_gemv_kernel" in e.key]
-            k4_ms = sum(e.self_device_time_total for e in k4) / iters / 1e3
-            k4_n = sum(e.count for e in k4) / iters
-            out[name] = (wall, dev, sum(e.count for e in ka) / iters,
-                         {"fp8_gemv_ms": k4_ms, "fp8_gemv_launches": k4_n})
+            more = {}
+            for kernel, label, key in (("fp8_gemv", "K4", "fp8_gemv_kernel"),
+                                       ("moe_fp4_gemv", "K3", "fp4_gemv_kernel")):
+                ev = [e for e in ka if key in e.key]
+                more[f"{kernel}_ms"] = sum(e.self_device_time_total for e in ev) / iters / 1e3
+                more[f"{kernel}_launches"] = sum(e.count for e in ev) / iters
+            out[name] = (wall, dev, sum(e.count for e in ka) / iters, more)
             for e in ka[:TOP_OPS]:
                 log(f"    {name}: {e.self_device_time_total / iters / 1e3:7.3f} ms in "
                     f"{e.count / iters:5.0f} x {e.key[:90]}")
-            log(f"    {name}: fp8_gemv (K4) {k4_ms:.3f} ms in {k4_n:.0f} launches, "
-                f"{k4_ms / dev:.1%} of the device time")
+            for kernel, label in (("fp8_gemv", "K4"), ("moe_fp4_gemv", "K3")):
+                ms = more[f"{kernel}_ms"]
+                log(f"    {name}: {kernel} ({label}) {ms:.3f} ms in "
+                    f"{more[f'{kernel}_launches']:.0f} launches, {ms / dev:.1%} of the device time")
     return out
 
 
@@ -2205,22 +2222,17 @@ def time_quant_kernels(cfg, params, k3, k4, k5, errs, launches):
         f"{k4_step_ms * 1e3:.2f} us against a bound of {k4_step_bound * 1e3:.2f} us")
     wq_b = k4_shapes["wq_b"]
 
-    # K3: experts_w1 at B = 1 (6 routed rows, distinct experts)
+    # K3 at w1 and w2, B = 1 (6 rows, distinct experts) and B = 2 (12 rows, two
+    # tokens sharing 3 of their 6 experts); the record's own numbers are w1's
+    # at B = 1
+    k3_cases = time_fp4_gemv(layers, k3, gen, E)
+    k3_main = k3_cases["w1 M=6"]
+    k3_step_ms = 2 * L * k3_main["ms"] + L * k3_cases["w2 M=6"]["ms"]
+    k3_step_bound = 2 * L * k3_main["bound_ms"] + L * k3_cases["w2 M=6"]["bound_ms"]
+    log(f"  moe_fp4_gemv over a decode step at B = 1 ({3 * L} launches): "
+        f"{k3_step_ms * 1e3:.2f} us against a bound of {k3_step_bound * 1e3:.2f} us")
     w1 = [lw["experts_w1"] for lw in layers]
-    _, O3, IN2 = w1[0]["q"].shape
-    S3 = w1[0]["s"].shape[2]
-    xs = torch.randn((6, 2 * IN2), generator=gen, device="cuda")
-    idxs = [torch.randperm(E, generator=gen, device="cuda")[:6].to(torch.int32)
-            for _ in range(L)]
-    saved = k3.launches
-    k3_ms = time_ms(lambda i: k3.moe_fp4_gemv(xs, w1[i % L]["q"], w1[i % L]["s"],
-                                              idxs[i % L]), 200)
-    k3.launches = saved
-    k3_plain_ms = time_ms(lambda i: k3.moe_fp4_gemv_plain(
-        xs, w1[i % L]["q"], w1[i % L]["s"], idxs[i % L]), 16)
-    b3 = 6 * (O3 * IN2 + O3 * S3 * 2) + xs.numel() * xs.element_size() + 6 * O3 * 4
-    k3_bound, k3_by = bound(b3, 2 * 6 * O3 * 2 * IN2)
-    k3_lib_ms, k3_lib_call = bmm_library(k3, xs, w1, idxs)
+    IN2 = w1[0]["q"].shape[2]
 
     # K5 over a 1,024-token prefill (6,144 routed rows): w1 with spread
     # routing (the record), then w2 and w1 with skewed routing; the plan is
@@ -2245,8 +2257,10 @@ def time_quant_kernels(cfg, params, k3, k4, k5, errs, launches):
         {"name": "moe_fp4_gemv", "route": "cuda",
          "source": "pegainfer_tpu_torch/csrc/fp4_gemv.cu", "replaces": f"{fp4_src}:1139",
          "launches": launches["moe_fp4_gemv"], "max_abs_err": errs["moe_fp4_gemv"],
-         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": k3_lib_ms, "library_call": k3_lib_call},
+         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"], "bound_ms": k3_main["bound_ms"],
+         "bound_by": k3_main["bound_by"], "library_ms": k3_main["library_ms"],
+         "library_call": k3_main["library_call"], "shapes": k3_cases, "step_ms": k3_step_ms,
+         "step_bound_ms": k3_step_bound},
         {"name": "fp8_gemv", "route": "cuda",
          "source": "pegainfer_tpu_torch/csrc/fp8_gemv.cu", "replaces": f"{fp4_src}:410",
          "launches": launches["fp8_gemv"], "max_abs_err": errs["fp8_gemv"],
@@ -2304,20 +2318,61 @@ def time_fp8_shapes(layers, k4, gen):
     return out
 
 
-def bmm_library(k3, xs, w1, idxs):
+def time_fp4_gemv(layers, k3, gen, E):
+    """K3 at w1 and w2 at B = 1 (6 rows, distinct experts) and B = 2 (12 rows
+    routed as two tokens sharing 3 of their 6 experts: 9 distinct), x in
+    bf16, each call on the next layer's weights and expert ids (the 8
+    layers' routed experts, 225 MB at B = 1, come from device memory);
+    beside the bound of the distinct experts' bytes, the bf16 ``torch.bmm``
+    (``bmm_library``) and, at w1 B = 1, the plain version. Returns {case:
+    record}."""
+    from pegainfer_tpu_torch.studies import k3_study as k3s
+
+    L = len(layers)
+    perm = torch.randperm(E, generator=gen, device="cuda")
+    out = {}
+    for key, M, routing in (("w1", 6, "distinct"), ("w2", 6, "distinct"),
+                            ("w1", 12, "shared"), ("w2", 12, "shared")):
+        ws = [lw[f"experts_{key}"] for lw in layers]
+        _, OUT, IN2 = ws[0]["q"].shape
+        S = ws[0]["s"].shape[2]
+        x = torch.randn((M, 2 * IN2), generator=gen, device="cuda").to(torch.bfloat16)
+        idxs = [k3s.route(routing, M, E, perm, i) for i in range(L)]
+        saved = k3.launches
+        ms = time_ms(lambda i: k3.moe_fp4_gemv(x, ws[i % L]["q"], ws[i % L]["s"],
+                                               idxs[i % L]), 200)
+        k3.launches = saved
+        n = k3s.distinct(routing, M)
+        b, by = bound(n * (OUT * IN2 + OUT * S * 2) + x.numel() * 2 + M * OUT * 4,
+                      2 * M * OUT * 2 * IN2)
+        lib_ms, lib_call = bmm_library(k3, x, ws, idxs)
+        name = f"{key} M={M}{' shared' if routing == 'shared' else ''}"
+        out[name] = {"OUT": OUT, "IN": 2 * IN2, "M": M, "routing": routing, "experts": n,
+                     "ms": ms, "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
+                     "library_call": lib_call, "launches_a_step": (2 if key == "w1" else 1) * L}
+        if name == "w1 M=6":
+            out[name]["plain_ms"] = time_ms(lambda i: k3.moe_fp4_gemv_plain(
+                x, ws[i % L]["q"], ws[i % L]["s"], idxs[i % L]), 16)
+        log(f"  moe_fp4_gemv {name} ({n} experts): {ms * 1e3:.2f} us ({b / ms:.1%} of "
+            f"{b * 1e3:.2f} us), torch.bmm "
+            f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}")
+    return out
+
+
+def bmm_library(k3, xs, ws, idxs):
     """K3's library yardstick: the device time of one ``torch.bmm`` of the
-    routed experts of w1, gathered and dequantized to bf16 outside the timed
-    call (two layers, alternated, so the 100 MB of one call come from device
-    memory), with x cast to bf16; held against K3's output at GROUPED_RTOL
-    x max |y| (the call rounds its products and output to bf16, which
-    QUANT_GEMV_TOL does not allow for). Returns (ms, what was called), or
-    (None, "none: why")."""
+    routed experts of ``ws``, gathered and dequantized to bf16 outside the
+    timed call (two layers, alternated, so the 100 MB of one call at 6 rows
+    come from device memory), with x cast to bf16; held against K3's output
+    at GROUPED_RTOL x max |y| (the call rounds its products and output to
+    bf16, which QUANT_GEMV_TOL does not allow for). Returns (ms, what was
+    called), or (None, "none: why")."""
     from pegainfer_tpu_torch.ops import quant
 
     saved = k3.launches
-    ref = k3.moe_fp4_gemv(xs, w1[0]["q"], w1[0]["s"], idxs[0])
+    ref = k3.moe_fp4_gemv(xs, ws[0]["q"], ws[0]["s"], idxs[0])
     k3.launches = saved
-    wg = [quant.gather_dequant(w1[i], idxs[i].long(), torch.bfloat16) for i in range(2)]
+    wg = [quant.gather_dequant(ws[i], idxs[i].long(), torch.bfloat16) for i in range(2)]
     xb = xs.to(torch.bfloat16)[:, :, None]
     y = torch.bmm(wg[0], xb)[:, :, 0]
     err = (y.float() - ref).abs().max().item()

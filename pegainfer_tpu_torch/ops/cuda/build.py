@@ -113,6 +113,7 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     fn = libs["fp4_gemv"].fp4_gemv
     fn.argtypes = [p, p, p, p, p,  # x, q, s, idx, y
                    i, i, i, i, i,  # M, E, OUT, IN, S
+                   i, i, i,  # plan: rt, ks, unit
                    p]  # stream
     fn.restype = i
     fn = libs["fp4_grouped"].fp4_grouped

@@ -83,9 +83,8 @@ def _check(w1, w3, perm13: bool) -> None:
 def moe_fp4_chain_plain(x, w1, w3, w2, idx, limit: float, perm13: bool = False):
     """The kernel's function in plain PyTorch: three K3 plain products with
     the f32 SwiGLU between them; with perm13, act is put back in natural
-    order before w2. A row whose expert id lies outside [0, E) gives 0."""
-    valid = (idx >= 0) & (idx < w1["q"].shape[0])
-    idx = torch.where(valid, idx, torch.zeros_like(idx))
+    order before w2. A row whose expert id lies outside [0, E) gives 0 (as
+    in K3's plain version)."""
     g = k3.moe_fp4_gemv_plain(x, w1["q"], w1["s"], idx)
     u = k3.moe_fp4_gemv_plain(x, w3["q"], w3["s"], idx)
     act = swiglu(g, u, limit)
@@ -93,8 +92,7 @@ def moe_fp4_chain_plain(x, w1, w3, w2, idx, limit: float, perm13: bool = False):
         natural = torch.empty_like(act)
         natural[:, perm13_rows(act.shape[1]).to(act.device)] = act
         act = natural
-    y = k3.moe_fp4_gemv_plain(act, w2["q"], w2["s"], idx)
-    return torch.where(valid[:, None], y, torch.zeros_like(y))
+    return k3.moe_fp4_gemv_plain(act, w2["q"], w2["s"], idx)
 
 
 def moe_fp4_chain(x, w1, w3, w2, idx, limit: float, perm13: bool = False):

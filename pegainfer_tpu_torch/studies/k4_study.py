@@ -60,8 +60,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -72,7 +70,8 @@ from pegainfer_tpu_torch.ops import quant
 from pegainfer_tpu_torch.ops.cuda import build
 from pegainfer_tpu_torch.ops.cuda import fp8_gemv as k4
 from pegainfer_tpu_torch.studies.expert_stream_study import READ_CEILING
-from pegainfer_tpu_torch.studies.timing import card_line, device_ms
+from pegainfer_tpu_torch.studies.timing import card_line
+from pegainfer_tpu_torch.studies.variants import compile_variants, in_turns, substitute
 
 OUT_DIR = build.BUILD_DIR / "k4_study"
 # (name, OUT, IN, launches in a decode step of the smoke's 8 layers;
@@ -170,21 +169,6 @@ def is_parent(text: str) -> bool:
     return "int blocks, void* stream)" in text
 
 
-def substitute(name: str, src: str, subs: dict, where: str) -> str:
-    for old, new in subs.items():
-        if isinstance(old, tuple):  # the lines from old[0] through old[1]
-            i = src.find(old[0])
-            j = src.find(old[1], i)
-            if i < 0 or j < i:
-                raise SystemExit(f"{name}: '{old[0]}' .. is not in {where}")
-            src = src[:i] + new + src[j + len(old[1]):]
-            continue
-        if src.count(old) != 1:
-            raise SystemExit(f"{name}: '{old}' is not in {where} once")
-        src = src.replace(old, new)
-    return src
-
-
 def variant_sources(parent=None, mutants=False) -> dict:
     """name -> (source text, whether its values are right and checked)."""
     out = {}
@@ -207,26 +191,10 @@ def variant_sources(parent=None, mutants=False) -> dict:
 def build_variants(sources: dict) -> dict:
     """Each variant's library, built in parallel; prints ptxas's registers
     and spills. Returns {name: (library, checked, parent design)}."""
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, (text, _) in sources.items():
-        stem = re.sub(r"[^A-Za-z0-9]+", "-", name)
-        cu, so = OUT_DIR / f"{stem}.cu", OUT_DIR / f"lib{stem}.so"
-        cu.write_text(text)
-        procs[name] = (so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR), "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = compile_variants({name: text for name, (text, _) in sources.items()}, OUT_DIR)
     libs = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        regs = re.findall(r"Used (\d+) registers", log)
-        spills = sorted(set(re.findall(r"(\d+) bytes spill stores", log)))
-        print(f"  {name}: ptxas {max(map(int, regs)) if regs else '?'} registers, "
-              f"spill stores {spills or ['0']}", flush=True)
+    for name, lib in built.items():
         parent = is_parent(sources[name][0])
-        lib = ctypes.CDLL(str(so))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fp8_gemv.argtypes = [p] * 4 + [i] * (7 if parent else 10) + [p]
         lib.fp8_gemv.restype = i
@@ -360,9 +328,7 @@ def time_shapes(libs: dict) -> list:
                     return lambda i: torch.matmul(x, wd[i % len(wd)].T)
                 return lambda i: launch(libs[form], x, *ws[i % len(ws)])
 
-            times = {f: [] for f in forms}
-            for f in forms + forms[::-1]:  # A B .. B A
-                times[f].append(device_ms(fn(f), CALLS))
+            times = in_turns(forms, fn, CALLS)
             ref = k4.fp8_gemv_plain(x, *ws[0])
             for f in forms:
                 ms = sum(times[f]) / len(times[f])
@@ -408,10 +374,8 @@ def sweep(libs: dict) -> list:
         bound = bytes_moved(1, OUT, IN, OUT // BLOCK, IN // BLOCK) / READ_CEILING * 1e3
         own = k4.plan(OUT, IN, BLOCK, sms)
         runs = [(v, p) for p in candidate_plans(OUT, IN) for v in libs]
-        times = {r: [] for r in runs}
-        for v, p in runs + runs[::-1]:
-            times[(v, p)].append(device_ms(
-                lambda i, v=v, p=p: launch(libs[v], x, *ws[i % len(ws)], p), CALLS))
+        times = in_turns(runs, lambda r: lambda i: launch(libs[r[0]], x, *ws[i % len(ws)], r[1]),
+                         CALLS)
         for v, p in runs:
             table.append({"shape": name, "form": v, "plan": list(p), "own": p == own,
                           "blocks": p.blocks(OUT), "ms": sum(times[(v, p)]) / 2,

@@ -45,6 +45,7 @@ from pegainfer_tpu_torch.ops.cuda import int8_chain as k8
 from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
 from pegainfer_tpu_torch.ops.cuda import int8_grouped as k7
 from pegainfer_tpu_torch.ops.cuda import paged_decode as pd
+from pegainfer_tpu_torch.studies import k3_study as k3s
 from pegainfer_tpu_torch.studies import k4_study as k4s
 
 pytestmark = pytest.mark.cuda
@@ -345,18 +346,32 @@ def test_fp8_gemv_kernel_same_bits_twice(dev, OUT, IN):
     assert torch.equal(k4.fp8_gemv(x, q, s), k4.fp8_gemv(x, q, s))
 
 
-@pytest.mark.parametrize("M,OUT,IN", [(6, 2048, 4096), (12, 4096, 2048), (12, 2048, 4096)])
-def test_fp4_gemv_kernel_matches_plain(dev, M, OUT, IN):
-    gen = _gen(dev, M + OUT)
-    q, s = _fp4(dev, gen, 256, OUT, IN)
-    x = torch.randn((M, IN), generator=gen, device=dev)
-    idx = torch.randint(0, 256, (M,), generator=gen, device=dev, dtype=torch.int32)
-    idx[M // 2:] = idx[: M - M // 2]  # repeated experts
+@pytest.mark.parametrize("case", k3s.check_cases(), ids=lambda c: c[0])
+def test_fp4_gemv_kernel_matches_plain(dev, case):
+    """K3 at the w1, w2 and w3 shapes (k3_study.check_cases): M 1, 2, 6, 12
+    with distinct, repeated and B = 2's shared experts, M 20 and 40 (chunks
+    of 16 rows past the first), scale groups of 32 and 64 with power-of-two
+    and random-mantissa scales, and ids -1 and E (zero rows). y's block is
+    filled with NaN first (k3_study.run_case), so an element left unwritten
+    fails."""
     before = k3.launches
-    y = k3.moe_fp4_gemv(x, q, s, idx)
+    y, ref = k3s.run_case(case, dev)
     torch.cuda.synchronize()
-    assert k3.launches == before + 1 and y.shape == (M, OUT)
-    assert (y - k3.moe_fp4_gemv_plain(x, q, s, idx)).abs().max().item() <= GEMV_TOL
+    assert k3.launches == before + 1 and y.shape == ref.shape and y.dtype == torch.float32
+    assert k3s.max_err(y, ref) <= GEMV_TOL
+    if case[5] == "invalid":
+        assert (ref == 0).any(dim=1).any() and (y[(ref == 0).all(dim=1)] == 0).all()
+
+
+@pytest.mark.parametrize("OUT,IN,M", [(2048, 4096, 6), (4096, 2048, 12), (2048, 4096, 40)])
+def test_fp4_gemv_kernel_same_bits_twice(dev, OUT, IN, M):
+    """A block's K parts meet in a fixed order and each y element is
+    written once: two calls give the same bits."""
+    gen = _gen(dev, OUT + M + 4)
+    q, s = _fp4(dev, gen, 64, OUT, IN, pow2=False)
+    x = torch.randn((M, IN), generator=gen, device=dev)
+    idx = k3s.route("repeated", M, 64, torch.randperm(64, generator=gen, device=dev))
+    assert torch.equal(k3.moe_fp4_gemv(x, q, s, idx), k3.moe_fp4_gemv(x, q, s, idx))
 
 
 def _routing(gen, dev, M, E, skew):
