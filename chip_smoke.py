@@ -112,18 +112,23 @@ On the same weights, the opt-in fp4 chain and then the int8-experts mode:
     memory, and the codes of one expert that differ from the host
     ``quantize_int8_stack`` (none expected);
 16. K6, K7 and K8 against their plain versions on the model's int8 weights
-    (K6 at M = 6, 12, 18 with repeated experts; K7 at phase 10's skews and
-    tiles, each row within GROUPED_ROW_RTOL of its max |ref|; K8 at M = 1, 6,
-    12, 16);
+    (K6 each row within INT8_GEMV_RTOL of its max |ref|, y NaN-filled
+    first, at w1 / w2 / w3 and M 1, 6, 12, 18, 20 with distinct, repeated
+    and B = 2's shared experts, 20 rows on one expert and ids -1 and E,
+    whose rows must be exactly 0; K7 at phase 10's skews and tiles, each row
+    within GROUPED_ROW_RTOL of its max |ref|; K8 at M = 1, 6, 12, 16);
 17. serve phase 11's traffic in int8 (K7 prefill, K8 decode): Finished
     counts, the slot wait, B = 2, launches (3L x prefills K7, L x decode
     steps K8, 59 x decode steps K4, no K3 / K5 / K6), prefill and decode
     logits against the plain versions; then the 300/32 + 500/32 pair with
     ``moe_chain=False`` (3L x decode steps K6, no K8);
-18. timings: TTFT and TPOT of the int8 1024/64 request, a torch.profiler
-    step profile (K4's and K3's device time in it), and K6-K9 against their
-    bounds, plain versions and (K6, K7) a library call; K7 at w1, at w2 and at
-    skewed routing, each beside one grouped_mm, and its plan's time.
+18. timings: TTFT and TPOT of the int8 1024/64 request, torch.profiler
+    step profiles with the chain on and off (K4's and K6's device time in
+    them), and K6-K9 against their bounds, plain versions and (K6, K7) a
+    library call; K6 at w1 and w2 at M 1, 6, 12 and B = 2's shared 12 beside
+    bmm (and matmul at M 1), and its sum over a chain-off step's launches;
+    K7 at w1, at w2 and at skewed routing, each beside one grouped_mm, and
+    its plan's time.
 
 The last lines are the kernels' JSON record (the weight streams, the S3 /
 S4 kernels and K1-K9; with the read ceiling, and the S3 / S4 kernels, K3,
@@ -174,6 +179,10 @@ LOGITS_RTOL = 5e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12
 TOP_OPS = 8  # device operations listed per profiled step, by device time
+# the decode GEMVs whose device time a step profile picks out: (record
+# name, kernel, the CUDA kernel's name)
+STEP_KERNELS = (("fp8_gemv", "K4", "fp8_gemv_kernel"), ("moe_fp4_gemv", "K3", "fp4_gemv_kernel"),
+                ("moe_int8_gemv", "K6", "int8_gemv_kernel"))
 
 # DeepSeek-V4-Flash phases
 DSV4_LAYERS = 8
@@ -1719,6 +1728,8 @@ def run_dsv4_int8(cfg, params, k9_record):
 
     log("[18] int8 timings")
     steps_prof = dsv4_step_profile(cfg, d4, params, toks_t, state_k, step)
+    # the same decode step with the chain off: K6's three GEMVs a layer
+    steps_prof.update(dsv4_step_profile(cfg, d4, params, None, state_k, step, moe_chain=False))
     gaps = run["gaps"]
     tpot, tpot95 = statistics.median(gaps), float(np.percentile(gaps, 95))
     log(f"  int8 main {DSV4_PROMPT}/{DSV4_OUT}: TTFT {run['ttft_ms']:.3f} ms, TPOT p50 "
@@ -1737,20 +1748,36 @@ def run_dsv4_int8(cfg, params, k9_record):
 
 
 def check_int8_kernels(cfg, params, k6, k7, k8):
+    from pegainfer_tpu_torch.studies import k6_study as k6s
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     errs = {}
     lw, E, limit = params["layers"][3], cfg.n_routed_experts, cfg.swiglu_limit
-    for key, M, repeat in (("experts_w1", 6, False), ("experts_w3", 12, True),
-                           ("experts_w2", 12, True), ("experts_w1", 18, True)):
+    # K6 row by row: each row within INT8_GEMV_RTOL of its max |ref|, a row of
+    # an invalid id exactly 0; y's block is NaN-filled first, so an element
+    # left unwritten fails. The reference is the plain version on the valid
+    # ids, with the rows of invalid ids 0.
+    for key, M, routing in (("experts_w1", 6, "distinct"), ("experts_w2", 6, "distinct"),
+                            ("experts_w1", 1, "distinct"), ("experts_w3", 12, "repeated"),
+                            ("experts_w1", 12, "shared"), ("experts_w2", 12, "shared"),
+                            ("experts_w1", 18, "repeated"), ("experts_w2", 20, "distinct"),
+                            ("experts_w1", 20, "one"), ("experts_w1", 6, "invalid"),
+                            ("experts_w2", 20, "invalid")):
         w = lw[key]
-        idx = _distinct_idx(gen, E, M, repeat)
+        idx = k6s.route(routing, M, E, torch.randperm(E, generator=gen, device="cuda"))
         x = torch.randn((M, w["q"].shape[2]), generator=gen, device="cuda")
+        poison = torch.full((M, w["q"].shape[1]), float("nan"), device="cuda")
+        del poison
         y = k6.moe_int8_gemv(x, w["q"], idx)
         torch.cuda.synchronize()
-        ref = k6.moe_int8_gemv_plain(x, w["q"], idx)
-        max_err_verdict(errs, "moe_int8_gemv",
-                        f"{key} M={M}{' repeated experts' if repeat else ''} (unscaled)",
-                        (y - ref).abs().max().item(), INT8_GEMV_RTOL * ref.abs().max().item())
+        valid = (idx >= 0) & (idx < E)
+        ref = k6.moe_int8_gemv_plain(x, w["q"], torch.where(valid, idx, 0)) * valid[:, None]
+        err, share = k6s.row_err(y, ref, INT8_GEMV_RTOL)
+        log(f"  moe_int8_gemv {key} M={M} {routing} (unscaled): max_abs_err {err:.3e}, worst row "
+            f"at {share:.3f} of {INT8_GEMV_RTOL:g} x its max |ref| {'ok' if share <= 1.0 else 'FAIL'}")
+        if not share <= 1.0:
+            raise SystemExit("moe_int8_gemv disagrees with its plain version")
+        errs["moe_int8_gemv"] = max(errs.get("moe_int8_gemv", 0.0), err)
     for key, M, skew in (("experts_w1", 6 * DSV4_PROMPT, False),
                          ("experts_w2", 6 * DSV4_PROMPT, True),
                          ("experts_w3", 54, True), ("experts_w1", 300, False)):
@@ -1782,44 +1809,26 @@ def check_int8_kernels(cfg, params, k6, k7, k8):
 
 
 def time_int8_kernels(cfg, params, k6, k7, k8, errs, launches):
-    """K6 at w1 with 12 distinct rows (B = 2 with the chain off) and at one
-    row, K7 at w1 over a 1,024-token prefill, K8 at B = 1 (6 distinct rows),
-    each call on the next layer's weights; bounds from these inputs, at the
-    bf16 peak for the operations; the plain versions; K6's library
-    yardsticks: ``torch.bmm`` on the 12 experts' weights gathered and
-    converted to bf16 outside the timed call, and at one row ``torch.matmul``
-    on the expert's bf16 weight; K7 (``time_grouped``) also at w2 and at skewed
-    routing, each beside one bf16 grouped GEMM (``grouped_mm_library``)."""
+    """K6 (``time_int8_gemv``) at w1 and w2 at M 1, 6 and 12, and its sum
+    over a chain-off step's launches; K7 at w1 over a 1,024-token prefill,
+    K8 at B = 1 (6 distinct rows), each call on the next layer's weights;
+    bounds from these inputs, at the bf16 peak for the operations; the plain
+    versions; K7 (``time_grouped``) also at w2 and at skewed routing, each
+    beside one bf16 grouped GEMM (``grouped_mm_library``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     layers, E, D, limit = params["layers"], cfg.n_routed_experts, cfg.dim, cfg.swiglu_limit
     L = len(layers)
     w1 = [lw["experts_w1"] for lw in layers]
     _, OUT, IN = w1[0]["q"].shape
 
-    # K6: w1, 12 distinct rows
-    M = 12
-    x = torch.randn((M, IN), generator=gen, device="cuda")
-    idxs = [_distinct_idx(gen, E, M, False) for _ in range(L)]
-    saved = k6.launches
-    k6_ms = time_ms(lambda i: k6.moe_int8_gemv(x, w1[i % L]["q"], idxs[i % L]), 200)
-    k6_plain_ms = time_ms(lambda i: k6.moe_int8_gemv_plain(x, w1[i % L]["q"], idxs[i % L]), 12)
-    wg = [w1[i]["q"][idxs[i].long()].to(torch.bfloat16) for i in range(2)]
-    xb = x.to(torch.bfloat16)[:, :, None]
-    k6_lib_ms = time_ms(lambda i: torch.bmm(wg[i % 2], xb), 100)
-    del wg
-    b6 = M * OUT * IN + x.numel() * 4 + M * 4 + M * OUT * 4
-    k6_bound, k6_by = bound(b6, 2 * M * OUT * IN)
-    # K6 at one row, against torch.matmul on that expert's bf16 weight
-    x1 = x[:1]
-    k6_m1_ms = time_ms(lambda i: k6.moe_int8_gemv(x1, w1[i % L]["q"], idxs[i % L][:1]), 200)
-    k6.launches = saved
-    w1b = [w1[i]["q"][int(idxs[i][0])].to(torch.bfloat16) for i in range(2)]
-    x1b = x1.to(torch.bfloat16)
-    k6_m1_lib_ms = time_ms(lambda i: torch.matmul(x1b, w1b[i % 2].T), 200)
-    del w1b
-    k6_m1_bound, _ = bound(OUT * IN + IN * 4 + 4 + OUT * 4, 2 * OUT * IN)
-    log(f"  moe_int8_gemv at M=1: {k6_m1_ms * 1e3:.2f} us vs bound {k6_m1_bound * 1e3:.2f} us, "
-        f"torch.matmul on the expert's bf16 weight {k6_m1_lib_ms * 1e3:.2f} us")
+    # K6 at w1 and w2 at M 1, 6 and 12 (distinct, and shared by two tokens);
+    # the record's own numbers are w1's at M 6, the path's shape (B = 1)
+    k6_cases = time_int8_gemv(layers, k6, gen, E)
+    k6_main = k6_cases["w1 M=6"]
+    k6_step_ms = 2 * L * k6_main["ms"] + L * k6_cases["w2 M=6"]["ms"]
+    k6_step_bound = 2 * L * k6_main["bound_ms"] + L * k6_cases["w2 M=6"]["bound_ms"]
+    log(f"  moe_int8_gemv over a chain-off decode step at B = 1 ({3 * L} launches): "
+        f"{k6_step_ms * 1e3:.2f} us against a bound of {k6_step_bound * 1e3:.2f} us")
 
     # K7 over a 1,024-token prefill (6,144 routed rows): w1 with spread
     # routing (the record), then w2 and w1 with skewed routing; the plan is
@@ -1860,8 +1869,10 @@ def time_int8_kernels(cfg, params, k6, k7, k8, errs, launches):
         {"name": "moe_int8_gemv", "route": "cuda",
          "source": "pegainfer_tpu_torch/csrc/int8_gemv.cu", "replaces": f"{src}:521",
          "launches": launches["moe_int8_gemv"], "max_abs_err": errs["moe_int8_gemv"],
-         "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound, "bound_by": k6_by,
-         "library_ms": k6_lib_ms},
+         "ms": k6_main["ms"], "plain_ms": k6_main["plain_ms"], "bound_ms": k6_main["bound_ms"],
+         "bound_by": k6_main["bound_by"], "library_ms": k6_main["library_ms"],
+         "library_call": k6_main["library_call"], "shapes": k6_cases, "step_ms": k6_step_ms,
+         "step_bound_ms": k6_step_bound},
         {"name": "moe_int8_grouped", "route": "cuda",
          "source": "pegainfer_tpu_torch/csrc/int8_grouped.cu", "replaces": f"{src}:644",
          "launches": launches["moe_int8_grouped"], "max_abs_err": errs["moe_int8_grouped"],
@@ -1873,12 +1884,69 @@ def time_int8_kernels(cfg, params, k6, k7, k8, errs, launches):
          "ms": k8_ms, "plain_ms": k8_plain_ms, "bound_ms": k8_bound, "bound_by": k8_by,
          "library_ms": None},
     ]
-    extra = {"k6_m1": {"ms": k6_m1_ms, "bound_ms": k6_m1_bound, "library_ms": k6_m1_lib_ms},
-             "k7_plan_ms": k7_plan_ms}
+    extra = {"k7_plan_ms": k7_plan_ms}
     for name, (ms, b, by, lib, call, _) in (("k7_w2", k7_w2), ("k7_skewed", k7_skew)):
         extra[name] = {"ms": ms, "bound_ms": b, "bound_by": by, "library_ms": lib,
                        "library_call": call}
     return records, extra
+
+
+def time_int8_gemv(layers, k6, gen, E):
+    """K6 at w1 and w2 at M 1, 6 and 12 with distinct experts and at 12 rows
+    routed as two tokens sharing 3 of their 6 experts (B = 2: 9 distinct),
+    x in bf16, each call on the next layer's codes and expert ids (the 8
+    layers' routed experts at M 6, 403 MB, come from device memory); beside
+    the bound of the distinct experts' bytes; one ``torch.bmm`` of the
+    routed experts gathered and converted to bf16 outside the timed call
+    (sets for twice the L2), held against K6 at GROUPED_RTOL x max |y| (it
+    rounds its output to bf16); at M 1 ``torch.matmul`` on the expert's bf16
+    weight (copies for twice the L2); at w1 M 6 the plain version. Returns
+    {case: record}."""
+    from pegainfer_tpu_torch.studies import k6_study as k6s
+
+    L = len(layers)
+    perm = torch.randperm(E, generator=gen, device="cuda")
+    out = {}
+    for key, M, routing in (("w1", 1, "distinct"), ("w2", 1, "distinct"),
+                            ("w1", 6, "distinct"), ("w2", 6, "distinct"),
+                            ("w1", 12, "distinct"), ("w2", 12, "distinct"),
+                            ("w1", 12, "shared"), ("w2", 12, "shared")):
+        qs = [lw[f"experts_{key}"]["q"] for lw in layers]
+        _, OUT, IN = qs[0].shape
+        x = torch.randn((M, IN), generator=gen, device="cuda").to(torch.bfloat16)
+        idxs = [k6s.route(routing, M, E, perm, i) for i in range(L)]
+        saved = k6.launches
+        ms = time_ms(lambda i: k6.moe_int8_gemv(x, qs[i % L], idxs[i % L]), 200)
+        y = k6.moe_int8_gemv(x, qs[0], idxs[0])
+        k6.launches = saved
+        n = k6s.distinct(routing, M)
+        b, by = bound(k6s.bytes_moved(n, M, OUT, IN), 2 * M * OUT * IN)
+        n_wg = min(L, max(2, -(-2 * k6s.L2_BYTES // (M * OUT * IN * 2)) + 1))
+        wg = [qs[i][idxs[i].long()].to(torch.bfloat16) for i in range(n_wg)]
+        xb = x[:, :, None]
+        err = (torch.bmm(wg[0], xb)[:, :, 0].float() - y).abs().max().item()
+        tol = GROUPED_RTOL * y.abs().max().item()
+        lib_ms, lib_call = None, "none: torch.bmm disagrees with K6"
+        if err <= tol:
+            lib_ms = time_ms(lambda i: torch.bmm(wg[i % n_wg], xb), 100)
+            lib_call = "torch.bmm (bf16, experts gathered ahead)"
+        name = f"{key} M={M}{' shared' if routing == 'shared' else ''}"
+        rec = {"OUT": OUT, "IN": IN, "M": M, "routing": routing, "experts": n, "ms": ms,
+               "bound_ms": b, "bound_by": by, "library_ms": lib_ms, "library_call": lib_call,
+               "launches_a_step": (2 if key == "w1" else 1) * L}
+        if M == 1:
+            rec["matmul_ms"] = time_ms(lambda i: torch.matmul(x, wg[i % n_wg][0].T), 200)
+        if name == "w1 M=6":
+            rec["plain_ms"] = time_ms(lambda i: k6.moe_int8_gemv_plain(x, qs[i % L],
+                                                                       idxs[i % L]), 16)
+        del wg
+        out[name] = rec
+        more = "" if M > 1 else f", torch.matmul {rec['matmul_ms'] * 1e3:.2f} us"
+        log(f"  moe_int8_gemv {name} ({n} experts): {ms * 1e3:.2f} us ({b / ms:.1%} of "
+            f"{b * 1e3:.2f} us), torch.bmm "
+            f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'} (max |diff| {err:.4g}, "
+            f"tol {tol:.4g}){more}")
+    return out
 
 
 def time_grouped(mod, label, x, tm, e_sorted, seg, ws, E):
@@ -2140,8 +2208,9 @@ def dsv4_step_profile(cfg, d4, params, prompt_t, state, step, iters=3, moe_chain
     and device operations (torch.profiler, CUDA activity) of one
     1,024-token prefill into a slot (unless ``prompt_t`` is None) and one
     B = 1 decode step at the context of ``step``, called directly on the
-    model, with ``moe_chain`` as the model takes it; K4's and K3's device
-    time and launches in each."""
+    model, with ``moe_chain`` as the model takes it; the device time and
+    launches in each of the kernels of STEP_KERNELS (K4, K3, K6), logged
+    where they launched."""
     from torch.profiler import ProfilerActivity, profile
 
     ctx = int(step[1]) + 1
@@ -2169,8 +2238,7 @@ def dsv4_step_profile(cfg, d4, params, prompt_t, state, step, iters=3, moe_chain
                         key=lambda e: -e.self_device_time_total)
             dev = sum(e.self_device_time_total for e in ka) / iters / 1e3
             more = {}
-            for kernel, label, key in (("fp8_gemv", "K4", "fp8_gemv_kernel"),
-                                       ("moe_fp4_gemv", "K3", "fp4_gemv_kernel")):
+            for kernel, label, key in STEP_KERNELS:
                 ev = [e for e in ka if key in e.key]
                 more[f"{kernel}_ms"] = sum(e.self_device_time_total for e in ev) / iters / 1e3
                 more[f"{kernel}_launches"] = sum(e.count for e in ev) / iters
@@ -2178,10 +2246,12 @@ def dsv4_step_profile(cfg, d4, params, prompt_t, state, step, iters=3, moe_chain
             for e in ka[:TOP_OPS]:
                 log(f"    {name}: {e.self_device_time_total / iters / 1e3:7.3f} ms in "
                     f"{e.count / iters:5.0f} x {e.key[:90]}")
-            for kernel, label in (("fp8_gemv", "K4"), ("moe_fp4_gemv", "K3")):
+            for kernel, label, _ in STEP_KERNELS:
                 ms = more[f"{kernel}_ms"]
-                log(f"    {name}: {kernel} ({label}) {ms:.3f} ms in "
-                    f"{more[f'{kernel}_launches']:.0f} launches, {ms / dev:.1%} of the device time")
+                if more[f"{kernel}_launches"]:
+                    log(f"    {name}: {kernel} ({label}) {ms:.3f} ms in "
+                        f"{more[f'{kernel}_launches']:.0f} launches, {ms / dev:.1%} of the "
+                        "device time")
     return out
 
 

@@ -191,6 +191,39 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// ── rows grouped by expert on the card (K3 fp4_gemv.cu, K6 int8_gemv.cu) ──
+
+// the position of the n-th (from 0) set bit of mask
+__device__ __forceinline__ int nth_bit(unsigned mask, int n) {
+  for (int i = 0; i < n; ++i) mask &= mask - 1;
+  return __ffs(mask) - 1;
+}
+
+// The group of expert slot `slot`, the same in every warp: its expert (-1
+// when the chunk has fewer distinct valid experts) and the mask of its rows
+// within the chunk; `invalid`, the chunk's rows of ids outside [0, E).
+// Rows are grouped in chunks of kChunk (at most 32); lane m reads row
+// c0 + m of the chunk.
+template <int kChunk>
+__device__ __forceinline__ void slot_group(const int* __restrict__ idx, int M, int E, int slot,
+                                           int lane, int& expert, unsigned& rows,
+                                           unsigned& invalid) {
+  const int c0 = slot / kChunk * kChunk, j = slot % kChunk;
+  const int n = min(kChunk, M - c0);
+  const int e = lane < n ? idx[c0 + lane] : -1;
+  const bool valid = lane < n && e >= 0 && e < E;
+  const unsigned same = __match_any_sync(0xffffffffu, e);  // the lanes of e's id
+  const unsigned firsts = __ballot_sync(0xffffffffu, valid && !(same & ((1u << lane) - 1)));
+  invalid = __ballot_sync(0xffffffffu, lane < n && !valid);
+  expert = -1;
+  rows = 0u;
+  if (j < __popc(firsts)) {
+    const int f = nth_bit(firsts, j);
+    expert = __shfl_sync(0xffffffffu, e, f);
+    rows = __shfl_sync(0xffffffffu, same, f);
+  }
+}
+
 // The bf16 weight ring of gemv_stream.cu and gemv_chain.cu. A block of
 // kConsumerWarps consumer warps and one producer warp streams chunks of
 // whole rows through `stages` stages of shared memory: one producer thread

@@ -103,35 +103,6 @@ __device__ __forceinline__ void advance(int& j, int& rem, int dj, int drem, int 
   if (rem >= gq) rem -= gq, ++j;
 }
 
-// the position of the n-th (from 0) set bit of mask
-__device__ __forceinline__ int nth_bit(unsigned mask, int n) {
-  for (int i = 0; i < n; ++i) mask &= mask - 1;
-  return __ffs(mask) - 1;
-}
-
-// The group of expert slot `slot`, the same in every warp: its expert (-1
-// when the chunk has fewer distinct valid experts) and the mask of its rows
-// within the chunk; `invalid`, the chunk's rows of ids outside [0, E).
-// Lane m reads row c0 + m of the chunk.
-__device__ __forceinline__ void slot_group(const int* __restrict__ idx, int M, int E, int slot,
-                                           int lane, int& expert, unsigned& rows,
-                                           unsigned& invalid) {
-  const int c0 = slot / kChunkRows * kChunkRows, j = slot % kChunkRows;
-  const int n = min(kChunkRows, M - c0);
-  const int e = lane < n ? idx[c0 + lane] : -1;
-  const bool valid = lane < n && e >= 0 && e < E;
-  const unsigned same = __match_any_sync(0xffffffffu, e);  // the lanes of e's id
-  const unsigned firsts = __ballot_sync(0xffffffffu, valid && !(same & ((1u << lane) - 1)));
-  invalid = __ballot_sync(0xffffffffu, lane < n && !valid);
-  expert = -1;
-  rows = 0u;
-  if (j < __popc(firsts)) {
-    const int f = nth_bit(firsts, j);
-    expert = __shfl_sync(0xffffffffu, e, f);
-    rows = __shfl_sync(0xffffffffu, same, f);
-  }
-}
-
 __global__ void __launch_bounds__(kMaxWarps * 32, kBlocksPerSm)
 fp4_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
                 const uint16_t* __restrict__ s, const int* __restrict__ idx,
@@ -143,7 +114,7 @@ fp4_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__
   const int g = lane >> 2, t = lane & 3;
   int expert;
   unsigned rows, invalid;
-  slot_group(idx, M, E, blockIdx.y, lane, expert, rows, invalid);
+  slot_group<kChunkRows>(idx, M, E, blockIdx.y, lane, expert, rows, invalid);
   const int c0 = blockIdx.y / kChunkRows * kChunkRows;
   const int nb = rt * kWarpCh, o_blk = blockIdx.x * nb;  // the block's channels
   if (blockIdx.y % kChunkRows == 0) {  // the chunk's rows of invalid ids are 0

@@ -56,16 +56,22 @@ class Plan(NamedTuple):
 def plan(OUT: int, IN: int, group: int, M: int, sm_count: int) -> Plan:
     """The launch plan, from shapes alone. K is cut into units of whole
     steps and whole scale groups (lcm(STEP_K, group) columns, or all of IN
-    where that does not divide it). Starting from blocks of FIRST_WARPS
-    tiles (fewer where OUT has fewer) and one K part, it trades a block's
-    tiles for K parts until the grid, M expert slots of blocks, holds
-    BLOCKS_PER_SM blocks an SM; where the tiles are too few for that, it
-    adds K parts (more warps a block, up to MAX_WARPS), while each part
-    keeps a unit."""
-    tiles = -(-OUT // WARP_CH)
+    where that does not divide it), then split by ``split``."""
     unit = math.lcm(STEP_K, group)
     if IN % unit:
         unit = IN
+    return split(OUT, IN, unit, M, sm_count)
+
+
+def split(OUT: int, IN: int, unit: int, M: int, sm_count: int) -> Plan:
+    """A block's warps for M expert slots of OUT channels and K parts of
+    whole ``unit`` columns (K3's plan and K6's, ``ops/cuda/int8_gemv.py``).
+    Starting from blocks of FIRST_WARPS tiles (fewer where OUT has fewer)
+    and one K part, it trades a block's tiles for K parts until the grid, M
+    expert slots of blocks, holds BLOCKS_PER_SM blocks an SM; where the
+    tiles are too few for that, it adds K parts (more warps a block, up to
+    MAX_WARPS), while each part keeps a unit."""
+    tiles = -(-OUT // WARP_CH)
     nu = IN // unit
     rt, ks = FIRST_WARPS, 1
     while rt > 1 and rt >= 2 * tiles:

@@ -4,11 +4,13 @@ Replaces the TPU kernel ``pegainfer_tpu/ops/pallas/fp4_gemm.py::
 moe_int8_gemv``. y[m] = x[m] @ q[idx[m]].T as f32 [M, OUT], unscaled, for x
 [M, IN] rounded to bf16 and int8 codes q [E, OUT, IN]; the caller multiplies
 by the gathered per-output-channel scales (``models/dsv4.py::_int8_srows``).
-Each code is an exact bf16 value and the sums are f32.
+Each code is an exact bf16 value and the sums are f32. A row whose expert
+id lies outside [0, E) gives 0.
 
 The wrapper dispatches on the device of ``x``: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. ``launches`` counts
-kernel launches.
+kernel launches. The launch plan (``plan``) comes from the shapes alone;
+the kernel groups the rows by expert on the card (no host read of idx).
 """
 
 from __future__ import annotations
@@ -16,17 +18,36 @@ from __future__ import annotations
 import torch
 
 from pegainfer_tpu_torch.ops.cuda import build
+from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
+from pegainfer_tpu_torch.ops.cuda.fp4_gemv import Plan
 
 launches = 0
+
+CHUNK_ROWS = 16  # rows of idx grouped together (csrc/int8_gemv.cu kChunkRows)
+WARP_CH = 16  # output channels of a warp tile: one m16 tile (kWarpCh)
+RUNS = 2  # 16-code runs a thread a step (kRuns)
+STEP_K = 4 * 16 * RUNS  # columns of a warp step: 4 lanes x RUNS runs (kStepK)
+MAX_WARPS = 8  # warps of a block (kMaxWarps), three blocks an SM
+
+
+def plan(OUT: int, IN: int, M: int, sm_count: int) -> Plan:
+    """The launch plan, from shapes alone, split as K3's (``fp4_gemv.split``)
+    with a unit of one step: the kernel passes the K parts of a tile steps
+    in turn (part kp takes steps kp, kp + ks, ...), so each keeps a step."""
+    return k3.split(OUT, IN, STEP_K, M, sm_count)
 
 
 def moe_int8_gemv_plain(x, q, idx):
     """The kernel's function in plain PyTorch: gather only the routed
     experts, convert to bf16 (exact), then a batched f32 product (the JAX
-    package's XLA int8 path, ``models/dsv4.py`` decode branch)."""
-    w = q[idx.long()].to(torch.bfloat16).float()
+    package's XLA int8 path, ``models/dsv4.py`` decode branch); a row of an
+    id outside [0, E) is 0."""
+    valid = (idx >= 0) & (idx < q.shape[0])
+    safe = torch.where(valid, idx, torch.zeros_like(idx)).long()
+    w = q[safe].to(torch.bfloat16).float()
     xb = x.to(torch.bfloat16).float()
-    return torch.bmm(w, xb[:, :, None])[:, :, 0]
+    y = torch.bmm(w, xb[:, :, None])[:, :, 0]
+    return torch.where(valid[:, None], y, torch.zeros_like(y))
 
 
 def moe_int8_gemv(x, q, idx):
@@ -48,6 +69,8 @@ def _launch(x, q, idx):
                          "do not fit")
     if IN % 16:
         raise ValueError(f"moe_int8_gemv kernel takes IN as a multiple of 16; got IN={IN}")
+    if M > 65535:
+        raise ValueError(f"moe_int8_gemv kernel takes at most 65535 rows; got M={M}")
     if q.dtype != torch.int8 or idx.dtype != torch.int32:
         raise ValueError(f"moe_int8_gemv kernel takes int8 q and int32 idx; got {q.dtype}, "
                          f"{idx.dtype}")
@@ -60,9 +83,11 @@ def _launch(x, q, idx):
     y = torch.empty((M, OUT), dtype=torch.float32, device=x.device)
     if M == 0:
         return y
+    p = plan(OUT, IN, M, k3._sm_count(x.device))
     lib = build.load("int8_gemv")
     err = lib.int8_gemv(xb.data_ptr(), q.data_ptr(), idx.data_ptr(), y.data_ptr(),
-                        M, E, OUT, IN, torch.cuda.current_stream(x.device).cuda_stream)
+                        M, E, OUT, IN, p.rt, p.ks,
+                        torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch("int8_gemv", err)
     launches += 1
     return y

@@ -142,7 +142,7 @@ C_DECODE = ("          for (int h = 0; h < kRows; ++h)\n"
 C_MMA = "              mma_bf16(cr[mt], af, word(xw, 2 * hh), word(xw, 2 * hh + 1));\n"
 C_PRODUCTS = ("        float cr[kTiles][4] = {};\n",
               "          for (int i = 0; i < 4; ++i) c[mt][i] += cr[mt][i];\n")
-C_GROUP = ("  if (j < __popc(firsts)) {\n", "    rows = __shfl_sync(0xffffffffu, same, f);\n  }\n")
+C_GROUP = "  slot_group<kChunkRows>(idx, M, E, blockIdx.y, lane, expert, rows, invalid);\n"
 C_STORE = "      if (o < OUT) y["
 C_ZERO = "  if (blockIdx.y % kChunkRows == 0) {  // the chunk's rows of invalid ids are 0\n"
 C_XV = "    const bool xv = n0 + g < cnt;\n"
@@ -172,10 +172,11 @@ CURRENT = {
     "no-scale-loads": ({C_SCALE: "        st.sc[u][h] = 0x3F803F80u;\n"}, False),
     # the grouping, the launch and the block's sums, no K loop
     "no-loads": ({C_STEPS: "  const int steps = 0;\n"}, False),
-    "no-grouping": ({C_GROUP: """  const unsigned one = __ballot_sync(0xffffffffu, valid);
-  if (one >> j & 1u) {
-    expert = __shfl_sync(0xffffffffu, e, j);
-    rows = 1u << j;
+    # every valid row its own group, after the grouping (whose invalid mask stays)
+    "no-grouping": ({C_GROUP: C_GROUP + """  {
+    const int own = idx[blockIdx.y];
+    expert = own >= 0 && own < E ? own : -1;
+    rows = expert < 0 ? 0u : 1u << (blockIdx.y % kChunkRows);
   }
 """}, True),
     "no-prefetch": ({C_PREFETCH: "", "      cur = nxt;\n":

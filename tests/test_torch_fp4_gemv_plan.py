@@ -2,7 +2,8 @@
 the CPU: its row grouping, its launch plan and index formulas, and its
 fixed-order sums, emulated from the source's own constants and formulas.
 
-- The grouping (a slot's warp votes over its chunk of 16 ids: the lanes of
+- The grouping (``common.cuh slot_group``, shared with K6: a slot's warp
+  votes over its chunk of 16 ids: the lanes of
   each id, the first lane of each valid id, the slot's j-th first lane)
   gives each chunk's distinct valid experts in order of first appearance,
   each with its rows in order, no place to an invalid id, and nothing to
@@ -42,6 +43,7 @@ from pegainfer_tpu_torch.utils.weights import numpy_to_torch
 
 SMS = 132
 SOURCE = (build.CSRC_DIR / "fp4_gemv.cu").read_text()
+COMMON = (build.CSRC_DIR / "common.cuh").read_text()  # the grouping K3 and K6 share
 CONSTS = {n: int(v) for n, v in re.findall(r"constexpr int (k\w+) = (\d+);", SOURCE)}
 CHUNK = CONSTS["kChunkRows"]
 TILES, RUNS = CONSTS["kTiles"], CONSTS["kRuns"]
@@ -59,8 +61,8 @@ def test_wrapper_constants_are_the_kernels():
 
 # ── the grouping ─────────────────────────────────────────────────────────
 GROUPING_LINES = (
-    "const int c0 = slot / kChunkRows * kChunkRows, j = slot % kChunkRows;",
-    "const int n = min(kChunkRows, M - c0);",
+    "const int c0 = slot / kChunk * kChunk, j = slot % kChunk;",
+    "const int n = min(kChunk, M - c0);",
     "const int e = lane < n ? idx[c0 + lane] : -1;",
     "const bool valid = lane < n && e >= 0 && e < E;",
     "const unsigned same = __match_any_sync(0xffffffffu, e);",
@@ -80,7 +82,7 @@ def _nth_bit(mask: int, n: int) -> int:
 
 
 def _slot_group(idx: torch.Tensor, E: int, slot: int):
-    """The kernel's ``slot_group`` in torch, the 32 lanes a vector: (expert
+    """``slot_group<kChunkRows>`` in torch, the 32 lanes a vector: (expert
     or -1, the mask of its rows in the chunk, the chunk's invalid mask)."""
     M = idx.numel()
     c0, j = slot // CHUNK * CHUNK, slot % CHUNK
@@ -134,7 +136,8 @@ def _idx_cases():
 @pytest.mark.parametrize("name", list(_idx_cases()[1]))
 def test_grouping_matches_a_direct_reading(name):
     for line in GROUPING_LINES:
-        assert line in SOURCE, line
+        assert line in COMMON, line
+    assert "slot_group<kChunkRows>(idx, M, E, blockIdx.y, lane, expert, rows, invalid);" in SOURCE
     E, cases = _idx_cases()
     idx = cases[name].astype(np.int32)
     want = _groups_numpy(idx, E)

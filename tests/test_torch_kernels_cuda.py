@@ -23,7 +23,7 @@ widths).
 
 The int8 kernels: K6 forms the plain version's exact f32 products in
 another order, on unscaled outputs of magnitude 1e4 (codes up to 127):
-1e-5 of max |y|; K7 forms exact f32 products too, on the tensor cores,
+each row to 1e-5 of its own max |y| (a row of an invalid id exactly 0); K7 forms exact f32 products too, on the tensor cores,
 so each row is held to 1e-4 of its own max |y| (2e-2 of the global max
 passes a kernel that drops one product of one row). The chains K8
 and K9 round act to bf16, where an f32 sum-order difference moves an
@@ -47,6 +47,7 @@ from pegainfer_tpu_torch.ops.cuda import int8_grouped as k7
 from pegainfer_tpu_torch.ops.cuda import paged_decode as pd
 from pegainfer_tpu_torch.studies import k3_study as k3s
 from pegainfer_tpu_torch.studies import k4_study as k4s
+from pegainfer_tpu_torch.studies import k6_study as k6s
 
 pytestmark = pytest.mark.cuda
 
@@ -433,18 +434,33 @@ def _idx(gen, dev, M, E, repeat):
     return idx
 
 
-@pytest.mark.parametrize("M,repeat", [(1, False), (6, False), (12, True), (18, True)])
-@pytest.mark.parametrize("OUT,IN", [(2048, 4096), (4096, 2048)])
-def test_int8_gemv_kernel_matches_plain(dev, M, repeat, OUT, IN):
-    gen = _gen(dev, M + OUT)
-    q, _ = _int8(dev, gen, 16, OUT, IN)
-    x = torch.randn((M, IN), generator=gen, device=dev)
-    idx = _idx(gen, dev, M, 16, repeat)
+@pytest.mark.parametrize("case", k6s.check_cases(), ids=lambda c: c[0])
+def test_int8_gemv_kernel_matches_plain(dev, case):
+    """K6 at the w1 and w2 shapes (k6_study.check_cases): M 1, 2, 6, 12 with
+    distinct, repeated and B = 2's shared experts, M 20 and 40 (chunks of 16
+    rows past the first), 16 and 20 rows on one expert (a second pass of 8
+    rows), ids -1 and E (zero rows), and a ragged OUT 1000 with an IN of 400.
+    Each row is held to INT8_GEMV_RTOL of its own max |ref|, a row of zeros
+    exactly; y's block is filled with NaN first (k6_study.run_case), so an
+    element left unwritten fails."""
     before = k6.launches
-    y = k6.moe_int8_gemv(x, q, idx)
+    y, ref = k6s.run_case(case, dev)
     torch.cuda.synchronize()
-    assert k6.launches == before + 1 and y.shape == (M, OUT) and y.dtype == torch.float32
-    assert _rel_err(y, k6.moe_int8_gemv_plain(x, q, idx)) <= INT8_GEMV_RTOL
+    assert k6.launches == before + 1 and y.shape == ref.shape and y.dtype == torch.float32
+    assert k6s.row_err(y, ref)[1] <= 1.0
+    if case[4] == "invalid":
+        assert (ref == 0).all(dim=1).any() and (y[(ref == 0).all(dim=1)] == 0).all()
+
+
+@pytest.mark.parametrize("OUT,IN,M", [(2048, 4096, 6), (4096, 2048, 12), (2048, 4096, 40)])
+def test_int8_gemv_kernel_same_bits_twice(dev, OUT, IN, M):
+    """A block's K parts meet in a fixed order and each y element is
+    written once: two calls give the same bits."""
+    gen = _gen(dev, OUT + M + 6)
+    q, _ = _int8(dev, gen, 64, OUT, IN)
+    x = torch.randn((M, IN), generator=gen, device=dev)
+    idx = k6s.route("repeated", M, 64, torch.randperm(64, generator=gen, device=dev))
+    assert torch.equal(k6.moe_int8_gemv(x, q, idx), k6.moe_int8_gemv(x, q, idx))
 
 
 def _k7_routing(gen, dev, M, E, routing):
