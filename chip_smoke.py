@@ -62,8 +62,27 @@ Qwen3-4B bf16 (full width and depth, random weights from a seed):
    and the argmax agrees unless the plain run's top-2 gap is below the diff;
 8. timings: TTFT and TPOT of the 1024/256 request, a torch.profiler step
    profile, and each kernel's time against its bound, its plain version and
-   a library call (SDPA for both; K1 also at K1_SHAPES). The engine, weights
-   and KV pool are then freed.
+   a library call (SDPA for both; K1 also at K1_SHAPES).
+
+Chunked prefill, the prefix cache and the fused mixed step, on the same
+weights:
+
+8a. a second engine with ``CHUNK_OPTS`` (the JAX engine's defaults: pieces
+    of 2,048, of 256 under decode load, the prefix cache on): 300/192 and
+    500/192, then 4,096/16 once both have decoded a token, then 4,096/16
+    again alone; every request ends in ``Finished`` with its count;
+8b. the cold prompt ran as 16 fused pieces of 256 rows with 2 decode rows
+    each, the warm one hit 4,032 cached tokens; launches equal 36 x (whole
+    prefills + pieces) K2 and 36 x (decode steps + fused pieces) K1;
+8c. logits under rule 7: the cold chunked prompt against one whole
+    prefill, the warm hit against the cold, one ``mixed_chunk`` against
+    ``prefill_chunk`` + ``decode`` apart on a copy of the pool and against
+    ``plain_attention=True``; a torch.profiler profile of a fused piece, a
+    chunk piece and the per-layer k/v gather alone;
+8d. cold and warm TTFT, the streams' largest token gap during the cold
+    prefill against a piece's wall time, and K2 at K2_CHUNK_SHAPES against
+    its bound, its plain version and masked SDPA. The engine, weights and KV
+    pool are then freed.
 
 DeepSeek-V4-Flash, 8 layers at full width, random resident fp8 / packed-fp4
 weights made on the card from the seed:
@@ -158,6 +177,15 @@ SHORT = ((300, 64), (500, 64))  # two concurrent requests: decode at B = 2
 # K1 is also timed at the concurrent pair's contexts and at one long context
 K1_SHAPES = ([300, 500], [8192])
 DECODE_TOL, PREFILL_TOL = 3e-2, 2e-2
+# phases 8a-8d: a second engine with the JAX engine's defaults for chunked
+# prefill and the prefix cache (pegainfer_tpu/engine/contract.py); two
+# streams decode while the long prompt arrives, then it comes again alone
+CHUNK_OPTS = dict(prefill_chunk=2048, prefill_chunk_mixed=256, enable_prefix_cache=True)
+CHUNK_STREAMS = ((300, 192), (500, 192))
+CHUNK_PROMPT, CHUNK_OUT = 4096, 16
+# K2 at chunk shapes, (T, S, q_offset): the last fused piece of the 4,096
+# prompt and the second of its two 2,048 chunks when it runs alone
+K2_CHUNK_SHAPES = ((256, 4096, 3840), (2048, 4096, 2048))
 # K1 is held row by row to min(DECODE_TOL, DECODE_RTOL x the row's max
 # |ref|): a decode output averages n tokens' values and is about sqrt(e / n)
 # in size (0.013 at 16,384), below a fixed 3e-2; 2e-2 of the row's largest
@@ -843,7 +871,7 @@ def run_fp4_study():
 
 
 def run_qwen3():
-    """Phases 3-8 on Qwen3-4B. Returns (K1/K2 records, serving, steps)."""
+    """Phases 3-8d on Qwen3-4B. Returns (K1/K2 records, serving, steps)."""
     from pegainfer_tpu_torch.engine import contract
     from pegainfer_tpu_torch.models import qwen3 as q3
     from pegainfer_tpu_torch.models.qwen3_engine import start_engine_from_params
@@ -933,9 +961,14 @@ def run_qwen3():
     log_steps(steps)
     records, k1_shapes, k2_shapes = time_kernels(cfg, pd, fp, att, errs, launches)
     log_records(records)
+    chunked, chunk_launches, k2_chunks = run_chunked(cfg, q3, params, contract,
+                                                     start_engine_from_params, pd, fp, att)
+    for r in records:  # the chunked path's own launches beside the main path's
+        r["launches_chunked_path"] = chunk_launches[r["name"]]
+    next(r for r in records if r["name"] == "flash_prefill")["chunk_shapes"] = k2_chunks
     serving = {"ttft_ms": ttft_ms, "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
                "prompt": PROMPT, "output": OUT, "paged_decode_shapes": k1_shapes,
-               "flash_prefill_shapes": k2_shapes}
+               "flash_prefill_shapes": k2_shapes, "chunked": chunked}
     return records, serving, steps_json(steps)
 
 
@@ -980,16 +1013,23 @@ def step_profile(cfg, q3, params, prompt_t, first_token, iters=5):
     operations (kernels and copies; torch.profiler, CUDA activity only) of
     one 1024-token prefill and one B = 1 decode step at context 1025,
     called directly on the model."""
-    from torch.profiler import ProfilerActivity, profile
-
     kv = q3.make_kv_pages(cfg, PROMPT // PAGE + 2, PAGE, device="cuda")
     table = torch.arange(1, PROMPT // PAGE + 2, dtype=torch.int32, device="cuda")
     dec = [torch.tensor(x, dtype=torch.int32, device="cuda") for x in
            ([first_token], [PROMPT], [table.tolist()], [PROMPT + 1])]
-    calls = {
+    return profile_calls({
         f"prefill {PROMPT}": lambda: q3.prefill(cfg, params, kv, prompt_t, table[:-1]),
         f"decode step B=1 ctx {PROMPT + 1}": lambda: q3.decode(cfg, params, kv, *dec),
-    }
+    }, iters)
+
+
+def profile_calls(calls, iters=5):
+    """Per call ``fn()`` of ``calls``: wall time (host clock to a
+    synchronize), device time and the number of device operations (kernels
+    and copies; torch.profiler, CUDA activity only), with the attention
+    kernels' share and the top TOP_OPS operations logged."""
+    from torch.profiler import ProfilerActivity, profile
+
     out = {}
     with torch.no_grad():
         for name, fn in calls.items():
@@ -1156,23 +1196,31 @@ def time_prefill(gen, fp, att, T, Hq, Hkv, hd, plain=False):
     return out
 
 
-def sdpa_prefill_library(q, k, v, scale, ref):
+def sdpa_prefill_library(q, k, v, scale, ref, q_offset=None):
     """K2's library yardstick: ``scaled_dot_product_attention(is_causal=True)``
     on [1, H, T, hd] copies made outside the timed call, once with
     ``enable_gqa=True`` on the Hkv heads and once on kv heads repeated to Hq
     (bytes counted in no bound), each held against K2's output ``ref`` at
-    K2's row limit. The faster is the yardstick. Returns (ms, what was
-    called), or (None, "none: why")."""
+    K2's row limit. With ``q_offset`` (a chunk: queries at q_offset + i
+    over S keys) the causal mask is an explicit boolean [T, S]
+    ``attn_mask``, made outside the timed call. The faster is the
+    yardstick. Returns (ms, what was called), or (None, "none: why")."""
     T, Hq, hd = q.shape
     G = Hq // k.shape[1]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh = (x.transpose(0, 1).unsqueeze(0).contiguous() for x in (q, k, v))
     kr, vr = (x.repeat_interleave(G, dim=1) for x in (kh, vh))
+    if q_offset is None:
+        mask, form = dict(is_causal=True), "is_causal=True"
+    else:
+        keys = torch.arange(k.shape[0], device=q.device)
+        mask = dict(attn_mask=keys[None, :] <= q_offset + torch.arange(T, device=q.device)[:, None])
+        form = "attn_mask=bool [T, S]"
     calls = {
-        "scaled_dot_product_attention(is_causal=True, enable_gqa=True)":
-            lambda i: sdpa(qh, kh, vh, is_causal=True, scale=scale, enable_gqa=True),
-        "scaled_dot_product_attention(is_causal=True), kv heads repeated":
-            lambda i: sdpa(qh, kr, vr, is_causal=True, scale=scale),
+        f"scaled_dot_product_attention({form}, enable_gqa=True)":
+            lambda i: sdpa(qh, kh, vh, **mask, scale=scale, enable_gqa=True),
+        f"scaled_dot_product_attention({form}), kv heads repeated":
+            lambda i: sdpa(qh, kr, vr, **mask, scale=scale),
     }
     got, why = {}, []
     for name, call in calls.items():
@@ -1189,7 +1237,8 @@ def sdpa_prefill_library(q, k, v, scale, ref):
             why.append(f"{name} disagrees with K2")
             continue
         got[name] = time_ms(call, 100)
-        log(f"  K2 library: {name} at T={T}, Hq {Hq}, hd {hd}: {got[name] * 1e3:.2f} us "
+        log(f"  K2 library: {name} at T={T}, S={k.shape[0]}, Hq {Hq}, hd {hd}: "
+            f"{got[name] * 1e3:.2f} us "
             f"(max |diff| to K2 {err:.3e}, worst row at {share:.3f} of K2's limit)")
     if not got:
         return None, "none: " + "; ".join(why)
@@ -1281,6 +1330,256 @@ def time_kernels(cfg, pd, fp, att, errs, launches):
          "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
          "library_call": k2["library_call"], "host": k2_host_cost(fp, PROMPT, Hq, Hkv, hd)},
     ], shapes, k2_shapes
+
+
+# ── phases 8a-8d: chunked prefill, the prefix cache, the fused mixed step ─
+
+
+def read_tokens(contract, ch, n, timeout_s=600):
+    """The first ``n`` tokens of a stream and their arrival times."""
+    toks, times = [], []
+    while len(toks) < n:
+        ev = ch.get(timeout=timeout_s)
+        if ev is None or contract.is_terminal(ev):
+            raise SystemExit(f"stream ended or stalled before {n} tokens: {ev!r}")
+        if isinstance(ev, contract.Token):
+            toks.append(ev.id)
+            times.append(time.perf_counter())
+    return toks, times
+
+
+def drain_in_background(contract, ch):
+    """Drain ``ch`` on a thread (token times taken as they arrive while the
+    main thread reads another stream). ``join()`` returns (toks, fin,
+    times)."""
+    import threading
+
+    out = []
+    t = threading.Thread(target=lambda: out.append(drain(contract, ch)), daemon=True)
+    t.start()
+
+    def join():
+        t.join(timeout=600)
+        if not out:
+            raise SystemExit("a stream did not finish within the time limit")
+        return out[0]
+
+    return join
+
+
+def record_chunked_path(ex):
+    """Log what the chunked path ran: each fused piece (start, rows,
+    decode rows, wall ms up to its sampled tokens on the host), each
+    prefix-cache lookup's cached tokens, and each prompt's last logits (by
+    request id)."""
+    rec = {"pieces": [], "matches": [], "logits": {}}
+    run_mixed, first_token, match = ex._run_mixed_piece, ex._first_token, ex.prefix_cache.match
+
+    def logged_mixed(items, chunk_tokens, start, valid, table):
+        t = time.perf_counter()
+        last = run_mixed(items, chunk_tokens, start, valid, table)
+        rec["pieces"].append((start, valid, len(items), (time.perf_counter() - t) * 1e3))
+        return last
+
+    def logged_first(item, last_logits):
+        rec["logits"][item.request_id] = last_logits.clone()
+        return first_token(item, last_logits)
+
+    def logged_match(tokens):
+        n_tok, pages = match(tokens)
+        rec["matches"].append(n_tok)
+        return n_tok, pages
+
+    ex._run_mixed_piece, ex._first_token, ex.prefix_cache.match = (
+        logged_mixed, logged_first, logged_match)
+    return rec
+
+
+def run_chunked(cfg, q3, params, contract, start_engine_from_params, pd, fp, att):
+    """Phases 8a-8d on the same Qwen3-4B weights. Returns (serving record,
+    the phase's K1 / K2 launches, K2 at K2_CHUNK_SHAPES)."""
+    L = cfg.num_hidden_layers
+    gc.collect()  # the first engine's pool (its handle and scheduler form a cycle)
+    torch.cuda.empty_cache()
+    log("[8a] a second engine on the same weights: " + ", ".join(
+        f"{k}={v}" for k, v in CHUNK_OPTS.items()))
+    handle = start_engine_from_params(
+        cfg, params, contract.EngineLoadOptions(kv_memory_fraction=0.5, seed=SEED, **CHUNK_OPTS),
+        device="cuda")
+    ex = handle._scheduler.executor
+    rec = record_chunked_path(ex)
+    rng = np.random.default_rng(SEED + 4)
+    streams = [(rng.integers(0, cfg.vocab_size, n).tolist(), m) for n, m in CHUNK_STREAMS]
+    long_prompt = rng.integers(0, cfg.vocab_size, CHUNK_PROMPT).tolist()
+    label = f"{CHUNK_PROMPT}/{CHUNK_OUT}"
+    try:
+        pd.launches = fp.launches = 0
+        chans = [run_request(contract, handle, p, m)[0] for p, m in streams]
+        early = [read_tokens(contract, ch, 2) for ch in chans]  # both have decoded a token
+        joins = [drain_in_background(contract, ch) for ch in chans]
+        ch, t_cold = run_request(contract, handle, long_prompt, CHUNK_OUT)
+        toks, fin, times_cold = drain(contract, ch)
+        expect_finished(contract, f"cold {label} under decode load", toks, fin, CHUNK_OUT)
+        stream_times = []
+        for (toks0, times0), join, (p, m) in zip(early, joins, streams):
+            toks, fin, times = join()
+            expect_finished(contract, f"stream {len(p)}/{m}", toks0 + toks, fin, m)
+            stream_times.append(times0 + times)
+        ch, t_warm = run_request(contract, handle, long_prompt, CHUNK_OUT)
+        toks, fin, times_warm = drain(contract, ch)
+        expect_finished(contract, f"warm {label} alone", toks, fin, CHUNK_OUT)
+        launches = {"paged_decode": pd.launches, "flash_prefill": fp.launches}
+        counts = {"prefills": ex.prefills, "chunk_pieces": ex.chunk_pieces,
+                  "mixed_pieces": ex.mixed_pieces, "decode_steps": ex.decode_steps,
+                  "cache_hits": ex.prefix_cache.hits}
+    finally:
+        handle.shutdown()
+        handle._thread.join(timeout=60)
+    del handle, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n_pieces = CHUNK_PROMPT // CHUNK_OPTS["prefill_chunk_mixed"]
+    want_pieces = [(i * CHUNK_OPTS["prefill_chunk_mixed"], CHUNK_OPTS["prefill_chunk_mixed"],
+                    len(CHUNK_STREAMS)) for i in range(n_pieces)]
+    cached = (CHUNK_PROMPT - 1) // PAGE * PAGE
+    log(f"[8b] {counts}; fused pieces (start, rows, decode rows): "
+        f"{[p[:3] for p in rec['pieces']]}; cached tokens per lookup {rec['matches']}")
+    if ([p[:3] for p in rec["pieces"]] != want_pieces or counts["mixed_pieces"] != n_pieces
+            or counts["chunk_pieces"] != n_pieces + 1 or counts["cache_hits"] != 1
+            or rec["matches"][-1] != cached):
+        raise SystemExit(f"the cold prompt did not run as {n_pieces} fused pieces of "
+                         f"{CHUNK_OPTS['prefill_chunk_mixed']} with {len(CHUNK_STREAMS)} decode "
+                         f"rows, or the warm one did not hit {cached} cached tokens")
+    want = {"flash_prefill": L * (counts["prefills"] + counts["chunk_pieces"]),
+            "paged_decode": L * (counts["decode_steps"] + counts["mixed_pieces"])}
+    log(f"  launches {launches}; expected {want} ({L} x (whole prefills + pieces) K2, "
+        f"{L} x (decode steps + fused pieces) K1)")
+    if launches != want:
+        raise SystemExit("kernel launch counts do not match the chunked path")
+
+    rid_cold, rid_warm = len(streams), len(streams) + 1  # the scheduler's ids, in order
+    cold, warm = rec["logits"][rid_cold], rec["logits"][rid_warm]
+    log("[8c] logits on the card: the cold chunked prompt against one whole prefill")
+    n_long = CHUNK_PROMPT // PAGE
+    n_dec = [-(-(len(p) + 1) // PAGE) for p, _ in streams]
+    kv = q3.make_kv_pages(cfg, 1 + n_long + sum(n_dec), PAGE, device="cuda")
+    table = torch.arange(1, n_long + 1, dtype=torch.int32, device="cuda")
+    dec_tables = torch.zeros((len(streams), max(n_dec)), dtype=torch.int32, device="cuda")
+    nxt = n_long + 1
+    with torch.no_grad():
+        whole, _ = q3.prefill(cfg, params, kv, torch.tensor(long_prompt, dtype=torch.int32,
+                                                            device="cuda"), table)
+        check_logits(cold, whole, LOGITS_RTOL, "chunked-prefill logits disagree with the "
+                     "whole prefill")
+        log("  the warm hit's logits against the cold ones")
+        check_logits(warm, cold, LOGITS_RTOL, "the prefix-cache hit's logits disagree with "
+                     "the cold prompt's")
+        for b, ((p, _), n) in enumerate(zip(streams, n_dec)):
+            dec_tables[b, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+            q3.prefill(cfg, params, kv, torch.tensor(p, dtype=torch.int32, device="cuda"),
+                       dec_tables[b, :n])
+            nxt += n
+        m = CHUNK_OPTS["prefill_chunk_mixed"]
+        start = CHUNK_PROMPT - m
+        chunk = torch.tensor(long_prompt[start:], dtype=torch.int32, device="cuda")
+        dec = (torch.tensor([p[-1] for p, _ in streams], dtype=torch.int32, device="cuda"),
+               torch.tensor([len(p) for p, _ in streams], dtype=torch.int32, device="cuda"),
+               dec_tables,
+               torch.tensor([len(p) + 1 for p, _ in streams], dtype=torch.int32, device="cuda"))
+        runs = {}
+        for name in ("fused", "apart", "plain"):
+            pool = kv.clone()
+            if name == "apart":
+                last = q3.prefill_chunk(cfg, params, pool, chunk, start, m, table)
+                runs[name] = (last, q3.decode(cfg, params, pool, *dec))
+            else:
+                runs[name] = q3.mixed_chunk(cfg, params, pool, chunk, start, m, table, *dec,
+                                            plain_attention=name == "plain")
+            del pool
+    torch.cuda.synchronize()
+    log("  where a piece's time goes (the chunk at the prompt's end, on the model)")
+    Hkv, hd = cfg.num_key_value_heads, cfg.head_dim
+    pages = table.long()
+    steps = profile_calls({
+        f"fused piece {m} + {len(streams)} decode rows at {start}":
+            lambda: q3.mixed_chunk(cfg, params, kv, chunk, start, m, table, *dec),
+        f"chunk piece {m} at {start}":
+            lambda: q3.prefill_chunk(cfg, params, kv, chunk, start, m, table),
+        f"the k/v gather alone, {L} layers x {CHUNK_PROMPT} tokens":
+            lambda: [kv[li][:, pages].permute(2, 1, 3, 0, 4).reshape(2, -1, Hkv, hd)
+                     for li in range(L)],
+    })
+    log_steps(steps)
+    for ref in ("apart", "plain"):
+        log(f"  one mixed_chunk (chunk at {start}, rows of contexts "
+            f"{[len(p) + 1 for p, _ in streams]}) against "
+            + ("prefill_chunk + decode on a copy of the pool" if ref == "apart"
+               else "plain_attention=True"))
+        for i, (got, want_l) in enumerate(zip(
+                [runs["fused"][0], *runs["fused"][1]], [runs[ref][0], *runs[ref][1]])):
+            if not (bool(torch.isfinite(got).all()) and got.shape == (cfg.vocab_size,)):
+                raise SystemExit("mixed-step logits are not finite [V]")
+            check_logits(got, want_l, LOGITS_RTOL, f"mixed-step logits (row {i}) disagree "
+                         f"with {ref}")
+    del kv
+
+    log("[8d] timings of the chunked path (host clock)")
+    ttft_cold = (times_cold[0] - t_cold) * 1e3
+    ttft_warm = (times_warm[0] - t_warm) * 1e3
+    # a gap overlapping the cold prompt's prefill (submit to first token)
+    gaps = [(b - a) * 1e3 for ts in stream_times for a, b in zip(ts, ts[1:])
+            if b > t_cold and a < times_cold[0]]
+    walls = [p[3] for p in rec["pieces"]]
+    log(f"  TTFT {label}: cold under decode load {ttft_cold:.3f} ms ({n_pieces} fused pieces), "
+        f"warm alone {ttft_warm:.3f} ms ({cached} tokens cached, "
+        f"{CHUNK_PROMPT - cached} re-run)")
+    log(f"  streams' largest token gap during the cold prefill {max(gaps):.3f} ms over "
+        f"{len(gaps)} gaps; one fused piece's wall: median {statistics.median(walls):.3f} ms, "
+        f"max {max(walls):.3f} ms")
+    Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    shapes = [time_chunk(gen, fp, att, T, S, q_offset, Hq, Hkv, hd)
+              for T, S, q_offset in K2_CHUNK_SHAPES]
+    for r in shapes:
+        log(f"  flash_prefill chunk T={r['T']}, S={r['S']}, q_offset {r['q_offset']}: "
+            f"{r['ms'] * 1e3:.2f} us vs bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
+            f"plain {r['plain_ms'] * 1e3:.2f} us, library "
+            + (f"{r['library_ms'] * 1e3:.2f} us" if r["library_ms"] is not None
+               else r["library_call"]))
+    serving = {"options": CHUNK_OPTS, "prompt": CHUNK_PROMPT, "output": CHUNK_OUT,
+               "streams": CHUNK_STREAMS, "ttft_cold_ms": ttft_cold, "ttft_warm_ms": ttft_warm,
+               "max_gap_during_prefill_ms": max(gaps), "piece_wall_ms": walls, **counts,
+               "steps": steps_json(steps)}
+    return serving, launches, shapes
+
+
+def time_chunk(gen, fp, att, T, S, q_offset, Hq, Hkv, hd):
+    """K2 on one chunk: T queries at q_offset + i over S = q_offset + T keys,
+    against its plain version (each query row at K2's limit); its time, its
+    bound from these inputs, the plain version's time and the SDPA
+    yardstick with an explicit boolean mask."""
+    q = torch.randn((T, Hq, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((S, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((S, Hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    scale = hd ** -0.5
+    saved = fp.launches
+    out = {"T": T, "S": S, "q_offset": q_offset,
+           "ms": time_ms(lambda i: fp.flash_attention(q, k, v, S, q_offset, scale), 100)}
+    ref = fp.flash_attention(q, k, v, S, q_offset, scale)
+    fp.launches = saved
+    plain = att.causal_attention(q, k, v, S, q_offset, scale)
+    out["max_abs_err"], share = prefill_err(ref, plain)
+    if not share <= 1.0:
+        raise SystemExit(f"flash prefill kernel disagrees with its plain version at the chunk "
+                         f"T={T}, S={S} (worst row at {share:.3f} of its limit)")
+    out["plain_ms"] = time_ms(lambda i: att.causal_attention(q, k, v, S, q_offset, scale), 10)
+    nbytes = (2 * T * Hq * hd + 2 * S * Hkv * hd) * 2
+    keys = T * q_offset + T * (T + 1) // 2  # keys each query attends, summed
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 2 * 2 * Hq * hd * keys)
+    out["library_ms"], out["library_call"] = sdpa_prefill_library(q, k, v, scale, ref,
+                                                                  q_offset=q_offset)
+    return out
 
 
 # ── DeepSeek-V4-Flash, 8 layers, resident fp8 / fp4 weights ────────────

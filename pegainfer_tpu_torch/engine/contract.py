@@ -43,9 +43,12 @@ class EngineLoadOptions:
     """Engine startup options (counterpart of the JAX package's
     ``EngineLoadOptions``).
 
-    The last four fields name features of the JAX engine that the port does
-    not have yet; the executor raises ``NotImplementedError`` when one is
-    set away from its default, so no option is silently ignored.
+    ``quantize`` and ``decode_block`` name features of the JAX engine that
+    the Qwen3 executor does not have yet; it raises ``NotImplementedError``
+    when one is set away from its default, so no option is silently
+    ignored. The DSv4 executor also refuses the prefix cache and
+    ``prefill_chunk``; until it takes them, their defaults here stay off
+    (the JAX engine's are on, with chunks of 2048).
     """
 
     seed: int = 42
@@ -54,12 +57,19 @@ class EngineLoadOptions:
     max_num_pages: Optional[int] = None  # override pool size (tests)
     max_batch_size: int = 64
     max_model_len: Optional[int] = None
-    # not supported yet: weight quantization, prefix cache, chunked
-    # prefill, multi-token decode blocks
+    # not supported yet: weight quantization, multi-token decode blocks
     quantize: Optional[str] = None
-    enable_prefix_cache: bool = False
-    prefill_chunk: Optional[int] = None
     decode_block: int = 1
+    # Shared-prompt-prefix page cache: a repeated prompt skips prefilling
+    # its cached page-aligned prefix. Needs ``prefill_chunk``.
+    enable_prefix_cache: bool = False
+    # Prompts longer than this prefill in pieces of this many tokens
+    # (aligned down to the page); None prefills every prompt whole.
+    prefill_chunk: Optional[int] = None
+    # Piece size while other requests decode: each piece then carries one
+    # decode row per active stream (the fused mixed step), so it bounds the
+    # streams' token gap. PEGAINFER_MIXED_FUSED=0 time-slices instead.
+    prefill_chunk_mixed: int = 256
 
 
 @dataclass

@@ -1,9 +1,10 @@
 """Host-side paged-KV accounting: page pool, per-request KV state, admission.
 
 The PyTorch port's own copy of the Python half of
-``pegainfer_tpu/engine/kv.py``: ``PagePool``, ``KvState``, ``KvAccounting``
-and the admission rule. The prefix caches (and the page refcounts they need)
-and the native C++ accounting core are not carried over.
+``pegainfer_tpu/engine/kv.py``: the refcounted ``PagePool``, ``KvState``,
+``KvAccounting``, the admission rule and the page ``PrefixCache``. The
+hybrid-model snapshots (``match_hybrid``, ``insert_snapshot``), the slot
+prefix cache and the native C++ accounting core are not carried over.
 
 Key invariant: a request is only admitted when its *full-lifetime* page count
 fits in the budget after subtracting every active request's future growth,
@@ -13,7 +14,7 @@ so decode can never deadlock on page exhaustion.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 
 def pages_needed(token_count: int, page_size: int) -> int:
@@ -21,10 +22,16 @@ def pages_needed(token_count: int, page_size: int) -> int:
 
 
 class PagePool:
-    """Free-list allocator over a fixed set of KV page ids.
+    """Refcounted free-list allocator over a fixed set of KV page ids.
 
     Page id 0 is reserved as the *null page*: padding entries of page tables
     point there, so it must never be handed to a request.
+
+    Pages are refcounted so the prefix cache can share immutable prompt
+    pages across requests (``incref``; ``free`` drops one reference and a
+    page returns to the free list at 0). ``alloc`` hands out pages at
+    refcount 1 and, on shortage, first calls the eviction hook (the prefix
+    cache releases its least recently used entries).
     """
 
     NULL_PAGE = 0
@@ -34,30 +41,63 @@ class PagePool:
             raise ValueError("need at least 2 pages (one is the null page)")
         self.num_pages = num_pages
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self._refs: Dict[int, int] = {}
+        self._allocated = 0
+        self._evict_hook = None  # callable(n_pages_needed) -> None
 
     @property
     def available(self) -> int:
         return len(self._free)
 
+    @property
+    def allocated(self) -> int:
+        return self._allocated
+
+    def set_eviction_hook(self, hook) -> None:
+        self._evict_hook = hook
+
     def alloc(self, n: int) -> List[int]:
+        if n > len(self._free) and self._evict_hook is not None:
+            self._evict_hook(n - len(self._free))
         if n > len(self._free):
             raise RuntimeError(f"page pool exhausted: want {n}, have {len(self._free)}")
-        return [self._free.pop() for _ in range(n)]
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._refs[p] = 1
+        self._allocated += n
+        return pages
+
+    def incref(self, pages: Sequence[int]) -> None:
+        for p in pages:
+            self._refs[p] += 1
 
     def free(self, pages: Sequence[int]) -> None:
+        """Drop one reference per page; reclaim pages that reach zero."""
         for p in pages:
             if p == self.NULL_PAGE:
                 raise ValueError("freeing the null page")
-            self._free.append(p)
+            left = self._refs[p] - 1
+            if left == 0:
+                del self._refs[p]
+                self._free.append(p)
+                self._allocated -= 1
+            else:
+                self._refs[p] = left
 
 
 @dataclass
 class KvState:
-    """Per-request KV occupancy: ordered page list + token length."""
+    """Per-request KV occupancy: ordered page list + token length.
+
+    ``prefix_len`` > 0 means the first pages were seeded from the prefix
+    cache (already written, shared read-only) and prefill starts there.
+    """
 
     page_size: int
     pages: List[int] = field(default_factory=list)
     length: int = 0  # tokens currently stored
+    prefix_len: int = 0  # cached-prefix tokens (page-aligned)
+    prefix_checked: bool = False  # cache lookup already performed
 
     @property
     def capacity(self) -> int:
@@ -98,10 +138,107 @@ class KvAccounting:
             self._states[request_id] = st
         return st
 
+    def get(self, request_id: int) -> Optional[KvState]:
+        return self._states.get(request_id)
+
     def release(self, request_id: int) -> None:
         st = self._states.pop(request_id, None)
         if st is not None:
             st.release(self.pool)
+
+
+# ── Prefix cache ─────────────────────────────────────────────────────────
+
+
+class PrefixCache:
+    """Shared-prompt-prefix page cache over the refcounted ``PagePool``.
+
+    A cached prefix is a chain of immutable page ids addressed through
+    per-request page tables, so reuse is a host-side table edit with no
+    device copy. Keys are a rolling hash per page boundary (each chains the
+    previous key with the page's token ids), so key i names
+    ``tokens[0:(i + 1) * page_size]``. LRU eviction runs from the pool's
+    shortage hook.
+    """
+
+    def __init__(self, pool: PagePool, page_size: int) -> None:
+        self.pool = pool
+        self.page_size = page_size
+        self._pages: Dict[int, int] = {}  # chain key -> page id
+        self._lru: Dict[int, int] = {}  # chain key -> tick
+        self._tick = 0
+        self.hits = 0
+        self.misses = 0
+        pool.set_eviction_hook(self._evict)
+
+    def _keys(self, tokens: Sequence[int]):
+        ps = self.page_size
+        h = 0
+        for i in range(len(tokens) // ps):
+            h = hash((h, tuple(tokens[i * ps:(i + 1) * ps])))
+            yield h
+
+    def match(self, tokens: Sequence[int]) -> tuple:
+        """Longest cached prefix of ``tokens``, capped at ``(T - 1) // ps``
+        full pages so the last prompt token always re-runs and prefill
+        emits its logits. Returns (n_tokens, page_ids), one pool reference
+        taken per page on the caller's behalf."""
+        ps = self.page_size
+        usable = (len(tokens) - 1) // ps
+        pages: List[int] = []
+        self._tick += 1
+        for i, key in enumerate(self._keys(tokens)):
+            if i >= usable:
+                break
+            pid = self._pages.get(key)
+            if pid is None:
+                break
+            pages.append(pid)
+            self._lru[key] = self._tick
+        if pages:
+            self.pool.incref(pages)
+            self.hits += 1
+        else:
+            self.misses += 1
+        return len(pages) * ps, pages
+
+    def insert(self, tokens: Sequence[int], pages: Sequence[int]) -> None:
+        """Register a prefilled prompt's full pages (immutable: generated
+        tokens land on later pages). Takes one reference per newly cached
+        page; chains already cached are left as they are."""
+        self._tick += 1
+        for i, key in enumerate(self._keys(tokens)):
+            if i >= len(pages):
+                break
+            if key in self._pages:
+                self._lru[key] = self._tick
+                continue
+            self._pages[key] = pages[i]
+            self._lru[key] = self._tick
+            self.pool.incref([pages[i]])
+
+    def evictable(self) -> int:
+        """Pages only the cache holds (refcount 1), reclaimable on demand.
+        Admission counts them as available: the eviction hook fires only on
+        ``alloc``, which a deferred request never reaches otherwise."""
+        refs = self.pool._refs
+        return sum(1 for pid in self._pages.values() if refs.get(pid) == 1)
+
+    def _evict(self, n_pages: int) -> None:
+        """Drop LRU entries until ``n_pages`` pages actually return to the
+        free list (a dropped reference frees only a page no live request
+        shares) or the cache is empty. Entries orphaned by an evicted
+        ancestor age out the same way (``match`` walks from page 0)."""
+        want = self.pool.available + max(n_pages, 0)
+        for key, _ in sorted(self._lru.items(), key=lambda kv: kv[1]):
+            if self.pool.available >= want:
+                break
+            pid = self._pages.pop(key)
+            del self._lru[key]
+            self.pool.free([pid])
+
+    def clear(self) -> None:
+        self._evict(len(self._pages))
 
 
 # ── Admission control ────────────────────────────────────────────────────

@@ -7,10 +7,14 @@ resolves outcomes (EOS / length / continue) and emits TokenEvents. On
 executor failure every touched request gets an ``Error`` event and its KV
 dropped; serving continues.
 
-Only the plain prefill -> decode loop of the protocol is here. The JAX
-scheduler's pipelined decode blocks and chunked / fused mixed steps follow
-optional executor features that the port's executor does not have yet; they
-come back with those features.
+A unified step (new prompts while streams decode) is the JAX scheduler's
+``_unified_interleaved``: an executor with a prefill stepper runs long
+prompts piece by piece, each piece carrying one decode row per active
+stream (the fused mixed step) or followed by a decode step, so a stream
+stalls for one piece, not a whole prompt. An executor without one (DSv4's
+slot executor) takes the plain unified step. The JAX scheduler's pipelined
+multi-token decode blocks follow an executor feature the port does not have
+yet (``execute_decode_async``); decode here is one token a step.
 """
 
 from __future__ import annotations
@@ -249,16 +253,110 @@ class Scheduler:
             )
             self._apply_prefill(pending, result.requests)
         elif plan_kind == "decode":
-            result = self.executor.execute_decode(
-                DecodePlan(requests=self._decode_items()))
-            self._apply_decode(result.requests)
-        else:  # unified: new prompts plus one decode step of the active set
-            result = self.executor.execute_unified(
-                UnifiedPlan(prefill_requests=self._prefill_items(pending),
-                            decode_requests=self._decode_items())
-            )
+            self._decode_block_once()
+        else:  # unified
+            self._unified_interleaved(pending)
+
+    def _decode_block_once(self) -> None:
+        """One decode step for the active set."""
+        if not self.active:
+            return
+        result = self.executor.execute_decode(DecodePlan(requests=self._decode_items()))
+        self._apply_decode(result.requests)
+
+    def _unified_interleaved(self, pending: List[PendingRequest]) -> None:
+        """Mixed step: prompts that the executor chunks run piece by piece
+        with the active streams' decode rows fused into each piece (or a
+        decode step between pieces), so a stream stalls for one piece."""
+        ex = self.executor
+        chunkable = hasattr(ex, "prefill_stepper") and hasattr(ex, "supports_chunked_prefill")
+        done_results, done_reqs, plain, plain_reqs = [], [], [], []
+        for req in pending:
+            item = self._prefill_items([req])[0]
+            if chunkable and ex.supports_chunked_prefill(item) and self.active:
+                done_results.append(self._drive_stepper(ex.prefill_stepper(item)))
+                done_reqs.append(req)
+            elif chunkable and self.active:
+                # a prompt the executor does not chunk runs alone, and the
+                # active set decodes right after it: the stall is one
+                # prompt's prefill, not the whole pending queue's
+                result = ex.execute_prefill(PrefillPlan(requests=[item], echo=item.echo))
+                done_results.append(result.requests[0])
+                done_reqs.append(req)
+                self._decode_block_once()
+            else:
+                plain.append(item)
+                plain_reqs.append(req)
+        if plain:
+            result = ex.execute_unified(
+                UnifiedPlan(prefill_requests=plain, decode_requests=self._decode_items()))
+            self._apply_prefill(plain_reqs, result.prefill_requests)
             self._apply_decode(result.decode_requests)
-            self._apply_prefill(pending, result.prefill_requests)
+        if done_reqs:
+            self._apply_prefill(done_reqs, done_results)
+        if not plain:
+            self._decode_block_once()
+
+    def _drive_stepper(self, gen):
+        """Run one prompt's prefill stepper to its end with the active set
+        decoding along. Piece k's decode tokens are applied after piece k+1
+        is dispatched (the JAX scheduler's pipeline; the executor feeds
+        piece k's tokens to piece k+1 itself). Returns the prefill result."""
+        ex = self.executor
+        prev = None  # the fused piece whose tokens are not applied yet
+
+        def flush_prev():
+            nonlocal prev
+            mp, prev = prev, None
+            if mp is not None:
+                self._apply_decode_tokens(ex.resolve_pending_multi(mp))
+
+        try:
+            while True:
+                # adaptive pieces: smaller while streams are decoding
+                ex.decode_active = bool(self.active)
+                ex.mixed_items = None  # never leave stale items
+                ditems = self._decode_items() if self.active else []
+                if ditems and ex.supports_mixed_step(ditems):
+                    if prev is not None and (
+                            tuple(i.request_id for i in ditems)
+                            != tuple(i.request_id for i in prev.items)
+                            or self._min_remaining() <= 2):
+                        # the batch changed, or a stream is near its length
+                        # limit: apply first (no token past the admitted
+                        # budget)
+                        flush_prev()
+                        ditems = self._decode_items() if self.active else []
+                    if ditems and ex.supports_mixed_step(ditems):
+                        ex.mixed_items = ditems
+                        ex.mixed_rand = self._rand_matrix(ditems, 1)
+                try:
+                    next(gen)
+                except StopIteration as done:
+                    return done.value
+                mp, ex.mixed_pending = ex.mixed_pending, None
+                flush_prev()  # piece k-1's tokens, now that piece k ran
+                if mp is not None:
+                    prev = mp
+                else:
+                    self._decode_block_once()
+        finally:
+            ex.decode_active = False
+            ex.mixed_items = None
+            # in order: the held piece, then a last piece that ran fused
+            # right before the stepper returned
+            mp, ex.mixed_pending = ex.mixed_pending, None
+            flush_prev()
+            if mp is not None:
+                self._apply_decode_tokens(ex.resolve_pending_multi(mp))
+
+    def _min_remaining(self) -> int:
+        return min(st.max_tokens - st.generated_count for st in self.active)
+
+    def _rand_matrix(self, items, n_tokens: int):
+        if all(it.params.is_greedy for it in items):
+            return None
+        return [[self.rng.random() for _ in items] for _ in range(n_tokens)]
 
     # ── resolve + effects ────────────────────────────────────────────
 
@@ -294,27 +392,37 @@ class Scheduler:
             )
 
     def _apply_decode(self, results) -> set:
+        return self._apply_decode_tokens(
+            [(r.request_id, [r.token], None if r.logprob is None else [r.logprob])
+             for r in results])
+
+    def _apply_decode_tokens(self, results) -> set:
+        """Apply [(request_id, tokens, logprobs | None)] with one-token
+        semantics each (EOS discards a request's remaining tokens). Rows of
+        requests that finished while the rows were pending are dropped:
+        their KV is already released."""
         by_id = {st.request_id: st for st in self.active}
         finished_ids = set()
-        for res in results:
-            st = by_id[res.request_id]
-            completion = st.generated_count + 1
-            is_eos = not st.params.ignore_eos and self.executor.is_stop_token(res.token)
-            at_limit = completion >= st.max_tokens
-            if is_eos:
-                st.channel.send(Finished(FinishReason.STOP, st.prompt_len, completion))
-                finished_ids.add(st.request_id)
-            elif at_limit:
-                st.channel.send(Token(res.token, res.logprob))
-                st.channel.send(Finished(FinishReason.LENGTH, st.prompt_len, completion))
-                finished_ids.add(st.request_id)
-            else:
-                st.channel.send(Token(res.token, res.logprob))
-                st.last_token = res.token
+        for rid, toks, lps in results:
+            st = by_id.get(rid)
+            if st is None:
+                continue
+            for ti, tok in enumerate(toks):
+                completion = st.generated_count + 1
+                if not st.params.ignore_eos and self.executor.is_stop_token(tok):
+                    st.channel.send(Finished(FinishReason.STOP, st.prompt_len, completion))
+                    finished_ids.add(rid)
+                    break
+                st.channel.send(Token(tok, lps[ti] if lps else None))
+                st.last_token = tok
                 st.generated_count = completion
+                if completion >= st.max_tokens:
+                    st.channel.send(Finished(FinishReason.LENGTH, st.prompt_len, completion))
+                    finished_ids.add(rid)
+                    break
+        for rid in finished_ids:
+            self.executor.release_request(rid)
         if finished_ids:
-            for rid in finished_ids:
-                self.executor.release_request(rid)
             self.active = [s for s in self.active if s.request_id not in finished_ids]
         return finished_ids
 

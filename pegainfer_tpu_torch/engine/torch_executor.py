@@ -1,19 +1,22 @@
 """PyTorch ModelExecutor for Qwen3 over a device-resident paged KV pool.
 
-Counterpart of ``pegainfer_tpu/engine/jax_executor.py`` for the plain
-protocol: whole-prompt prefill with greedy / temperature / top-k / top-p
-sampling, one decode token per step for the active batch, and the unified
-step as prefills followed by one decode step. PyTorch runs eagerly, so there
-are no compiled buckets; the decode batch is still padded to the JAX
-executor's batch buckets (padding rows: null page, seq_len 0).
+Counterpart of ``pegainfer_tpu/engine/jax_executor.py``: whole-prompt and
+chunked prefill with greedy / temperature / top-k / top-p sampling, the page
+prefix cache, one decode token per step for the active batch, and the fused
+mixed step (a prefill piece's rows and one decode row per active stream in
+one forward). PyTorch runs eagerly, so there are no compiled buckets: a
+prefill piece runs at its own length; the decode batch is still padded to
+the JAX executor's batch buckets (padding rows: null page, seq_len 0).
 
-Not here yet, and refused with ``NotImplementedError``: chunked prefill, the
-prefix cache, multi-token decode blocks, int8 weights and echo.
+Not here yet, and refused with ``NotImplementedError``: multi-token decode
+blocks, int8 weights and echo.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+from dataclasses import dataclass, replace
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -30,7 +33,7 @@ from pegainfer_tpu_torch.engine.executor import (
     UnifiedPlan,
     UnifiedResult,
 )
-from pegainfer_tpu_torch.engine.kv import KvAccounting, PagePool
+from pegainfer_tpu_torch.engine.kv import KvAccounting, PagePool, PrefixCache
 from pegainfer_tpu_torch.models import qwen3 as q3
 from pegainfer_tpu_torch.ops import sampling as smp
 
@@ -47,11 +50,10 @@ def bucket_batch(n: int) -> int:
 
 
 def check_supported(opts: EngineLoadOptions) -> None:
-    """Refuse the JAX engine's options the port does not implement yet."""
+    """Refuse the JAX engine's options the port does not implement yet, and
+    option values that cannot work."""
     unsupported = {
         "quantize": opts.quantize is not None,
-        "enable_prefix_cache": opts.enable_prefix_cache,
-        "prefill_chunk": opts.prefill_chunk is not None,
         "decode_block": opts.decode_block != 1,
     }
     named = [k for k, v in unsupported.items() if v]
@@ -60,6 +62,37 @@ def check_supported(opts: EngineLoadOptions) -> None:
             "the PyTorch port does not support yet: " + ", ".join(named))
     if opts.max_batch_size > BATCH_BUCKETS[-1]:
         raise ValueError(f"max_batch_size above {BATCH_BUCKETS[-1]}")
+    if opts.prefill_chunk is not None and opts.prefill_chunk <= 0:
+        raise ValueError(f"prefill_chunk must be positive, got {opts.prefill_chunk}")
+    if opts.prefill_chunk_mixed <= 0:
+        raise ValueError(
+            f"prefill_chunk_mixed must be positive, got {opts.prefill_chunk_mixed}")
+    if opts.enable_prefix_cache and opts.prefill_chunk is None:
+        # a cache hit prefills the rest of the prompt from an offset: the
+        # chunk path
+        raise ValueError("enable_prefix_cache needs prefill_chunk (the cached prefix is "
+                         "continued by the chunked prefill)")
+
+
+# the tail piece of a chunked prefill (a short remainder, such as a
+# near-whole prefix-cache hit, does not pay for a whole chunk)
+SMALL_PIECE = 256
+
+
+def small_piece(chunk: int, page_size: int) -> int:
+    return SMALL_PIECE if SMALL_PIECE % page_size == 0 and SMALL_PIECE < chunk else chunk
+
+
+def plan_piece(T: int, start: int, chunk: int, mixed: int, small: int,
+               decode_active: bool) -> int:
+    """End of the prefill piece starting at ``start`` of a ``T``-token
+    prompt: the JAX stepper's ``plan_piece`` (without the hybrid models'
+    fine tail). ``mixed`` pieces while other requests decode, else ``chunk``;
+    a remainder of at most ``small`` tokens goes in one piece. With
+    ``start`` and the three sizes page multiples, every interior end is
+    page-aligned."""
+    size = small if T - start <= small else (mixed if decode_active else chunk)
+    return min(start + size, T)
 
 
 def sample_tokens(logits, items) -> Tuple[List[int], torch.Tensor]:
@@ -100,6 +133,16 @@ def token_logprobs(logits, toks, items) -> List[Optional[TokenLogprob]]:
     return out
 
 
+@dataclass
+class PendingDecode:
+    """The decode rows of a fused mixed piece, sampled but not yet applied:
+    the scheduler applies them one piece late (``resolve_pending_multi``)."""
+
+    items: list
+    tokens: List[int]
+    logprobs: List[Optional[TokenLogprob]]
+
+
 class TorchExecutor:
     """Continuous-batching executor for one Qwen3 model on one device."""
 
@@ -111,15 +154,44 @@ class TorchExecutor:
         self.params = params
         self.kv_pages = kv_pages
         self.device = kv_pages.device
-        self._page_size = kv_pages.shape[4]
-        self.acct = KvAccounting(PagePool(kv_pages.shape[2]), self._page_size)
+        ps = self._page_size = kv_pages.shape[4]
+        self.acct = KvAccounting(PagePool(kv_pages.shape[2]), ps)
+        self.prefix_cache = (PrefixCache(self.acct.pool, ps) if opts.enable_prefix_cache
+                             else None)
         self.max_batch = opts.max_batch_size
         max_model_len = opts.max_model_len or cfg.max_position_embeddings
-        self._max_pages = min(self.acct.pool.available,
-                              -(-max_model_len // self._page_size))
+        self._max_pages = min(self.acct.pool.available, -(-max_model_len // ps))
         self._stop_ids = frozenset(cfg.stop_token_ids)
-        # what ran, for callers that check the path (chip_smoke.py)
+        # chunk sizes are page multiples, so interior piece ends are
+        # page-aligned (the prefix cache shares whole pages)
+        self.prefill_chunk = None
+        if opts.prefill_chunk is not None:
+            pc = max(ps, opts.prefill_chunk)
+            self.prefill_chunk = pc - pc % ps
+            mixed = min(opts.prefill_chunk_mixed, self.prefill_chunk)
+            self.prefill_chunk_mixed = max(ps, mixed - mixed % ps)
+            self._small_piece = small_piece(self.prefill_chunk, ps)
+        # set by the scheduler around stepper pieces: decode_active picks the
+        # mixed piece size; mixed_items (+ mixed_rand, one row of uniform
+        # draws for non-greedy rows) asks for the next piece to carry those
+        # decode rows, whose sampled tokens are left in mixed_pending
+        self.decode_active = False
+        self.mixed_items = None
+        self.mixed_rand = None
+        self.mixed_pending: Optional[PendingDecode] = None
+        self._mixed_enabled = os.environ.get("PEGAINFER_MIXED_FUSED", "1") != "0"
+        # the last fused piece's sampled tokens [B] on the device and its
+        # request ids: the scheduler applies a piece's tokens only after the
+        # next piece is dispatched, so the next piece of the same batch takes
+        # its inputs from here (the host's token ids are one behind)
+        self._mixed_toks: Optional[torch.Tensor] = None
+        self._mixed_rids: Optional[tuple] = None
+        # what ran, for callers that check the path (chip_smoke.py): whole
+        # prefills, chunked-prefill pieces (fused or not), fused mixed
+        # pieces, decode steps
         self.prefills = 0
+        self.chunk_pieces = 0
+        self.mixed_pieces = 0
         self.decode_steps = 0
 
     # ── scheduler-facing accounting ──────────────────────────────────
@@ -128,7 +200,12 @@ class TorchExecutor:
         return self._page_size
 
     def available_pages(self) -> int:
-        return self.acct.pool.available
+        avail = self.acct.pool.available
+        if self.prefix_cache is not None:
+            # pages only the cache holds are reclaimed on alloc (eviction
+            # hook), so they count as available for admission
+            avail += self.prefix_cache.evictable()
+        return avail
 
     def max_request_pages(self) -> int:
         return self._max_pages
@@ -141,17 +218,8 @@ class TorchExecutor:
 
     # ── prefill ──────────────────────────────────────────────────────
 
-    def _prefill_one(self, item) -> PrefillRequestResult:
-        if item.echo:
-            raise NotImplementedError("echo is not supported by the PyTorch port yet")
-        T = len(item.prompt_tokens)
-        st = self.acct.state(item.request_id)
-        st.ensure_capacity(self.acct.pool, T)
-        tokens = torch.tensor(item.prompt_tokens, dtype=torch.int32, device=self.device)
-        table = torch.tensor(st.pages, dtype=torch.int32, device=self.device)
-        last_logits, _ = q3.prefill(self.cfg, self.params, self.kv_pages, tokens, table)
-        st.advance(T)
-        self.prefills += 1
+    def _first_token(self, item, last_logits) -> PrefillRequestResult:
+        """Sample a prompt's first output token from its last logits [V]."""
         logits = last_logits[None, :]
         host, dev = sample_tokens(logits, [item])
         return PrefillRequestResult(
@@ -159,6 +227,80 @@ class TorchExecutor:
             first_token=host[0],
             first_token_logprob=token_logprobs(logits, dev, [item])[0],
         )
+
+    def _maybe_seed_prefix(self, item, st) -> None:
+        """Seed ``st`` with the cached prefix pages of this prompt (once; a
+        no-op when the cache is off or the request already has pages)."""
+        if self.prefix_cache is None or st.pages or st.length > 0 or st.prefix_checked:
+            return
+        st.prefix_checked = True
+        n_tok, pages = self.prefix_cache.match(item.prompt_tokens)
+        if n_tok:
+            st.pages = list(pages)
+            st.prefix_len = n_tok
+
+    def _cache_insert(self, item, st) -> None:
+        if self.prefix_cache is not None:
+            T = len(item.prompt_tokens)
+            self.prefix_cache.insert(item.prompt_tokens, st.pages[: T // self._page_size])
+
+    def supports_chunked_prefill(self, item) -> bool:
+        return (self.prefill_chunk is not None and not item.echo
+                and len(item.prompt_tokens) > self.prefill_chunk)
+
+    def prefill_stepper(self, item):
+        """Generator running one prefill piece per ``next()`` and yielding
+        the piece's end while the prompt is not done; its return value is
+        the PrefillRequestResult. The scheduler runs decode between pieces
+        (or hands the stepper decode rows to fuse, ``mixed_items``), so
+        streams stall for one piece, not the whole prompt."""
+        st = self.acct.state(item.request_id)
+        T = len(item.prompt_tokens)
+        self._maybe_seed_prefix(item, st)
+        start = st.prefix_len
+        st.ensure_capacity(self.acct.pool, T)
+        tokens = torch.tensor(item.prompt_tokens, dtype=torch.int32, device=self.device)
+        table = torch.tensor(st.pages, dtype=torch.int32, device=self.device)
+        while start < T:
+            # planned one piece at a time: decode_active may flip between
+            end = plan_piece(T, start, self.prefill_chunk, self.prefill_chunk_mixed,
+                             self._small_piece, self.decode_active)
+            if self.mixed_items:
+                mi, self.mixed_items = self.mixed_items, None
+                last_logits = self._run_mixed_piece(mi, tokens[start:end], start,
+                                                    end - start, table)
+            else:
+                last_logits = q3.prefill_chunk(self.cfg, self.params, self.kv_pages,
+                                               tokens[start:end], start, end - start, table)
+            self.chunk_pieces += 1
+            start = end
+            if end < T:
+                yield end
+        st.advance(T)
+        self._cache_insert(item, st)
+        return self._first_token(item, last_logits)
+
+    def _prefill_one(self, item) -> PrefillRequestResult:
+        if item.echo:
+            raise NotImplementedError("echo is not supported by the PyTorch port yet")
+        T = len(item.prompt_tokens)
+        st = self.acct.state(item.request_id)
+        self._maybe_seed_prefix(item, st)  # a cache hit goes through the stepper
+        if self.prefill_chunk is not None and (T > self.prefill_chunk or st.prefix_len):
+            gen = self.prefill_stepper(item)
+            while True:
+                try:
+                    next(gen)
+                except StopIteration as done:
+                    return done.value
+        st.ensure_capacity(self.acct.pool, T)
+        tokens = torch.tensor(item.prompt_tokens, dtype=torch.int32, device=self.device)
+        table = torch.tensor(st.pages, dtype=torch.int32, device=self.device)
+        last_logits, _ = q3.prefill(self.cfg, self.params, self.kv_pages, tokens, table)
+        st.advance(T)
+        self.prefills += 1
+        self._cache_insert(item, st)
+        return self._first_token(item, last_logits)
 
     def execute_prefill(self, plan: PrefillPlan) -> PrefillResult:
         return PrefillResult(requests=[self._prefill_one(it) for it in plan.requests])
@@ -191,6 +333,7 @@ class TorchExecutor:
 
     def execute_decode(self, plan: DecodePlan) -> DecodeResult:
         items = plan.requests
+        self._mixed_toks = None  # tokens advance outside the fused chain
         if not items:
             return DecodeResult()
         if len(items) > self.max_batch:
@@ -210,6 +353,43 @@ class TorchExecutor:
             DecodeRequestResult(request_id=it.request_id, token=host[i], logprob=lps[i])
             for i, it in enumerate(items)
         ])
+
+    # ── fused mixed step (prefill piece ‖ decode rows, one forward) ───
+
+    def supports_mixed_step(self, items) -> bool:
+        return self._mixed_enabled and len(items) <= self.max_batch
+
+    def _run_mixed_piece(self, items, chunk_tokens, start: int, valid: int, table):
+        """One fused piece (called from the stepper). Returns the chunk's
+        last logits; the decode rows' sampled tokens are left in
+        ``mixed_pending`` for the scheduler."""
+        n = len(items)
+        (tokens, positions, tables, seq_lens), states = self._decode_inputs(items)
+        rids = tuple(it.request_id for it in items)
+        if self._mixed_toks is not None and self._mixed_rids == rids:
+            tokens = self._mixed_toks
+        last_logits, dec_logits = q3.mixed_chunk(
+            self.cfg, self.params, self.kv_pages, chunk_tokens, start, valid, table,
+            tokens, positions, tables, seq_lens)
+        for st in states:
+            st.advance(1)
+        self.mixed_pieces += 1
+        if self.mixed_rand is not None:
+            items = [replace(it, random_val=r) for it, r in zip(items, self.mixed_rand[0])]
+        dec_logits = dec_logits[:n]
+        host, dev = sample_tokens(dec_logits, items)
+        self._mixed_toks = torch.zeros_like(tokens)
+        self._mixed_toks[:n] = dev
+        self._mixed_rids = rids
+        self.mixed_pending = PendingDecode(items=list(items), tokens=host,
+                                           logprobs=token_logprobs(dec_logits, dev, items))
+        return last_logits
+
+    def resolve_pending_multi(self, pending: PendingDecode):
+        """[(request_id, [token], [TokenLogprob] | None), ...]: the JAX
+        executor's multi-token resolve, one token a row here."""
+        return [(it.request_id, [tok], None if lp is None else [lp])
+                for it, tok, lp in zip(pending.items, pending.tokens, pending.logprobs)]
 
     # ── unified ──────────────────────────────────────────────────────
 

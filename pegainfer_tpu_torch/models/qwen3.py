@@ -8,11 +8,13 @@ both packages compute the same thing from the same weights. The KV pool keeps
 the JAX layout ``[L, Hkv, pages, 2, page_size, hd]``.
 
 KV writes: PyTorch updates the pool in place, so each layer writes its new
-k/v straight into the pool (prefill: after computing them; decode: right
-after its attention). The JAX write-ahead ``pend`` chain exists only to stop
-XLA from copying the pool and is not carried over. Decode attention still
-has ``decode_wa``'s semantics: it reads the past from the pages and the
-current token from the in-flight k/v (``cur_k``/``cur_v``).
+k/v straight into the pool (prefill: after computing them; a chunk: before
+its attention gathers the request's pages; decode: right after its
+attention). The JAX write-ahead ``pend`` chains (``decode_wa``,
+``prefill_chunk_wa``) exist only to stop XLA from copying the pool and are
+not carried over. Decode attention still has ``decode_wa``'s semantics: it
+reads the past from the pages and the current token from the in-flight k/v
+(``cur_k``/``cur_v``).
 
 Attention goes through the kernel wrappers in ``ops.cuda``: on a CUDA tensor
 they always launch their kernel (a shape the kernel cannot take raises), on
@@ -32,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from pegainfer_tpu_torch.ops import attention as att
-from pegainfer_tpu_torch.ops.cuda.flash_prefill import flash_prefill
+from pegainfer_tpu_torch.ops.cuda.flash_prefill import flash_attention, flash_prefill
 from pegainfer_tpu_torch.ops.cuda.paged_decode import paged_attention_decode
 from pegainfer_tpu_torch.ops.norm import rms_norm
 from pegainfer_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
@@ -350,7 +352,121 @@ def prefill(cfg: Qwen3Config, params, kv_pages, tokens, page_table,
     return (x[T - 1:] @ params["lm_head"])[0].float(), None
 
 
+# ── Chunked prefill continuation ─────────────────────────────────────────
+
+
+def _chunk_rows(page_table, start_pos: int, valid: int, ps: int):
+    """Positions, page ids and slots of a chunk's ``valid`` rows."""
+    positions = start_pos + torch.arange(valid, device=page_table.device)
+    return positions, page_table.long()[positions // ps], positions % ps
+
+
+def _chunk_attention(kv_pages, li: int, q, page_table, start_pos: int, scale: float,
+                     plain_attention: bool):
+    """Attention of a chunk's queries (absolute positions start_pos + i)
+    over the request's keys, read back from the pool by absolute position;
+    the chunk's own rows must already be written. Only the pages covering
+    ``[0, start_pos + Tc)`` are gathered."""
+    _, Hkv, _, _, ps, hd = kv_pages.shape
+    kv_valid = start_pos + q.shape[0]
+    pages = page_table[: -(-kv_valid // ps)].long()
+    # one gather fetches k and v (adjacent in a page): [Hkv, n, 2, ps, hd]
+    # -> [2, n * ps, Hkv, hd], each half contiguous, as K2 takes it
+    kv_seq = kv_pages[li][:, pages].permute(2, 1, 3, 0, 4).reshape(2, -1, Hkv, hd).contiguous()
+    if plain_attention:
+        return att.causal_attention(q, kv_seq[0], kv_seq[1], kv_valid, start_pos, scale)
+    return flash_attention(q, kv_seq[0], kv_seq[1], kv_valid, start_pos, scale)
+
+
+def prefill_chunk(cfg: Qwen3Config, params, kv_pages, tokens, start_pos: int,
+                  valid: int, page_table, plain_attention: bool = False):
+    """Prefill continuation: run prompt positions ``[start_pos, start_pos +
+    valid)`` of one request whose earlier positions are already in its
+    pages, and write the chunk's k/v into ``kv_pages`` in place.
+
+    The function of the JAX ``prefill_chunk`` (``prefill_chunk_wa`` and
+    ``flush_chunk_pend``): each layer writes the chunk's rows into their
+    pages, gathers the request's k/v by absolute position and attends with
+    queries at ``start_pos + i`` (K2 with ``q_offset``). tokens: [>= valid]
+    (rows past ``valid`` are ignored); page_table: [>= ceil((start_pos +
+    valid) / ps)] the request's pages. Returns last_logits [V] f32, for
+    chunk row ``valid - 1``.
+    """
+    ps = kv_pages.shape[4]
+    x = params["embed"][tokens[:valid].long()]
+    positions, page_ids, slots = _chunk_rows(page_table, start_pos, valid, ps)
+    cos, sin = _rope(cfg, positions, x.dtype)
+    scale = _scale(cfg)
+    for li in range(cfg.num_hidden_layers):
+        lw = _layer(params, li)
+        h = rms_norm(x, lw["input_ln"], cfg.rms_norm_eps)
+        q, k, v = _qkv(cfg, lw, h, cos, sin)
+        _write_kv(kv_pages, li, k, v, page_ids, slots)
+        o = _chunk_attention(kv_pages, li, q, page_table, start_pos, scale, plain_attention)
+        x = x + o.reshape(valid, -1) @ lw["wo"]
+        h = rms_norm(x, lw["post_ln"], cfg.rms_norm_eps)
+        x = x + _mlp(lw, h)
+    x = rms_norm(x[valid - 1:], params["final_ln"], cfg.rms_norm_eps)
+    return (x @ params["lm_head"])[0].float()
+
+
+def mixed_chunk(cfg: Qwen3Config, params, kv_pages, chunk_tokens, start_pos: int,
+                valid: int, page_table, dec_tokens, dec_positions, dec_tables,
+                dec_seq_lens, plain_attention: bool = False):
+    """The fused mixed step: a prefill chunk's ``valid`` rows and one decode
+    row per active stream through shared GEMMs, attention split between
+    them (the JAX ``mixed_chunk_wa`` and both flushes).
+
+    The chunk rows are ``prefill_chunk``'s (write, gather, K2 at
+    ``q_offset``); the decode rows are ``decode``'s (K1 over the pages with
+    the in-flight k/v, written after). The prefilling request never also
+    decodes, so the two row sets touch disjoint pages. Arguments as in
+    ``prefill_chunk`` and ``decode``. Returns (last_logits [V] f32 for chunk
+    row ``valid - 1``, dec_logits [B, V] f32).
+    """
+    B = dec_tokens.shape[0]
+    ps = kv_pages.shape[4]
+    x = params["embed"][torch.cat([chunk_tokens[:valid], dec_tokens]).long()]
+    positions, page_ids, slots = _chunk_rows(page_table, start_pos, valid, ps)
+    cos, sin = _rope(cfg, torch.cat([positions, dec_positions.to(positions.dtype)]),
+                     x.dtype)
+    dpos = dec_positions.long()
+    dec_page_ids = torch.gather(dec_tables.long(), 1, (dpos // ps)[:, None])[:, 0]
+    dec_slots = dpos % ps
+    scale = _scale(cfg)
+    for li in range(cfg.num_hidden_layers):
+        lw = _layer(params, li)
+        h = rms_norm(x, lw["input_ln"], cfg.rms_norm_eps)
+        q, k, v = _qkv(cfg, lw, h, cos, sin)
+        _write_kv(kv_pages, li, k[:valid], v[:valid], page_ids, slots)
+        o_p = _chunk_attention(kv_pages, li, q[:valid], page_table, start_pos, scale,
+                               plain_attention)
+        qd, kd, vd = q[valid:], k[valid:], v[valid:]
+        o_d = _decode_attention(kv_pages, li, qd, kd, vd, dec_tables, dec_seq_lens,
+                                scale, plain_attention)
+        _write_kv(kv_pages, li, kd, vd, dec_page_ids, dec_slots)
+        o = torch.cat([o_p.reshape(valid, -1), o_d.reshape(B, -1)])
+        x = x + o @ lw["wo"]
+        h = rms_norm(x, lw["post_ln"], cfg.rms_norm_eps)
+        x = x + _mlp(lw, h)
+    x = rms_norm(x[valid - 1:], params["final_ln"], cfg.rms_norm_eps)  # last chunk row ‖ B
+    logits = (x @ params["lm_head"]).float()
+    return logits[0], logits[1:]
+
+
 # ── Batched decode: one token per request ────────────────────────────────
+
+
+def _decode_attention(kv_pages, li: int, q, k, v, page_tables, seq_lens, scale: float,
+                      plain_attention: bool):
+    """Decode attention of one layer: the past from the pages, the current
+    token from the in-flight ``k``/``v`` (K1 with ``cur_k``/``cur_v``)."""
+    if plain_attention:
+        return att.paged_attention_decode(
+            q, kv_pages[li, :, :, 0], kv_pages[li, :, :, 1], page_tables, seq_lens,
+            scale, cur_k=k, cur_v=v)
+    return paged_attention_decode(q, kv_pages, kv_pages, page_tables, seq_lens, scale,
+                                  cur_k=k, cur_v=v, layer_id=li)
 
 
 def decode(cfg: Qwen3Config, params, kv_pages, tokens, positions, page_tables,
@@ -376,13 +492,8 @@ def decode(cfg: Qwen3Config, params, kv_pages, tokens, positions, page_tables,
         lw = _layer(params, li)
         h = rms_norm(x, lw["input_ln"], cfg.rms_norm_eps)
         q, k, v = _qkv(cfg, lw, h, cos, sin)
-        if plain_attention:
-            o = att.paged_attention_decode(
-                q, kv_pages[li, :, :, 0], kv_pages[li, :, :, 1], page_tables,
-                seq_lens, scale, cur_k=k, cur_v=v)
-        else:
-            o = paged_attention_decode(q, kv_pages, kv_pages, page_tables, seq_lens,
-                                       scale, cur_k=k, cur_v=v, layer_id=li)
+        o = _decode_attention(kv_pages, li, q, k, v, page_tables, seq_lens, scale,
+                              plain_attention)
         _write_kv(kv_pages, li, k, v, page_ids, slots)
         x = x + o.reshape(B, -1) @ lw["wo"]
         h = rms_norm(x, lw["post_ln"], cfg.rms_norm_eps)

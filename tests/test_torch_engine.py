@@ -235,11 +235,21 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("option", [dict(quantize="int8"), dict(enable_prefix_cache=True),
-                                    dict(prefill_chunk=256), dict(decode_block=4)])
+@pytest.mark.parametrize("option", [dict(quantize="int8"), dict(quantize="bf16"),
+                                    dict(decode_block=2), dict(decode_block=4)])
 def test_unsupported_options_raise(option):
     tcfg = tq3.Qwen3Config(**_cfg_kw())
     params = tq3.init_random_params(tcfg, seed=0, dtype=torch.float32)
     kv = tq3.make_kv_pages(tcfg, 8, 4, dtype=torch.float32)
     with pytest.raises(NotImplementedError):
         TorchExecutor(tcfg, params, kv, tc.EngineLoadOptions(**option))
+
+
+def test_prefix_cache_without_a_chunk_size_raises():
+    """The cache continues a cached prefix through the chunked prefill, so
+    it needs prefill_chunk; the error names both options."""
+    tcfg = tq3.Qwen3Config(**_cfg_kw())
+    params = tq3.init_random_params(tcfg, seed=0, dtype=torch.float32)
+    kv = tq3.make_kv_pages(tcfg, 8, 4, dtype=torch.float32)
+    with pytest.raises(ValueError, match="enable_prefix_cache.*prefill_chunk"):
+        TorchExecutor(tcfg, params, kv, tc.EngineLoadOptions(enable_prefix_cache=True))
