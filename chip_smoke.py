@@ -84,6 +84,29 @@ weights:
     its bound, its plain version and masked SDPA. The engine, weights and KV
     pool are then freed.
 
+The Qwen3.5 hybrid at the JAX package's ``qwen35.bench_config()`` (32
+layers: 8 groups of 3 Gated Delta Net layers and 1 gated full-attention
+layer, hidden 2048; full width and depth), random bf16 weights made on the
+card from the seed, run after the Qwen3 engines are freed:
+
+19. hold K1 and K2 against their plain versions at its full-attention heads
+    (Hq 16, Hkv 2, hd 256) by phase 3's per-row rules: K2 at T 1,024 and a
+    ragged 300, K1 at B 1 and context 1,025 and at contexts {300, 500, 200}
+    padded to the batch bucket 4 by a dead row (exactly 0);
+20. serve through ``qwen35_engine.start_engine_from_params`` with 2 state
+    slots and the pool sized by ``compute_num_pages``: a 64/4 warm-up, the
+    greedy 1024/256 request, then 300/64, 500/64 and 200/16 at once; every
+    request ends in ``Finished`` with its count, the third is prefilled only
+    after a slot frees, the first two decode at B = 2; launches equal 8 x
+    prefills (K2) and 8 x decode steps (K1);
+21. the 1,024-token prefill's last logits, and one decode step at B = 3
+    with a dead row from the concurrent prompts' prefilled slots, with the
+    kernels against ``plain_attention=True`` (rule 7, row by row); TTFT and
+    TPOT of 1024/256; a torch.profiler profile of one prefill and one B = 1
+    decode step (K2's and K1's device time in them) and of the GDN ops
+    alone at the model's shapes; K1 at hd 256 against its bound, plain
+    version and SDPA. The engine, weights and state are then freed.
+
 DeepSeek-V4-Flash, 8 layers at full width, random resident fp8 / packed-fp4
 weights made on the card from the seed:
 
@@ -152,7 +175,9 @@ On the same weights, the opt-in fp4 chain and then the int8-experts mode:
 The last lines are the kernels' JSON record (the weight streams, the S3 /
 S4 kernels and K1-K9; with the read ceiling, and the S3 / S4 kernels, K3,
 K4, K6, K8 and K9 also bound by their bytes over it as
-``measured_bound_ms``), the card line from nvidia-smi and
+``measured_bound_ms``; K1's and K2's launches on the chunked and the
+Qwen3.5 paths; the Qwen3.5 serving and step records under ``qwen35``), the
+card line from nvidia-smi and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -256,6 +281,16 @@ CHAIN_ROW_RTOL = 1e-3
 # (scripts/k7_mutant_check.py [--kernel k5])
 GROUPED_ROW_RTOL = 1e-4
 DSV4_CHAIN_PAIR = ((300, 32), (500, 32))  # the chain-switch runs' traffic
+
+# Qwen3.5 hybrid phases: the main request is PROMPT / OUT, as for Qwen3
+Q35_SLOTS = 2
+Q35_WARMUP = (64, 4)
+Q35_CONCURRENT = ((300, 64), (500, 64), (200, 16))  # the third waits for a slot
+# K1 at its decode shapes: B 1 at context 1,025, and the concurrent requests'
+# contexts padded to the batch bucket 4 by a dead row; K2 at a whole prompt
+# and a ragged one
+Q35_K1_CASES = ([PROMPT + 1], [300, 500, 200, 0])
+Q35_K2_T = (PROMPT, 300)
 
 # phases 2a-2b: the bf16 weight streams (S2, S1). The limits of their checks
 # are the studies' (gemv_stream_study.check: stream_sum to 1e-5 of sqrt(N K)
@@ -519,6 +554,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  Qwen3 freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+    h_serving, h_steps, h_launches = run_qwen35()
+    for r in q_records:  # the hybrid's served path's launches beside Qwen3's
+        r["launches_qwen35_path"] = h_launches[r["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  Qwen3.5 freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
     cfg, params, d_records, d_serving, d_steps = run_dsv4()
     k9_record, chain_serving = run_dsv4_fp4_chain(cfg, params)
     i_records, i_serving, i_steps = run_dsv4_int8(cfg, params, k9_record)
@@ -543,6 +584,7 @@ def main() -> int:
                       "read_ceiling": read_ceiling, "weight_streams": s_extra, "gemv_chain": c_extra,
                       "expert_stream": e_extra, "fp4_study": f_extra,
                       "serving": q_serving, "steps": q_steps,
+                      "qwen35": {"serving": h_serving, "steps": h_steps},
                       "dsv4": {"serving": d_serving, "steps": d_steps},
                       "dsv4_fp4_chain": {"serving": chain_serving},
                       "dsv4_int8": {"serving": i_serving, "steps": i_steps}}))
@@ -1023,11 +1065,13 @@ def step_profile(cfg, q3, params, prompt_t, first_token, iters=5):
     }, iters)
 
 
-def profile_calls(calls, iters=5):
+def profile_calls(calls, iters=5, kernels=None):
     """Per call ``fn()`` of ``calls``: wall time (host clock to a
     synchronize), device time and the number of device operations (kernels
     and copies; torch.profiler, CUDA activity only), with the attention
-    kernels' share and the top TOP_OPS operations logged."""
+    kernels' share and the top TOP_OPS operations logged. With ``kernels``
+    ({label: a substring of the CUDA kernel's name}) each call's tuple ends
+    in a dict of their device time a call, ``{label}_ms``."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
@@ -1050,6 +1094,10 @@ def profile_calls(calls, iters=5):
                         key=lambda e: -e.self_device_time_total)
             dev = sum(e.self_device_time_total for e in ka) / iters / 1e3
             out[name] = (wall, dev, sum(e.count for e in ka) / iters)
+            if kernels:
+                out[name] += ({f"{label}_ms": sum(e.self_device_time_total for e in ka
+                                                   if key in e.key) / iters / 1e3
+                               for label, key in kernels.items()},)
             attn = sum(e.self_device_time_total for e in ka
                        if "flash_prefill" in e.key or "paged_decode" in e.key) / iters / 1e3
             log(f"    {name}: wall per call {min(walls):.3f}-{max(walls):.3f} ms over {iters} "
@@ -1582,6 +1630,225 @@ def time_chunk(gen, fp, att, T, S, q_offset, Hq, Hkv, hd):
     return out
 
 
+# ── phases 19-21: the Qwen3.5 hybrid ─────────────────────────────────────
+
+
+def run_qwen35():
+    """Phases 19-21 on the Qwen3.5 hybrid at the JAX package's
+    ``qwen35.bench_config()``. Returns (serving, steps, K1 / K2 launches on
+    its served path); the engine, weights and state are freed with this
+    frame."""
+    from pegainfer_tpu_torch.engine import contract
+    from pegainfer_tpu_torch.models import qwen35 as q35
+    from pegainfer_tpu_torch.models import qwen35_engine as q35e
+    from pegainfer_tpu_torch.ops.cuda import flash_prefill as fp
+    from pegainfer_tpu_torch.ops.cuda import paged_decode as pd
+
+    cfg = q35.bench_config()
+    G = cfg.num_groups
+    log(f"[19] Qwen3.5 hybrid ({cfg.num_hidden_layers} layers: {G} groups of "
+        f"{cfg.period - 1} GDN + 1 gated full attention; hidden {cfg.hidden_size}): K1 and K2 "
+        f"at its full-attention heads (Hq {cfg.num_attention_heads}, Hkv "
+        f"{cfg.num_key_value_heads}, hd {cfg.head_dim}) against their plain versions")
+    errs = check_hybrid_kernels(cfg, pd, fp)
+
+    log(f"[20] serving it through qwen35_engine.start_engine_from_params, random bf16 "
+        f"weights (seed {SEED}), {Q35_SLOTS} state slots")
+    t = time.perf_counter()
+    params = q35.init_random_params_device(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                                           "cuda")
+    torch.cuda.synchronize()
+    log(f"  weights: {q35.params_bytes(params) / 1e9:.2f} GB in {time.perf_counter() - t:.1f} s")
+    handle = q35e.start_engine_from_params(cfg, params, contract.EngineLoadOptions(
+        max_batch_size=Q35_SLOTS, kv_memory_fraction=0.5, seed=SEED), device="cuda")
+    ex = handle._scheduler.executor
+    pool = {"pages": ex.kv_pages.shape[2], "page_tokens": PAGE,
+            "kv_bytes": ex.kv_pages.numel() * ex.kv_pages.element_size(),
+            "slots": Q35_SLOTS, "slot_bytes": q35.slot_bytes(cfg),
+            "state_bytes": sum(ex.state[k].numel() * 4 for k in ("rec", "conv"))}
+    log(f"  KV pool: {pool['pages']} pages x {PAGE} tokens ({pool['kv_bytes'] / 1e9:.1f} GB); "
+        f"recurrent + conv state {pool['state_bytes'] / 1e6:.1f} MB for {Q35_SLOTS} slots and "
+        f"the dead one ({pool['slot_bytes'] / 1e6:.2f} MB a slot)")
+    kernels = {"paged_decode": pd, "flash_prefill": fp}
+    run = serve_slots(cfg, contract, handle, kernels, concurrent=Q35_CONCURRENT,
+                      shapes=(Q35_WARMUP, (PROMPT, OUT)))
+    del handle, ex  # the executor holds the pool and the slots
+    log("  all requests Finished with their token counts; " + check_slot_events(
+        run["events"], third_waits=True, slots=Q35_SLOTS))
+    prefills, steps = run["prefills"], run["decode_steps"]
+    check_launches(run["launches"], {"paged_decode": G * steps, "flash_prefill": G * prefills},
+                   f"{prefills} prefills, {steps} decode steps, {G} full-attention layers")
+
+    log(f"[21] logits on the card: the {PROMPT}-token prefill and one decode step at B = 3 "
+        "(and a dead row), kernels against plain_attention=True")
+    toks_t = torch.tensor(run["main_prompt"], dtype=torch.int32, device="cuda")
+    first = check_hybrid_logits(cfg, q35, params, toks_t)
+    gaps = run["gaps"]
+    serving = {"ttft_ms": run["ttft_ms"], "tpot_p50_ms": statistics.median(gaps),
+               "tpot_p95_ms": float(np.percentile(gaps, 95)), "prompt": PROMPT,
+               "output": OUT, "pool": pool, "prefills": prefills, "decode_steps": steps}
+    log(f"  main {PROMPT}/{OUT}: TTFT {serving['ttft_ms']:.3f} ms, TPOT p50 "
+        f"{serving['tpot_p50_ms']:.3f} ms, p95 {serving['tpot_p95_ms']:.3f} ms over "
+        f"{len(gaps)} gaps (host clock, per streamed token)")
+    steps_prof = hybrid_step_profile(cfg, q35, params, toks_t, first)
+    log_steps(steps_prof)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    serving["paged_decode_hd256"] = k1 = time_decode(gen, cfg, pd, [PROMPT + OUT // 2],
+                                                     plain=True)
+    log(f"  K1 at hd {cfg.head_dim}, G {cfg.num_attention_heads // cfg.num_key_value_heads}, "
+        f"context {PROMPT + OUT // 2}: {k1['ms'] * 1e3:.2f} us vs bound "
+        f"{k1['bound_ms'] * 1e3:.2f} us ({k1['bound_by']}), plain {k1['plain_ms'] * 1e3:.2f} "
+        "us, library " + (f"{k1['library_ms'] * 1e3:.2f} us" if k1["library_ms"] is not None
+                          else k1["library_call"]))
+    serving["max_abs_err"] = errs
+    return serving, steps_json(steps_prof), run["launches"]
+
+
+def check_hybrid_kernels(cfg, pd, fp):
+    """K1 and K2 at the hybrid's shapes (Q35_K1_CASES, Q35_K2_T) against
+    their plain versions by the per-row rules of phase 3; a dead row must be
+    exactly 0. Returns each kernel's max |diff|."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    errs = {"paged_decode": 0.0, "flash_prefill": 0.0}
+    for seq_lens in Q35_K1_CASES:
+        a = decode_case(gen, cfg, seq_lens, "pool_cur", layers=cfg.num_groups)
+        out = pd.paged_attention_decode(**a)
+        torch.cuda.synchronize()
+        ref = pd.paged_attention_decode_plain(**a)
+        err, share = decode_err(out, ref)
+        dead = [b for b, n in enumerate(seq_lens) if n == 0]
+        ok = (share <= 1.0 and all(out[b].abs().max().item() == 0.0 for b in dead)
+              and bool(torch.isfinite(out).all()))
+        log(f"  K1 paged_decode  contexts {seq_lens}, pool of {cfg.num_groups} layers + "
+            f"layer_id + cur: max_abs_err {err:.3e}, worst row at {share:.3f} of its limit"
+            f"{' dead row 0' if dead else ''} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("paged decode kernel disagrees with its plain version at the "
+                             "hybrid's shapes")
+        errs["paged_decode"] = max(errs["paged_decode"], err)
+    for T in Q35_K2_T:
+        q, k, v = (torch.randn((T, h, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                   for h in (Hq, Hkv, Hkv))
+        out = fp.flash_prefill(q, k, v, T, hd ** -0.5)
+        torch.cuda.synchronize()
+        ref = fp.att.prefill_attention(q, k, v, T, hd ** -0.5)
+        err, share = prefill_err(out, ref)
+        ok = share <= 1.0 and bool(torch.isfinite(out).all())
+        log(f"  K2 flash_prefill T=S={T}, Hq {Hq}, Hkv {Hkv}, hd {hd}: max_abs_err {err:.3e}, "
+            f"worst row at {share:.3f} of its limit {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("flash prefill kernel disagrees with its plain version at the "
+                             "hybrid's shapes")
+        errs["flash_prefill"] = max(errs["flash_prefill"], err)
+    return errs
+
+
+def check_hybrid_logits(cfg, q35, params, prompt_t):
+    """Phase 7's rule on the hybrid: the prompt's last prefill logits with
+    the kernels against ``plain_attention=True``, each into a fresh state;
+    then the concurrent requests' prompts prefilled (kernels) into slots 0-2,
+    the state copied, and one decode step at B = 3 padded to 4 (seq_len 0,
+    the null page, the dead slot) run on each copy, kernels against plain,
+    row by row. Returns the prompt's greedy first token."""
+    lens = [n for n, _ in Q35_CONCURRENT]
+    per = -(-(max(lens + [PROMPT]) + 1) // PAGE)
+    n_pages = 1 + per * (len(lens) + 1)
+
+    def state():
+        return q35.make_state(cfg, n_pages, PAGE, 4, device="cuda")
+
+    table = torch.arange(1, 1 + per, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        lk, _ = q35.prefill(cfg, params, state(), prompt_t, table, 3)
+        lp, _ = q35.prefill(cfg, params, state(), prompt_t, table, 3, plain_attention=True)
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(lk).all()) and lk.shape == (cfg.vocab_size,)):
+            raise SystemExit("Qwen3.5 kernel-path prefill logits are not finite [V]")
+        check_logits(lk, lp, LOGITS_RTOL, "Qwen3.5 kernel-path prefill logits disagree "
+                     "with the plain-attention model")
+
+        rng = np.random.default_rng(SEED + 7)
+        st_k = state()
+        B = 4
+        tables = torch.zeros((B, per), dtype=torch.int32, device="cuda")
+        toks = []
+        for b, n in enumerate(lens):
+            tables[b] = torch.arange(1 + (b + 1) * per, 1 + (b + 2) * per)
+            p = torch.tensor(rng.integers(0, cfg.vocab_size, n), dtype=torch.int32,
+                             device="cuda")
+            last, _ = q35.prefill(cfg, params, st_k, p, tables[b], b)
+            toks.append(int(last.argmax()))
+        st_p = {k: v.clone() for k, v in st_k.items()}
+
+        def col(vals, dead):
+            return torch.tensor(vals + [dead], dtype=torch.int32, device="cuda")
+
+        step = (col(toks, 0), col(lens, 0), tables, col([n + 1 for n in lens], 0),
+                col([0, 1, 2], 4))
+        dk = q35.decode(cfg, params, st_k, *step)
+        dp = q35.decode(cfg, params, st_p, *step, plain_attention=True)
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(dk[:3]).all()) and dk.shape == (B, cfg.vocab_size)):
+            raise SystemExit("Qwen3.5 kernel-path decode logits are not finite [B, V]")
+        for b, n in enumerate(lens):
+            log(f"  decode row {b} (context {n + 1}):")
+            check_logits(dk[b], dp[b], LOGITS_RTOL, "Qwen3.5 kernel-path decode logits "
+                         "disagree with the plain-attention model")
+    return int(lk.argmax())
+
+
+def hybrid_step_profile(cfg, q35, params, prompt_t, first_token, iters=3):
+    """profile_calls on one 1,024-token prefill and one B = 1 decode step at
+    context 1,025, called directly on the model, with K2's and K1's device
+    time; and the GDN ops alone, as the model calls them in its 24 GDN
+    layers, on inputs at their shapes: the conv and the chunk loop of a
+    prefill (``causal_conv1d``, ``gdn_chunk``), the conv step and the
+    recurrence step of a decode step (``causal_conv1d_step``,
+    ``gdn_step``)."""
+    from pegainfer_tpu_torch.ops import gdn
+
+    per = -(-(PROMPT + 1) // PAGE)
+    state = q35.make_state(cfg, 1 + per, PAGE, 1, device="cuda")
+    table = torch.arange(1, 1 + per, dtype=torch.int32, device="cuda")
+    dec = [torch.tensor(x, dtype=torch.int32, device="cuda") for x in
+           ([first_token], [PROMPT], [table.tolist()], [PROMPT + 1], [0])]
+    n_lin = cfg.num_groups * (cfg.period - 1)
+    Hv, dk, dv = cfg.linear_num_value_heads, cfg.linear_key_head_dim, cfg.linear_value_head_dim
+    K, C = cfg.linear_conv_kernel_dim, cfg.conv_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    conv_w = params["lin"]["conv_w"][0, 0]
+    x_p, q_p, k_p, v_p = rnd(PROMPT, C), rnd(PROMPT, Hv, dk), rnd(PROMPT, Hv, dk), rnd(
+        PROMPT, Hv, dv)
+    g_p = -torch.nn.functional.softplus(rnd(PROMPT, Hv, dtype=torch.float32))
+    b_p = torch.sigmoid(rnd(PROMPT, Hv, dtype=torch.float32))
+    s0 = torch.zeros((Hv, dk, dv), device="cuda")
+    x_d, conv_d, rec_d = rnd(1, C), rnd(1, K, C, dtype=torch.float32), rnd(
+        1, Hv, dk, dv, dtype=torch.float32)
+
+    def gdn_prefill():
+        for _ in range(n_lin):
+            gdn.causal_conv1d(x_p, conv_w)
+            gdn.gdn_chunk(q_p, k_p, v_p, g_p, b_p, s0)
+
+    def gdn_decode():
+        for _ in range(n_lin):
+            gdn.causal_conv1d_step(x_d, conv_w, conv_d)
+            gdn.gdn_step(q_p[:1], k_p[:1], v_p[:1], g_p[:1], b_p[:1], rec_d)
+
+    return profile_calls({
+        f"qwen35 prefill {PROMPT}": lambda: q35.prefill(cfg, params, state, prompt_t, table, 0),
+        f"qwen35 decode step B=1 ctx {PROMPT + 1}": lambda: q35.decode(cfg, params, state,
+                                                                       *dec),
+        f"qwen35 GDN ops of a prefill ({n_lin} x conv + chunk loop)": gdn_prefill,
+        f"qwen35 GDN ops of a decode step ({n_lin} x conv step + recurrence step)": gdn_decode,
+    }, iters, kernels={"K2": "flash_prefill", "K1": "paged_decode"})
+
+
 # ── DeepSeek-V4-Flash, 8 layers, resident fp8 / fp4 weights ────────────
 
 
@@ -1637,7 +1904,7 @@ def run_dsv4():
     log(f"[11] serving through dsv4_engine.start_engine_from_params "
         f"({DSV4_SLOTS} slots, max_model_len {DSV4_MAX_MODEL_LEN})")
     kernels = {"moe_fp4_gemv": k3, "fp8_gemv": k4, "moe_fp4_grouped": k5}
-    run = serve_dsv4(cfg, contract, dsv4_engine(cfg, contract, d4e, params), kernels)
+    run = serve_slots(cfg, contract, dsv4_engine(cfg, contract, d4e, params), kernels)
     launches, prefills, decode_steps = run["launches"], run["prefills"], run["decode_steps"]
     main_prompt, ttft_ms, gaps = run["main_prompt"], run["ttft_ms"], run["gaps"]
     log("[12] all requests Finished with their token counts; " + check_slot_events(
@@ -1731,36 +1998,37 @@ def dsv4_engine(cfg, contract, d4e, params, quantize=None, moe_chain=None):
         device="cuda", moe_chain=moe_chain)
 
 
-def serve_dsv4(cfg, contract, handle, kernels, warmup=True, main=True,
-               concurrent=DSV4_CONCURRENT):
-    """Phase 11's traffic on ``handle``, prompts from one seeded stream: a
-    warm-up, then (counters of ``kernels`` and of the executor at 0) the
-    greedy main request and the concurrent ones. Shuts the engine down and
-    returns the counts, the slot events from the main request on and the
-    main request's prompt, TTFT and token gaps."""
+def serve_slots(cfg, contract, handle, kernels, warmup=True, main=True,
+                concurrent=DSV4_CONCURRENT, shapes=(DSV4_WARMUP, (DSV4_PROMPT, DSV4_OUT))):
+    """Phase 11's traffic on ``handle`` (``shapes``: the warm-up's and the
+    main request's prompt / output lengths), prompts from one seeded
+    stream: a warm-up, then (counters of ``kernels`` and of the executor at
+    0) the greedy main request and the concurrent ones. Shuts the engine
+    down and returns the counts, the slot events from the main request on
+    and the main request's prompt, TTFT and token gaps."""
     ex = handle._scheduler.executor
     events = record_slot_events(ex)
     rng = np.random.default_rng(SEED + 3)
     out = {"main_prompt": None, "ttft_ms": None, "gaps": []}
+    (warm_in, warm_out), (main_in, main_out) = shapes
 
     def prompt(n):
         return rng.integers(0, cfg.vocab_size, n).tolist()
 
     try:
         if warmup:
-            ch, _ = run_request(contract, handle, prompt(DSV4_WARMUP[0]), DSV4_WARMUP[1])
+            ch, _ = run_request(contract, handle, prompt(warm_in), warm_out)
             toks, fin, _ = drain(contract, ch)
-            expect_finished(contract, "warm-up %d/%d" % DSV4_WARMUP, toks, fin,
-                            DSV4_WARMUP[1])
+            expect_finished(contract, f"warm-up {warm_in}/{warm_out}", toks, fin, warm_out)
         for mod in kernels.values():
             mod.launches = 0
         ex.prefills = ex.decode_steps = 0
         events.clear()
         if main:
-            out["main_prompt"] = prompt(DSV4_PROMPT)
-            ch, t0 = run_request(contract, handle, out["main_prompt"], DSV4_OUT)
+            out["main_prompt"] = prompt(main_in)
+            ch, t0 = run_request(contract, handle, out["main_prompt"], main_out)
             toks, fin, times = drain(contract, ch)
-            expect_finished(contract, f"main {DSV4_PROMPT}/{DSV4_OUT}", toks, fin, DSV4_OUT)
+            expect_finished(contract, f"main {main_in}/{main_out}", toks, fin, main_out)
             out["ttft_ms"] = (times[0] - t0) * 1e3
             out["gaps"] = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
             events.clear()
@@ -1777,9 +2045,10 @@ def serve_dsv4(cfg, contract, handle, kernels, warmup=True, main=True,
     return out
 
 
-def check_slot_events(events, third_waits):
-    """The concurrent requests decoded at B = 2 and, with ``third_waits``,
-    the third was prefilled only after a slot freed. Returns the summary."""
+def check_slot_events(events, third_waits, slots=DSV4_SLOTS):
+    """The concurrent requests decoded at B = ``slots`` and, with
+    ``third_waits``, the third was prefilled only after a slot freed.
+    Returns the summary."""
     rids = sorted({rid for kind, rid in events if kind == "prefill"})
     batches = [n for kind, n in events if kind == "decode"]
     text = f"decode batch sizes {sorted(set(batches))}"
@@ -1791,15 +2060,15 @@ def check_slot_events(events, third_waits):
                 f"freed at event {freed[0] if freed else None}; " + text)
         if not freed or third < freed[0]:
             raise SystemExit("the third request was scheduled before a slot freed")
-    if DSV4_SLOTS not in batches:
-        raise SystemExit(f"the first two requests never decoded at B = {DSV4_SLOTS}")
+    if slots not in batches:
+        raise SystemExit(f"the first two requests never decoded at B = {slots}")
     return text
 
 
 def check_launches(launches, want, label):
     log(f"  launches {launches}; expected {want} ({label})")
     if launches != want:
-        raise SystemExit("DSv4 kernel launch counts do not match the path")
+        raise SystemExit(f"kernel launch counts do not match the path ({label})")
 
 
 def max_err_verdict(errs, name, label, err, tol):
@@ -1858,7 +2127,7 @@ def run_dsv4_fp4_chain(cfg, params):
     record = time_fp4_chain(cfg, params, k9, errs)
 
     kernels = {"moe_fp4_chain": k9, "moe_fp4_gemv": k3, "fp8_gemv": k4, "moe_fp4_grouped": k5}
-    run = serve_dsv4(cfg, contract, dsv4_engine(cfg, contract, d4e, params, moe_chain=True),
+    run = serve_slots(cfg, contract, dsv4_engine(cfg, contract, d4e, params, moe_chain=True),
                      kernels, warmup=False, main=False, concurrent=DSV4_CHAIN_PAIR)
     log("  the pair Finished with its token counts; " + check_slot_events(
         run["events"], third_waits=False))
@@ -1999,7 +2268,7 @@ def run_dsv4_int8(cfg, params, k9_record):
     log("[17] serving phase 11's traffic with int8 experts (K7 prefill, K8 decode)")
     kernels = {"moe_int8_gemv": k6, "moe_int8_grouped": k7, "moe_int8_chain": k8,
                "moe_fp4_chain": k9, "moe_fp4_gemv": k3, "fp8_gemv": k4, "moe_fp4_grouped": k5}
-    run = serve_dsv4(cfg, contract, handle, kernels)
+    run = serve_slots(cfg, contract, handle, kernels)
     del handle
     log("  all requests Finished with their token counts; " + check_slot_events(
         run["events"], third_waits=True))
@@ -2015,7 +2284,7 @@ def run_dsv4_int8(cfg, params, k9_record):
     toks_t = torch.tensor(run["main_prompt"], dtype=torch.int32, device="cuda")
     state_k, step = check_dsv4_logits(cfg, d4, d4e, params, toks_t, label=" int8")
     log("  the 300/32 + 500/32 pair with moe_chain=False (K6 decode)")
-    off = serve_dsv4(cfg, contract, dsv4_engine(cfg, contract, d4e, params,
+    off = serve_slots(cfg, contract, dsv4_engine(cfg, contract, d4e, params,
                                                 quantize="int8-experts", moe_chain=False),
                      kernels, warmup=False, main=False, concurrent=DSV4_CHAIN_PAIR)
     check_slot_events(off["events"], third_waits=False)

@@ -20,7 +20,7 @@ prefix cache, chunked prefill, multi-token decode blocks and echo.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,6 +37,7 @@ from pegainfer_tpu_torch.engine.executor import (
     UnifiedResult,
 )
 from pegainfer_tpu_torch.engine.kv import KvAccounting, PagePool
+from pegainfer_tpu_torch.engine.slots import StateSlots
 from pegainfer_tpu_torch.engine.torch_executor import (
     bucket_batch,
     sample_tokens,
@@ -59,7 +60,7 @@ def check_supported(opts: EngineLoadOptions) -> None:
             "the PyTorch port's DeepSeek-V4 engine does not support yet: " + ", ".join(named))
 
 
-class SlotExecutor:
+class SlotExecutor(StateSlots):
     """Continuous-batching executor for one DSv4 model with per-slot state
     on one device."""
 
@@ -73,13 +74,11 @@ class SlotExecutor:
         self.moe_chain = moe_chain
         self.state = state
         self.device = params["embed"].device
-        self.max_slots = max_slots
+        self._init_slots(max_slots)
         self.acct = KvAccounting(PagePool(max_model_len * max_slots + 2), 1)
         self.max_batch = min(opts.max_batch_size, max_slots)
         self._max_pages = min(self.acct.pool.available, max_model_len)
         self._stop_ids = frozenset({cfg.eos_token_id})
-        self._slots: Dict[int, int] = {}  # request -> decode slot
-        self._free_slots = list(range(max_slots - 1, -1, -1))
         # what ran, for callers that check the path (chip_smoke.py)
         self.prefills = 0
         self.decode_steps = 0
@@ -97,24 +96,6 @@ class SlotExecutor:
 
     def is_stop_token(self, token_id: int) -> bool:
         return token_id in self._stop_ids
-
-    def free_slots(self) -> int:
-        return len(self._free_slots)
-
-    def release_request(self, request_id: int) -> None:
-        self.acct.release(request_id)
-        slot = self._slots.pop(request_id, None)
-        if slot is not None:
-            self._free_slots.append(slot)
-
-    def _slot(self, request_id: int) -> int:
-        slot = self._slots.get(request_id)
-        if slot is None:
-            if not self._free_slots:
-                raise RuntimeError("state slot pool exhausted")
-            slot = self._free_slots.pop()
-            self._slots[request_id] = slot
-        return slot
 
     # ── prefill ──────────────────────────────────────────────────────
 

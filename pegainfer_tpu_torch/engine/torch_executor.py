@@ -296,11 +296,16 @@ class TorchExecutor:
         st.ensure_capacity(self.acct.pool, T)
         tokens = torch.tensor(item.prompt_tokens, dtype=torch.int32, device=self.device)
         table = torch.tensor(st.pages, dtype=torch.int32, device=self.device)
-        last_logits, _ = q3.prefill(self.cfg, self.params, self.kv_pages, tokens, table)
+        last_logits = self._prefill_model(item, tokens, table)
         st.advance(T)
         self.prefills += 1
         self._cache_insert(item, st)
         return self._first_token(item, last_logits)
+
+    def _prefill_model(self, item, tokens, table):
+        """The model call of one whole-prompt prefill: last logits [V]."""
+        last_logits, _ = q3.prefill(self.cfg, self.params, self.kv_pages, tokens, table)
+        return last_logits
 
     def execute_prefill(self, plan: PrefillPlan) -> PrefillResult:
         return PrefillResult(requests=[self._prefill_one(it) for it in plan.requests])
@@ -341,8 +346,7 @@ class TorchExecutor:
             tail = self.execute_decode(DecodePlan(requests=items[self.max_batch:]))
             return DecodeResult(requests=head.requests + tail.requests)
         (tokens, positions, tables, seq_lens), states = self._decode_inputs(items)
-        logits = q3.decode(self.cfg, self.params, self.kv_pages, tokens, positions,
-                           tables, seq_lens)
+        logits = self._decode_model(items, tokens, positions, tables, seq_lens)
         for st in states:
             st.advance(1)
         self.decode_steps += 1
@@ -353,6 +357,12 @@ class TorchExecutor:
             DecodeRequestResult(request_id=it.request_id, token=host[i], logprob=lps[i])
             for i, it in enumerate(items)
         ])
+
+    def _decode_model(self, items, tokens, positions, tables, seq_lens):
+        """The model call of one decode step over the padded batch: logits
+        [B, V]."""
+        return q3.decode(self.cfg, self.params, self.kv_pages, tokens, positions, tables,
+                         seq_lens)
 
     # ── fused mixed step (prefill piece ‖ decode rows, one forward) ───
 

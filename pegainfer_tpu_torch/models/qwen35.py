@@ -1,0 +1,637 @@
+"""Qwen3.5 hybrid (Gated Delta Net + gated full attention) forward in
+PyTorch; counterpart of ``pegainfer_tpu/models/qwen35.py``.
+
+Layers repeat with a period p: (p - 1) linear-attention (GDN) layers, then
+one full-attention layer; the G = L / p groups keep the JAX package's
+grouped parameter tree, leaves stacked [G, p - 1, ...] under ``"lin"`` and
+[G, ...] under ``"full"``, projections [in, out], so ``params_from_jax`` is
+a copy. Every norm but the GDN output norm is the zero-centered RMSNorm
+(scale 1 + w).
+
+Per-request state (``make_state``):
+
+- ``kv``   [G, Hkv, pages, 2, ps, hd]       paged KV of the full-attention layers
+- ``rec``  [G, p-1, S+1, Hv, dk, dv] f32    GDN recurrent state a slot
+- ``conv`` [G, p-1, S+1, K, conv_dim] f32   conv window a slot (the last K inputs)
+
+with S = max_slots; row S is the dead slot that padded decode rows read and
+write. A prefill writes its slot's rows whole, so a reused slot carries
+nothing over. PyTorch updates the state in place: each layer writes its
+rows right after computing them (the JAX ``pend`` records exist only to keep
+XLA from copying the state). Decode has ``decode_wa``'s semantics: K1 reads
+the past from the pages plus the in-flight k/v.
+
+Full attention goes through the kernel wrappers (K2 in prefill, K1 in
+decode): a CUDA tensor launches the kernel, a CPU tensor takes the plain
+version; ``plain_attention=True`` runs the plain version on any device.
+The GDN layers are torch ops (``ops/gdn.py``).
+
+Not ported here: chunked prefill and the mixed step, the hybrid prefix-cache
+snapshots, int8 weights, the fused ``qkvzba`` layout and the flat union
+layout (the executor refuses the options that need them).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from pegainfer_tpu_torch.ops import attention as att
+from pegainfer_tpu_torch.ops import gdn
+from pegainfer_tpu_torch.ops.cuda.flash_prefill import flash_prefill
+from pegainfer_tpu_torch.ops.cuda.paged_decode import paged_attention_decode
+from pegainfer_tpu_torch.ops.norm import rms_norm_zero_centered as rms_norm
+from pegainfer_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
+from pegainfer_tpu_torch.utils.weights import numpy_to_torch
+
+
+@dataclass(frozen=True)
+class Qwen35Config:
+    hidden_size: int
+    intermediate_size: int
+    num_hidden_layers: int
+    num_attention_heads: int
+    num_key_value_heads: int
+    head_dim: int
+    vocab_size: int
+    rms_norm_eps: float
+    rope_theta: float
+    partial_rotary_factor: float
+    layer_types: tuple
+    linear_num_key_heads: int
+    linear_num_value_heads: int
+    linear_key_head_dim: int
+    linear_value_head_dim: int
+    linear_conv_kernel_dim: int
+    tie_word_embeddings: bool
+    eos_token_id: int = 151645
+    stop_token_ids: tuple = ()
+    max_position_embeddings: int = 262144
+
+    @property
+    def rotary_dim(self) -> int:
+        return int(self.head_dim * self.partial_rotary_factor)
+
+    @property
+    def key_dim(self) -> int:
+        return self.linear_num_key_heads * self.linear_key_head_dim
+
+    @property
+    def value_dim(self) -> int:
+        return self.linear_num_value_heads * self.linear_value_head_dim
+
+    @property
+    def conv_dim(self) -> int:
+        return 2 * self.key_dim + self.value_dim
+
+    @property
+    def period(self) -> int:
+        """Length of the periodic layer pattern ((p-1) linear + 1 full)."""
+        p = self.layer_types.index("full_attention") + 1
+        expected = ("linear_attention",) * (p - 1) + ("full_attention",)
+        if self.layer_types != expected * (len(self.layer_types) // p):
+            raise ValueError(f"layer pattern not periodic: {self.layer_types}")
+        return p
+
+    @property
+    def num_groups(self) -> int:
+        return self.num_hidden_layers // self.period
+
+    @staticmethod
+    def from_hf(cfg: Any) -> "Qwen35Config":
+        """From a transformers Qwen3NextConfig instance."""
+        eos = cfg.eos_token_id
+        if isinstance(eos, (list, tuple)):
+            stop, eos = tuple(eos), eos[0]
+        else:
+            stop = (eos,) if eos is not None else ()
+        return Qwen35Config(
+            hidden_size=cfg.hidden_size,
+            intermediate_size=cfg.intermediate_size,
+            num_hidden_layers=cfg.num_hidden_layers,
+            num_attention_heads=cfg.num_attention_heads,
+            num_key_value_heads=cfg.num_key_value_heads,
+            head_dim=cfg.head_dim,
+            vocab_size=cfg.vocab_size,
+            rms_norm_eps=cfg.rms_norm_eps,
+            rope_theta=cfg.rope_theta,
+            partial_rotary_factor=getattr(cfg, "partial_rotary_factor", 0.25),
+            layer_types=tuple(cfg.layer_types),
+            linear_num_key_heads=cfg.linear_num_key_heads,
+            linear_num_value_heads=cfg.linear_num_value_heads,
+            linear_key_head_dim=cfg.linear_key_head_dim,
+            linear_value_head_dim=cfg.linear_value_head_dim,
+            linear_conv_kernel_dim=cfg.linear_conv_kernel_dim,
+            tie_word_embeddings=cfg.tie_word_embeddings,
+            eos_token_id=eos,
+            stop_token_ids=stop,
+            max_position_embeddings=getattr(cfg, "max_position_embeddings", 262144),
+        )
+
+    @staticmethod
+    def from_model_path(model_path: str) -> "Qwen35Config":
+        """From a checkpoint directory's config.json (flat, or nested under
+        ``text_config`` as Qwen3.5 checkpoints have it) and its
+        generation_config.json's stop ids."""
+        with open(os.path.join(model_path, "config.json")) as f:
+            c = json.load(f)
+        t = c.get("text_config", c)
+        rope = t.get("rope_parameters", {})
+        theta = rope.get("rope_theta", t.get("rope_theta", 1e7))
+        prf = rope.get("partial_rotary_factor", t.get("partial_rotary_factor", 0.25))
+        eos = t.get("eos_token_id", c.get("eos_token_id"))
+        stop = tuple(eos) if isinstance(eos, list) else ((eos,) if eos else ())
+        gen_path = os.path.join(model_path, "generation_config.json")
+        if os.path.exists(gen_path):
+            with open(gen_path) as f:
+                g = json.load(f).get("eos_token_id", None)
+            if g is not None:
+                stop = tuple(g) if isinstance(g, list) else (g,)
+        return Qwen35Config(
+            hidden_size=t["hidden_size"],
+            intermediate_size=t["intermediate_size"],
+            num_hidden_layers=t["num_hidden_layers"],
+            num_attention_heads=t["num_attention_heads"],
+            num_key_value_heads=t["num_key_value_heads"],
+            head_dim=t["head_dim"],
+            vocab_size=t["vocab_size"],
+            rms_norm_eps=t["rms_norm_eps"],
+            rope_theta=theta,
+            partial_rotary_factor=prf,
+            layer_types=tuple(t["layer_types"]),
+            linear_num_key_heads=t["linear_num_key_heads"],
+            linear_num_value_heads=t["linear_num_value_heads"],
+            linear_key_head_dim=t["linear_key_head_dim"],
+            linear_value_head_dim=t["linear_value_head_dim"],
+            linear_conv_kernel_dim=t["linear_conv_kernel_dim"],
+            tie_word_embeddings=t.get("tie_word_embeddings", False),
+            eos_token_id=stop[0] if stop else None,
+            stop_token_ids=stop,
+            max_position_embeddings=t.get("max_position_embeddings", 262144),
+        )
+
+
+def bench_config() -> Qwen35Config:
+    """The JAX package's Qwen3.5-4B-class shapes (its ``bench_config``):
+    period 4 (3 GDN + 1 full) x 8 groups = 32 layers, hidden 2048, full
+    attention 16 / 2 heads of 256 with partial RoPE 0.25, GDN 16 key and 32
+    value heads of 128, conv kernel 4, vocab 151,936."""
+    return Qwen35Config(
+        hidden_size=2048, intermediate_size=6144, num_hidden_layers=32,
+        num_attention_heads=16, num_key_value_heads=2, head_dim=256,
+        vocab_size=151936, rms_norm_eps=1e-6, rope_theta=1e7,
+        partial_rotary_factor=0.25,
+        layer_types=("linear_attention",) * 3 + ("full_attention",),
+        linear_num_key_heads=16, linear_num_value_heads=32,
+        linear_key_head_dim=128, linear_value_head_dim=128,
+        linear_conv_kernel_dim=4, tie_word_embeddings=True,
+    )
+
+
+# ── Params ───────────────────────────────────────────────────────────────
+# {
+#   "embed": [V, D],
+#   "lin":  {input_ln [G, p-1, D], wq / wk [.., D, Hk*dk], wv / wz [.., D, Hv*dv],
+#            wb / wa [.., D, Hv], conv_w [.., conv_dim, K] f32, dt_bias / A_log
+#            [.., Hv] f32, norm_w [.., dv], out_proj [.., Hv*dv, D], post_ln,
+#            mlp_gate_up [.., D, 2I] (gate ‖ up), mlp_down [.., I, D]},
+#   "full": {input_ln [G, D], wq / wgate [G, D, Hq*hd], wk / wv [G, D, Hkv*hd],
+#            q_norm / k_norm [G, hd], wo [G, Hq*hd, D], post_ln, mlp_gate_up,
+#            mlp_down},
+#   "final_ln": [D],
+#   "lm_head": [D, V],
+# }
+
+F32_KEYS = ("dt_bias", "A_log", "conv_w")  # kept f32 whatever the weights' dtype
+_NORM_KEYS = ("input_ln", "post_ln", "q_norm", "k_norm", "norm_w")
+
+
+def _shapes(cfg: Qwen35Config):
+    """Leaf shapes in the JAX ``init_bench_params`` order (its draw order)."""
+    G, pl_ = cfg.num_groups, cfg.period - 1
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    Hv = cfg.linear_num_value_heads
+    kd, vd, K = cfg.key_dim, cfg.value_dim, cfg.linear_conv_kernel_dim
+    lin = {
+        "input_ln": (G, pl_, D),
+        "wq": (G, pl_, D, kd), "wk": (G, pl_, D, kd),
+        "wv": (G, pl_, D, vd), "wz": (G, pl_, D, vd),
+        "wb": (G, pl_, D, Hv), "wa": (G, pl_, D, Hv),
+        "conv_w": (G, pl_, cfg.conv_dim, K),
+        "dt_bias": (G, pl_, Hv), "A_log": (G, pl_, Hv),
+        "norm_w": (G, pl_, cfg.linear_value_head_dim),
+        "out_proj": (G, pl_, vd, D),
+        "post_ln": (G, pl_, D),
+        "mlp_gate_up": (G, pl_, D, 2 * I), "mlp_down": (G, pl_, I, D),
+    }
+    full = {
+        "input_ln": (G, D),
+        "wq": (G, D, Hq * hd), "wgate": (G, D, Hq * hd),
+        "wk": (G, D, Hkv * hd), "wv": (G, D, Hkv * hd),
+        "q_norm": (G, hd), "k_norm": (G, hd),
+        "wo": (G, Hq * hd, D),
+        "post_ln": (G, D),
+        "mlp_gate_up": (G, D, 2 * I), "mlp_down": (G, I, D),
+    }
+    return lin, full
+
+
+def _tensor(x, dtype, device) -> torch.Tensor:
+    t = x if isinstance(x, torch.Tensor) else numpy_to_torch(x)
+    return t.to(device=device, dtype=t.dtype if dtype is None else dtype)
+
+
+def _leaf_dtype(key, dtype):
+    return torch.float32 if key in F32_KEYS else dtype
+
+
+def _split_qkvz(cfg: Qwen35Config, w: torch.Tensor):
+    """HF in_proj_qkvz [Hk*(2dk + 2R dv), D] -> Wq, Wk, Wv, Wz in [D, out]
+    (a pure row reorder)."""
+    Hk, dk = cfg.linear_num_key_heads, cfg.linear_key_head_dim
+    Hv, dv = cfg.linear_num_value_heads, cfg.linear_value_head_dim
+    R = Hv // Hk
+    wh = w.reshape(Hk, 2 * dk + 2 * R * dv, -1)
+    parts = (wh[:, :dk].reshape(Hk * dk, -1), wh[:, dk:2 * dk].reshape(Hk * dk, -1),
+             wh[:, 2 * dk:2 * dk + R * dv].reshape(Hv * dv, -1),
+             wh[:, 2 * dk + R * dv:].reshape(Hv * dv, -1))
+    return tuple(p.T for p in parts)
+
+
+def _split_ba(cfg: Qwen35Config, w: torch.Tensor):
+    """HF in_proj_ba [Hk*2R, D] -> Wb, Wa in [D, Hv]."""
+    Hk = cfg.linear_num_key_heads
+    R = cfg.linear_num_value_heads // Hk
+    wh = w.reshape(Hk, 2 * R, -1)
+    return wh[:, :R].reshape(Hk * R, -1).T, wh[:, R:].reshape(Hk * R, -1).T
+
+
+def _split_q_gate(cfg: Qwen35Config, w: torch.Tensor):
+    """HF full-attention q_proj [Hq*2hd, D] -> Wq, Wgate in [D, Hq*hd]."""
+    Hq, hd = cfg.num_attention_heads, cfg.head_dim
+    wh = w.reshape(Hq, 2 * hd, -1)
+    return wh[:, :hd].reshape(Hq * hd, -1).T, wh[:, hd:].reshape(Hq * hd, -1).T
+
+
+def params_from_state_dict(cfg: Qwen35Config, sd: Dict[str, Any],
+                           dtype=torch.bfloat16, device="cpu"):
+    """The grouped tree from an HF Qwen3Next-named state dict (numpy arrays
+    or torch tensors, HF [out, in] layout). ``dt_bias``, ``A_log`` and
+    ``conv_w`` stay f32; a tied ``lm_head`` is a view of ``embed``."""
+    p, G = cfg.period, cfg.num_groups
+
+    def get(name):  # exact on the host, cast once per leaf
+        return _tensor(sd[name], torch.float32, "cpu")
+
+    def mlp(pre):
+        return {"mlp_gate_up": torch.cat([get(f"{pre}.mlp.gate_proj.weight").T,
+                                          get(f"{pre}.mlp.up_proj.weight").T], dim=1),
+                "mlp_down": get(f"{pre}.mlp.down_proj.weight").T}
+
+    def lin_layer(i):
+        pre = f"model.layers.{i}"
+        wq, wk, wv, wz = _split_qkvz(cfg, get(f"{pre}.linear_attn.in_proj_qkvz.weight"))
+        wb, wa = _split_ba(cfg, get(f"{pre}.linear_attn.in_proj_ba.weight"))
+        return {
+            "input_ln": get(f"{pre}.input_layernorm.weight"),
+            "wq": wq, "wk": wk, "wv": wv, "wz": wz, "wb": wb, "wa": wa,
+            "conv_w": get(f"{pre}.linear_attn.conv1d.weight")[:, 0, :],  # [C, K]
+            "dt_bias": get(f"{pre}.linear_attn.dt_bias"),
+            "A_log": get(f"{pre}.linear_attn.A_log"),
+            "norm_w": get(f"{pre}.linear_attn.norm.weight"),
+            "out_proj": get(f"{pre}.linear_attn.out_proj.weight").T,
+            "post_ln": get(f"{pre}.post_attention_layernorm.weight"),
+            **mlp(pre),
+        }
+
+    def full_layer(i):
+        pre = f"model.layers.{i}"
+        wq, wg = _split_q_gate(cfg, get(f"{pre}.self_attn.q_proj.weight"))
+        return {
+            "input_ln": get(f"{pre}.input_layernorm.weight"),
+            "wq": wq, "wgate": wg,
+            "wk": get(f"{pre}.self_attn.k_proj.weight").T,
+            "wv": get(f"{pre}.self_attn.v_proj.weight").T,
+            "q_norm": get(f"{pre}.self_attn.q_norm.weight"),
+            "k_norm": get(f"{pre}.self_attn.k_norm.weight"),
+            "wo": get(f"{pre}.self_attn.o_proj.weight").T,
+            "post_ln": get(f"{pre}.post_attention_layernorm.weight"),
+            **mlp(pre),
+        }
+
+    lin_layers = [[lin_layer(g * p + j) for j in range(p - 1)] for g in range(G)]
+    full_layers = [full_layer(g * p + p - 1) for g in range(G)]
+    lin = {k: torch.stack([torch.stack([d[k] for d in grp]) for grp in lin_layers])
+           .to(device=device, dtype=_leaf_dtype(k, dtype)) for k in lin_layers[0][0]}
+    full = {k: torch.stack([d[k] for d in full_layers]).to(device=device, dtype=dtype)
+            for k in full_layers[0]}
+    embed = get("model.embed_tokens.weight").to(device=device, dtype=dtype)
+    lm_head = (embed.T if cfg.tie_word_embeddings
+               else get("lm_head.weight").T.contiguous().to(device=device, dtype=dtype))
+    return {"embed": embed, "lin": lin, "full": full,
+            "final_ln": get("model.norm.weight").to(device=device, dtype=dtype),
+            "lm_head": lm_head}
+
+
+def params_from_jax(jax_params, dtype=None, device="cpu"):
+    """The JAX package's grouped Qwen3.5 tree (numpy leaves) as the port's
+    parameters: the same layout, so a copy. ``dtype`` None keeps each leaf's
+    dtype; otherwise ``F32_KEYS`` stay f32 and the rest take ``dtype``."""
+    def leaf(k, x):
+        return _tensor(x, None if dtype is None else _leaf_dtype(k, dtype), device)
+
+    return {
+        "embed": leaf("embed", jax_params["embed"]),
+        "lin": {k: leaf(k, v) for k, v in jax_params["lin"].items()},
+        "full": {k: leaf(k, v) for k, v in jax_params["full"].items()},
+        "final_ln": leaf("final_ln", jax_params["final_ln"]),
+        "lm_head": leaf("lm_head", jax_params["lm_head"]),
+    }
+
+
+def init_random_params(cfg: Qwen35Config, seed: int = 0, dtype=torch.bfloat16,
+                       scale: float = 0.02, device="cpu"):
+    """Random params drawn on the host with numpy as the JAX package's
+    ``init_random_params`` draws them (``standard_normal`` in f32 times
+    ``scale``, leaf by leaf in its order; norm weights kept at 1; an untied
+    ``lm_head``): equal weights at f32."""
+    rng = np.random.default_rng(seed)
+    D, V = cfg.hidden_size, cfg.vocab_size
+
+    def w(key, shape):
+        if key in _NORM_KEYS:
+            return torch.ones(shape, dtype=_leaf_dtype(key, dtype), device=device)
+        arr = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(arr).to(device=device, dtype=_leaf_dtype(key, dtype))
+
+    lin_s, full_s = _shapes(cfg)
+    embed = w("embed", (V, D))
+    lin = {k: w(k, s) for k, s in lin_s.items()}
+    full = {k: w(k, s) for k, s in full_s.items()}
+    return {"embed": embed, "lin": lin, "full": full,
+            "final_ln": torch.ones(D, dtype=dtype, device=device),
+            "lm_head": w("lm_head", (D, V))}
+
+
+def init_random_params_device(cfg: Qwen35Config, generator: torch.Generator, device,
+                              dtype=torch.bfloat16, scale: float = 0.02):
+    """Random normal(0, scale) params filled on ``device`` from a seeded
+    generator of that device, full-size weights in seconds; norm weights 1,
+    ``F32_KEYS`` f32, an untied ``lm_head`` as the JAX tree has it."""
+    D, V = cfg.hidden_size, cfg.vocab_size
+
+    def w(key, shape):
+        dt = _leaf_dtype(key, dtype)
+        if key in _NORM_KEYS:
+            return torch.ones(shape, dtype=dt, device=device)
+        return torch.empty(shape, dtype=dt, device=device).normal_(
+            0.0, scale, generator=generator)
+
+    lin_s, full_s = _shapes(cfg)
+    return {"embed": w("embed", (V, D)),
+            "lin": {k: w(k, s) for k, s in lin_s.items()},
+            "full": {k: w(k, s) for k, s in full_s.items()},
+            "final_ln": torch.ones(D, dtype=dtype, device=device),
+            "lm_head": w("lm_head", (D, V))}
+
+
+def params_bytes(params) -> int:
+    leaves = [params["embed"], params["final_ln"], *params["lin"].values(),
+              *params["full"].values()]
+    if params["lm_head"].data_ptr() != params["embed"].data_ptr():
+        leaves.append(params["lm_head"])
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+# ── State ────────────────────────────────────────────────────────────────
+
+
+def make_state(cfg: Qwen35Config, num_pages: int, page_size: int, max_slots: int,
+               kv_dtype=torch.bfloat16, device="cpu"):
+    """The KV pool and ``max_slots`` + 1 rows (the last the dead slot) of
+    recurrent and conv state, all zero."""
+    G, pl_ = cfg.num_groups, cfg.period - 1
+    return {
+        "kv": torch.zeros((G, cfg.num_key_value_heads, num_pages, 2, page_size,
+                           cfg.head_dim), dtype=kv_dtype, device=device),
+        "rec": torch.zeros((G, pl_, max_slots + 1, cfg.linear_num_value_heads,
+                            cfg.linear_key_head_dim, cfg.linear_value_head_dim),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((G, pl_, max_slots + 1, cfg.linear_conv_kernel_dim,
+                             cfg.conv_dim), dtype=torch.float32, device=device),
+    }
+
+
+def kv_bytes_per_page(cfg: Qwen35Config, page_size: int, dtype=torch.bfloat16) -> int:
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (cfg.num_groups * 2 * page_size * cfg.num_key_value_heads * cfg.head_dim
+            * itemsize)
+
+
+def slot_bytes(cfg: Qwen35Config) -> int:
+    """Bytes of one slot's recurrent and conv state (f32, every GDN layer)."""
+    per_layer = (cfg.linear_num_value_heads * cfg.linear_key_head_dim
+                 * cfg.linear_value_head_dim + cfg.linear_conv_kernel_dim * cfg.conv_dim)
+    return cfg.num_groups * (cfg.period - 1) * per_layer * 4
+
+
+# ── Forward building blocks ──────────────────────────────────────────────
+
+
+def _mlp(lw, x):
+    gate, up = (x @ lw["mlp_gate_up"]).chunk(2, dim=-1)
+    return (F.silu(gate.float()).to(x.dtype) * up) @ lw["mlp_down"]
+
+
+def _gdn_project(cfg: Qwen35Config, lw, h):
+    """h: [N, D] -> the conv input [N, conv_dim] (q ‖ k ‖ v), z [N, Hv, dv],
+    g and beta [N, Hv] f32."""
+    Hv, dv = cfg.linear_num_value_heads, cfg.linear_value_head_dim
+    mixed = torch.cat([h @ lw["wq"], h @ lw["wk"], h @ lw["wv"]], dim=-1)
+    z = (h @ lw["wz"]).reshape(-1, Hv, dv)
+    beta = torch.sigmoid((h @ lw["wb"]).float())
+    g = -torch.exp(lw["A_log"].float()) * F.softplus(
+        (h @ lw["wa"]).float() + lw["dt_bias"].float())
+    return mixed, z, g, beta
+
+
+def _gdn_split_heads(cfg: Qwen35Config, mixed):
+    """Post-conv [N, conv_dim] -> q, k repeated to Hv heads; v [N, Hv, dv]."""
+    Hk, dk = cfg.linear_num_key_heads, cfg.linear_key_head_dim
+    Hv, dv = cfg.linear_num_value_heads, cfg.linear_value_head_dim
+    R = Hv // Hk
+    kd = cfg.key_dim
+    q = mixed[:, :kd].reshape(-1, Hk, dk)
+    k = mixed[:, kd:2 * kd].reshape(-1, Hk, dk)
+    v = mixed[:, 2 * kd:].reshape(-1, Hv, dv)
+    if R > 1:
+        q = q.repeat_interleave(R, dim=1)
+        k = k.repeat_interleave(R, dim=1)
+    return q, k, v
+
+
+def _gated_norm(cfg: Qwen35Config, norm_w, out, z):
+    """HF RMSNormGated: a per-head RMSNorm with the plain weight (not 1 + w),
+    applied after the cast to z's dtype, then x silu(z) in f32."""
+    of = out.float()
+    var = (of * of).mean(dim=-1, keepdim=True)
+    normed = (of * torch.rsqrt(var + cfg.rms_norm_eps)).to(z.dtype) * norm_w
+    return normed.float() * F.silu(z.float())
+
+
+def _rope(cfg: Qwen35Config, positions: torch.Tensor, dtype):
+    """cos / sin [N, rotary_dim] of the partial RoPE."""
+    inv_freq = torch.tensor(rope_inv_freq(cfg.rotary_dim, cfg.rope_theta),
+                            dtype=torch.float32, device=positions.device)
+    return rope_cos_sin(positions, inv_freq, dtype)
+
+
+def _full_qkv(cfg: Qwen35Config, fw, h, cos, sin):
+    """Full-attention projections: q [N, Hq, hd] and its gate [N, Hq*hd]
+    from q_proj, k / v [N, Hkv, hd]; q and k normed, then RoPE over their
+    first ``rotary_dim`` dims."""
+    N, hd = h.shape[0], cfg.head_dim
+    q = (h @ fw["wq"]).reshape(N, cfg.num_attention_heads, hd)
+    gate = h @ fw["wgate"]
+    k = (h @ fw["wk"]).reshape(N, cfg.num_key_value_heads, hd)
+    v = (h @ fw["wv"]).reshape(N, cfg.num_key_value_heads, hd)
+    q = rms_norm(q, fw["q_norm"], cfg.rms_norm_eps)
+    k = rms_norm(k, fw["k_norm"], cfg.rms_norm_eps)
+    rd = cfg.rotary_dim
+    q = torch.cat([apply_rope(q[..., :rd], cos, sin), q[..., rd:]], dim=-1)
+    k = torch.cat([apply_rope(k[..., :rd], cos, sin), k[..., rd:]], dim=-1)
+    return q, k, v, gate
+
+
+def _gated_out(fw, x, o, gate):
+    """x + wo (o ∘ sigmoid(gate)), the sigmoid in f32 cast to x's dtype."""
+    o = o.reshape(x.shape[0], -1) * torch.sigmoid(gate.float()).to(x.dtype)
+    return x + o @ fw["wo"]
+
+
+def _write_kv(kv, gi: int, k, v, page_ids, slots):
+    """Write rows k / v [N, Hkv, hd] at (page_ids[n], slots[n]) of group gi."""
+    layer = kv[gi]  # [Hkv, pages, 2, ps, hd]
+    layer[:, :, 0][:, page_ids, slots] = k.transpose(0, 1).to(kv.dtype)
+    layer[:, :, 1][:, page_ids, slots] = v.transpose(0, 1).to(kv.dtype)
+
+
+def _lin_weights(params, gi: int, j: int):
+    return {k: v[gi, j] for k, v in params["lin"].items()}
+
+
+def _full_weights(params, gi: int):
+    return {k: v[gi] for k, v in params["full"].items()}
+
+
+# ── Prefill: one request ─────────────────────────────────────────────────
+
+
+def prefill(cfg: Qwen35Config, params, state, tokens, page_table, slot: int,
+            return_all_logits: bool = False, plain_attention: bool = False,
+            gdn_chunk_size: int = gdn.CHUNK):
+    """Prefill one prompt: write its KV into the pool and its slot's
+    recurrent and conv rows (whole), in place.
+
+    tokens: [T] int (the prompt, unpadded); page_table: [>= ceil(T/ps)] int
+    pages of this request; slot: its state slot. Returns (last_logits [V]
+    f32, all_logits [T, V] f32 | None).
+    """
+    T = tokens.shape[0]
+    eps = cfg.rms_norm_eps
+    ps = state["kv"].shape[4]
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(T, device=x.device)
+    cos, sin = _rope(cfg, positions, x.dtype)
+    page_ids = page_table.long()[positions // ps]
+    pslots = positions % ps
+    scale = cfg.head_dim ** -0.5
+    S0 = torch.zeros((cfg.linear_num_value_heads, cfg.linear_key_head_dim,
+                      cfg.linear_value_head_dim), dtype=torch.float32, device=x.device)
+    for gi in range(cfg.num_groups):
+        for j in range(cfg.period - 1):
+            lw = _lin_weights(params, gi, j)
+            mixed, z, g, beta = _gdn_project(cfg, lw, rms_norm(x, lw["input_ln"], eps))
+            y, conv_state = gdn.causal_conv1d(mixed, lw["conv_w"])
+            q, k, v = _gdn_split_heads(cfg, y)
+            out, rec_state = gdn.gdn_chunk(q, k, v, g, beta, S0, chunk=gdn_chunk_size)
+            state["conv"][gi, j, slot] = conv_state
+            state["rec"][gi, j, slot] = rec_state
+            out = _gated_norm(cfg, lw["norm_w"], out, z).to(x.dtype)
+            x = x + out.reshape(T, -1) @ lw["out_proj"]
+            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps))
+        fw = _full_weights(params, gi)
+        q, k, v, gate = _full_qkv(cfg, fw, rms_norm(x, fw["input_ln"], eps), cos, sin)
+        if plain_attention:
+            o = att.prefill_attention(q, k, v, T, scale)
+        else:
+            o = flash_prefill(q, k, v, T, scale)
+        _write_kv(state["kv"], gi, k, v, page_ids, pslots)
+        x = _gated_out(fw, x, o, gate)
+        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps))
+    x = rms_norm(x, params["final_ln"], eps)
+    if return_all_logits:
+        all_logits = (x @ params["lm_head"]).float()
+        return all_logits[T - 1], all_logits
+    return (x[T - 1:] @ params["lm_head"])[0].float(), None
+
+
+# ── Batched decode: one token per request ────────────────────────────────
+
+
+def decode(cfg: Qwen35Config, params, state, tokens, positions, page_tables, seq_lens,
+           slots, plain_attention: bool = False):
+    """One decode step for a batch, with ``decode_wa``'s semantics: each GDN
+    layer reads its rows of ``slots`` and writes them back in place, and
+    each full layer attends over the pages plus the current token's
+    in-flight k/v (K1, ``layer_id`` = the group), then writes that k/v.
+
+    tokens, positions, seq_lens, slots: [B] int32 — seq_lens counts tokens
+    INCLUDING this one; page_tables: [B, P] int32. Padding rows carry
+    seq_len 0, position 0, the null page and the dead slot (``max_slots``);
+    live rows carry distinct slots. Returns logits [B, V] f32.
+    """
+    B = tokens.shape[0]
+    eps = cfg.rms_norm_eps
+    kv = state["kv"]
+    ps = kv.shape[4]
+    x = params["embed"][tokens.long()]
+    cos, sin = _rope(cfg, positions, x.dtype)
+    pos = positions.long()
+    page_ids = torch.gather(page_tables.long(), 1, (pos // ps)[:, None])[:, 0]
+    pslots = pos % ps
+    rows = slots.long()
+    scale = cfg.head_dim ** -0.5
+    for gi in range(cfg.num_groups):
+        for j in range(cfg.period - 1):
+            lw = _lin_weights(params, gi, j)
+            mixed, z, g, beta = _gdn_project(cfg, lw, rms_norm(x, lw["input_ln"], eps))
+            conv, rec = state["conv"][gi, j], state["rec"][gi, j]  # views
+            y, conv_rows = gdn.causal_conv1d_step(mixed, lw["conv_w"], conv[rows])
+            q, k, v = _gdn_split_heads(cfg, y)
+            out, rec_rows = gdn.gdn_step(q, k, v, g, beta, rec[rows])
+            conv[rows] = conv_rows
+            rec[rows] = rec_rows
+            out = _gated_norm(cfg, lw["norm_w"], out, z).to(x.dtype)
+            x = x + out.reshape(B, -1) @ lw["out_proj"]
+            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps))
+        fw = _full_weights(params, gi)
+        q, k, v, gate = _full_qkv(cfg, fw, rms_norm(x, fw["input_ln"], eps), cos, sin)
+        if plain_attention:
+            o = att.paged_attention_decode(q, kv[gi, :, :, 0], kv[gi, :, :, 1], page_tables,
+                                           seq_lens, scale, cur_k=k, cur_v=v)
+        else:
+            o = paged_attention_decode(q, kv, kv, page_tables, seq_lens, scale,
+                                       cur_k=k, cur_v=v, layer_id=gi)
+        _write_kv(kv, gi, k, v, page_ids, pslots)
+        x = _gated_out(fw, x, o, gate)
+        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps))
+    x = rms_norm(x, params["final_ln"], eps)
+    return (x @ params["lm_head"]).float()
