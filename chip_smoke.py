@@ -105,7 +105,32 @@ card from the seed, run after the Qwen3 engines are freed:
     TPOT of 1024/256; a torch.profiler profile of one prefill and one B = 1
     decode step (K2's and K1's device time in them) and of the GDN ops
     alone at the model's shapes; K1 at hd 256 against its bound, plain
-    version and SDPA. The engine, weights and state are then freed.
+    version and SDPA.
+
+Chunked prefill, the fused mixed step and the hybrid prefix cache (state
+snapshots), on the same weights:
+
+22. K2 at the hybrid's chunk shapes ``Q35_K2_CHUNK_SHAPES`` (Hq 16, Hkv 2,
+    hd 256 at a query offset) against its plain version by phase 3's
+    per-row rule, and its time against its bound, its plain version and
+    masked SDPA;
+23. a second engine with ``CHUNK_OPTS`` and ``Q35_CHUNK_SLOTS`` state
+    slots: 300/192 and 500/192, then 4,096/16 once both have decoded a
+    token, then 4,096/16 again alone, then the prompt extended by
+    ``Q35_CHUNK_EXT`` new tokens; every request ends in ``Finished`` with
+    its count; the cold prompt ran as 16 fused pieces of 256 rows with 2
+    decode rows (the last, at 3,840, after the fine tail), kept snapshots
+    at 3,840 and 4,096, and the two later prompts hit 3,840 and 4,096
+    cached tokens, each re-running one piece; launches equal 8 x (whole
+    prefills + pieces) K2 and 8 x (decode steps + fused pieces) K1;
+24. logits under rule 7: the cold prompt's against one whole ``prefill``
+    of it, the warm hit's against the cold's, the extended prompt's against
+    a whole prefill of it, each with its share of the limit;
+25. cold, warm and extended TTFT, the streams' largest token gap during the
+    cold prefill against a piece's wall time, and a torch.profiler profile
+    of the last fused piece (K2's and K1's device time in it), of its GDN
+    ops alone and of its k/v gather alone. The engine, weights and state
+    are then freed.
 
 DeepSeek-V4-Flash, 8 layers at full width, random resident fp8 / packed-fp4
 weights made on the card from the seed:
@@ -291,6 +316,16 @@ Q35_CONCURRENT = ((300, 64), (500, 64), (200, 16))  # the third waits for a slot
 # and a ragged one
 Q35_K1_CASES = ([PROMPT + 1], [300, 500, 200, 0])
 Q35_K2_T = (PROMPT, 300)
+# phases 22-25: the hybrid under CHUNK_OPTS, 3 slots (two streams and the
+# long prompt), CHUNK_STREAMS and CHUNK_PROMPT as for Qwen3, then the prompt
+# extended by Q35_CHUNK_EXT new tokens (a multi-turn follow-up)
+Q35_CHUNK_SLOTS = 3
+Q35_CHUNK_EXT = 192
+# K2 at the hybrid's chunk shapes, (T, S, q_offset): the cold prompt's last
+# fused piece and the warm hit's piece; a lone prompt's second 2,048 chunk;
+# the extended prompt's piece
+Q35_K2_CHUNK_SHAPES = ((256, 4096, 3840), (2048, 4096, 2048),
+                       (Q35_CHUNK_EXT, CHUNK_PROMPT + Q35_CHUNK_EXT, CHUNK_PROMPT))
 
 # phases 2a-2b: the bf16 weight streams (S2, S1). The limits of their checks
 # are the studies' (gemv_stream_study.check: stream_sum to 1e-5 of sqrt(N K)
@@ -554,9 +589,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  Qwen3 freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
-    h_serving, h_steps, h_launches = run_qwen35()
-    for r in q_records:  # the hybrid's served path's launches beside Qwen3's
+    h_serving, h_steps, h_launches, hc_launches, hc_shapes = run_qwen35()
+    for r in q_records:  # the hybrid's served paths' launches beside Qwen3's
         r["launches_qwen35_path"] = h_launches[r["name"]]
+        r["launches_qwen35_chunked_path"] = hc_launches[r["name"]]
+    next(r for r in q_records if r["name"] == "flash_prefill")["qwen35_chunk_shapes"] = hc_shapes
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  Qwen3.5 freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
@@ -1016,17 +1053,19 @@ def run_qwen3():
 
 def check_logits(lk, lp, rtol, message):
     """max |diff| <= rtol x max |logit| of the plain run, and the argmax
-    agrees unless the plain run's top-2 gap is below the diff."""
+    agrees unless the plain run's top-2 gap is below the diff. Returns the
+    diff's share of that limit."""
     diff = (lk - lp).abs().max().item()
     scale = lp.abs().max().item()
     top2 = torch.topk(lp, 2).values
     gap = (top2[0] - top2[1]).item()
     argmax_same = int(lk.argmax()) == int(lp.argmax())
     log(f"  max |diff| {diff:.4e}, max |logit| {scale:.4e}, tolerance "
-        f"{rtol} x max |logit| = {rtol * scale:.4e}; argmax agrees: "
-        f"{argmax_same} (plain top-2 gap {gap:.4e})")
+        f"{rtol} x max |logit| = {rtol * scale:.4e} ({diff / (rtol * scale):.3f} of it); "
+        f"argmax agrees: {argmax_same} (plain top-2 gap {gap:.4e})")
     if diff > rtol * scale or (not argmax_same and gap > diff):
         raise SystemExit(message)
+    return diff / (rtol * scale)
 
 
 def log_steps(steps):
@@ -1415,17 +1454,21 @@ def drain_in_background(contract, ch):
     return join
 
 
-def record_chunked_path(ex):
+def record_chunked_path(ex, lookup="match"):
     """Log what the chunked path ran: each fused piece (start, rows,
     decode rows, wall ms up to its sampled tokens on the host), each
-    prefix-cache lookup's cached tokens, and each prompt's last logits (by
-    request id)."""
-    rec = {"pieces": [], "matches": [], "logits": {}}
-    run_mixed, first_token, match = ex._run_mixed_piece, ex._first_token, ex.prefix_cache.match
+    prefix-cache lookup's cached tokens (``lookup``: the cache's ``match``,
+    or ``match_hybrid`` for a model with state), each state snapshot kept
+    (prompt length, position), and each prompt's last logits (by request
+    id)."""
+    rec = {"pieces": [], "matches": [], "snaps": [], "logits": {}}
+    cache = ex.prefix_cache
+    run_mixed, first_token = ex._run_mixed_piece, ex._first_token
+    match, insert_snapshot = getattr(cache, lookup), cache.insert_snapshot
 
-    def logged_mixed(items, chunk_tokens, start, valid, table):
+    def logged_mixed(item, items, chunk_tokens, start, valid, table):
         t = time.perf_counter()
-        last = run_mixed(items, chunk_tokens, start, valid, table)
+        last = run_mixed(item, items, chunk_tokens, start, valid, table)
         rec["pieces"].append((start, valid, len(items), (time.perf_counter() - t) * 1e3))
         return last
 
@@ -1434,12 +1477,17 @@ def record_chunked_path(ex):
         return first_token(item, last_logits)
 
     def logged_match(tokens):
-        n_tok, pages = match(tokens)
-        rec["matches"].append(n_tok)
-        return n_tok, pages
+        res = match(tokens)
+        rec["matches"].append(res[0])
+        return res
 
-    ex._run_mixed_piece, ex._first_token, ex.prefix_cache.match = (
-        logged_mixed, logged_first, logged_match)
+    def logged_snapshot(tokens, pos, snap):
+        rec["snaps"].append((len(tokens), pos))
+        insert_snapshot(tokens, pos, snap)
+
+    ex._run_mixed_piece, ex._first_token = logged_mixed, logged_first
+    setattr(cache, lookup, logged_match)
+    cache.insert_snapshot = logged_snapshot
     return rec
 
 
@@ -1618,6 +1666,7 @@ def time_chunk(gen, fp, att, T, S, q_offset, Hq, Hkv, hd):
     fp.launches = saved
     plain = att.causal_attention(q, k, v, S, q_offset, scale)
     out["max_abs_err"], share = prefill_err(ref, plain)
+    out["share_of_limit"] = share
     if not share <= 1.0:
         raise SystemExit(f"flash prefill kernel disagrees with its plain version at the chunk "
                          f"T={T}, S={S} (worst row at {share:.3f} of its limit)")
@@ -1634,10 +1683,10 @@ def time_chunk(gen, fp, att, T, S, q_offset, Hq, Hkv, hd):
 
 
 def run_qwen35():
-    """Phases 19-21 on the Qwen3.5 hybrid at the JAX package's
+    """Phases 19-25 on the Qwen3.5 hybrid at the JAX package's
     ``qwen35.bench_config()``. Returns (serving, steps, K1 / K2 launches on
-    its served path); the engine, weights and state are freed with this
-    frame."""
+    its served path and on its chunked path, K2 at Q35_K2_CHUNK_SHAPES); the
+    engines, weights and state are freed with this frame."""
     from pegainfer_tpu_torch.engine import contract
     from pegainfer_tpu_torch.models import qwen35 as q35
     from pegainfer_tpu_torch.models import qwen35_engine as q35e
@@ -1701,7 +1750,215 @@ def run_qwen35():
         "us, library " + (f"{k1['library_ms'] * 1e3:.2f} us" if k1["library_ms"] is not None
                           else k1["library_call"]))
     serving["max_abs_err"] = errs
-    return serving, steps_json(steps_prof), run["launches"]
+    serving["chunked"], c_launches, c_shapes = run_qwen35_chunked(cfg, q35, q35e, params,
+                                                                 contract, pd, fp)
+    return serving, steps_json(steps_prof), run["launches"], c_launches, c_shapes
+
+
+def run_qwen35_chunked(cfg, q35, q35e, params, contract, pd, fp):
+    """Phases 22-25 on the hybrid's weights. Returns (serving record, the
+    phase's K1 / K2 launches, K2 at Q35_K2_CHUNK_SHAPES)."""
+    from pegainfer_tpu_torch.ops import attention as att
+
+    G = cfg.num_groups
+    Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    gc.collect()  # the first engine's pool (its handle and scheduler form a cycle)
+    torch.cuda.empty_cache()
+    log(f"[22] K2 at the hybrid's chunk shapes (T, S, q_offset) {Q35_K2_CHUNK_SHAPES}, Hq {Hq}, "
+        f"Hkv {Hkv}, hd {hd}: against its plain version per query row, and timed")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    shapes = [time_chunk(gen, fp, att, T, S, q_offset, Hq, Hkv, hd)
+              for T, S, q_offset in Q35_K2_CHUNK_SHAPES]
+    for r in shapes:
+        log(f"  K2 flash_attention T={r['T']}, S={r['S']}, q_offset {r['q_offset']}: max_abs_err "
+            f"{r['max_abs_err']:.3e}, worst row at {r['share_of_limit']:.3f} of its limit ok; "
+            f"{r['ms'] * 1e3:.2f} us vs bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
+            f"plain {r['plain_ms'] * 1e3:.2f} us, library "
+            + (f"{r['library_ms'] * 1e3:.2f} us" if r["library_ms"] is not None
+               else r["library_call"]))
+
+    log(f"[23] a second Qwen3.5 engine on the same weights, {Q35_CHUNK_SLOTS} state slots: "
+        + ", ".join(f"{k}={v}" for k, v in CHUNK_OPTS.items()))
+    handle = q35e.start_engine_from_params(cfg, params, contract.EngineLoadOptions(
+        max_batch_size=Q35_CHUNK_SLOTS, kv_memory_fraction=0.5, seed=SEED, **CHUNK_OPTS),
+        device="cuda")
+    ex = handle._scheduler.executor
+    pool = {"pages": ex.kv_pages.shape[2], "snapshot_cap": ex.prefix_cache.max_snapshots,
+            "snapshot_bytes": q35.slot_bytes(cfg)}
+    log(f"  KV pool: {pool['pages']} pages x {PAGE} tokens; up to {pool['snapshot_cap']} state "
+        f"snapshots of {pool['snapshot_bytes'] / 1e6:.2f} MB kept off it")
+    rec = record_chunked_path(ex, "match_hybrid")
+    rng = np.random.default_rng(SEED + 10)
+    streams = [(rng.integers(0, cfg.vocab_size, n).tolist(), m) for n, m in CHUNK_STREAMS]
+    long_prompt = rng.integers(0, cfg.vocab_size, CHUNK_PROMPT).tolist()
+    ext_prompt = long_prompt + rng.integers(0, cfg.vocab_size, Q35_CHUNK_EXT).tolist()
+    label, ext_label = f"{CHUNK_PROMPT}/{CHUNK_OUT}", f"{len(ext_prompt)}/{CHUNK_OUT}"
+    try:
+        pd.launches = fp.launches = 0
+        chans = [run_request(contract, handle, p, m)[0] for p, m in streams]
+        early = [read_tokens(contract, ch, 2) for ch in chans]  # both have decoded a token
+        joins = [drain_in_background(contract, ch) for ch in chans]
+        ch, t_cold = run_request(contract, handle, long_prompt, CHUNK_OUT)
+        toks, fin, times_cold = drain(contract, ch)
+        expect_finished(contract, f"cold {label} under decode load", toks, fin, CHUNK_OUT)
+        stream_times = []
+        for (toks0, times0), join, (p, m) in zip(early, joins, streams):
+            toks, fin, times = join()
+            expect_finished(contract, f"stream {len(p)}/{m}", toks0 + toks, fin, m)
+            stream_times.append(times0 + times)
+        ch, t_warm = run_request(contract, handle, long_prompt, CHUNK_OUT)
+        toks, fin, times_warm = drain(contract, ch)
+        expect_finished(contract, f"warm {label} alone", toks, fin, CHUNK_OUT)
+        ch, t_ext = run_request(contract, handle, ext_prompt, CHUNK_OUT)
+        toks, fin, times_ext = drain(contract, ch)
+        expect_finished(contract, f"extended {ext_label} alone", toks, fin, CHUNK_OUT)
+        launches = {"paged_decode": pd.launches, "flash_prefill": fp.launches}
+        counts = {"prefills": ex.prefills, "chunk_pieces": ex.chunk_pieces,
+                  "mixed_pieces": ex.mixed_pieces, "decode_steps": ex.decode_steps,
+                  "cache_hits": ex.prefix_cache.hits}
+    finally:
+        handle.shutdown()
+        handle._thread.join(timeout=60)
+    del handle, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    m = CHUNK_OPTS["prefill_chunk_mixed"]
+    n_pieces = CHUNK_PROMPT // m
+    want_pieces = [(i * m, m, len(CHUNK_STREAMS)) for i in range(n_pieces)]
+    tail = CHUNK_PROMPT - m  # the fine tail's last piece starts here
+    want_snaps = [(CHUNK_PROMPT, tail), (CHUNK_PROMPT, CHUNK_PROMPT)]
+    want_matches = [0] * (len(streams) + 1) + [tail, CHUNK_PROMPT]
+    log(f"[23] {counts}; fused pieces (start, rows, decode rows): "
+        f"{[p[:3] for p in rec['pieces']]}; snapshots kept (prompt, position) {rec['snaps']}; "
+        f"cached tokens per lookup {rec['matches']}")
+    if ([p[:3] for p in rec["pieces"]] != want_pieces or counts["mixed_pieces"] != n_pieces
+            or counts["chunk_pieces"] != n_pieces + 2 or counts["cache_hits"] != 2
+            or rec["snaps"][:2] != want_snaps or rec["matches"] != want_matches):
+        raise SystemExit(f"the cold prompt did not run as {n_pieces} fused pieces of {m} with "
+                         f"{len(CHUNK_STREAMS)} decode rows and snapshots at {tail} and "
+                         f"{CHUNK_PROMPT}, or the later prompts did not hit {tail} and "
+                         f"{CHUNK_PROMPT} cached tokens with one piece each")
+    check_launches(launches, {"flash_prefill": G * (counts["prefills"] + counts["chunk_pieces"]),
+                              "paged_decode": G * (counts["decode_steps"]
+                                                   + counts["mixed_pieces"])},
+                   f"{G} x (whole prefills + pieces) K2, {G} x (decode steps + fused pieces) K1")
+
+    rid_cold = len(streams)  # the scheduler's ids, in order
+    cold, warm, ext = (rec["logits"][rid_cold + i] for i in range(3))
+    log("[24] logits on the card: the cold chunked prompt against one whole prefill")
+    per = -(-len(ext_prompt) // PAGE)
+    table = torch.arange(1, per + 1, dtype=torch.int32, device="cuda")
+    shares = {}
+    with torch.no_grad():
+        st = q35.make_state(cfg, per + 1, PAGE, 1, device="cuda")
+        whole, _ = q35.prefill(cfg, params, st, torch.tensor(long_prompt, dtype=torch.int32,
+                                                             device="cuda"), table, 0)
+        shares["cold_vs_whole"] = check_logits(cold, whole, LOGITS_RTOL, "the chunked "
+                                               "prefill's logits disagree with the whole prefill")
+        log("  the warm hit's logits against the cold ones")
+        shares["warm_vs_cold"] = check_logits(warm, cold, LOGITS_RTOL, "the prefix-cache hit's "
+                                              "logits disagree with the cold prompt's")
+        log("  the extended prompt's logits (a hit at the cold prompt's end) against one "
+            "whole prefill of it")
+        whole_ext, _ = q35.prefill(cfg, params, st, torch.tensor(ext_prompt, dtype=torch.int32,
+                                                                 device="cuda"), table, 0)
+        shares["extended_vs_whole"] = check_logits(ext, whole_ext, LOGITS_RTOL, "the extended "
+                                                   "prompt's logits disagree with its whole "
+                                                   "prefill")
+        for got in (cold, warm, ext):
+            if not (bool(torch.isfinite(got).all()) and got.shape == (cfg.vocab_size,)):
+                raise SystemExit("chunked-path logits are not finite [V]")
+    del st
+
+    log("[25] timings of the chunked path (host clock)")
+    ttft = {"cold_ms": (times_cold[0] - t_cold) * 1e3, "warm_ms": (times_warm[0] - t_warm) * 1e3,
+            "extended_ms": (times_ext[0] - t_ext) * 1e3}
+    gaps = [(b - a) * 1e3 for ts in stream_times for a, b in zip(ts, ts[1:])
+            if b > t_cold and a < times_cold[0]]
+    walls = [p[3] for p in rec["pieces"]]
+    log(f"  TTFT {label}: cold under decode load {ttft['cold_ms']:.3f} ms ({n_pieces} fused "
+        f"pieces), warm alone {ttft['warm_ms']:.3f} ms ({tail} tokens cached, "
+        f"{CHUNK_PROMPT - tail} re-run); extended {ext_label} {ttft['extended_ms']:.3f} ms "
+        f"({CHUNK_PROMPT} cached, {Q35_CHUNK_EXT} re-run)")
+    log(f"  streams' largest token gap during the cold prefill {max(gaps):.3f} ms over "
+        f"{len(gaps)} gaps; one fused piece's wall: median {statistics.median(walls):.3f} ms, "
+        f"max {max(walls):.3f} ms")
+    steps = hybrid_piece_profile(cfg, q35, params, long_prompt, streams)
+    log_steps(steps)
+    serving = {"options": CHUNK_OPTS, "slots": Q35_CHUNK_SLOTS, "prompt": CHUNK_PROMPT,
+               "extended_prompt": len(ext_prompt), "output": CHUNK_OUT,
+               "streams": CHUNK_STREAMS, "pool": pool, **{f"ttft_{k}": v for k, v in ttft.items()},
+               "max_gap_during_prefill_ms": max(gaps), "piece_wall_ms": walls, **counts,
+               "snapshots": rec["snaps"], "cached_tokens": rec["matches"],
+               "logits_share_of_limit": shares, "steps": steps_json(steps)}
+    return serving, launches, shapes
+
+
+def hybrid_piece_profile(cfg, q35, params, long_prompt, streams, iters=3):
+    """profile_calls on the cold prompt's last fused piece (256 rows at
+    3,840 and one decode row per stream, 16 tokens into its output), called
+    directly on the model on a fresh state, with K2's and K1's device time;
+    the GDN ops of such a piece alone, on inputs at its shapes (a chunk's
+    conv continuation and chunk loop, a decode row's conv and recurrence
+    steps, for each of the 24 GDN layers); and the piece's k/v gather alone
+    (each full-attention layer's pages of the 4,096 tokens)."""
+    from pegainfer_tpu_torch.ops import gdn
+
+    m = CHUNK_OPTS["prefill_chunk_mixed"]
+    start = CHUNK_PROMPT - m
+    n_long = CHUNK_PROMPT // PAGE
+    ctx = [len(p) + 16 for p, _ in streams]
+    n_dec = [-(-(n + 1) // PAGE) for n in ctx]
+    state = q35.make_state(cfg, 1 + n_long + sum(n_dec), PAGE, len(streams) + 1, device="cuda")
+    table = torch.arange(1, n_long + 1, dtype=torch.int32, device="cuda")
+    tables = torch.zeros((len(streams), max(n_dec)), dtype=torch.int32, device="cuda")
+    nxt = n_long + 1
+    for b, n in enumerate(n_dec):
+        tables[b, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+        nxt += n
+
+    def col(vals):
+        return torch.tensor(vals, dtype=torch.int32, device="cuda")
+
+    chunk = col(long_prompt[start:])
+    dec = (col([p[-1] for p, _ in streams]), col(ctx), tables, col([n + 1 for n in ctx]),
+           col(list(range(len(streams)))))
+    slot = len(streams)
+    n_lin = cfg.num_groups * (cfg.period - 1)
+    Hv, dk, dv = cfg.linear_num_value_heads, cfg.linear_key_head_dim, cfg.linear_value_head_dim
+    K, C, B = cfg.linear_conv_kernel_dim, cfg.conv_dim, len(streams)
+    Hkv, hd = cfg.num_key_value_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    conv_w = params["lin"]["conv_w"][0, 0]
+    x_c, q_c, k_c, v_c = rnd(m, C), rnd(m, Hv, dk), rnd(m, Hv, dk), rnd(m, Hv, dv)
+    g_c = -torch.nn.functional.softplus(rnd(m, Hv, dtype=torch.float32))
+    b_c = torch.sigmoid(rnd(m, Hv, dtype=torch.float32))
+    conv0, s0 = rnd(K, C, dtype=torch.float32), rnd(Hv, dk, dv, dtype=torch.float32)
+    x_d, conv_d = rnd(B, C), rnd(B, K, C, dtype=torch.float32)
+    rec_d = rnd(B, Hv, dk, dv, dtype=torch.float32)
+
+    def gdn_piece():
+        for _ in range(n_lin):
+            gdn.causal_conv1d_cont(x_c, conv_w, conv0, m)
+            gdn.gdn_chunk(q_c, k_c, v_c, g_c, b_c, s0)
+            gdn.causal_conv1d_step(x_d, conv_w, conv_d)
+            gdn.gdn_step(q_c[:B], k_c[:B], v_c[:B], g_c[:B], b_c[:B], rec_d)
+
+    pages = table.long()
+    return profile_calls({
+        f"qwen35 fused piece {m} at {start} + {B} decode rows": lambda: q35.mixed_chunk(
+            cfg, params, state, chunk, start, m, table, slot, *dec),
+        f"qwen35 GDN ops of that piece ({n_lin} x conv continuation + chunk loop + conv "
+        "step + recurrence step)": gdn_piece,
+        f"qwen35 k/v gather alone, {cfg.num_groups} layers x {CHUNK_PROMPT} tokens":
+            lambda: [state["kv"][gi][:, pages].permute(2, 1, 3, 0, 4).reshape(
+                2, -1, Hkv, hd).contiguous() for gi in range(cfg.num_groups)],
+    }, iters, kernels={"K2": "flash_prefill", "K1": "paged_decode"})
 
 
 def check_hybrid_kernels(cfg, pd, fp):

@@ -4,14 +4,21 @@ slots for its GDN layers.
 
 The port's counterpart of what ``pegainfer_tpu/engine/jax_executor.py``
 does for the Qwen3.5 runtime (``models/qwen35.py::make_runtime``): page
-accounting, sampling and logprobs are ``TorchExecutor``'s; a request takes a
-state slot at its prefill and frees it on release (``StateSlots``, whose
-``free_slots`` the scheduler gates admission on); a decode step pads its
-batch to the bucket with rows at seq_len 0 on the null page and the dead
-slot ``max_slots``.
+accounting, sampling, logprobs, the prefill stepper and the fused mixed
+piece are ``TorchExecutor``'s; a request takes a state slot at its prefill
+or its first piece and frees it on release (``StateSlots``, whose
+``free_slots`` the scheduler gates admission on); a decode step, or a
+fused piece's decode rows, pads its batch to the bucket with rows at
+seq_len 0 on the null page and the dead slot ``max_slots``.
 
-Not here yet, and refused with ``NotImplementedError``: chunked prefill
-(and so the fused mixed step), the hybrid prefix cache, int8 weights,
+``prefill_chunk``, ``prefill_chunk_mixed`` and ``enable_prefix_cache`` have
+the JAX engine's meanings. With the cache on, a prompt matches only at a
+state snapshot (``PrefixCache.match_hybrid``), whose rows are copied into
+the request's slot before its first piece; the stepper ends a long prompt
+with a fine tail and snapshots (copies of the slot's rows) the deepest
+piece end within a chunk of the prompt's end and the page-aligned end.
+
+Not here yet, and refused with ``NotImplementedError``: int8 weights,
 multi-token decode blocks and echo.
 """
 
@@ -24,14 +31,15 @@ import torch
 from pegainfer_tpu_torch.engine.contract import EngineLoadOptions
 from pegainfer_tpu_torch.engine.slots import StateSlots
 from pegainfer_tpu_torch.engine.torch_executor import TorchExecutor
+from pegainfer_tpu_torch.engine.torch_executor import check_supported as check_options
 from pegainfer_tpu_torch.models import qwen35 as q35
 
 
 def check_supported(opts: EngineLoadOptions) -> None:
-    """Refuse the JAX Qwen3.5 engine's options the port does not implement."""
+    """Refuse the JAX Qwen3.5 engine's options the port does not implement,
+    then option values that cannot work (``TorchExecutor``'s rules: the
+    prefix cache needs ``prefill_chunk``)."""
     unsupported = {
-        "prefill_chunk (chunked prefill, mixed step)": opts.prefill_chunk is not None,
-        "enable_prefix_cache (hybrid state snapshots)": opts.enable_prefix_cache,
         f"quantize={opts.quantize!r}": opts.quantize is not None,
         "decode_block": opts.decode_block != 1,
     }
@@ -39,6 +47,7 @@ def check_supported(opts: EngineLoadOptions) -> None:
     if named:
         raise NotImplementedError(
             "the PyTorch port's Qwen3.5 engine does not support yet: " + ", ".join(named))
+    check_options(opts)
 
 
 class HybridExecutor(StateSlots, TorchExecutor):
@@ -54,14 +63,34 @@ class HybridExecutor(StateSlots, TorchExecutor):
         self.state = state
         self._init_slots(state["rec"].shape[2] - 1)
         self.max_batch = min(opts.max_batch_size, self.max_slots)
+        self._hybrid_cache = self.prefix_cache is not None
+
+    def _slots_of(self, items, B: int) -> torch.Tensor:
+        """The decode rows' state slots, padding rows on the dead slot."""
+        slots = torch.full((B,), self.max_slots, dtype=torch.int32)
+        slots[: len(items)] = torch.tensor([self._slot(it.request_id) for it in items])
+        return slots.to(self.device)
 
     def _prefill_model(self, item, tokens, table):
         last_logits, _ = q35.prefill(self.cfg, self.params, self.state, tokens, table,
                                      self._slot(item.request_id))
         return last_logits
 
+    def _chunk_model(self, item, chunk_tokens, start: int, valid: int, table):
+        return q35.prefill_chunk(self.cfg, self.params, self.state, chunk_tokens, start,
+                                 valid, table, self._slot(item.request_id))
+
+    def _mixed_model(self, item, items, chunk_tokens, start: int, valid: int, table, dec):
+        return q35.mixed_chunk(self.cfg, self.params, self.state, chunk_tokens, start, valid,
+                               table, self._slot(item.request_id), *dec,
+                               self._slots_of(items, dec[0].shape[0]))
+
     def _decode_model(self, items, tokens, positions, tables, seq_lens):
-        slots = torch.full(tokens.shape, self.max_slots, dtype=torch.int32)
-        slots[: len(items)] = torch.tensor([self._slot(it.request_id) for it in items])
         return q35.decode(self.cfg, self.params, self.state, tokens, positions, tables,
-                          seq_lens, slots.to(self.device))
+                          seq_lens, self._slots_of(items, tokens.shape[0]))
+
+    def _snapshot(self, item):
+        return q35.slot_export(self.state, self._slot(item.request_id))
+
+    def _restore_snapshot(self, item, snap) -> None:
+        q35.slot_import(self.state, snap, self._slot(item.request_id))

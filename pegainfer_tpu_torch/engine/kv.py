@@ -2,9 +2,9 @@
 
 The PyTorch port's own copy of the Python half of
 ``pegainfer_tpu/engine/kv.py``: the refcounted ``PagePool``, ``KvState``,
-``KvAccounting``, the admission rule and the page ``PrefixCache``. The
-hybrid-model snapshots (``match_hybrid``, ``insert_snapshot``), the slot
-prefix cache and the native C++ accounting core are not carried over.
+``KvAccounting``, the admission rule and the page ``PrefixCache`` with the
+hybrid models' state snapshots (``match_hybrid``, ``insert_snapshot``). The
+slot prefix cache and the native C++ accounting core are not carried over.
 
 Key invariant: a request is only admitted when its *full-lifetime* page count
 fits in the budget after subtracting every active request's future growth,
@@ -14,7 +14,7 @@ so decode can never deadlock on page exhaustion.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 
 def pages_needed(token_count: int, page_size: int) -> int:
@@ -98,6 +98,7 @@ class KvState:
     length: int = 0  # tokens currently stored
     prefix_len: int = 0  # cached-prefix tokens (page-aligned)
     prefix_checked: bool = False  # cache lookup already performed
+    prefix_snap: Optional[Any] = None  # hybrid state snapshot to restore
 
     @property
     def capacity(self) -> int:
@@ -149,6 +150,13 @@ class KvAccounting:
 
 # ── Prefix cache ─────────────────────────────────────────────────────────
 
+# The hybrid state snapshot cap (LRU). An engine that sizes its KV pool
+# around the snapshots (models/qwen35_engine.py::compute_num_pages) uses the
+# same number. A prompt family keeps up to two entries (the deepest interior
+# boundary and the page-aligned end), so the cap should be at least twice the
+# families kept warm at once.
+DEFAULT_MAX_SNAPSHOTS = 8
+
 
 class PrefixCache:
     """Shared-prompt-prefix page cache over the refcounted ``PagePool``.
@@ -159,9 +167,16 @@ class PrefixCache:
     previous key with the page's token ids), so key i names
     ``tokens[0:(i + 1) * page_size]``. LRU eviction runs from the pool's
     shortage hook.
+
+    A model with per-request state (the Qwen3.5 hybrid's GDN rows) can only
+    continue a prefix where that state was snapshotted: ``insert_snapshot``
+    keeps (position, snapshot) by chain key, LRU-capped by count, and such
+    a model matches only through ``match_hybrid`` (plain ``match`` would
+    hand it pages with no state behind them).
     """
 
-    def __init__(self, pool: PagePool, page_size: int) -> None:
+    def __init__(self, pool: PagePool, page_size: int,
+                 max_snapshots: int = DEFAULT_MAX_SNAPSHOTS) -> None:
         self.pool = pool
         self.page_size = page_size
         self._pages: Dict[int, int] = {}  # chain key -> page id
@@ -169,6 +184,8 @@ class PrefixCache:
         self._tick = 0
         self.hits = 0
         self.misses = 0
+        self._snaps: Dict[int, tuple] = {}  # chain key -> (pos, snapshot), LRU order
+        self.max_snapshots = max_snapshots
         pool.set_eviction_hook(self._evict)
 
     def _keys(self, tokens: Sequence[int]):
@@ -201,6 +218,55 @@ class PrefixCache:
         else:
             self.misses += 1
         return len(pages) * ps, pages
+
+    def match_hybrid(self, tokens: Sequence[int]) -> tuple:
+        """Longest cached prefix a stateful model can continue: the deepest
+        snapshotted position whose page chain is cached, capped as in
+        ``match``. Returns (n_tokens, page_ids, snapshot), pages referenced
+        as in ``match``; (0, [], None) when no snapshotted boundary
+        matches."""
+        ps = self.page_size
+        usable = (len(tokens) - 1) // ps
+        self._tick += 1
+        chain: List[tuple] = []  # (key, page id) per matched page
+        best = None  # (n_pages, key)
+        for i, key in enumerate(self._keys(tokens)):
+            if i >= usable:
+                break
+            pid = self._pages.get(key)
+            if pid is None:
+                break
+            chain.append((key, pid))
+            if key in self._snaps:
+                best = (i + 1, key)
+        if best is None:
+            self.misses += 1
+            return 0, [], None
+        n_pages, skey = best
+        pages = [pid for _, pid in chain[:n_pages]]
+        for key, _ in chain[:n_pages]:
+            self._lru[key] = self._tick
+        pos, snap = self._snaps.pop(skey)
+        self._snaps[skey] = (pos, snap)  # most recently used
+        if pos != n_pages * ps:
+            raise RuntimeError(f"snapshot at {pos} keyed at page {n_pages}")
+        self.pool.incref(pages)
+        self.hits += 1
+        return pos, pages, snap
+
+    def insert_snapshot(self, tokens: Sequence[int], pos: int, snap) -> None:
+        """Register a state snapshot taken after exactly ``pos`` tokens
+        (page-aligned; other positions are ignored). Its pages are inserted
+        with ``insert``; a snapshot whose pages were evicted never matches
+        and ages out."""
+        ps = self.page_size
+        if pos <= 0 or pos % ps or pos > len(tokens):
+            return
+        key = list(self._keys(tokens[:pos]))[pos // ps - 1]
+        self._snaps.pop(key, None)
+        self._snaps[key] = (pos, snap)
+        while len(self._snaps) > self.max_snapshots:
+            self._snaps.pop(next(iter(self._snaps)))
 
     def insert(self, tokens: Sequence[int], pages: Sequence[int]) -> None:
         """Register a prefilled prompt's full pages (immutable: generated
@@ -238,6 +304,7 @@ class PrefixCache:
             self.pool.free([pid])
 
     def clear(self) -> None:
+        self._snaps.clear()
         self._evict(len(self._pages))
 
 

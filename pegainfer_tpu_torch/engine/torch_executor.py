@@ -6,7 +6,11 @@ prefix cache, one decode token per step for the active batch, and the fused
 mixed step (a prefill piece's rows and one decode row per active stream in
 one forward). PyTorch runs eagerly, so there are no compiled buckets: a
 prefill piece runs at its own length; the decode batch is still padded to
-the JAX executor's batch buckets (padding rows: null page, seq_len 0).
+the JAX executor's batch buckets (padding rows: null page, seq_len 0). The
+model calls are hooks (``_prefill_model``, ``_chunk_model``,
+``_mixed_model``, ``_decode_model``) that ``HybridExecutor`` overrides; with
+its cache on, the stepper also keeps state snapshots at piece ends and
+restores a cache hit's before the first piece (``_hybrid_cache``).
 
 Not here yet, and refused with ``NotImplementedError``: multi-token decode
 blocks, int8 weights and echo.
@@ -84,15 +88,22 @@ def small_piece(chunk: int, page_size: int) -> int:
 
 
 def plan_piece(T: int, start: int, chunk: int, mixed: int, small: int,
-               decode_active: bool) -> int:
+               decode_active: bool, fine_tail: bool = False, page_size: int = 1) -> int:
     """End of the prefill piece starting at ``start`` of a ``T``-token
-    prompt: the JAX stepper's ``plan_piece`` (without the hybrid models'
-    fine tail). ``mixed`` pieces while other requests decode, else ``chunk``;
-    a remainder of at most ``small`` tokens goes in one piece. With
-    ``start`` and the three sizes page multiples, every interior end is
-    page-aligned."""
-    size = small if T - start <= small else (mixed if decode_active else chunk)
-    return min(start + size, T)
+    prompt: the JAX stepper's ``plan_piece``. ``mixed`` pieces while other
+    requests decode, else ``chunk``; a remainder of at most ``small`` tokens
+    goes in one piece. With ``start`` and the three sizes page multiples,
+    every interior end is page-aligned.
+
+    ``fine_tail`` (a hybrid model's prefix cache on, ``small < chunk``):
+    the schedule ends in a piece of at most ``small`` tokens from the
+    page boundary at or above ``T - small``, so the deepest state snapshot
+    lies within ``small`` tokens of the prompt's end."""
+    size = mixed if decode_active else chunk
+    if fine_tail and T - start > small:
+        b = -(-(T - small) // page_size) * page_size  # the last piece's start
+        return start + size if b - start > size else b
+    return min(start + (small if T - start <= small else size), T)
 
 
 def sample_tokens(logits, items) -> Tuple[List[int], torch.Tensor]:
@@ -158,6 +169,9 @@ class TorchExecutor:
         self.acct = KvAccounting(PagePool(kv_pages.shape[2]), ps)
         self.prefix_cache = (PrefixCache(self.acct.pool, ps) if opts.enable_prefix_cache
                              else None)
+        # a model with per-request state (HybridExecutor) sets this with the
+        # cache on: cache hits only at state snapshots, the fine tail
+        self._hybrid_cache = False
         self.max_batch = opts.max_batch_size
         max_model_len = opts.max_model_len or cfg.max_position_embeddings
         self._max_pages = min(self.acct.pool.available, -(-max_model_len // ps))
@@ -234,15 +248,20 @@ class TorchExecutor:
         if self.prefix_cache is None or st.pages or st.length > 0 or st.prefix_checked:
             return
         st.prefix_checked = True
-        n_tok, pages = self.prefix_cache.match(item.prompt_tokens)
+        if self._hybrid_cache:
+            n_tok, pages, st.prefix_snap = self.prefix_cache.match_hybrid(item.prompt_tokens)
+        else:
+            n_tok, pages = self.prefix_cache.match(item.prompt_tokens)
         if n_tok:
             st.pages = list(pages)
             st.prefix_len = n_tok
 
-    def _cache_insert(self, item, st) -> None:
+    def _cache_insert(self, item, st, snaps=()) -> None:
         if self.prefix_cache is not None:
             T = len(item.prompt_tokens)
             self.prefix_cache.insert(item.prompt_tokens, st.pages[: T // self._page_size])
+            for pos, snap in snaps:
+                self.prefix_cache.insert_snapshot(item.prompt_tokens, pos, snap)
 
     def supports_chunked_prefill(self, item) -> bool:
         return (self.prefill_chunk is not None and not item.echo
@@ -256,28 +275,42 @@ class TorchExecutor:
         streams stall for one piece, not the whole prompt."""
         st = self.acct.state(item.request_id)
         T = len(item.prompt_tokens)
+        ps, chunk = self._page_size, self.prefill_chunk
         self._maybe_seed_prefix(item, st)
         start = st.prefix_len
         st.ensure_capacity(self.acct.pool, T)
         tokens = torch.tensor(item.prompt_tokens, dtype=torch.int32, device=self.device)
         table = torch.tensor(st.pages, dtype=torch.int32, device=self.device)
+        if st.prefix_snap is not None:  # a hybrid cache hit: its state first
+            self._restore_snapshot(item, st.prefix_snap)
+            st.prefix_snap = None
+        fine_tail = self._hybrid_cache and self._small_piece < chunk
+        snaps = []  # [(pos, snapshot)]: the deepest interior one, the aligned end
         while start < T:
             # planned one piece at a time: decode_active may flip between
-            end = plan_piece(T, start, self.prefill_chunk, self.prefill_chunk_mixed,
-                             self._small_piece, self.decode_active)
+            end = plan_piece(T, start, chunk, self.prefill_chunk_mixed, self._small_piece,
+                             self.decode_active, fine_tail, ps)
             if self.mixed_items:
                 mi, self.mixed_items = self.mixed_items, None
-                last_logits = self._run_mixed_piece(mi, tokens[start:end], start,
+                last_logits = self._run_mixed_piece(item, mi, tokens[start:end], start,
                                                     end - start, table)
             else:
-                last_logits = q3.prefill_chunk(self.cfg, self.params, self.kv_pages,
-                                               tokens[start:end], start, end - start, table)
+                last_logits = self._chunk_model(item, tokens[start:end], start,
+                                                end - start, table)
             self.chunk_pieces += 1
             start = end
+            if self._hybrid_cache and ((end < T and T - end <= chunk)
+                                       or (end == T and T % ps == 0)):
+                # the state after exactly `end` tokens; only a boundary within
+                # a chunk of the end can be the deepest, so earlier ones take
+                # no copy
+                if snaps and snaps[-1][0] < T and end < T:
+                    snaps.pop()
+                snaps.append((end, self._snapshot(item)))
             if end < T:
                 yield end
         st.advance(T)
-        self._cache_insert(item, st)
+        self._cache_insert(item, st, snaps)
         return self._first_token(item, last_logits)
 
     def _prefill_one(self, item) -> PrefillRequestResult:
@@ -306,6 +339,11 @@ class TorchExecutor:
         """The model call of one whole-prompt prefill: last logits [V]."""
         last_logits, _ = q3.prefill(self.cfg, self.params, self.kv_pages, tokens, table)
         return last_logits
+
+    def _chunk_model(self, item, chunk_tokens, start: int, valid: int, table):
+        """The model call of one prefill piece: last logits [V]."""
+        return q3.prefill_chunk(self.cfg, self.params, self.kv_pages, chunk_tokens, start,
+                                valid, table)
 
     def execute_prefill(self, plan: PrefillPlan) -> PrefillResult:
         return PrefillResult(requests=[self._prefill_one(it) for it in plan.requests])
@@ -369,18 +407,18 @@ class TorchExecutor:
     def supports_mixed_step(self, items) -> bool:
         return self._mixed_enabled and len(items) <= self.max_batch
 
-    def _run_mixed_piece(self, items, chunk_tokens, start: int, valid: int, table):
-        """One fused piece (called from the stepper). Returns the chunk's
-        last logits; the decode rows' sampled tokens are left in
-        ``mixed_pending`` for the scheduler."""
+    def _run_mixed_piece(self, item, items, chunk_tokens, start: int, valid: int, table):
+        """One fused piece of ``item``'s prompt with ``items``' decode rows
+        (called from the stepper). Returns the chunk's last logits; the
+        decode rows' sampled tokens are left in ``mixed_pending`` for the
+        scheduler."""
         n = len(items)
         (tokens, positions, tables, seq_lens), states = self._decode_inputs(items)
         rids = tuple(it.request_id for it in items)
         if self._mixed_toks is not None and self._mixed_rids == rids:
             tokens = self._mixed_toks
-        last_logits, dec_logits = q3.mixed_chunk(
-            self.cfg, self.params, self.kv_pages, chunk_tokens, start, valid, table,
-            tokens, positions, tables, seq_lens)
+        last_logits, dec_logits = self._mixed_model(
+            item, items, chunk_tokens, start, valid, table, (tokens, positions, tables, seq_lens))
         for st in states:
             st.advance(1)
         self.mixed_pieces += 1
@@ -394,6 +432,13 @@ class TorchExecutor:
         self.mixed_pending = PendingDecode(items=list(items), tokens=host,
                                            logprobs=token_logprobs(dec_logits, dev, items))
         return last_logits
+
+    def _mixed_model(self, item, items, chunk_tokens, start: int, valid: int, table, dec):
+        """The model call of one fused piece; ``dec`` = (tokens, positions,
+        tables, seq_lens) of the padded decode batch. Returns (last logits
+        [V], decode logits [B, V])."""
+        return q3.mixed_chunk(self.cfg, self.params, self.kv_pages, chunk_tokens, start,
+                              valid, table, *dec)
 
     def resolve_pending_multi(self, pending: PendingDecode):
         """[(request_id, [token], [TokenLogprob] | None), ...]: the JAX

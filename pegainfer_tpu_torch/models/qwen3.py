@@ -355,18 +355,19 @@ def prefill(cfg: Qwen3Config, params, kv_pages, tokens, page_table,
 # ── Chunked prefill continuation ─────────────────────────────────────────
 
 
-def _chunk_rows(page_table, start_pos: int, valid: int, ps: int):
+def chunk_rows(page_table, start_pos: int, valid: int, ps: int):
     """Positions, page ids and slots of a chunk's ``valid`` rows."""
     positions = start_pos + torch.arange(valid, device=page_table.device)
     return positions, page_table.long()[positions // ps], positions % ps
 
 
-def _chunk_attention(kv_pages, li: int, q, page_table, start_pos: int, scale: float,
-                     plain_attention: bool):
+def chunk_attention(kv_pages, li: int, q, page_table, start_pos: int, scale: float,
+                    plain_attention: bool):
     """Attention of a chunk's queries (absolute positions start_pos + i)
     over the request's keys, read back from the pool by absolute position;
     the chunk's own rows must already be written. Only the pages covering
-    ``[0, start_pos + Tc)`` are gathered."""
+    ``[0, start_pos + Tc)`` are gathered. ``li`` indexes the pool's first
+    axis (a Qwen3 layer; a Qwen3.5 group's full-attention layer)."""
     _, Hkv, _, _, ps, hd = kv_pages.shape
     kv_valid = start_pos + q.shape[0]
     pages = page_table[: -(-kv_valid // ps)].long()
@@ -394,7 +395,7 @@ def prefill_chunk(cfg: Qwen3Config, params, kv_pages, tokens, start_pos: int,
     """
     ps = kv_pages.shape[4]
     x = params["embed"][tokens[:valid].long()]
-    positions, page_ids, slots = _chunk_rows(page_table, start_pos, valid, ps)
+    positions, page_ids, slots = chunk_rows(page_table, start_pos, valid, ps)
     cos, sin = _rope(cfg, positions, x.dtype)
     scale = _scale(cfg)
     for li in range(cfg.num_hidden_layers):
@@ -402,7 +403,7 @@ def prefill_chunk(cfg: Qwen3Config, params, kv_pages, tokens, start_pos: int,
         h = rms_norm(x, lw["input_ln"], cfg.rms_norm_eps)
         q, k, v = _qkv(cfg, lw, h, cos, sin)
         _write_kv(kv_pages, li, k, v, page_ids, slots)
-        o = _chunk_attention(kv_pages, li, q, page_table, start_pos, scale, plain_attention)
+        o = chunk_attention(kv_pages, li, q, page_table, start_pos, scale, plain_attention)
         x = x + o.reshape(valid, -1) @ lw["wo"]
         h = rms_norm(x, lw["post_ln"], cfg.rms_norm_eps)
         x = x + _mlp(lw, h)
@@ -427,7 +428,7 @@ def mixed_chunk(cfg: Qwen3Config, params, kv_pages, chunk_tokens, start_pos: int
     B = dec_tokens.shape[0]
     ps = kv_pages.shape[4]
     x = params["embed"][torch.cat([chunk_tokens[:valid], dec_tokens]).long()]
-    positions, page_ids, slots = _chunk_rows(page_table, start_pos, valid, ps)
+    positions, page_ids, slots = chunk_rows(page_table, start_pos, valid, ps)
     cos, sin = _rope(cfg, torch.cat([positions, dec_positions.to(positions.dtype)]),
                      x.dtype)
     dpos = dec_positions.long()
@@ -439,10 +440,10 @@ def mixed_chunk(cfg: Qwen3Config, params, kv_pages, chunk_tokens, start_pos: int
         h = rms_norm(x, lw["input_ln"], cfg.rms_norm_eps)
         q, k, v = _qkv(cfg, lw, h, cos, sin)
         _write_kv(kv_pages, li, k[:valid], v[:valid], page_ids, slots)
-        o_p = _chunk_attention(kv_pages, li, q[:valid], page_table, start_pos, scale,
+        o_p = chunk_attention(kv_pages, li, q[:valid], page_table, start_pos, scale,
                                plain_attention)
         qd, kd, vd = q[valid:], k[valid:], v[valid:]
-        o_d = _decode_attention(kv_pages, li, qd, kd, vd, dec_tables, dec_seq_lens,
+        o_d = decode_attention(kv_pages, li, qd, kd, vd, dec_tables, dec_seq_lens,
                                 scale, plain_attention)
         _write_kv(kv_pages, li, kd, vd, dec_page_ids, dec_slots)
         o = torch.cat([o_p.reshape(valid, -1), o_d.reshape(B, -1)])
@@ -457,8 +458,8 @@ def mixed_chunk(cfg: Qwen3Config, params, kv_pages, chunk_tokens, start_pos: int
 # ── Batched decode: one token per request ────────────────────────────────
 
 
-def _decode_attention(kv_pages, li: int, q, k, v, page_tables, seq_lens, scale: float,
-                      plain_attention: bool):
+def decode_attention(kv_pages, li: int, q, k, v, page_tables, seq_lens, scale: float,
+                     plain_attention: bool):
     """Decode attention of one layer: the past from the pages, the current
     token from the in-flight ``k``/``v`` (K1 with ``cur_k``/``cur_v``)."""
     if plain_attention:
@@ -492,7 +493,7 @@ def decode(cfg: Qwen3Config, params, kv_pages, tokens, positions, page_tables,
         lw = _layer(params, li)
         h = rms_norm(x, lw["input_ln"], cfg.rms_norm_eps)
         q, k, v = _qkv(cfg, lw, h, cos, sin)
-        o = _decode_attention(kv_pages, li, q, k, v, page_tables, seq_lens, scale,
+        o = decode_attention(kv_pages, li, q, k, v, page_tables, seq_lens, scale,
                               plain_attention)
         _write_kv(kv_pages, li, k, v, page_ids, slots)
         x = x + o.reshape(B, -1) @ lw["wo"]

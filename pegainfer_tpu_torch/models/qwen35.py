@@ -16,19 +16,23 @@ Per-request state (``make_state``):
 
 with S = max_slots; row S is the dead slot that padded decode rows read and
 write. A prefill writes its slot's rows whole, so a reused slot carries
-nothing over. PyTorch updates the state in place: each layer writes its
-rows right after computing them (the JAX ``pend`` records exist only to keep
-XLA from copying the state). Decode has ``decode_wa``'s semantics: K1 reads
-the past from the pages plus the in-flight k/v.
+nothing over; so does a chunked prompt's first piece (``start_pos`` 0 starts
+from zeros), while a later piece continues from the slot's rows. PyTorch
+updates the state in place: each layer writes its rows right after
+computing them (the JAX ``pend`` / ``cpend`` records exist only to keep XLA
+from copying the state). Decode has ``decode_wa``'s semantics: K1 reads the
+past from the pages plus the in-flight k/v. ``slot_export`` /
+``slot_import`` copy a slot's rows out and in (the prefix cache's state
+snapshots).
 
-Full attention goes through the kernel wrappers (K2 in prefill, K1 in
-decode): a CUDA tensor launches the kernel, a CPU tensor takes the plain
-version; ``plain_attention=True`` runs the plain version on any device.
-The GDN layers are torch ops (``ops/gdn.py``).
+Full attention goes through the kernel wrappers (K2 in prefill and, at
+``q_offset`` = the piece's start, in a chunk; K1 in decode and for a fused
+piece's decode rows): a CUDA tensor launches the kernel, a CPU tensor takes
+the plain version; ``plain_attention=True`` runs the plain version on any
+device. The GDN layers are torch ops (``ops/gdn.py``).
 
-Not ported here: chunked prefill and the mixed step, the hybrid prefix-cache
-snapshots, int8 weights, the fused ``qkvzba`` layout and the flat union
-layout (the executor refuses the options that need them).
+Not ported here: int8 weights, the fused ``qkvzba`` layout and the flat
+union layout (the executor refuses the options that need them).
 """
 
 from __future__ import annotations
@@ -42,10 +46,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pegainfer_tpu_torch.models.qwen3 import chunk_attention, chunk_rows, decode_attention
 from pegainfer_tpu_torch.ops import attention as att
 from pegainfer_tpu_torch.ops import gdn
 from pegainfer_tpu_torch.ops.cuda.flash_prefill import flash_prefill
-from pegainfer_tpu_torch.ops.cuda.paged_decode import paged_attention_decode
 from pegainfer_tpu_torch.ops.norm import rms_norm_zero_centered as rms_norm
 from pegainfer_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
 from pegainfer_tpu_torch.utils.weights import numpy_to_torch
@@ -531,6 +535,39 @@ def _full_weights(params, gi: int):
     return {k: v[gi] for k, v in params["full"].items()}
 
 
+def _gdn_step_rows(cfg: Qwen35Config, lw, state, gi: int, j: int, rows, mixed, g, beta):
+    """The GDN core of one token a row (decode rows): conv step and
+    recurrence step from the rows' slots ``rows`` [B] of layer (gi, j),
+    written back in place. Returns out [B, Hv, dv] f32."""
+    conv, rec = state["conv"][gi, j], state["rec"][gi, j]  # views
+    y, conv_rows = gdn.causal_conv1d_step(mixed, lw["conv_w"], conv[rows])
+    q, k, v = _gdn_split_heads(cfg, y)
+    out, rec_rows = gdn.gdn_step(q, k, v, g, beta, rec[rows])
+    conv[rows] = conv_rows
+    rec[rows] = rec_rows
+    return out
+
+
+def _gdn_chunk_rows(cfg: Qwen35Config, lw, state, gi: int, j: int, slot: int,
+                    start_pos: int, mixed, g, beta, gdn_chunk_size: int):
+    """The GDN core of a prompt's chunk (its rows, no padding): conv
+    continuation and the chunkwise rule from the slot's rows of layer
+    (gi, j), or from zeros when the chunk starts the prompt (a recycled
+    slot holds the previous request's state), written back in place.
+    Returns out [Tc, Hv, dv] f32."""
+    conv, rec = state["conv"][gi, j], state["rec"][gi, j]  # views
+    if start_pos > 0:
+        conv0, rec0 = conv[slot], rec[slot]
+    else:
+        conv0, rec0 = torch.zeros_like(conv[slot]), torch.zeros_like(rec[slot])
+    y, conv_state = gdn.causal_conv1d_cont(mixed, lw["conv_w"], conv0, mixed.shape[0])
+    q, k, v = _gdn_split_heads(cfg, y)
+    out, rec_state = gdn.gdn_chunk(q, k, v, g, beta, rec0, chunk=gdn_chunk_size)
+    conv[slot] = conv_state
+    rec[slot] = rec_state
+    return out
+
+
 # ── Prefill: one request ─────────────────────────────────────────────────
 
 
@@ -583,6 +620,120 @@ def prefill(cfg: Qwen35Config, params, state, tokens, page_table, slot: int,
     return (x[T - 1:] @ params["lm_head"])[0].float(), None
 
 
+# ── Chunked prefill continuation and the fused mixed step ────────────────
+
+
+def _chunk_forward(cfg: Qwen35Config, params, state, chunk_tokens, start_pos: int,
+                   valid: int, page_table, slot: int, dec, plain_attention: bool,
+                   gdn_chunk_size: int):
+    """A prompt's chunk of ``valid`` rows, and with ``dec`` = (tokens,
+    positions, page tables, seq_lens, slots) one decode row per stream,
+    through shared GEMMs; only the sequence mixing splits. Returns logits
+    [1 + B, V] f32: chunk row ``valid - 1``, then the decode rows."""
+    eps = cfg.rms_norm_eps
+    kv = state["kv"]
+    ps = kv.shape[4]
+    positions, page_ids, pslots = chunk_rows(page_table, start_pos, valid, ps)
+    toks = chunk_tokens[:valid]
+    if dec is not None:
+        dec_tokens, dec_positions, dec_tables, dec_seq_lens, dec_slots = dec
+        toks = torch.cat([toks, dec_tokens.to(toks.dtype)])
+        positions = torch.cat([positions, dec_positions.to(positions.dtype)])
+        dpos = dec_positions.long()
+        dec_page_ids = torch.gather(dec_tables.long(), 1, (dpos // ps)[:, None])[:, 0]
+        dec_pslots = dpos % ps
+        rows = dec_slots.long()
+    x = params["embed"][toks.long()]
+    N = x.shape[0]
+    cos, sin = _rope(cfg, positions, x.dtype)
+    scale = cfg.head_dim ** -0.5
+    for gi in range(cfg.num_groups):
+        for j in range(cfg.period - 1):
+            lw = _lin_weights(params, gi, j)
+            mixed, z, g, beta = _gdn_project(cfg, lw, rms_norm(x, lw["input_ln"], eps))
+            out = _gdn_chunk_rows(cfg, lw, state, gi, j, slot, start_pos, mixed[:valid],
+                                  g[:valid], beta[:valid], gdn_chunk_size)
+            if dec is not None:
+                out = torch.cat([out, _gdn_step_rows(cfg, lw, state, gi, j, rows,
+                                                     mixed[valid:], g[valid:],
+                                                     beta[valid:])])
+            out = _gated_norm(cfg, lw["norm_w"], out, z).to(x.dtype)
+            x = x + out.reshape(N, -1) @ lw["out_proj"]
+            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps))
+        fw = _full_weights(params, gi)
+        q, k, v, gate = _full_qkv(cfg, fw, rms_norm(x, fw["input_ln"], eps), cos, sin)
+        _write_kv(kv, gi, k[:valid], v[:valid], page_ids, pslots)
+        o = chunk_attention(kv, gi, q[:valid], page_table, start_pos, scale,
+                            plain_attention).reshape(valid, -1)
+        if dec is not None:
+            qd, kd, vd = q[valid:], k[valid:], v[valid:]
+            o_d = decode_attention(kv, gi, qd, kd, vd, dec_tables, dec_seq_lens, scale,
+                                   plain_attention)
+            _write_kv(kv, gi, kd, vd, dec_page_ids, dec_pslots)
+            o = torch.cat([o, o_d.reshape(N - valid, -1)])
+        x = _gated_out(fw, x, o, gate)
+        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps))
+    x = rms_norm(x[valid - 1:], params["final_ln"], eps)  # last chunk row ‖ B
+    return (x @ params["lm_head"]).float()
+
+
+def prefill_chunk(cfg: Qwen35Config, params, state, tokens, start_pos: int, valid: int,
+                  page_table, slot: int, plain_attention: bool = False,
+                  gdn_chunk_size: int = gdn.CHUNK):
+    """Prefill continuation: prompt positions ``[start_pos, start_pos +
+    valid)`` of one request whose earlier positions are in its pages and its
+    slot's rows, written in place (the function of the JAX
+    ``prefill_chunk_wa`` followed by ``flush_chunk_pend``).
+
+    GDN layers continue from the slot's rec / conv rows, or from zeros at
+    ``start_pos`` 0, and write them back; full layers write the chunk's k/v
+    rows into the pool, then attend over the gathered pages (K2 at
+    ``q_offset`` = ``start_pos``). tokens: [>= valid] (rows past ``valid``
+    are ignored); page_table: [>= ceil((start_pos + valid) / ps)] the
+    request's pages. Returns last_logits [V] f32, for chunk row
+    ``valid - 1``.
+    """
+    return _chunk_forward(cfg, params, state, tokens, start_pos, valid, page_table, slot,
+                          None, plain_attention, gdn_chunk_size)[0]
+
+
+def mixed_chunk(cfg: Qwen35Config, params, state, chunk_tokens, start_pos: int,
+                valid: int, page_table, slot: int, dec_tokens, dec_positions, dec_tables,
+                dec_seq_lens, dec_slots, plain_attention: bool = False,
+                gdn_chunk_size: int = gdn.CHUNK):
+    """The fused mixed step: a prompt's chunk rows and one decode row per
+    active stream through shared GEMMs (the JAX ``mixed_chunk_wa`` and both
+    flushes). The chunk rows are ``prefill_chunk``'s; the decode rows are
+    ``decode``'s (conv and recurrence steps on their slots, K1 over the
+    pages with the in-flight k/v at ``layer_id`` = the group; padding rows
+    on the dead slot). The prefilling request's slot is never among
+    ``dec_slots``. Arguments as in ``prefill_chunk`` and ``decode``.
+    Returns (last_logits [V] f32 for chunk row ``valid - 1``, dec_logits
+    [B, V] f32).
+    """
+    logits = _chunk_forward(cfg, params, state, chunk_tokens, start_pos, valid, page_table,
+                            slot, (dec_tokens, dec_positions, dec_tables, dec_seq_lens,
+                                   dec_slots), plain_attention, gdn_chunk_size)
+    return logits[0], logits[1:]
+
+
+# ── Slot snapshots (the hybrid prefix cache) ─────────────────────────────
+
+
+def slot_export(state, slot: int):
+    """A copy of ``slot``'s recurrent and conv rows of every GDN layer
+    (the JAX ``slot_export`` / ``cpend_snapshot``): later pieces overwrite
+    the slot in place, so a view would change under the cache."""
+    return {"rec": state["rec"][:, :, slot].clone(), "conv": state["conv"][:, :, slot].clone()}
+
+
+def slot_import(state, snap, slot: int) -> None:
+    """Copy a snapshot into ``slot``'s rows (the JAX ``slot_import`` /
+    ``cpend_restore``); the snapshot stays the cache's."""
+    state["rec"][:, :, slot].copy_(snap["rec"])
+    state["conv"][:, :, slot].copy_(snap["conv"])
+
+
 # ── Batched decode: one token per request ────────────────────────────────
 
 
@@ -613,23 +764,13 @@ def decode(cfg: Qwen35Config, params, state, tokens, positions, page_tables, seq
         for j in range(cfg.period - 1):
             lw = _lin_weights(params, gi, j)
             mixed, z, g, beta = _gdn_project(cfg, lw, rms_norm(x, lw["input_ln"], eps))
-            conv, rec = state["conv"][gi, j], state["rec"][gi, j]  # views
-            y, conv_rows = gdn.causal_conv1d_step(mixed, lw["conv_w"], conv[rows])
-            q, k, v = _gdn_split_heads(cfg, y)
-            out, rec_rows = gdn.gdn_step(q, k, v, g, beta, rec[rows])
-            conv[rows] = conv_rows
-            rec[rows] = rec_rows
+            out = _gdn_step_rows(cfg, lw, state, gi, j, rows, mixed, g, beta)
             out = _gated_norm(cfg, lw["norm_w"], out, z).to(x.dtype)
             x = x + out.reshape(B, -1) @ lw["out_proj"]
             x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps))
         fw = _full_weights(params, gi)
         q, k, v, gate = _full_qkv(cfg, fw, rms_norm(x, fw["input_ln"], eps), cos, sin)
-        if plain_attention:
-            o = att.paged_attention_decode(q, kv[gi, :, :, 0], kv[gi, :, :, 1], page_tables,
-                                           seq_lens, scale, cur_k=k, cur_v=v)
-        else:
-            o = paged_attention_decode(q, kv, kv, page_tables, seq_lens, scale,
-                                       cur_k=k, cur_v=v, layer_id=gi)
+        o = decode_attention(kv, gi, q, k, v, page_tables, seq_lens, scale, plain_attention)
         _write_kv(kv, gi, k, v, page_ids, pslots)
         x = _gated_out(fw, x, o, gate)
         x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps))

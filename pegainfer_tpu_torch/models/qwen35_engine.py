@@ -3,11 +3,12 @@ state slots -> HybridExecutor -> scheduler. Counterpart of
 ``pegainfer_tpu/models/qwen35_engine.py``.
 
 Serves the per-layer grouped weights in bf16 with ``max_batch_size`` state
-slots. Runs on ``cuda`` unless the caller passes another device; with no
-card it raises instead of running on the CPU. Refused with
-``NotImplementedError`` (``engine/hybrid_executor.py::check_supported``):
-``prefill_chunk``, ``enable_prefix_cache``, ``quantize`` and ``decode_block
-!= 1``.
+slots, with chunked prefill, the fused mixed step and the hybrid prefix
+cache when ``prefill_chunk`` / ``enable_prefix_cache`` ask for them. Runs on
+``cuda`` unless the caller passes another device; with no card it raises
+instead of running on the CPU. Refused with ``NotImplementedError``
+(``engine/hybrid_executor.py::check_supported``): ``quantize`` and
+``decode_block != 1``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from pegainfer_tpu_torch.engine.contract import EngineHandle, EngineLoadOptions
 from pegainfer_tpu_torch.engine.hybrid_executor import HybridExecutor, check_supported
+from pegainfer_tpu_torch.engine.kv import DEFAULT_MAX_SNAPSHOTS
 from pegainfer_tpu_torch.engine.scheduler import start_scheduler
 from pegainfer_tpu_torch.models import qwen35 as q35
 from pegainfer_tpu_torch.utils.device import resolve_device
@@ -42,15 +44,19 @@ def probe_model(model_path: str) -> bool:
 
 
 def compute_num_pages(cfg: q35.Qwen35Config, page_size: int, fraction: float,
-                      max_slots: int, device: torch.device, dtype=torch.bfloat16) -> int:
+                      max_slots: int, device: torch.device, dtype=torch.bfloat16,
+                      prefix_cache: bool = False) -> int:
     """Size the KV pool to ``fraction`` of the card's free memory, read after
     the weights are on it, less the state of ``max_slots`` + 1 slots (the
-    dead one too), which is allocated beside the pool."""
+    dead one too), which is allocated beside the pool, and with the prefix
+    cache on less its ``DEFAULT_MAX_SNAPSHOTS`` state snapshots of one slot
+    each (428 MB at ``bench_config()``)."""
     if device.type != "cuda":
         raise ValueError("the KV pool is sized from free CUDA memory; "
                          "pass EngineLoadOptions.max_num_pages on the CPU")
     free, _total = torch.cuda.mem_get_info(device)
-    free -= (max_slots + 1) * q35.slot_bytes(cfg)
+    snapshots = DEFAULT_MAX_SNAPSHOTS if prefix_cache else 0
+    free -= (max_slots + 1 + snapshots) * q35.slot_bytes(cfg)
     n = int(free * fraction) // q35.kv_bytes_per_page(cfg, page_size, dtype)
     return max(min(n, 1 << 16), 2)
 
@@ -69,7 +75,8 @@ def start_engine_from_params(cfg: q35.Qwen35Config, params,
         raise ValueError(f"params are on {params['embed'].device}, engine on {dev}")
     max_slots = opts.max_batch_size
     num_pages = opts.max_num_pages or compute_num_pages(
-        cfg, DEFAULT_PAGE_SIZE, opts.kv_memory_fraction, max_slots, dev, dtype)
+        cfg, DEFAULT_PAGE_SIZE, opts.kv_memory_fraction, max_slots, dev, dtype,
+        prefix_cache=opts.enable_prefix_cache)
     log.info("KV pool: %d pages x %d tokens; %d state slots of %.1f MB", num_pages,
              DEFAULT_PAGE_SIZE, max_slots, q35.slot_bytes(cfg) / 1e6)
     state = q35.make_state(cfg, num_pages, DEFAULT_PAGE_SIZE, max_slots, kv_dtype=dtype,

@@ -133,6 +133,25 @@ def causal_conv1d(x, w):
     return F.silu(y).to(x.dtype), state
 
 
+def causal_conv1d_cont(x, w, prev_state, valid: int):
+    """Prefill-continuation conv: a chunk whose previous K inputs are in the
+    slot's conv rows.
+
+    x: [Tc, C]; w: [C, K]; prev_state: [K, C] (oldest first; zeros for a
+    prompt's first chunk). Returns (y [Tc, C] silu'd in x's dtype, state
+    [K, C] f32 = the last K inputs before chunk row ``valid``). Chained over
+    a prompt's pieces it is ``causal_conv1d`` over the whole prompt.
+    """
+    Tc = x.shape[0]
+    K = w.shape[-1]
+    xp = torch.cat([prev_state.float(), x.float()])  # [K + Tc, C]
+    wf = w.float()
+    y = wf[:, 0] * xp[1:1 + Tc]
+    for j in range(1, K):
+        y = y + wf[:, j] * xp[j + 1:j + 1 + Tc]
+    return F.silu(y).to(x.dtype), xp[valid:valid + K]
+
+
 def causal_conv1d_step(x, w, state):
     """Decode conv: one new input a row.
 

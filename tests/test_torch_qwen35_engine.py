@@ -1,7 +1,7 @@
 """The port's Qwen3.5 engine (HybridExecutor + its scheduler, on the CPU)
 against the JAX engine (JaxExecutor on ``q35.make_runtime``'s grouped
-runtime) on the same tiny f32 weights; checkpoint loading; the options the
-hybrid engine refuses."""
+runtime) on the same tiny f32 weights; checkpoint loading; the chunk and
+cache options it serves and the options it refuses."""
 
 import json
 
@@ -186,8 +186,36 @@ def test_start_engine_serves_a_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("option", [
     dict(prefill_chunk=64), dict(enable_prefix_cache=True),
-    dict(enable_prefix_cache=True, prefill_chunk=64), dict(quantize="int8"),
-    dict(decode_block=2)])
+    dict(enable_prefix_cache=True, prefill_chunk=64)])
+def test_chunk_and_cache_options_serve(option):
+    """The options the engine refused before its chunked prefill and hybrid
+    cache were ported now start it and finish a request through the
+    chunked path (a 100-token prompt in pieces of 64). The cache alone
+    keeps the port's rule (ValueError: it continues a cached prefix through
+    the chunked path, and the port's ``prefill_chunk`` defaults to None)
+    and serves with the JAX engine's default chunk of 2,048."""
+    tcfg = tq.Qwen35Config(**_cfg_kw())
+    params = tq.init_random_params(tcfg, seed=0, dtype=torch.float32)
+    if "prefill_chunk" not in option:
+        with pytest.raises(ValueError, match="prefill_chunk"):
+            tengine.start_engine_from_params(tcfg, params, tc.EngineLoadOptions(
+                max_num_pages=8, max_batch_size=2, **option), device="cpu")
+        option = dict(option, prefill_chunk=2048)
+    opts = tc.EngineLoadOptions(max_num_pages=16, max_batch_size=2, **option)
+    handle = tengine.start_engine_from_params(tcfg, params, opts, device="cpu")
+    try:
+        ex = handle._scheduler.executor
+        assert ex._hybrid_cache == opts.enable_prefix_cache
+        prompt = np.random.default_rng(3).integers(8, 128, 100).tolist()
+        (toks, fin), = _collect(tc, handle, [prompt], 4, ignore_eos=True)
+        assert ex.chunk_pieces == (2 if opts.prefill_chunk == 64 else 0)
+        assert ex.free_slots() == 2
+    finally:
+        handle.shutdown()
+    assert isinstance(fin, tc.Finished) and len(toks) == 4
+
+
+@pytest.mark.parametrize("option", [dict(quantize="int8"), dict(decode_block=2)])
 def test_refused_options_raise(option):
     tcfg = tq.Qwen35Config(**_cfg_kw())
     params = tq.init_random_params(tcfg, seed=0, dtype=torch.float32)
