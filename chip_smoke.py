@@ -51,7 +51,10 @@ Qwen3-4B bf16 (full width and depth, random weights from a seed):
 3. hold K1 and K2 against their plain versions at the main path's shapes
    (bf16 tolerances of the JAX package's kernel tests: 3e-2 decode, 2e-2
    prefill);
-4. serve through ``start_engine_from_params`` -> ``EngineHandle.submit``:
+4. serve through ``start_engine_from_params`` -> ``EngineHandle.submit``
+   (with ``OLD_DEFAULTS``: no chunks, no prefix cache, as in phases 11, 14,
+   17 and 20, which were written before the defaults became the JAX
+   engine's):
    one greedy 1024-token prompt with 256 output tokens, then two shorter
    requests at once so decode runs at batch 2;
 5. every request must end in ``Finished`` with its full token count;
@@ -82,7 +85,13 @@ weights:
 8d. cold and warm TTFT, the streams' largest token gap during the cold
     prefill against a piece's wall time, and K2 at K2_CHUNK_SHAPES against
     its bound, its plain version and masked SDPA. The engine, weights and KV
-    pool are then freed.
+    pool are then freed;
+8e. PD handoff (``engine/pd.py``): two ``TorchExecutor``s of PD_PAGES pages
+    on the same weights; B's allocator churned by a throwaway request; a
+    greedy 1024/16 request that A has run alone is prefilled and exported
+    by A (16 pages, 151.0 MB, to the host) and imported by B, which decodes
+    it: the tokens equal A's own run, the last step's logits by rule 7;
+    the payload's bytes and the export and import walls.
 
 The Qwen3.5 hybrid at the JAX package's ``qwen35.bench_config()`` (32
 layers: 8 groups of 3 Gated Delta Net layers and 1 gated full-attention
@@ -129,8 +138,11 @@ snapshots), on the same weights:
 25. cold, warm and extended TTFT, the streams' largest token gap during the
     cold prefill against a piece's wall time, and a torch.profiler profile
     of the last fused piece (K2's and K1's device time in it), of its GDN
-    ops alone and of its k/v gather alone. The engine, weights and state
-    are then freed.
+    ops alone and of its k/v gather alone;
+25a. PD handoff as in 8e between two ``HybridExecutor``s of 2 slots and
+    PD_PAGES pages: the payload is 16 pages (16.8 MB) and the slot's
+    recurrent and conv rows (53.5 MB), imported on B's other slot. The
+    engines, weights and state are then freed.
 
 DeepSeek-V4-Flash, 8 layers at full width, random resident fp8 / packed-fp4
 weights made on the card from the seed:
@@ -162,6 +174,33 @@ weights made on the card from the seed:
     step's launches; K5 at
     w1, at w2 and at skewed routing, each beside one grouped_mm, and its
     plan's time.
+
+DeepSeek-V4's slot prefix cache and PD handoff, on the same weights:
+
+13a. an engine under the defaults (``EngineLoadOptions(max_batch_size=2,
+    max_model_len=2048, seed=SEED)``: the slot prefix cache on, chunks of
+    2,048) serves, one after another, (a) P (1,024 tokens) / 16 with
+    logprobs (a miss, a fresh prefill, a snapshot kept with its logits),
+    (b) P / 16 greedy (a hit that skips the forward: no K5 launch, (a)'s
+    tokens), (c) P + 16 new tokens (a hit resumed through 16 decode
+    steps), (d) P + 128 other new tokens (a hit past the threshold of 72:
+    a fresh prefill); every request ends in ``Finished`` with its count;
+    hits 3, misses 1; launches K5 = 24 x fresh prefills, K3 = 24 x (decode
+    steps + 16) and K4 = 59 x (decode steps + 16), and inside the
+    resume, read from the counts around each ``prefill_resume`` call, K3
+    = 24 x 16 and K4 = 59 x 16; the TTFTs;
+13b. (c)'s resume on the model: ``slot_export`` of the slot that prefilled
+    P, ``slot_import`` into the other slot and ``prefill_resume`` of the
+    16 tokens give, bit for bit, the logits of 16 ``decode`` steps on the
+    original slot, and the resume launches K3 24 x 16 and K4 59 x 16
+    times; ``snapshot_bytes`` is the rows' sum (6,413,056 B); the
+    resumed logits against one whole prefill of P + 16, reported as a
+    share of rule 7's limit with the argmax (not gated: decode and prefill
+    run other kernels); the resume's wall a step, one fresh prefill's and
+    the crossover suffix below which the resume is faster;
+13c. PD handoff as in 8e between two ``SlotExecutor``s: the payload is the
+    slot's rows (6.41 MB), imported on B's other slot; the tokens and the
+    last step's logits equal A's own run bit for bit.
 
 On the same weights, the opt-in fp4 chain and then the int8-experts mode:
 
@@ -201,8 +240,10 @@ The last lines are the kernels' JSON record (the weight streams, the S3 /
 S4 kernels and K1-K9; with the read ceiling, and the S3 / S4 kernels, K3,
 K4, K6, K8 and K9 also bound by their bytes over it as
 ``measured_bound_ms``; K1's and K2's launches on the chunked and the
-Qwen3.5 paths; the Qwen3.5 serving and step records under ``qwen35``), the
-card line from nvidia-smi and
+Qwen3.5 paths; K3's and K4's launches inside 13a's resumes, read from
+their counts, as ``launches_resume``; the Qwen3.5 serving and step
+records under ``qwen35``, 13a-13b's under ``dsv4_cache``, 8e's, 25a's and
+13c's under ``pd``), the card line from nvidia-smi and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -231,6 +272,11 @@ DECODE_TOL, PREFILL_TOL = 3e-2, 2e-2
 # prefill and the prefix cache (pegainfer_tpu/engine/contract.py); two
 # streams decode while the long prompt arrives, then it comes again alone
 CHUNK_OPTS = dict(prefill_chunk=2048, prefill_chunk_mixed=256, enable_prefix_cache=True)
+# phases 4, 11, 14, 17 and 20 were written when the port's defaults had
+# chunked prefill and the prefix cache off; they keep those options
+# explicitly, so they run exactly as before the defaults became the JAX
+# engine's (CHUNK_OPTS)
+OLD_DEFAULTS = dict(prefill_chunk=None, enable_prefix_cache=False)
 CHUNK_STREAMS = ((300, 192), (500, 192))
 CHUNK_PROMPT, CHUNK_OUT = 4096, 16
 # K2 at chunk shapes, (T, S, q_offset): the last fused piece of the 4,096
@@ -306,6 +352,23 @@ CHAIN_ROW_RTOL = 1e-3
 # (scripts/k7_mutant_check.py [--kernel k5])
 GROUPED_ROW_RTOL = 1e-4
 DSV4_CHAIN_PAIR = ((300, 32), (500, 32))  # the chain-switch runs' traffic
+
+# phases 13a-13b: DeepSeek-V4's slot prefix cache under the engine's
+# defaults: P (DSV4_CACHE_PROMPT tokens) with logprobs, P again, P extended
+# by DSV4_CACHE_EXT new tokens (resumed through that many decode steps), and
+# P extended by DSV4_CACHE_FAR other new tokens (past the resume threshold
+# max(32, T // 16) = 72: a fresh prefill); DSV4_CACHE_OUT tokens each
+DSV4_CACHE_PROMPT, DSV4_CACHE_OUT = 1024, 16
+DSV4_CACHE_EXT, DSV4_CACHE_FAR = 16, 128
+# one slot's rows at DSV4_LAYERS and DSV4_MAX_MODEL_LEN (models/dsv4.py
+# make_state: window ring, compressed rows, compressor rings), bf16 and f32
+DSV4_SNAPSHOT_BYTES = 6_413_056
+# phases 8e, 13c, 25a: PD handoff (engine/pd.py) of one greedy PD_PROMPT /
+# PD_OUT request from executor A to executor B, against A's own run of it;
+# the paged executors have PD_PAGES pages each
+PD_PROMPT, PD_OUT = 1024, 16
+PD_PAGES = 64
+PD_OPTS = dict(enable_prefix_cache=False)  # A's own run and the handoff prefill alike
 
 # Qwen3.5 hybrid phases: the main request is PROMPT / OUT, as for Qwen3
 Q35_SLOTS = 2
@@ -512,14 +575,14 @@ def check_kernels(cfg, pd, fp):
 # ── phase 4: serve through the engine ───────────────────────────────────
 
 
-def run_request(contract, handle, prompt, max_tokens):
+def run_request(contract, handle, prompt, max_tokens, logprobs=0):
     """Submit one greedy request that ignores EOS. Returns (channel, submit
     time)."""
     ch = contract.TokenChannel()
     t0 = time.perf_counter()
     handle.submit(contract.GenerateRequest(
         prompt_tokens=prompt, max_tokens=max_tokens,
-        params=contract.SamplingParams(ignore_eos=True), channel=ch))
+        params=contract.SamplingParams(ignore_eos=True), channel=ch, logprobs=logprobs))
     return ch, t0
 
 
@@ -598,6 +661,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  Qwen3.5 freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
     cfg, params, d_records, d_serving, d_steps = run_dsv4()
+    dsv4_cache, dsv4_pd, resume_launches = run_dsv4_cache(cfg, params)
+    for r in d_records:  # K3's and K4's launches inside [13a]'s resumes
+        if r["name"] in resume_launches:
+            r["launches_resume"] = resume_launches[r["name"]]
     k9_record, chain_serving = run_dsv4_fp4_chain(cfg, params)
     i_records, i_serving, i_steps = run_dsv4_int8(cfg, params, k9_record)
     records = s_records + c_records + e_records + f_records + q_records + d_records + i_records
@@ -623,6 +690,9 @@ def main() -> int:
                       "serving": q_serving, "steps": q_steps,
                       "qwen35": {"serving": h_serving, "steps": h_steps},
                       "dsv4": {"serving": d_serving, "steps": d_steps},
+                      "dsv4_cache": dsv4_cache,
+                      "pd": {"qwen3": q_serving.pop("pd"), "qwen35": h_serving.pop("pd"),
+                             "dsv4": dsv4_pd},
                       "dsv4_fp4_chain": {"serving": chain_serving},
                       "dsv4_int8": {"serving": i_serving, "steps": i_steps}}))
     print(card)
@@ -969,7 +1039,8 @@ def run_qwen3():
     torch.cuda.synchronize()
     log(f"  weights: {q3.params_bytes(params) / 1e9:.2f} GB in {time.perf_counter() - t:.1f} s")
     handle = start_engine_from_params(
-        cfg, params, contract.EngineLoadOptions(kv_memory_fraction=0.5, seed=SEED),
+        cfg, params, contract.EngineLoadOptions(kv_memory_fraction=0.5, seed=SEED,
+                                                **OLD_DEFAULTS),
         device="cuda")
     ex = handle._scheduler.executor
     log(f"  KV pool: {ex.kv_pages.shape[2]} pages x {PAGE} tokens "
@@ -1045,9 +1116,21 @@ def run_qwen3():
     for r in records:  # the chunked path's own launches beside the main path's
         r["launches_chunked_path"] = chunk_launches[r["name"]]
     next(r for r in records if r["name"] == "flash_prefill")["chunk_shapes"] = k2_chunks
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[8e] Qwen3 PD handoff between two TorchExecutors of {PD_PAGES} pages on the same "
+        f"weights: {PD_PROMPT}/{PD_OUT}")
+    from pegainfer_tpu_torch.engine.torch_executor import TorchExecutor
+
+    def make():
+        return TorchExecutor(cfg, params, q3.make_kv_pages(cfg, PD_PAGES, PAGE, device="cuda"),
+                             contract.EngineLoadOptions(**PD_OPTS))
+
+    pd_record = run_pd("[8e]", make, cfg.vocab_size,
+                       PD_PROMPT // PAGE * q3.kv_bytes_per_page(cfg, PAGE), exact=False)
     serving = {"ttft_ms": ttft_ms, "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
                "prompt": PROMPT, "output": OUT, "paged_decode_shapes": k1_shapes,
-               "flash_prefill_shapes": k2_shapes, "chunked": chunked}
+               "flash_prefill_shapes": k2_shapes, "chunked": chunked, "pd": pd_record}
     return records, serving, steps_json(steps)
 
 
@@ -1650,6 +1733,130 @@ def run_chunked(cfg, q3, params, contract, start_engine_from_params, pd, fp, att
     return serving, launches, shapes
 
 
+# ── phases 8e, 13c, 25a: PD handoff ─────────────────────────────────────
+
+
+def tensors_of(tree):
+    """The tensors of a tree of dicts, lists and tensors."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors_of(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tensors_of(v)
+
+
+def decode_steps_on(ex, rid, first, n):
+    """``n`` greedy decode steps of request ``rid`` on ``ex`` from
+    ``first``. Returns (the stream, the last step's logits [V])."""
+    from pegainfer_tpu_torch.engine import contract
+    from pegainfer_tpu_torch.engine import executor as tx
+
+    last = []
+    model = ex._decode_model
+
+    def logged(*args):
+        out = model(*args)
+        last[:] = [out[0].clone()]
+        return out
+
+    ex._decode_model = logged
+    try:
+        toks = [first]
+        for _ in range(n):
+            res = ex.execute_decode(tx.DecodePlan(requests=[tx.DecodeStepItem(
+                request_id=rid, token_id=toks[-1],
+                params=contract.SamplingParams(ignore_eos=True))]))
+            toks.append(res.requests[0].token)
+    finally:
+        del ex._decode_model  # the class's hook again
+    return toks, last[0]
+
+
+def run_pd(phase, make, vocab, want_bytes, exact):
+    """One PD handoff (``engine/pd.py``) of a greedy PD_PROMPT / PD_OUT
+    request: A runs it alone first (A's own run), then prefills it again and
+    exports it; B, with a throwaway request holding its first pages (and
+    slot), imports it and decodes. The stream must equal A's own, the last
+    step's logits bit for bit (``exact``) or by rule 7, and the payload must
+    hold ``want_bytes``. Returns the record (payload bytes, export and import
+    walls on the host clock)."""
+    from pegainfer_tpu_torch.engine import contract
+    from pegainfer_tpu_torch.engine import executor as tx
+    from pegainfer_tpu_torch.engine import pd as tpd
+
+    rng = np.random.default_rng(SEED + 11)
+    prompt = rng.integers(0, vocab, PD_PROMPT).tolist()
+
+    def item(rid, toks):
+        return tx.PrefillStepItem(request_id=rid, prompt_tokens=toks,
+                                  params=contract.SamplingParams(ignore_eos=True))
+
+    a, b = make(), make()
+    res = a.execute_prefill(tx.PrefillPlan(requests=[item(1, prompt)]))
+    own, own_logits = decode_steps_on(a, 1, res.requests[0].first_token, PD_OUT - 1)
+    own_pages = list(a.acct.get(1).pages)
+    own_slot = getattr(a, "_slots", {}).get(1)
+    a.release_request(1)
+    b.execute_prefill(tx.PrefillPlan(requests=[item(999, prompt[:100])]))  # churn B
+
+    prefill_ms = []
+    execute_prefill = a.execute_prefill
+
+    def timed_prefill(plan):
+        t = time.perf_counter()
+        out = execute_prefill(plan)  # ends in a host read of the first token
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    a.execute_prefill = timed_prefill
+    t = time.perf_counter()
+    payload = tpd.prefill_and_export(a, item(2, prompt))
+    export_ms = (time.perf_counter() - t) * 1e3 - prefill_ms[0]
+    del a.execute_prefill
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tpd.import_request(b, payload)
+    torch.cuda.synchronize()
+    import_ms = (time.perf_counter() - t) * 1e3
+    moved, moved_logits = decode_steps_on(b, 2, payload.first_token, PD_OUT - 1)
+    shipped = list(tensors_of([payload.kv_rows, payload.state_snap]))
+    nbytes = sum(t.numel() * t.element_size() for t in shipped)
+    on_host = all(t.device.type == "cpu" for t in shipped)
+    b_pages = list(b.acct.get(2).pages)
+    b_slot = getattr(b, "_slots", {}).get(2)
+    log(f"  payload {nbytes / 1e6:.2f} MB on the host ({'ok' if on_host else 'FAIL'}; "
+        f"expected {want_bytes / 1e6:.2f} MB); export {export_ms:.3f} ms after the "
+        f"{prefill_ms[0]:.3f} ms prefill, import {import_ms:.3f} ms (host clock)")
+    log(f"  pages on A {own_pages[:3]}..., on B {b_pages[:3]}...; slot on A {own_slot}, "
+        f"on B {b_slot}")
+    if nbytes != want_bytes or not on_host or payload.prompt_len != PD_PROMPT:
+        raise SystemExit(f"{phase} the payload is not the request's pages and rows on the host")
+    if a.acct.get(2) is not None and a.acct.get(2).pages:
+        raise SystemExit(f"{phase} A kept the request's pages after the export")
+    if (own_pages and b_pages[:len(own_pages)] == own_pages) or (
+            own_slot is not None and b_slot == own_slot):
+        raise SystemExit(f"{phase} the import landed on A's page ids or slot; no churn")
+    log(f"  B's stream {moved[:6]}... against A's own {own[:6]}...")
+    if moved != own:
+        raise SystemExit(f"{phase} the handed-off stream differs from A's own run")
+    if exact:
+        same = torch.equal(moved_logits, own_logits)
+        log(f"  the last step's logits equal A's own bit for bit: {same}")
+        if not same:
+            raise SystemExit(f"{phase} the handed-off logits are not A's own bit for bit")
+        share = 0.0
+    else:
+        log("  the last step's logits against A's own run")
+        share = check_logits(moved_logits, own_logits, LOGITS_RTOL,
+                             f"{phase} the handed-off logits disagree with A's own run")
+    return {"prompt": PD_PROMPT, "output": PD_OUT, "payload_bytes": nbytes,
+            "export_ms": export_ms, "import_ms": import_ms, "prefill_ms": prefill_ms[0],
+            "tokens_equal": True, "logits_share_of_limit": share, "exact": exact}
+
+
 def time_chunk(gen, fp, att, T, S, q_offset, Hq, Hkv, hd):
     """K2 on one chunk: T queries at q_offset + i over S = q_offset + T keys,
     against its plain version (each query row at K2's limit); its time, its
@@ -1709,7 +1916,8 @@ def run_qwen35():
     torch.cuda.synchronize()
     log(f"  weights: {q35.params_bytes(params) / 1e9:.2f} GB in {time.perf_counter() - t:.1f} s")
     handle = q35e.start_engine_from_params(cfg, params, contract.EngineLoadOptions(
-        max_batch_size=Q35_SLOTS, kv_memory_fraction=0.5, seed=SEED), device="cuda")
+        max_batch_size=Q35_SLOTS, kv_memory_fraction=0.5, seed=SEED, **OLD_DEFAULTS),
+        device="cuda")
     ex = handle._scheduler.executor
     pool = {"pages": ex.kv_pages.shape[2], "page_tokens": PAGE,
             "kv_bytes": ex.kv_pages.numel() * ex.kv_pages.element_size(),
@@ -1752,6 +1960,20 @@ def run_qwen35():
     serving["max_abs_err"] = errs
     serving["chunked"], c_launches, c_shapes = run_qwen35_chunked(cfg, q35, q35e, params,
                                                                  contract, pd, fp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[25a] Qwen3.5 PD handoff between two HybridExecutors of {Q35_SLOTS} slots and "
+        f"{PD_PAGES} pages on the same weights: {PD_PROMPT}/{PD_OUT}")
+    from pegainfer_tpu_torch.engine.hybrid_executor import HybridExecutor
+
+    def make():
+        state = q35.make_state(cfg, PD_PAGES, PAGE, Q35_SLOTS, device="cuda")
+        return HybridExecutor(cfg, params, state, contract.EngineLoadOptions(
+            max_batch_size=Q35_SLOTS, **PD_OPTS))
+
+    serving["pd"] = run_pd("[25a]", make, cfg.vocab_size,
+                           PD_PROMPT // PAGE * q35.kv_bytes_per_page(cfg, PAGE)
+                           + q35.slot_bytes(cfg), exact=False)
     return serving, steps_json(steps_prof), run["launches"], c_launches, c_shapes
 
 
@@ -2194,6 +2416,177 @@ def run_dsv4():
     return cfg, params, records, serving, steps_json(steps)
 
 
+# ── phases 13a-13c: DeepSeek-V4's slot prefix cache and PD handoff ──────
+
+
+def run_dsv4_cache(cfg, params):
+    """Phases 13a-13c on the fp4 params. Returns (the cache record, the PD
+    record, K3's and K4's launches inside the engine's resumes, read from
+    their counts)."""
+    from pegainfer_tpu_torch.engine import contract
+    from pegainfer_tpu_torch.engine.slot_executor import SlotExecutor
+    from pegainfer_tpu_torch.models import dsv4 as d4
+    from pegainfer_tpu_torch.models import dsv4_engine as d4e
+    from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
+    from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
+    from pegainfer_tpu_torch.ops.cuda import fp8_gemv as k4
+
+    opts = contract.EngineLoadOptions(max_batch_size=DSV4_SLOTS,
+                                      max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED)
+    log(f"[13a] the slot prefix cache under the engine's defaults (enable_prefix_cache="
+        f"{opts.enable_prefix_cache}, prefill_chunk={opts.prefill_chunk}): P "
+        f"{DSV4_CACHE_PROMPT}/{DSV4_CACHE_OUT} with logprobs, P again, P + {DSV4_CACHE_EXT}, "
+        f"P + {DSV4_CACHE_FAR} other tokens, one after another")
+    if not (opts.enable_prefix_cache and opts.prefill_chunk == 2048):
+        raise SystemExit("the engine's defaults are not the JAX engine's")
+    handle = d4e.start_engine_from_params(cfg, params, opts, device="cuda")
+    ex = handle._scheduler.executor
+    cache = ex.slot_prefix_cache
+    if cache is None:
+        raise SystemExit("the DSv4 engine built no slot prefix cache under the defaults")
+    log(f"  cache: {cache.max_entries} entries of {ex.snapshot_bytes / 1e6:.3f} MB")
+    rng = np.random.default_rng(SEED + 12)
+    P = rng.integers(0, cfg.vocab_size, DSV4_CACHE_PROMPT).tolist()
+    ext = P + rng.integers(0, cfg.vocab_size, DSV4_CACHE_EXT).tolist()
+    far = P + rng.integers(0, cfg.vocab_size, DSV4_CACHE_FAR).tolist()
+    plan = (("a", P, 1), ("b", P, 0), ("c", ext, 0), ("d", far, 0))
+    kernels = {"moe_fp4_gemv": k3, "fp8_gemv": k4, "moe_fp4_grouped": k5}
+    out = {}
+    # K3's and K4's launches inside the engine's resumes, read from their
+    # counts before and after each dsv4.prefill_resume call
+    resume_launches = {"moe_fp4_gemv": 0, "fp8_gemv": 0}
+    resume = d4.prefill_resume
+
+    def counted_resume(*args, **kwargs):
+        before = {n: kernels[n].launches for n in resume_launches}
+        logits = resume(*args, **kwargs)
+        for n in resume_launches:
+            resume_launches[n] += kernels[n].launches - before[n]
+        return logits
+
+    d4.prefill_resume = counted_resume
+    try:
+        for mod in kernels.values():
+            mod.launches = 0
+        ex.prefills = ex.decode_steps = ex.resume_steps = 0
+        for name, prompt, logprobs in plan:
+            k5_before = k5.launches
+            ch, t0 = run_request(contract, handle, prompt, DSV4_CACHE_OUT, logprobs=logprobs)
+            toks, fin, times = drain(contract, ch)
+            expect_finished(contract, f"({name}) {len(prompt)}/{DSV4_CACHE_OUT}", toks, fin,
+                            DSV4_CACHE_OUT)
+            out[name] = {"prompt": len(prompt), "ttft_ms": (times[0] - t0) * 1e3,
+                         "tokens": toks, "k5_launches": k5.launches - k5_before}
+        launches = {n: mod.launches for n, mod in kernels.items()}
+        counts = {"hits": cache.hits, "misses": cache.misses, "prefills": ex.prefills,
+                  "decode_steps": ex.decode_steps, "resume_steps": ex.resume_steps}
+    finally:
+        d4.prefill_resume = resume
+        handle.shutdown()
+        handle._thread.join(timeout=60)
+    del handle, ex, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    L, steps = cfg.n_layers, counts["decode_steps"]
+    log(f"  {counts}; TTFT " + ", ".join(f"({n}) {r['ttft_ms']:.3f} ms" for n, r in out.items())
+        + " (host clock)")
+    if (counts["hits"], counts["misses"], counts["prefills"], counts["resume_steps"]) != (
+            3, 1, 2, DSV4_CACHE_EXT):
+        raise SystemExit("the cache did not take (a) as a miss and (b)-(d) as hits, with "
+                         f"fresh prefills for (a) and (d) and {DSV4_CACHE_EXT} resume steps")
+    if out["b"]["k5_launches"] or out["b"]["tokens"] != out["a"]["tokens"]:
+        raise SystemExit("(b) ran a prefill or streamed other tokens than (a)")
+    run_steps = steps + counts["resume_steps"]
+    check_launches(launches, {"moe_fp4_gemv": 3 * L * run_steps,
+                              "fp8_gemv": fp8_per_decode_step(cfg) * run_steps,
+                              "moe_fp4_grouped": 3 * L * counts["prefills"]},
+                   f"{counts['prefills']} fresh prefills, {steps} decode steps + "
+                   f"{counts['resume_steps']} resume steps")
+    check_launches(resume_launches, {"moe_fp4_gemv": 3 * L * counts["resume_steps"],
+                                     "fp8_gemv": fp8_per_decode_step(cfg)
+                                     * counts["resume_steps"]},
+                   f"K3 / K4 inside the engine's resumes, {counts['resume_steps']} steps")
+
+    log(f"[13b] (c)'s resume on the model: P prefilled into slot 0, its snapshot imported "
+        f"into slot 1, {DSV4_CACHE_EXT} tokens resumed there against {DSV4_CACHE_EXT} decode "
+        "steps on slot 0")
+    blocks = d4e.max_blocks_for(cfg, DSV4_MAX_MODEL_LEN)
+    state = d4.make_state(cfg, DSV4_SLOTS, blocks, dtype=torch.bfloat16, device="cuda")
+    suffix = torch.tensor(ext[DSV4_CACHE_PROMPT:], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        d4.prefill(cfg, params, torch.tensor(P, dtype=torch.int32, device="cuda"), state=state,
+                   slot=0, last_only=True)
+        snap = d4.slot_export(state, 0)
+        d4.slot_import(state, snap, 1)
+        torch.cuda.synchronize()
+        before = {n: kernels[n].launches for n in resume_launches}
+        t = time.perf_counter()
+        resumed = d4.prefill_resume(cfg, params, state, suffix, DSV4_CACHE_PROMPT, 1)
+        torch.cuda.synchronize()
+        resume_ms = (time.perf_counter() - t) * 1e3
+        check_launches({n: kernels[n].launches - before[n] for n in resume_launches},
+                       {"moe_fp4_gemv": 3 * L * DSV4_CACHE_EXT,
+                        "fp8_gemv": fp8_per_decode_step(cfg) * DSV4_CACHE_EXT},
+                       f"K3 / K4 inside the model's resume of {DSV4_CACHE_EXT} tokens")
+        one = torch.zeros(1, dtype=torch.int32, device="cuda")
+        for i in range(DSV4_CACHE_EXT):
+            direct = d4.decode(cfg, params, state, suffix[i:i + 1],
+                               torch.tensor([DSV4_CACHE_PROMPT + i], dtype=torch.int32,
+                                            device="cuda"), one)[0]
+        ext_t = torch.tensor(ext, dtype=torch.int32, device="cuda")
+        d4.prefill(cfg, params, ext_t, last_only=True)  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        whole, _ = d4.prefill(cfg, params, ext_t, last_only=True)
+        torch.cuda.synchronize()
+        fresh_ms = (time.perf_counter() - t) * 1e3
+    same = torch.equal(resumed, direct)
+    rows = sum(t.numel() * t.element_size() for ls in snap["layers"] for t in ls.values())
+    log(f"  resumed logits equal the direct decode steps' bit for bit: {same}; "
+        f"snapshot_bytes {d4.snapshot_bytes(state)}, the rows' sum {rows}, expected "
+        f"{DSV4_SNAPSHOT_BYTES}")
+    if not same:
+        raise SystemExit("the resume from an imported snapshot differs from the decode steps")
+    if not d4.snapshot_bytes(state) == rows == DSV4_SNAPSHOT_BYTES:
+        raise SystemExit("snapshot_bytes is not the sum of one slot's rows")
+    if not (bool(torch.isfinite(resumed).all()) and resumed.shape == (cfg.vocab_size,)):
+        raise SystemExit("the resumed logits are not finite [V]")
+    diff = (resumed - whole[0]).abs().max().item()
+    limit = DSV4_LOGITS_RTOL * whole[0].abs().max().item()
+    argmax_same = int(resumed.argmax()) == int(whole[0].argmax())
+    step_ms = resume_ms / DSV4_CACHE_EXT
+    crossover = int(fresh_ms // step_ms)
+    log(f"  resumed logits against one whole prefill of P + {DSV4_CACHE_EXT} (reported, not "
+        f"gated: decode and prefill run other kernels, and routing flips on near ties): "
+        f"max |diff| {diff:.4g}, {diff / limit:.3f} of rule 7's limit; argmax agrees: "
+        f"{argmax_same}")
+    log(f"  resume {resume_ms:.3f} ms for {DSV4_CACHE_EXT} tokens ({step_ms:.3f} ms a step); "
+        f"one fresh prefill of {len(ext)} tokens {fresh_ms:.3f} ms; the resume is faster "
+        f"below a suffix of about {crossover} tokens (host clock)")
+    del state, snap
+    record = {"options": {"enable_prefix_cache": True, "prefill_chunk": 2048},
+              "requests": {n: {k: v for k, v in r.items() if k != "tokens"}
+                           for n, r in out.items()}, **counts,
+              "snapshot_bytes": rows, "resume_bit_exact": same,
+              "resume_vs_whole_share_of_limit": diff / limit,
+              "resume_vs_whole_argmax_agrees": argmax_same, "resume_ms": resume_ms,
+              "resume_step_ms": step_ms, "fresh_prefill_ms": fresh_ms,
+              "crossover_tokens": crossover}
+
+    log(f"[13c] DSv4 PD handoff between two SlotExecutors on the same weights: "
+        f"{PD_PROMPT}/{PD_OUT}")
+
+    def make():
+        state = d4.make_state(cfg, DSV4_SLOTS, blocks, dtype=torch.bfloat16, device="cuda")
+        return SlotExecutor(cfg, params, state, DSV4_SLOTS, DSV4_MAX_MODEL_LEN,
+                            contract.EngineLoadOptions(**PD_OPTS))
+
+    with torch.no_grad():
+        pd_record = run_pd("[13c]", make, cfg.vocab_size, DSV4_SNAPSHOT_BYTES, exact=True)
+    return record, pd_record, resume_launches
+
+
 def check_dsv4_logits(cfg, d4, d4e, params, toks_t, prefill=True, moe_chain=None,
                       label=""):
     """The prompt's last prefill logits (with ``prefill``) and one decode
@@ -2251,7 +2644,7 @@ def dsv4_engine(cfg, contract, d4e, params, quantize=None, moe_chain=None):
     return d4e.start_engine_from_params(
         cfg, params, contract.EngineLoadOptions(
             max_batch_size=DSV4_SLOTS, max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED,
-            quantize=quantize),
+            quantize=quantize, **OLD_DEFAULTS),
         device="cuda", moe_chain=moe_chain)
 
 

@@ -41,14 +41,16 @@ class SamplingParams:
 @dataclass
 class EngineLoadOptions:
     """Engine startup options (counterpart of the JAX package's
-    ``EngineLoadOptions``).
+    ``EngineLoadOptions``), with its defaults: prompts longer than 2,048
+    tokens prefill in pieces and the prefix cache is on (Qwen3's page
+    cache, the Qwen3.5 hybrid's pages with state snapshots, DeepSeek-V4's
+    slot snapshots; DSv4 prefills every prompt whole, as the JAX engine
+    does).
 
     ``quantize`` and ``decode_block`` name features of the JAX engine that
-    the Qwen3 executor does not have yet; it raises ``NotImplementedError``
-    when one is set away from its default, so no option is silently
-    ignored. The DSv4 executor also refuses the prefix cache and
-    ``prefill_chunk``; until it takes them, their defaults here stay off
-    (the JAX engine's are on, with chunks of 2048).
+    the executors do not all have yet; an executor raises
+    ``NotImplementedError`` when one is set away from what it supports, so
+    no option is silently ignored.
     """
 
     seed: int = 42
@@ -61,11 +63,12 @@ class EngineLoadOptions:
     quantize: Optional[str] = None
     decode_block: int = 1
     # Shared-prompt-prefix page cache: a repeated prompt skips prefilling
-    # its cached page-aligned prefix. Needs ``prefill_chunk``.
-    enable_prefix_cache: bool = False
+    # its cached page-aligned prefix (Qwen3 and the hybrid need
+    # ``prefill_chunk``); DeepSeek-V4 caches whole-slot snapshots.
+    enable_prefix_cache: bool = True
     # Prompts longer than this prefill in pieces of this many tokens
     # (aligned down to the page); None prefills every prompt whole.
-    prefill_chunk: Optional[int] = None
+    prefill_chunk: Optional[int] = 2048
     # Piece size while other requests decode: each piece then carries one
     # decode row per active stream (the fused mixed step), so it bounds the
     # streams' token gap. PEGAINFER_MIXED_FUSED=0 time-slices instead.

@@ -17,6 +17,9 @@ state snapshot (``PrefixCache.match_hybrid``), whose rows are copied into
 the request's slot before its first piece; the stepper ends a long prompt
 with a fine tail and snapshots (copies of the slot's rows) the deepest
 piece end within a chunk of the prompt's end and the page-aligned end.
+A PD handoff (``engine/pd.py``) carries the request's pages and its slot's
+rows (``export_pages`` / ``import_pages``, ``slot_export`` /
+``slot_import``).
 
 Not here yet, and refused with ``NotImplementedError``: int8 weights,
 multi-token decode blocks and echo.
@@ -89,8 +92,12 @@ class HybridExecutor(StateSlots, TorchExecutor):
         return q35.decode(self.cfg, self.params, self.state, tokens, positions, tables,
                           seq_lens, self._slots_of(items, tokens.shape[0]))
 
-    def _snapshot(self, item):
-        return q35.slot_export(self.state, self._slot(item.request_id))
+    # ── slot rows: cache snapshots, PD hooks (engine/pd.py); the pages'
+    # hooks are TorchExecutor's, on state["kv"] ─────────────────────────
 
-    def _restore_snapshot(self, item, snap) -> None:
-        q35.slot_import(self.state, snap, self._slot(item.request_id))
+    def slot_export(self, slot: int):
+        """A copy of ``slot``'s recurrent and conv rows."""
+        return q35.slot_export(self.state, slot)
+
+    def slot_import(self, snap, slot: int) -> None:
+        q35.slot_import(self.state, snap, slot)

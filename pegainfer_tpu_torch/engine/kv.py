@@ -2,9 +2,10 @@
 
 The PyTorch port's own copy of the Python half of
 ``pegainfer_tpu/engine/kv.py``: the refcounted ``PagePool``, ``KvState``,
-``KvAccounting``, the admission rule and the page ``PrefixCache`` with the
-hybrid models' state snapshots (``match_hybrid``, ``insert_snapshot``). The
-slot prefix cache and the native C++ accounting core are not carried over.
+``KvAccounting``, the admission rule, the page ``PrefixCache`` with the
+hybrid models' state snapshots (``match_hybrid``, ``insert_snapshot``) and
+the page-less models' ``SlotPrefixCache``. The native C++ accounting core is
+not carried over.
 
 Key invariant: a request is only admitted when its *full-lifetime* page count
 fits in the budget after subtracting every active request's future growth,
@@ -306,6 +307,66 @@ class PrefixCache:
     def clear(self) -> None:
         self._snaps.clear()
         self._evict(len(self._pages))
+
+
+class SlotPrefixCache:
+    """Prefix cache for a page-less model (DeepSeek-V4: per-slot window
+    ring and compressed rows, no paged KV); the JAX package's
+    ``SlotPrefixCache``.
+
+    An entry is a whole prompt's token tuple with the slot-state snapshot
+    taken after prefilling exactly those tokens (``dsv4.slot_export``, the
+    payload a PD handoff ships) and, optionally, the prompt-end logits. A
+    prompt extending a cached one imports the snapshot and runs only the
+    suffix through the decode recurrence (``dsv4.prefill_resume``); an
+    identical prompt with stored logits skips the forward. Snapshots are
+    whole-slot rows (MBs each at full width), so the cache is LRU-capped by
+    entry count, not bytes.
+    """
+
+    def __init__(self, max_entries: int = 4) -> None:
+        # prompt token tuple -> (snapshot, logits [V] | None); dict order is
+        # the LRU order (refreshed on a hit)
+        self._entries: Dict[tuple, tuple] = {}
+        self.max_entries = max_entries
+        self.hits = 0
+        self.misses = 0
+
+    def match(self, tokens: Sequence[int]) -> Optional[tuple]:
+        """The longest cached prompt that is a prefix of ``tokens``, as
+        (pos, snapshot, logits); ``pos == len(tokens)`` only when the entry
+        stored logits (no forward is left to make them). None on a miss."""
+        t = tuple(tokens)
+        best = None
+        for key, (snap, logits) in self._entries.items():
+            n = len(key)
+            if n > len(t) or (n == len(t) and logits is None):
+                continue
+            if best is not None and n <= best[0]:
+                continue
+            if t[:n] == key:
+                best = (n, key, snap, logits)
+        if best is None:
+            self.misses += 1
+            return None
+        n, key, snap, logits = best
+        self._entries[key] = self._entries.pop(key)  # refresh its LRU place
+        self.hits += 1
+        return n, snap, logits
+
+    def insert(self, tokens: Sequence[int], snap, logits=None) -> None:
+        key = tuple(tokens)
+        if not key:
+            return
+        old = self._entries.pop(key, None)
+        if old is not None and logits is None:
+            logits = old[1]  # a re-insert without logits keeps the old ones
+        self._entries[key] = (snap, logits)
+        while len(self._entries) > self.max_entries:
+            self._entries.pop(next(iter(self._entries)))
+
+    def clear(self) -> None:
+        self._entries.clear()
 
 
 # ── Admission control ────────────────────────────────────────────────────

@@ -9,17 +9,34 @@ is bound by the slots, which the scheduler gates on ``free_slots()``.
 
 Whole-prompt prefill writes the request's slot in place; a decode step runs
 the active requests with the batch padded to its bucket by dead-slot rows
-at position 0. Sampling and logprobs are ``TorchExecutor``'s.
+at position 0. Sampling and logprobs are ``torch_executor.py``'s.
+
+``enable_prefix_cache`` turns on the slot prefix cache
+(``engine/kv.py::SlotPrefixCache``), as in the JAX executor: every fresh
+prefill stores a snapshot of its slot (with the prompt-end logits when the
+request asked for logprobs); a prompt that extends a cached one by a short
+suffix (at most ``max(32, T // 16)`` tokens) imports the snapshot and runs
+the suffix through the decode recurrence (``dsv4.prefill_resume``), and an
+identical prompt whose entry kept its logits skips the forward. The cache
+holds at most 4 entries and at most a fifth of the card's free memory.
+``prefill_chunk`` and ``prefill_chunk_mixed`` are taken with the JAX
+engine's meaning for DSv4, which has no chunked prefill: every prompt
+prefills whole (there is no ``prefill_stepper``, so the scheduler never
+chunks one).
+
+``slot_export`` / ``slot_import`` are the PD handoff's hooks
+(``engine/pd.py``): the slot's rows are the whole payload.
 
 ``quantize="int8-experts"`` serves experts requantized to int8 at load
-(``models/dsv4_engine.py``); ``moe_chain`` is handed to every prefill and
-decode step (``models/dsv4.py``). Not here yet, and refused with
-``NotImplementedError``: bf16 weights (dequantized at load), the slot
-prefix cache, chunked prefill, multi-token decode blocks and echo.
+(``models/dsv4_engine.py``); ``moe_chain`` is handed to every prefill,
+resume and decode step (``models/dsv4.py``). Not here yet, and refused with
+``NotImplementedError``: bf16 weights (dequantized at load), multi-token
+decode blocks and echo.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import numpy as np
@@ -36,28 +53,49 @@ from pegainfer_tpu_torch.engine.executor import (
     UnifiedPlan,
     UnifiedResult,
 )
-from pegainfer_tpu_torch.engine.kv import KvAccounting, PagePool
+from pegainfer_tpu_torch.engine.kv import KvAccounting, PagePool, SlotPrefixCache
 from pegainfer_tpu_torch.engine.slots import StateSlots
 from pegainfer_tpu_torch.engine.torch_executor import (
     bucket_batch,
+    first_token,
     sample_tokens,
     token_logprobs,
 )
 from pegainfer_tpu_torch.models import dsv4
+
+log = logging.getLogger("pegainfer_torch.slot_executor")
+
+# the slot prefix cache's entries: at most this many, and at most this share
+# of the card's free memory (the JAX executor's ``_slot_cache_cap``)
+SLOT_CACHE_ENTRIES = 4
+SLOT_CACHE_FRACTION = 0.2
 
 
 def check_supported(opts: EngineLoadOptions) -> None:
     """Refuse the JAX DSv4 engine's options the port does not implement."""
     unsupported = {
         f"quantize={opts.quantize!r}": opts.quantize not in (None, "int8-experts"),
-        "enable_prefix_cache (slot prefix cache)": opts.enable_prefix_cache,
-        "prefill_chunk": opts.prefill_chunk is not None,
         "decode_block": opts.decode_block != 1,
     }
     named = [k for k, v in unsupported.items() if v]
     if named:
         raise NotImplementedError(
             "the PyTorch port's DeepSeek-V4 engine does not support yet: " + ", ".join(named))
+
+
+def slot_cache_cap(snapshot_bytes: int, device: torch.device) -> int:
+    """Entries of the slot prefix cache: ``SLOT_CACHE_ENTRIES``, or fewer
+    when that many snapshots would take more than ``SLOT_CACHE_FRACTION``
+    of the card's free memory (snapshots lie outside the slot state). On
+    the CPU the cap is the default."""
+    if device.type != "cuda" or not snapshot_bytes:
+        return SLOT_CACHE_ENTRIES
+    free, _ = torch.cuda.mem_get_info(device)
+    cap = min(SLOT_CACHE_ENTRIES, int(free * SLOT_CACHE_FRACTION) // snapshot_bytes)
+    if cap < SLOT_CACHE_ENTRIES:
+        log.warning("slot prefix cache capped at %d entries (%.1f MB a snapshot, %.1f MB free)",
+                    cap, snapshot_bytes / 2**20, free / 2**20)
+    return cap
 
 
 class SlotExecutor(StateSlots):
@@ -79,9 +117,14 @@ class SlotExecutor(StateSlots):
         self.max_batch = min(opts.max_batch_size, max_slots)
         self._max_pages = min(self.acct.pool.available, max_model_len)
         self._stop_ids = frozenset({cfg.eos_token_id})
-        # what ran, for callers that check the path (chip_smoke.py)
+        self.snapshot_bytes = dsv4.snapshot_bytes(state)
+        cap = slot_cache_cap(self.snapshot_bytes, self.device) if opts.enable_prefix_cache else 0
+        self.slot_prefix_cache = SlotPrefixCache(max_entries=cap) if cap > 0 else None
+        # what ran, for callers that check the path (chip_smoke.py): fresh
+        # prefills, decode steps, and the decode steps of cache resumes
         self.prefills = 0
         self.decode_steps = 0
+        self.resume_steps = 0
 
     # ── scheduler-facing accounting ──────────────────────────────────
 
@@ -104,6 +147,10 @@ class SlotExecutor(StateSlots):
             raise NotImplementedError("echo is not supported by the PyTorch port yet")
         T = len(item.prompt_tokens)
         st = self.acct.state(item.request_id)
+        if self.slot_prefix_cache is not None and st.length == 0:
+            res = self._maybe_prefill_resume(item, st)
+            if res is not None:
+                return res
         st.ensure_capacity(self.acct.pool, T)
         slot = self._slot(item.request_id)
         tokens = torch.tensor(item.prompt_tokens, dtype=torch.int32, device=self.device)
@@ -111,10 +158,47 @@ class SlotExecutor(StateSlots):
                                  slot=slot, last_only=True, moe_chain=self.moe_chain)
         st.advance(T)
         self.prefills += 1
-        host, dev = sample_tokens(logits, [item])
-        return PrefillRequestResult(
-            request_id=item.request_id, first_token=host[0],
-            first_token_logprob=token_logprobs(logits, dev, [item])[0])
+        if self.slot_prefix_cache is not None:
+            # the prompt-end logits are kept where the JAX executor keeps
+            # them, for a request that asked for logprobs (its fused greedy
+            # prefill returns none): a later identical prompt then skips
+            # its forward exactly where the JAX executor's does
+            self._slot_cache_insert(item, slot, logits[0] if item.logprobs > 0 else None)
+        return first_token(item, logits[0])
+
+    def _slot_cache_insert(self, item, slot: int, logits=None) -> None:
+        self.slot_prefix_cache.insert(item.prompt_tokens, self.slot_export(slot), logits)
+
+    def _maybe_prefill_resume(self, item, st) -> Optional[PrefillRequestResult]:
+        """Serve a prompt from the slot prefix cache: import the longest
+        cached snapshot into the request's slot and run the rest of the
+        prompt through the decode recurrence; an identical prompt with
+        stored logits runs nothing. None when there is no usable hit (the
+        caller prefills from scratch)."""
+        T = len(item.prompt_tokens)
+        hit = self.slot_prefix_cache.match(item.prompt_tokens)
+        if hit is None:
+            return None
+        pos, snap, logits = hit
+        suffix = T - pos
+        # a resume runs at decode rate, one token a step, so it pays only
+        # for a short suffix on a long cached prefix; past this a fresh
+        # prefill is faster (the JAX executor's threshold)
+        if suffix > max(32, T // 16):
+            return None
+        st.ensure_capacity(self.acct.pool, T)
+        slot = self._slot(item.request_id)
+        self.slot_import(snap, slot)
+        if suffix:
+            tokens = torch.tensor(item.prompt_tokens[pos:], dtype=torch.int32,
+                                  device=self.device)
+            logits = dsv4.prefill_resume(self.cfg, self.params, self.state, tokens, pos, slot,
+                                         moe_chain=self.moe_chain)
+            self.resume_steps += suffix
+        st.advance(T)
+        if suffix:  # the extended prompt is itself a likely future prefix
+            self._slot_cache_insert(item, slot, logits)
+        return first_token(item, logits)
 
     def execute_prefill(self, plan: PrefillPlan) -> PrefillResult:
         return PrefillResult(requests=[self._prefill_one(it) for it in plan.requests])
@@ -145,8 +229,7 @@ class SlotExecutor(StateSlots):
         if len(items) > self.max_batch:
             raise RuntimeError(f"decode batch {len(items)} exceeds the {self.max_batch} slots")
         (tokens, positions, slots), states = self._decode_inputs(items)
-        logits = dsv4.decode(self.cfg, self.params, self.state, tokens, positions, slots,
-                             moe_chain=self.moe_chain)
+        logits = self._decode_model(items, tokens, positions, slots)
         for st in states:
             st.advance(1)
         self.decode_steps += 1
@@ -157,6 +240,22 @@ class SlotExecutor(StateSlots):
             DecodeRequestResult(request_id=it.request_id, token=host[i], logprob=lps[i])
             for i, it in enumerate(items)
         ])
+
+    def _decode_model(self, items, tokens, positions, slots):
+        """The model call of one decode step over the padded batch: logits
+        [B, V]."""
+        return dsv4.decode(self.cfg, self.params, self.state, tokens, positions, slots,
+                           moe_chain=self.moe_chain)
+
+    # ── the slot's rows: cache snapshots, PD hooks (engine/pd.py) ────
+
+    def slot_export(self, slot: int):
+        """A copy of ``slot``'s rows in every layer (a PD handoff's whole
+        payload)."""
+        return dsv4.slot_export(self.state, slot)
+
+    def slot_import(self, snap, slot: int) -> None:
+        dsv4.slot_import(self.state, snap, slot)
 
     # ── unified ──────────────────────────────────────────────────────
 

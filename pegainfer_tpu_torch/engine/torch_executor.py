@@ -9,8 +9,10 @@ prefill piece runs at its own length; the decode batch is still padded to
 the JAX executor's batch buckets (padding rows: null page, seq_len 0). The
 model calls are hooks (``_prefill_model``, ``_chunk_model``,
 ``_mixed_model``, ``_decode_model``) that ``HybridExecutor`` overrides; with
-its cache on, the stepper also keeps state snapshots at piece ends and
-restores a cache hit's before the first piece (``_hybrid_cache``).
+its cache on (``_hybrid_cache``), the stepper also keeps state snapshots
+at piece ends and restores a cache hit's before the first piece, through
+its ``slot_export`` / ``slot_import``. ``export_pages`` / ``import_pages``
+are the PD handoff's hooks (``engine/pd.py``).
 
 Not here yet, and refused with ``NotImplementedError``: multi-token decode
 blocks, int8 weights and echo.
@@ -144,6 +146,17 @@ def token_logprobs(logits, toks, items) -> List[Optional[TokenLogprob]]:
     return out
 
 
+def first_token(item, last_logits) -> PrefillRequestResult:
+    """Sample a prompt's first output token from its last logits [V]."""
+    logits = last_logits[None, :]
+    host, dev = sample_tokens(logits, [item])
+    return PrefillRequestResult(
+        request_id=item.request_id,
+        first_token=host[0],
+        first_token_logprob=token_logprobs(logits, dev, [item])[0],
+    )
+
+
 @dataclass
 class PendingDecode:
     """The decode rows of a fused mixed piece, sampled but not yet applied:
@@ -233,14 +246,8 @@ class TorchExecutor:
     # ── prefill ──────────────────────────────────────────────────────
 
     def _first_token(self, item, last_logits) -> PrefillRequestResult:
-        """Sample a prompt's first output token from its last logits [V]."""
-        logits = last_logits[None, :]
-        host, dev = sample_tokens(logits, [item])
-        return PrefillRequestResult(
-            request_id=item.request_id,
-            first_token=host[0],
-            first_token_logprob=token_logprobs(logits, dev, [item])[0],
-        )
+        # a method, so that a caller can watch each prompt's last logits
+        return first_token(item, last_logits)
 
     def _maybe_seed_prefix(self, item, st) -> None:
         """Seed ``st`` with the cached prefix pages of this prompt (once; a
@@ -282,7 +289,7 @@ class TorchExecutor:
         tokens = torch.tensor(item.prompt_tokens, dtype=torch.int32, device=self.device)
         table = torch.tensor(st.pages, dtype=torch.int32, device=self.device)
         if st.prefix_snap is not None:  # a hybrid cache hit: its state first
-            self._restore_snapshot(item, st.prefix_snap)
+            self.slot_import(st.prefix_snap, self._slot(item.request_id))
             st.prefix_snap = None
         fine_tail = self._hybrid_cache and self._small_piece < chunk
         snaps = []  # [(pos, snapshot)]: the deepest interior one, the aligned end
@@ -306,7 +313,7 @@ class TorchExecutor:
                 # no copy
                 if snaps and snaps[-1][0] < T and end < T:
                     snaps.pop()
-                snaps.append((end, self._snapshot(item)))
+                snaps.append((end, self.slot_export(self._slot(item.request_id))))
             if end < T:
                 yield end
         st.advance(T)
@@ -445,6 +452,15 @@ class TorchExecutor:
         executor's multi-token resolve, one token a row here."""
         return [(it.request_id, [tok], None if lp is None else [lp])
                 for it, tok, lp in zip(pending.items, pending.tokens, pending.logprobs)]
+
+    # ── PD handoff hooks (engine/pd.py) ──────────────────────────────
+
+    def export_pages(self, page_ids):
+        """A copy of the pages ``page_ids`` of every layer."""
+        return q3.export_pages(self.kv_pages, page_ids)
+
+    def import_pages(self, rows, page_ids) -> None:
+        q3.import_pages(self.kv_pages, rows, page_ids)
 
     # ── unified ──────────────────────────────────────────────────────
 

@@ -832,3 +832,51 @@ def decode(cfg: DSv4Config, params, state, tokens, positions, slots,
             cfg.compress_ratios[li], li < cfg.n_hash_layers,
             _inv_freq(cfg, li, tokens.device), plain_kernels, moe_chain)
     return _head_logits(cfg, params, streams)
+
+
+# ── Slot snapshots (the slot prefix cache, PD handoff) ───────────────────
+
+
+def slot_export(state, slot: int):
+    """A copy of ``slot``'s rows in every layer's caches (the JAX
+    ``slot_export``): the window ring, the compressed rows and the running
+    compressor rings are the request's whole attention state. Later steps
+    overwrite the slot in place, so a view would change under the cache."""
+    return {"layers": [{key: rows[slot].clone() for key, rows in ls.items()}
+                       for ls in state["layers"]]}
+
+
+def slot_import(state, snap, slot: int) -> None:
+    """Copy a snapshot into ``slot``'s rows (the JAX ``slot_import``); the
+    snapshot stays its owner's. A snapshot on the host is copied over."""
+    for ls, rows in zip(state["layers"], snap["layers"]):
+        for key, cache in ls.items():
+            cache[slot].copy_(rows[key])
+
+
+def snapshot_bytes(state) -> int:
+    """Bytes of one slot's rows (what ``slot_export`` copies)."""
+    return sum(c.numel() // c.shape[0] * c.element_size()
+               for ls in state["layers"] for c in ls.values())
+
+
+def prefill_resume(cfg: DSv4Config, params, state, tokens, start_pos: int, slot: int,
+                   plain_kernels: bool = False, moe_chain: Optional[bool] = None):
+    """Continue a prompt from a cached prefix (the JAX
+    ``prefill_resume_grouped``): feed the suffix ``tokens`` [n] one token a
+    step through ``decode`` at B = 1 on ``slot``, at positions ``start_pos
+    + i``. DSv4's state depends on position (window ring, running
+    compressor rings), so continuing a prompt is exactly a run of decode
+    steps. The JAX function pads the suffix to a power of two and sends the
+    padding steps to the dead slot to bound its compiles; eager code has no
+    compiles to bound, so this runs exactly n steps. Returns the last
+    step's logits [V] f32."""
+    if tokens.shape[0] == 0:
+        raise ValueError("prefill_resume needs at least one token")
+    dev = tokens.device
+    slots = torch.tensor([slot], dtype=torch.int32, device=dev)
+    for i in range(tokens.shape[0]):
+        pos = torch.tensor([start_pos + i], dtype=torch.int32, device=dev)
+        logits = decode(cfg, params, state, tokens[i:i + 1], pos, slots,
+                        plain_kernels=plain_kernels, moe_chain=moe_chain)
+    return logits[0]

@@ -63,6 +63,10 @@ def start_engine_from_params(cfg: dsv4.DSv4Config, params,
                             dtype=torch.bfloat16, device=dev)
     log.info("DSv4: %d slots, max_model_len %d", max_slots, max_model_len)
     executor = SlotExecutor(cfg, params, state, max_slots, max_model_len, opts, moe_chain)
+    cache = executor.slot_prefix_cache
+    log.info("DSv4 slot prefix cache: %s (%.2f MB a snapshot)",
+             f"{cache.max_entries} entries" if cache is not None else "off",
+             executor.snapshot_bytes / 1e6)
     return start_scheduler(executor, seed=opts.seed)
 
 

@@ -272,6 +272,25 @@ def kv_bytes_per_page(cfg: Qwen3Config, page_size: int, dtype=torch.bfloat16) ->
             * cfg.head_dim * itemsize)
 
 
+def export_pages(kv_pages, page_ids):
+    """Gather whole pages for a PD handoff (``engine/pd.py``; the JAX
+    ``export_pages``): [L, Hkv, pages, 2, ps, hd] x ids [n] -> [L, Hkv, n,
+    2, ps, hd], a copy."""
+    return kv_pages.index_select(2, _page_ids(page_ids, kv_pages.device))
+
+
+def import_pages(kv_pages, rows, page_ids) -> None:
+    """Scatter handed-off page rows into this pool's pages ``page_ids`` in
+    place, in one indexed copy (the JAX ``import_pages``); ``rows`` may lie
+    on the host."""
+    kv_pages.index_copy_(2, _page_ids(page_ids, kv_pages.device),
+                         rows.to(device=kv_pages.device, dtype=kv_pages.dtype))
+
+
+def _page_ids(page_ids, device) -> torch.Tensor:
+    return torch.as_tensor(page_ids, dtype=torch.long).to(device)
+
+
 # ── Forward building blocks ──────────────────────────────────────────────
 
 

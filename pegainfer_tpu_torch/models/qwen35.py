@@ -46,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pegainfer_tpu_torch.models import qwen3 as q3
 from pegainfer_tpu_torch.models.qwen3 import chunk_attention, chunk_rows, decode_attention
 from pegainfer_tpu_torch.ops import attention as att
 from pegainfer_tpu_torch.ops import gdn
@@ -718,6 +719,19 @@ def mixed_chunk(cfg: Qwen35Config, params, state, chunk_tokens, start_pos: int,
 
 
 # ── Slot snapshots (the hybrid prefix cache) ─────────────────────────────
+
+
+def export_pages(state, page_ids):
+    """Gather whole pages of the full-attention layers for a PD handoff
+    (the JAX ``export_pages``): kv [G, Hkv, pages, 2, ps, hd] x ids [n],
+    a copy."""
+    return q3.export_pages(state["kv"], page_ids)
+
+
+def import_pages(state, rows, page_ids) -> None:
+    """Scatter handed-off page rows into ``page_ids`` in place, in one
+    indexed copy (the JAX ``import_pages``)."""
+    q3.import_pages(state["kv"], rows, page_ids)
 
 
 def slot_export(state, slot: int):

@@ -287,5 +287,5 @@ def test_start_engine_from_params_builds_the_cache(weights):
         handle.shutdown()
     with pytest.raises(ValueError, match="prefill_chunk"):
         tengine.start_engine_from_params(
-            cfg, tparams, tc.EngineLoadOptions(max_num_pages=8, enable_prefix_cache=True),
-            device="cpu")
+            cfg, tparams, tc.EngineLoadOptions(max_num_pages=8, enable_prefix_cache=True,
+                                               prefill_chunk=None), device="cpu")

@@ -302,13 +302,55 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         tengine.start_engine("/nonexistent/model", device="cpu")
 
 
-@pytest.mark.parametrize("option", [dict(quantize="bf16"), dict(enable_prefix_cache=True),
-                                    dict(prefill_chunk=256), dict(decode_block=4)])
+@pytest.mark.parametrize("option", [dict(quantize="bf16"), dict(decode_block=4)])
 def test_unsupported_options_raise(option):
     _, tcfg, _, tparams = _models("tiny")
     with pytest.raises(NotImplementedError):
         tengine.start_engine_from_params(tcfg, tparams, tc.EngineLoadOptions(**option),
                                          device="cpu")
+
+
+@pytest.mark.parametrize("option", [
+    dict(enable_prefix_cache=True, prefill_chunk=2048),
+    dict(enable_prefix_cache=False, prefill_chunk=16)])
+def test_cache_and_chunk_options_serve(option):
+    """The options the engine refused before the slot prefix cache was
+    ported now serve, with the JAX engine's meanings: a prompt P, P
+    extended by 4 tokens (with the cache on, a hit resumed through 4
+    decode steps), then P again (greedy, so its entry kept no logits: a
+    miss), one after another. A chunk of 16 does not chunk a 24-token DSv4
+    prompt: DSv4 prefills whole. The greedy streams and the cache's hits
+    and misses equal the JAX engine's."""
+    jcfg, tcfg, jparams, tparams = _models("tiny")
+    rng = np.random.default_rng(5)
+    base = rng.integers(2, 128, 20).tolist()
+    prompts = [base, base + rng.integers(2, 128, 4).tolist(), base]
+    rt = jengine.make_runtime(jcfg, jparams, max_model_len=64, max_slots=2)
+    jex = JaxExecutor(rt, jc.EngineLoadOptions(precompile=False, **option))
+    jhandle = j_start_scheduler(jex)
+    try:
+        ref = [_collect(jc, jhandle, [p], max_tokens=6)[0] for p in prompts]
+    finally:
+        jhandle.shutdown()
+
+    thandle = tengine.start_engine_from_params(
+        tcfg, tparams, tc.EngineLoadOptions(max_batch_size=2, max_model_len=64, **option),
+        device="cpu")
+    ex = thandle._scheduler.executor
+    try:
+        out = [_collect(tc, thandle, [p], max_tokens=6)[0] for p in prompts]
+    finally:
+        thandle.shutdown()
+
+    assert [o[0] for o in out] == [r[0] for r in ref]
+    assert all(isinstance(o[1], tc.Finished) and len(o[0]) == 6 for o in out)
+    if option["enable_prefix_cache"]:
+        jc_, tc_ = jex.slot_prefix_cache, ex.slot_prefix_cache
+        assert (tc_.hits, tc_.misses) == (jc_.hits, jc_.misses) == (1, 2)
+        assert ex.prefills == 2 and ex.resume_steps == 4
+    else:
+        assert jex.slot_prefix_cache is None and ex.slot_prefix_cache is None
+        assert ex.prefills == 3 and ex.resume_steps == 0
 
 
 def test_unported_expert_formats_raise():

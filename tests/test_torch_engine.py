@@ -247,9 +247,11 @@ def test_unsupported_options_raise(option):
 
 def test_prefix_cache_without_a_chunk_size_raises():
     """The cache continues a cached prefix through the chunked prefill, so
-    it needs prefill_chunk; the error names both options."""
+    it needs prefill_chunk; the error names both options. The default chunk
+    is the JAX engine's 2,048, so the test turns it off explicitly."""
     tcfg = tq3.Qwen3Config(**_cfg_kw())
     params = tq3.init_random_params(tcfg, seed=0, dtype=torch.float32)
     kv = tq3.make_kv_pages(tcfg, 8, 4, dtype=torch.float32)
     with pytest.raises(ValueError, match="enable_prefix_cache.*prefill_chunk"):
-        TorchExecutor(tcfg, params, kv, tc.EngineLoadOptions(enable_prefix_cache=True))
+        TorchExecutor(tcfg, params, kv, tc.EngineLoadOptions(enable_prefix_cache=True,
+                                                             prefill_chunk=None))

@@ -185,22 +185,23 @@ def test_start_engine_serves_a_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    dict(prefill_chunk=64), dict(enable_prefix_cache=True),
+    dict(prefill_chunk=64, enable_prefix_cache=False), dict(enable_prefix_cache=True),
     dict(enable_prefix_cache=True, prefill_chunk=64)])
 def test_chunk_and_cache_options_serve(option):
     """The options the engine refused before its chunked prefill and hybrid
     cache were ported now start it and finish a request through the
-    chunked path (a 100-token prompt in pieces of 64). The cache alone
-    keeps the port's rule (ValueError: it continues a cached prefix through
-    the chunked path, and the port's ``prefill_chunk`` defaults to None)
-    and serves with the JAX engine's default chunk of 2,048."""
+    chunked path (a 100-token prompt in pieces of 64). The cache without a
+    chunk size keeps the port's rule (ValueError: it continues a cached
+    prefix through the chunked path) and serves with the default chunk,
+    the JAX engine's 2,048."""
     tcfg = tq.Qwen35Config(**_cfg_kw())
     params = tq.init_random_params(tcfg, seed=0, dtype=torch.float32)
     if "prefill_chunk" not in option:
         with pytest.raises(ValueError, match="prefill_chunk"):
             tengine.start_engine_from_params(tcfg, params, tc.EngineLoadOptions(
-                max_num_pages=8, max_batch_size=2, **option), device="cpu")
-        option = dict(option, prefill_chunk=2048)
+                max_num_pages=8, max_batch_size=2, prefill_chunk=None, **option),
+                device="cpu")
+        assert tc.EngineLoadOptions().prefill_chunk == 2048
     opts = tc.EngineLoadOptions(max_num_pages=16, max_batch_size=2, **option)
     handle = tengine.start_engine_from_params(tcfg, params, opts, device="cpu")
     try:
