@@ -80,7 +80,7 @@ weights:
 8c. logits under rule 7: the cold chunked prompt against one whole
     prefill, the warm hit against the cold, one ``mixed_chunk`` against
     ``prefill_chunk`` + ``decode`` apart on a copy of the pool and against
-    ``plain_attention=True``; a torch.profiler profile of a fused piece, a
+    ``plain_kernels=True``; a torch.profiler profile of a fused piece, a
     chunk piece and the per-layer k/v gather alone;
 8d. cold and warm TTFT, the streams' largest token gap during the cold
     prefill against a piece's wall time, and K2 at K2_CHUNK_SHAPES against
@@ -91,7 +91,29 @@ weights:
     greedy 1024/16 request that A has run alone is prefilled and exported
     by A (16 pages, 151.0 MB, to the host) and imported by B, which decodes
     it: the tokens equal A's own run, the last step's logits by rule 7;
-    the payload's bytes and the export and import walls.
+    the payload's bytes and the export and import walls;
+8f. int8 weight-only Qwen3-4B: ``start_engine_from_params(quantize="int8")``
+    with ``OLD_DEFAULTS`` on a shallow copy of the same bf16 weights (the
+    engine quantizes its copy; bytes before and after): 64/4, the greedy
+    1024/256 request, then SHORT at once; every request ``Finished``;
+    launches K6 = 217 (6 a layer and the head) x the decode steps within
+    ``quant.INT8_GEMV_ROWS`` + 1 a prefill (the head on the prompt's last
+    row), K1 / K2 as phase 6; the prefill's last logits
+    and one B = 2 decode step against ``plain_kernels=True`` (rule 7); the
+    cosine of the int8 prefill logits with the bf16 model's (reported beside
+    the JAX package's 0.999); TTFT, TPOT and a B = 1 decode step's profile
+    (K6's share) beside phase 8's bf16 step;
+8g. K6 at one expert (``int8_gemv_dense``) on [8f]'s int8 weights, each row
+    against its plain version at every shape and 1-64 rows, y NaN-filled
+    first; then ``k6_study.dense_sweep``: K6, its plain version, bf16
+    ``x @ w``, the JAX form (``quant.int8_mm``) and
+    ``torch._weight_int8pack_mm``, and a decode step's sums by row count;
+8h. echo under CHUNK_OPTS (bf16): a 4,096-token prompt alone (cached), then
+    the CHUNK_STREAMS decoding and the prompt as an echo request with
+    logprobs=1: ``PromptTokens`` first, 16 plain pieces, none fused, no
+    cache lookup; its prompt logprobs within 2 x LOGITS_RTOL x max |logit|
+    of a whole all-logits prefill's; an echo request without logprobs gets
+    ``PromptTokens`` with all None.
 
 The Qwen3.5 hybrid at the JAX package's ``qwen35.bench_config()`` (32
 layers: 8 groups of 3 Gated Delta Net layers and 1 gated full-attention
@@ -110,7 +132,7 @@ card from the seed, run after the Qwen3 engines are freed:
     prefills (K2) and 8 x decode steps (K1);
 21. the 1,024-token prefill's last logits, and one decode step at B = 3
     with a dead row from the concurrent prompts' prefilled slots, with the
-    kernels against ``plain_attention=True`` (rule 7, row by row); TTFT and
+    kernels against ``plain_kernels=True`` (rule 7, row by row); TTFT and
     TPOT of 1024/256; a torch.profiler profile of one prefill and one B = 1
     decode step (K2's and K1's device time in them) and of the GDN ops
     alone at the model's shapes; K1 at hd 256 against its bound, plain
@@ -141,8 +163,12 @@ snapshots), on the same weights:
     ops alone and of its k/v gather alone;
 25a. PD handoff as in 8e between two ``HybridExecutor``s of 2 slots and
     PD_PAGES pages: the payload is 16 pages (16.8 MB) and the slot's
-    recurrent and conv rows (53.5 MB), imported on B's other slot. The
-    engines, weights and state are then freed.
+    recurrent and conv rows (53.5 MB), imported on B's other slot;
+25b. [8f] and [8g] on the hybrid: K6 = 225 (7 a layer and the head) x the
+    decode steps within the cut + 1 a prefill, the concurrent requests on
+    its 2 slots (the third waits);
+25c. [8h] on the hybrid (3 slots). The engines, weights and state are then
+    freed.
 
 DeepSeek-V4-Flash, 8 layers at full width, random resident fp8 / packed-fp4
 weights made on the card from the seed:
@@ -200,7 +226,13 @@ DeepSeek-V4's slot prefix cache and PD handoff, on the same weights:
     the crossover suffix below which the resume is faster;
 13c. PD handoff as in 8e between two ``SlotExecutor``s: the payload is the
     slot's rows (6.41 MB), imported on B's other slot; the tokens and the
-    last step's logits equal A's own run bit for bit.
+    last step's logits equal A's own run bit for bit;
+13d. an engine under the defaults serves P with logprobs, then P + 16 new
+    tokens as an echo request with logprobs=1: no slot-cache lookup (hits,
+    misses and resume steps unchanged), a fresh prefill with every row's
+    logits, its snapshot kept with its last logits; its prompt logprobs
+    against ``plain_kernels=True``'s [T, V] logits, that run routed as the
+    engine's, by [8h]'s bound.
 
 On the same weights, the opt-in fp4 chain and then the int8-experts mode:
 
@@ -237,8 +269,10 @@ On the same weights, the opt-in fp4 chain and then the int8-experts mode:
     its plan's time.
 
 The last lines are the kernels' JSON record (the weight streams, the S3 /
-S4 kernels and K1-K9; with the read ceiling, and the S3 / S4 kernels, K3,
-K4, K6, K8 and K9 also bound by their bytes over it as
+S4 kernels, K1-K9 and K6 at one expert, ``int8_gemv_dense``, with [8g]'s
+and [25b]'s sweeps under ``shapes`` and ``steps``; with the read
+ceiling, and the S3 / S4 kernels, K3, K4, K6 (both), K8 and K9 also
+bound by their bytes over it as
 ``measured_bound_ms``; K1's and K2's launches on the chunked and the
 Qwen3.5 paths; K3's and K4's launches inside 13a's resumes, read from
 their counts, as ``launches_resume``; the Qwen3.5 serving and step
@@ -395,7 +429,8 @@ Q35_K2_CHUNK_SHAPES = ((256, 4096, 3840), (2048, 4096, 2048),
 # max |W|, a GEMV to 1e-5 of max |y|; gemv_chain_study.check for the chain).
 CHAIN_L, CHAIN_N, CHAIN_K = 36, 19456, 2560  # Qwen3-4B's gate_up, 36 layers
 # the GEMV kernels whose byte bound the measured read ceiling restates
-MEASURED_BOUND_KERNELS = ("moe_fp4_gemv", "fp8_gemv", "moe_int8_gemv", "moe_int8_chain",
+MEASURED_BOUND_KERNELS = ("moe_fp4_gemv", "fp8_gemv", "moe_int8_gemv", "int8_gemv_dense",
+                          "moe_int8_chain",
                           "moe_fp4_chain", "expert_gemv_convert", "expert_gemv_native",
                           "expert_gemv_in_flight", "fp4_variant_floor", "fp4_variant_bits_noscale",
                           "fp4_variant_bits", "fp4_variant_arith")
@@ -647,12 +682,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    q_records, q_serving, q_steps = run_qwen3()
+    q_records, q_serving, q_steps = run_qwen3(ceiling)
     # the Qwen3 engine, weights and KV pool are gone with run_qwen3's frame
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  Qwen3 freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
-    h_serving, h_steps, h_launches, hc_launches, hc_shapes = run_qwen35()
+    h_serving, h_steps, h_launches, hc_launches, hc_shapes = run_qwen35(ceiling)
     for r in q_records:  # the hybrid's served paths' launches beside Qwen3's
         r["launches_qwen35_path"] = h_launches[r["name"]]
         r["launches_qwen35_chunked_path"] = hc_launches[r["name"]]
@@ -662,12 +697,14 @@ def main() -> int:
     log(f"  Qwen3.5 freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
     cfg, params, d_records, d_serving, d_steps = run_dsv4()
     dsv4_cache, dsv4_pd, resume_launches = run_dsv4_cache(cfg, params)
+    dsv4_cache["echo"] = run_dsv4_echo(cfg, params)
     for r in d_records:  # K3's and K4's launches inside [13a]'s resumes
         if r["name"] in resume_launches:
             r["launches_resume"] = resume_launches[r["name"]]
     k9_record, chain_serving = run_dsv4_fp4_chain(cfg, params)
     i_records, i_serving, i_steps = run_dsv4_int8(cfg, params, k9_record)
-    records = s_records + c_records + e_records + f_records + q_records + d_records + i_records
+    records = (s_records + c_records + e_records + f_records + q_records + d_records + i_records
+               + [dense_record(q_serving["int8"], h_serving["int8"])])
     for r in records:
         if r["name"] in MEASURED_BOUND_KERNELS:
             # the same bytes over the measured ceiling (every one is bound by bytes)
@@ -1019,8 +1056,10 @@ def run_fp4_study():
     return records, {"table": table, "decode_cost": cost, "scale_loads": loads}
 
 
-def run_qwen3():
-    """Phases 3-8d on Qwen3-4B. Returns (K1/K2 records, serving, steps)."""
+def run_qwen3(ceiling):
+    """Phases 3-8h on Qwen3-4B (``ceiling``: the measured read ceiling,
+    bytes / s, for K6's dense bounds). Returns (K1/K2 records, serving,
+    steps)."""
     from pegainfer_tpu_torch.engine import contract
     from pegainfer_tpu_torch.models import qwen3 as q3
     from pegainfer_tpu_torch.models.qwen3_engine import start_engine_from_params
@@ -1094,7 +1133,7 @@ def run_qwen3():
     table = torch.arange(1, PROMPT // PAGE + 1, dtype=torch.int32, device="cuda")
     with torch.no_grad():
         lk, _ = q3.prefill(cfg, params, kv, toks_t, table)
-        lp, _ = q3.prefill(cfg, params, kv, toks_t, table, plain_attention=True)
+        lp, _ = q3.prefill(cfg, params, kv, toks_t, table, plain_kernels=True)
     torch.cuda.synchronize()
     if not (bool(torch.isfinite(lk).all()) and lk.shape == (cfg.vocab_size,)):
         raise SystemExit("kernel-path logits are not finite [V]")
@@ -1128,9 +1167,29 @@ def run_qwen3():
 
     pd_record = run_pd("[8e]", make, cfg.vocab_size,
                        PD_PROMPT // PAGE * q3.kv_bytes_per_page(cfg, PAGE), exact=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    from pegainfer_tpu_torch.models import qwen3_engine as q3e
+    from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
+
+    log(f"[8f] Qwen3-4B int8 weight-only (quantize=\"int8\") served on the same weights: "
+        f"{PROMPT}/{OUT}, then {SHORT} at once")
+    int8, q8 = run_int8_engine("[8f]", "qwen3", cfg, q3, q3e, params, contract, k6,
+                               {"paged_decode": pd, "flash_prefill": fp},
+                               6 * cfg.num_hidden_layers + 1, cfg.num_hidden_layers,
+                               steps[f"decode step B=1 ctx {PROMPT + 1}"][1])
+    log("[8g] K6 at one expert on the int8 weights of [8f]")
+    int8["dense"] = run_dense_sweep("[8g]", "qwen3", q8, params, ceiling)
+    del q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[8h] echo with prompt logprobs under CHUNK_OPTS (bf16): a {CHUNK_PROMPT}-token "
+        f"echo request while {len(CHUNK_STREAMS)} streams decode")
+    echo = run_echo("[8h]", "qwen3", cfg, q3, q3e, params, contract)
     serving = {"ttft_ms": ttft_ms, "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
                "prompt": PROMPT, "output": OUT, "paged_decode_shapes": k1_shapes,
-               "flash_prefill_shapes": k2_shapes, "chunked": chunked, "pd": pd_record}
+               "flash_prefill_shapes": k2_shapes, "chunked": chunked, "pd": pd_record,
+               "int8": int8, "echo": echo}
     return records, serving, steps_json(steps)
 
 
@@ -1674,7 +1733,7 @@ def run_chunked(cfg, q3, params, contract, start_engine_from_params, pd, fp, att
                 runs[name] = (last, q3.decode(cfg, params, pool, *dec))
             else:
                 runs[name] = q3.mixed_chunk(cfg, params, pool, chunk, start, m, table, *dec,
-                                            plain_attention=name == "plain")
+                                            plain_kernels=name == "plain")
             del pool
     torch.cuda.synchronize()
     log("  where a piece's time goes (the chunk at the prompt's end, on the model)")
@@ -1694,7 +1753,7 @@ def run_chunked(cfg, q3, params, contract, start_engine_from_params, pd, fp, att
         log(f"  one mixed_chunk (chunk at {start}, rows of contexts "
             f"{[len(p) + 1 for p, _ in streams]}) against "
             + ("prefill_chunk + decode on a copy of the pool" if ref == "apart"
-               else "plain_attention=True"))
+               else "plain_kernels=True"))
         for i, (got, want_l) in enumerate(zip(
                 [runs["fused"][0], *runs["fused"][1]], [runs[ref][0], *runs[ref][1]])):
             if not (bool(torch.isfinite(got).all()) and got.shape == (cfg.vocab_size,)):
@@ -1857,6 +1916,426 @@ def run_pd(phase, make, vocab, want_bytes, exact):
             "tokens_equal": True, "logits_share_of_limit": share, "exact": exact}
 
 
+# ── phases 8f-8h, 25b-25c, 13d: int8 weight-only Qwen3 / Qwen3.5, echo ──
+
+
+def shallow_tree(params):
+    """A copy of a params tree's dicts, sharing its tensors: what the int8
+    quantizers consume (each matrix replaced in the copy), so the bf16
+    weights stay in the caller's tree."""
+    return {k: dict(v) if isinstance(v, dict) else v for k, v in params.items()}
+
+
+def dense_stacks(family, params):
+    """{DENSE_SHAPES name: (q [L, OUT, IN], s [L, OUT], bf16 w [L, IN, OUT])}
+    from an int8 tree and its bf16 tree (``params`` = (int8, bf16)); the
+    stacks' own shapes checked against the table's."""
+    from pegainfer_tpu_torch.studies import k6_study as k6s
+
+    q8, bf = params
+    if family == "qwen3":
+        keys = {"qwen3 wq": ("layers", "wq"), "qwen3 wk / wv": ("layers", "wk"),
+                "qwen3 wo": ("layers", "wo"), "qwen3 w_gate_up": ("layers", "w_gate_up"),
+                "qwen3 w_down": ("layers", "w_down"), "qwen3 lm_head": (None, "lm_head")}
+    else:
+        keys = {"qwen35 gdn wq / wk": ("lin", "wq"),
+                "qwen35 gdn wv / wz, full wq / wgate": ("lin", "wv"),
+                "qwen35 out_proj / wo": ("lin", "out_proj"), "qwen35 full wk / wv": ("full", "wk"),
+                "qwen35 mlp_gate_up": ("lin", "mlp_gate_up"),
+                "qwen35 mlp_down": ("lin", "mlp_down"), "qwen35 lm_head": (None, "lm_head")}
+    out = {}
+    for name, OUT, IN, _ in k6s.DENSE_SHAPES:
+        if name not in keys:
+            continue
+        part, key = keys[name]
+        c, w = (q8[key], bf[key]) if part is None else (q8[part][key], bf[part][key])
+        q, s = c["q"].reshape(-1, OUT, IN), c["s"].reshape(-1, OUT)
+        w = w.reshape(-1, IN, OUT)
+        if q.shape[0] != w.shape[0]:
+            raise SystemExit(f"{name}: the int8 and bf16 stacks differ")
+        out[name] = (q, s, w)
+    return out
+
+
+def run_dense_sweep(label, family, q8, bf, ceiling):
+    """K6 at one expert on a family's int8 weights: against its plain
+    version row by row at every shape and DENSE_ROWS (y NaN-filled first),
+    then the sweep (``k6_study.dense_sweep``) and its decode-step sums.
+    Returns (max |diff|, the sweep's rows, the step sums by row count)."""
+    from pegainfer_tpu_torch.studies import k6_study as k6s
+
+    stacks = dense_stacks(family, (q8, bf))
+    rows = k6s.dense_check(stacks)
+    worst = max(share for _, _, share in rows)
+    err = max(e for _, e, _ in rows)
+    log(f"  {label} K6 at one expert against its plain version at {len(stacks)} shapes x M "
+        f"{list(k6s.DENSE_ROWS)}: max |diff| {err:.4g}, worst row at {worst:.3f} of its limit "
+        f"({k6s.RTOL} x the row's max |ref|, y NaN-filled first) "
+        f"{'ok' if worst <= 1.0 else 'FAIL'}")
+    if not worst <= 1.0:
+        raise SystemExit(f"{label} K6 at one expert disagrees with its plain version")
+    table = k6s.dense_sweep(stacks, ceiling)
+    totals = k6s.dense_step_totals(table, family)
+    for M, t in totals.items():
+        log(f"  {label} a decode step's int8 linears at {M} rows: "
+            + ", ".join(f"{f} {v * 1e3:.1f} us" for f, v in t.items()))
+    faster = [M for M, t in totals.items() if t["K6"] < t["dequant + mm"]]
+    log(f"  {label} K6 beats the JAX form (dequant + mm) over a step at M {faster}")
+    return err, table, totals
+
+
+def dense_record(q_int8, h_int8):
+    """K6 at one expert in the kernels line: its numbers at Qwen3-4B's
+    w_gate_up at one row (the record's own), its launches on the int8 paths
+    of [8f] (Qwen3) and [25b] (the hybrid), every shape and row count of the
+    two sweeps under ``shapes``, and each decode step's sums by row count
+    under ``steps``."""
+    err3, table3, totals3 = q_int8.pop("dense")
+    err35, table35, totals35 = h_int8.pop("dense")
+    main = next(r for r in table3 if r["shape"] == "qwen3 w_gate_up" and r["M"] == 1)
+    return {"name": "int8_gemv_dense", "route": "cuda",
+            "source": "pegainfer_tpu_torch/csrc/int8_gemv.cu",
+            "replaces": "pegainfer_tpu/ops/pallas/fp4_gemm.py:521",
+            "launches": q_int8["launches"]["moe_int8_gemv"], "max_abs_err": max(err3, err35),
+            "ms": main["K6_ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library_call": main["library_call"],
+            "record_shape": f"qwen3 w_gate_up ({main['OUT']} x {main['IN']}) at M 1",
+            "launches_qwen35_int8_path": h_int8["launches"]["moe_int8_gemv"],
+            "shapes": {f"{r['shape']} M={r['M']}": r for r in table3 + table35},
+            "steps": {"qwen3": totals3, "qwen35": totals35}}
+
+
+def read_events(contract, ch, timeout_s=600):
+    """Every event of a stream up to its terminal one."""
+    events = []
+    while not events or not contract.is_terminal(events[-1]):
+        ev = ch.get(timeout=timeout_s)
+        if ev is None:
+            raise SystemExit("no event from the engine within the time limit")
+        events.append(ev)
+    return events
+
+
+def check_echo_events(contract, label, events, prompt, want_tokens, logprobs):
+    """PromptTokens with the prompt's ids first, before any token; its
+    logprobs None for the first and numbers after (all None without
+    ``logprobs``); then the tokens and Finished. Returns the logprobs."""
+    kinds = [type(ev).__name__ for ev in events]
+    want = ["Scheduled", "PromptTokens"] + ["Token"] * want_tokens + ["Finished"]
+    pt = events[1] if len(events) > 1 else None
+    ok = kinds == want and pt.ids == prompt and len(pt.logprobs) == len(prompt) and (
+        pt.logprobs[0] is None and all(
+            (t is not None and t.logprob <= 0) if logprobs else t is None
+            for t in pt.logprobs[1:]))
+    log(f"  {label}: events {kinds[:3]} ... {kinds[-1]} ({len(events)}), PromptTokens of "
+        f"{len(pt.logprobs) if pt else 0} logprobs {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label}: PromptTokens did not come first with the prompt")
+    return pt.logprobs
+
+
+def check_prompt_logprobs(label, got, all_logits, prompt_t):
+    """An echo request's prompt logprobs against log-softmax of one run's
+    [T, V] logits: |Δ logprob| <= 2 x LOGITS_RTOL x max |logit| (log-softmax
+    moves by at most twice the logits' largest change). Returns the worst
+    share of that limit."""
+    from pegainfer_tpu_torch.ops import sampling as smp
+
+    ref = smp.token_logprob(all_logits[:-1], prompt_t[1:]).double().cpu()
+    mine = torch.tensor([t.logprob for t in got[1:]], dtype=torch.float64)
+    limit = 2 * LOGITS_RTOL * all_logits.abs().max().item()
+    diff = (mine - ref).abs().max().item()
+    log(f"  {label}: {len(mine)} prompt logprobs against the whole all-logits run's: max "
+        f"|diff| {diff:.4g}, limit 2 x {LOGITS_RTOL} x max |logit| = {limit:.4g} "
+        f"({diff / limit:.3f} of it)")
+    if not diff <= limit:
+        raise SystemExit(f"{label}: the prompt logprobs disagree with the whole prefill's")
+    return diff / limit
+
+
+def run_int8_engine(label, family, cfg, model, engine, params, contract, k6, kernels,
+                    n_k6, base, bf16_step):
+    """Phases 8g / 25b: the family's engine with quantize="int8" (OLD_DEFAULTS,
+    its bf16 weights in ``params`` untouched, a shallow copy quantized at
+    start): a warm-up, the greedy PROMPT / OUT request, then two at once
+    (phase 4's SHORT; the hybrid's Q35_CONCURRENT on its slots). Launches:
+    K6 = ``n_k6`` x the decode steps within the row cut, K1 / K2 = ``base``
+    x decode steps / prefills. Logits of the prompt's prefill and of a B = 2
+    decode step against ``plain_kernels=True`` (rule 7); the cosine of the
+    int8 logits against the bf16 model's; TTFT / TPOT; a B = 1 decode step's
+    profile beside the bf16 one (``bf16_step``: its device ms); a whole
+    prefill's head on its last row is one more K6 launch. Returns
+    (record, the engine's int8 tree)."""
+    from pegainfer_tpu_torch.ops import quant
+
+    before = model.params_bytes(params)
+    opts = dict(kv_memory_fraction=0.5, seed=SEED, quantize="int8", **OLD_DEFAULTS)
+    if family == "qwen35":
+        opts["max_batch_size"] = Q35_SLOTS
+    t = time.perf_counter()
+    handle = engine.start_engine_from_params(cfg, shallow_tree(params),
+                                             contract.EngineLoadOptions(**opts), device="cuda")
+    start_s = time.perf_counter() - t
+    ex = handle._scheduler.executor
+    q8 = ex.params
+    after = model.params_bytes(q8)
+    log(f"  engine up in {start_s:.1f} s (quantize included): weights {before / 1e9:.3f} GB "
+        f"bf16 -> {after / 1e9:.3f} GB int8; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    rows = []
+    decode = ex._decode_model
+
+    def logged(items, tokens, *args):
+        rows.append(tokens.shape[0])
+        return decode(items, tokens, *args)
+
+    ex._decode_model = logged
+    kernels = {**kernels, "moe_int8_gemv": k6}
+    if family == "qwen3":
+        run = serve_slots(cfg, contract, handle, kernels, concurrent=SHORT,
+                          shapes=((64, 4), (PROMPT, OUT)))
+    else:
+        run = serve_slots(cfg, contract, handle, kernels, concurrent=Q35_CONCURRENT,
+                          shapes=(Q35_WARMUP, (PROMPT, OUT)))
+    del handle, ex
+    within = sum(1 for r in rows[-run["decode_steps"]:] if r <= quant.INT8_GEMV_ROWS)
+    log(f"  all requests Finished with their token counts; decode batch rows "
+        f"{sorted(set(rows))}, {within} of {run['decode_steps']} steps within the K6 row cut "
+        f"of {quant.INT8_GEMV_ROWS}")
+    # a whole prefill's head runs on its last row alone: one K6 launch
+    check_launches(run["launches"], {"moe_int8_gemv": n_k6 * within + run["prefills"],
+                                     "paged_decode": base * run["decode_steps"],
+                                     "flash_prefill": base * run["prefills"]},
+                   f"{n_k6} K6 launches a decode step within the cut and 1 a prefill (its "
+                   f"head's last row), {run['prefills']} prefills, {run['decode_steps']} "
+                   "decode steps")
+
+    log(f"  the {PROMPT}-token prefill's last logits and one decode step at B = 2, int8, "
+        "kernels against plain_kernels=True")
+    prompt_t = torch.tensor(run["main_prompt"], dtype=torch.int32, device="cuda")
+    per = -(-(PROMPT + 1) // PAGE)
+    with torch.no_grad():
+        if family == "qwen3":
+            def fresh():
+                return model.make_kv_pages(cfg, 1 + 2 * per, PAGE, device="cuda")
+
+            def pre(p, st, plain=False):
+                return model.prefill(cfg, p, st, prompt_t, table, plain_kernels=plain)[0]
+        else:
+            def fresh():
+                return model.make_state(cfg, 1 + 2 * per, PAGE, 2, device="cuda")
+
+            def pre(p, st, plain=False):
+                return model.prefill(cfg, p, st, prompt_t, table, 0, plain_kernels=plain)[0]
+        table = torch.arange(1, 1 + per, dtype=torch.int32, device="cuda")
+        st_k, st_p, st_b = fresh(), fresh(), fresh()
+        lk, lp, lb = pre(q8, st_k), pre(q8, st_p, True), pre(params, st_b)
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(lk).all()) and lk.shape == (cfg.vocab_size,)):
+            raise SystemExit(f"{label} int8 prefill logits are not finite [V]")
+        check_logits(lk, lp, LOGITS_RTOL, f"{label} int8 prefill logits disagree with the "
+                     "plain kernels'")
+        cos = (torch.dot(lk.double(), lb.double())
+               / (lk.double().norm() * lb.double().norm())).item()
+        log(f"  cosine of the int8 prefill logits with the bf16 model's on the same weights: "
+            f"{cos:.6f} (the JAX package's test threshold 0.999)")
+        # a B = 2 decode step: the prompt's row and a second row on a copy
+        # of its pages (and, for the hybrid, of its slot), each run on its
+        # own prefill (kernels / plain)
+        first = int(lk.argmax())
+        tables = torch.stack([table, table + per])
+        for st in (st_k, st_p):
+            kv = st if family == "qwen3" else st["kv"]
+            kv[:, :, 1 + per:] = kv[:, :, 1:1 + per]
+            if family == "qwen35":
+                st["rec"][:, :, 1] = st["rec"][:, :, 0]
+                st["conv"][:, :, 1] = st["conv"][:, :, 0]
+
+        def col(*v):
+            return torch.tensor(v, dtype=torch.int32, device="cuda")
+
+        step = (col(first, (first + 1) % cfg.vocab_size), col(PROMPT, PROMPT), tables,
+                col(PROMPT + 1, PROMPT + 1)) + ((col(0, 1),) if family == "qwen35" else ())
+        dk = model.decode(cfg, q8, st_k, *step)
+        dp = model.decode(cfg, q8, st_p, *step, plain_kernels=True)
+        torch.cuda.synchronize()
+        for b in range(2):
+            log(f"  decode row {b}:")
+            check_logits(dk[b], dp[b], LOGITS_RTOL, f"{label} int8 decode logits disagree with "
+                         "the plain kernels'")
+        del st_k, st_p, st_b
+        dec_state = fresh()
+        pre(q8, dec_state)
+        one = (col(first), col(PROMPT), table[None], col(PROMPT + 1)) + (
+            (col(0),) if family == "qwen35" else ())
+        prof = profile_calls({f"{family} int8 decode step B=1 ctx {PROMPT + 1}":
+                              lambda: model.decode(cfg, q8, dec_state, *one)},
+                             iters=5, kernels={"K6": "int8_gemv_kernel", "K1": "paged_decode"})
+    (wall, dev, n_ops, ks), = prof.values()
+    gaps = run["gaps"]
+    record = {"weight_bytes_bf16": before, "weight_bytes_int8": after, "engine_start_s": start_s,
+              "ttft_ms": run["ttft_ms"], "tpot_p50_ms": statistics.median(gaps),
+              "tpot_p95_ms": float(np.percentile(gaps, 95)), "prompt": PROMPT, "output": OUT,
+              "prefills": run["prefills"], "decode_steps": run["decode_steps"],
+              "decode_steps_within_cut": within, "row_cut": quant.INT8_GEMV_ROWS,
+              "launches": run["launches"], "cosine_vs_bf16": cos,
+              "decode_step": {"wall_ms": wall, "device_ms": dev, "device_ops": n_ops,
+                              "K6_ms": ks["K6_ms"], "K1_ms": ks["K1_ms"],
+                              "bf16_device_ms": bf16_step}}
+    log(f"  int8 {PROMPT}/{OUT}: TTFT {record['ttft_ms']:.3f} ms, TPOT p50 "
+        f"{record['tpot_p50_ms']:.3f} ms, p95 {record['tpot_p95_ms']:.3f} ms (host clock); "
+        f"decode step B = 1: device {dev:.3f} ms (bf16 {bf16_step:.3f} ms), K6 "
+        f"{ks['K6_ms']:.3f} ms ({ks['K6_ms'] / dev:.1%}), wall {wall:.3f} ms, idle "
+        f"{1 - dev / wall:.1%}")
+    return record, q8
+
+
+def run_echo(label, family, cfg, model, engine, params, contract):
+    """Phases 8h / 25c: the family's engine with CHUNK_OPTS (bf16). A prompt
+    P of CHUNK_PROMPT tokens alone (cached); then CHUNK_STREAMS decoding and,
+    once both decoded a token, P as an echo request with logprobs=1: it runs
+    as plain pieces (no fused piece, no prefix-cache lookup, the streams
+    decoding between them); then a shorter echo request without logprobs
+    (PromptTokens all None). P's prompt logprobs against one whole
+    all-logits prefill of P (``check_prompt_logprobs``). Returns the
+    record."""
+    opts = dict(kv_memory_fraction=0.5, seed=SEED, **CHUNK_OPTS)
+    if family == "qwen35":
+        opts["max_batch_size"] = Q35_CHUNK_SLOTS
+    handle = engine.start_engine_from_params(cfg, params, contract.EngineLoadOptions(**opts),
+                                             device="cuda")
+    ex = handle._scheduler.executor
+    cache = ex.prefix_cache
+    rng = np.random.default_rng(SEED + 14)
+    P = rng.integers(0, cfg.vocab_size, CHUNK_PROMPT).tolist()
+    streams = [(rng.integers(0, cfg.vocab_size, n).tolist(), m) for n, m in CHUNK_STREAMS]
+    short = rng.integers(0, cfg.vocab_size, 600).tolist()
+    try:
+        ch, _ = run_request(contract, handle, P, 1)
+        toks, fin, _ = drain(contract, ch)
+        expect_finished(contract, f"P {CHUNK_PROMPT}/1 alone (cached)", toks, fin, 1)
+        chans = [run_request(contract, handle, p, m)[0] for p, m in streams]
+        early = [read_tokens(contract, ch, 2) for ch in chans]
+        joins = [drain_in_background(contract, ch) for ch in chans]
+        counts0 = (ex.mixed_pieces, ex.chunk_pieces, cache.hits, cache.misses, ex.decode_steps)
+        ch = contract.TokenChannel()
+        t0 = time.perf_counter()
+        handle.submit(contract.GenerateRequest(
+            prompt_tokens=P, max_tokens=CHUNK_OUT, echo=True, logprobs=1, channel=ch,
+            params=contract.SamplingParams(ignore_eos=True)))
+        events = read_events(contract, ch)
+        echo_s = time.perf_counter() - t0
+        counts1 = (ex.mixed_pieces, ex.chunk_pieces, cache.hits, cache.misses, ex.decode_steps)
+        for (toks0, _), join, (p, m) in zip(early, joins, streams):
+            toks, fin, _ = join()
+            expect_finished(contract, f"stream {len(p)}/{m}", toks0 + toks, fin, m)
+        got = check_echo_events(contract, f"echo {CHUNK_PROMPT}/{CHUNK_OUT} with logprobs=1",
+                                events, P, CHUNK_OUT, True)
+        ch = contract.TokenChannel()
+        handle.submit(contract.GenerateRequest(
+            prompt_tokens=short, max_tokens=4, echo=True, channel=ch,
+            params=contract.SamplingParams(ignore_eos=True)))
+        check_echo_events(contract, "echo 600/4 without logprobs", read_events(contract, ch),
+                          short, 4, False)
+    finally:
+        handle.shutdown()
+        handle._thread.join(timeout=60)
+    del handle, ex, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    pieces = counts1[1] - counts0[1]
+    want_pieces = CHUNK_PROMPT // CHUNK_OPTS["prefill_chunk_mixed"]
+    log(f"  the echo prompt ran as {pieces} pieces, {counts1[0] - counts0[0]} fused; cache "
+        f"hits {counts0[2]} -> {counts1[2]}, misses {counts0[3]} -> {counts1[3]}; "
+        f"{counts1[4] - counts0[4]} decode steps of the streams meanwhile")
+    if (counts1[0] != counts0[0] or counts1[2:4] != counts0[2:4] or pieces != want_pieces
+            or counts1[4] == counts0[4]):
+        raise SystemExit(f"{label}: the echo prompt did not run as {want_pieces} plain pieces "
+                         "without a cache lookup while the streams decoded")
+    prompt_t = torch.tensor(P, dtype=torch.int32, device="cuda")
+    per = -(-CHUNK_PROMPT // PAGE)
+    table = torch.arange(1, 1 + per, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        if family == "qwen3":
+            kv = model.make_kv_pages(cfg, 1 + per, PAGE, device="cuda")
+            _, every = model.prefill(cfg, params, kv, prompt_t, table, return_all_logits=True)
+        else:
+            kv = model.make_state(cfg, 1 + per, PAGE, 1, device="cuda")
+            _, every = model.prefill(cfg, params, kv, prompt_t, table, 0,
+                                     return_all_logits=True)
+        share = check_prompt_logprobs(label, got, every, prompt_t)
+    del kv, every
+    return {"prompt": CHUNK_PROMPT, "output": CHUNK_OUT, "pieces": pieces, "fused": 0,
+            "echo_wall_s": echo_s, "logprobs_share_of_limit": share}
+
+
+def run_dsv4_echo(cfg, params):
+    """Phase 13d: an engine under the defaults (the slot cache on) serves P
+    (DSV4_CACHE_PROMPT tokens) with logprobs (a miss, a snapshot with its
+    logits), then P + DSV4_CACHE_EXT new tokens as an echo request with
+    logprobs=1: no cache lookup (hits and misses as before, no resume
+    step), a fresh whole prefill with every row's logits, its snapshot
+    inserted with its last logits, as the JAX executor leaves its cache.
+    Its prompt logprobs against log-softmax of ``plain_kernels=True``'s
+    [T, V] logits, that run routed as the engine's (RoutingReplay), by
+    ``check_prompt_logprobs``'s bound."""
+    from pegainfer_tpu_torch.engine import contract
+    from pegainfer_tpu_torch.models import dsv4 as d4
+    from pegainfer_tpu_torch.models import dsv4_engine as d4e
+
+    log(f"[13d] a DSv4 echo request with logprobs after its prompt's prefix was cached: "
+        f"{DSV4_CACHE_PROMPT} + {DSV4_CACHE_EXT} tokens")
+    handle = d4e.start_engine_from_params(cfg, params, contract.EngineLoadOptions(
+        max_batch_size=DSV4_SLOTS, max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED), device="cuda")
+    ex = handle._scheduler.executor
+    cache = ex.slot_prefix_cache
+    rng = np.random.default_rng(SEED + 15)
+    P = rng.integers(0, cfg.vocab_size, DSV4_CACHE_PROMPT).tolist()
+    ext = P + rng.integers(0, cfg.vocab_size, DSV4_CACHE_EXT).tolist()
+    replay = RoutingReplay(d4)
+    try:
+        ch, _ = run_request(contract, handle, P, 4, logprobs=1)
+        toks, fin, _ = drain(contract, ch)
+        expect_finished(contract, f"P {DSV4_CACHE_PROMPT}/4 with logprobs", toks, fin, 4)
+        before = (cache.hits, cache.misses, ex.resume_steps, ex.prefills)
+        replay.record()
+        ch = contract.TokenChannel()
+        handle.submit(contract.GenerateRequest(
+            prompt_tokens=ext, max_tokens=4, echo=True, logprobs=1, channel=ch,
+            params=contract.SamplingParams(ignore_eos=True)))
+        events = read_events(contract, ch)
+        replay.restore()
+        after = (cache.hits, cache.misses, ex.resume_steps, ex.prefills)
+        entry = cache._entries.get(tuple(ext))
+    finally:
+        replay.restore()
+        handle.shutdown()
+        handle._thread.join(timeout=60)
+    del handle, ex
+    got = check_echo_events(contract, f"echo {len(ext)}/4 with logprobs=1", events, ext, 4, True)
+    log(f"  cache (hits, misses, resume steps, prefills) {before} -> {after}; the echo "
+        f"prompt's entry kept " + ("no entry" if entry is None else
+                                   "its logits" if entry[1] is not None else "no logits"))
+    if (after[:3] != before[:3] or after[3] != before[3] + 1 or entry is None
+            or entry[1] is None):
+        raise SystemExit("[13d] the echo request looked the slot cache up, resumed, or left "
+                         "no entry with its logits")
+    with torch.no_grad():
+        replay.replay()
+        try:
+            every, _ = d4.prefill(cfg, params, torch.tensor(ext, dtype=torch.int32,
+                                                            device="cuda"), plain_kernels=True)
+        finally:
+            replay.restore()
+        replay.report("the plain run against the engine's")
+        share = check_prompt_logprobs("[13d]", got, every, torch.tensor(
+            ext, dtype=torch.int32, device="cuda"))
+    del every, cache
+    return {"prompt": len(ext), "logprobs_share_of_limit": share,
+            "routing_flips": replay.flips, "routing_decisions": replay.decisions}
+
+
 def time_chunk(gen, fp, att, T, S, q_offset, Hq, Hkv, hd):
     """K2 on one chunk: T queries at q_offset + i over S = q_offset + T keys,
     against its plain version (each query row at K2's limit); its time, its
@@ -1889,8 +2368,8 @@ def time_chunk(gen, fp, att, T, S, q_offset, Hq, Hkv, hd):
 # ── phases 19-21: the Qwen3.5 hybrid ─────────────────────────────────────
 
 
-def run_qwen35():
-    """Phases 19-25 on the Qwen3.5 hybrid at the JAX package's
+def run_qwen35(ceiling):
+    """Phases 19-25c on the Qwen3.5 hybrid at the JAX package's
     ``qwen35.bench_config()``. Returns (serving, steps, K1 / K2 launches on
     its served path and on its chunked path, K2 at Q35_K2_CHUNK_SHAPES); the
     engines, weights and state are freed with this frame."""
@@ -1937,7 +2416,7 @@ def run_qwen35():
                    f"{prefills} prefills, {steps} decode steps, {G} full-attention layers")
 
     log(f"[21] logits on the card: the {PROMPT}-token prefill and one decode step at B = 3 "
-        "(and a dead row), kernels against plain_attention=True")
+        "(and a dead row), kernels against plain_kernels=True")
     toks_t = torch.tensor(run["main_prompt"], dtype=torch.int32, device="cuda")
     first = check_hybrid_logits(cfg, q35, params, toks_t)
     gaps = run["gaps"]
@@ -1974,6 +2453,24 @@ def run_qwen35():
     serving["pd"] = run_pd("[25a]", make, cfg.vocab_size,
                            PD_PROMPT // PAGE * q35.kv_bytes_per_page(cfg, PAGE)
                            + q35.slot_bytes(cfg), exact=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
+
+    log(f"[25b] the hybrid int8 weight-only (quantize=\"int8\") on the same weights: "
+        f"{PROMPT}/{OUT}, then {Q35_CONCURRENT} on {Q35_SLOTS} slots; K6 at one expert")
+    n_k6 = 7 * cfg.num_groups * (cfg.period - 1) + 7 * G + 1
+    int8, q8 = run_int8_engine("[25b]", "qwen35", cfg, q35, q35e, params, contract, k6,
+                               {"paged_decode": pd, "flash_prefill": fp}, n_k6, G,
+                               steps_prof[f"qwen35 decode step B=1 ctx {PROMPT + 1}"][1])
+    int8["dense"] = run_dense_sweep("[25b]", "qwen35", q8, params, ceiling)
+    serving["int8"] = int8
+    del q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[25c] echo with prompt logprobs on the hybrid under CHUNK_OPTS (bf16): a "
+        f"{CHUNK_PROMPT}-token echo request while {len(CHUNK_STREAMS)} streams decode")
+    serving["echo"] = run_echo("[25c]", "qwen35", cfg, q35, q35e, params, contract)
     return serving, steps_json(steps_prof), run["launches"], c_launches, c_shapes
 
 
@@ -2225,7 +2722,7 @@ def check_hybrid_kernels(cfg, pd, fp):
 
 def check_hybrid_logits(cfg, q35, params, prompt_t):
     """Phase 7's rule on the hybrid: the prompt's last prefill logits with
-    the kernels against ``plain_attention=True``, each into a fresh state;
+    the kernels against ``plain_kernels=True``, each into a fresh state;
     then the concurrent requests' prompts prefilled (kernels) into slots 0-2,
     the state copied, and one decode step at B = 3 padded to 4 (seq_len 0,
     the null page, the dead slot) run on each copy, kernels against plain,
@@ -2240,7 +2737,7 @@ def check_hybrid_logits(cfg, q35, params, prompt_t):
     table = torch.arange(1, 1 + per, dtype=torch.int32, device="cuda")
     with torch.no_grad():
         lk, _ = q35.prefill(cfg, params, state(), prompt_t, table, 3)
-        lp, _ = q35.prefill(cfg, params, state(), prompt_t, table, 3, plain_attention=True)
+        lp, _ = q35.prefill(cfg, params, state(), prompt_t, table, 3, plain_kernels=True)
         torch.cuda.synchronize()
         if not (bool(torch.isfinite(lk).all()) and lk.shape == (cfg.vocab_size,)):
             raise SystemExit("Qwen3.5 kernel-path prefill logits are not finite [V]")
@@ -2266,7 +2763,7 @@ def check_hybrid_logits(cfg, q35, params, prompt_t):
         step = (col(toks, 0), col(lens, 0), tables, col([n + 1 for n in lens], 0),
                 col([0, 1, 2], 4))
         dk = q35.decode(cfg, params, st_k, *step)
-        dp = q35.decode(cfg, params, st_p, *step, plain_attention=True)
+        dp = q35.decode(cfg, params, st_p, *step, plain_kernels=True)
         torch.cuda.synchronize()
         if not (bool(torch.isfinite(dk[:3]).all()) and dk.shape == (B, cfg.vocab_size)):
             raise SystemExit("Qwen3.5 kernel-path decode logits are not finite [B, V]")

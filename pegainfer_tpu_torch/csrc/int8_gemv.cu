@@ -22,6 +22,10 @@
 //   distinct expert streams from device memory once; slots past the
 //   chunk's experts exit; slot 0 of a chunk writes the zero rows of its
 //   invalid ids.
+// - A dense weight (one expert, every id 0: the int8 weight-only linears of
+//   Qwen3 and Qwen3.5 decode, ops/quant.py int8_linear) has work only in
+//   slot 0 of each chunk, so its launch asks for slots = ceil(M / 16): grid
+//   row j is chunk j's slot 0, and the plan counts those blocks alone.
 // - The work is cut from the shapes alone (ops/cuda/int8_gemv.py::plan): a
 //   block takes rt warp tiles of 16 output channels and ks K parts of them,
 //   a warp a (tile, K part). The K parts of a tile take its steps of kStepK
@@ -93,17 +97,20 @@ __device__ __forceinline__ void s8x4_to_bf16x2(uint32_t w, uint32_t& p01, uint32
 __global__ void __launch_bounds__(kMaxWarps * 32, kBlocksPerSm)
 int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
                  const int* __restrict__ idx, float* __restrict__ y, int M, int E, int OUT,
-                 int IN, int rt, int ks) {
+                 int IN, int rt, int ks, int slots) {
   extern __shared__ float red[];  // [rt · ks warps][kWarpCh][8]: each warp's sums
   __shared__ int row_of[kChunkRows];  // the group's rows of x, in order
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   int expert;
   unsigned rows, invalid;
-  slot_group<kChunkRows>(idx, M, E, blockIdx.y, lane, expert, rows, invalid);
-  const int c0 = blockIdx.y / kChunkRows * kChunkRows;
+  // the block's expert slot: grid row j for routed rows (slots == M), chunk
+  // j's slot 0 for a dense weight (slots == ceil(M / 16))
+  const int slot = slots == M ? blockIdx.y : blockIdx.y * kChunkRows;
+  slot_group<kChunkRows>(idx, M, E, slot, lane, expert, rows, invalid);
+  const int c0 = slot / kChunkRows * kChunkRows;
   const int nb = rt * kWarpCh, o_blk = blockIdx.x * nb;  // the block's channels
-  if (blockIdx.y % kChunkRows == 0) {  // the chunk's rows of invalid ids are 0
+  if (slot % kChunkRows == 0) {  // the chunk's rows of invalid ids are 0
     for (unsigned r = invalid; r; r &= r - 1) {
       float* yr = y + static_cast<size_t>(c0 + __ffs(r) - 1) * OUT;
       for (int i = threadIdx.x; i < nb; i += blockDim.x)
@@ -190,20 +197,22 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
 
 // x [M, IN] bf16, q [E, OUT, IN] int8, idx [M] int32 -> y [M, OUT] f32,
 // unscaled, every row written, with the launch plan (rt, ks) of
-// ops/cuda/int8_gemv.py::plan. Needs 1 <= M <= 65535, IN % 16 == 0, 16-byte
-// aligned x and q, rt × ks <= 8 warps; a row whose expert id lies outside
-// [0, E) gives 0. Returns cudaGetLastError() after the launch (0 =
-// launched), or cudaErrorInvalidValue for a shape or plan it does not take.
+// ops/cuda/int8_gemv.py::plan and its expert slots: M for routed rows, or
+// ceil(M / 16) when every id is the same (a dense weight, E = 1). Needs 1
+// <= M <= 65535, IN % 16 == 0, 16-byte aligned x and q, rt × ks <= 8 warps;
+// a row whose expert id lies outside [0, E) gives 0. Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a shape or plan it does not take.
 extern "C" int int8_gemv(const void* x, const void* q, const void* idx, void* y, int M, int E,
-                         int OUT, int IN, int rt, int ks, void* stream) {
+                         int OUT, int IN, int rt, int ks, int slots, void* stream) {
   if (M < 1 || M > 65535 || OUT < 1 || IN < 16 || IN % 16 || rt < 1 || ks < 1 ||
-      rt * ks > kMaxWarps)
+      rt * ks > kMaxWarps || (slots != M && slots != (M + kChunkRows - 1) / kChunkRows))
     return cudaErrorInvalidValue;
   const int tiles = (OUT + kWarpCh - 1) / kWarpCh;
-  const dim3 grid((tiles + rt - 1) / rt, M);
+  const dim3 grid((tiles + rt - 1) / rt, slots);
   const size_t smem = static_cast<size_t>(rt) * ks * kWarpCh * 8 * sizeof(float);
   int8_gemv_kernel<<<grid, 32 * rt * ks, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const int*>(idx), static_cast<float*>(y), M, E, OUT, IN, rt, ks);
+      static_cast<const int*>(idx), static_cast<float*>(y), M, E, OUT, IN, rt, ks, slots);
   return cudaGetLastError();
 }

@@ -50,7 +50,10 @@ class EngineLoadOptions:
     ``quantize`` and ``decode_block`` name features of the JAX engine that
     the executors do not all have yet; an executor raises
     ``NotImplementedError`` when one is set away from what it supports, so
-    no option is silently ignored.
+    no option is silently ignored. ``quantize``: None everywhere; ``"int8"``
+    (int8 weight-only projections and head) for Qwen3 and the Qwen3.5
+    hybrid; ``"int8-experts"`` (experts requantized to int8) for
+    DeepSeek-V4. ``decode_block`` is 1 everywhere.
     """
 
     seed: int = 42
@@ -59,7 +62,8 @@ class EngineLoadOptions:
     max_num_pages: Optional[int] = None  # override pool size (tests)
     max_batch_size: int = 64
     max_model_len: Optional[int] = None
-    # not supported yet: weight quantization, multi-token decode blocks
+    # weight quantization, per family as above; multi-token decode blocks
+    # are not supported yet
     quantize: Optional[str] = None
     decode_block: int = 1
     # Shared-prompt-prefix page cache: a repeated prompt skips prefilling
@@ -98,6 +102,16 @@ class Scheduled(TokenEvent):
 class Token(TokenEvent):
     id: int
     logprob: Optional[TokenLogprob] = None
+
+
+@dataclass
+class PromptTokens(TokenEvent):
+    """An echo request's prompt, sent before its first token: the ids and
+    each one's logprob given the tokens before it (None for the first, and
+    for all when the request asked for no logprobs)."""
+
+    ids: List[int]
+    logprobs: List[Optional[TokenLogprob]] = field(default_factory=list)
 
 
 @dataclass

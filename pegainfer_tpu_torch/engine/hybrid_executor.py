@@ -19,10 +19,15 @@ with a fine tail and snapshots (copies of the slot's rows) the deepest
 piece end within a chunk of the prompt's end and the page-aligned end.
 A PD handoff (``engine/pd.py``) carries the request's pages and its slot's
 rows (``export_pages`` / ``import_pages``, ``slot_export`` /
-``slot_import``).
+``slot_import``). ``quantize="int8"`` serves int8 weight-only projections
+(``models/qwen35.py::quantize_params_int8``, applied at engine start).
+Echo is ``TorchExecutor``'s over the hybrid's ``prefill`` /
+``prefill_chunk``: with logprobs, no cache lookup, pieces with all their
+logits and never fused, while the fine tail and the state snapshots follow
+the stepper as for any prompt.
 
-Not here yet, and refused with ``NotImplementedError``: int8 weights,
-multi-token decode blocks and echo.
+Not here yet, and refused with ``NotImplementedError``: multi-token decode
+blocks.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ def check_supported(opts: EngineLoadOptions) -> None:
     then option values that cannot work (``TorchExecutor``'s rules: the
     prefix cache needs ``prefill_chunk``)."""
     unsupported = {
-        f"quantize={opts.quantize!r}": opts.quantize is not None,
+        f"quantize={opts.quantize!r}": opts.quantize not in (None, "int8"),
         "decode_block": opts.decode_block != 1,
     }
     named = [k for k, v in unsupported.items() if v]
@@ -74,14 +79,17 @@ class HybridExecutor(StateSlots, TorchExecutor):
         slots[: len(items)] = torch.tensor([self._slot(it.request_id) for it in items])
         return slots.to(self.device)
 
-    def _prefill_model(self, item, tokens, table):
-        last_logits, _ = q35.prefill(self.cfg, self.params, self.state, tokens, table,
-                                     self._slot(item.request_id))
-        return last_logits
+    def _prefill_model(self, item, tokens, table, all_logits: bool = False):
+        last_logits, every = q35.prefill(self.cfg, self.params, self.state, tokens, table,
+                                         self._slot(item.request_id),
+                                         return_all_logits=all_logits)
+        return every if all_logits else last_logits
 
-    def _chunk_model(self, item, chunk_tokens, start: int, valid: int, table):
+    def _chunk_model(self, item, chunk_tokens, start: int, valid: int, table,
+                     all_logits: bool = False):
         return q35.prefill_chunk(self.cfg, self.params, self.state, chunk_tokens, start,
-                                 valid, table, self._slot(item.request_id))
+                                 valid, table, self._slot(item.request_id),
+                                 return_all_logits=all_logits)
 
     def _mixed_model(self, item, items, chunk_tokens, start: int, valid: int, table, dec):
         return q35.mixed_chunk(self.cfg, self.params, self.state, chunk_tokens, start, valid,

@@ -33,6 +33,7 @@ from pegainfer_tpu_torch.engine.contract import (
     Finished,
     FinishReason,
     GenerateRequest,
+    PromptTokens,
     Rejected,
     SamplingParams,
     Scheduled,
@@ -366,6 +367,9 @@ class Scheduler:
                 raise RuntimeError(
                     f"prefill result for request {res.request_id}, "
                     f"expected {req.request_id}")
+            if req.echo:  # the prompt comes back first
+                lp = res.prompt_logprobs or [None] * req.prompt_len
+                req.channel.send(PromptTokens(ids=list(req.prompt_tokens), logprobs=lp))
             if not req.params.ignore_eos and self.executor.is_stop_token(res.first_token):
                 req.channel.send(
                     Finished(FinishReason.STOP, req.prompt_len, 0)

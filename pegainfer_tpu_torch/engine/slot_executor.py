@@ -29,14 +29,18 @@ chunks one).
 
 ``quantize="int8-experts"`` serves experts requantized to int8 at load
 (``models/dsv4_engine.py``); ``moe_chain`` is handed to every prefill,
-resume and decode step (``models/dsv4.py``). Not here yet, and refused with
-``NotImplementedError``: bf16 weights (dequantized at load), multi-token
-decode blocks and echo.
+resume and decode step (``models/dsv4.py``). An echo request with logprobs
+skips the slot-cache resume and prefills whole with every row's logits,
+reduced on the device to its prompt logprobs; its snapshot goes into the
+cache with the last logits, as in the JAX executor. Not here yet, and
+refused with ``NotImplementedError``: bf16 weights (dequantized at load)
+and multi-token decode blocks.
 """
 
 from __future__ import annotations
 
 import logging
+from dataclasses import replace
 from typing import Optional
 
 import numpy as np
@@ -58,10 +62,13 @@ from pegainfer_tpu_torch.engine.slots import StateSlots
 from pegainfer_tpu_torch.engine.torch_executor import (
     bucket_batch,
     first_token,
+    prompt_logprobs,
     sample_tokens,
     token_logprobs,
+    wants_prompt_logprobs,
 )
 from pegainfer_tpu_torch.models import dsv4
+from pegainfer_tpu_torch.ops import sampling as smp
 
 log = logging.getLogger("pegainfer_torch.slot_executor")
 
@@ -143,11 +150,10 @@ class SlotExecutor(StateSlots):
     # ── prefill ──────────────────────────────────────────────────────
 
     def _prefill_one(self, item) -> PrefillRequestResult:
-        if item.echo:
-            raise NotImplementedError("echo is not supported by the PyTorch port yet")
         T = len(item.prompt_tokens)
         st = self.acct.state(item.request_id)
-        if self.slot_prefix_cache is not None and st.length == 0:
+        want_all = wants_prompt_logprobs(item)  # echo: every row's logits
+        if self.slot_prefix_cache is not None and st.length == 0 and not want_all:
             res = self._maybe_prefill_resume(item, st)
             if res is not None:
                 return res
@@ -155,7 +161,9 @@ class SlotExecutor(StateSlots):
         slot = self._slot(item.request_id)
         tokens = torch.tensor(item.prompt_tokens, dtype=torch.int32, device=self.device)
         logits, _ = dsv4.prefill(self.cfg, self.params, tokens, state=self.state,
-                                 slot=slot, last_only=True, moe_chain=self.moe_chain)
+                                 slot=slot, last_only=not want_all, moe_chain=self.moe_chain)
+        # a copy of an echo prompt's last row: the cache must not hold [T, V]
+        last = logits[-1].clone() if want_all else logits[0]
         st.advance(T)
         self.prefills += 1
         if self.slot_prefix_cache is not None:
@@ -163,8 +171,12 @@ class SlotExecutor(StateSlots):
             # them, for a request that asked for logprobs (its fused greedy
             # prefill returns none): a later identical prompt then skips
             # its forward exactly where the JAX executor's does
-            self._slot_cache_insert(item, slot, logits[0] if item.logprobs > 0 else None)
-        return first_token(item, logits[0])
+            self._slot_cache_insert(item, slot, last if item.logprobs > 0 else None)
+        res = first_token(item, last)
+        if want_all:  # row t predicts prompt token t + 1
+            lps = prompt_logprobs([smp.token_logprob(logits[: T - 1], tokens[1:])])
+            res = replace(res, prompt_logprobs=lps)
+        return res
 
     def _slot_cache_insert(self, item, slot: int, logits=None) -> None:
         self.slot_prefix_cache.insert(item.prompt_tokens, self.slot_export(slot), logits)

@@ -14,8 +14,21 @@ at piece ends and restores a cache hit's before the first piece, through
 its ``slot_export`` / ``slot_import``. ``export_pages`` / ``import_pages``
 are the PD handoff's hooks (``engine/pd.py``).
 
+``quantize="int8"`` serves int8 weight-only projections
+(``models/qwen3.py::quantize_params_int8``, applied at engine start); the
+executor runs them as it runs bf16 weights.
+
+Echo: a request with ``echo`` gets its prompt back first
+(``PromptTokens``, sent by the scheduler). With ``logprobs`` as well, the
+executor computes each prompt token's logprob given the tokens before it,
+as the JAX executor does: it skips the prefix cache's lookup for the
+request, prefills whole with all logits or, past ``prefill_chunk``, runs
+each stepper piece with all its logits (never fused with decode rows),
+reduces them on the device to the piece's [Tc] target logprobs and reads
+them from the host once, after the last piece.
+
 Not here yet, and refused with ``NotImplementedError``: multi-token decode
-blocks, int8 weights and echo.
+blocks.
 """
 
 from __future__ import annotations
@@ -59,7 +72,7 @@ def check_supported(opts: EngineLoadOptions) -> None:
     """Refuse the JAX engine's options the port does not implement yet, and
     option values that cannot work."""
     unsupported = {
-        "quantize": opts.quantize is not None,
+        f"quantize={opts.quantize!r}": opts.quantize not in (None, "int8"),
         "decode_block": opts.decode_block != 1,
     }
     named = [k for k, v in unsupported.items() if v]
@@ -144,6 +157,20 @@ def token_logprobs(logits, toks, items) -> List[Optional[TokenLogprob]]:
                 top_logprobs=[(ids[i][j], vals[i][j]) for j in range(it.logprobs)],
             )
     return out
+
+
+def wants_prompt_logprobs(item) -> bool:
+    """An echo request that asked for logprobs: its prompt's logprobs are
+    computed (every prompt row's logits), as in the JAX executor."""
+    return item.echo and item.logprobs > 0
+
+
+def prompt_logprobs(parts) -> List[Optional[TokenLogprob]]:
+    """An echo prompt's logprobs: None for its first token, then each
+    later token's given the tokens before it, from device tensors ``parts``
+    (in order) read from the host at once."""
+    vals = torch.cat(parts).tolist() if parts else []
+    return [None] + [TokenLogprob(logprob=v) for v in vals]
 
 
 def first_token(item, last_logits) -> PrefillRequestResult:
@@ -252,7 +279,8 @@ class TorchExecutor:
     def _maybe_seed_prefix(self, item, st) -> None:
         """Seed ``st`` with the cached prefix pages of this prompt (once; a
         no-op when the cache is off or the request already has pages)."""
-        if self.prefix_cache is None or st.pages or st.length > 0 or st.prefix_checked:
+        if (self.prefix_cache is None or st.pages or st.length > 0 or st.prefix_checked
+                or wants_prompt_logprobs(item)):  # echo needs the cached rows' logits
             return
         st.prefix_checked = True
         if self._hybrid_cache:
@@ -271,8 +299,7 @@ class TorchExecutor:
                 self.prefix_cache.insert_snapshot(item.prompt_tokens, pos, snap)
 
     def supports_chunked_prefill(self, item) -> bool:
-        return (self.prefill_chunk is not None and not item.echo
-                and len(item.prompt_tokens) > self.prefill_chunk)
+        return self.prefill_chunk is not None and len(item.prompt_tokens) > self.prefill_chunk
 
     def prefill_stepper(self, item):
         """Generator running one prefill piece per ``next()`` and yielding
@@ -293,11 +320,20 @@ class TorchExecutor:
             st.prefix_snap = None
         fine_tail = self._hybrid_cache and self._small_piece < chunk
         snaps = []  # [(pos, snapshot)]: the deepest interior one, the aligned end
+        want_all = wants_prompt_logprobs(item)
+        lps = []  # echo: each piece's [Tc] prompt logprobs, on the device
         while start < T:
             # planned one piece at a time: decode_active may flip between
             end = plan_piece(T, start, chunk, self.prefill_chunk_mixed, self._small_piece,
                              self.decode_active, fine_tail, ps)
-            if self.mixed_items:
+            if want_all:  # never fused: the scheduler decodes after the piece
+                logits = self._chunk_model(item, tokens[start:end], start, end - start, table,
+                                           all_logits=True)
+                last_logits = logits[-1]
+                # row i predicts prompt token start + i + 1
+                targets = tokens[start + 1:end + 1]
+                lps.append(smp.token_logprob(logits[: targets.shape[0]], targets))
+            elif self.mixed_items:
                 mi, self.mixed_items = self.mixed_items, None
                 last_logits = self._run_mixed_piece(item, mi, tokens[start:end], start,
                                                     end - start, table)
@@ -318,11 +354,10 @@ class TorchExecutor:
                 yield end
         st.advance(T)
         self._cache_insert(item, st, snaps)
-        return self._first_token(item, last_logits)
+        res = self._first_token(item, last_logits)
+        return replace(res, prompt_logprobs=prompt_logprobs(lps)) if want_all else res
 
     def _prefill_one(self, item) -> PrefillRequestResult:
-        if item.echo:
-            raise NotImplementedError("echo is not supported by the PyTorch port yet")
         T = len(item.prompt_tokens)
         st = self.acct.state(item.request_id)
         self._maybe_seed_prefix(item, st)  # a cache hit goes through the stepper
@@ -336,21 +371,34 @@ class TorchExecutor:
         st.ensure_capacity(self.acct.pool, T)
         tokens = torch.tensor(item.prompt_tokens, dtype=torch.int32, device=self.device)
         table = torch.tensor(st.pages, dtype=torch.int32, device=self.device)
-        last_logits = self._prefill_model(item, tokens, table)
+        want_all = wants_prompt_logprobs(item)
+        if want_all:
+            logits = self._prefill_model(item, tokens, table, all_logits=True)
+            last_logits = logits[T - 1]
+        else:
+            last_logits = self._prefill_model(item, tokens, table)
         st.advance(T)
         self.prefills += 1
         self._cache_insert(item, st)
-        return self._first_token(item, last_logits)
+        res = self._first_token(item, last_logits)
+        if want_all:  # row t predicts prompt token t + 1
+            lps = prompt_logprobs([smp.token_logprob(logits[: T - 1], tokens[1:])])
+            res = replace(res, prompt_logprobs=lps)
+        return res
 
-    def _prefill_model(self, item, tokens, table):
-        """The model call of one whole-prompt prefill: last logits [V]."""
-        last_logits, _ = q3.prefill(self.cfg, self.params, self.kv_pages, tokens, table)
-        return last_logits
+    def _prefill_model(self, item, tokens, table, all_logits: bool = False):
+        """The model call of one whole-prompt prefill: last logits [V], or
+        with ``all_logits`` every row's [T, V]."""
+        last_logits, every = q3.prefill(self.cfg, self.params, self.kv_pages, tokens, table,
+                                        return_all_logits=all_logits)
+        return every if all_logits else last_logits
 
-    def _chunk_model(self, item, chunk_tokens, start: int, valid: int, table):
-        """The model call of one prefill piece: last logits [V]."""
+    def _chunk_model(self, item, chunk_tokens, start: int, valid: int, table,
+                     all_logits: bool = False):
+        """The model call of one prefill piece: last logits [V], or with
+        ``all_logits`` every row's [valid, V]."""
         return q3.prefill_chunk(self.cfg, self.params, self.kv_pages, chunk_tokens, start,
-                                valid, table)
+                                valid, table, return_all_logits=all_logits)
 
     def execute_prefill(self, plan: PrefillPlan) -> PrefillResult:
         return PrefillResult(requests=[self._prefill_one(it) for it in plan.requests])

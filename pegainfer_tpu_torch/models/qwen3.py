@@ -18,8 +18,13 @@ reads the past from the pages and the current token from the in-flight k/v
 
 Attention goes through the kernel wrappers in ``ops.cuda``: on a CUDA tensor
 they always launch their kernel (a shape the kernel cannot take raises), on
-a CPU tensor they run the plain version. ``plain_attention=True`` runs the
-plain version on any device, as the oracle of the kernels.
+a CPU tensor they run the plain version. So do the int8 weight-only
+projections (``quantize_params_int8``, the JAX package's ``quantize="int8"``
+mode): every projection and the head go through ``_proj``, which applies a
+bf16 ``[in, out]`` weight as ``x @ w`` and an int8 container through
+``ops/quant.py::int8_linear`` (decode-shaped rows: K6). ``plain_kernels=True``
+runs every kernel's plain version (K1, K2, K6) on any device, as the
+oracle of the kernels.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from pegainfer_tpu_torch.ops import attention as att
+from pegainfer_tpu_torch.ops import quant
 from pegainfer_tpu_torch.ops.cuda.flash_prefill import flash_attention, flash_prefill
 from pegainfer_tpu_torch.ops.cuda.paged_decode import paged_attention_decode
 from pegainfer_tpu_torch.ops.norm import rms_norm
@@ -129,6 +135,9 @@ class Qwen3Config:
 #   "final_ln": [D],
 #   "lm_head":  [D, V]   (a view of embed.T when tied)
 # }
+# In the int8 weight-only mode (``quantize_params_int8``) each projection
+# and the head are containers {"q": int8 [.., out, in], "s": f32 [.., out]}
+# (ops/quant.py); the embedding and the norms stay as they are.
 
 _LAYER_KEYS = ("input_ln", "wq", "wk", "wv", "q_norm", "k_norm", "wo", "post_ln",
                "w_gate_up", "w_down")
@@ -179,18 +188,51 @@ def params_from_state_dict(cfg: Qwen3Config, sd: Dict[str, Any],
             "lm_head": lm_head}
 
 
+def leaf_from_jax(x, dtype, device):
+    """One leaf of a JAX tree: a tensor (``dtype`` None keeps its dtype), or
+    a JAX int8 weight-only leaf ``{"q8": int8 [.., in, out], "s": f32
+    [.., out]}`` as the port's container ``{"q": [.., out, in], "s"}``."""
+    if isinstance(x, dict):
+        q8 = numpy_to_torch(np.asarray(x["q8"]))
+        return {"q": q8.transpose(-1, -2).contiguous().to(device),
+                "s": _to_torch(x["s"], torch.float32, device)}
+    return _to_torch(x, dtype, device)
+
+
 def params_from_jax(jax_params, dtype=None, device="cpu"):
     """The JAX package's Qwen3 parameter tree (numpy leaves: stacked
     [L, ...], [in, out] projections, fused w_gate_up) as the port's
-    parameters. The layout is the same, so this is a copy; ``dtype`` None
-    keeps each leaf's dtype."""
+    parameters. The layout is the same, so this is a copy (an int8
+    weight-only leaf is transposed into the port's container); ``dtype``
+    None keeps each leaf's dtype."""
     return {
         "embed": _to_torch(jax_params["embed"], dtype, device),
-        "layers": {k: _to_torch(jax_params["layers"][k], dtype, device)
+        "layers": {k: leaf_from_jax(jax_params["layers"][k], dtype, device)
                    for k in _LAYER_KEYS},
         "final_ln": _to_torch(jax_params["final_ln"], dtype, device),
-        "lm_head": _to_torch(jax_params["lm_head"], dtype, device),
+        "lm_head": leaf_from_jax(jax_params["lm_head"], dtype, device),
     }
+
+
+_INT8_KEYS = ("wq", "wk", "wv", "wo", "w_gate_up", "w_down")
+
+
+def quantize_params_int8(params):
+    """The int8 weight-only mode (the JAX ``quantize_params_int8``): each of
+    ``wq wk wv wo w_gate_up w_down`` and the head becomes an int8 container
+    (``ops/quant.py::quantize_int8_linear``, the JAX codes exactly); the
+    embedding and the norms stay. A tied head (a view of ``embed.T``) is
+    quantized on its own, the embedding kept.
+
+    CONSUMES ``params`` as the JAX function does: each matrix is replaced in
+    the tree by its container as soon as it is quantized, so its memory is
+    freed unless the caller holds it elsewhere (pass a shallow copy of the
+    tree to keep the bf16 weights). Returns the same tree."""
+    layers = params["layers"]
+    for k in _INT8_KEYS:
+        layers[k] = quant.quantize_int8_linear(layers[k])
+    params["lm_head"] = quant.quantize_int8_linear(params["lm_head"])
+    return params
 
 
 def _shapes(cfg: Qwen3Config):
@@ -250,11 +292,21 @@ def init_random_params_device(cfg: Qwen3Config, generator: torch.Generator,
             "lm_head": lm_head}
 
 
+def tensor_bytes(leaves) -> int:
+    """Bytes of tensors and int8 containers, each storage counted once (a
+    tied head, a view of the embedding, adds nothing)."""
+    seen, n = set(), 0
+    for leaf in leaves:
+        for t in (leaf["q"], leaf["s"]) if quant.is_quantized(leaf) else (leaf,):
+            if t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                n += t.numel() * t.element_size()
+    return n
+
+
 def params_bytes(params) -> int:
-    leaves = [params["embed"], params["final_ln"], *params["layers"].values()]
-    if params["lm_head"].data_ptr() != params["embed"].data_ptr():
-        leaves.append(params["lm_head"])
-    return sum(t.numel() * t.element_size() for t in leaves)
+    return tensor_bytes([params["embed"], params["final_ln"], *params["layers"].values(),
+                         params["lm_head"]])
 
 
 def make_kv_pages(cfg: Qwen3Config, num_pages: int, page_size: int,
@@ -294,8 +346,10 @@ def _page_ids(page_ids, device) -> torch.Tensor:
 # ── Forward building blocks ──────────────────────────────────────────────
 
 
-def _layer(params, li: int) -> Dict[str, torch.Tensor]:
-    return {k: v[li] for k, v in params["layers"].items()}
+def _layer(params, li: int) -> Dict[str, Any]:
+    """Layer li's weights (an int8 container's q and s sliced alike)."""
+    return {k: ({"q": v["q"][li], "s": v["s"][li]} if quant.is_quantized(v) else v[li])
+            for k, v in params["layers"].items()}
 
 
 def _rope(cfg: Qwen3Config, positions: torch.Tensor, dtype):
@@ -304,22 +358,37 @@ def _rope(cfg: Qwen3Config, positions: torch.Tensor, dtype):
     return rope_cos_sin(positions, inv_freq, dtype)
 
 
-def _qkv(cfg: Qwen3Config, lw, x, cos, sin):
+def _proj(container, name: str, x, plain_kernels: bool):
+    """x [N, in] through the projection ``container[name]``: a bf16 ``[in,
+    out]`` weight (``x @ w``) or an int8 container
+    (``ops/quant.py::int8_linear``)."""
+    w = container[name]
+    if quant.is_quantized(w):
+        return quant.int8_linear(x, w, plain_kernels)
+    return x @ w
+
+
+def _qkv(cfg: Qwen3Config, lw, x, cos, sin, plain_kernels: bool):
     """x: [T, D] -> q [T, Hq, hd], k, v [T, Hkv, hd] with qk-norm + RoPE."""
     T = x.shape[0]
     hd = cfg.head_dim
-    q = (x @ lw["wq"]).reshape(T, cfg.num_attention_heads, hd)
-    k = (x @ lw["wk"]).reshape(T, cfg.num_key_value_heads, hd)
-    v = (x @ lw["wv"]).reshape(T, cfg.num_key_value_heads, hd)
+    q = _proj(lw, "wq", x, plain_kernels).reshape(T, cfg.num_attention_heads, hd)
+    k = _proj(lw, "wk", x, plain_kernels).reshape(T, cfg.num_key_value_heads, hd)
+    v = _proj(lw, "wv", x, plain_kernels).reshape(T, cfg.num_key_value_heads, hd)
     q = rms_norm(q, lw["q_norm"], cfg.rms_norm_eps)
     k = rms_norm(k, lw["k_norm"], cfg.rms_norm_eps)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _mlp(lw, x):
-    gate, up = (x @ lw["w_gate_up"]).chunk(2, dim=-1)
+def _mlp(lw, x, plain_kernels: bool):
+    gate, up = _proj(lw, "w_gate_up", x, plain_kernels).chunk(2, dim=-1)
     act = F.silu(gate.float()).to(x.dtype) * up
-    return act @ lw["w_down"]
+    return _proj(lw, "w_down", act, plain_kernels)
+
+
+def _head(params, x, plain_kernels: bool):
+    """Logits [N, V] f32 of final-normed rows x [N, D]."""
+    return _proj(params, "lm_head", x, plain_kernels).float()
 
 
 def _scale(cfg: Qwen3Config) -> float:
@@ -337,7 +406,7 @@ def _write_kv(kv_pages, li: int, k, v, page_ids, slots):
 
 
 def prefill(cfg: Qwen3Config, params, kv_pages, tokens, page_table,
-            return_all_logits: bool = False, plain_attention: bool = False):
+            return_all_logits: bool = False, plain_kernels: bool = False):
     """Prefill one prompt and write its KV into ``kv_pages`` in place.
 
     tokens: [T] int (the prompt, unpadded); page_table: [>= ceil(T/ps)] int
@@ -355,20 +424,21 @@ def prefill(cfg: Qwen3Config, params, kv_pages, tokens, page_table,
     for li in range(cfg.num_hidden_layers):
         lw = _layer(params, li)
         h = rms_norm(x, lw["input_ln"], cfg.rms_norm_eps)
-        q, k, v = _qkv(cfg, lw, h, cos, sin)
-        if plain_attention:
+        q, k, v = _qkv(cfg, lw, h, cos, sin, plain_kernels)
+        if plain_kernels:
             o = att.prefill_attention(q, k, v, T, scale)
         else:
             o = flash_prefill(q, k, v, T, scale)
         _write_kv(kv_pages, li, k, v, page_ids, slots)
-        x = x + o.reshape(T, -1) @ lw["wo"]
+        x = x + _proj(lw, "wo", o.reshape(T, -1), plain_kernels)
         h = rms_norm(x, lw["post_ln"], cfg.rms_norm_eps)
-        x = x + _mlp(lw, h)
-    x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+        x = x + _mlp(lw, h, plain_kernels)
     if return_all_logits:
-        all_logits = (x @ params["lm_head"]).float()
+        all_logits = _head(params, rms_norm(x, params["final_ln"], cfg.rms_norm_eps),
+                           plain_kernels)
         return all_logits[T - 1], all_logits
-    return (x[T - 1:] @ params["lm_head"])[0].float(), None
+    x = rms_norm(x[T - 1:], params["final_ln"], cfg.rms_norm_eps)
+    return _head(params, x, plain_kernels)[0], None
 
 
 # ── Chunked prefill continuation ─────────────────────────────────────────
@@ -381,7 +451,7 @@ def chunk_rows(page_table, start_pos: int, valid: int, ps: int):
 
 
 def chunk_attention(kv_pages, li: int, q, page_table, start_pos: int, scale: float,
-                    plain_attention: bool):
+                    plain_kernels: bool):
     """Attention of a chunk's queries (absolute positions start_pos + i)
     over the request's keys, read back from the pool by absolute position;
     the chunk's own rows must already be written. Only the pages covering
@@ -393,13 +463,14 @@ def chunk_attention(kv_pages, li: int, q, page_table, start_pos: int, scale: flo
     # one gather fetches k and v (adjacent in a page): [Hkv, n, 2, ps, hd]
     # -> [2, n * ps, Hkv, hd], each half contiguous, as K2 takes it
     kv_seq = kv_pages[li][:, pages].permute(2, 1, 3, 0, 4).reshape(2, -1, Hkv, hd).contiguous()
-    if plain_attention:
+    if plain_kernels:
         return att.causal_attention(q, kv_seq[0], kv_seq[1], kv_valid, start_pos, scale)
     return flash_attention(q, kv_seq[0], kv_seq[1], kv_valid, start_pos, scale)
 
 
 def prefill_chunk(cfg: Qwen3Config, params, kv_pages, tokens, start_pos: int,
-                  valid: int, page_table, plain_attention: bool = False):
+                  valid: int, page_table, plain_kernels: bool = False,
+                  return_all_logits: bool = False):
     """Prefill continuation: run prompt positions ``[start_pos, start_pos +
     valid)`` of one request whose earlier positions are already in its
     pages, and write the chunk's k/v into ``kv_pages`` in place.
@@ -410,7 +481,9 @@ def prefill_chunk(cfg: Qwen3Config, params, kv_pages, tokens, start_pos: int,
     queries at ``start_pos + i`` (K2 with ``q_offset``). tokens: [>= valid]
     (rows past ``valid`` are ignored); page_table: [>= ceil((start_pos +
     valid) / ps)] the request's pages. Returns last_logits [V] f32, for
-    chunk row ``valid - 1``.
+    chunk row ``valid - 1``; with ``return_all_logits`` (the JAX
+    ``prefill_chunk_wa_all``, for echo's prompt logprobs) the logits of
+    every chunk row [valid, V] f32, the last row those last logits.
     """
     ps = kv_pages.shape[4]
     x = params["embed"][tokens[:valid].long()]
@@ -420,19 +493,21 @@ def prefill_chunk(cfg: Qwen3Config, params, kv_pages, tokens, start_pos: int,
     for li in range(cfg.num_hidden_layers):
         lw = _layer(params, li)
         h = rms_norm(x, lw["input_ln"], cfg.rms_norm_eps)
-        q, k, v = _qkv(cfg, lw, h, cos, sin)
+        q, k, v = _qkv(cfg, lw, h, cos, sin, plain_kernels)
         _write_kv(kv_pages, li, k, v, page_ids, slots)
-        o = chunk_attention(kv_pages, li, q, page_table, start_pos, scale, plain_attention)
-        x = x + o.reshape(valid, -1) @ lw["wo"]
+        o = chunk_attention(kv_pages, li, q, page_table, start_pos, scale, plain_kernels)
+        x = x + _proj(lw, "wo", o.reshape(valid, -1), plain_kernels)
         h = rms_norm(x, lw["post_ln"], cfg.rms_norm_eps)
-        x = x + _mlp(lw, h)
+        x = x + _mlp(lw, h, plain_kernels)
+    if return_all_logits:
+        return _head(params, rms_norm(x, params["final_ln"], cfg.rms_norm_eps), plain_kernels)
     x = rms_norm(x[valid - 1:], params["final_ln"], cfg.rms_norm_eps)
-    return (x @ params["lm_head"])[0].float()
+    return _head(params, x, plain_kernels)[0]
 
 
 def mixed_chunk(cfg: Qwen3Config, params, kv_pages, chunk_tokens, start_pos: int,
                 valid: int, page_table, dec_tokens, dec_positions, dec_tables,
-                dec_seq_lens, plain_attention: bool = False):
+                dec_seq_lens, plain_kernels: bool = False):
     """The fused mixed step: a prefill chunk's ``valid`` rows and one decode
     row per active stream through shared GEMMs, attention split between
     them (the JAX ``mixed_chunk_wa`` and both flushes).
@@ -457,20 +532,20 @@ def mixed_chunk(cfg: Qwen3Config, params, kv_pages, chunk_tokens, start_pos: int
     for li in range(cfg.num_hidden_layers):
         lw = _layer(params, li)
         h = rms_norm(x, lw["input_ln"], cfg.rms_norm_eps)
-        q, k, v = _qkv(cfg, lw, h, cos, sin)
+        q, k, v = _qkv(cfg, lw, h, cos, sin, plain_kernels)
         _write_kv(kv_pages, li, k[:valid], v[:valid], page_ids, slots)
         o_p = chunk_attention(kv_pages, li, q[:valid], page_table, start_pos, scale,
-                               plain_attention)
+                               plain_kernels)
         qd, kd, vd = q[valid:], k[valid:], v[valid:]
         o_d = decode_attention(kv_pages, li, qd, kd, vd, dec_tables, dec_seq_lens,
-                                scale, plain_attention)
+                                scale, plain_kernels)
         _write_kv(kv_pages, li, kd, vd, dec_page_ids, dec_slots)
         o = torch.cat([o_p.reshape(valid, -1), o_d.reshape(B, -1)])
-        x = x + o @ lw["wo"]
+        x = x + _proj(lw, "wo", o, plain_kernels)
         h = rms_norm(x, lw["post_ln"], cfg.rms_norm_eps)
-        x = x + _mlp(lw, h)
+        x = x + _mlp(lw, h, plain_kernels)
     x = rms_norm(x[valid - 1:], params["final_ln"], cfg.rms_norm_eps)  # last chunk row ‖ B
-    logits = (x @ params["lm_head"]).float()
+    logits = _head(params, x, plain_kernels)
     return logits[0], logits[1:]
 
 
@@ -478,10 +553,10 @@ def mixed_chunk(cfg: Qwen3Config, params, kv_pages, chunk_tokens, start_pos: int
 
 
 def decode_attention(kv_pages, li: int, q, k, v, page_tables, seq_lens, scale: float,
-                     plain_attention: bool):
+                     plain_kernels: bool):
     """Decode attention of one layer: the past from the pages, the current
     token from the in-flight ``k``/``v`` (K1 with ``cur_k``/``cur_v``)."""
-    if plain_attention:
+    if plain_kernels:
         return att.paged_attention_decode(
             q, kv_pages[li, :, :, 0], kv_pages[li, :, :, 1], page_tables, seq_lens,
             scale, cur_k=k, cur_v=v)
@@ -490,7 +565,7 @@ def decode_attention(kv_pages, li: int, q, k, v, page_tables, seq_lens, scale: f
 
 
 def decode(cfg: Qwen3Config, params, kv_pages, tokens, positions, page_tables,
-           seq_lens, plain_attention: bool = False):
+           seq_lens, plain_kernels: bool = False):
     """One decode step for a batch, with ``decode_wa``'s semantics: attention
     reads the past from the pages plus the current token's in-flight k/v,
     and each layer then writes that k/v into the pool in place.
@@ -511,12 +586,12 @@ def decode(cfg: Qwen3Config, params, kv_pages, tokens, positions, page_tables,
     for li in range(cfg.num_hidden_layers):
         lw = _layer(params, li)
         h = rms_norm(x, lw["input_ln"], cfg.rms_norm_eps)
-        q, k, v = _qkv(cfg, lw, h, cos, sin)
+        q, k, v = _qkv(cfg, lw, h, cos, sin, plain_kernels)
         o = decode_attention(kv_pages, li, q, k, v, page_tables, seq_lens, scale,
-                              plain_attention)
+                              plain_kernels)
         _write_kv(kv_pages, li, k, v, page_ids, slots)
-        x = x + o.reshape(B, -1) @ lw["wo"]
+        x = x + _proj(lw, "wo", o.reshape(B, -1), plain_kernels)
         h = rms_norm(x, lw["post_ln"], cfg.rms_norm_eps)
-        x = x + _mlp(lw, h)
+        x = x + _mlp(lw, h, plain_kernels)
     x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
-    return (x @ params["lm_head"]).float()
+    return _head(params, x, plain_kernels)

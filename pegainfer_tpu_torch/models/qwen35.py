@@ -28,11 +28,17 @@ snapshots).
 Full attention goes through the kernel wrappers (K2 in prefill and, at
 ``q_offset`` = the piece's start, in a chunk; K1 in decode and for a fused
 piece's decode rows): a CUDA tensor launches the kernel, a CPU tensor takes
-the plain version; ``plain_attention=True`` runs the plain version on any
-device. The GDN layers are torch ops (``ops/gdn.py``).
+the plain version. The GDN layers are torch ops (``ops/gdn.py``).
 
-Not ported here: int8 weights, the fused ``qkvzba`` layout and the flat
-union layout (the executor refuses the options that need them).
+The int8 weight-only mode (``quantize_params_int8``, the JAX package's
+``quantize="int8"``): every projection but ``wb`` / ``wa`` and the head go
+through ``qwen3._proj`` (an int8 container through
+``ops/quant.py::int8_linear``, decode-shaped rows on K6).
+``plain_kernels=True`` runs every kernel's plain version (K1, K2, K6) on
+any device.
+
+Not ported here: the fused ``qkvzba`` / ``qgkv`` layout and the flat union
+layout (the executor refuses the options that need them).
 """
 
 from __future__ import annotations
@@ -47,9 +53,9 @@ import torch
 import torch.nn.functional as F
 
 from pegainfer_tpu_torch.models import qwen3 as q3
-from pegainfer_tpu_torch.models.qwen3 import chunk_attention, chunk_rows, decode_attention
+from pegainfer_tpu_torch.models.qwen3 import _proj, chunk_attention, chunk_rows, decode_attention
 from pegainfer_tpu_torch.ops import attention as att
-from pegainfer_tpu_torch.ops import gdn
+from pegainfer_tpu_torch.ops import gdn, quant
 from pegainfer_tpu_torch.ops.cuda.flash_prefill import flash_prefill
 from pegainfer_tpu_torch.ops.norm import rms_norm_zero_centered as rms_norm
 from pegainfer_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
@@ -212,6 +218,9 @@ def bench_config() -> Qwen35Config:
 #   "final_ln": [D],
 #   "lm_head": [D, V],
 # }
+# In the int8 weight-only mode (``quantize_params_int8``) the INT8_LIN /
+# INT8_FULL projections and the head are containers {"q": int8 [.., out,
+# in], "s": f32 [.., out]} (ops/quant.py).
 
 F32_KEYS = ("dt_bias", "A_log", "conv_w")  # kept f32 whatever the weights' dtype
 _NORM_KEYS = ("input_ln", "post_ln", "q_norm", "k_norm", "norm_w")
@@ -347,10 +356,12 @@ def params_from_state_dict(cfg: Qwen35Config, sd: Dict[str, Any],
 
 def params_from_jax(jax_params, dtype=None, device="cpu"):
     """The JAX package's grouped Qwen3.5 tree (numpy leaves) as the port's
-    parameters: the same layout, so a copy. ``dtype`` None keeps each leaf's
-    dtype; otherwise ``F32_KEYS`` stay f32 and the rest take ``dtype``."""
+    parameters: the same layout, so a copy (an int8 weight-only leaf is
+    transposed into the port's container, ``qwen3.leaf_from_jax``). ``dtype``
+    None keeps each leaf's dtype; otherwise ``F32_KEYS`` stay f32 and the
+    rest take ``dtype``."""
     def leaf(k, x):
-        return _tensor(x, None if dtype is None else _leaf_dtype(k, dtype), device)
+        return q3.leaf_from_jax(x, None if dtype is None else _leaf_dtype(k, dtype), device)
 
     return {
         "embed": leaf("embed", jax_params["embed"]),
@@ -407,12 +418,29 @@ def init_random_params_device(cfg: Qwen35Config, generator: torch.Generator, dev
             "lm_head": w("lm_head", (D, V))}
 
 
+# the int8 weight-only mode's projections (the JAX quantize_params_int8's
+# key lists, for the split layout)
+INT8_LIN = ("wq", "wk", "wv", "wz", "out_proj", "mlp_gate_up", "mlp_down")
+INT8_FULL = ("wq", "wgate", "wk", "wv", "wo", "mlp_gate_up", "mlp_down")
+
+
+def quantize_params_int8(params):
+    """The int8 weight-only mode (the JAX ``quantize_params_int8``, split
+    layout): the GDN layers' ``INT8_LIN``, the full layers' ``INT8_FULL``
+    and the head become int8 containers (``quantize_int8_linear``, the JAX
+    codes exactly); ``wb``, ``wa``, the conv, the gates, the norms and the
+    embedding stay. CONSUMES ``params`` as ``qwen3.quantize_params_int8``
+    does (each matrix replaced in the tree as it goes). Returns the tree."""
+    for part, keys in (("lin", INT8_LIN), ("full", INT8_FULL)):
+        for k in keys:
+            params[part][k] = quant.quantize_int8_linear(params[part][k])
+    params["lm_head"] = quant.quantize_int8_linear(params["lm_head"])
+    return params
+
+
 def params_bytes(params) -> int:
-    leaves = [params["embed"], params["final_ln"], *params["lin"].values(),
-              *params["full"].values()]
-    if params["lm_head"].data_ptr() != params["embed"].data_ptr():
-        leaves.append(params["lm_head"])
-    return sum(t.numel() * t.element_size() for t in leaves)
+    return q3.tensor_bytes([params["embed"], params["final_ln"], *params["lin"].values(),
+                            *params["full"].values(), params["lm_head"]])
 
 
 # ── State ────────────────────────────────────────────────────────────────
@@ -450,17 +478,17 @@ def slot_bytes(cfg: Qwen35Config) -> int:
 # ── Forward building blocks ──────────────────────────────────────────────
 
 
-def _mlp(lw, x):
-    gate, up = (x @ lw["mlp_gate_up"]).chunk(2, dim=-1)
-    return (F.silu(gate.float()).to(x.dtype) * up) @ lw["mlp_down"]
+def _mlp(lw, x, pk: bool):
+    gate, up = _proj(lw, "mlp_gate_up", x, pk).chunk(2, dim=-1)
+    return _proj(lw, "mlp_down", F.silu(gate.float()).to(x.dtype) * up, pk)
 
 
-def _gdn_project(cfg: Qwen35Config, lw, h):
+def _gdn_project(cfg: Qwen35Config, lw, h, pk: bool):
     """h: [N, D] -> the conv input [N, conv_dim] (q ‖ k ‖ v), z [N, Hv, dv],
     g and beta [N, Hv] f32."""
     Hv, dv = cfg.linear_num_value_heads, cfg.linear_value_head_dim
-    mixed = torch.cat([h @ lw["wq"], h @ lw["wk"], h @ lw["wv"]], dim=-1)
-    z = (h @ lw["wz"]).reshape(-1, Hv, dv)
+    mixed = torch.cat([_proj(lw, k, h, pk) for k in ("wq", "wk", "wv")], dim=-1)
+    z = _proj(lw, "wz", h, pk).reshape(-1, Hv, dv)
     beta = torch.sigmoid((h @ lw["wb"]).float())
     g = -torch.exp(lw["A_log"].float()) * F.softplus(
         (h @ lw["wa"]).float() + lw["dt_bias"].float())
@@ -498,15 +526,15 @@ def _rope(cfg: Qwen35Config, positions: torch.Tensor, dtype):
     return rope_cos_sin(positions, inv_freq, dtype)
 
 
-def _full_qkv(cfg: Qwen35Config, fw, h, cos, sin):
+def _full_qkv(cfg: Qwen35Config, fw, h, cos, sin, pk: bool):
     """Full-attention projections: q [N, Hq, hd] and its gate [N, Hq*hd]
     from q_proj, k / v [N, Hkv, hd]; q and k normed, then RoPE over their
     first ``rotary_dim`` dims."""
     N, hd = h.shape[0], cfg.head_dim
-    q = (h @ fw["wq"]).reshape(N, cfg.num_attention_heads, hd)
-    gate = h @ fw["wgate"]
-    k = (h @ fw["wk"]).reshape(N, cfg.num_key_value_heads, hd)
-    v = (h @ fw["wv"]).reshape(N, cfg.num_key_value_heads, hd)
+    q = _proj(fw, "wq", h, pk).reshape(N, cfg.num_attention_heads, hd)
+    gate = _proj(fw, "wgate", h, pk)
+    k = _proj(fw, "wk", h, pk).reshape(N, cfg.num_key_value_heads, hd)
+    v = _proj(fw, "wv", h, pk).reshape(N, cfg.num_key_value_heads, hd)
     q = rms_norm(q, fw["q_norm"], cfg.rms_norm_eps)
     k = rms_norm(k, fw["k_norm"], cfg.rms_norm_eps)
     rd = cfg.rotary_dim
@@ -515,10 +543,10 @@ def _full_qkv(cfg: Qwen35Config, fw, h, cos, sin):
     return q, k, v, gate
 
 
-def _gated_out(fw, x, o, gate):
+def _gated_out(fw, x, o, gate, pk: bool):
     """x + wo (o ∘ sigmoid(gate)), the sigmoid in f32 cast to x's dtype."""
     o = o.reshape(x.shape[0], -1) * torch.sigmoid(gate.float()).to(x.dtype)
-    return x + o @ fw["wo"]
+    return x + _proj(fw, "wo", o, pk)
 
 
 def _write_kv(kv, gi: int, k, v, page_ids, slots):
@@ -528,12 +556,18 @@ def _write_kv(kv, gi: int, k, v, page_ids, slots):
     layer[:, :, 1][:, page_ids, slots] = v.transpose(0, 1).to(kv.dtype)
 
 
+def _at(v, i):
+    """A leaf at index i of its leading axes (an int8 container's q and s
+    alike)."""
+    return {"q": v["q"][i], "s": v["s"][i]} if quant.is_quantized(v) else v[i]
+
+
 def _lin_weights(params, gi: int, j: int):
-    return {k: v[gi, j] for k, v in params["lin"].items()}
+    return {k: _at(v, (gi, j)) for k, v in params["lin"].items()}
 
 
 def _full_weights(params, gi: int):
-    return {k: v[gi] for k, v in params["full"].items()}
+    return {k: _at(v, gi) for k, v in params["full"].items()}
 
 
 def _gdn_step_rows(cfg: Qwen35Config, lw, state, gi: int, j: int, rows, mixed, g, beta):
@@ -573,7 +607,7 @@ def _gdn_chunk_rows(cfg: Qwen35Config, lw, state, gi: int, j: int, slot: int,
 
 
 def prefill(cfg: Qwen35Config, params, state, tokens, page_table, slot: int,
-            return_all_logits: bool = False, plain_attention: bool = False,
+            return_all_logits: bool = False, plain_kernels: bool = False,
             gdn_chunk_size: int = gdn.CHUNK):
     """Prefill one prompt: write its KV into the pool and its slot's
     recurrent and conv rows (whole), in place.
@@ -596,41 +630,42 @@ def prefill(cfg: Qwen35Config, params, state, tokens, page_table, slot: int,
     for gi in range(cfg.num_groups):
         for j in range(cfg.period - 1):
             lw = _lin_weights(params, gi, j)
-            mixed, z, g, beta = _gdn_project(cfg, lw, rms_norm(x, lw["input_ln"], eps))
+            mixed, z, g, beta = _gdn_project(cfg, lw, rms_norm(x, lw["input_ln"], eps), plain_kernels)
             y, conv_state = gdn.causal_conv1d(mixed, lw["conv_w"])
             q, k, v = _gdn_split_heads(cfg, y)
             out, rec_state = gdn.gdn_chunk(q, k, v, g, beta, S0, chunk=gdn_chunk_size)
             state["conv"][gi, j, slot] = conv_state
             state["rec"][gi, j, slot] = rec_state
             out = _gated_norm(cfg, lw["norm_w"], out, z).to(x.dtype)
-            x = x + out.reshape(T, -1) @ lw["out_proj"]
-            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps))
+            x = x + _proj(lw, "out_proj", out.reshape(T, -1), plain_kernels)
+            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps), plain_kernels)
         fw = _full_weights(params, gi)
-        q, k, v, gate = _full_qkv(cfg, fw, rms_norm(x, fw["input_ln"], eps), cos, sin)
-        if plain_attention:
+        q, k, v, gate = _full_qkv(cfg, fw, rms_norm(x, fw["input_ln"], eps), cos, sin,
+                                  plain_kernels)
+        if plain_kernels:
             o = att.prefill_attention(q, k, v, T, scale)
         else:
             o = flash_prefill(q, k, v, T, scale)
         _write_kv(state["kv"], gi, k, v, page_ids, pslots)
-        x = _gated_out(fw, x, o, gate)
-        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps))
-    x = rms_norm(x, params["final_ln"], eps)
+        x = _gated_out(fw, x, o, gate, plain_kernels)
+        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps), plain_kernels)
     if return_all_logits:
-        all_logits = (x @ params["lm_head"]).float()
+        all_logits = q3._head(params, rms_norm(x, params["final_ln"], eps), plain_kernels)
         return all_logits[T - 1], all_logits
-    return (x[T - 1:] @ params["lm_head"])[0].float(), None
+    return q3._head(params, rms_norm(x[T - 1:], params["final_ln"], eps), plain_kernels)[0], None
 
 
 # ── Chunked prefill continuation and the fused mixed step ────────────────
 
 
 def _chunk_forward(cfg: Qwen35Config, params, state, chunk_tokens, start_pos: int,
-                   valid: int, page_table, slot: int, dec, plain_attention: bool,
-                   gdn_chunk_size: int):
+                   valid: int, page_table, slot: int, dec, plain_kernels: bool,
+                   gdn_chunk_size: int, all_rows: bool = False):
     """A prompt's chunk of ``valid`` rows, and with ``dec`` = (tokens,
     positions, page tables, seq_lens, slots) one decode row per stream,
     through shared GEMMs; only the sequence mixing splits. Returns logits
-    [1 + B, V] f32: chunk row ``valid - 1``, then the decode rows."""
+    [1 + B, V] f32: chunk row ``valid - 1``, then the decode rows; with
+    ``all_rows`` every chunk row's first, [valid + B, V]."""
     eps = cfg.rms_norm_eps
     kv = state["kv"]
     ps = kv.shape[4]
@@ -651,7 +686,7 @@ def _chunk_forward(cfg: Qwen35Config, params, state, chunk_tokens, start_pos: in
     for gi in range(cfg.num_groups):
         for j in range(cfg.period - 1):
             lw = _lin_weights(params, gi, j)
-            mixed, z, g, beta = _gdn_project(cfg, lw, rms_norm(x, lw["input_ln"], eps))
+            mixed, z, g, beta = _gdn_project(cfg, lw, rms_norm(x, lw["input_ln"], eps), plain_kernels)
             out = _gdn_chunk_rows(cfg, lw, state, gi, j, slot, start_pos, mixed[:valid],
                                   g[:valid], beta[:valid], gdn_chunk_size)
             if dec is not None:
@@ -659,28 +694,29 @@ def _chunk_forward(cfg: Qwen35Config, params, state, chunk_tokens, start_pos: in
                                                      mixed[valid:], g[valid:],
                                                      beta[valid:])])
             out = _gated_norm(cfg, lw["norm_w"], out, z).to(x.dtype)
-            x = x + out.reshape(N, -1) @ lw["out_proj"]
-            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps))
+            x = x + _proj(lw, "out_proj", out.reshape(N, -1), plain_kernels)
+            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps), plain_kernels)
         fw = _full_weights(params, gi)
-        q, k, v, gate = _full_qkv(cfg, fw, rms_norm(x, fw["input_ln"], eps), cos, sin)
+        q, k, v, gate = _full_qkv(cfg, fw, rms_norm(x, fw["input_ln"], eps), cos, sin,
+                                  plain_kernels)
         _write_kv(kv, gi, k[:valid], v[:valid], page_ids, pslots)
         o = chunk_attention(kv, gi, q[:valid], page_table, start_pos, scale,
-                            plain_attention).reshape(valid, -1)
+                            plain_kernels).reshape(valid, -1)
         if dec is not None:
             qd, kd, vd = q[valid:], k[valid:], v[valid:]
             o_d = decode_attention(kv, gi, qd, kd, vd, dec_tables, dec_seq_lens, scale,
-                                   plain_attention)
+                                   plain_kernels)
             _write_kv(kv, gi, kd, vd, dec_page_ids, dec_pslots)
             o = torch.cat([o, o_d.reshape(N - valid, -1)])
-        x = _gated_out(fw, x, o, gate)
-        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps))
-    x = rms_norm(x[valid - 1:], params["final_ln"], eps)  # last chunk row ‖ B
-    return (x @ params["lm_head"]).float()
+        x = _gated_out(fw, x, o, gate, plain_kernels)
+        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps), plain_kernels)
+    x = rms_norm(x if all_rows else x[valid - 1:], params["final_ln"], eps)  # ‖ B
+    return q3._head(params, x, plain_kernels)
 
 
 def prefill_chunk(cfg: Qwen35Config, params, state, tokens, start_pos: int, valid: int,
-                  page_table, slot: int, plain_attention: bool = False,
-                  gdn_chunk_size: int = gdn.CHUNK):
+                  page_table, slot: int, plain_kernels: bool = False,
+                  gdn_chunk_size: int = gdn.CHUNK, return_all_logits: bool = False):
     """Prefill continuation: prompt positions ``[start_pos, start_pos +
     valid)`` of one request whose earlier positions are in its pages and its
     slot's rows, written in place (the function of the JAX
@@ -692,15 +728,18 @@ def prefill_chunk(cfg: Qwen35Config, params, state, tokens, start_pos: int, vali
     ``q_offset`` = ``start_pos``). tokens: [>= valid] (rows past ``valid``
     are ignored); page_table: [>= ceil((start_pos + valid) / ps)] the
     request's pages. Returns last_logits [V] f32, for chunk row
-    ``valid - 1``.
+    ``valid - 1``; with ``return_all_logits`` (the JAX
+    ``prefill_chunk_wa_all``, for echo's prompt logprobs) the logits of
+    every chunk row [valid, V] f32, the last row those last logits.
     """
-    return _chunk_forward(cfg, params, state, tokens, start_pos, valid, page_table, slot,
-                          None, plain_attention, gdn_chunk_size)[0]
+    logits = _chunk_forward(cfg, params, state, tokens, start_pos, valid, page_table, slot,
+                            None, plain_kernels, gdn_chunk_size, return_all_logits)
+    return logits if return_all_logits else logits[0]
 
 
 def mixed_chunk(cfg: Qwen35Config, params, state, chunk_tokens, start_pos: int,
                 valid: int, page_table, slot: int, dec_tokens, dec_positions, dec_tables,
-                dec_seq_lens, dec_slots, plain_attention: bool = False,
+                dec_seq_lens, dec_slots, plain_kernels: bool = False,
                 gdn_chunk_size: int = gdn.CHUNK):
     """The fused mixed step: a prompt's chunk rows and one decode row per
     active stream through shared GEMMs (the JAX ``mixed_chunk_wa`` and both
@@ -714,7 +753,7 @@ def mixed_chunk(cfg: Qwen35Config, params, state, chunk_tokens, start_pos: int,
     """
     logits = _chunk_forward(cfg, params, state, chunk_tokens, start_pos, valid, page_table,
                             slot, (dec_tokens, dec_positions, dec_tables, dec_seq_lens,
-                                   dec_slots), plain_attention, gdn_chunk_size)
+                                   dec_slots), plain_kernels, gdn_chunk_size)
     return logits[0], logits[1:]
 
 
@@ -752,7 +791,7 @@ def slot_import(state, snap, slot: int) -> None:
 
 
 def decode(cfg: Qwen35Config, params, state, tokens, positions, page_tables, seq_lens,
-           slots, plain_attention: bool = False):
+           slots, plain_kernels: bool = False):
     """One decode step for a batch, with ``decode_wa``'s semantics: each GDN
     layer reads its rows of ``slots`` and writes them back in place, and
     each full layer attends over the pages plus the current token's
@@ -777,16 +816,17 @@ def decode(cfg: Qwen35Config, params, state, tokens, positions, page_tables, seq
     for gi in range(cfg.num_groups):
         for j in range(cfg.period - 1):
             lw = _lin_weights(params, gi, j)
-            mixed, z, g, beta = _gdn_project(cfg, lw, rms_norm(x, lw["input_ln"], eps))
+            mixed, z, g, beta = _gdn_project(cfg, lw, rms_norm(x, lw["input_ln"], eps), plain_kernels)
             out = _gdn_step_rows(cfg, lw, state, gi, j, rows, mixed, g, beta)
             out = _gated_norm(cfg, lw["norm_w"], out, z).to(x.dtype)
-            x = x + out.reshape(B, -1) @ lw["out_proj"]
-            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps))
+            x = x + _proj(lw, "out_proj", out.reshape(B, -1), plain_kernels)
+            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps), plain_kernels)
         fw = _full_weights(params, gi)
-        q, k, v, gate = _full_qkv(cfg, fw, rms_norm(x, fw["input_ln"], eps), cos, sin)
-        o = decode_attention(kv, gi, q, k, v, page_tables, seq_lens, scale, plain_attention)
+        q, k, v, gate = _full_qkv(cfg, fw, rms_norm(x, fw["input_ln"], eps), cos, sin,
+                                  plain_kernels)
+        o = decode_attention(kv, gi, q, k, v, page_tables, seq_lens, scale, plain_kernels)
         _write_kv(kv, gi, k, v, page_ids, pslots)
-        x = _gated_out(fw, x, o, gate)
-        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps))
+        x = _gated_out(fw, x, o, gate, plain_kernels)
+        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps), plain_kernels)
     x = rms_norm(x, params["final_ln"], eps)
-    return (x @ params["lm_head"]).float()
+    return q3._head(params, x, plain_kernels)

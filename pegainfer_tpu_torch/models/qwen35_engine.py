@@ -2,19 +2,21 @@
 state slots -> HybridExecutor -> scheduler. Counterpart of
 ``pegainfer_tpu/models/qwen35_engine.py``.
 
-Serves the per-layer grouped weights in bf16 with ``max_batch_size`` state
-slots, with chunked prefill, the fused mixed step and the hybrid prefix
-cache when ``prefill_chunk`` / ``enable_prefix_cache`` ask for them. Runs on
-``cuda`` unless the caller passes another device; with no card it raises
-instead of running on the CPU. Refused with ``NotImplementedError``
-(``engine/hybrid_executor.py::check_supported``): ``quantize`` and
-``decode_block != 1``.
+Serves the per-layer grouped weights in bf16, or with ``quantize="int8"``
+their projections and head as int8 weight-only containers, with
+``max_batch_size`` state slots, with chunked prefill, the fused mixed step
+and the hybrid prefix cache when ``prefill_chunk`` / ``enable_prefix_cache``
+ask for them. Runs on ``cuda`` unless the caller passes another device;
+with no card it raises instead of running on the CPU. Refused with
+``NotImplementedError`` (``engine/hybrid_executor.py::check_supported``):
+any other ``quantize`` and ``decode_block != 1``.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import time
 import os
 from typing import Optional
 
@@ -61,18 +63,38 @@ def compute_num_pages(cfg: q35.Qwen35Config, page_size: int, fraction: float,
     return max(min(n, 1 << 16), 2)
 
 
+def quantize_int8(params, device: torch.device):
+    """The int8 weight-only mode at start (``q35.quantize_params_int8``,
+    which consumes the tree: each bf16 matrix is freed as it goes, so the
+    pool, sized afterwards, gets the memory). Logs the weight bytes before
+    and after."""
+    before = q35.params_bytes(params)
+    t = time.perf_counter()
+    params = q35.quantize_params_int8(params)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+    log.info("int8 weight-only: %.2f GB -> %.2f GB of weights in %.1f s", before / 1e9,
+             q35.params_bytes(params) / 1e9, time.perf_counter() - t)
+    return params
+
+
 def start_engine_from_params(cfg: q35.Qwen35Config, params,
                              options: Optional[EngineLoadOptions] = None,
                              device=None) -> EngineHandle:
-    """Serve ``params`` (already on ``device``). The pool takes the weights'
-    dtype; ``max_batch_size`` sets the number of state slots. Returns the
-    submit handle; ``handle._scheduler.executor`` is the ``HybridExecutor``."""
+    """Serve ``params`` (already on ``device``). The pool takes the
+    embedding's dtype; ``max_batch_size`` sets the number of state slots.
+    With ``quantize="int8"`` the projections and the head are quantized
+    first, in the caller's tree (``quantize_int8``). Returns the submit
+    handle; ``handle._scheduler.executor`` is the ``HybridExecutor``."""
     opts = options or EngineLoadOptions()
     check_supported(opts)
     dev = resolve_device(device)
     dtype = params["embed"].dtype
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params are on {params['embed'].device}, engine on {dev}")
+    if opts.quantize == "int8":
+        params = quantize_int8(params, dev)
     max_slots = opts.max_batch_size
     num_pages = opts.max_num_pages or compute_num_pages(
         cfg, DEFAULT_PAGE_SIZE, opts.kv_memory_fraction, max_slots, dev, dtype,

@@ -1,5 +1,6 @@
-"""Qwen3 engine startup: checkpoint or parameters -> KV pool -> executor ->
-scheduler. Counterpart of ``pegainfer_tpu/models/qwen3_engine.py``.
+"""Qwen3 engine startup: checkpoint or parameters -> (int8 weights) -> KV
+pool -> executor -> scheduler. Counterpart of
+``pegainfer_tpu/models/qwen3_engine.py``.
 
 Runs on ``cuda`` unless the caller passes another device; with no card it
 raises instead of running on the CPU.
@@ -8,6 +9,7 @@ raises instead of running on the CPU.
 from __future__ import annotations
 
 import logging
+import time
 from typing import Optional
 
 import torch
@@ -36,11 +38,29 @@ def compute_num_pages(cfg: q3.Qwen3Config, page_size: int, fraction: float,
     return max(min(n, 1 << 16), 2)
 
 
+def quantize_int8(params, device: torch.device):
+    """The int8 weight-only mode at start (``q3.quantize_params_int8``,
+    which consumes the tree: each bf16 matrix is freed as it goes, so the
+    pool, sized afterwards, gets the memory). Logs the weight bytes before
+    and after."""
+    before = q3.params_bytes(params)
+    t = time.perf_counter()
+    params = q3.quantize_params_int8(params)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+    log.info("int8 weight-only: %.2f GB -> %.2f GB of weights in %.1f s", before / 1e9,
+             q3.params_bytes(params) / 1e9, time.perf_counter() - t)
+    return params
+
+
 def start_engine_from_params(cfg: q3.Qwen3Config, params,
                              options: Optional[EngineLoadOptions] = None,
                              device=None) -> EngineHandle:
-    """Serve ``params`` (already on ``device``). The pool takes the weights'
-    dtype. Returns the submit handle; ``handle._scheduler.executor`` is the
+    """Serve ``params`` (already on ``device``). The pool takes the
+    embedding's dtype. With ``quantize="int8"`` the projections and the head
+    are quantized first, in the caller's tree (``quantize_int8``). Returns
+    the submit handle; ``handle._scheduler.executor`` is the
     ``TorchExecutor``."""
     opts = options or EngineLoadOptions()
     check_supported(opts)
@@ -48,6 +68,8 @@ def start_engine_from_params(cfg: q3.Qwen3Config, params,
     dtype = params["embed"].dtype
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params are on {params['embed'].device}, engine on {dev}")
+    if opts.quantize == "int8":
+        params = quantize_int8(params, dev)
     num_pages = opts.max_num_pages or compute_num_pages(
         cfg, DEFAULT_PAGE_SIZE, opts.kv_memory_fraction, dev, dtype)
     log.info("KV pool: %d pages x %d tokens", num_pages, DEFAULT_PAGE_SIZE)

@@ -124,7 +124,7 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     fn = libs["int8_gemv"].int8_gemv
     fn.argtypes = [p, p, p, p,  # x, q, idx, y
                    i, i, i, i,  # M, E, OUT, IN
-                   i, i,  # plan: rt, ks
+                   i, i, i,  # plan: rt, ks; expert slots
                    p]  # stream
     fn.restype = i
     fn = libs["int8_grouped"].int8_grouped

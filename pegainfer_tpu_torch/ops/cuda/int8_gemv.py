@@ -7,13 +7,22 @@ by the gathered per-output-channel scales (``models/dsv4.py::_int8_srows``).
 Each code is an exact bf16 value and the sums are f32. A row whose expert
 id lies outside [0, E) gives 0.
 
-The wrapper dispatches on the device of ``x``: a CPU tensor takes the plain
+``int8_gemv_dense`` is the same kernel on one int8 weight [OUT, IN] with
+every row on it: the decode-shaped rows of the int8 weight-only linears of
+Qwen3 and Qwen3.5 (``ops/quant.py::int8_linear``, the JAX package's
+``ops/quant.py::int8_linear``, which XLA compiles there). Its launch asks
+for one expert slot a chunk of 16 rows, the only slot with work.
+
+The wrappers dispatch on the device of ``x``: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. ``launches`` counts
-kernel launches. The launch plan (``plan``) comes from the shapes alone;
-the kernel groups the rows by expert on the card (no host read of idx).
+kernel launches, routed and dense. The launch plan (``plan``) comes from
+the shapes alone; the kernel groups the rows by expert on the card (no host
+read of idx).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -30,11 +39,18 @@ STEP_K = 4 * 16 * RUNS  # columns of a warp step: 4 lanes x RUNS runs (kStepK)
 MAX_WARPS = 8  # warps of a block (kMaxWarps), three blocks an SM
 
 
-def plan(OUT: int, IN: int, M: int, sm_count: int) -> Plan:
-    """The launch plan, from shapes alone, split as K3's (``fp4_gemv.split``)
-    with a unit of one step: the kernel passes the K parts of a tile steps
-    in turn (part kp takes steps kp, kp + ks, ...), so each keeps a step."""
-    return k3.split(OUT, IN, STEP_K, M, sm_count)
+def plan(OUT: int, IN: int, slots: int, sm_count: int) -> Plan:
+    """The launch plan, from shapes alone, for ``slots`` expert slots with
+    work (M for routed rows, ``dense_slots(M)`` for a dense weight), split
+    as K3's (``fp4_gemv.split``) with a unit of one step: the kernel passes
+    the K parts of a tile steps in turn (part kp takes steps kp, kp + ks,
+    ...), so each keeps a step."""
+    return k3.split(OUT, IN, STEP_K, slots, sm_count)
+
+
+def dense_slots(M: int) -> int:
+    """Expert slots of a dense launch: one a chunk of CHUNK_ROWS rows."""
+    return -(-M // CHUNK_ROWS)
 
 
 def moe_int8_gemv_plain(x, q, idx):
@@ -58,7 +74,35 @@ def moe_int8_gemv(x, q, idx):
     return _launch(x, q, idx)
 
 
-def _launch(x, q, idx):
+@functools.lru_cache(maxsize=None)
+def _zero_idx(M: int, device: torch.device) -> torch.Tensor:
+    # made once per (rows, device): never written, so shared by every call
+    return torch.zeros(M, dtype=torch.int32, device=device)
+
+
+def int8_gemv_dense_plain(x, q):
+    """``int8_gemv_dense``'s function in plain PyTorch: x rounded to bf16,
+    the exact codes, one f32 product (the routed plain version's function
+    with one expert, without its copy of the weight a row)."""
+    return x.to(torch.bfloat16).float() @ q.float().T
+
+
+def int8_gemv_dense(x, q):
+    """y = x @ q.T as f32 [M, OUT], unscaled, for x [M, IN] rounded to bf16
+    and one int8 weight q [OUT, IN]: K6 with every row on expert 0."""
+    if x.device.type == "cpu":
+        return int8_gemv_dense_plain(x, q)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_gemv_dense: no kernel for device {x.device}")
+    if x.dim() != 2 or q.dim() != 2:
+        raise ValueError("int8_gemv_dense takes x [M, IN], q [OUT, IN]")
+    M = x.shape[0]
+    return _launch(x, q[None], _zero_idx(M, x.device), dense_slots(M))
+
+
+def _launch(x, q, idx, slots=None):
+    """One launch over ``slots`` expert slots (None: routed rows, one a
+    row)."""
     global launches
     if x.dim() != 2 or q.dim() != 3:
         raise ValueError("moe_int8_gemv takes x [M, IN], q [E, OUT, IN]")
@@ -83,10 +127,11 @@ def _launch(x, q, idx):
     y = torch.empty((M, OUT), dtype=torch.float32, device=x.device)
     if M == 0:
         return y
-    p = plan(OUT, IN, M, k3._sm_count(x.device))
+    slots = M if slots is None else slots
+    p = plan(OUT, IN, slots, k3._sm_count(x.device))
     lib = build.load("int8_gemv")
     err = lib.int8_gemv(xb.data_ptr(), q.data_ptr(), idx.data_ptr(), y.data_ptr(),
-                        M, E, OUT, IN, p.rt, p.ks,
+                        M, E, OUT, IN, p.rt, p.ks, slots,
                         torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch("int8_gemv", err)
     launches += 1

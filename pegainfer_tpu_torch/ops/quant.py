@@ -11,7 +11,10 @@ DeepSeek-V4 formats. A quantized weight travels the params tree as
   (g = 32 in the checkpoint);
 - ``torch.int8`` ``[.., out, in]`` with one f32 scale per output channel
   ``[.., out]``: the int8-experts mode, a requantization of the fp4 expert
-  stacks at load (``quantize_int8_stack``, ``requantize_int8_stack``).
+  stacks at load (``quantize_int8_stack``, ``requantize_int8_stack``), and
+  the int8 weight-only mode of Qwen3 and Qwen3.5 (``quantize_int8_linear``,
+  applied by ``int8_linear``; a layer's ``q[li]`` is a contiguous
+  ``[out, in]`` matrix).
 
 Block and group sizes follow from the shape ratios, as in the JAX package.
 Scales are bf16 powers of two, so a decoded weight ``code x scale`` is exact
@@ -206,3 +209,72 @@ def requantize_int8_stack(w, chunk: int = 8) -> dict:
         s8[e0:e0 + chunk] = scale
         del wf
     return {"q": q8, "s": s8}
+
+
+# decode-shaped rows: at most this many rows of x go to kernel K6 in
+# int8_linear, every decode batch bucket. Over a decode step's int8 linears
+# K6 beats the JAX form (the codes made bf16, then one product) at each
+# bucket, 1 to 64 rows: 2.62 against 14.82 ms at one row and 10.46 against
+# 15.02 ms at 64 for Qwen3-4B (studies/k6_study.py --dense on an H100, PERF.md).
+# Past 8 rows each 16-row chunk and each pass of 8 rows streams the codes
+# again, so K6 then loses to the bf16 mode's matmul (ROADMAP queue 2)
+INT8_GEMV_ROWS = 64
+_QUANT_COLS = 4096  # output channels quantized at a time (f32 temporaries)
+
+
+def quantize_int8_linear(w) -> dict:
+    """A projection ``[.., in, out]`` (any float dtype, any device) -> the
+    int8 container ``{"q": int8 [.., out, in], "s": f32 [.., out]}``, with
+    the JAX package's ``models/qwen3.py::_qs_int8`` arithmetic in f32: per
+    output channel a scale amax / 127 over the in axis (1 where amax is 0),
+    codes ``round`` (half to even) of w / scale, clipped to +-127. The
+    divisions are true f32 divisions (divisors held as tensors: torch
+    multiplies by the reciprocal of a Python scalar on the card). Works a
+    matrix and ``_QUANT_COLS`` channels at a time, so its f32 temporaries
+    stay small."""
+    *lead, IN, OUT = w.shape
+    wv = w.reshape(-1, IN, OUT)
+    q = torch.empty((wv.shape[0], OUT, IN), dtype=torch.int8, device=w.device)
+    s = torch.empty((wv.shape[0], OUT), dtype=torch.float32, device=w.device)
+    div = torch.tensor(127.0, dtype=torch.float32, device=w.device)
+    for i in range(wv.shape[0]):
+        for o0 in range(0, OUT, _QUANT_COLS):
+            wf = wv[i, :, o0:o0 + _QUANT_COLS].float()
+            amax = wf.abs().amax(dim=0)
+            scale = torch.where(amax > 0, amax / div, torch.ones_like(amax))
+            q[i, o0:o0 + _QUANT_COLS] = torch.clamp(torch.round(wf / scale), -127, 127).to(
+                torch.int8).T
+            s[i, o0:o0 + _QUANT_COLS] = scale
+            del wf
+    return {"q": q.reshape(*lead, OUT, IN), "s": s.reshape(*lead, OUT)}
+
+
+def int8_linear(x: torch.Tensor, w, plain_kernels: bool = False) -> torch.Tensor:
+    """x [N, in] times an int8 container ``{"q": [out, in], "s": [out]}`` ->
+    [N, out] in x's dtype: the JAX package's ``ops/quant.py::int8_linear``,
+    the f32 sums of x against the exact codes, times ``s`` in f32, cast to
+    x's dtype (``s`` is never folded into a rounded weight).
+
+    At most ``INT8_GEMV_ROWS`` rows on a CUDA tensor go to kernel K6 with
+    one expert (``ops.cuda.int8_gemv.int8_gemv_dense``; its plain version
+    when ``plain_kernels``), as ``qlinear`` routes decode-shaped fp8 rows to
+    K4. Other rows take the JAX form (``int8_mm``)."""
+    q, s = w["q"], w["s"]
+    if x.is_cuda and x.shape[0] <= INT8_GEMV_ROWS:
+        from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
+
+        fn = k6.int8_gemv_dense_plain if plain_kernels else k6.int8_gemv_dense
+        y = fn(x, q)
+    else:
+        y = int8_mm(x, q)
+    return (y * s).to(x.dtype)
+
+
+def int8_mm(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The JAX form's unscaled product, f32 [N, out]: the codes q [out, in]
+    cast to x's dtype (the weight made whole in device memory) and one
+    product with f32 sums; on the CPU, or for f32 rows, an f32 product of
+    the same values (the codes are exact in any float dtype)."""
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(x, q.T.to(x.dtype), out_dtype=torch.float32)
+    return x.float() @ q.T.float()

@@ -5,6 +5,7 @@ step with the chain off, and which of its parts costs.
     python -m pegainfer_tpu_torch.studies.k6_study [--parent FILE] [--out FILE]
     python -m pegainfer_tpu_torch.studies.k6_study --sweep [--out FILE]
     python -m pegainfer_tpu_torch.studies.k6_study --mutants [--out FILE]
+    python -m pegainfer_tpu_torch.studies.k6_study --dense [--out FILE]
     python -m pegainfer_tpu_torch.studies.k6_study --cpu
 
 Variants are copies of a source with text substituted, built in parallel
@@ -66,6 +67,15 @@ never written, the second row of a repeated-expert group dropped, the rows
 of invalid ids never zeroed. It reports, for each, the cases it fails and
 by what factor. ``check`` fills the block that y will take with NaN first,
 so an element left unwritten fails.
+
+``--dense`` runs K6 at one expert (``int8_gemv_dense``, the decode rows of
+the int8 weight-only linears of Qwen3 and Qwen3.5) on random stacks at
+``DENSE_SHAPES`` and ``DENSE_ROWS``: each row against its plain version
+(y NaN-filled first), then each beside its plain version, bf16
+``torch.matmul``, the JAX form (``quant.int8_mm``: codes made bf16, then
+one product) and ``torch._weight_int8pack_mm`` where this torch runs it on
+the card, and each family's decode-step sums (``chip_smoke.py`` runs the
+same sweep on the served models' weights).
 
 ``--cpu`` prints the plans of the cases on 132 SMs and runs the plain
 version through the wrapper on CPU tensors against a numpy reference at a
@@ -156,9 +166,9 @@ C_CONVERT = ("            s8x4_to_bf16x2(word(a[u][0], 2 * xi + hw), af[0], af[2
 C_MMA = "            mma_bf16(cr, af, word(xw, 2 * hw), word(xw, 2 * hw + 1));\n"
 C_PRODUCTS = ("        // the run's sums, in fresh registers, added to c once\n",
               "        for (int i = 0; i < 4; ++i) c[i] += cr[i];\n")
-C_GROUP = "  slot_group<kChunkRows>(idx, M, E, blockIdx.y, lane, expert, rows, invalid);\n"
+C_GROUP = "  slot_group<kChunkRows>(idx, M, E, slot, lane, expert, rows, invalid);\n"
 C_STORE = "      if (o < OUT) y["
-C_ZERO = "  if (blockIdx.y % kChunkRows == 0) {  // the chunk's rows of invalid ids are 0\n"
+C_ZERO = "  if (slot % kChunkRows == 0) {  // the chunk's rows of invalid ids are 0\n"
 C_XV = "    const bool xv = n0 + g < cnt;\n"
 C_RUNS = "constexpr int kRuns = 2;"
 C_LD = "ld.global.nc.L1::no_allocate.v4.u32"
@@ -185,9 +195,9 @@ CURRENT = {
     "no-loads": ({C_STEPS: "  const int steps = 0;\n"}, False),
     # every valid row its own group, after the grouping (whose invalid mask stays)
     "no-grouping": ({C_GROUP: C_GROUP + """  {
-    const int own = idx[blockIdx.y];
+    const int own = idx[slot];
     expert = own >= 0 && own < E ? own : -1;
-    rows = expert < 0 ? 0u : 1u << (blockIdx.y % kChunkRows);
+    rows = expert < 0 ? 0u : 1u << (slot % kChunkRows);
   }
 """}, True),
     # the next step's codes loaded before this step's products (a register
@@ -266,7 +276,7 @@ def build_variants(sources: dict) -> dict:
         text = sources[name][0]
         parent = is_parent(text)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.int8_gemv.argtypes = [p] * 4 + [i] * (4 if parent else 6) + [p]
+        lib.int8_gemv.argtypes = [p] * 4 + [i] * (4 if parent else 7) + [p]
         lib.int8_gemv.restype = i
         libs[name] = (lib, sources[name][1], None if parent else step_k(text))
     return libs
@@ -285,7 +295,8 @@ def launch(variant, x, q, idx, p=None):
     E_, OUT, _ = q.shape
     y = torch.empty((M, OUT), dtype=torch.float32, device=x.device)
     plan = () if step is None else tuple(p or variant_plan(
-        step, OUT, IN, M, torch.cuda.get_device_properties(x.device).multi_processor_count))[:2]
+        step, OUT, IN, M, torch.cuda.get_device_properties(x.device).multi_processor_count))[:2] + (
+        M,)  # the routed rows' expert slots
     err = lib.int8_gemv(x.data_ptr(), q.data_ptr(), idx.data_ptr(), y.data_ptr(), M, E_, OUT, IN,
                         *plan, torch.cuda.current_stream().cuda_stream)
     build.check_launch("int8_gemv (study)", err)
@@ -521,6 +532,184 @@ def step_totals(table: list) -> dict:
     return out
 
 
+# ── dense launches: the int8 weight-only linears of Qwen3 and Qwen3.5 ──
+
+# (name, OUT, IN, launches a decode step): each distinct projection shape of
+# a Qwen3-4B decode step (6 a layer x 36 and the head: 217 launches) and of
+# a Qwen3.5 bench_config() one (7 a layer x 32 and the head: 225) under
+# quantize="int8"
+DENSE_SHAPES = (
+    ("qwen3 wq", 4096, 2560, 36), ("qwen3 wk / wv", 1024, 2560, 72),
+    ("qwen3 wo", 2560, 4096, 36), ("qwen3 w_gate_up", 19456, 2560, 36),
+    ("qwen3 w_down", 2560, 9728, 36), ("qwen3 lm_head", 151936, 2560, 1),
+    ("qwen35 gdn wq / wk", 2048, 2048, 48), ("qwen35 gdn wv / wz, full wq / wgate", 4096, 2048, 64),
+    ("qwen35 out_proj / wo", 2048, 4096, 32), ("qwen35 full wk / wv", 512, 2048, 16),
+    ("qwen35 mlp_gate_up", 12288, 2048, 32), ("qwen35 mlp_down", 2048, 6144, 32),
+    ("qwen35 lm_head", 151936, 2048, 1),
+)
+DENSE_ROWS = (1, 2, 4, 8, 16, 32, 64)  # the decode batch buckets
+DENSE_FORMS = ("K6", "plain", "bf16 matmul", "dequant + mm", "library")
+
+
+def dense_check_cases() -> list:
+    """The card tests' dense K6 cases: (label, OUT, IN, M) at Qwen3-4B's
+    wq and wk shapes and a ragged OUT 1000 x IN 400, at one row, the
+    buckets, a chunk and one row more (17: a second grid row of one row),
+    two chunks and a pass of one (33)."""
+    shapes = (("wq", 4096, 2560), ("wk", 1024, 2560), ("ragged", 1000, 400))
+    return [(f"{n} M={M}", o, i, M) for n, o, i in shapes for M in (1, 2, 8, 16, 17, 33, 64)]
+
+
+def run_dense(x, q):
+    """``int8_gemv_dense`` after a NaN fill of a block of y's size (an
+    element left unwritten stays NaN), and its plain version."""
+    poison = torch.full((x.shape[0], q.shape[0]), float("nan"), device=x.device)
+    del poison
+    return k6.int8_gemv_dense(x, q), k6.int8_gemv_dense_plain(x, q)
+
+
+def run_dense_case(case, device="cuda"):
+    """One ``dense_check_cases`` case: (y, the plain version's y)."""
+    _, OUT, IN, M = case
+    gen = torch.Generator(device=device).manual_seed(OUT + IN + M)
+    q = int8_weight(gen, 1, OUT, IN, device)[0]
+    x = torch.randn((M, IN), generator=gen, device=device).to(torch.bfloat16)
+    return run_dense(x, q)
+
+
+def dense_check(stacks: dict, rows=DENSE_ROWS) -> list:
+    """K6 against its plain version, row by row (``row_err``), on layer 0 of
+    each shape's stack at each row count: [(label, max |diff|, worst row's
+    share of its limit)]. ``stacks``: name -> (q [L, OUT, IN], s [L, OUT],
+    w bf16 [L, IN, OUT])."""
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for name, (q, _, _) in stacks.items():
+        for M in rows:
+            x = torch.randn((M, q.shape[2]), generator=gen, device="cuda").to(torch.bfloat16)
+            y, ref = run_dense(x, q[0])
+            out.append((f"{name} M={M}", *row_err(y, ref)))
+    return out
+
+
+LIBRARY_CALL = "torch._weight_int8pack_mm"
+
+
+def library_refusal(x, q, s_b):
+    """None where this torch runs ``torch._weight_int8pack_mm`` on the card
+    (int8 [OUT, IN] codes and one scale a channel in x's dtype: the scaled
+    int8 linear in one PyTorch call), else why it does not."""
+    try:
+        torch._weight_int8pack_mm(x, q, s_b)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        return f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    return None
+
+
+def dense_sweep(stacks: dict, ceiling: float, rows=DENSE_ROWS, calls: int = 60) -> list:
+    """Each shape's stack at each row count: K6 (``int8_gemv_dense``), its
+    plain version, bf16 ``x @ w`` (the bf16 mode's cost), the JAX form
+    (``quant.int8_mm``: the codes made bf16 in device memory, then one
+    product with f32 sums) and one library call where this torch has one,
+    each timed by CUDA events (``timing.device_ms``) with the layer rotated
+    every call, so the weights stream from device memory as in a decode
+    step. Each beside its bound: the codes, x and y once over the
+    nominal 3.35 TB/s and over ``ceiling`` (bytes / s). Rows of the table."""
+    from pegainfer_tpu_torch.ops import quant
+    from pegainfer_tpu_torch.studies.timing import device_ms
+
+    table = []
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for name, (q, s, w) in stacks.items():
+        L, OUT, IN = q.shape
+        s_b = s.to(torch.bfloat16)
+        for M in rows:
+            x = torch.randn((M, IN), generator=gen, device="cuda").to(torch.bfloat16)
+            refusal = library_refusal(x, q[0], s_b[0])
+            fns = {"K6": lambda i: k6.int8_gemv_dense(x, q[i % L]),
+                   "plain": lambda i: k6.int8_gemv_dense_plain(x, q[i % L]),
+                   "bf16 matmul": lambda i: x @ w[i % L],
+                   "dequant + mm": lambda i: quant.int8_mm(x, q[i % L])}
+            if refusal is None:
+                fns["library"] = lambda i: torch._weight_int8pack_mm(x, q[i % L], s_b[i % L])
+            n = max(L, calls - calls % L) if L > 1 else calls // 3
+            ms = {f: device_ms(fn, n) for f, fn in fns.items()}
+            nbytes = bytes_moved(1, M, OUT, IN)
+            bound = max(nbytes / 3.35e12, 2 * M * OUT * IN / 989e12) * 1e3
+            row = {"shape": name, "OUT": OUT, "IN": IN, "M": M, "layers": L,
+                   **{f"{f}_ms": ms.get(f) for f in DENSE_FORMS},
+                   "library_call": LIBRARY_CALL if refusal is None
+                   else f"none ({LIBRARY_CALL}: {refusal})", "bytes": nbytes, "bound_ms": bound,
+                   "bound_by": "bytes" if nbytes / 3.35e12 >= 2 * M * OUT * IN / 989e12
+                   else "operations", "measured_bound_ms": nbytes / ceiling * 1e3}
+            table.append(row)
+            print(f"  K6 dense {name} ({OUT} x {IN}) M={M:2d}: K6 {ms['K6'] * 1e3:8.2f} us "
+                  f"({row['measured_bound_ms'] / ms['K6']:6.1%} of its measured bound "
+                  f"{row['measured_bound_ms'] * 1e3:.2f} us), plain {ms['plain'] * 1e3:8.2f}, "
+                  f"bf16 matmul {ms['bf16 matmul'] * 1e3:8.2f}, dequant + mm "
+                  f"{ms['dequant + mm'] * 1e3:8.2f}, library "
+                  + (f"{ms['library'] * 1e3:8.2f} us" if refusal is None else "none"), flush=True)
+    return table
+
+
+def dense_random_stacks(family: str, gen) -> dict:
+    """``dense_sweep``'s stacks for a family's DENSE_SHAPES on random codes
+    and scales (bf16 weights beside them), each with enough layers for
+    twice the L2 (the weights of a timed call come from device memory)."""
+    from pegainfer_tpu_torch.ops import quant
+
+    out = {}
+    for name, OUT, IN, _ in DENSE_SHAPES:
+        if not name.startswith(family + " "):
+            continue
+        L = max(2, -(-2 * L2_BYTES // (OUT * IN)) + 1)
+        w = torch.randn((L, IN, OUT), generator=gen, device="cuda").mul_(0.02).to(torch.bfloat16)
+        c = quant.quantize_int8_linear(w)
+        out[name] = (c["q"], c["s"], w)
+    return out
+
+
+def run_dense_study(ceiling: float = READ_CEILING) -> dict:
+    """``--dense``: K6 at one expert on random stacks at DENSE_SHAPES,
+    checked row by row (``dense_check``), swept (``dense_sweep``), and each
+    family's decode-step sums by row count; family by family, so at most
+    one family's stacks are on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    out = {"check": [], "table": [], "steps": {}}
+    for family in ("qwen3", "qwen35"):
+        stacks = dense_random_stacks(family, gen)
+        out["check"] += dense_check(stacks)
+        table = dense_sweep(stacks, ceiling)
+        out["table"] += table
+        out["steps"][family] = dense_step_totals(table, family)
+        for M, t in out["steps"][family].items():
+            print(f"  {family} decode step's int8 linears at {M:2d} rows: "
+                  + ", ".join(f"{f} {v * 1e3:.1f} us" for f, v in t.items()), flush=True)
+        del stacks
+        torch.cuda.empty_cache()
+    worst = max(share for _, _, share in out["check"])
+    print(f"  dense check: worst row at {worst:.3f} of its limit", flush=True)
+    out["ok"] = worst <= 1.0
+    return out
+
+
+def dense_step_totals(table: list, family: str) -> dict:
+    """Per row count, each form's sum of launches x time over a decode step
+    of ``family`` ("qwen3" or "qwen35"), from the sweep's rows."""
+    n_step = {name: n for name, _, _, n in DENSE_SHAPES}
+    out = {}
+    for r in table:
+        if not r["shape"].startswith(family + " "):
+            continue
+        d = out.setdefault(r["M"], {})
+        for f in DENSE_FORMS:
+            if r[f"{f}_ms"] is not None:
+                d[f] = d.get(f, 0.0) + n_step[r["shape"]] * r[f"{f}_ms"]
+        d["bound"] = d.get("bound", 0.0) + n_step[r["shape"]] * r["measured_bound_ms"]
+    return out
+
+
 def run_cpu() -> dict:
     """The plans of the cases on SMS SMs; the plain version through the
     wrapper on CPU tensors against numpy in f64 at CPU_SHAPE, with a
@@ -555,6 +744,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mutants", action="store_true", help="plant faults and run the checks")
     ap.add_argument("--parent", help="a source of the first design: its parts too")
     ap.add_argument("--sweep", action="store_true", help="every plan of each case")
+    ap.add_argument("--dense", action="store_true",
+                    help="K6 at one expert at the int8 weight-only linears' shapes")
     ap.add_argument("--out", help="write the results as JSON here")
     args = ap.parse_args(argv)
     if args.cpu:
@@ -567,6 +758,9 @@ def main(argv=None) -> int:
     if args.mutants:
         result = {"card": card, "mutants": run_mutants()}
         ok = all(m["failed"] > 0 for m in result["mutants"].values())
+    elif args.dense:
+        result = {"card": card, **run_dense_study()}
+        ok = result["ok"]
     elif args.sweep:
         sources = variant_sources()
         lib = build_variants({"as-is": sources["as-is"]})["as-is"]

@@ -361,20 +361,27 @@ def test_unported_expert_formats_raise():
 
 
 def test_echo_request_ends_in_error_not_silently():
+    """An echo request with logprobs is served (no Error): ``PromptTokens``
+    with the prompt's logprobs before its tokens; the engine serves the
+    next request and both slots are free after."""
     _, tcfg, _, tparams = _models("tiny")
     handle = tengine.start_engine_from_params(
         tcfg, tparams, tc.EngineLoadOptions(max_model_len=64), device="cpu")
     try:
         ch = tc.TokenChannel()
         handle.submit(tc.GenerateRequest(prompt_tokens=[9, 10, 11], max_tokens=3,
-                                         echo=True, channel=ch))
-        ev = ch.get(timeout=WAIT_S)
-        while ev is not None and not tc.is_terminal(ev):
-            ev = ch.get(timeout=WAIT_S)
+                                         echo=True, logprobs=1, channel=ch,
+                                         params=tc.SamplingParams(ignore_eos=True)))
+        events = [ch.get(timeout=WAIT_S)]
+        while events[-1] is not None and not tc.is_terminal(events[-1]):
+            events.append(ch.get(timeout=WAIT_S))
         (toks, fin, _), = _collect(tc, handle, [[9, 10, 11, 12]], max_tokens=3)
     finally:
         handle.shutdown()
-    assert isinstance(ev, tc.Error) and "NotImplementedError" in ev.message
+    kinds = [type(ev).__name__ for ev in events]
+    assert kinds == ["Scheduled", "PromptTokens", "Token", "Token", "Token", "Finished"]
+    assert events[1].ids == [9, 10, 11] and events[1].logprobs[0] is None
+    assert all(t.logprob <= 0 for t in events[1].logprobs[1:])
     assert isinstance(fin, tc.Finished) and len(toks) == 3
     assert handle._scheduler.executor.free_slots() == 2
 

@@ -182,8 +182,10 @@ def test_engine_rejects_a_request_larger_than_the_pool():
 
 
 def test_echo_request_ends_in_error_not_silently():
-    """Echo is not ported yet: the request gets an Error event naming it,
-    and the engine keeps serving the next request."""
+    """An echo request with logprobs is served (no Error): its prompt comes
+    back first as ``PromptTokens`` with each token's logprob (None for the
+    first), then its tokens, the same greedy tokens as the same request
+    without echo; the engine keeps serving the next request."""
     tcfg = tq3.Qwen3Config(**_cfg_kw())
     params = tq3.init_random_params(tcfg, seed=0, dtype=torch.float32)
     handle = tengine.start_engine_from_params(
@@ -191,15 +193,22 @@ def test_echo_request_ends_in_error_not_silently():
     try:
         ch = tc.TokenChannel()
         handle.submit(tc.GenerateRequest(prompt_tokens=[9, 10, 11], max_tokens=3,
-                                         echo=True, channel=ch))
-        ev = ch.get(timeout=WAIT_S)
-        while ev is not None and not tc.is_terminal(ev):
-            ev = ch.get(timeout=WAIT_S)
+                                         echo=True, logprobs=1, channel=ch))
+        events = [ch.get(timeout=WAIT_S)]
+        while events[-1] is not None and not tc.is_terminal(events[-1]):
+            events.append(ch.get(timeout=WAIT_S))
         (toks, fin), = _collect(tc, handle, [[9, 10, 11]], max_tokens=3)
     finally:
         handle.shutdown()
-    assert isinstance(ev, tc.Error) and "NotImplementedError" in ev.message
-    assert isinstance(fin, tc.Finished) and len(toks) == 3
+    assert not any(isinstance(ev, tc.Error) for ev in events)
+    pt = next(ev for ev in events if isinstance(ev, tc.PromptTokens))
+    first_token = next(i for i, ev in enumerate(events) if isinstance(ev, tc.Token))
+    assert events.index(pt) < first_token
+    assert pt.ids == [9, 10, 11] and pt.logprobs[0] is None
+    assert all(t.logprob <= 0 for t in pt.logprobs[1:]) and len(pt.logprobs) == 3
+    assert [ev.id for ev in events if isinstance(ev, tc.Token)] == toks
+    assert isinstance(events[-1], tc.Finished) and isinstance(fin, tc.Finished)
+    assert len(toks) == 3
 
 
 def _imports(path):
@@ -235,7 +244,7 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("option", [dict(quantize="int8"), dict(quantize="bf16"),
+@pytest.mark.parametrize("option", [dict(quantize="int8-experts"), dict(quantize="bf16"),
                                     dict(decode_block=2), dict(decode_block=4)])
 def test_unsupported_options_raise(option):
     tcfg = tq3.Qwen3Config(**_cfg_kw())

@@ -27,6 +27,7 @@ the source's own constants and formulas.
 The kernel itself runs only on the card (tests/test_torch_kernels_cuda.py).
 """
 
+import functools
 import re
 
 import jax.numpy as jnp
@@ -135,7 +136,7 @@ def _idx_cases():
 def test_grouping_matches_a_direct_reading(name):
     for line in GROUPING_LINES:
         assert line in COMMON, line
-    assert "slot_group<kChunkRows>(idx, M, E, blockIdx.y, lane, expert, rows, invalid);" in SOURCE
+    assert "slot_group<kChunkRows>(idx, M, E, slot, lane, expert, rows, invalid);" in SOURCE
     E, cases = _idx_cases()
     idx = cases[name].astype(np.int32)
     want = _groups_numpy(idx, E)
@@ -181,10 +182,19 @@ WALK_LINES = (
     "const int col = e / nb, i = e % nb, o = o_blk + i;",
     "v += red[((p * rt + i / kWarpCh) * kWarpCh + i % kWarpCh) * 8 + col];",
     "if (o < OUT) y[static_cast<size_t>(row_of[n0 + col]) * OUT + o] = v;",
-    "if (blockIdx.y % kChunkRows == 0) {",
+    "if (slot % kChunkRows == 0) {",
     "if (o_blk + i < OUT) yr[o_blk + i] = 0.f;",
-    "const dim3 grid((tiles + rt - 1) / rt, M);",
+    "const dim3 grid((tiles + rt - 1) / rt, slots);",
+    "const int slot = slots == M ? blockIdx.y : blockIdx.y * kChunkRows;",
+    "const int c0 = slot / kChunkRows * kChunkRows;",
+    "rt * ks > kMaxWarps || (slots != M && slots != (M + kChunkRows - 1) / kChunkRows))",
 )
+
+
+def _grid_slot(gy, slots, M):
+    """The expert slot of grid row gy (the kernel's formula): gy for routed
+    rows (slots == M), chunk gy's slot 0 for a dense launch."""
+    return gy if slots == M else gy * CHUNK
 
 
 def _part_steps(kp, ks, IN):
@@ -200,16 +210,17 @@ def _members(idx, E, slot):
     return expert, [c0 + _nth_bit(rows, n) for n in range(bin(rows).count("1"))], invalid
 
 
-def _walk(p, idx, E, OUT, IN):
-    """The kernel's work by its formulas: (how many threads read each (row,
-    channel, 16-column chunk) of the routed weights, how many writes reach
-    each y element)."""
+def _walk(p, idx, E, OUT, IN, slots=None):
+    """The kernel's work by its formulas, over ``slots`` grid rows (M:
+    routed): (how many threads read each (row, channel, 16-column chunk) of
+    the routed weights, how many writes reach each y element)."""
     M = len(idx)
+    slots = M if slots is None else slots
     cover = np.zeros((M, OUT, IN // 16), np.int32)
     writes = np.zeros((M, OUT), np.int32)
     g, t = np.arange(8), np.arange(4)
     nb = p.rt * WARP_CH
-    for slot in range(M):
+    for slot in (_grid_slot(gy, slots, M) for gy in range(slots)):
         expert, members, invalid = _members(idx, E, slot)
         c0 = slot // CHUNK * CHUNK
         for bx in range(p.blocks(OUT)):
@@ -279,6 +290,109 @@ def test_plan_covers_other_shapes_once(OUT, IN, sms, M):
     assert p.rt * p.ks <= k6.MAX_WARPS
     cover, writes = _walk(p, idx, E, OUT, IN)
     assert (cover == 1).all() and (writes == 1).all()
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_reads_once(p, OUT, IN) -> bool:
+    """Whether one pass (8 B columns) of one grid row reads each (channel,
+    16-column chunk) of a dense weight exactly once, by the kernel's
+    formulas (``_dense_reads``); once a plan."""
+    return bool((_dense_reads(p, OUT, IN) == 1).all())
+
+
+def _dense_reads(p, OUT, IN):
+    """How many threads of one pass (8 B columns) of one grid row read each
+    (channel, 16-column chunk) of a dense weight, by the kernel's formulas,
+    vectorised over (block, warp, step, run, lane t, lane g, half h)."""
+    cover = np.zeros(OUT * (IN // 16), np.int64)
+    nsteps = -(-IN // STEP_K)
+    warp = np.arange(p.rt * p.ks)[None, :, None, None, None, None, None]
+    st = np.arange(nsteps)[None, None, :, None, None, None, None]
+    u = np.arange(RUNS)[None, None, None, :, None, None, None]
+    t = np.arange(4)[None, None, None, None, :, None, None]
+    g = np.arange(8)[None, None, None, None, None, :, None]
+    h = np.arange(2)[None, None, None, None, None, None, :]
+    kp = warp // p.rt
+    for b0 in range(0, p.blocks(OUT), 64):
+        bx = np.arange(b0, min(b0 + 64, p.blocks(OUT)))[:, None, None, None, None, None, None]
+        o0 = (bx * p.rt + warp % p.rt) * WARP_CH
+        part_steps = np.where((o0 < OUT) & (nsteps > kp), (nsteps - kp + p.ks - 1) // p.ks, 0)
+        base = (st * p.ks + kp) * STEP_K
+        col = base + 16 * t + 64 * u
+        ch = o0 + g + 8 * h
+        read = (st < part_steps) & (base + 64 * u < IN) & (col < IN) & (ch < OUT)
+        ch, col, read = np.broadcast_arrays(ch, col, read)
+        cover += np.bincount(ch[read] * (IN // 16) + col[read] // 16, minlength=cover.size)
+    return cover.reshape(OUT, IN // 16)
+
+
+@pytest.mark.parametrize("M", [1, 2, 8, 16, 17, 64])
+@pytest.mark.parametrize("name,OUT,IN,n", k6_study.DENSE_SHAPES, ids=lambda v: str(v))
+def test_dense_plan_covers_the_int8_linear_shapes_once(name, OUT, IN, n, M):
+    """One int8 weight with every row on it (``int8_gemv_dense``): the grid
+    has ``dense_slots(M)`` rows, chunk j's slot 0 each; every row lies in
+    one pass of 8 of one grid row, each pass reads each (channel, 16-column
+    chunk) once, and each y element is written once. The plan counts the
+    grid rows with work, so it fills the card as a routed launch of that
+    many experts does (about 1.5 blocks an SM where the tiles allow, else a
+    block a tile with K parts)."""
+    slots = k6.dense_slots(M)
+    assert slots == -(-M // CHUNK)
+    p = k6.plan(OUT, IN, slots, SMS)
+    assert p.rt * p.ks <= k6.MAX_WARPS and p.unit == STEP_K
+    tiles = -(-OUT // WARP_CH)
+    if tiles * slots >= 1.5 * SMS:
+        assert p.blocks(OUT) * slots >= 1.5 * SMS
+    else:  # too few tiles: a block a tile, the warps on K parts
+        assert p.rt == 1 and p.ks * 2 > min(k6.MAX_WARPS, IN // STEP_K)
+    idx = np.zeros(M, np.int32)
+    passes = []  # the rows of each pass of each grid row
+    for gy in range(slots):
+        expert, members, invalid = _members(idx, 1, _grid_slot(gy, slots, M))
+        assert expert == 0 and invalid == 0
+        passes += [members[n0:n0 + 8] for n0 in range(0, len(members), 8)]
+    assert sorted(r for part in passes for r in part) == list(range(M))
+    assert _dense_reads_once(p, OUT, IN)
+    # the block's sums: each block of each pass writes its channels of the
+    # pass's rows once
+    nb = p.rt * WARP_CH
+    chans = np.concatenate([np.arange(bx * nb, min(OUT, bx * nb + nb))
+                            for bx in range(p.blocks(OUT))])
+    writes = np.zeros((M, OUT), np.int32)
+    for part in passes:
+        writes[np.ix_(part, chans)] += 1
+    assert (writes == 1).all()
+
+
+@pytest.mark.parametrize("M", [1, 6, 16, 20, 40])
+def test_dense_walk_equals_the_routed_walk_of_one_expert(M):
+    """At a small shape, the dense grid's full walk (every row, channel and
+    chunk, through ``_walk`` on grid rows ``dense_slots(M)``) covers each
+    read and write once, as the routed grid of M slots does."""
+    OUT, IN = 96, 1040
+    idx = np.zeros(M, np.int32)
+    dense = _walk(k6.plan(OUT, IN, k6.dense_slots(M), SMS), idx, 1, OUT, IN,
+                  k6.dense_slots(M))
+    routed = _walk(k6.plan(OUT, IN, M, SMS), idx, 1, OUT, IN)
+    for cover, writes in (dense, routed):
+        assert (cover == 1).all() and (writes == 1).all()
+
+
+def test_dense_wrapper_on_the_cpu_is_the_plain_version():
+    """``int8_gemv_dense`` on CPU tensors: its plain version, no launch: the
+    f64 product of x rounded to bf16 and the codes, and the routed plain
+    version with every row on one expert."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.integers(-127, 128, (40, 64)).astype(np.int8))
+    x = torch.from_numpy(rng.standard_normal((5, 64)).astype(np.float32))
+    before = k6.launches
+    y = k6.int8_gemv_dense(x, q)
+    assert k6.launches == before and y.dtype == torch.float32 and y.shape == (5, 40)
+    want = x.to(torch.bfloat16).double() @ q.double().T
+    np.testing.assert_allclose(y.numpy(), want.numpy(), rtol=1e-6, atol=1e-4)
+    assert torch.equal(y, k6.int8_gemv_dense_plain(x, q))
+    routed = k6.moe_int8_gemv_plain(x, q[None], torch.zeros(5, dtype=torch.int32))
+    np.testing.assert_allclose(y.numpy(), routed.numpy(), rtol=1e-6, atol=1e-4)
 
 
 @pytest.mark.parametrize("ks,IN", [(1, 4096), (2, 2048), (4, 4096), (8, 4096), (4, 400),

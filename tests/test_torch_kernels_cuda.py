@@ -464,6 +464,47 @@ def test_int8_gemv_kernel_same_bits_twice(dev, OUT, IN, M):
     assert torch.equal(k6.moe_int8_gemv(x, q, idx), k6.moe_int8_gemv(x, q, idx))
 
 
+@pytest.mark.parametrize("case", k6s.dense_check_cases(), ids=lambda c: c[0])
+def test_int8_gemv_dense_matches_plain(dev, case):
+    """K6 at one expert (``int8_gemv_dense``, the decode rows of the int8
+    weight-only linears: one grid row a chunk of 16 rows) at Qwen3-4B's wq
+    and wk and a ragged OUT 1000 x IN 400, M 1 to 64 (17 and 33: a last
+    chunk of one row): each row to INT8_GEMV_RTOL of its own max |ref|, y's
+    block NaN-filled first; one launch."""
+    before = k6.launches
+    y, ref = k6s.run_dense_case(case, dev)
+    torch.cuda.synchronize()
+    assert k6.launches == before + 1 and y.shape == ref.shape and y.dtype == torch.float32
+    assert k6s.row_err(y, ref)[1] <= 1.0
+
+
+def test_int8_linear_routes_decode_rows_to_k6(dev):
+    """``quant.int8_linear`` on the card: at most INT8_GEMV_ROWS rows launch
+    K6 (its plain version with ``plain_kernels``, the scaled plain product
+    bit for bit), more take the JAX form; each within a bf16 rounding of
+    the scaled plain product."""
+    from pegainfer_tpu_torch.ops import quant
+
+    gen = _gen(dev, 77)
+    w = {"q": torch.randint(-127, 128, (1024, 2560), generator=gen, device=dev,
+                            dtype=torch.int8),
+         "s": torch.rand(1024, generator=gen, device=dev) * 1e-3}
+    for M in (1, quant.INT8_GEMV_ROWS, quant.INT8_GEMV_ROWS + 1, 300):
+        x = torch.randn((M, 2560), generator=gen, device=dev).to(torch.bfloat16)
+        ref = (k6.int8_gemv_dense_plain(x, w["q"]) * w["s"]).to(torch.bfloat16)
+        before = k6.launches
+        y = quant.int8_linear(x, w)
+        plain = quant.int8_linear(x, w, plain_kernels=True)
+        torch.cuda.synchronize()
+        assert k6.launches == before + (M <= quant.INT8_GEMV_ROWS)
+        assert y.dtype == torch.bfloat16
+        if M <= quant.INT8_GEMV_ROWS:
+            assert torch.equal(plain, ref)
+        err = (y.float() - ref.float()).abs().amax(dim=1)
+        # bf16 outputs: one rounding apart at most
+        assert (err <= 2 ** -7 * ref.float().abs().amax(dim=1)).all()
+
+
 def _k7_routing(gen, dev, M, E, routing):
     """Sorted expert ids of M routed rows for K7's cases."""
     if routing in ("spread", "skewed"):

@@ -303,7 +303,7 @@ def test_mixed_chunk_matches_jax(model):
 
 def test_mixed_chunk_matches_the_piece_and_the_step_apart(model):
     """The same fused step against ``prefill_chunk`` + ``decode`` on a copy
-    of the state, and against itself with ``plain_attention=True``."""
+    of the state, and against itself with ``plain_kernels=True``."""
     jcfg, tcfg, tparams, jit = model
     _, tstate, c_prompt, c_pages, dec = _mixed_setup(jcfg, tcfg, tparams, jit)
     dec = [torch.from_numpy(a) for a in dec]
@@ -313,7 +313,7 @@ def test_mixed_chunk_matches_the_piece_and_the_step_apart(model):
     last, dlog = tq.mixed_chunk(tcfg, tparams, tstate, *chunk, *dec)
     alast = tq.prefill_chunk(tcfg, tparams, apart, *chunk)
     adlog = tq.decode(tcfg, tparams, apart, *dec)
-    plast, pdlog = tq.mixed_chunk(tcfg, tparams, plain, *chunk, *dec, plain_attention=True)
+    plast, pdlog = tq.mixed_chunk(tcfg, tparams, plain, *chunk, *dec, plain_kernels=True)
     for ref_last, ref_dlog, ref_state in ((alast, adlog, apart), (plast, pdlog, plain)):
         np.testing.assert_allclose(last.numpy(), ref_last.numpy(), rtol=0, atol=ATOL)
         np.testing.assert_allclose(dlog[0].numpy(), ref_dlog[0].numpy(), rtol=0, atol=ATOL)

@@ -216,7 +216,7 @@ def test_chunk_and_cache_options_serve(option):
     assert isinstance(fin, tc.Finished) and len(toks) == 4
 
 
-@pytest.mark.parametrize("option", [dict(quantize="int8"), dict(decode_block=2)])
+@pytest.mark.parametrize("option", [dict(quantize="int8-experts"), dict(decode_block=2)])
 def test_refused_options_raise(option):
     tcfg = tq.Qwen35Config(**_cfg_kw())
     params = tq.init_random_params(tcfg, seed=0, dtype=torch.float32)
@@ -229,8 +229,10 @@ def test_refused_options_raise(option):
 
 
 def test_echo_request_ends_in_error_and_frees_its_slot():
-    """Echo is not ported: the request gets an Error naming it, and the
-    engine serves the next request with both slots free after."""
+    """An echo request with logprobs is served (no Error): ``PromptTokens``
+    with the prompt's logprobs comes before its tokens, its slot is freed
+    when it ends, and the engine serves the next request with both slots
+    free after."""
     tcfg = tq.Qwen35Config(**_cfg_kw())
     params = tq.init_random_params(tcfg, seed=0, dtype=torch.float32)
     handle = tengine.start_engine_from_params(
@@ -238,15 +240,20 @@ def test_echo_request_ends_in_error_and_frees_its_slot():
     try:
         ch = tc.TokenChannel()
         handle.submit(tc.GenerateRequest(prompt_tokens=[9, 10, 11], max_tokens=3,
-                                         echo=True, channel=ch))
-        ev = ch.get(timeout=WAIT_S)
-        while ev is not None and not tc.is_terminal(ev):
-            ev = ch.get(timeout=WAIT_S)
+                                         echo=True, logprobs=1, channel=ch,
+                                         params=tc.SamplingParams(ignore_eos=True)))
+        events = [ch.get(timeout=WAIT_S)]
+        while events[-1] is not None and not tc.is_terminal(events[-1]):
+            events.append(ch.get(timeout=WAIT_S))
         (toks, fin), = _collect(tc, handle, [[9, 10, 11]], 3, ignore_eos=True)
         assert handle._scheduler.executor.free_slots() == 2
     finally:
         handle.shutdown()
-    assert isinstance(ev, tc.Error) and "NotImplementedError" in ev.message
+    kinds = [type(ev).__name__ for ev in events]
+    assert kinds == ["Scheduled", "PromptTokens", "Token", "Token", "Token", "Finished"]
+    assert events[1].ids == [9, 10, 11] and events[1].logprobs[0] is None
+    assert all(t.logprob <= 0 for t in events[1].logprobs[1:])
+    assert [ev.id for ev in events if isinstance(ev, tc.Token)] == toks
     assert isinstance(fin, tc.Finished) and len(toks) == 3
 
 
