@@ -54,7 +54,8 @@ Qwen3-4B bf16 (full width and depth, random weights from a seed):
 4. serve through ``start_engine_from_params`` -> ``EngineHandle.submit``
    (with ``OLD_DEFAULTS``: no chunks, no prefix cache, as in phases 11, 14,
    17 and 20, which were written before the defaults became the JAX
-   engine's):
+   engine's; and, as in every Qwen3 phase up to 8h, ``EAGER``: the decode
+   step eager, not graphed):
    one greedy 1024-token prompt with 256 output tokens, then two shorter
    requests at once so decode runs at batch 2;
 5. every request must end in ``Finished`` with its full token count;
@@ -113,7 +114,28 @@ weights:
     logprobs=1: ``PromptTokens`` first, 16 plain pieces, none fused, no
     cache lookup; its prompt logprobs within 2 x LOGITS_RTOL x max |logit|
     of a whole all-logits prefill's; an echo request without logprobs gets
-    ``PromptTokens`` with all None.
+    ``PromptTokens`` with all None;
+8i. the host profile of the eager decode step: B = 1 at context 1,025
+    through ``TorchExecutor.execute_decode`` (its own pool, a whole prefill
+    of phase 4's prompt first), bf16 and int8: the step's wall split into
+    the batch assembly with its host-to-device copies, the forward's
+    dispatch, the wait at the token read and the logprobs; the forward once
+    under ``torch.cuda.set_sync_debug_mode("error")``; device time,
+    operations and idle share (torch.profiler, CUDA activity) and the top
+    host ops by self time (CPU activity); phase 4's TPOT p50 beside its
+    ``execute_decode`` wall p50 gives the time a step the scheduler adds;
+8j. Qwen3's decode step under CUDA graphs: engines under the graph defaults
+    (``OLD_DEFAULTS`` otherwise), their B ladder captured at start at width 8
+    (count, seconds, the pool's bytes): in bf16 phase 4's prompts (warm-up,
+    1024/256, SHORT at once), whose greedy tokens must equal phase 4's, with
+    K1 = 36 x decode steps and K2 = 36 x prefills through the replays'
+    accounting; in int8 (``quantize="int8"``) phase 8f's, equal to 8f's
+    tokens, with K6 = 217 x decode steps + 1 a prefill; TTFT, TPOT p50 /
+    p95, the ``execute_decode`` wall, the graphs captured at first use and
+    the token gaps that held one; the allocated memory back within the
+    pool's bytes after shutdown; then 8i's step measurement on the graphed
+    step in both modes (device time, idle share, the graph's replay alone on
+    CUDA events).
 
 The Qwen3.5 hybrid at the JAX package's ``qwen35.bench_config()`` (32
 layers: 8 groups of 3 Gated Delta Net layers and 1 gated full-attention
@@ -311,6 +333,16 @@ CHUNK_OPTS = dict(prefill_chunk=2048, prefill_chunk_mixed=256, enable_prefix_cac
 # explicitly, so they run exactly as before the defaults became the JAX
 # engine's (CHUNK_OPTS)
 OLD_DEFAULTS = dict(prefill_chunk=None, enable_prefix_cache=False)
+# Qwen3's decode step runs as CUDA graphs under the defaults (precompile and
+# enable_cuda_graph, as in the JAX engine); phases 4-8h keep the eager step
+# explicitly, so their numbers stay comparable with the runs before the
+# graphs and their tokens are [8j]'s oracle
+EAGER = dict(enable_cuda_graph=False)
+# [8i] / [8j]: decode steps of one request at context PROMPT + 1 driven
+# through TorchExecutor.execute_decode, STEP_ITERS timed after STEP_WARMUP;
+# the host ops listed by self time
+STEP_WARMUP, STEP_ITERS = 3, 20
+TOP_HOST_OPS = 12
 CHUNK_STREAMS = ((300, 192), (500, 192))
 CHUNK_PROMPT, CHUNK_OUT = 4096, 16
 # K2 at chunk shapes, (T, S, q_offset): the last fused piece of the 4,096
@@ -621,6 +653,20 @@ def run_request(contract, handle, prompt, max_tokens, logprobs=0):
     return ch, t0
 
 
+def submit_together(contract, handle, reqs):
+    """Submit ``reqs`` [(prompt, max_tokens)] so that the scheduler takes them
+    in one drain, whatever the threads' timing: the interpreter's switch
+    interval is raised while they are queued, so the scheduler thread cannot
+    run between two submits (the batches, and so each row's roundings, are
+    those of every run). Returns [(channel, prompt length, max_tokens)]."""
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(10.0)
+    try:
+        return [(run_request(contract, handle, p, m)[0], len(p), m) for p, m in reqs]
+    finally:
+        sys.setswitchinterval(old)
+
+
 def drain(contract, ch, timeout_s=600):
     toks, times = [], []
     while True:
@@ -703,8 +749,13 @@ def main() -> int:
             r["launches_resume"] = resume_launches[r["name"]]
     k9_record, chain_serving = run_dsv4_fp4_chain(cfg, params)
     i_records, i_serving, i_steps = run_dsv4_int8(cfg, params, k9_record)
+    dense = dense_record(q_serving["int8"], h_serving["int8"])
+    # [8j]'s graphed paths: K1 / K2 in bf16, K6 at one expert in int8
+    dense["launches_graphed_path"] = q_serving["graphs"]["int8"]["launches"]["moe_int8_gemv"]
+    for r in q_records:
+        r["launches_graphed_path"] = q_serving["graphs"]["bf16"]["launches"][r["name"]]
     records = (s_records + c_records + e_records + f_records + q_records + d_records + i_records
-               + [dense_record(q_serving["int8"], h_serving["int8"])])
+               + [dense])
     for r in records:
         if r["name"] in MEASURED_BOUND_KERNELS:
             # the same bytes over the measured ceiling (every one is bound by bytes)
@@ -1079,9 +1130,10 @@ def run_qwen3(ceiling):
     log(f"  weights: {q3.params_bytes(params) / 1e9:.2f} GB in {time.perf_counter() - t:.1f} s")
     handle = start_engine_from_params(
         cfg, params, contract.EngineLoadOptions(kv_memory_fraction=0.5, seed=SEED,
-                                                **OLD_DEFAULTS),
+                                                **OLD_DEFAULTS, **EAGER),
         device="cuda")
     ex = handle._scheduler.executor
+    step_walls = watch_steps(ex)
     log(f"  KV pool: {ex.kv_pages.shape[2]} pages x {PAGE} tokens "
         f"({ex.kv_pages.numel() * 2 / 1e9:.1f} GB)")
     rng = np.random.default_rng(SEED)
@@ -1098,16 +1150,20 @@ def run_qwen3(ceiling):
         pd.launches = fp.launches = 0
         ex.prefills = ex.decode_steps = 0
         main_prompt = prompt(PROMPT)
+        step_walls.clear()
         ch, t0 = run_request(contract, handle, main_prompt, OUT)
         toks, fin, times = drain(contract, ch)
         expect_finished(contract, f"main {PROMPT}/{OUT}", toks, fin, OUT)
         ttft_ms = (times[0] - t0) * 1e3
         gaps = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+        main_step_walls = [(b - a) * 1e3 for a, b in step_walls]
         steps_alone = ex.decode_steps
-        chans = [(run_request(contract, handle, prompt(n), m)[0], n, m) for n, m in SHORT]
+        chans = submit_together(contract, handle, [(prompt(n), m) for n, m in SHORT])
+        eager_tokens = {"main": toks, "concurrent": []}
         for ch, n, m in chans:
             toks_s, fin_s, _ = drain(contract, ch)
             expect_finished(contract, f"concurrent {n}/{m}", toks_s, fin_s, m)
+            eager_tokens["concurrent"].append(toks_s)
         steps_pair = ex.decode_steps - steps_alone
         launches = {"paged_decode": pd.launches, "flash_prefill": fp.launches}
         prefills, decode_steps = ex.prefills, ex.decode_steps
@@ -1147,6 +1203,9 @@ def run_qwen3(ceiling):
     tpot95 = float(np.percentile(gaps, 95))  # 12 of the 255 gaps lie beyond it
     log(f"  main {PROMPT}/{OUT}: TTFT {ttft_ms:.3f} ms, TPOT p50 {tpot:.3f} ms, "
         f"p95 {tpot95:.3f} ms over {len(gaps)} gaps (host clock, per streamed token)")
+    step_wall = statistics.median(main_step_walls)
+    log(f"  its execute_decode wall p50 {step_wall:.3f} ms over {len(main_step_walls)} steps: "
+        f"{tpot - step_wall:.3f} ms of the TPOT p50 lies outside the step (scheduler, events)")
     log_steps(steps)
     records, k1_shapes, k2_shapes = time_kernels(cfg, pd, fp, att, errs, launches)
     log_records(records)
@@ -1163,7 +1222,7 @@ def run_qwen3(ceiling):
 
     def make():
         return TorchExecutor(cfg, params, q3.make_kv_pages(cfg, PD_PAGES, PAGE, device="cuda"),
-                             contract.EngineLoadOptions(**PD_OPTS))
+                             contract.EngineLoadOptions(**PD_OPTS, **EAGER))
 
     pd_record = run_pd("[8e]", make, cfg.vocab_size,
                        PD_PROMPT // PAGE * q3.kv_bytes_per_page(cfg, PAGE), exact=False)
@@ -1174,7 +1233,7 @@ def run_qwen3(ceiling):
 
     log(f"[8f] Qwen3-4B int8 weight-only (quantize=\"int8\") served on the same weights: "
         f"{PROMPT}/{OUT}, then {SHORT} at once")
-    int8, q8 = run_int8_engine("[8f]", "qwen3", cfg, q3, q3e, params, contract, k6,
+    int8, q8, int8_tokens = run_int8_engine("[8f]", "qwen3", cfg, q3, q3e, params, contract, k6,
                                {"paged_decode": pd, "flash_prefill": fp},
                                6 * cfg.num_hidden_layers + 1, cfg.num_hidden_layers,
                                steps[f"decode step B=1 ctx {PROMPT + 1}"][1])
@@ -1186,10 +1245,27 @@ def run_qwen3(ceiling):
     log(f"[8h] echo with prompt logprobs under CHUNK_OPTS (bf16): a {CHUNK_PROMPT}-token "
         f"echo request while {len(CHUNK_STREAMS)} streams decode")
     echo = run_echo("[8h]", "qwen3", cfg, q3, q3e, params, contract)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[8i] host profile of the eager decode step: B = 1 at context {PROMPT + 1} through "
+        "TorchExecutor.execute_decode, bf16 and int8")
+    t_graphs = time.perf_counter()
+    host_profile, q8 = run_host_profile(cfg, q3, params, contract, main_prompt)
+    log("[8j] Qwen3's decode step under CUDA graphs (the defaults precompile=True, "
+        "enable_cuda_graph=True), bf16 and int8, against the eager runs of [4] and [8f]")
+    graphed = run_graphed(cfg, q3, q3e, params, q8, contract, {"paged_decode": pd,
+                          "flash_prefill": fp, "moe_int8_gemv": k6}, eager_tokens, int8_tokens,
+                          host_profile, main_prompt)
+    graphed["phases_s"] = time.perf_counter() - t_graphs
+    log(f"  [8i] and [8j] took {graphed['phases_s']:.1f} s")
+    del q8
+    gc.collect()
+    torch.cuda.empty_cache()
     serving = {"ttft_ms": ttft_ms, "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
+               "step_wall_p50_ms": step_wall,
                "prompt": PROMPT, "output": OUT, "paged_decode_shapes": k1_shapes,
                "flash_prefill_shapes": k2_shapes, "chunked": chunked, "pd": pd_record,
-               "int8": int8, "echo": echo}
+               "int8": int8, "echo": echo, "host_profile": host_profile, "graphs": graphed}
     return records, serving, steps_json(steps)
 
 
@@ -1642,7 +1718,8 @@ def run_chunked(cfg, q3, params, contract, start_engine_from_params, pd, fp, att
     log("[8a] a second engine on the same weights: " + ", ".join(
         f"{k}={v}" for k, v in CHUNK_OPTS.items()))
     handle = start_engine_from_params(
-        cfg, params, contract.EngineLoadOptions(kv_memory_fraction=0.5, seed=SEED, **CHUNK_OPTS),
+        cfg, params, contract.EngineLoadOptions(kv_memory_fraction=0.5, seed=SEED, **CHUNK_OPTS,
+                                                **EAGER),
         device="cuda")
     ex = handle._scheduler.executor
     rec = record_chunked_path(ex)
@@ -2070,7 +2147,7 @@ def run_int8_engine(label, family, cfg, model, engine, params, contract, k6, ker
     from pegainfer_tpu_torch.ops import quant
 
     before = model.params_bytes(params)
-    opts = dict(kv_memory_fraction=0.5, seed=SEED, quantize="int8", **OLD_DEFAULTS)
+    opts = dict(kv_memory_fraction=0.5, seed=SEED, quantize="int8", **OLD_DEFAULTS, **EAGER)
     if family == "qwen35":
         opts["max_batch_size"] = Q35_SLOTS
     t = time.perf_counter()
@@ -2188,7 +2265,254 @@ def run_int8_engine(label, family, cfg, model, engine, params, contract, k6, ker
         f"decode step B = 1: device {dev:.3f} ms (bf16 {bf16_step:.3f} ms), K6 "
         f"{ks['K6_ms']:.3f} ms ({ks['K6_ms'] / dev:.1%}), wall {wall:.3f} ms, idle "
         f"{1 - dev / wall:.1%}")
-    return record, q8
+    return record, q8, {"main": run["main_tokens"], "concurrent": run["concurrent_tokens"]}
+
+
+def watch_steps(ex):
+    """Wrap ``ex.execute_decode`` to record each call's host-clock span
+    (start, end) in seconds; returns the list it appends to."""
+    spans = []
+    inner = ex.execute_decode
+
+    def timed(plan):
+        t = time.perf_counter()
+        try:
+            return inner(plan)
+        finally:
+            spans.append((t, time.perf_counter()))
+
+    ex.execute_decode = timed
+    return spans
+
+
+def executor_steps(label, cfg, q3, params, contract, prompt, graphs):
+    """B = 1 decode steps at context PROMPT + 1 through
+    ``TorchExecutor.execute_decode`` on a pool of its own, with the graphed
+    step (``graphs``, its B = 1 ladder precompiled) or the eager one, after a
+    whole prefill of ``prompt``: STEP_WARMUP steps, then STEP_ITERS timed on
+    the host clock (each ends in the token read, so the card is done), each
+    split into the batch assembly with its host-to-device copies
+    (``_decode_inputs``; graphed: ``_decode_host``), the forward's dispatch
+    (``_decode_model``; graphed: the buffers' copy and the replay,
+    ``DecodeGraphs.run``), the wait at ``sample_tokens``' token read and
+    ``token_logprobs``; then one step with the forward under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host read there raises);
+    then torch.profiler over STEP_ITERS // 4 steps with CUDA activity (device
+    time, operations, K1 / K6) and again with CPU activity (the host ops by
+    self time); graphed, also CUDA events around STEP_ITERS replays of the
+    step's graph alone. The context grows by one token a step. Returns the
+    record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pegainfer_tpu_torch.engine import torch_executor as tx
+    from pegainfer_tpu_torch.engine.executor import (DecodePlan, DecodeStepItem, PrefillPlan,
+                                                      PrefillStepItem)
+
+    pages = -(-(PROMPT + 2 * (STEP_WARMUP + 3 * STEP_ITERS)) // PAGE) + 2
+    ex = tx.TorchExecutor(cfg, params, q3.make_kv_pages(cfg, pages, PAGE, device="cuda"),
+                          contract.EngineLoadOptions(max_batch_size=1, enable_cuda_graph=graphs,
+                                                     **OLD_DEFAULTS))
+    ex.precompile()
+    sp = contract.SamplingParams()
+    tok = [ex.execute_prefill(PrefillPlan(requests=[PrefillStepItem(
+        request_id=0, prompt_tokens=prompt, params=sp)])).requests[0].first_token]
+
+    def step():
+        res = ex.execute_decode(DecodePlan(requests=[DecodeStepItem(
+            request_id=0, token_id=tok[0], params=sp)]))
+        tok[0] = res.requests[0].token
+
+    parts = {"inputs": 0.0, "forward": 0.0, "sample_wait": 0.0, "logprobs": 0.0}
+    sync_check = [False]
+
+    def timed(name, fn):
+        def wrapped(*args):
+            check = sync_check[0] and name == "forward"
+            t = time.perf_counter()
+            if check:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args)
+            finally:
+                if check:
+                    torch.cuda.set_sync_debug_mode("default")
+                parts[name] += time.perf_counter() - t
+        return wrapped
+
+    host, fwd = ("_decode_host", "run") if graphs else ("_decode_inputs", "_decode_model")
+    setattr(ex, host, timed("inputs", getattr(ex, host)))
+    owner = ex._graphs if graphs else ex
+    setattr(owner, fwd, timed("forward", getattr(owner, fwd)))
+    sample, logprobs = tx.sample_tokens, tx.token_logprobs
+    tx.sample_tokens = timed("sample_wait", sample)
+    tx.token_logprobs = timed("logprobs", logprobs)
+    try:
+        for _ in range(STEP_WARMUP):
+            step()
+        torch.cuda.synchronize()
+        for k in parts:
+            parts[k] = 0.0
+        walls = []
+        for _ in range(STEP_ITERS):
+            t = time.perf_counter()
+            step()
+            walls.append((time.perf_counter() - t) * 1e3)
+        parts_ms = {k: v * 1e3 / STEP_ITERS for k, v in parts.items()}
+        sync_check[0] = True
+        step()  # raises at a host read in the forward
+        sync_check[0] = False
+        n = max(STEP_ITERS // 4, 1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+        ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        dev = sum(e.self_device_time_total for e in ka) / n / 1e3
+        ops = sum(e.count for e in ka) / n
+        kern = {lab: sum(e.self_device_time_total for e in ka if key in e.key) / n / 1e3
+                for lab, key in (("K1", "paged_decode"), ("K6", "int8_gemv_kernel"))}
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(n):
+                step()
+        top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:TOP_HOST_OPS]
+        host_ops = [{"op": e.key, "self_ms": e.self_cpu_time_total / n / 1e3,
+                     "calls": e.count / n} for e in top]
+        replay_ms = None
+        if graphs:
+            (gstep,) = [st for (B, P), st in ex._graphs.steps.items() if P > 8]
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(STEP_ITERS):
+                gstep.graph.replay()
+            e1.record()
+            e1.synchronize()
+            replay_ms = e0.elapsed_time(e1) / STEP_ITERS
+    finally:
+        tx.sample_tokens, tx.token_logprobs = sample, logprobs
+    wall = statistics.median(walls)
+    rec = {"graphs": graphs, "wall_p50_ms": wall, "wall_min_ms": min(walls),
+           "wall_max_ms": max(walls), "parts_ms": parts_ms,
+           "outside_parts_ms": statistics.mean(walls) - sum(parts_ms.values()),
+           "device_ms": dev, "device_ops": ops, "idle": 1 - dev / wall,
+           "K1_ms": kern["K1"], "K6_ms": kern["K6"], "host_ops": host_ops,
+           "forward_sync_free": True, "graph_captures": ex.graph_captures,
+           "graph_replay_device_ms": replay_ms, "context": PROMPT + 1}
+    log(f"  {label}: step wall p50 {wall:.3f} ms ({min(walls):.3f}-{max(walls):.3f}) over "
+        f"{STEP_ITERS} steps; device {dev:.3f} ms in {ops:.0f} operations (K1 {kern['K1']:.3f}, "
+        f"K6 {kern['K6']:.3f}), idle {1 - dev / wall:.1%}"
+        + (f"; the graph's replay alone {replay_ms:.3f} ms on CUDA events" if graphs else ""))
+    log(f"  {label}: host parts a step (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts_ms.items())
+        + f", the rest of execute_decode {rec['outside_parts_ms']:.3f}; the forward made no "
+        "host sync (set_sync_debug_mode('error'))")
+    for o in host_ops:
+        log(f"    {label} host op: {o['self_ms']:7.3f} ms self in {o['calls']:5.0f} calls x "
+            f"{o['op'][:80]}")
+    del ex
+    return rec
+
+
+def run_host_profile(cfg, q3, params, contract, prompt):
+    """Phase 8i: ``executor_steps`` of the eager step in bf16 and int8 (the
+    int8 tree quantized here from a shallow copy, as the engine does).
+    Returns (records, the int8 tree)."""
+    q8 = q3.quantize_params_int8(shallow_tree(params))
+    torch.cuda.synchronize()
+    out = {mode: executor_steps(f"eager {mode}", cfg, q3, w, contract, prompt, graphs=False)
+           for mode, w in (("bf16", params), ("int8", q8))}
+    return out, q8
+
+
+def serve_graphed(label, cfg, q3e, params, contract, kernels, opts, want, seed, n_k6):
+    """One engine under the graph defaults (``opts`` on top): started with
+    its ladder captured, serving ``serve_slots``' traffic at ``seed``; the
+    tokens must equal ``want`` (the eager engine's), the launches the
+    path's (through the replays' accounting), and the memory must come back
+    after shutdown. Returns the record."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    handle = q3e.start_engine_from_params(cfg, params, contract.EngineLoadOptions(
+        kv_memory_fraction=0.5, seed=SEED, **OLD_DEFAULTS, **opts), device="cuda")
+    start_s = time.perf_counter() - t
+    del params  # the int8 mode's tree is the engine's now
+    ex = handle._scheduler.executor
+    graphs = ex._graphs
+    ladder = list(graphs.capture_log)
+    log(f"  engine up in {start_s:.2f} s: {len(ladder)} decode graphs captured at width 8 "
+        f"(B, s): {[(b, round(sec, 3)) for b, _, sec, _ in ladder]}; pool "
+        f"{graphs.pool_bytes / 1e6:.1f} MB")
+    spans = watch_steps(ex)
+    run = serve_slots(cfg, contract, handle, kernels, concurrent=SHORT,
+                      shapes=((64, 4), (PROMPT, OUT)), seed=seed)
+    later = graphs.capture_log[len(ladder):]
+    pool_bytes = graphs.pool_bytes
+    L = cfg.num_hidden_layers
+    steps, prefills = run["decode_steps"], run["prefills"]
+    check_launches(run["launches"], {"paged_decode": L * steps, "flash_prefill": L * prefills,
+                                     **({"moe_int8_gemv": n_k6 * steps + prefills}
+                                        if n_k6 else {})},
+                   f"{prefills} prefills, {steps} decode steps, through the graphs' replays")
+    same_main = run["main_tokens"] == want["main"]
+    same_pair = run["concurrent_tokens"] == want["concurrent"]
+    log(f"  greedy tokens equal the eager engine's: main {PROMPT}/{OUT} {same_main}, the "
+        f"concurrent pair {same_pair}")
+    if not (same_main and same_pair):
+        raise SystemExit(f"{label}: the graphed engine's tokens differ from the eager engine's")
+    times = run["times"]
+    held = [i for i, (a, b) in enumerate(zip(times, times[1:]))
+            if any(a <= end <= b for _, _, _, end in later)]
+    walls = [(b - a) * 1e3 for a, b in spans if times[0] <= a <= times[-1]]
+    gaps = run["gaps"]
+    rec = {"engine_start_s": start_s, "ladder": [(b, p, sec) for b, p, sec, _ in ladder],
+           "captures_at_first_use": [(b, p, sec) for b, p, sec, _ in later],
+           "gaps_holding_a_capture": held, "pool_bytes": pool_bytes,
+           "ttft_ms": run["ttft_ms"], "tpot_p50_ms": statistics.median(gaps),
+           "tpot_p95_ms": float(np.percentile(gaps, 95)),
+           "step_wall_p50_ms": statistics.median(walls), "prefills": prefills,
+           "decode_steps": steps, "launches": run["launches"]}
+    log(f"  {PROMPT}/{OUT}: TTFT {rec['ttft_ms']:.3f} ms, TPOT p50 {rec['tpot_p50_ms']:.3f} ms, "
+        f"p95 {rec['tpot_p95_ms']:.3f} ms; execute_decode wall p50 "
+        f"{rec['step_wall_p50_ms']:.3f} ms; captured at first use (B, P, s): "
+        f"{rec['captures_at_first_use']}, in the main request's gaps {held} "
+        f"({[round(gaps[i], 3) for i in held]} ms)")
+    del handle, ex, graphs, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    back = torch.cuda.memory_allocated() - mem0
+    rec["allocated_after_shutdown_bytes"] = back
+    log(f"  after shutdown: {back / 1e6:.3f} MB more allocated than before the start "
+        f"(the graphs' pool {pool_bytes / 1e6:.1f} MB)")
+    if back > pool_bytes:
+        raise SystemExit(f"{label}: the graphed engine's memory did not come back")
+    return rec
+
+
+def run_graphed(cfg, q3, q3e, params, q8, contract, kernels, eager_tokens, int8_tokens,
+                host_profile, prompt):
+    """Phase 8j: the graphed engine in bf16 (phase 4's traffic and prompts,
+    its tokens the oracle; K1 / K2 counted) and in int8 (phase 8f's, its
+    tokens the oracle; K6 = 217 x decode steps + 1 a prefill), then
+    ``executor_steps`` of the graphed step in both beside [8i]'s eager
+    ones. Returns the record."""
+    L = cfg.num_hidden_layers
+    out = {}
+    log("  bf16:")
+    out["bf16"] = serve_graphed("[8j] bf16", cfg, q3e, params, contract,
+                                {k: kernels[k] for k in ("paged_decode", "flash_prefill")}, {},
+                                eager_tokens, SEED, 0)
+    log("  int8 (quantize=\"int8\" at start on a shallow copy):")
+    out["int8"] = serve_graphed("[8j] int8", cfg, q3e, shallow_tree(params), contract, kernels,
+                                {"quantize": "int8"}, int8_tokens, SEED + 3, 6 * L + 1)
+    for mode, w in (("bf16", params), ("int8", q8)):
+        g = out[mode]["step"] = executor_steps(f"graphed {mode}", cfg, q3, w, contract, prompt,
+                                               graphs=True)
+        e = host_profile[mode]
+        log(f"  {mode}: step wall {e['wall_p50_ms']:.3f} -> {g['wall_p50_ms']:.3f} ms, device "
+            f"{e['device_ms']:.3f} -> {g['device_ms']:.3f} ms, idle {e['idle']:.1%} -> "
+            f"{g['idle']:.1%} (eager -> graphed, execute_decode at B = 1)")
+    return out
 
 
 def run_echo(label, family, cfg, model, engine, params, contract):
@@ -2200,7 +2524,7 @@ def run_echo(label, family, cfg, model, engine, params, contract):
     (PromptTokens all None). P's prompt logprobs against one whole
     all-logits prefill of P (``check_prompt_logprobs``). Returns the
     record."""
-    opts = dict(kv_memory_fraction=0.5, seed=SEED, **CHUNK_OPTS)
+    opts = dict(kv_memory_fraction=0.5, seed=SEED, **CHUNK_OPTS, **EAGER)
     if family == "qwen35":
         opts["max_batch_size"] = Q35_CHUNK_SLOTS
     handle = engine.start_engine_from_params(cfg, params, contract.EngineLoadOptions(**opts),
@@ -2460,7 +2784,7 @@ def run_qwen35(ceiling):
     log(f"[25b] the hybrid int8 weight-only (quantize=\"int8\") on the same weights: "
         f"{PROMPT}/{OUT}, then {Q35_CONCURRENT} on {Q35_SLOTS} slots; K6 at one expert")
     n_k6 = 7 * cfg.num_groups * (cfg.period - 1) + 7 * G + 1
-    int8, q8 = run_int8_engine("[25b]", "qwen35", cfg, q35, q35e, params, contract, k6,
+    int8, q8, _ = run_int8_engine("[25b]", "qwen35", cfg, q35, q35e, params, contract, k6,
                                {"paged_decode": pd, "flash_prefill": fp}, n_k6, G,
                                steps_prof[f"qwen35 decode step B=1 ctx {PROMPT + 1}"][1])
     int8["dense"] = run_dense_sweep("[25b]", "qwen35", q8, params, ceiling)
@@ -3146,17 +3470,20 @@ def dsv4_engine(cfg, contract, d4e, params, quantize=None, moe_chain=None):
 
 
 def serve_slots(cfg, contract, handle, kernels, warmup=True, main=True,
-                concurrent=DSV4_CONCURRENT, shapes=(DSV4_WARMUP, (DSV4_PROMPT, DSV4_OUT))):
+                concurrent=DSV4_CONCURRENT, shapes=(DSV4_WARMUP, (DSV4_PROMPT, DSV4_OUT)),
+                seed=SEED + 3):
     """Phase 11's traffic on ``handle`` (``shapes``: the warm-up's and the
-    main request's prompt / output lengths), prompts from one seeded
-    stream: a warm-up, then (counters of ``kernels`` and of the executor at
-    0) the greedy main request and the concurrent ones. Shuts the engine
-    down and returns the counts, the slot events from the main request on
-    and the main request's prompt, TTFT and token gaps."""
+    main request's prompt / output lengths), prompts from one stream seeded
+    with ``seed``: a warm-up, then (counters of ``kernels`` and of the
+    executor at 0) the greedy main request and the concurrent ones. Shuts
+    the engine down and returns the counts, the slot events from the main
+    request on and the main request's prompt, TTFT, token gaps and token
+    times, and every counted request's tokens."""
     ex = handle._scheduler.executor
     events = record_slot_events(ex)
-    rng = np.random.default_rng(SEED + 3)
-    out = {"main_prompt": None, "ttft_ms": None, "gaps": []}
+    rng = np.random.default_rng(seed)
+    out = {"main_prompt": None, "ttft_ms": None, "gaps": [], "times": [], "main_tokens": None,
+           "concurrent_tokens": []}
     (warm_in, warm_out), (main_in, main_out) = shapes
 
     def prompt(n):
@@ -3178,11 +3505,13 @@ def serve_slots(cfg, contract, handle, kernels, warmup=True, main=True,
             expect_finished(contract, f"main {main_in}/{main_out}", toks, fin, main_out)
             out["ttft_ms"] = (times[0] - t0) * 1e3
             out["gaps"] = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+            out["times"], out["main_tokens"] = times, toks
             events.clear()
-        chans = [(run_request(contract, handle, prompt(n), m)[0], n, m) for n, m in concurrent]
+        chans = submit_together(contract, handle, [(prompt(n), m) for n, m in concurrent])
         for ch, n, m in chans:
             toks_c, fin_c, _ = drain(contract, ch)
             expect_finished(contract, f"concurrent {n}/{m}", toks_c, fin_c, m)
+            out["concurrent_tokens"].append(toks_c)
         out["launches"] = {name: mod.launches for name, mod in kernels.items()}
         out["prefills"], out["decode_steps"] = ex.prefills, ex.decode_steps
     finally:

@@ -47,6 +47,14 @@ class EngineLoadOptions:
     slot snapshots; DSv4 prefills every prompt whole, as the JAX engine
     does).
 
+    ``precompile`` and ``enable_cuda_graph`` (both True, as in the JAX
+    engine, where the second is an alias for the first): with both set, the
+    Qwen3 executor runs each decode step as one CUDA graph per (batch
+    bucket, page-table width), the batch buckets captured at engine start
+    and other widths at first use (``engine/decode_graphs.py``); either
+    False keeps the eager step. The Qwen3.5 hybrid and DeepSeek-V4 take
+    both and run eager steps.
+
     ``quantize`` and ``decode_block`` name features of the JAX engine that
     the executors do not all have yet; an executor raises
     ``NotImplementedError`` when one is set away from what it supports, so
@@ -56,6 +64,8 @@ class EngineLoadOptions:
     DeepSeek-V4. ``decode_block`` is 1 everywhere.
     """
 
+    precompile: bool = True
+    enable_cuda_graph: bool = True  # with precompile: Qwen3's graphed decode step
     seed: int = 42
     # Fraction of free device memory given to the paged KV pool.
     kv_memory_fraction: float = 0.85

@@ -26,6 +26,10 @@ Echo is ``TorchExecutor``'s over the hybrid's ``prefill`` /
 logits and never fused, while the fine tail and the state snapshots follow
 the stepper as for any prompt.
 
+``precompile`` and ``enable_cuda_graph`` are taken, and its decode step
+stays eager (``graphed_decode`` False): its rows' state slots are built on
+the host each step, and a graph needs them in a static buffer.
+
 Not here yet, and refused with ``NotImplementedError``: multi-token decode
 blocks.
 """
@@ -62,6 +66,8 @@ class HybridExecutor(StateSlots, TorchExecutor):
     """Continuous-batching executor for one Qwen3.5 hybrid on one device;
     ``state`` is ``models/qwen35.py::make_state``'s, whose slots (all but
     its dead one) are the requests' state slots."""
+
+    graphed_decode = False  # _decode_model takes the slots too
 
     def __init__(self, cfg: q35.Qwen35Config, params, state,
                  options: Optional[EngineLoadOptions] = None):

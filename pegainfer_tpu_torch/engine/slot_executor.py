@@ -34,7 +34,9 @@ skips the slot-cache resume and prefills whole with every row's logits,
 reduced on the device to its prompt logprobs; its snapshot goes into the
 cache with the last logits, as in the JAX executor. Not here yet, and
 refused with ``NotImplementedError``: bf16 weights (dequantized at load)
-and multi-token decode blocks.
+and multi-token decode blocks. ``precompile`` and ``enable_cuda_graph`` are
+taken and ignored, as the JAX DSv4 engine ignores them: the decode step is
+not graphed yet.
 """
 
 from __future__ import annotations

@@ -4,11 +4,20 @@ Counterpart of ``pegainfer_tpu/engine/jax_executor.py``: whole-prompt and
 chunked prefill with greedy / temperature / top-k / top-p sampling, the page
 prefix cache, one decode token per step for the active batch, and the fused
 mixed step (a prefill piece's rows and one decode row per active stream in
-one forward). PyTorch runs eagerly, so there are no compiled buckets: a
-prefill piece runs at its own length; the decode batch is still padded to
-the JAX executor's batch buckets (padding rows: null page, seq_len 0). The
-model calls are hooks (``_prefill_model``, ``_chunk_model``,
-``_mixed_model``, ``_decode_model``) that ``HybridExecutor`` overrides; with
+one forward). A prefill piece runs eagerly at its own length. A decode
+step pads its batch to the JAX executor's batch buckets (padding rows:
+token 0, position 0, seq_len 0, null pages) and its page table to the JAX
+executor's power-of-two widths (``bucket_pow2(P, 8, table_cap)``, the
+fused mixed step's decode rows too). With ``precompile`` and
+``enable_cuda_graph`` (the defaults) Qwen3's decode step replays one CUDA
+graph per (batch bucket, width) over static input buffers
+(``engine/decode_graphs.py``): the JAX executor's bucket ladder, captured
+by ``precompile()`` at engine start, other widths at first use; on the
+CPU the same buffers feed the eager forward. Sampling and logprobs run
+after the graph, on its logits. ``HybridExecutor`` keeps the eager step
+(``graphed_decode``). The model calls are hooks (``_prefill_model``,
+``_chunk_model``, ``_mixed_model``, ``_decode_model``) that
+``HybridExecutor`` overrides; with
 its cache on (``_hybrid_cache``), the stepper also keeps state snapshots
 at piece ends and restores a cache hit's before the first piece, through
 its ``slot_export`` / ``slot_import``. ``export_pages`` / ``import_pages``
@@ -36,12 +45,14 @@ from __future__ import annotations
 import logging
 import os
 from dataclasses import dataclass, replace
+from functools import partial
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pegainfer_tpu_torch.engine.contract import EngineLoadOptions, TokenLogprob
+from pegainfer_tpu_torch.engine.decode_graphs import DecodeGraphs
 from pegainfer_tpu_torch.engine.executor import (
     DecodePlan,
     DecodeRequestResult,
@@ -66,6 +77,25 @@ def bucket_batch(n: int) -> int:
         if n <= b:
             return b
     raise ValueError(f"batch {n} exceeds max bucket {BATCH_BUCKETS[-1]}")
+
+
+def bucket_pow2(n: int, lo: int, hi: int) -> int:
+    """The JAX executor's power-of-two bucket: the least ``lo * 2^k >= n``,
+    kept within [lo, hi]."""
+    b = lo
+    while b < n and b < hi:
+        b *= 2
+    return min(max(b, lo), hi)
+
+
+def table_cap(max_pages: int, chunk: int, page_size: int) -> int:
+    """The widest decode table: the least power of two from 8 that holds a
+    request's most pages plus one chunk of slack, as the JAX executor
+    computes it (``chunk`` 0 when prompts prefill whole)."""
+    cap = 8
+    while cap < max_pages + chunk // page_size:
+        cap *= 2
+    return cap
 
 
 def check_supported(opts: EngineLoadOptions) -> None:
@@ -197,6 +227,10 @@ class PendingDecode:
 class TorchExecutor:
     """Continuous-batching executor for one Qwen3 model on one device."""
 
+    # a subclass whose decode step takes more than the four padded inputs
+    # (the hybrid's state slots) keeps the eager step
+    graphed_decode = True
+
     def __init__(self, cfg: q3.Qwen3Config, params, kv_pages: torch.Tensor,
                  options: Optional[EngineLoadOptions] = None):
         opts = options or EngineLoadOptions()
@@ -225,6 +259,14 @@ class TorchExecutor:
             mixed = min(opts.prefill_chunk_mixed, self.prefill_chunk)
             self.prefill_chunk_mixed = max(ps, mixed - mixed % ps)
             self._small_piece = small_piece(self.prefill_chunk, ps)
+        self._table_cap = table_cap(self._max_pages, self.prefill_chunk or 0, ps)
+        # Qwen3's decode step under CUDA graphs (static buffers on the CPU)
+        self._graphs = None
+        if self.graphed_decode and opts.precompile and opts.enable_cuda_graph:
+            top = bucket_batch(self.max_batch)
+            self._graphs = DecodeGraphs(partial(q3.decode, cfg, params, kv_pages), self.device,
+                                        [b for b in BATCH_BUCKETS if b <= top],
+                                        cfg.num_key_value_heads)
         # set by the scheduler around stepper pieces: decode_active picks the
         # mixed piece size; mixed_items (+ mixed_rand, one row of uniform
         # draws for non-greedy rows) asks for the next piece to carry those
@@ -405,9 +447,24 @@ class TorchExecutor:
 
     # ── decode ───────────────────────────────────────────────────────
 
-    def _decode_inputs(self, items):
-        """Host-side batch assembly: one more token per request, the batch
-        padded to its bucket with dead rows."""
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs captured so far (0 with the eager step or on the CPU)."""
+        return 0 if self._graphs is None else len(self._graphs.capture_log)
+
+    def precompile(self) -> None:
+        """The JAX executor's ``precompile``: one decode graph per batch
+        bucket up to ``bucket_batch(max_batch)`` at table width 8 (the
+        static buffers alone on the CPU). Other widths are captured at first
+        use."""
+        if self._graphs is not None:
+            for B in self._graphs.buckets:
+                self._graphs.prepare(B, 8)
+
+    def _decode_host(self, items):
+        """Host-side batch assembly, as numpy: one more token per request,
+        the batch padded to its bucket with dead rows and the table to its
+        power-of-two width with null pages."""
         B = bucket_batch(len(items))
         tokens = np.zeros(B, np.int32)
         positions = np.zeros(B, np.int32)
@@ -421,13 +478,16 @@ class TorchExecutor:
             tokens[i] = it.token_id
             positions[i] = pos
             seq_lens[i] = pos + 1
-        P = max(len(st.pages) for st in states)
+        P = bucket_pow2(max(len(st.pages) for st in states), 8, self._table_cap)
         tables = np.full((B, P), PagePool.NULL_PAGE, np.int32)
         for i, st in enumerate(states):
             tables[i, : len(st.pages)] = st.pages
-        dev = [torch.from_numpy(a).to(self.device)
-               for a in (tokens, positions, tables, seq_lens)]
-        return dev, states
+        return (tokens, positions, tables, seq_lens), states
+
+    def _decode_inputs(self, items):
+        """``_decode_host``'s arrays on the device."""
+        host, states = self._decode_host(items)
+        return [torch.from_numpy(a).to(self.device) for a in host], states
 
     def execute_decode(self, plan: DecodePlan) -> DecodeResult:
         items = plan.requests
@@ -438,8 +498,12 @@ class TorchExecutor:
             head = self.execute_decode(DecodePlan(requests=items[: self.max_batch]))
             tail = self.execute_decode(DecodePlan(requests=items[self.max_batch:]))
             return DecodeResult(requests=head.requests + tail.requests)
-        (tokens, positions, tables, seq_lens), states = self._decode_inputs(items)
-        logits = self._decode_model(items, tokens, positions, tables, seq_lens)
+        if self._graphs is not None:
+            host, states = self._decode_host(items)
+            logits = self._graphs.run(*host)
+        else:
+            (tokens, positions, tables, seq_lens), states = self._decode_inputs(items)
+            logits = self._decode_model(items, tokens, positions, tables, seq_lens)
         for st in states:
             st.advance(1)
         self.decode_steps += 1

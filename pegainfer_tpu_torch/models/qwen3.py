@@ -29,6 +29,7 @@ oracle of the kernels.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 from dataclasses import dataclass
@@ -352,10 +353,16 @@ def _layer(params, li: int) -> Dict[str, Any]:
             for k, v in params["layers"].items()}
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freq(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    # made once per device: a host-to-device copy in every forward would
+    # wait for the card, and a CUDA graph cannot capture one
+    return torch.tensor(rope_inv_freq(head_dim, theta), dtype=torch.float32, device=device)
+
+
 def _rope(cfg: Qwen3Config, positions: torch.Tensor, dtype):
-    inv_freq = torch.tensor(rope_inv_freq(cfg.head_dim, cfg.rope_theta),
-                            dtype=torch.float32, device=positions.device)
-    return rope_cos_sin(positions, inv_freq, dtype)
+    return rope_cos_sin(positions, _inv_freq(cfg.head_dim, cfg.rope_theta, positions.device),
+                        dtype)
 
 
 def _proj(container, name: str, x, plain_kernels: bool):

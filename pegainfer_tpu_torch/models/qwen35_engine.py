@@ -104,6 +104,8 @@ def start_engine_from_params(cfg: q35.Qwen35Config, params,
     state = q35.make_state(cfg, num_pages, DEFAULT_PAGE_SIZE, max_slots, kv_dtype=dtype,
                            device=dev)
     executor = HybridExecutor(cfg, params, state, opts)
+    if opts.precompile and opts.enable_cuda_graph:
+        log.info("the hybrid's decode step is not graphed yet: it runs eagerly")
     return start_scheduler(executor, seed=opts.seed)
 
 

@@ -1,6 +1,8 @@
 """Qwen3 engine startup: checkpoint or parameters -> (int8 weights) -> KV
-pool -> executor -> scheduler. Counterpart of
-``pegainfer_tpu/models/qwen3_engine.py``.
+pool -> executor -> (decode graphs) -> scheduler. Counterpart of
+``pegainfer_tpu/models/qwen3_engine.py``: with ``precompile`` and
+``enable_cuda_graph`` (the defaults) the executor captures its decode
+graph of each batch bucket before the scheduler starts.
 
 Runs on ``cuda`` unless the caller passes another device; with no card it
 raises instead of running on the CPU.
@@ -75,6 +77,11 @@ def start_engine_from_params(cfg: q3.Qwen3Config, params,
     log.info("KV pool: %d pages x %d tokens", num_pages, DEFAULT_PAGE_SIZE)
     kv = q3.make_kv_pages(cfg, num_pages, DEFAULT_PAGE_SIZE, dtype=dtype, device=dev)
     executor = TorchExecutor(cfg, params, kv, opts)
+    if opts.precompile and opts.enable_cuda_graph:
+        t = time.perf_counter()
+        executor.precompile()
+        log.info("decode graphs: %d captured at width 8 in %.1f s", executor.graph_captures,
+                 time.perf_counter() - t)
     return start_scheduler(executor, seed=opts.seed)
 
 

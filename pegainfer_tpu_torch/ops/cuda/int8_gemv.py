@@ -75,8 +75,12 @@ def moe_int8_gemv(x, q, idx):
 
 
 @functools.lru_cache(maxsize=None)
-def _zero_idx(M: int, device: torch.device) -> torch.Tensor:
-    # made once per (rows, device): never written, so shared by every call
+def zero_idx(M: int, device: torch.device) -> torch.Tensor:
+    """The expert ids of a dense launch of M rows, made once per (rows,
+    device): never written, so shared by every call. Made first inside a
+    CUDA graph's capture, its zeroing would run only when that graph
+    replays, so the decode graphs (``engine/decode_graphs.py``) make it for
+    every batch bucket before their first capture."""
     return torch.zeros(M, dtype=torch.int32, device=device)
 
 
@@ -97,7 +101,7 @@ def int8_gemv_dense(x, q):
     if x.dim() != 2 or q.dim() != 2:
         raise ValueError("int8_gemv_dense takes x [M, IN], q [OUT, IN]")
     M = x.shape[0]
-    return _launch(x, q[None], _zero_idx(M, x.device), dense_slots(M))
+    return _launch(x, q[None], zero_idx(M, x.device), dense_slots(M))
 
 
 def _launch(x, q, idx, slots=None):

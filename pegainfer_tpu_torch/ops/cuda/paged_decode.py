@@ -9,13 +9,13 @@ launches (one a call).
 The kernel splits each row's context across blocks (split-KV);
 ``plan_splits`` picks the split from shapes alone, so a call reads no
 device value and never waits for the card. It splits the table width P,
-not the live length: the plan assumes tables as wide as the longest live
-row (as ``engine/torch_executor.py`` builds them). In a table much wider
-than its rows the live tokens fall into the first splits and the kernel
-slows toward its one-split time. The splits of a (row, kv head) meet
-through a ticket counter that the kernel leaves at 0; calls that share
-counters must run in one stream order, so each (device, stream) has its
-own (``_tickets``).
+not the live length: the plan assumes tables about as wide as the longest
+live row (``engine/torch_executor.py`` pads them to a power of two, at most
+twice as wide). In a table much wider than its rows the live tokens fall
+into the first splits and the kernel slows toward its one-split time. The
+splits of a (row, kv head) meet through a ticket counter that the kernel
+leaves at 0; calls that share counters must run in one stream order, so
+each (device, stream) has its own (``ticket_buffer``).
 """
 
 from __future__ import annotations
@@ -60,9 +60,15 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _ticket_buffer(device: torch.device, stream: torch.cuda.Stream, n: int) -> torch.Tensor:
-    """The ticket counters of ``stream``: the stream orders every call
-    that uses them, so the splits of one call never meet another's."""
+def ticket_buffer(device: torch.device, stream: torch.cuda.Stream, n: int) -> torch.Tensor:
+    """The ticket counters of ``stream``, at least ``n``: the stream orders
+    every call that uses them, so the splits of one call never meet
+    another's. A CUDA graph keeps the buffer's address: made inside a
+    capture, its zeroing would be recorded into that one graph and never
+    run, and a later capture at a larger batch would swap the buffer. So
+    the decode graphs (``engine/decode_graphs.py``) make their capture
+    stream's eagerly, for their largest bucket, before their first
+    capture."""
     key = (device, stream.cuda_stream)
     t = _tickets.get(key)
     if t is None or t.numel() < n:
@@ -168,7 +174,7 @@ def _launch(q, k_pages, v_pages, page_tables, seq_lens, scale, cur_k, cur_v, lay
         n = B * Hkv * S * G
         part = torch.empty(n * (hd + 2), dtype=torch.float32, device=q.device)
         part_acc, part_ml = part[: n * hd], part[n * hd:]
-        tickets = _ticket_buffer(q.device, stream, B * Hkv)
+        tickets = ticket_buffer(q.device, stream, B * Hkv)
     lib = build.load("paged_decode")
     err = lib.paged_decode_bf16(
         q.data_ptr(), k_ptr, v_ptr,

@@ -737,3 +737,187 @@ def test_int8_and_chain_kernels_refuse_unsupported_shapes(dev):
     seg = k5.tile_segments(torch.zeros(12, dtype=torch.int32, device=dev), 12, 2)
     with pytest.raises(ValueError):  # tm not a multiple of 8
         k7.moe_int8_grouped(torch.zeros((12, 256), device=dev), w1, *seg, tm=12)
+
+
+# ── Qwen3's decode step under CUDA graphs (engine/decode_graphs.py) ──────
+# A tiny Qwen3 at hd 128, G 2 (so K1 runs), bf16 weights made on the card,
+# and the same weights in the int8 mode (K6 at one expert in every linear).
+# The graphed step must equal the eager step bit for bit: it launches the
+# same kernels with the same arguments. The pools are compared past the
+# null page (page 0), which padding rows write, the graphs' warm-ups
+# included.
+
+GRAPH_PS = 16
+GRAPH_LAYERS = 2
+GRAPH_BUCKETS = (1, 2, 4, 8)
+
+
+def _graph_cfg():
+    from pegainfer_tpu_torch.models import qwen3 as q3
+
+    return q3.Qwen3Config(hidden_size=256, intermediate_size=512,
+                          num_hidden_layers=GRAPH_LAYERS, num_attention_heads=4,
+                          num_key_value_heads=2, head_dim=128, vocab_size=512,
+                          rms_norm_eps=1e-6, rope_theta=1e6, tie_word_embeddings=False,
+                          eos_token_id=1, stop_token_ids=(1,), max_position_embeddings=4096)
+
+
+@pytest.fixture(scope="module")
+def graph_models():
+    """{"bf16": params, "int8": params} of ``_graph_cfg`` on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from pegainfer_tpu_torch.models import qwen3 as q3
+
+    cfg = _graph_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = q3.init_random_params_device(cfg, gen, "cuda", scale=0.05)
+    int8 = q3.quantize_params_int8({**params, "layers": dict(params["layers"])})
+    return {"bf16": params, "int8": int8}
+
+
+def _graph_pool(num_pages=1 + 8 * 16):
+    from pegainfer_tpu_torch.models import qwen3 as q3
+
+    kv = q3.make_kv_pages(_graph_cfg(), num_pages, GRAPH_PS, device="cuda")
+    return kv.normal_(generator=torch.Generator(device="cuda").manual_seed(5))
+
+
+def _graph_batch(rows, B, P, seed=0):
+    """Padded numpy inputs of one step: ``rows`` = [(context, pages)] live
+    rows (the token at position context - 1 in flight), dead rows after."""
+    rng = np.random.default_rng(seed)
+    tokens = np.zeros(B, np.int32)
+    positions = np.zeros(B, np.int32)
+    seq_lens = np.zeros(B, np.int32)
+    tables = np.zeros((B, P), np.int32)
+    for i, (ctx, pages) in enumerate(rows):
+        tokens[i] = rng.integers(2, 512)
+        positions[i] = ctx - 1
+        seq_lens[i] = ctx
+        tables[i, : len(pages)] = pages
+    return tokens, positions, tables, seq_lens
+
+
+def _graph_rows(n, P):
+    """n live rows whose contexts fill between half and all of a width-P
+    table, each on its own pages."""
+    rows = []
+    for i in range(n):
+        ctx = (P // 2) * GRAPH_PS + 1 + (37 * i) % ((P // 2) * GRAPH_PS - 1)
+        rows.append((ctx, list(range(1 + i * P, 1 + i * P + -(-ctx // GRAPH_PS)))))
+    return rows
+
+
+def _live_pages_equal(a, b):
+    return torch.equal(a[:, :, 1:], b[:, :, 1:])
+
+
+def _eager_step(cfg, params, kv, batch):
+    from pegainfer_tpu_torch.models import qwen3 as q3
+
+    with torch.no_grad():
+        return q3.decode(cfg, params, kv, *[torch.from_numpy(a).cuda() for a in batch])
+
+
+def _graphs(cfg, params, kv):
+    from functools import partial
+
+    from pegainfer_tpu_torch.engine.decode_graphs import DecodeGraphs
+    from pegainfer_tpu_torch.models import qwen3 as q3
+
+    return DecodeGraphs(partial(q3.decode, cfg, params, kv), torch.device("cuda"),
+                        GRAPH_BUCKETS, cfg.num_key_value_heads)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("P", [8, 16])
+@pytest.mark.parametrize("B", [1, 2, 8])
+def test_graphed_decode_step_equals_the_eager_step(graph_models, mode, B, P):
+    """Two steps (the second one token on) at (B, P): logits and the pool
+    equal the eager step's bit for bit, the second step a replay of the
+    graph the first one captured."""
+    cfg, params = _graph_cfg(), graph_models[mode]
+    kv_e, kv_g = _graph_pool(), None
+    kv_g = kv_e.clone()
+    graphs = _graphs(cfg, params, kv_g)
+    rows = _graph_rows(B, P)
+    for step in range(2):
+        batch = _graph_batch([(ctx + step, pages) for ctx, pages in rows], B, P, seed=step)
+        want = _eager_step(cfg, params, kv_e, batch)
+        got = graphs.run(*batch).clone()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {step}: {(got - want).abs().max().item()}"
+        assert _live_pages_equal(kv_g, kv_e)
+    assert list(graphs.steps) == [(B, P)] and len(graphs.capture_log) == 1
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_graph_replayed_first_equals_the_eager_step(graph_models, mode):
+    """K1's ticket counters and K6's zero expert ids are cached device
+    tensors: made first inside a capture, their zeroing would run only in
+    that graph. With both caches emptied, graphs at B 1, 2 and 8 are
+    captured, then the first one replays before any other graph and before
+    any eager step at its B: it equals the eager step."""
+    from pegainfer_tpu_torch.models import qwen3 as q3
+
+    pd._tickets.clear()
+    k6.zero_idx.cache_clear()
+    q3._inv_freq.cache_clear()
+    cfg, params = _graph_cfg(), graph_models[mode]
+    kv_e = _graph_pool()
+    kv_g = kv_e.clone()
+    graphs = _graphs(cfg, params, kv_g)
+    for B, P in ((1, 8), (2, 8), (8, 16)):
+        graphs.prepare(B, P)
+    batch = _graph_batch(_graph_rows(1, 8), 1, 8, seed=7)
+    got = graphs.run(*batch).clone()
+    want = _eager_step(cfg, params, kv_e, batch)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and _live_pages_equal(kv_g, kv_e)
+    batch = _graph_batch(_graph_rows(8, 16), 8, 16, seed=8)
+    got = graphs.run(*batch).clone()
+    assert torch.equal(got, _eager_step(cfg, params, kv_e, batch))
+    assert _live_pages_equal(kv_g, kv_e)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_graph_replays_count_their_launches(graph_models, mode):
+    """After n steps of one (B, P) (the capture and n replays) K1 counts n x
+    layers launches and K6 n x (6 x layers + 1) in the int8 mode (six
+    projections a layer and the head), 0 in bf16: the warm-up's and the
+    capture's own calls are not counted."""
+    cfg, params = _graph_cfg(), graph_models[mode]
+    graphs = _graphs(cfg, params, _graph_pool())
+    rows = _graph_rows(2, 8)
+    k1, k6_0 = pd.launches, k6.launches
+    n = 5
+    for step in range(n):
+        graphs.run(*_graph_batch([(ctx + step, pages) for ctx, pages in rows], 2, 8, step))
+    torch.cuda.synchronize()
+    assert pd.launches - k1 == n * GRAPH_LAYERS
+    assert k6.launches - k6_0 == (n * (6 * GRAPH_LAYERS + 1) if mode == "int8" else 0)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_graph_batch_shrinking_inside_its_bucket_leaves_live_pages_alone(graph_models, mode):
+    """Four rows at B 4, then three in the same bucket, the third now on the
+    pages the fourth left (a request that took them after its release): the
+    row left behind is padding, so the pool and the live rows' logits equal
+    the eager run's, and the new owner's page holds only its own rows."""
+    cfg, params = _graph_cfg(), graph_models[mode]
+    kv_e = _graph_pool()
+    kv_g = kv_e.clone()
+    graphs = _graphs(cfg, params, kv_g)
+    rows = _graph_rows(4, 8)
+    first = _graph_batch(rows, 4, 8, seed=1)
+    second_rows = [(ctx + 1, pages) for ctx, pages in rows[:2]] + [(20, rows[3][1][:2])]
+    second = _graph_batch(second_rows, 4, 8, seed=2)
+    for batch in (first, second):
+        want = _eager_step(cfg, params, kv_e, batch)
+        got = graphs.run(*batch).clone()
+        torch.cuda.synchronize()
+        n = int((batch[3] > 0).sum())
+        assert torch.equal(got[:n], want[:n])
+        assert _live_pages_equal(kv_g, kv_e)
+    assert list(graphs.steps) == [(4, 8)]
