@@ -140,7 +140,10 @@ weights:
 The Qwen3.5 hybrid at the JAX package's ``qwen35.bench_config()`` (32
 layers: 8 groups of 3 Gated Delta Net layers and 1 gated full-attention
 layer, hidden 2048; full width and depth), random bf16 weights made on the
-card from the seed, run after the Qwen3 engines are freed:
+card from the seed, run after the Qwen3 engines are freed; as in phases
+4-8h, every hybrid phase but 25g passes ``EAGER`` (its tokens are 25g's
+oracle), and so does every DeepSeek-V4 phase below but 13a and the graphed
+phases 13g and 18g:
 
 19. hold K1 and K2 against their plain versions at its full-attention heads
     (Hq 16, Hkv 2, hd 256) by phase 3's per-row rules: K2 at T 1,024 and a
@@ -189,6 +192,17 @@ snapshots), on the same weights:
 25b. [8f] and [8g] on the hybrid: K6 = 225 (7 a layer and the head) x the
     decode steps within the cut + 1 a prefill, the concurrent requests on
     its 2 slots (the third waits);
+25g. the hybrid's decode step under CUDA graphs: engines under the graph
+    defaults (``OLD_DEFAULTS`` otherwise, 2 slots), their B ladder captured
+    at start at width 8, in bf16 on [20]'s traffic (tokens equal [20]'s)
+    and in int8 on [25b]'s (tokens equal [25b]'s), with K1 = 8 x decode
+    steps, K2 = 8 x prefills and K6 = 225 x decode steps + 1 a prefill (0
+    in bf16) through the replays; TTFT, TPOT p50 / p95 against the eager
+    run's (the graphed p50 must lie below the eager p50 by more than the
+    eager p50-p95 spread), captures at first use, the pool's bytes, the
+    memory back after shutdown; [8i]'s step measurement on a 1-slot
+    executor, eager (its forward under sync-debug "error" first) and
+    graphed;
 25c. [8h] on the hybrid (3 slots). The engines, weights and state are then
     freed.
 
@@ -225,17 +239,22 @@ weights made on the card from the seed:
 
 DeepSeek-V4's slot prefix cache and PD handoff, on the same weights:
 
+13g. DeepSeek-V4's decode step under CUDA graphs, [25g] for DSv4 on phase
+    11's traffic (each bucket captured at first use, no ladder): fp4 with
+    the chain off against [11]'s eager run (K3 = 24 and K4 = 59 x decode
+    steps through the replays), then with ``moe_chain=True`` against an
+    eager run of the same traffic here (K9 = 8 x decode steps, no K3);
 13a. an engine under the defaults (``EngineLoadOptions(max_batch_size=2,
     max_model_len=2048, seed=SEED)``: the slot prefix cache on, chunks of
-    2,048) serves, one after another, (a) P (1,024 tokens) / 16 with
+    2,048, the decode step as CUDA graphs) serves, one after another, (a) P (1,024 tokens) / 16 with
     logprobs (a miss, a fresh prefill, a snapshot kept with its logits),
     (b) P / 16 greedy (a hit that skips the forward: no K5 launch, (a)'s
-    tokens), (c) P + 16 new tokens (a hit resumed through 16 decode
-    steps), (d) P + 128 other new tokens (a hit past the threshold of 72:
+    tokens), (c) P + 16 new tokens (a hit resumed through 16 replays of
+    the B = 1 graph), (d) P + 128 other new tokens (a hit past the threshold of 72:
     a fresh prefill); every request ends in ``Finished`` with its count;
     hits 3, misses 1; launches K5 = 24 x fresh prefills, K3 = 24 x (decode
     steps + 16) and K4 = 59 x (decode steps + 16), and inside the
-    resume, read from the counts around each ``prefill_resume`` call, K3
+    resume, read from the counts around each of the executor's resumes, K3
     = 24 x 16 and K4 = 59 x 16; the TTFTs;
 13b. (c)'s resume on the model: ``slot_export`` of the slot that prefilled
     P, ``slot_import`` into the other slot and ``prefill_resume`` of the
@@ -244,8 +263,12 @@ DeepSeek-V4's slot prefix cache and PD handoff, on the same weights:
     times; ``snapshot_bytes`` is the rows' sum (6,413,056 B); the
     resumed logits against one whole prefill of P + 16, reported as a
     share of rule 7's limit with the argmax (not gated: decode and prefill
-    run other kernels); the resume's wall a step, one fresh prefill's and
-    the crossover suffix below which the resume is faster;
+    run other kernels); the same resume through a ``SlotExecutor``'s B = 1
+    graph (captured first) on a state of its own: its first token and slot
+    rows equal the eager resume's, K3 / K4 through the replays; the
+    resume's ms a token eager and graphed, one fresh prefill's and the
+    crossover suffix below which each resume is faster, beside the JAX
+    threshold ``max(32, T // 16)`` (kept);
 13c. PD handoff as in 8e between two ``SlotExecutor``s: the payload is the
     slot's rows (6.41 MB), imported on B's other slot; the tokens and the
     last step's logits equal A's own run bit for bit;
@@ -288,7 +311,9 @@ On the same weights, the opt-in fp4 chain and then the int8-experts mode:
     library call; K6 at w1 and w2 at M 1, 6, 12 and B = 2's shared 12 beside
     bmm (and matmul at M 1), and its sum over a chain-off step's launches;
     K7 at w1, at w2 and at skewed routing, each beside one grouped_mm, and
-    its plan's time.
+    its plan's time;
+18g. [13g] in int8 under the default chain against [17]'s eager run (K8 =
+    8 x decode steps, K7 = 24 x prefills through the replays).
 
 The last lines are the kernels' JSON record (the weight streams, the S3 /
 S4 kernels, K1-K9 and K6 at one expert, ``int8_gemv_dense``, with [8g]'s
@@ -299,7 +324,10 @@ bound by their bytes over it as
 Qwen3.5 paths; K3's and K4's launches inside 13a's resumes, read from
 their counts, as ``launches_resume``; the Qwen3.5 serving and step
 records under ``qwen35``, 13a-13b's under ``dsv4_cache``, 8e's, 25a's and
-13c's under ``pd``), the card line from nvidia-smi and
+13c's under ``pd``; the graphed paths' launches as
+``launches_graphed_path``, the hybrid's as ``launches_qwen35_graphed_path``;
+25g's, 13g's and 18g's records under each family's ``graphs``), the card
+line from nvidia-smi and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -750,10 +778,24 @@ def main() -> int:
     k9_record, chain_serving = run_dsv4_fp4_chain(cfg, params)
     i_records, i_serving, i_steps = run_dsv4_int8(cfg, params, k9_record)
     dense = dense_record(q_serving["int8"], h_serving["int8"])
-    # [8j]'s graphed paths: K1 / K2 in bf16, K6 at one expert in int8
+    # [8j]'s graphed paths: K1 / K2 in bf16, K6 at one expert in int8; the
+    # hybrid's ([25g]) likewise
+    h_graphs = h_serving["graphs"]
     dense["launches_graphed_path"] = q_serving["graphs"]["int8"]["launches"]["moe_int8_gemv"]
+    dense["launches_qwen35_graphed_path"] = h_graphs["int8"]["launches"]["moe_int8_gemv"]
     for r in q_records:
         r["launches_graphed_path"] = q_serving["graphs"]["bf16"]["launches"][r["name"]]
+        r["launches_qwen35_graphed_path"] = h_graphs["bf16"]["launches"][r["name"]]
+    # DSv4's graphed paths ([13g], [18g]): K3 / K4 with the chain off, K9
+    # with moe_chain=True, K8 in int8
+    d_graphs = d_serving["graphs"]
+    graphed = {"moe_fp4_gemv": d_graphs["fp4"]["launches"]["moe_fp4_gemv"],
+               "fp8_gemv": d_graphs["fp4"]["launches"]["fp8_gemv"],
+               "moe_fp4_chain": d_graphs["fp4_chain"]["launches"]["moe_fp4_chain"],
+               "moe_int8_chain": i_serving["graphs"]["launches"]["moe_int8_chain"]}
+    for r in d_records + i_records:
+        if r["name"] in graphed:
+            r["launches_graphed_path"] = graphed[r["name"]]
     records = (s_records + c_records + e_records + f_records + q_records + d_records + i_records
                + [dense])
     for r in records:
@@ -2285,34 +2327,44 @@ def watch_steps(ex):
     return spans
 
 
-def executor_steps(label, cfg, q3, params, contract, prompt, graphs):
-    """B = 1 decode steps at context PROMPT + 1 through
-    ``TorchExecutor.execute_decode`` on a pool of its own, with the graphed
-    step (``graphs``, its B = 1 ladder precompiled) or the eager one, after a
-    whole prefill of ``prompt``: STEP_WARMUP steps, then STEP_ITERS timed on
-    the host clock (each ends in the token read, so the card is done), each
-    split into the batch assembly with its host-to-device copies
-    (``_decode_inputs``; graphed: ``_decode_host``), the forward's dispatch
-    (``_decode_model``; graphed: the buffers' copy and the replay,
-    ``DecodeGraphs.run``), the wait at ``sample_tokens``' token read and
-    ``token_logprobs``; then one step with the forward under
-    ``torch.cuda.set_sync_debug_mode("error")`` (a host read there raises);
-    then torch.profiler over STEP_ITERS // 4 steps with CUDA activity (device
-    time, operations, K1 / K6) and again with CPU activity (the host ops by
-    self time); graphed, also CUDA events around STEP_ITERS replays of the
-    step's graph alone. The context grows by one token a step. Returns the
-    record."""
+# the kernels whose device time a step record picks out: (label, a part
+# of the CUDA kernel's name)
+QWEN_STEP_KERNELS = (("K1", "paged_decode"), ("K6", "int8_gemv_kernel"))
+DSV4_STEP_KERNELS = (("K3", "fp4_gemv_kernel"), ("K4", "fp8_gemv_kernel"),
+                     ("K6", "int8_gemv_kernel"), ("K8", "int8_chain_kernel"),
+                     ("K9", "fp4_chain_kernel"))
+# the pool of an executor_steps run: the prompt and every step it takes
+STEP_PAGES = -(-(PROMPT + 2 * (STEP_WARMUP + 3 * STEP_ITERS)) // PAGE) + 2
+
+
+def executor_steps(label, make_ex, contract, prompt, graphs, kernels=QWEN_STEP_KERNELS):
+    """B = 1 decode steps at context PROMPT + 1 through the executor
+    ``make_ex(graphs)`` builds (a pool or slots of its own), with the
+    graphed step (``graphs``; a ladder, where the executor has one,
+    precompiled) or the eager one, after a whole prefill of ``prompt``:
+    STEP_WARMUP steps, then STEP_ITERS timed on the host clock (each ends in
+    the token read, so the card is done), each split into the batch
+    assembly with its host-to-device copies (``_decode_inputs``; graphed,
+    and DSv4's eager step: ``_decode_host``, whose copies then count with
+    the rest), the forward's dispatch (``_decode_model``; graphed: the
+    buffers' copy and the replay, ``DecodeGraphs.run``), the wait at
+    ``sample_tokens``' token read and ``token_logprobs``; then one step with
+    the forward under ``torch.cuda.set_sync_debug_mode("error")`` (a host
+    read there raises); then torch.profiler over STEP_ITERS // 4 steps with
+    CUDA activity (device time, operations, ``kernels``) and again with CPU
+    activity (the host ops by self time); graphed, also CUDA events around
+    STEP_ITERS replays of the step's graph alone. The context grows by one
+    token a step. Returns the record."""
     from torch.profiler import ProfilerActivity, profile
 
+    from pegainfer_tpu_torch.engine import slot_executor as sx
     from pegainfer_tpu_torch.engine import torch_executor as tx
     from pegainfer_tpu_torch.engine.executor import (DecodePlan, DecodeStepItem, PrefillPlan,
                                                       PrefillStepItem)
 
-    pages = -(-(PROMPT + 2 * (STEP_WARMUP + 3 * STEP_ITERS)) // PAGE) + 2
-    ex = tx.TorchExecutor(cfg, params, q3.make_kv_pages(cfg, pages, PAGE, device="cuda"),
-                          contract.EngineLoadOptions(max_batch_size=1, enable_cuda_graph=graphs,
-                                                     **OLD_DEFAULTS))
-    ex.precompile()
+    ex = make_ex(graphs)
+    if hasattr(ex, "precompile"):
+        ex.precompile()
     sp = contract.SamplingParams()
     tok = [ex.execute_prefill(PrefillPlan(requests=[PrefillStepItem(
         request_id=0, prompt_tokens=prompt, params=sp)])).requests[0].first_token]
@@ -2340,12 +2392,16 @@ def executor_steps(label, cfg, q3, params, contract, prompt, graphs):
         return wrapped
 
     host, fwd = ("_decode_host", "run") if graphs else ("_decode_inputs", "_decode_model")
+    if not hasattr(ex, host):  # DSv4's eager step copies its inputs in execute_decode
+        host = "_decode_host"
     setattr(ex, host, timed("inputs", getattr(ex, host)))
     owner = ex._graphs if graphs else ex
     setattr(owner, fwd, timed("forward", getattr(owner, fwd)))
-    sample, logprobs = tx.sample_tokens, tx.token_logprobs
-    tx.sample_tokens = timed("sample_wait", sample)
-    tx.token_logprobs = timed("logprobs", logprobs)
+    # the executors' module-level helpers, timed where each executor looks them up
+    helpers = [(mod, name, getattr(mod, name)) for mod in (tx, sx)
+               for name in ("sample_tokens", "token_logprobs")]
+    for mod, name, fn in helpers:
+        setattr(mod, name, timed("sample_wait" if name == "sample_tokens" else "logprobs", fn))
     try:
         for _ in range(STEP_WARMUP):
             step()
@@ -2370,7 +2426,7 @@ def executor_steps(label, cfg, q3, params, contract, prompt, graphs):
         dev = sum(e.self_device_time_total for e in ka) / n / 1e3
         ops = sum(e.count for e in ka) / n
         kern = {lab: sum(e.self_device_time_total for e in ka if key in e.key) / n / 1e3
-                for lab, key in (("K1", "paged_decode"), ("K6", "int8_gemv_kernel"))}
+                for lab, key in kernels}
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             for _ in range(n):
                 step()
@@ -2378,8 +2434,8 @@ def executor_steps(label, cfg, q3, params, contract, prompt, graphs):
         host_ops = [{"op": e.key, "self_ms": e.self_cpu_time_total / n / 1e3,
                      "calls": e.count / n} for e in top]
         replay_ms = None
-        if graphs:
-            (gstep,) = [st for (B, P), st in ex._graphs.steps.items() if P > 8]
+        if graphs:  # the step's graph: B = 1 at the widest table (DSv4's: P = 0)
+            gstep = ex._graphs.steps[max(k for k in ex._graphs.steps if k[0] == 1)]
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
             for _ in range(STEP_ITERS):
@@ -2388,18 +2444,20 @@ def executor_steps(label, cfg, q3, params, contract, prompt, graphs):
             e1.synchronize()
             replay_ms = e0.elapsed_time(e1) / STEP_ITERS
     finally:
-        tx.sample_tokens, tx.token_logprobs = sample, logprobs
+        for mod, name, fn in helpers:
+            setattr(mod, name, fn)
     wall = statistics.median(walls)
     rec = {"graphs": graphs, "wall_p50_ms": wall, "wall_min_ms": min(walls),
            "wall_max_ms": max(walls), "parts_ms": parts_ms,
            "outside_parts_ms": statistics.mean(walls) - sum(parts_ms.values()),
            "device_ms": dev, "device_ops": ops, "idle": 1 - dev / wall,
-           "K1_ms": kern["K1"], "K6_ms": kern["K6"], "host_ops": host_ops,
+           **{f"{lab}_ms": v for lab, v in kern.items()}, "host_ops": host_ops,
            "forward_sync_free": True, "graph_captures": ex.graph_captures,
            "graph_replay_device_ms": replay_ms, "context": PROMPT + 1}
     log(f"  {label}: step wall p50 {wall:.3f} ms ({min(walls):.3f}-{max(walls):.3f}) over "
-        f"{STEP_ITERS} steps; device {dev:.3f} ms in {ops:.0f} operations (K1 {kern['K1']:.3f}, "
-        f"K6 {kern['K6']:.3f}), idle {1 - dev / wall:.1%}"
+        f"{STEP_ITERS} steps; device {dev:.3f} ms in {ops:.0f} operations ("
+        + ", ".join(f"{lab} {v:.3f}" for lab, v in kern.items() if v)
+        + f"), idle {1 - dev / wall:.1%}"
         + (f"; the graph's replay alone {replay_ms:.3f} ms on CUDA events" if graphs else ""))
     log(f"  {label}: host parts a step (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts_ms.items())
@@ -2412,52 +2470,68 @@ def executor_steps(label, cfg, q3, params, contract, prompt, graphs):
     return rec
 
 
+def qwen3_executor(cfg, q3, params, contract):
+    """``executor_steps``' executor for Qwen3: a TorchExecutor on a pool of
+    STEP_PAGES pages."""
+    from pegainfer_tpu_torch.engine import torch_executor as tx
+
+    def make(graphs):
+        return tx.TorchExecutor(cfg, params, q3.make_kv_pages(cfg, STEP_PAGES, PAGE,
+                                                              device="cuda"),
+                                contract.EngineLoadOptions(max_batch_size=1,
+                                                           enable_cuda_graph=graphs,
+                                                           **OLD_DEFAULTS))
+    return make
+
+
 def run_host_profile(cfg, q3, params, contract, prompt):
     """Phase 8i: ``executor_steps`` of the eager step in bf16 and int8 (the
     int8 tree quantized here from a shallow copy, as the engine does).
     Returns (records, the int8 tree)."""
     q8 = q3.quantize_params_int8(shallow_tree(params))
     torch.cuda.synchronize()
-    out = {mode: executor_steps(f"eager {mode}", cfg, q3, w, contract, prompt, graphs=False)
+    out = {mode: executor_steps(f"eager {mode}", qwen3_executor(cfg, q3, w, contract),
+                                contract, prompt, graphs=False)
            for mode, w in (("bf16", params), ("int8", q8))}
     return out, q8
 
 
-def serve_graphed(label, cfg, q3e, params, contract, kernels, opts, want, seed, n_k6):
-    """One engine under the graph defaults (``opts`` on top): started with
-    its ladder captured, serving ``serve_slots``' traffic at ``seed``; the
-    tokens must equal ``want`` (the eager engine's), the launches the
-    path's (through the replays' accounting), and the memory must come back
-    after shutdown. Returns the record."""
+def serve_graphed(label, start, cfg, contract, kernels, traffic, want, expected):
+    """One engine under the graph defaults, started by ``start()`` (its
+    ladder, where the family has one, captured at start), serving
+    ``serve_slots``' ``traffic``; the tokens must equal ``want`` (the eager
+    engine's), the launches ``expected(run)`` (the path's, through the
+    replays' accounting), and the memory must come back after shutdown.
+    ``start`` makes any tree it quantizes itself, so that only the engine
+    holds it. Returns the record."""
+    # torch keeps a cuBLAS workspace for every stream that ran a cuBLAS
+    # call, a graph's capture stream too, for the life of the process; no
+    # graph is alive here, so the earlier ones go before the baseline
+    torch._C._cuda_clearCublasWorkspaces()
     gc.collect()
     torch.cuda.empty_cache()
     mem0 = torch.cuda.memory_allocated()
     t = time.perf_counter()
-    handle = q3e.start_engine_from_params(cfg, params, contract.EngineLoadOptions(
-        kv_memory_fraction=0.5, seed=SEED, **OLD_DEFAULTS, **opts), device="cuda")
+    handle = start()
     start_s = time.perf_counter() - t
-    del params  # the int8 mode's tree is the engine's now
     ex = handle._scheduler.executor
     graphs = ex._graphs
     ladder = list(graphs.capture_log)
-    log(f"  engine up in {start_s:.2f} s: {len(ladder)} decode graphs captured at width 8 "
-        f"(B, s): {[(b, round(sec, 3)) for b, _, sec, _ in ladder]}; pool "
+    log(f"  engine up in {start_s:.2f} s: {len(ladder)} decode graphs captured at start "
+        f"(B, P, s): {[(b, p, round(sec, 3)) for b, p, sec, _ in ladder]}; pool "
         f"{graphs.pool_bytes / 1e6:.1f} MB")
     spans = watch_steps(ex)
-    run = serve_slots(cfg, contract, handle, kernels, concurrent=SHORT,
-                      shapes=((64, 4), (PROMPT, OUT)), seed=seed)
+    run = serve_slots(cfg, contract, handle, kernels, **traffic)
     later = graphs.capture_log[len(ladder):]
     pool_bytes = graphs.pool_bytes
-    L = cfg.num_hidden_layers
     steps, prefills = run["decode_steps"], run["prefills"]
-    check_launches(run["launches"], {"paged_decode": L * steps, "flash_prefill": L * prefills,
-                                     **({"moe_int8_gemv": n_k6 * steps + prefills}
-                                        if n_k6 else {})},
+    check_launches(run["launches"], expected(run),
                    f"{prefills} prefills, {steps} decode steps, through the graphs' replays")
     same_main = run["main_tokens"] == want["main"]
     same_pair = run["concurrent_tokens"] == want["concurrent"]
-    log(f"  greedy tokens equal the eager engine's: main {PROMPT}/{OUT} {same_main}, the "
-        f"concurrent pair {same_pair}")
+    main_in, main_out = traffic.get("shapes", (None, (DSV4_PROMPT, DSV4_OUT)))[1]
+    log(f"  greedy tokens equal the eager engine's: main {main_in}/{main_out} {same_main}, the "
+        f"concurrent requests {same_pair}")
     if not (same_main and same_pair):
         raise SystemExit(f"{label}: the graphed engine's tokens differ from the eager engine's")
     times = run["times"]
@@ -2472,8 +2546,8 @@ def serve_graphed(label, cfg, q3e, params, contract, kernels, opts, want, seed, 
            "tpot_p95_ms": float(np.percentile(gaps, 95)),
            "step_wall_p50_ms": statistics.median(walls), "prefills": prefills,
            "decode_steps": steps, "launches": run["launches"]}
-    log(f"  {PROMPT}/{OUT}: TTFT {rec['ttft_ms']:.3f} ms, TPOT p50 {rec['tpot_p50_ms']:.3f} ms, "
-        f"p95 {rec['tpot_p95_ms']:.3f} ms; execute_decode wall p50 "
+    log(f"  {main_in}/{main_out}: TTFT {rec['ttft_ms']:.3f} ms, TPOT p50 "
+        f"{rec['tpot_p50_ms']:.3f} ms, p95 {rec['tpot_p95_ms']:.3f} ms; execute_decode wall p50 "
         f"{rec['step_wall_p50_ms']:.3f} ms; captured at first use (B, P, s): "
         f"{rec['captures_at_first_use']}, in the main request's gaps {held} "
         f"({[round(gaps[i], 3) for i in held]} ms)")
@@ -2481,10 +2555,16 @@ def serve_graphed(label, cfg, q3e, params, contract, kernels, opts, want, seed, 
     gc.collect()
     torch.cuda.empty_cache()
     back = torch.cuda.memory_allocated() - mem0
+    torch._C._cuda_clearCublasWorkspaces()  # the engine's streams' (see above)
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine_back = torch.cuda.memory_allocated() - mem0
     rec["allocated_after_shutdown_bytes"] = back
-    log(f"  after shutdown: {back / 1e6:.3f} MB more allocated than before the start "
-        f"(the graphs' pool {pool_bytes / 1e6:.1f} MB)")
-    if back > pool_bytes:
+    rec["allocated_after_shutdown_without_cublas_workspaces_bytes"] = engine_back
+    log(f"  after shutdown: {back / 1e6:.3f} MB more allocated than before the start, "
+        f"{engine_back / 1e6:.3f} MB once torch's cuBLAS workspaces are cleared (the graphs' "
+        f"pool {pool_bytes / 1e6:.1f} MB)")
+    if engine_back > pool_bytes:
         raise SystemExit(f"{label}: the graphed engine's memory did not come back")
     return rec
 
@@ -2498,21 +2578,144 @@ def run_graphed(cfg, q3, q3e, params, q8, contract, kernels, eager_tokens, int8_
     ones. Returns the record."""
     L = cfg.num_hidden_layers
     out = {}
+
+    def start(**opts):
+        return lambda: q3e.start_engine_from_params(
+            cfg, shallow_tree(params), contract.EngineLoadOptions(
+                kv_memory_fraction=0.5, seed=SEED, **OLD_DEFAULTS, **opts), device="cuda")
+
+    def expected(n_k6):
+        return lambda run: {"paged_decode": L * run["decode_steps"],
+                            "flash_prefill": L * run["prefills"],
+                            **({"moe_int8_gemv": n_k6 * run["decode_steps"] + run["prefills"]}
+                               if n_k6 else {})}
+
+    traffic = dict(concurrent=SHORT, shapes=((64, 4), (PROMPT, OUT)))
     log("  bf16:")
-    out["bf16"] = serve_graphed("[8j] bf16", cfg, q3e, params, contract,
-                                {k: kernels[k] for k in ("paged_decode", "flash_prefill")}, {},
-                                eager_tokens, SEED, 0)
+    out["bf16"] = serve_graphed("[8j] bf16", start(), cfg, contract,
+                                {k: kernels[k] for k in ("paged_decode", "flash_prefill")},
+                                {**traffic, "seed": SEED}, eager_tokens, expected(0))
     log("  int8 (quantize=\"int8\" at start on a shallow copy):")
-    out["int8"] = serve_graphed("[8j] int8", cfg, q3e, shallow_tree(params), contract, kernels,
-                                {"quantize": "int8"}, int8_tokens, SEED + 3, 6 * L + 1)
+    out["int8"] = serve_graphed("[8j] int8", start(quantize="int8"), cfg, contract, kernels,
+                                {**traffic, "seed": SEED + 3}, int8_tokens, expected(6 * L + 1))
     for mode, w in (("bf16", params), ("int8", q8)):
-        g = out[mode]["step"] = executor_steps(f"graphed {mode}", cfg, q3, w, contract, prompt,
-                                               graphs=True)
+        g = out[mode]["step"] = executor_steps(f"graphed {mode}",
+                                               qwen3_executor(cfg, q3, w, contract), contract,
+                                               prompt, graphs=True)
         e = host_profile[mode]
         log(f"  {mode}: step wall {e['wall_p50_ms']:.3f} -> {g['wall_p50_ms']:.3f} ms, device "
             f"{e['device_ms']:.3f} -> {g['device_ms']:.3f} ms, idle {e['idle']:.1%} -> "
             f"{g['idle']:.1%} (eager -> graphed, execute_decode at B = 1)")
     return out
+
+
+def graphed_mode(label, cfg, contract, prompt, make_ex, step_kernels, eager, start, kernels,
+                 traffic, expected):
+    """One mode of phases 25g, 13g and 18g: ``executor_steps`` of the eager
+    step (its forward under sync-debug "error" before the mode's first
+    capture), ``serve_graphed`` against the eager engine's run ``eager``
+    (its tokens, TPOT p50 and p95), then ``executor_steps`` of the graphed
+    step. TPOT p50 under graphs must lie below the eager p50 by more than
+    the eager run's p50-p95 spread. Returns the record."""
+    eager_step = executor_steps(f"{label} eager", make_ex, contract, prompt, graphs=False,
+                                kernels=step_kernels)
+    rec = serve_graphed(label, start, cfg, contract, kernels, traffic, eager["tokens"],
+                        expected)
+    rec["step"] = {"eager": eager_step,
+                   "graphed": executor_steps(f"{label} graphed", make_ex, contract, prompt,
+                                             graphs=True, kernels=step_kernels)}
+    e50, e95, g50 = eager["tpot_p50_ms"], eager["tpot_p95_ms"], rec["tpot_p50_ms"]
+    rec["eager_tpot_p50_ms"], rec["eager_tpot_p95_ms"] = e50, e95
+    g, e = rec["step"]["graphed"], eager_step
+    log(f"  {label}: TPOT p50 {e50:.3f} -> {g50:.3f} ms (eager p95 {e95:.3f}, graphed "
+        f"{rec['tpot_p95_ms']:.3f}); step wall {e['wall_p50_ms']:.3f} -> {g['wall_p50_ms']:.3f} "
+        f"ms, device {e['device_ms']:.3f} -> {g['device_ms']:.3f} ms, idle {e['idle']:.1%} -> "
+        f"{g['idle']:.1%} (eager -> graphed, execute_decode at B = 1)")
+    if not e50 - g50 > e95 - e50:
+        raise SystemExit(f"{label}: TPOT p50 under graphs is not below the eager p50 by more "
+                         "than the eager run's p50-p95 spread")
+    return rec
+
+
+def run_hybrid_graphed(cfg, q35, q35e, params, q8, contract, kernels, eager, prompt):
+    """Phase 25g: the hybrid's engine under the graph defaults (its ladder
+    captured at start) in bf16 and int8, against [20]'s and [25b]'s eager
+    runs (``eager``: mode -> tokens and TPOT): tokens equal, K1 / K2 / K6
+    counted through the replays (K6 0 in bf16), ``graphed_mode``'s step
+    records on a 1-slot executor. Returns the record."""
+    from pegainfer_tpu_torch.engine.hybrid_executor import HybridExecutor
+
+    G = cfg.num_groups
+    n_k6 = 7 * G * (cfg.period - 1) + 7 * G + 1
+    traffic = dict(concurrent=Q35_CONCURRENT, shapes=(Q35_WARMUP, (PROMPT, OUT)))
+
+    def start(**opts):
+        return lambda: q35e.start_engine_from_params(
+            cfg, shallow_tree(params), contract.EngineLoadOptions(
+                max_batch_size=Q35_SLOTS, kv_memory_fraction=0.5, seed=SEED, **OLD_DEFAULTS,
+                **opts), device="cuda")
+
+    def make_ex(w):
+        def make(graphs):
+            state = q35.make_state(cfg, STEP_PAGES, PAGE, 1, device="cuda")
+            return HybridExecutor(cfg, w, state, contract.EngineLoadOptions(
+                max_batch_size=1, enable_cuda_graph=graphs, **OLD_DEFAULTS))
+        return make
+
+    def expected(k6):
+        return lambda run: {"paged_decode": G * run["decode_steps"],
+                            "flash_prefill": G * run["prefills"],
+                            "moe_int8_gemv": k6 * run["decode_steps"] + run["prefills"] if k6
+                            else 0}
+
+    out = {}
+    for mode, w, opts, k6 in (("bf16", params, {}, 0),
+                              ("int8", q8, {"quantize": "int8"}, n_k6)):
+        log(f"  {mode}:")
+        out[mode] = graphed_mode(f"[25g] {mode}", cfg, contract, prompt, make_ex(w),
+                                 QWEN_STEP_KERNELS, eager[mode], start(**opts), kernels,
+                                 traffic, expected(k6))
+    return out
+
+
+def dsv4_executor(cfg, d4, d4e, params, contract, moe_chain):
+    """``executor_steps``' executor for DSv4: a SlotExecutor of one slot."""
+    from pegainfer_tpu_torch.engine.slot_executor import SlotExecutor
+
+    def make(graphs):
+        state = d4.make_state(cfg, 1, d4e.max_blocks_for(cfg, DSV4_MAX_MODEL_LEN),
+                              dtype=torch.bfloat16, device="cuda")
+        return SlotExecutor(cfg, params, state, 1, DSV4_MAX_MODEL_LEN,
+                            contract.EngineLoadOptions(max_batch_size=1,
+                                                       enable_cuda_graph=graphs,
+                                                       **OLD_DEFAULTS), moe_chain)
+    return make
+
+
+def dsv4_graphed(label, cfg, params, contract, prompt, eager, kernels, expected,
+                 quantize=None, moe_chain=None):
+    """One DSv4 mode of phases 13g / 18g: ``graphed_mode`` on phase 11's
+    traffic (the engine's graphs captured per bucket at first use)."""
+    from pegainfer_tpu_torch.models import dsv4 as d4
+    from pegainfer_tpu_torch.models import dsv4_engine as d4e
+
+    def start():
+        return d4e.start_engine_from_params(cfg, params, contract.EngineLoadOptions(
+            max_batch_size=DSV4_SLOTS, max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED,
+            quantize=quantize, **OLD_DEFAULTS), device="cuda", moe_chain=moe_chain)
+
+    return graphed_mode(label, cfg, contract, prompt,
+                        dsv4_executor(cfg, d4, d4e, params, contract, moe_chain),
+                        DSV4_STEP_KERNELS, eager, start, kernels, {}, expected)
+
+
+def eager_record(run):
+    """A served run's tokens and TPOT p50 / p95 (``graphed_mode``'s eager
+    side)."""
+    gaps = run["gaps"]
+    return {"tokens": {"main": run["main_tokens"], "concurrent": run["concurrent_tokens"]},
+            "tpot_p50_ms": statistics.median(gaps),
+            "tpot_p95_ms": float(np.percentile(gaps, 95))}
 
 
 def run_echo(label, family, cfg, model, engine, params, contract):
@@ -2611,7 +2814,8 @@ def run_dsv4_echo(cfg, params):
     log(f"[13d] a DSv4 echo request with logprobs after its prompt's prefix was cached: "
         f"{DSV4_CACHE_PROMPT} + {DSV4_CACHE_EXT} tokens")
     handle = d4e.start_engine_from_params(cfg, params, contract.EngineLoadOptions(
-        max_batch_size=DSV4_SLOTS, max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED), device="cuda")
+        max_batch_size=DSV4_SLOTS, max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED, **EAGER),
+        device="cuda")
     ex = handle._scheduler.executor
     cache = ex.slot_prefix_cache
     rng = np.random.default_rng(SEED + 15)
@@ -2719,7 +2923,7 @@ def run_qwen35(ceiling):
     torch.cuda.synchronize()
     log(f"  weights: {q35.params_bytes(params) / 1e9:.2f} GB in {time.perf_counter() - t:.1f} s")
     handle = q35e.start_engine_from_params(cfg, params, contract.EngineLoadOptions(
-        max_batch_size=Q35_SLOTS, kv_memory_fraction=0.5, seed=SEED, **OLD_DEFAULTS),
+        max_batch_size=Q35_SLOTS, kv_memory_fraction=0.5, seed=SEED, **OLD_DEFAULTS, **EAGER),
         device="cuda")
     ex = handle._scheduler.executor
     pool = {"pages": ex.kv_pages.shape[2], "page_tokens": PAGE,
@@ -2732,6 +2936,7 @@ def run_qwen35(ceiling):
     kernels = {"paged_decode": pd, "flash_prefill": fp}
     run = serve_slots(cfg, contract, handle, kernels, concurrent=Q35_CONCURRENT,
                       shapes=(Q35_WARMUP, (PROMPT, OUT)))
+    eager = {"bf16": eager_record(run)}
     del handle, ex  # the executor holds the pool and the slots
     log("  all requests Finished with their token counts; " + check_slot_events(
         run["events"], third_waits=True, slots=Q35_SLOTS))
@@ -2772,7 +2977,7 @@ def run_qwen35(ceiling):
     def make():
         state = q35.make_state(cfg, PD_PAGES, PAGE, Q35_SLOTS, device="cuda")
         return HybridExecutor(cfg, params, state, contract.EngineLoadOptions(
-            max_batch_size=Q35_SLOTS, **PD_OPTS))
+            max_batch_size=Q35_SLOTS, **PD_OPTS, **EAGER))
 
     serving["pd"] = run_pd("[25a]", make, cfg.vocab_size,
                            PD_PROMPT // PAGE * q35.kv_bytes_per_page(cfg, PAGE)
@@ -2784,11 +2989,25 @@ def run_qwen35(ceiling):
     log(f"[25b] the hybrid int8 weight-only (quantize=\"int8\") on the same weights: "
         f"{PROMPT}/{OUT}, then {Q35_CONCURRENT} on {Q35_SLOTS} slots; K6 at one expert")
     n_k6 = 7 * cfg.num_groups * (cfg.period - 1) + 7 * G + 1
-    int8, q8, _ = run_int8_engine("[25b]", "qwen35", cfg, q35, q35e, params, contract, k6,
-                               {"paged_decode": pd, "flash_prefill": fp}, n_k6, G,
-                               steps_prof[f"qwen35 decode step B=1 ctx {PROMPT + 1}"][1])
+    int8, q8, int8_tokens = run_int8_engine(
+        "[25b]", "qwen35", cfg, q35, q35e, params, contract, k6,
+        {"paged_decode": pd, "flash_prefill": fp}, n_k6, G,
+        steps_prof[f"qwen35 decode step B=1 ctx {PROMPT + 1}"][1])
     int8["dense"] = run_dense_sweep("[25b]", "qwen35", q8, params, ceiling)
     serving["int8"] = int8
+    eager["int8"] = {"tokens": int8_tokens, "tpot_p50_ms": int8["tpot_p50_ms"],
+                     "tpot_p95_ms": int8["tpot_p95_ms"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[25g] the hybrid's decode step under CUDA graphs (the defaults precompile=True, "
+        f"enable_cuda_graph=True), bf16 and int8, {Q35_SLOTS} slots, against the eager runs "
+        "of [20] and [25b]")
+    t = time.perf_counter()
+    serving["graphs"] = run_hybrid_graphed(cfg, q35, q35e, params, q8, contract,
+                                           {"paged_decode": pd, "flash_prefill": fp,
+                                            "moe_int8_gemv": k6}, eager, run["main_prompt"])
+    serving["graphs"]["phase_s"] = time.perf_counter() - t
+    log(f"  [25g] took {serving['graphs']['phase_s']:.1f} s")
     del q8
     gc.collect()
     torch.cuda.empty_cache()
@@ -2823,7 +3042,8 @@ def run_qwen35_chunked(cfg, q35, q35e, params, contract, pd, fp):
     log(f"[23] a second Qwen3.5 engine on the same weights, {Q35_CHUNK_SLOTS} state slots: "
         + ", ".join(f"{k}={v}" for k, v in CHUNK_OPTS.items()))
     handle = q35e.start_engine_from_params(cfg, params, contract.EngineLoadOptions(
-        max_batch_size=Q35_CHUNK_SLOTS, kv_memory_fraction=0.5, seed=SEED, **CHUNK_OPTS),
+        max_batch_size=Q35_CHUNK_SLOTS, kv_memory_fraction=0.5, seed=SEED, **CHUNK_OPTS,
+        **EAGER),
         device="cuda")
     ex = handle._scheduler.executor
     pool = {"pages": ex.kv_pages.shape[2], "snapshot_cap": ex.prefix_cache.max_snapshots,
@@ -3234,7 +3454,50 @@ def run_dsv4():
     log_records(records)
     serving = {"ttft_ms": ttft_ms, "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
                "prompt": DSV4_PROMPT, "output": DSV4_OUT}
+    log("[13g] DSv4's decode step under CUDA graphs (the defaults precompile=True, "
+        "enable_cuda_graph=True; each bucket captured at first use): fp4 with the chain off "
+        "(K3 / K4) against [11]'s eager run, and with moe_chain=True (K9) against an eager "
+        "run of the same traffic here")
+    t = time.perf_counter()
+    serving["graphs"] = run_dsv4_graphed(cfg, params, contract, run, kernels)
+    serving["graphs"]["phase_s"] = time.perf_counter() - t
+    log(f"  [13g] took {serving['graphs']['phase_s']:.1f} s")
     return cfg, params, records, serving, steps_json(steps)
+
+
+def run_dsv4_graphed(cfg, params, contract, run, kernels):
+    """Phase 13g on the fp4 params: ``dsv4_graphed`` with the chain off
+    (the oracle [11]'s ``run``; K3 3L and K4 ``fp8_per_decode_step`` a
+    step) and with ``moe_chain=True`` (the oracle an eager run here; K9 L a
+    step, no K3). Returns the record."""
+    from pegainfer_tpu_torch.models import dsv4_engine as d4e
+    from pegainfer_tpu_torch.ops.cuda import fp4_chain as k9
+
+    L, f8 = cfg.n_layers, fp8_per_decode_step(cfg)
+
+    def expected(chain):
+        def want(r):
+            steps = r["decode_steps"]
+            out = {"moe_fp4_gemv": 0 if chain else 3 * L * steps, "fp8_gemv": f8 * steps,
+                   "moe_fp4_grouped": 3 * L * r["prefills"]}
+            if chain:
+                out["moe_fp4_chain"] = L * steps
+            return out
+        return want
+
+    out = {"fp4": dsv4_graphed("[13g] fp4", cfg, params, contract, run["main_prompt"],
+                               eager_record(run), kernels, expected(False))}
+    chain_kernels = {**kernels, "moe_fp4_chain": k9}
+    log("  the eager engine with moe_chain=True on phase 11's traffic (the oracle of K9's "
+        "graphs)")
+    eager = serve_slots(cfg, contract, dsv4_engine(cfg, contract, d4e, params, moe_chain=True),
+                        chain_kernels)
+    check_launches(eager["launches"], expected(True)(eager),
+                   f"{eager['prefills']} prefills, {eager['decode_steps']} eager decode steps")
+    out["fp4_chain"] = dsv4_graphed("[13g] fp4 + K9", cfg, params, contract, run["main_prompt"],
+                                    eager_record(eager), chain_kernels, expected(True),
+                                    moe_chain=True)
+    return out
 
 
 # ── phases 13a-13c: DeepSeek-V4's slot prefix cache and PD handoff ──────
@@ -3273,10 +3536,13 @@ def run_dsv4_cache(cfg, params):
     plan = (("a", P, 1), ("b", P, 0), ("c", ext, 0), ("d", far, 0))
     kernels = {"moe_fp4_gemv": k3, "fp8_gemv": k4, "moe_fp4_grouped": k5}
     out = {}
-    # K3's and K4's launches inside the engine's resumes, read from their
-    # counts before and after each dsv4.prefill_resume call
+    # K3's and K4's launches inside the engine's resumes (replays of its
+    # B = 1 graph under the defaults), read from their counts before and
+    # after each resume
     resume_launches = {"moe_fp4_gemv": 0, "fp8_gemv": 0}
-    resume = d4.prefill_resume
+    resume = ex._resume
+    if ex._graphs is None:
+        raise SystemExit("the DSv4 engine under the defaults built no decode graphs")
 
     def counted_resume(*args, **kwargs):
         before = {n: kernels[n].launches for n in resume_launches}
@@ -3285,7 +3551,7 @@ def run_dsv4_cache(cfg, params):
             resume_launches[n] += kernels[n].launches - before[n]
         return logits
 
-    d4.prefill_resume = counted_resume
+    ex._resume = counted_resume
     try:
         for mod in kernels.values():
             mod.launches = 0
@@ -3300,9 +3566,10 @@ def run_dsv4_cache(cfg, params):
                          "tokens": toks, "k5_launches": k5.launches - k5_before}
         launches = {n: mod.launches for n, mod in kernels.items()}
         counts = {"hits": cache.hits, "misses": cache.misses, "prefills": ex.prefills,
-                  "decode_steps": ex.decode_steps, "resume_steps": ex.resume_steps}
+                  "decode_steps": ex.decode_steps, "resume_steps": ex.resume_steps,
+                  "graph_captures": [(b, round(sec, 3)) for b, _, sec, _ in
+                                     ex._graphs.capture_log]}
     finally:
-        d4.prefill_resume = resume
         handle.shutdown()
         handle._thread.join(timeout=60)
     del handle, ex, cache
@@ -3362,6 +3629,34 @@ def run_dsv4_cache(cfg, params):
         whole, _ = d4.prefill(cfg, params, ext_t, last_only=True)
         torch.cuda.synchronize()
         fresh_ms = (time.perf_counter() - t) * 1e3
+        # the same resume through a SlotExecutor's B = 1 graph (captured
+        # first, outside the timing), on slot 1 of a state of its own
+        gex = SlotExecutor(cfg, params, d4.make_state(cfg, DSV4_SLOTS, blocks,
+                                                      dtype=torch.bfloat16, device="cuda"),
+                           DSV4_SLOTS, DSV4_MAX_MODEL_LEN,
+                           contract.EngineLoadOptions(enable_prefix_cache=False))
+        gex._graphs.prepare(1)
+        gex.slot_import(snap, 1)
+        torch.cuda.synchronize()
+        before = {n: kernels[n].launches for n in resume_launches}
+        t = time.perf_counter()
+        g_resumed = gex._resume(ext[DSV4_CACHE_PROMPT:], DSV4_CACHE_PROMPT, 1)
+        torch.cuda.synchronize()
+        g_resume_ms = (time.perf_counter() - t) * 1e3
+        check_launches({n: kernels[n].launches - before[n] for n in resume_launches},
+                       {"moe_fp4_gemv": 3 * L * DSV4_CACHE_EXT,
+                        "fp8_gemv": fp8_per_decode_step(cfg) * DSV4_CACHE_EXT},
+                       f"K3 / K4 inside the graphed resume of {DSV4_CACHE_EXT} tokens, "
+                       "through the replays")
+    g_token = int(g_resumed.argmax()) == int(resumed.argmax())
+    g_rows = all(torch.equal(gl[k][1], el[k][1])
+                 for gl, el in zip(gex.state["layers"], state["layers"]) for k in gl)
+    g_bits = torch.equal(g_resumed, resumed)
+    log(f"  the graphed resume against the eager one: first token equal {g_token}, slot rows "
+        f"equal {g_rows}, logits bit for bit {g_bits}")
+    if not (g_token and g_rows):
+        raise SystemExit("the graphed resume differs from the eager resume")
+    del gex
     same = torch.equal(resumed, direct)
     rows = sum(t.numel() * t.element_size() for ls in snap["layers"] for t in ls.values())
     log(f"  resumed logits equal the direct decode steps' bit for bit: {same}; "
@@ -3378,6 +3673,9 @@ def run_dsv4_cache(cfg, params):
     argmax_same = int(resumed.argmax()) == int(whole[0].argmax())
     step_ms = resume_ms / DSV4_CACHE_EXT
     crossover = int(fresh_ms // step_ms)
+    g_step_ms = g_resume_ms / DSV4_CACHE_EXT
+    g_crossover = int(fresh_ms // g_step_ms)
+    threshold = max(32, len(ext) // 16)
     log(f"  resumed logits against one whole prefill of P + {DSV4_CACHE_EXT} (reported, not "
         f"gated: decode and prefill run other kernels, and routing flips on near ties): "
         f"max |diff| {diff:.4g}, {diff / limit:.3f} of rule 7's limit; argmax agrees: "
@@ -3385,6 +3683,9 @@ def run_dsv4_cache(cfg, params):
     log(f"  resume {resume_ms:.3f} ms for {DSV4_CACHE_EXT} tokens ({step_ms:.3f} ms a step); "
         f"one fresh prefill of {len(ext)} tokens {fresh_ms:.3f} ms; the resume is faster "
         f"below a suffix of about {crossover} tokens (host clock)")
+    log(f"  the resume's ms a token: eager {step_ms:.3f}, graphed {g_step_ms:.3f}; crossover "
+        f"against the fresh prefill: eager {crossover} tokens, graphed {g_crossover} tokens; "
+        f"the JAX threshold at T = {len(ext)}: max(32, T // 16) = {threshold} (kept)")
     del state, snap
     record = {"options": {"enable_prefix_cache": True, "prefill_chunk": 2048},
               "requests": {n: {k: v for k, v in r.items() if k != "tokens"}
@@ -3393,7 +3694,9 @@ def run_dsv4_cache(cfg, params):
               "resume_vs_whole_share_of_limit": diff / limit,
               "resume_vs_whole_argmax_agrees": argmax_same, "resume_ms": resume_ms,
               "resume_step_ms": step_ms, "fresh_prefill_ms": fresh_ms,
-              "crossover_tokens": crossover}
+              "crossover_tokens": crossover, "graphed_resume_ms": g_resume_ms,
+              "graphed_resume_step_ms": g_step_ms, "graphed_crossover_tokens": g_crossover,
+              "graphed_resume_bit_exact": g_bits, "jax_threshold_tokens": threshold}
 
     log(f"[13c] DSv4 PD handoff between two SlotExecutors on the same weights: "
         f"{PD_PROMPT}/{PD_OUT}")
@@ -3401,7 +3704,7 @@ def run_dsv4_cache(cfg, params):
     def make():
         state = d4.make_state(cfg, DSV4_SLOTS, blocks, dtype=torch.bfloat16, device="cuda")
         return SlotExecutor(cfg, params, state, DSV4_SLOTS, DSV4_MAX_MODEL_LEN,
-                            contract.EngineLoadOptions(**PD_OPTS))
+                            contract.EngineLoadOptions(**PD_OPTS, **EAGER))
 
     with torch.no_grad():
         pd_record = run_pd("[13c]", make, cfg.vocab_size, DSV4_SNAPSHOT_BYTES, exact=True)
@@ -3465,7 +3768,7 @@ def dsv4_engine(cfg, contract, d4e, params, quantize=None, moe_chain=None):
     return d4e.start_engine_from_params(
         cfg, params, contract.EngineLoadOptions(
             max_batch_size=DSV4_SLOTS, max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED,
-            quantize=quantize, **OLD_DEFAULTS),
+            quantize=quantize, **OLD_DEFAULTS, **EAGER),
         device="cuda", moe_chain=moe_chain)
 
 
@@ -3784,10 +4087,22 @@ def run_dsv4_int8(cfg, params, k9_record):
     records, extra = time_int8_kernels(cfg, params, k6, k7, k8, errs, launches)
     records.append(k9_record)
     log_records(records)
+    log("[18g] the int8-experts decode step under CUDA graphs under its default chain (K8), "
+        "against [17]'s eager run")
+    t = time.perf_counter()
+    f8 = fp8_per_decode_step(cfg)
+    graphs = dsv4_graphed(
+        "[18g] int8 + K8", cfg, params, contract, run["main_prompt"], eager_record(run),
+        kernels, lambda r: {**zero, "moe_int8_grouped": 3 * L * r["prefills"],
+                            "moe_int8_chain": L * r["decode_steps"],
+                            "fp8_gemv": f8 * r["decode_steps"]}, quantize="int8-experts")
+    graphs["phase_s"] = time.perf_counter() - t
+    log(f"  [18g] took {graphs['phase_s']:.1f} s")
     serving = {"ttft_ms": run["ttft_ms"], "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
                "prompt": DSV4_PROMPT, "output": DSV4_OUT, "requantization": requant,
                "chain_off_pair": {"launches": off["launches"],
-                                  "decode_steps": off["decode_steps"]}, **extra}
+                                  "decode_steps": off["decode_steps"]}, "graphs": graphs,
+               **extra}
     return records, serving, steps_json(steps_prof)
 
 

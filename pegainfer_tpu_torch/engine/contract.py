@@ -48,12 +48,13 @@ class EngineLoadOptions:
     does).
 
     ``precompile`` and ``enable_cuda_graph`` (both True, as in the JAX
-    engine, where the second is an alias for the first): with both set, the
-    Qwen3 executor runs each decode step as one CUDA graph per (batch
-    bucket, page-table width), the batch buckets captured at engine start
-    and other widths at first use (``engine/decode_graphs.py``); either
-    False keeps the eager step. The Qwen3.5 hybrid and DeepSeek-V4 take
-    both and run eager steps.
+    engine, where the second is an alias for the first): with both set,
+    the Qwen3 and Qwen3.5 hybrid executors run each decode step as one CUDA
+    graph per (batch bucket, page-table width), the batch buckets captured
+    at engine start and other widths at first use, and DeepSeek-V4's one
+    graph per batch bucket, each captured at first use, as the JAX DSv4
+    engine compiles (``engine/decode_graphs.py``); either False keeps the
+    eager step.
 
     ``quantize`` and ``decode_block`` name features of the JAX engine that
     the executors do not all have yet; an executor raises
@@ -65,7 +66,7 @@ class EngineLoadOptions:
     """
 
     precompile: bool = True
-    enable_cuda_graph: bool = True  # with precompile: Qwen3's graphed decode step
+    enable_cuda_graph: bool = True  # with precompile: the graphed decode step
     seed: int = 42
     # Fraction of free device memory given to the paged KV pool.
     kv_memory_fraction: float = 0.85

@@ -26,9 +26,14 @@ Echo is ``TorchExecutor``'s over the hybrid's ``prefill`` /
 logits and never fused, while the fine tail and the state snapshots follow
 the stepper as for any prompt.
 
-``precompile`` and ``enable_cuda_graph`` are taken, and its decode step
-stays eager (``graphed_decode`` False): its rows' state slots are built on
-the host each step, and a graph needs them in a static buffer.
+With ``precompile`` and ``enable_cuda_graph`` (the defaults) its decode
+step replays CUDA graphs as Qwen3's does (``engine/decode_graphs.py``, the
+``hybrid`` family): the rows' state slots are the fifth static input,
+written with the others from one pinned stage, padding rows on the dead
+slot (a warm-up or a padding row must never write a live slot's rows); the
+engine captures the batch ladder at width 8 at start
+(``models/qwen35_engine.py``), other widths at first use. The fused mixed
+step's decode rows stay eager. Either option False keeps the eager step.
 
 Not here yet, and refused with ``NotImplementedError``: multi-token decode
 blocks.
@@ -36,11 +41,14 @@ blocks.
 
 from __future__ import annotations
 
+from dataclasses import replace
+from functools import partial
 from typing import Optional
 
-import torch
+import numpy as np
 
 from pegainfer_tpu_torch.engine.contract import EngineLoadOptions
+from pegainfer_tpu_torch.engine.decode_graphs import Family, hybrid
 from pegainfer_tpu_torch.engine.slots import StateSlots
 from pegainfer_tpu_torch.engine.torch_executor import TorchExecutor
 from pegainfer_tpu_torch.engine.torch_executor import check_supported as check_options
@@ -67,23 +75,27 @@ class HybridExecutor(StateSlots, TorchExecutor):
     ``state`` is ``models/qwen35.py::make_state``'s, whose slots (all but
     its dead one) are the requests' state slots."""
 
-    graphed_decode = False  # _decode_model takes the slots too
-
     def __init__(self, cfg: q35.Qwen35Config, params, state,
                  options: Optional[EngineLoadOptions] = None):
         opts = options or EngineLoadOptions()
         check_supported(opts)
-        super().__init__(cfg, params, state["kv"], opts)
         self.state = state
         self._init_slots(state["rec"].shape[2] - 1)
-        self.max_batch = min(opts.max_batch_size, self.max_slots)
+        # a decode batch fits the slots, and so do the graphs' buckets
+        super().__init__(cfg, params, state["kv"],
+                         replace(opts, max_batch_size=min(opts.max_batch_size, self.max_slots)))
         self._hybrid_cache = self.prefix_cache is not None
 
-    def _slots_of(self, items, B: int) -> torch.Tensor:
+    def _slots_of(self, items, B: int) -> np.ndarray:
         """The decode rows' state slots, padding rows on the dead slot."""
-        slots = torch.full((B,), self.max_slots, dtype=torch.int32)
-        slots[: len(items)] = torch.tensor([self._slot(it.request_id) for it in items])
-        return slots.to(self.device)
+        slots = np.full(B, self.max_slots, np.int32)
+        slots[: len(items)] = [self._slot(it.request_id) for it in items]
+        return slots
+
+    def _decode_host(self, items):
+        """``TorchExecutor``'s arrays and the rows' state slots."""
+        host, states = super()._decode_host(items)
+        return (*host, self._slots_of(items, host[0].shape[0])), states
 
     def _prefill_model(self, item, tokens, table, all_logits: bool = False):
         last_logits, every = q35.prefill(self.cfg, self.params, self.state, tokens, table,
@@ -99,12 +111,17 @@ class HybridExecutor(StateSlots, TorchExecutor):
 
     def _mixed_model(self, item, items, chunk_tokens, start: int, valid: int, table, dec):
         return q35.mixed_chunk(self.cfg, self.params, self.state, chunk_tokens, start, valid,
-                               table, self._slot(item.request_id), *dec,
-                               self._slots_of(items, dec[0].shape[0]))
+                               table, self._slot(item.request_id), *dec)
 
-    def _decode_model(self, items, tokens, positions, tables, seq_lens):
+    def _decode_model(self, items, tokens, positions, tables, seq_lens, slots):
         return q35.decode(self.cfg, self.params, self.state, tokens, positions, tables,
-                          seq_lens, self._slots_of(items, tokens.shape[0]))
+                          seq_lens, slots)
+
+    def _graph_step(self):
+        return partial(q35.decode, self.cfg, self.params, self.state)
+
+    def _graph_family(self) -> Family:
+        return hybrid(self.max_slots)
 
     # ── slot rows: cache snapshots, PD hooks (engine/pd.py); the pages'
     # hooks are TorchExecutor's, on state["kv"] ─────────────────────────

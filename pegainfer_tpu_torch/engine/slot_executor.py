@@ -34,21 +34,33 @@ skips the slot-cache resume and prefills whole with every row's logits,
 reduced on the device to its prompt logprobs; its snapshot goes into the
 cache with the last logits, as in the JAX executor. Not here yet, and
 refused with ``NotImplementedError``: bf16 weights (dequantized at load)
-and multi-token decode blocks. ``precompile`` and ``enable_cuda_graph`` are
-taken and ignored, as the JAX DSv4 engine ignores them: the decode step is
-not graphed yet.
+and multi-token decode blocks.
+
+With ``precompile`` and ``enable_cuda_graph`` (the defaults) the decode
+step replays one CUDA graph per batch bucket (``engine/decode_graphs.py``,
+the ``dsv4`` family: tokens, positions and slots, padding rows on the dead
+slot; ``moe_chain`` bound in), captured at the bucket's first use: the JAX
+DSv4 engine compiles its decode program at first use and never calls
+``precompile``, so neither does this one. A slot-cache resume replays the
+B = 1 graph on the request's slot, one suffix token a replay, and keeps a
+copy of the last logits (the next replay of that graph overwrites them).
+Either option False keeps the eager step (``dsv4.decode``,
+``dsv4.prefill_resume``).
 """
 
 from __future__ import annotations
 
 import logging
 from dataclasses import replace
-from typing import Optional
+from functools import partial
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from pegainfer_tpu_torch.engine.contract import EngineLoadOptions
+from pegainfer_tpu_torch.engine.decode_graphs import DecodeGraphs
+from pegainfer_tpu_torch.engine.decode_graphs import dsv4 as dsv4_family
 from pegainfer_tpu_torch.engine.executor import (
     DecodePlan,
     DecodeRequestResult,
@@ -62,6 +74,7 @@ from pegainfer_tpu_torch.engine.executor import (
 from pegainfer_tpu_torch.engine.kv import KvAccounting, PagePool, SlotPrefixCache
 from pegainfer_tpu_torch.engine.slots import StateSlots
 from pegainfer_tpu_torch.engine.torch_executor import (
+    BATCH_BUCKETS,
     bucket_batch,
     first_token,
     prompt_logprobs,
@@ -129,6 +142,13 @@ class SlotExecutor(StateSlots):
         self.snapshot_bytes = dsv4.snapshot_bytes(state)
         cap = slot_cache_cap(self.snapshot_bytes, self.device) if opts.enable_prefix_cache else 0
         self.slot_prefix_cache = SlotPrefixCache(max_entries=cap) if cap > 0 else None
+        # the decode step under CUDA graphs, each bucket captured at first use
+        self._graphs = None
+        if opts.precompile and opts.enable_cuda_graph:
+            top = bucket_batch(self.max_batch)
+            self._graphs = DecodeGraphs(
+                partial(dsv4.decode, cfg, params, state, moe_chain=moe_chain), self.device,
+                [b for b in BATCH_BUCKETS if b <= top], 0, dsv4_family(max_slots))
         # what ran, for callers that check the path (chip_smoke.py): fresh
         # prefills, decode steps, and the decode steps of cache resumes
         self.prefills = 0
@@ -148,6 +168,11 @@ class SlotExecutor(StateSlots):
 
     def is_stop_token(self, token_id: int) -> bool:
         return token_id in self._stop_ids
+
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs captured so far (0 with the eager step or on the CPU)."""
+        return 0 if self._graphs is None else len(self._graphs.capture_log)
 
     # ── prefill ──────────────────────────────────────────────────────
 
@@ -204,24 +229,36 @@ class SlotExecutor(StateSlots):
         slot = self._slot(item.request_id)
         self.slot_import(snap, slot)
         if suffix:
-            tokens = torch.tensor(item.prompt_tokens[pos:], dtype=torch.int32,
-                                  device=self.device)
-            logits = dsv4.prefill_resume(self.cfg, self.params, self.state, tokens, pos, slot,
-                                         moe_chain=self.moe_chain)
+            logits = self._resume(item.prompt_tokens[pos:], pos, slot)
             self.resume_steps += suffix
         st.advance(T)
         if suffix:  # the extended prompt is itself a likely future prefix
             self._slot_cache_insert(item, slot, logits)
         return first_token(item, logits)
 
+    def _resume(self, tokens: Sequence[int], start: int, slot: int) -> torch.Tensor:
+        """Run ``tokens`` through the decode recurrence on ``slot`` from
+        position ``start``; the last step's logits [V]. Graphed: one
+        replay of the B = 1 graph a token; eager: ``dsv4.prefill_resume``."""
+        if self._graphs is None:
+            return dsv4.prefill_resume(
+                self.cfg, self.params, self.state,
+                torch.tensor(tokens, dtype=torch.int32, device=self.device), start, slot,
+                moe_chain=self.moe_chain)
+        one = np.array([slot], np.int32)
+        for i, tok in enumerate(tokens):
+            logits = self._graphs.run(np.array([tok], np.int32),
+                                      np.array([start + i], np.int32), one)
+        return logits[0].clone()
+
     def execute_prefill(self, plan: PrefillPlan) -> PrefillResult:
         return PrefillResult(requests=[self._prefill_one(it) for it in plan.requests])
 
     # ── decode ───────────────────────────────────────────────────────
 
-    def _decode_inputs(self, items):
-        """One more token per request; padding rows take the dead slot at
-        position 0."""
+    def _decode_host(self, items):
+        """One more token per request, as numpy (tokens, positions, slots);
+        padding rows take the dead slot at position 0."""
         B = bucket_batch(len(items))
         tokens = np.zeros(B, np.int32)
         positions = np.zeros(B, np.int32)
@@ -233,8 +270,7 @@ class SlotExecutor(StateSlots):
             states.append(st)
             tokens[i], positions[i] = it.token_id, st.length
             slots[i] = self._slot(it.request_id)
-        dev = [torch.from_numpy(a).to(self.device) for a in (tokens, positions, slots)]
-        return dev, states
+        return (tokens, positions, slots), states
 
     def execute_decode(self, plan: DecodePlan) -> DecodeResult:
         items = plan.requests
@@ -242,8 +278,12 @@ class SlotExecutor(StateSlots):
             return DecodeResult()
         if len(items) > self.max_batch:
             raise RuntimeError(f"decode batch {len(items)} exceeds the {self.max_batch} slots")
-        (tokens, positions, slots), states = self._decode_inputs(items)
-        logits = self._decode_model(items, tokens, positions, slots)
+        host, states = self._decode_host(items)
+        if self._graphs is not None:
+            logits = self._graphs.run(*host)
+        else:
+            logits = self._decode_model(items, *[torch.from_numpy(a).to(self.device)
+                                                 for a in host])
         for st in states:
             st.advance(1)
         self.decode_steps += 1

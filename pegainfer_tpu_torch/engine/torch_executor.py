@@ -9,14 +9,14 @@ step pads its batch to the JAX executor's batch buckets (padding rows:
 token 0, position 0, seq_len 0, null pages) and its page table to the JAX
 executor's power-of-two widths (``bucket_pow2(P, 8, table_cap)``, the
 fused mixed step's decode rows too). With ``precompile`` and
-``enable_cuda_graph`` (the defaults) Qwen3's decode step replays one CUDA
+``enable_cuda_graph`` (the defaults) the decode step replays one CUDA
 graph per (batch bucket, width) over static input buffers
 (``engine/decode_graphs.py``): the JAX executor's bucket ladder, captured
 by ``precompile()`` at engine start, other widths at first use; on the
 CPU the same buffers feed the eager forward. Sampling and logprobs run
-after the graph, on its logits. ``HybridExecutor`` keeps the eager step
-(``graphed_decode``). The model calls are hooks (``_prefill_model``,
-``_chunk_model``, ``_mixed_model``, ``_decode_model``) that
+after the graph, on its logits. The model calls are hooks
+(``_prefill_model``, ``_chunk_model``, ``_mixed_model``, ``_decode_model``,
+and ``_graph_step`` / ``_graph_family`` for the graphs) that
 ``HybridExecutor`` overrides; with
 its cache on (``_hybrid_cache``), the stepper also keeps state snapshots
 at piece ends and restores a cache hit's before the first piece, through
@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from pegainfer_tpu_torch.engine.contract import EngineLoadOptions, TokenLogprob
-from pegainfer_tpu_torch.engine.decode_graphs import DecodeGraphs
+from pegainfer_tpu_torch.engine.decode_graphs import QWEN3, DecodeGraphs, Family
 from pegainfer_tpu_torch.engine.executor import (
     DecodePlan,
     DecodeRequestResult,
@@ -227,10 +227,6 @@ class PendingDecode:
 class TorchExecutor:
     """Continuous-batching executor for one Qwen3 model on one device."""
 
-    # a subclass whose decode step takes more than the four padded inputs
-    # (the hybrid's state slots) keeps the eager step
-    graphed_decode = True
-
     def __init__(self, cfg: q3.Qwen3Config, params, kv_pages: torch.Tensor,
                  options: Optional[EngineLoadOptions] = None):
         opts = options or EngineLoadOptions()
@@ -260,13 +256,13 @@ class TorchExecutor:
             self.prefill_chunk_mixed = max(ps, mixed - mixed % ps)
             self._small_piece = small_piece(self.prefill_chunk, ps)
         self._table_cap = table_cap(self._max_pages, self.prefill_chunk or 0, ps)
-        # Qwen3's decode step under CUDA graphs (static buffers on the CPU)
+        # the decode step under CUDA graphs (static buffers on the CPU)
         self._graphs = None
-        if self.graphed_decode and opts.precompile and opts.enable_cuda_graph:
+        if opts.precompile and opts.enable_cuda_graph:
             top = bucket_batch(self.max_batch)
-            self._graphs = DecodeGraphs(partial(q3.decode, cfg, params, kv_pages), self.device,
+            self._graphs = DecodeGraphs(self._graph_step(), self.device,
                                         [b for b in BATCH_BUCKETS if b <= top],
-                                        cfg.num_key_value_heads)
+                                        cfg.num_key_value_heads, self._graph_family())
         # set by the scheduler around stepper pieces: decode_active picks the
         # mixed piece size; mixed_items (+ mixed_rand, one row of uniform
         # draws for non-greedy rows) asks for the next piece to carry those
@@ -502,8 +498,8 @@ class TorchExecutor:
             host, states = self._decode_host(items)
             logits = self._graphs.run(*host)
         else:
-            (tokens, positions, tables, seq_lens), states = self._decode_inputs(items)
-            logits = self._decode_model(items, tokens, positions, tables, seq_lens)
+            inputs, states = self._decode_inputs(items)
+            logits = self._decode_model(items, *inputs)
         for st in states:
             st.advance(1)
         self.decode_steps += 1
@@ -521,6 +517,14 @@ class TorchExecutor:
         return q3.decode(self.cfg, self.params, self.kv_pages, tokens, positions, tables,
                          seq_lens)
 
+    def _graph_step(self):
+        """The decode step the graphs capture, over ``_decode_host``'s
+        arrays in their order."""
+        return partial(q3.decode, self.cfg, self.params, self.kv_pages)
+
+    def _graph_family(self) -> Family:
+        return QWEN3
+
     # ── fused mixed step (prefill piece ‖ decode rows, one forward) ───
 
     def supports_mixed_step(self, items) -> bool:
@@ -532,12 +536,13 @@ class TorchExecutor:
         decode rows' sampled tokens are left in ``mixed_pending`` for the
         scheduler."""
         n = len(items)
-        (tokens, positions, tables, seq_lens), states = self._decode_inputs(items)
+        dec, states = self._decode_inputs(items)
         rids = tuple(it.request_id for it in items)
         if self._mixed_toks is not None and self._mixed_rids == rids:
-            tokens = self._mixed_toks
+            dec[0] = self._mixed_toks
+        tokens = dec[0]
         last_logits, dec_logits = self._mixed_model(
-            item, items, chunk_tokens, start, valid, table, (tokens, positions, tables, seq_lens))
+            item, items, chunk_tokens, start, valid, table, tuple(dec))
         for st in states:
             st.advance(1)
         self.mixed_pieces += 1
@@ -553,9 +558,10 @@ class TorchExecutor:
         return last_logits
 
     def _mixed_model(self, item, items, chunk_tokens, start: int, valid: int, table, dec):
-        """The model call of one fused piece; ``dec`` = (tokens, positions,
-        tables, seq_lens) of the padded decode batch. Returns (last logits
-        [V], decode logits [B, V])."""
+        """The model call of one fused piece; ``dec`` = ``_decode_inputs``'
+        device tensors of the padded decode batch (tokens, positions,
+        tables, seq_lens). Returns (last logits [V], decode logits [B,
+        V])."""
         return q3.mixed_chunk(self.cfg, self.params, self.kv_pages, chunk_tokens, start,
                               valid, table, *dec)
 

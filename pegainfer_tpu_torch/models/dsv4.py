@@ -873,10 +873,11 @@ def prefill_resume(cfg: DSv4Config, params, state, tokens, start_pos: int, slot:
     step's logits [V] f32."""
     if tokens.shape[0] == 0:
         raise ValueError("prefill_resume needs at least one token")
-    dev = tokens.device
-    slots = torch.tensor([slot], dtype=torch.int32, device=dev)
-    for i in range(tokens.shape[0]):
-        pos = torch.tensor([start_pos + i], dtype=torch.int32, device=dev)
-        logits = decode(cfg, params, state, tokens[i:i + 1], pos, slots,
+    n, dev = tokens.shape[0], tokens.device
+    # made on the device (no host copy a step)
+    slots = torch.full((1,), slot, dtype=torch.int32, device=dev)
+    positions = torch.arange(start_pos, start_pos + n, dtype=torch.int32, device=dev)
+    for i in range(n):
+        logits = decode(cfg, params, state, tokens[i:i + 1], positions[i:i + 1], slots,
                         plain_kernels=plain_kernels, moe_chain=moe_chain)
     return logits[0]

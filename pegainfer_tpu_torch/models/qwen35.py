@@ -58,7 +58,7 @@ from pegainfer_tpu_torch.ops import attention as att
 from pegainfer_tpu_torch.ops import gdn, quant
 from pegainfer_tpu_torch.ops.cuda.flash_prefill import flash_prefill
 from pegainfer_tpu_torch.ops.norm import rms_norm_zero_centered as rms_norm
-from pegainfer_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
+from pegainfer_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from pegainfer_tpu_torch.utils.weights import numpy_to_torch
 
 
@@ -520,10 +520,10 @@ def _gated_norm(cfg: Qwen35Config, norm_w, out, z):
 
 
 def _rope(cfg: Qwen35Config, positions: torch.Tensor, dtype):
-    """cos / sin [N, rotary_dim] of the partial RoPE."""
-    inv_freq = torch.tensor(rope_inv_freq(cfg.rotary_dim, cfg.rope_theta),
-                            dtype=torch.float32, device=positions.device)
-    return rope_cos_sin(positions, inv_freq, dtype)
+    """cos / sin [N, rotary_dim] of the partial RoPE (inv_freq made once a
+    device, as Qwen3's: a CUDA graph cannot capture a host copy)."""
+    return rope_cos_sin(positions, q3._inv_freq(cfg.rotary_dim, cfg.rope_theta,
+                                                positions.device), dtype)
 
 
 def _full_qkv(cfg: Qwen35Config, fw, h, cos, sin, pk: bool):

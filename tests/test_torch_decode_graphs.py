@@ -18,8 +18,8 @@ the JAX engine's streams are computed once a module.
   of the two port runs are equal past the null page (a padding row that
   wrote a live page would show there), in bf16-free f32 and in int8.
 - Padding rows are written afresh when a batch shrinks inside its bucket.
-- Either option False keeps the eager step; the hybrid and DeepSeek-V4
-  executors take both and stay eager.
+- Either option False keeps the eager step. The hybrid's and DeepSeek-V4's
+  graphed steps are tests/test_torch_decode_graphs_slots.py's.
 """
 
 import jax
@@ -287,62 +287,3 @@ def test_engine_start_prepares_the_jax_ladder(models):
         assert ex._graphs.buckets == (1, 2, 4)
     finally:
         handle.shutdown()
-
-
-DSV4_TINY = dict(vocab_size=128, dim=32, moe_inter_dim=16, n_layers=3, num_attention_heads=4,
-                 head_dim=16, q_lora_rank=16, qk_rope_head_dim=8, o_groups=2, o_lora_rank=8,
-                 sliding_window=8, n_routed_experts=8, n_shared_experts=1,
-                 n_activated_experts=2, n_hash_layers=1, routed_scaling_factor=1.5,
-                 swiglu_limit=7.0, rms_norm_eps=1e-6, index_n_heads=2, index_head_dim=8,
-                 index_topk=4, max_position_embeddings=4096, rope_theta=10000.0,
-                 compress_rope_theta=10000.0, compress_ratios=(0, 8, 4),
-                 yarn_original_seq_len=256, yarn_factor=4.0)
-Q35_TINY = dict(hidden_size=64, intermediate_size=128, num_hidden_layers=4,
-                num_attention_heads=4, num_key_value_heads=2, head_dim=16, vocab_size=128,
-                rms_norm_eps=1e-6, rope_theta=1e6, partial_rotary_factor=0.25,
-                layer_types=("linear_attention",) * 3 + ("full_attention",),
-                linear_num_key_heads=2, linear_num_value_heads=4, linear_key_head_dim=8,
-                linear_value_head_dim=8, linear_conv_kernel_dim=4, tie_word_embeddings=True,
-                eos_token_id=1, stop_token_ids=(1,), max_position_embeddings=256)
-
-
-@pytest.mark.parametrize("graphs", [True, False], ids=["options-on", "options-off"])
-@pytest.mark.parametrize("family", ["qwen35", "dsv4"])
-def test_hybrid_and_dsv4_engines_take_both_options_and_stay_eager(family, graphs):
-    """Each engine, started with both options on or off, serves a request
-    to its end through its eager step (its ``_decode_model`` hook, or
-    ``dsv4.decode``, runs every step)."""
-    from pegainfer_tpu_torch.models import dsv4 as tdsv4
-    from pegainfer_tpu_torch.models import dsv4_engine
-    from pegainfer_tpu_torch.models import qwen35 as tq
-    from pegainfer_tpu_torch.models import qwen35_engine
-
-    opts = dict(precompile=graphs, enable_cuda_graph=graphs, max_batch_size=2)
-    if family == "qwen35":
-        cfg = tq.Qwen35Config(**Q35_TINY)
-        handle = qwen35_engine.start_engine_from_params(
-            cfg, tq.init_random_params(cfg, seed=0, dtype=torch.float32),
-            tc.EngineLoadOptions(max_num_pages=16, **opts), device="cpu")
-    else:
-        cfg = tdsv4.DSv4Config(**DSV4_TINY)
-        params = tdsv4.quantize_params_resident(
-            tdsv4.init_random_params(cfg, seed=0, dtype=torch.float32, scale=0.08))
-        handle = dsv4_engine.start_engine_from_params(
-            cfg, params, tc.EngineLoadOptions(max_model_len=64, **opts), device="cpu")
-    ex = handle._scheduler.executor
-    assert getattr(ex, "_graphs", None) is None and not getattr(ex, "graphed_decode", False)
-    try:
-        ch = tc.TokenChannel()
-        handle.submit(tc.GenerateRequest(prompt_tokens=[9, 10, 11, 12, 13], max_tokens=4,
-                                         params=tc.SamplingParams(ignore_eos=True), channel=ch))
-        toks, fin = [], None
-        while fin is None:
-            ev = ch.get(timeout=WAIT_S)
-            assert ev is not None, "engine produced no event in time"
-            if isinstance(ev, tc.Token):
-                toks.append(ev.id)
-            elif tc.is_terminal(ev):
-                fin = ev
-    finally:
-        handle.shutdown()
-    assert isinstance(fin, tc.Finished) and len(toks) == 4 and ex.decode_steps == 3

@@ -921,3 +921,303 @@ def test_graph_batch_shrinking_inside_its_bucket_leaves_live_pages_alone(graph_m
         assert torch.equal(got[:n], want[:n])
         assert _live_pages_equal(kv_g, kv_e)
     assert list(graphs.steps) == [(4, 8)]
+
+
+# ── the hybrid's and DeepSeek-V4's decode steps under CUDA graphs ────────
+# A tiny Qwen3.5 hybrid at hd 256, G 8 (K1 as on the bench_config path; K6
+# at one expert in the int8 mode) and a tiny DeepSeek-V4 at widths where
+# the chains K8 / K9 take the decode rows (K3 / K4 with the chain off).
+# The graphed step must equal the eager step bit for bit; only the dead
+# slot (padding rows, the warm-ups) and the null page may differ.
+
+SLOT_GRAPH_SLOTS = 8
+
+
+def _q35_graph_cfg():
+    from pegainfer_tpu_torch.models import qwen35 as q35
+
+    return q35.Qwen35Config(
+        hidden_size=256, intermediate_size=512, num_hidden_layers=4, num_attention_heads=16,
+        num_key_value_heads=2, head_dim=256, vocab_size=512, rms_norm_eps=1e-6,
+        rope_theta=1e6, partial_rotary_factor=0.25,
+        layer_types=("linear_attention",) * 3 + ("full_attention",), linear_num_key_heads=2,
+        linear_num_value_heads=4, linear_key_head_dim=32, linear_value_head_dim=32,
+        linear_conv_kernel_dim=4, tie_word_embeddings=False, eos_token_id=1,
+        stop_token_ids=(1,), max_position_embeddings=4096)
+
+
+@pytest.fixture(scope="module")
+def q35_graph_models():
+    """{"bf16": params, "int8": params} of ``_q35_graph_cfg`` on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from pegainfer_tpu_torch.models import qwen35 as q35
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = q35.init_random_params_device(_q35_graph_cfg(), gen, "cuda", scale=0.05)
+    int8 = q35.quantize_params_int8({**params, "lin": dict(params["lin"]),
+                                     "full": dict(params["full"])})
+    return {"bf16": params, "int8": int8}
+
+
+def _q35_graph_state():
+    """A pool of 1 + 8 x 16 pages and SLOT_GRAPH_SLOTS + 1 slots, all
+    random (requests in flight)."""
+    from pegainfer_tpu_torch.models import qwen35 as q35
+
+    state = q35.make_state(_q35_graph_cfg(), 1 + 8 * 16, GRAPH_PS, SLOT_GRAPH_SLOTS,
+                           device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for t in state.values():
+        t.normal_(0.0, 0.5, generator=gen)
+    return state
+
+
+def _q35_graph_batch(rows, slots, B, P, seed=0):
+    """``_graph_batch``'s inputs and each live row's state slot, padding
+    rows on the dead slot."""
+    batch = _graph_batch(rows, B, P, seed)
+    col = np.full(B, SLOT_GRAPH_SLOTS, np.int32)
+    col[: len(slots)] = slots
+    return (*batch, col)
+
+
+def _q35_state_equal(a, b):
+    """Every live slot's rows and every page past the null page."""
+    return (torch.equal(a["kv"][:, :, 1:], b["kv"][:, :, 1:])
+            and all(torch.equal(a[k][:, :, :SLOT_GRAPH_SLOTS], b[k][:, :, :SLOT_GRAPH_SLOTS])
+                    for k in ("rec", "conv")))
+
+
+def _q35_eager(cfg, params, state, batch):
+    from pegainfer_tpu_torch.models import qwen35 as q35
+
+    with torch.no_grad():
+        return q35.decode(cfg, params, state, *[torch.from_numpy(a).cuda() for a in batch])
+
+
+def _q35_graphs(cfg, params, state):
+    from functools import partial
+
+    from pegainfer_tpu_torch.engine.decode_graphs import DecodeGraphs, hybrid
+    from pegainfer_tpu_torch.models import qwen35 as q35
+
+    return DecodeGraphs(partial(q35.decode, cfg, params, state), torch.device("cuda"),
+                        GRAPH_BUCKETS, cfg.num_key_value_heads, hybrid(SLOT_GRAPH_SLOTS))
+
+
+def _clone_state(state):
+    return {k: v.clone() for k, v in state.items()}
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("P", [8, 16])
+@pytest.mark.parametrize("B", [1, 2, 8])
+def test_hybrid_graphed_decode_step_equals_the_eager_step(q35_graph_models, mode, B, P):
+    """Two steps (the second a replay) at (B, P), the rows on slots in
+    reverse order: logits, every live slot's rows and the pool past the
+    null page equal the eager step's bit for bit; K1 counts a launch a
+    step and K6 7 x 3 + 7 + 1 = 29 in int8 through the replay."""
+    cfg, params = _q35_graph_cfg(), q35_graph_models[mode]
+    st_e = _q35_graph_state()
+    st_g = _clone_state(st_e)
+    graphs = _q35_graphs(cfg, params, st_g)
+    rows = _graph_rows(B, P)
+    slots = list(range(B - 1, -1, -1))
+    for step in range(2):
+        batch = _q35_graph_batch([(ctx + step, pages) for ctx, pages in rows], slots, B, P,
+                                 seed=step)
+        want = _q35_eager(cfg, params, st_e, batch)
+        k1, k6_0 = pd.launches, k6.launches
+        got = graphs.run(*batch).clone()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {step}: {(got - want).abs().max().item()}"
+        assert _q35_state_equal(st_g, st_e)
+        if step:  # a replay
+            assert pd.launches - k1 == 1
+            assert k6.launches - k6_0 == (29 if mode == "int8" else 0)
+    assert list(graphs.steps) == [(B, P)] and len(graphs.capture_log) == 1
+
+
+def _dsv4_graph_cfg():
+    from pegainfer_tpu_torch.models import dsv4 as d4
+
+    return d4.DSv4Config(
+        vocab_size=512, dim=512, moe_inter_dim=256, n_layers=3, num_attention_heads=4,
+        head_dim=64, q_lora_rank=64, qk_rope_head_dim=16, o_groups=2, o_lora_rank=32,
+        sliding_window=8, n_routed_experts=8, n_shared_experts=1, n_activated_experts=2,
+        n_hash_layers=1, routed_scaling_factor=1.5, swiglu_limit=7.0, rms_norm_eps=1e-6,
+        index_n_heads=2, index_head_dim=32, index_topk=4, max_position_embeddings=4096,
+        rope_theta=10000.0, compress_rope_theta=10000.0, compress_ratios=(0, 8, 4),
+        yarn_original_seq_len=256, yarn_factor=4.0)
+
+
+@pytest.fixture(scope="module")
+def dsv4_graph_models():
+    """{"fp4": resident params, "int8": their experts requantized} on the
+    card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from pegainfer_tpu_torch.models import dsv4 as d4
+
+    cfg = _dsv4_graph_cfg()
+    fp4 = d4.init_random_resident_device(cfg, torch.Generator(device="cuda").manual_seed(6),
+                                         "cuda")
+    int8 = {**fp4, "layers": [dict(lw) for lw in fp4["layers"]]}
+    d4.requantize_experts_int8(int8)
+    return {"fp4": fp4, "int8": int8}
+
+
+def _dsv4_graph_state(slots=2):
+    from pegainfer_tpu_torch.models import dsv4 as d4
+
+    cfg = _dsv4_graph_cfg()
+    state = d4.make_state(cfg, slots, 64, dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for ls in state["layers"]:
+        for t in ls.values():
+            t.copy_(torch.empty(t.shape, device="cuda").normal_(0.0, 0.3, generator=gen))
+    return state
+
+
+def _dsv4_live_equal(a, b, slots=2):
+    return all(torch.equal(x[k][:slots], y[k][:slots])
+               for x, y in zip(a["layers"], b["layers"]) for k in x)
+
+
+def _dsv4_batch(B, slots, step):
+    """Live rows at positions 37 + 11 i + step (compressed blocks emitted
+    at some), padding rows on the dead slot 2 at position 0."""
+    tokens = np.zeros(B, np.int32)
+    positions = np.zeros(B, np.int32)
+    col = np.full(B, 2, np.int32)
+    for i, s in enumerate(slots):
+        tokens[i] = 3 + 101 * i + step
+        positions[i] = 37 + 11 * i + step
+        col[i] = s
+    return tokens, positions, col
+
+
+# (experts, moe_chain, the wrappers' launches a step: {module name: count})
+DSV4_GRAPH_CASES = [("fp4", False, {"fp4_gemv": 9, "fp8_gemv": 22}),
+                    ("fp4", True, {"fp4_chain": 3, "fp8_gemv": 22}),
+                    ("int8", None, {"int8_chain": 3, "fp8_gemv": 22}),
+                    ("int8", False, {"int8_gemv": 9, "fp8_gemv": 22})]
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("experts,moe_chain,per_step", DSV4_GRAPH_CASES,
+                         ids=["fp4-K3", "fp4-K9", "int8-K8", "int8-K6"])
+def test_dsv4_graphed_decode_step_equals_the_eager_step(dsv4_graph_models, experts, moe_chain,
+                                                        per_step, B):
+    """Three steps at B (the later two replays): logits and the live slots'
+    rows equal the eager step's bit for bit (the cooperative launches of K8
+    and K9 are captured), and each replay counts the step's launches (K3 /
+    K6 3 a layer, K8 / K9 one, K4 7 a layer and idx_wq_b on the ratio-4
+    layer)."""
+    from functools import partial
+
+    from pegainfer_tpu_torch.engine.decode_graphs import DecodeGraphs, dsv4
+    from pegainfer_tpu_torch.models import dsv4 as d4
+    from pegainfer_tpu_torch.ops.cuda import fp4_chain, fp4_gemv, fp8_gemv, int8_chain, int8_gemv
+
+    mods = {"fp4_gemv": fp4_gemv, "fp8_gemv": fp8_gemv, "int8_gemv": int8_gemv,
+            "int8_chain": int8_chain, "fp4_chain": fp4_chain}
+    cfg, params = _dsv4_graph_cfg(), dsv4_graph_models[experts]
+    st_e = _dsv4_graph_state()
+    st_g = _dsv4_graph_state()
+    graphs = DecodeGraphs(partial(d4.decode, cfg, params, st_g, moe_chain=moe_chain),
+                          torch.device("cuda"), (1, 2), 0, dsv4(2))
+    slots = [1, 0][:B]
+    for step in range(3):
+        batch = _dsv4_batch(B, slots, step)
+        with torch.no_grad():
+            want = d4.decode(cfg, params, st_e, *[torch.from_numpy(a).cuda() for a in batch],
+                             moe_chain=moe_chain)
+        before = {n: m.launches for n, m in mods.items()}
+        got = graphs.run(*batch).clone()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {step}: {(got - want).abs().max().item()}"
+        assert _dsv4_live_equal(st_g, st_e)
+        if step:
+            assert {n: m.launches - before[n] for n, m in mods.items()} == {
+                n: per_step.get(n, 0) for n in mods}
+    assert list(graphs.steps) == [(B, 0)]
+
+
+@pytest.mark.parametrize("family", ["qwen35", "dsv4"])
+def test_graph_replayed_on_another_slot_set(q35_graph_models, dsv4_graph_models, family):
+    """One B = 2 graph replayed first with its rows on one pair of slots,
+    then on another pair (and a row moved to a slot the first pair held):
+    each step equals the eager step and the live slots stay equal."""
+    if family == "qwen35":
+        cfg, params = _q35_graph_cfg(), q35_graph_models["int8"]
+        st_e = _q35_graph_state()
+        st_g = _clone_state(st_e)
+        graphs = _q35_graphs(cfg, params, st_g)
+        rows = _graph_rows(2, 8)
+        for step, slots in enumerate(([0, 3], [5, 0], [3, 7])):
+            batch = _q35_graph_batch([(ctx + step, pages) for ctx, pages in rows], slots, 2,
+                                     8, seed=step)
+            want = _q35_eager(cfg, params, st_e, batch)
+            got = graphs.run(*batch).clone()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and _q35_state_equal(st_g, st_e), slots
+        return
+    from functools import partial
+
+    from pegainfer_tpu_torch.engine.decode_graphs import DecodeGraphs, dsv4
+    from pegainfer_tpu_torch.models import dsv4 as d4
+
+    cfg, params = _dsv4_graph_cfg(), dsv4_graph_models["fp4"]
+    st_e, st_g = _dsv4_graph_state(4), _dsv4_graph_state(4)
+    graphs = DecodeGraphs(partial(d4.decode, cfg, params, st_g), torch.device("cuda"),
+                          (1, 2), 0, dsv4(4))
+    for step, slots in enumerate(([0, 1], [2, 3], [3, 0])):
+        tokens, positions, _ = _dsv4_batch(2, slots, step)
+        batch = (tokens, positions, np.array(slots, np.int32))
+        with torch.no_grad():
+            want = d4.decode(cfg, params, st_e, *[torch.from_numpy(a).cuda() for a in batch])
+        got = graphs.run(*batch).clone()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and _dsv4_live_equal(st_g, st_e, 4), slots
+
+
+def test_dsv4_resume_through_the_graph_equals_the_eager_resume(dsv4_graph_models):
+    """A SlotExecutor prefills P, then resumes P + 5 from its snapshot
+    through the B = 1 graph (five replays): the first token and the slot's
+    rows equal the eager executor's (``dsv4.prefill_resume``); the cached
+    logits of P + 5 are a copy that later replays leave alone."""
+    from pegainfer_tpu_torch.engine import contract
+    from pegainfer_tpu_torch.engine.executor import (DecodePlan, DecodeStepItem, PrefillPlan,
+                                                      PrefillStepItem)
+    from pegainfer_tpu_torch.engine.slot_executor import SlotExecutor
+    from pegainfer_tpu_torch.models import dsv4 as d4
+
+    cfg, params = _dsv4_graph_cfg(), dsv4_graph_models["fp4"]
+    rng = np.random.default_rng(9)
+    P = rng.integers(8, 512, 40).tolist()
+    ext = P + rng.integers(8, 512, 5).tolist()
+    sp = contract.SamplingParams()
+    runs = {}
+    for graphs in (True, False):
+        state = d4.make_state(cfg, 2, 64, dtype=torch.bfloat16, device="cuda")
+        ex = SlotExecutor(cfg, params, state, 2, 256,
+                          contract.EngineLoadOptions(enable_cuda_graph=graphs))
+        with torch.no_grad():
+            ex.execute_prefill(PrefillPlan([PrefillStepItem(0, P, sp)]))
+            ex.release_request(0)
+            first = ex.execute_prefill(PrefillPlan([PrefillStepItem(1, ext, sp)]))
+            tok = first.requests[0].first_token
+            kept = ex.slot_prefix_cache.match(ext)[2].clone()
+            rows = ex.slot_export(ex._slot(1))
+            for _ in range(3):
+                tok = ex.execute_decode(DecodePlan([DecodeStepItem(1, tok, sp)])).requests[0].token
+        torch.cuda.synchronize()
+        assert ex.resume_steps == 5
+        assert torch.equal(ex.slot_prefix_cache.match(ext)[2], kept)
+        runs[graphs] = (first.requests[0].first_token, rows, kept, ex.graph_captures)
+    (tg, rows_g, lg, cap), (te, rows_e, le, _) = runs[True], runs[False]
+    assert cap == 1 and tg == te and torch.equal(lg, le)
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(rows_g["layers"], rows_e["layers"])
+               for k in a)
