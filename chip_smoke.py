@@ -355,17 +355,39 @@ DECODE_TOL, PREFILL_TOL = 3e-2, 2e-2
 # phases 8a-8d: a second engine with the JAX engine's defaults for chunked
 # prefill and the prefix cache (pegainfer_tpu/engine/contract.py); two
 # streams decode while the long prompt arrives, then it comes again alone
-CHUNK_OPTS = dict(prefill_chunk=2048, prefill_chunk_mixed=256, enable_prefix_cache=True)
+# the phases written before decode blocks decode one token a dispatch and
+# read it before the next (the JAX engine's defaults are blocks of 4, steady
+# blocks of 16, depth 2: the block phases [8k], [25h], [13h], [18h]), so
+# their numbers stay comparable with the runs before
+ONE_TOKEN = dict(decode_block=1, decode_block_max=1, decode_pipeline_depth=1)
+CHUNK_OPTS = dict(prefill_chunk=2048, prefill_chunk_mixed=256, enable_prefix_cache=True,
+                  **ONE_TOKEN)
 # phases 4, 11, 14, 17 and 20 were written when the port's defaults had
 # chunked prefill and the prefix cache off; they keep those options
 # explicitly, so they run exactly as before the defaults became the JAX
 # engine's (CHUNK_OPTS)
-OLD_DEFAULTS = dict(prefill_chunk=None, enable_prefix_cache=False)
+WHOLE = dict(prefill_chunk=None, enable_prefix_cache=False)
+OLD_DEFAULTS = dict(**WHOLE, **ONE_TOKEN)
 # Qwen3's decode step runs as CUDA graphs under the defaults (precompile and
 # enable_cuda_graph, as in the JAX engine); phases 4-8h keep the eager step
 # explicitly, so their numbers stay comparable with the runs before the
 # graphs and their tokens are [8j]'s oracle
 EAGER = dict(enable_cuda_graph=False)
+# [8k], [25h], [13h], [18h]: the JAX engine's decode-block defaults (blocks
+# of 4, steady blocks of 16, depth 2; EngineLoadOptions' own), graphed, with
+# WHOLE prompts as the one-token graphed phases whose tokens they are held
+# to. After the main request: a pair whose second request is submitted
+# right after the first's BLOCK_ARRIVAL_AT-th token (from the scheduler's
+# thread, so the join is the same in every run), and for Qwen3 (first, on
+# the fresh engine) a sampled stream beside a logprobs stream at B = 2; both
+# held against an eager block engine (precompile=False) with the same seed.
+# Qwen3's int8 mode serves the main request and the sampled pair only (its
+# arrival pair's block graphs would add about 25 s of captures to the run)
+BLOCK_PAIR = ((300, 192), (500, 192))
+BLOCK_ARRIVAL_AT = 20
+BLOCK_SAMPLED = ((300, 64), (500, 64))
+BLOCK_SAMPLING = dict(temperature=0.8, top_k=20, top_p=0.9)
+BLOCK_LOGPROBS = 5
 # [8i] / [8j]: decode steps of one request at context PROMPT + 1 driven
 # through TorchExecutor.execute_decode, STEP_ITERS timed after STEP_WARMUP;
 # the host ops listed by self time
@@ -462,7 +484,7 @@ DSV4_SNAPSHOT_BYTES = 6_413_056
 # the paged executors have PD_PAGES pages each
 PD_PROMPT, PD_OUT = 1024, 16
 PD_PAGES = 64
-PD_OPTS = dict(enable_prefix_cache=False)  # A's own run and the handoff prefill alike
+PD_OPTS = dict(enable_prefix_cache=False, **ONE_TOKEN)  # A's own run and the handoff prefill alike
 
 # Qwen3.5 hybrid phases: the main request is PROMPT / OUT, as for Qwen3
 Q35_SLOTS = 2
@@ -1301,6 +1323,17 @@ def run_qwen3(ceiling):
     graphed["phases_s"] = time.perf_counter() - t_graphs
     log(f"  [8i] and [8j] took {graphed['phases_s']:.1f} s")
     del q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[8k] Qwen3-4B decode blocks under the JAX defaults (decode_block 4, decode_block_max "
+        "16, decode_pipeline_depth 2), graphed, bf16 and int8, against [8j]'s one-token graphed "
+        "tokens and an eager block engine")
+    t = time.perf_counter()
+    graphed["blocks"] = run_blocks_qwen3(cfg, q3e, params, contract, {
+        "paged_decode": pd, "flash_prefill": fp, "moe_int8_gemv": k6}, eager_tokens,
+        int8_tokens)
+    graphed["blocks"]["phase_s"] = time.perf_counter() - t
+    log(f"  [8k] took {graphed['blocks']['phase_s']:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     serving = {"ttft_ms": ttft_ms, "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
@@ -2311,19 +2344,27 @@ def run_int8_engine(label, family, cfg, model, engine, params, contract, k6, ker
 
 
 def watch_steps(ex):
-    """Wrap ``ex.execute_decode`` to record each call's host-clock span
-    (start, end) in seconds; returns the list it appends to."""
+    """Record each decode block's host-clock span (start, end) in seconds,
+    from its dispatch (``ex.execute_decode_async``) to the end of its read
+    (``ex._pending_rows``): a one-token block read before the next
+    dispatch (``ONE_TOKEN``) spans what ``execute_decode`` did before
+    decode blocks. Returns the list it appends to."""
     spans = []
-    inner = ex.execute_decode
+    dispatch, rows = ex.execute_decode_async, ex._pending_rows
 
-    def timed(plan):
+    def timed_dispatch(*args, **kwargs):
         t = time.perf_counter()
-        try:
-            return inner(plan)
-        finally:
-            spans.append((t, time.perf_counter()))
+        pending = dispatch(*args, **kwargs)
+        pending.dispatched_at = t
+        return pending
 
-    ex.execute_decode = timed
+    def timed_rows(pending):
+        out = rows(pending)
+        if getattr(pending, "dispatched_at", None) is not None:
+            spans.append((pending.dispatched_at, time.perf_counter()))
+        return out
+
+    ex.execute_decode_async, ex._pending_rows = timed_dispatch, timed_rows
     return spans
 
 
@@ -2346,9 +2387,11 @@ def executor_steps(label, make_ex, contract, prompt, graphs, kernels=QWEN_STEP_K
     the token read, so the card is done), each split into the batch
     assembly with its host-to-device copies (``_decode_inputs``; graphed,
     and DSv4's eager step: ``_decode_host``, whose copies then count with
-    the rest), the forward's dispatch (``_decode_model``; graphed: the
-    buffers' copy and the replay, ``DecodeGraphs.run``), the wait at
-    ``sample_tokens``' token read and ``token_logprobs``; then one step with
+    the rest; both ``_decode_inputs`` since decode blocks), the forward's
+    dispatch (``_decode_model``; graphed: the buffers' copy and the replay,
+    ``DecodeGraphs.run``), and the wait for the token and its read
+    (``resolve_pending``: ``execute_decode`` is a one-token block, sampled
+    on the card after the forward); then one step with
     the forward under ``torch.cuda.set_sync_debug_mode("error")`` (a host
     read there raises); then torch.profiler over STEP_ITERS // 4 steps with
     CUDA activity (device time, operations, ``kernels``) and again with CPU
@@ -2357,8 +2400,6 @@ def executor_steps(label, make_ex, contract, prompt, graphs, kernels=QWEN_STEP_K
     token a step. Returns the record."""
     from torch.profiler import ProfilerActivity, profile
 
-    from pegainfer_tpu_torch.engine import slot_executor as sx
-    from pegainfer_tpu_torch.engine import torch_executor as tx
     from pegainfer_tpu_torch.engine.executor import (DecodePlan, DecodeStepItem, PrefillPlan,
                                                       PrefillStepItem)
 
@@ -2374,17 +2415,17 @@ def executor_steps(label, make_ex, contract, prompt, graphs, kernels=QWEN_STEP_K
             request_id=0, token_id=tok[0], params=sp)]))
         tok[0] = res.requests[0].token
 
-    parts = {"inputs": 0.0, "forward": 0.0, "sample_wait": 0.0, "logprobs": 0.0}
+    parts = {"inputs": 0.0, "forward": 0.0, "sample_wait": 0.0}
     sync_check = [False]
 
     def timed(name, fn):
-        def wrapped(*args):
+        def wrapped(*args, **kwargs):
             check = sync_check[0] and name == "forward"
             t = time.perf_counter()
             if check:
                 torch.cuda.set_sync_debug_mode("error")
             try:
-                return fn(*args)
+                return fn(*args, **kwargs)
             finally:
                 if check:
                     torch.cuda.set_sync_debug_mode("default")
@@ -2392,16 +2433,10 @@ def executor_steps(label, make_ex, contract, prompt, graphs, kernels=QWEN_STEP_K
         return wrapped
 
     host, fwd = ("_decode_host", "run") if graphs else ("_decode_inputs", "_decode_model")
-    if not hasattr(ex, host):  # DSv4's eager step copies its inputs in execute_decode
-        host = "_decode_host"
     setattr(ex, host, timed("inputs", getattr(ex, host)))
     owner = ex._graphs if graphs else ex
     setattr(owner, fwd, timed("forward", getattr(owner, fwd)))
-    # the executors' module-level helpers, timed where each executor looks them up
-    helpers = [(mod, name, getattr(mod, name)) for mod in (tx, sx)
-               for name in ("sample_tokens", "token_logprobs")]
-    for mod, name, fn in helpers:
-        setattr(mod, name, timed("sample_wait" if name == "sample_tokens" else "logprobs", fn))
+    ex.resolve_pending = timed("sample_wait", ex.resolve_pending)
     try:
         for _ in range(STEP_WARMUP):
             step()
@@ -2444,8 +2479,7 @@ def executor_steps(label, make_ex, contract, prompt, graphs, kernels=QWEN_STEP_K
             e1.synchronize()
             replay_ms = e0.elapsed_time(e1) / STEP_ITERS
     finally:
-        for mod, name, fn in helpers:
-            setattr(mod, name, fn)
+        del ex.resolve_pending  # the class's method again
     wall = statistics.median(walls)
     rec = {"graphs": graphs, "wall_p50_ms": wall, "wall_min_ms": min(walls),
            "wall_max_ms": max(walls), "parts_ms": parts_ms,
@@ -2518,7 +2552,7 @@ def serve_graphed(label, start, cfg, contract, kernels, traffic, want, expected)
     graphs = ex._graphs
     ladder = list(graphs.capture_log)
     log(f"  engine up in {start_s:.2f} s: {len(ladder)} decode graphs captured at start "
-        f"(B, P, s): {[(b, p, round(sec, 3)) for b, p, sec, _ in ladder]}; pool "
+        f"(B, P, s): {[(b, p, round(sec, 3)) for b, p, _, sec, _ in ladder]}; pool "
         f"{graphs.pool_bytes / 1e6:.1f} MB")
     spans = watch_steps(ex)
     run = serve_slots(cfg, contract, handle, kernels, **traffic)
@@ -2536,11 +2570,11 @@ def serve_graphed(label, start, cfg, contract, kernels, traffic, want, expected)
         raise SystemExit(f"{label}: the graphed engine's tokens differ from the eager engine's")
     times = run["times"]
     held = [i for i, (a, b) in enumerate(zip(times, times[1:]))
-            if any(a <= end <= b for _, _, _, end in later)]
+            if any(a <= end <= b for *_, end in later)]
     walls = [(b - a) * 1e3 for a, b in spans if times[0] <= a <= times[-1]]
     gaps = run["gaps"]
-    rec = {"engine_start_s": start_s, "ladder": [(b, p, sec) for b, p, sec, _ in ladder],
-           "captures_at_first_use": [(b, p, sec) for b, p, sec, _ in later],
+    rec = {"engine_start_s": start_s, "ladder": [(b, p, sec) for b, p, _, sec, _ in ladder],
+           "captures_at_first_use": [(b, p, sec) for b, p, _, sec, _ in later],
            "gaps_holding_a_capture": held, "pool_bytes": pool_bytes,
            "ttft_ms": run["ttft_ms"], "tpot_p50_ms": statistics.median(gaps),
            "tpot_p95_ms": float(np.percentile(gaps, 95)),
@@ -2567,6 +2601,359 @@ def serve_graphed(label, start, cfg, contract, kernels, traffic, want, expected)
     if engine_back > pool_bytes:
         raise SystemExit(f"{label}: the graphed engine's memory did not come back")
     return rec
+
+
+def block_idle(ex, contract, prompt, blocks=4):
+    """The device's idle share over ``blocks`` steady blocks of
+    ``decode_block_max`` tokens of one greedy request of ``prompt``, driven
+    on the executor as the scheduler's pipeline drives it (each block after
+    the first dispatched on the last one's tokens on the card before that
+    one is read), the card idle before the first. Three runs: the pipeline
+    alone (its wall from the first dispatch to the end of the last read;
+    each later block's dispatch and each read, the host's ms in
+    ``execute_decode_async`` and ``resolve_pending_multi``); one block
+    alone between CUDA events (its span on the card, copies included); the
+    pipeline again under torch.profiler (CUDA activity: the kernels' device
+    time against that run's wall). Returns the record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pegainfer_tpu_torch.engine.executor import DecodeStepItem, PrefillPlan, PrefillStepItem
+
+    rid, N = 1 << 30, ex.decode_block_max
+    sp = contract.SamplingParams(ignore_eos=True)
+    first = ex.execute_prefill(PrefillPlan([PrefillStepItem(
+        request_id=rid, prompt_tokens=prompt, params=sp)])).requests[0].first_token
+    items = [DecodeStepItem(request_id=rid, token_id=first, params=sp)]
+
+    def pipeline():
+        torch.cuda.synchronize()
+        dispatch, read = [], []
+        t0 = time.perf_counter()
+        prev = ex.execute_decode_async(items, n_tokens=N)
+        for _ in range(blocks - 1):
+            t = time.perf_counter()
+            nxt = ex.execute_decode_async(items, tokens_dev=prev.tokens_dev, n_tokens=N)
+            dispatch.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            ex.resolve_pending_multi(prev)
+            read.append((time.perf_counter() - t) * 1e3)
+            prev = nxt
+        t = time.perf_counter()
+        ex.resolve_pending_multi(prev)
+        t1 = time.perf_counter()
+        read.append((t1 - t) * 1e3)
+        return (t1 - t0) * 1e3, dispatch, read
+
+    try:
+        wall, dispatch, read = pipeline()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        pend = ex.execute_decode_async(items, n_tokens=N)
+        e1.record()
+        ex.resolve_pending_multi(pend)
+        span = e0.elapsed_time(e1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prof_wall, prof_dispatch, _ = pipeline()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    finally:
+        ex.release_request(rid)
+    return {"blocks": blocks, "wall_ms": wall, "dispatch_ms": dispatch, "read_ms": read,
+            "block_span_ms": span, "idle_between_blocks": 1 - blocks * span / wall,
+            "profiled_wall_ms": prof_wall, "profiled_dispatch_ms": prof_dispatch,
+            "busy_ms": busy, "idle": 1 - busy / prof_wall,
+            "ms_per_token": wall / (blocks * N)}
+
+
+def arrival_pair(contract, handle, prompts, at):
+    """Submit ``prompts`` [(prompt, max_tokens)] x 2 greedy: the second
+    right after the first's ``at``-th token is sent (by the scheduler's
+    thread, so the second joins at the same block in every run). Returns
+    each stream's (tokens, times)."""
+    (p1, m1), (p2, m2) = prompts
+    second = contract.TokenChannel()
+
+    class First(contract.TokenChannel):
+        sent = 0
+
+        def send(self, event):
+            ok = super().send(event)
+            if isinstance(event, contract.Token):
+                self.sent += 1
+                if self.sent == at:
+                    handle.submit(contract.GenerateRequest(
+                        prompt_tokens=p2, max_tokens=m2,
+                        params=contract.SamplingParams(ignore_eos=True), channel=second))
+            return ok
+
+    first = First()
+    handle.submit(contract.GenerateRequest(prompt_tokens=p1, max_tokens=m1,
+                                           params=contract.SamplingParams(ignore_eos=True),
+                                           channel=first))
+    out = []
+    for ch, n, m in ((first, len(p1), m1), (second, len(p2), m2)):
+        toks, fin, times = drain(contract, ch)
+        expect_finished(contract, f"arrival pair {n}/{m}", toks, fin, m)
+        out.append((toks, times))
+    return out
+
+
+def sampled_pair(contract, handle, cfg, seed):
+    """BLOCK_SAMPLED at B = 2, submitted in one drain: a sampled stream
+    (BLOCK_SAMPLING) and a greedy one with BLOCK_LOGPROBS logprobs a token,
+    prompts from a stream seeded ``seed``. Returns (the sampled tokens, the
+    logprobs stream's tokens, its [(chosen, [(id, value)])] a token)."""
+    rng = np.random.default_rng(seed)
+    (n1, m1), (n2, m2) = BLOCK_SAMPLED
+    chans = [contract.TokenChannel(), contract.TokenChannel()]
+    reqs = [contract.GenerateRequest(
+                prompt_tokens=rng.integers(0, cfg.vocab_size, n1).tolist(), max_tokens=m1,
+                params=contract.SamplingParams(ignore_eos=True, **BLOCK_SAMPLING),
+                channel=chans[0]),
+            contract.GenerateRequest(
+                prompt_tokens=rng.integers(0, cfg.vocab_size, n2).tolist(), max_tokens=m2,
+                params=contract.SamplingParams(ignore_eos=True), channel=chans[1],
+                logprobs=BLOCK_LOGPROBS)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(10.0)
+    try:
+        for r in reqs:
+            handle.submit(r)
+    finally:
+        sys.setswitchinterval(old)
+    out = []
+    for ch, m in zip(chans, (m1, m2)):
+        toks, lps = [], []
+        for ev in read_events(contract, ch):
+            if isinstance(ev, contract.Token):
+                toks.append(ev.id)
+                if ev.logprob is not None:
+                    lps.append((ev.logprob.logprob, ev.logprob.top_logprobs))
+        if len(toks) != m:
+            raise SystemExit(f"a sampled-pair stream gave {len(toks)} of {m} tokens")
+        out.append((toks, lps))
+    if len(out[1][1]) != m2 or out[0][1]:
+        raise SystemExit("the logprobs stream lacks logprobs, or the sampled one has some")
+    return out[0][0], out[1][0], out[1][1]
+
+
+def block_phase(label, start, start_eager, cfg, contract, kernels, expected, want, shapes,
+                seed, pair="arrival", sampled=True):
+    """One block phase ([8k], [25h], [13h], [18h]): the engine ``start()``
+    makes (the JAX engine's block defaults, graphed) serves, with ``sampled``
+    first ``sampled_pair``, then a warm-up and the main request (``shapes``,
+    prompts from a stream seeded ``seed`` as ``serve_slots`` draws them):
+    its tokens must equal ``want["main"]`` (the one-token graphed engine's),
+    its launches ``expected`` of the tokens computed, and those equal the
+    tokens emitted; then with ``pair`` "arrival" the arrival pair, with
+    "concurrent" DSV4_CONCURRENT submitted together (tokens equal
+    ``want["concurrent"]``); then, the scheduler stopped, ``block_idle`` on
+    a prompt of the main one's length. The engine ``start_eager()``
+    makes (precompile=False) serves the sampled pair and the arrival pair,
+    where the phase ran them, with the same seed: their tokens must be
+    equal. Prints TTFT, the JAX
+    bench's steady TPOT, the gaps' p50 / p95 / max, blocks per token, the
+    captures and the gaps that held them, the pool, the memory after
+    shutdown. Returns the record."""
+    torch._C._cuda_clearCublasWorkspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    handle = start()
+    start_s = time.perf_counter() - t
+    ex = handle._scheduler.executor
+    graphs = ex._graphs
+    n_ladder = len(graphs.capture_log)
+    log(f"  engine up in {start_s:.2f} s: blocks of {ex.decode_block}, steady "
+        f"{ex.decode_block_max}, depth {ex.decode_pipeline_depth}; {n_ladder} one-token graphs "
+        "captured at start")
+    rng = np.random.default_rng(seed)
+    (warm_in, warm_out), (main_in, main_out) = shapes
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    rec = {"engine_start_s": start_s}
+    try:
+        if sampled:
+            got_sampled = sampled_pair(contract, handle, cfg, seed + 7)
+        ch, _ = run_request(contract, handle, prompt(warm_in), warm_out)
+        toks, fin, _ = drain(contract, ch)
+        expect_finished(contract, f"warm-up {warm_in}/{warm_out}", toks, fin, warm_out)
+        main_prompt = prompt(main_in)
+        # the main request twice, as the JAX bench warms its shapes: the
+        # first run holds the first-use captures, the second is timed
+        ch, _ = run_request(contract, handle, main_prompt, main_out)
+        first_toks, fin, first_times = drain(contract, ch)
+        expect_finished(contract, f"main {main_in}/{main_out} (first)", first_toks, fin,
+                        main_out)
+        for mod in kernels.values():
+            mod.launches = 0
+        ex.prefills = ex.decode_steps = ex.decode_blocks = 0
+        ch, t0 = run_request(contract, handle, main_prompt, main_out)
+        toks, fin, times = drain(contract, ch)
+        expect_finished(contract, f"main {main_in}/{main_out}", toks, fin, main_out)
+        main_steps, main_blocks = ex.decode_steps, ex.decode_blocks
+        log(f"  main {main_in}/{main_out}: greedy tokens equal the one-token graphed "
+            f"engine's: {toks == want['main']} (the first run's {first_toks == want['main']}); "
+            f"{main_steps} tokens computed a row for {main_out - 1} emitted after the first, "
+            f"in {main_blocks} blocks")
+        if toks != want["main"] or first_toks != want["main"]:
+            raise SystemExit(f"{label}: the block engine's tokens differ from the one-token "
+                             "graphed engine's")
+        if main_steps != main_out - 1:
+            raise SystemExit(f"{label}: tokens computed differ from tokens emitted")
+        if pair == "arrival":
+            got_pair = arrival_pair(contract, handle, [(prompt(n), m) for n, m in BLOCK_PAIR],
+                                    BLOCK_ARRIVAL_AT)
+        elif pair == "concurrent":
+            chans = submit_together(contract, handle, [(prompt(n), m) for n, m in
+                                                       DSV4_CONCURRENT])
+            conc = []
+            for c, n, m in chans:
+                toks_c, fin_c, _ = drain(contract, c)
+                expect_finished(contract, f"concurrent {n}/{m}", toks_c, fin_c, m)
+                conc.append(toks_c)
+            same = conc == want["concurrent"]
+            log(f"  the concurrent requests' greedy tokens equal the one-token graphed "
+                f"engine's: {same}")
+            if not same:
+                raise SystemExit(f"{label}: the concurrent tokens differ from the one-token "
+                                 "graphed engine's")
+        launches = {name: mod.launches for name, mod in kernels.items()}
+        run = {"decode_steps": ex.decode_steps, "prefills": ex.prefills}
+        check_launches(launches, expected(run), f"{run['prefills']} prefills, "
+                       f"{run['decode_steps']} tokens computed a row in {ex.decode_blocks} "
+                       "blocks, through the block graphs' replays")
+    finally:
+        handle.shutdown()
+        handle._thread.join(timeout=60)
+    # the scheduler has stopped: its executor is this thread's now
+    idle = block_idle(ex, contract, prompt(main_in))
+    later = graphs.capture_log[n_ladder:]
+    captures = []
+    for (b, p, n, sec, end), (body, inst) in zip(later, graphs.capture_split[n_ladder:]):
+        held = [i for i, (a, c) in enumerate(zip(first_times, first_times[1:]))
+                if a <= end <= c]
+        captures.append({"key": [b, p, n], "seconds": sec, "capturing_s": body,
+                         "instantiating_s": inst, "main_gap": held[0] if held else None})
+    k = min(2, len(times) - 2)  # pegainfer_tpu/bench/serving.py: skip the first stamps
+    steady = (times[-1] - times[k]) * 1e3 / (len(times) - 1 - k)
+    gaps = [(b - a) * 1e3 for a, b in zip(times[k:], times[k + 1:])]
+    rec.update({
+        "ttft_ms": (times[0] - t0) * 1e3, "steady_tpot_ms": steady,
+        "gap_p50_ms": statistics.median(gaps), "gap_p95_ms": float(np.percentile(gaps, 95)),
+        "gap_max_ms": max(gaps), "blocks_per_token": main_blocks / main_steps,
+        "main_blocks": main_blocks, "idle": idle["idle"], "pipeline": idle,
+        "captures": captures, "pool_bytes": graphs.pool_bytes,
+        "launches": launches, "decode_steps": run["decode_steps"],
+        "prefills": run["prefills"]})
+    log(f"  {main_in}/{main_out}: TTFT {rec['ttft_ms']:.3f} ms, steady TPOT {steady:.3f} ms "
+        f"(the JAX bench's, from the third token), gaps p50 {rec['gap_p50_ms']:.3f} / p95 "
+        f"{rec['gap_p95_ms']:.3f} / max {rec['gap_max_ms']:.3f} ms; "
+        f"{rec['blocks_per_token']:.4f} blocks a token")
+    log(f"  {idle['blocks']} steady blocks of {ex.decode_block_max} pipelined on the executor: "
+        f"{idle['wall_ms']:.1f} ms, {idle['ms_per_token']:.3f} ms a token; a block alone "
+        f"spans {idle['block_span_ms']:.2f} ms on the card, so {idle['idle_between_blocks']:.1%} "
+        f"idle between blocks; dispatches {', '.join(f'{x:.2f}' for x in idle['dispatch_ms'])} "
+        f"ms, reads {', '.join(f'{x:.2f}' for x in idle['read_ms'])} ms; under torch.profiler "
+        f"the kernels take {idle['busy_ms']:.1f} of {idle['profiled_wall_ms']:.1f} ms, device "
+        f"idle {idle['idle']:.1%} (dispatches "
+        f"{', '.join(f'{x:.2f}' for x in idle['profiled_dispatch_ms'])} ms)")
+    log(f"  block graphs captured at first use (B, P, N, s (capturing + instantiating), the "
+        f"first main run's gap): "
+        + ", ".join(f"({c['key'][0]}, {c['key'][1]}, {c['key'][2]}, {c['seconds']:.3f} "
+                    f"({c['capturing_s']:.3f} + {c['instantiating_s']:.3f}), {c['main_gap']})"
+                    for c in captures)
+        + f"; pool {graphs.pool_bytes / 1e6:.1f} MB")
+    if pair == "arrival":
+        (t1, s1), (t2, s2) = got_pair
+        g1 = [(b - a) * 1e3 for a, b in zip(s1, s1[1:])]
+        rec["arrival_first_gap_max_ms"] = max(g1)
+        log(f"  arrival pair: the first stream's largest gap {max(g1):.3f} ms (the second "
+            f"joined after its token {BLOCK_ARRIVAL_AT}), steady TPOT of the second "
+            f"{(s2[-1] - s2[2]) * 1e3 / (len(s2) - 3):.3f} ms")
+    del handle, ex, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    back = torch.cuda.memory_allocated() - mem0
+    torch._C._cuda_clearCublasWorkspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine_back = torch.cuda.memory_allocated() - mem0
+    rec["allocated_after_shutdown_bytes"] = back
+    rec["allocated_after_shutdown_without_cublas_workspaces_bytes"] = engine_back
+    log(f"  after shutdown: {back / 1e6:.3f} MB more allocated than before the start, "
+        f"{engine_back / 1e6:.3f} MB once torch's cuBLAS workspaces are cleared")
+    if engine_back > rec["pool_bytes"]:
+        raise SystemExit(f"{label}: the block engine's memory did not come back")
+    if start_eager is None:
+        return rec
+    handle = start_eager()
+    try:
+        eager_sampled = sampled_pair(contract, handle, cfg, seed + 7) if sampled else None
+        if pair == "arrival":
+            rng = np.random.default_rng(seed)
+            prompt(warm_in), prompt(main_in)  # the graphed run's draws before the pair
+            got_eager = arrival_pair(contract, handle,
+                                     [(prompt(n), m) for n, m in BLOCK_PAIR], BLOCK_ARRIVAL_AT)
+    finally:
+        handle.shutdown()
+        handle._thread.join(timeout=60)
+    if pair == "arrival":
+        same_pair = [t for t, _ in got_pair] == [t for t, _ in got_eager]
+        log(f"  the arrival pair's greedy tokens equal the eager block engine's: {same_pair}")
+        if not same_pair:
+            raise SystemExit(f"{label}: the arrival pair differs from the eager block engine's")
+    if sampled:
+        (gs, gl_toks, gl), (es, el_toks, el) = got_sampled, eager_sampled
+        lp_diff = max(max(abs(a[0] - b[0]), *(abs(x[1] - y[1]) for x, y in zip(a[1], b[1])))
+                      for a, b in zip(gl, el))
+        ids_same = all([i for i, _ in a[1]] == [i for i, _ in b[1]] for a, b in zip(gl, el))
+        rec["sampled_equal"], rec["logprobs_max_diff"] = gs == es, lp_diff
+        log(f"  against the eager block engine with the same seed: sampled tokens equal "
+            f"{gs == es}, logprobs stream tokens equal {gl_toks == el_toks}, top ids equal "
+            f"{ids_same}, largest logprob difference {lp_diff:.3e}")
+        if not (gs == es and gl_toks == el_toks):
+            raise SystemExit(f"{label}: the sampled or logprobs stream differs from the eager "
+                             "block engine's")
+    del handle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_blocks_qwen3(cfg, q3e, params, contract, kernels, eager_tokens, int8_tokens):
+    """Phase 8k: ``block_phase`` on Qwen3-4B in bf16 (the main request's
+    oracle [8j]'s, equal to [4]'s; K1 / K2 counted) and int8 (the oracle
+    [8f]'s; K6 = 217 x tokens computed + 1 a prefill). Returns the
+    record."""
+    L = cfg.num_hidden_layers
+
+    def start(graphs=True, **opts):
+        return lambda: q3e.start_engine_from_params(
+            cfg, shallow_tree(params), contract.EngineLoadOptions(
+                kv_memory_fraction=0.5, seed=SEED, precompile=graphs, **WHOLE, **opts),
+            device="cuda")
+
+    def expected(n_k6):
+        return lambda run: {"paged_decode": L * run["decode_steps"],
+                            "flash_prefill": L * run["prefills"],
+                            **({"moe_int8_gemv": n_k6 * run["decode_steps"] + run["prefills"]}
+                               if n_k6 else {})}
+
+    out = {}
+    for mode, opts, want, seed, n_k6 in (("bf16", {}, eager_tokens, SEED, 0),
+                                         ("int8", {"quantize": "int8"}, int8_tokens, SEED + 3,
+                                          6 * L + 1)):
+        log(f"  {mode}:")
+        ks = kernels if n_k6 else {k: kernels[k] for k in ("paged_decode", "flash_prefill")}
+        out[mode] = block_phase(f"[8k] {mode}", start(**opts), start(False, **opts), cfg,
+                                contract, ks, expected(n_k6), {"main": want["main"]},
+                                ((64, 4), (PROMPT, OUT)), seed,
+                                pair=None if n_k6 else "arrival")
+    return out
 
 
 def run_graphed(cfg, q3, q3e, params, q8, contract, kernels, eager_tokens, int8_tokens,
@@ -2814,8 +3201,8 @@ def run_dsv4_echo(cfg, params):
     log(f"[13d] a DSv4 echo request with logprobs after its prompt's prefix was cached: "
         f"{DSV4_CACHE_PROMPT} + {DSV4_CACHE_EXT} tokens")
     handle = d4e.start_engine_from_params(cfg, params, contract.EngineLoadOptions(
-        max_batch_size=DSV4_SLOTS, max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED, **EAGER),
-        device="cuda")
+        max_batch_size=DSV4_SLOTS, max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED, **ONE_TOKEN,
+        **EAGER), device="cuda")
     ex = handle._scheduler.executor
     cache = ex.slot_prefix_cache
     rng = np.random.default_rng(SEED + 15)
@@ -3009,6 +3396,27 @@ def run_qwen35(ceiling):
     serving["graphs"]["phase_s"] = time.perf_counter() - t
     log(f"  [25g] took {serving['graphs']['phase_s']:.1f} s")
     del q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[25h] the hybrid's decode blocks under the JAX defaults, graphed, bf16, "
+        f"{Q35_SLOTS} slots, against [25g]'s one-token graphed tokens")
+    t = time.perf_counter()
+
+    def start():
+        return q35e.start_engine_from_params(
+            cfg, shallow_tree(params), contract.EngineLoadOptions(
+                max_batch_size=Q35_SLOTS, kv_memory_fraction=0.5, seed=SEED, **WHOLE),
+            device="cuda")
+
+    serving["blocks"] = block_phase(
+        "[25h] bf16", start, None, cfg, contract,
+        {"paged_decode": pd, "flash_prefill": fp, "moe_int8_gemv": k6},
+        lambda r: {"paged_decode": G * r["decode_steps"], "flash_prefill": G * r["prefills"],
+                   "moe_int8_gemv": 0},
+        {"main": eager["bf16"]["tokens"]["main"]}, (Q35_WARMUP, (PROMPT, OUT)), SEED + 3,
+        sampled=False)
+    serving["blocks"]["phase_s"] = time.perf_counter() - t
+    log(f"  [25h] took {serving['blocks']['phase_s']:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[25c] echo with prompt logprobs on the hybrid under CHUNK_OPTS (bf16): a "
@@ -3462,7 +3870,34 @@ def run_dsv4():
     serving["graphs"] = run_dsv4_graphed(cfg, params, contract, run, kernels)
     serving["graphs"]["phase_s"] = time.perf_counter() - t
     log(f"  [13g] took {serving['graphs']['phase_s']:.1f} s")
+    log("[13h] DSv4 decode blocks under the JAX defaults, graphed, fp4 with the chain off "
+        "(K3 / K4), against [11]'s tokens (equal to [13g]'s one-token graphed ones)")
+    t = time.perf_counter()
+    serving["blocks"] = dsv4_blocks("[13h] fp4", cfg, params, contract, run, kernels,
+                                    lambda r: {"moe_fp4_gemv": 3 * L * r["decode_steps"],
+                                               "fp8_gemv": fp8_per_decode_step(cfg)
+                                               * r["decode_steps"],
+                                               "moe_fp4_grouped": 3 * L * r["prefills"]})
+    serving["blocks"]["phase_s"] = time.perf_counter() - t
+    log(f"  [13h] took {serving['blocks']['phase_s']:.1f} s")
     return cfg, params, records, serving, steps_json(steps)
+
+
+def dsv4_blocks(label, cfg, params, contract, run, kernels, expected, quantize=None):
+    """Phases 13h / 18h: ``block_phase`` on phase 11's traffic (the main
+    request and DSV4_CONCURRENT, its tokens ``run``'s), with its idle
+    window over the main request's steady blocks."""
+    from pegainfer_tpu_torch.models import dsv4_engine as d4e
+
+    def start():
+        return d4e.start_engine_from_params(cfg, params, contract.EngineLoadOptions(
+            max_batch_size=DSV4_SLOTS, max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED,
+            quantize=quantize, **WHOLE), device="cuda")
+
+    return block_phase(label, start, None, cfg, contract, kernels, expected,
+                       {"main": run["main_tokens"], "concurrent": run["concurrent_tokens"]},
+                       (DSV4_WARMUP, (DSV4_PROMPT, DSV4_OUT)), SEED + 3,
+                       pair="concurrent", sampled=False)
 
 
 def run_dsv4_graphed(cfg, params, contract, run, kernels):
@@ -3516,7 +3951,7 @@ def run_dsv4_cache(cfg, params):
     from pegainfer_tpu_torch.ops.cuda import fp8_gemv as k4
 
     opts = contract.EngineLoadOptions(max_batch_size=DSV4_SLOTS,
-                                      max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED)
+                                      max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED, **ONE_TOKEN)
     log(f"[13a] the slot prefix cache under the engine's defaults (enable_prefix_cache="
         f"{opts.enable_prefix_cache}, prefill_chunk={opts.prefill_chunk}): P "
         f"{DSV4_CACHE_PROMPT}/{DSV4_CACHE_OUT} with logprobs, P again, P + {DSV4_CACHE_EXT}, "
@@ -3567,7 +4002,7 @@ def run_dsv4_cache(cfg, params):
         launches = {n: mod.launches for n, mod in kernels.items()}
         counts = {"hits": cache.hits, "misses": cache.misses, "prefills": ex.prefills,
                   "decode_steps": ex.decode_steps, "resume_steps": ex.resume_steps,
-                  "graph_captures": [(b, round(sec, 3)) for b, _, sec, _ in
+                  "graph_captures": [(b, round(sec, 3)) for b, _, _, sec, _ in
                                      ex._graphs.capture_log]}
     finally:
         handle.shutdown()
@@ -3634,7 +4069,7 @@ def run_dsv4_cache(cfg, params):
         gex = SlotExecutor(cfg, params, d4.make_state(cfg, DSV4_SLOTS, blocks,
                                                       dtype=torch.bfloat16, device="cuda"),
                            DSV4_SLOTS, DSV4_MAX_MODEL_LEN,
-                           contract.EngineLoadOptions(enable_prefix_cache=False))
+                           contract.EngineLoadOptions(enable_prefix_cache=False, **ONE_TOKEN))
         gex._graphs.prepare(1)
         gex.slot_import(snap, 1)
         torch.cuda.synchronize()
@@ -4098,6 +4533,16 @@ def run_dsv4_int8(cfg, params, k9_record):
                             "fp8_gemv": f8 * r["decode_steps"]}, quantize="int8-experts")
     graphs["phase_s"] = time.perf_counter() - t
     log(f"  [18g] took {graphs['phase_s']:.1f} s")
+    log("[18h] int8-experts decode blocks under the JAX defaults, graphed, with K8, against "
+        "[17]'s tokens (equal to [18g]'s one-token graphed ones)")
+    t = time.perf_counter()
+    graphs["blocks"] = dsv4_blocks(
+        "[18h] int8 + K8", cfg, params, contract, run, kernels,
+        lambda r: {**zero, "moe_int8_grouped": 3 * L * r["prefills"],
+                   "moe_int8_chain": L * r["decode_steps"], "fp8_gemv": f8 * r["decode_steps"]},
+        quantize="int8-experts")
+    graphs["blocks"]["phase_s"] = time.perf_counter() - t
+    log(f"  [18h] took {graphs['blocks']['phase_s']:.1f} s")
     serving = {"ttft_ms": run["ttft_ms"], "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
                "prompt": DSV4_PROMPT, "output": DSV4_OUT, "requantization": requant,
                "chain_off_pair": {"launches": off["launches"],
@@ -4449,9 +4894,9 @@ class RoutingReplay:
 
 def record_slot_events(ex):
     """Log the executor's prefills (request id), releases (request id) and
-    decode steps (batch size), in order."""
+    decode blocks (batch size), in order."""
     events = []
-    prefill_one, release, decode = ex._prefill_one, ex.release_request, ex.execute_decode
+    prefill_one, release, decode = ex._prefill_one, ex.release_request, ex.execute_decode_async
 
     def logged_prefill(item):
         events.append(("prefill", item.request_id))
@@ -4461,12 +4906,11 @@ def record_slot_events(ex):
         events.append(("release", request_id))
         release(request_id)
 
-    def logged_decode(plan):
-        if plan.requests:
-            events.append(("decode", len(plan.requests)))
-        return decode(plan)
+    def logged_decode(items, *args, **kwargs):
+        events.append(("decode", len(items)))
+        return decode(items, *args, **kwargs)
 
-    ex._prefill_one, ex.release_request, ex.execute_decode = (
+    ex._prefill_one, ex.release_request, ex.execute_decode_async = (
         logged_prefill, logged_release, logged_decode)
     return events
 

@@ -10,11 +10,13 @@ from __future__ import annotations
 
 import asyncio
 import enum
+import logging
 import queue
 import threading
 from dataclasses import dataclass, field
 from typing import Iterator, List, Optional, Tuple
 
+log = logging.getLogger("pegainfer_torch.contract")
 
 class FinishReason(str, enum.Enum):
     LENGTH = "length"
@@ -56,13 +58,20 @@ class EngineLoadOptions:
     engine compiles (``engine/decode_graphs.py``); either False keeps the
     eager step.
 
-    ``quantize`` and ``decode_block`` name features of the JAX engine that
-    the executors do not all have yet; an executor raises
-    ``NotImplementedError`` when one is set away from what it supports, so
-    no option is silently ignored. ``quantize``: None everywhere; ``"int8"``
-    (int8 weight-only projections and head) for Qwen3 and the Qwen3.5
-    hybrid; ``"int8-experts"`` (experts requantized to int8) for
-    DeepSeek-V4. ``decode_block`` is 1 everywhere.
+    ``decode_block``, ``decode_block_max`` and ``decode_pipeline_depth``
+    (4, 16 and 2, as in the JAX engine) shape the decode: a dispatch
+    computes a block of tokens on the card, sampled tokens fed back there
+    (a CUDA graph of N steps under the graph options), ``decode_block`` of
+    them while prompts wait or stream lengths near their end and up to
+    ``decode_block_max`` in steady decode, with up to
+    ``decode_pipeline_depth`` blocks in flight before the oldest is read
+    (``block_options`` applies the JAX executor's clamps).
+
+    ``quantize`` names weight modes the executors do not all have; an
+    executor raises ``NotImplementedError`` for a value it does not serve,
+    so no option is silently ignored: None everywhere; ``"int8"`` (int8
+    weight-only projections and head) for Qwen3 and the Qwen3.5 hybrid;
+    ``"int8-experts"`` (experts requantized to int8) for DeepSeek-V4.
     """
 
     precompile: bool = True
@@ -73,10 +82,18 @@ class EngineLoadOptions:
     max_num_pages: Optional[int] = None  # override pool size (tests)
     max_batch_size: int = 64
     max_model_len: Optional[int] = None
-    # weight quantization, per family as above; multi-token decode blocks
-    # are not supported yet
+    # weight quantization, per family as above
     quantize: Optional[str] = None
-    decode_block: int = 1
+    # Tokens computed per decode dispatch; token events come in bursts of
+    # this size.
+    decode_block: int = 4
+    # Block size in steady decode (no prompt waiting); decode_block keeps
+    # the finer grain under mixed load and near a stream's length limit.
+    decode_block_max: int = 16
+    # Blocks in flight in steady decode before the oldest is read: 1 reads
+    # each block before the next dispatch, 2 dispatches the next block on
+    # the card's tokens before reading the last.
+    decode_pipeline_depth: int = 2
     # Shared-prompt-prefix page cache: a repeated prompt skips prefilling
     # its cached page-aligned prefix (Qwen3 and the hybrid need
     # ``prefill_chunk``); DeepSeek-V4 caches whole-slot snapshots.
@@ -88,6 +105,18 @@ class EngineLoadOptions:
     # decode row per active stream (the fused mixed step), so it bounds the
     # streams' token gap. PEGAINFER_MIXED_FUSED=0 time-slices instead.
     prefill_chunk_mixed: int = 256
+
+
+def block_options(opts: EngineLoadOptions) -> Tuple[int, int, int]:
+    """(decode_block, decode_block_max, decode_pipeline_depth) as the JAX
+    executor clamps them: a block of at least 1, a steady block of at least
+    ``decode_block`` (a lower value is raised, with a warning), a depth of
+    at least 1."""
+    block = max(1, opts.decode_block)
+    if 0 < opts.decode_block_max < block:
+        log.warning("decode_block_max=%d below decode_block=%d — clamped up",
+                    opts.decode_block_max, block)
+    return block, max(block, opts.decode_block_max), max(1, opts.decode_pipeline_depth)
 
 
 @dataclass

@@ -34,9 +34,9 @@ slot (a warm-up or a padding row must never write a live slot's rows); the
 engine captures the batch ladder at width 8 at start
 (``models/qwen35_engine.py``), other widths at first use. The fused mixed
 step's decode rows stay eager. Either option False keeps the eager step.
-
-Not here yet, and refused with ``NotImplementedError``: multi-token decode
-blocks.
+Decode blocks are ``TorchExecutor``'s (``BlockDecode``): a block graph of
+the ``hybrid`` family holds N steps on the same slots, its padding rows on
+the dead slot.
 """
 
 from __future__ import annotations
@@ -50,24 +50,12 @@ import numpy as np
 from pegainfer_tpu_torch.engine.contract import EngineLoadOptions
 from pegainfer_tpu_torch.engine.decode_graphs import Family, hybrid
 from pegainfer_tpu_torch.engine.slots import StateSlots
+from pegainfer_tpu_torch.engine import torch_executor as tx
 from pegainfer_tpu_torch.engine.torch_executor import TorchExecutor
-from pegainfer_tpu_torch.engine.torch_executor import check_supported as check_options
 from pegainfer_tpu_torch.models import qwen35 as q35
 
-
-def check_supported(opts: EngineLoadOptions) -> None:
-    """Refuse the JAX Qwen3.5 engine's options the port does not implement,
-    then option values that cannot work (``TorchExecutor``'s rules: the
-    prefix cache needs ``prefill_chunk``)."""
-    unsupported = {
-        f"quantize={opts.quantize!r}": opts.quantize not in (None, "int8"),
-        "decode_block": opts.decode_block != 1,
-    }
-    named = [k for k, v in unsupported.items() if v]
-    if named:
-        raise NotImplementedError(
-            "the PyTorch port's Qwen3.5 engine does not support yet: " + ", ".join(named))
-    check_options(opts)
+# TorchExecutor's rules (the prefix cache needs prefill_chunk), naming Qwen3.5
+check_supported = partial(tx.check_supported, family="Qwen3.5")
 
 
 class HybridExecutor(StateSlots, TorchExecutor):
@@ -78,7 +66,7 @@ class HybridExecutor(StateSlots, TorchExecutor):
     def __init__(self, cfg: q35.Qwen35Config, params, state,
                  options: Optional[EngineLoadOptions] = None):
         opts = options or EngineLoadOptions()
-        check_supported(opts)
+        check_supported(opts)  # on the options as given, before the slots cap the batch
         self.state = state
         self._init_slots(state["rec"].shape[2] - 1)
         # a decode batch fits the slots, and so do the graphs' buckets
@@ -92,9 +80,10 @@ class HybridExecutor(StateSlots, TorchExecutor):
         slots[: len(items)] = [self._slot(it.request_id) for it in items]
         return slots
 
-    def _decode_host(self, items):
-        """``TorchExecutor``'s arrays and the rows' state slots."""
-        host, states = super()._decode_host(items)
+    def _decode_host(self, items, extra_tokens: int = 0):
+        """``TorchExecutor``'s arrays (pages for ``1 + extra_tokens``
+        writes) and the rows' state slots."""
+        host, states = super()._decode_host(items, extra_tokens)
         return (*host, self._slots_of(items, host[0].shape[0])), states
 
     def _prefill_model(self, item, tokens, table, all_logits: bool = False):

@@ -12,9 +12,20 @@ A unified step (new prompts while streams decode) is the JAX scheduler's
 prompts piece by piece, each piece carrying one decode row per active
 stream (the fused mixed step) or followed by a decode step, so a stream
 stalls for one piece, not a whole prompt. An executor without one (DSv4's
-slot executor) takes the plain unified step. The JAX scheduler's pipelined
-multi-token decode blocks follow an executor feature the port does not have
-yet (``execute_decode_async``); decode here is one token a step.
+slot executor) takes the plain unified step.
+
+Decode runs in blocks, as the JAX scheduler's does, on an executor with
+``execute_decode_async``: a block computes N tokens a row on the card (N =
+``decode_block`` between prefill pieces and near a stream's length limit,
+``decode_block_max`` in steady decode, 1 past a LENGTH boundary's reach),
+and in steady decode (``_decode_pipelined``) up to
+``decode_pipeline_depth`` blocks are in flight: the next is dispatched on
+the last one's tokens on the card before that one is read. The pipeline
+drains (reads every block in flight) on an arrival, a finish, a closed
+channel or a deferred request, and never speculates past a LENGTH
+boundary; rows of requests that finished in an earlier block are dropped.
+Random draws come in the JAX scheduler's order: one per row for the
+block's items, then the block's [N, rows] matrix.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ import logging
 import random
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -254,16 +266,93 @@ class Scheduler:
             )
             self._apply_prefill(pending, result.requests)
         elif plan_kind == "decode":
-            self._decode_block_once()
+            items = self._decode_items()
+            if self._async_decode(items):
+                self._decode_pipelined(items)
+            else:
+                result = self.executor.execute_decode(DecodePlan(requests=items))
+                self._apply_decode(result.requests)
         else:  # unified
             self._unified_interleaved(pending)
 
+    def _async_decode(self, items) -> bool:
+        ex = self.executor
+        return hasattr(ex, "execute_decode_async") and ex.supports_async_decode(items)
+
     def _decode_block_once(self) -> None:
-        """One decode step for the active set."""
+        """One decode block for the active set (between prefill pieces; no
+        speculation, the batch may change right after)."""
         if not self.active:
             return
-        result = self.executor.execute_decode(DecodePlan(requests=self._decode_items()))
-        self._apply_decode(result.requests)
+        items = self._decode_items()
+        if not self._async_decode(items):
+            result = self.executor.execute_decode(DecodePlan(requests=items))
+            self._apply_decode(result.requests)
+            return
+        n = self._decode_block_size()
+        pend = self.executor.execute_decode_async(
+            items, n_tokens=n, rand_matrix=self._rand_matrix(items, n))
+        self._apply_decode_tokens(self.executor.resolve_pending_multi(pend))
+
+    def _decode_block_size(self, after: int = 0, steady: bool = False) -> int:
+        """Tokens a block: ``decode_block`` (``decode_block_max`` in steady
+        decode) while every stream has that many tokens left after the
+        ``after`` already in flight, else ``decode_block`` if that fits,
+        else 1 (page use stays within the admitted budget)."""
+        small = getattr(self.executor, "decode_block", 1)
+        block = max(small, getattr(self.executor, "decode_block_max", 0)) if steady else small
+        rem = self._min_remaining() - after
+        if rem >= block:
+            return block
+        return small if rem >= small else 1
+
+    def _decode_pipelined(self, items) -> None:
+        """Steady decode: blocks of ``_decode_block_size(steady=True)``
+        tokens, up to ``decode_pipeline_depth`` in flight, each after the
+        first dispatched on the previous block's tokens on the card before
+        the oldest is read. Returns after a drain (an arrival, a finish, a
+        closed channel, a deferred request) or when nothing is in flight."""
+        ex = self.executor
+        depth = max(1, getattr(ex, "decode_pipeline_depth", 2))
+        N = self._decode_block_size(steady=True)
+        q: deque = deque()  # [(PendingDecode, n_tokens)]
+        q.append((ex.execute_decode_async(items, n_tokens=N,
+                                          rand_matrix=self._rand_matrix(items, N)), N))
+        queued = N
+
+        def drain_rest() -> None:
+            # rows of requests that finished are dropped (their pages and
+            # slots were released with the request)
+            while q:
+                blk, _ = q.popleft()
+                self._apply_decode_tokens(ex.resolve_pending_multi(blk))
+
+        while True:
+            reqs, still_open = self.handle._drain()
+            for r in reqs:
+                self._ingest(r)
+            if not still_open:  # the handle's shutdown, taken here: the loop ends after
+                self._stop.set()
+            closed = any(st.channel.is_closed for st in self.active)
+            steady = still_open and not self.deferred and not closed
+            if steady:
+                # fill the window; never past a LENGTH boundary (an EOS
+                # finish drops its rows)
+                while len(q) < depth and self._min_remaining() > queued:
+                    n2 = self._decode_block_size(after=queued, steady=True)
+                    next_items = self._decode_items()  # token ids unused
+                    q.append((ex.execute_decode_async(
+                        next_items, tokens_dev=q[-1][0].tokens_dev, n_tokens=n2,
+                        rand_matrix=self._rand_matrix(next_items, n2)), n2))
+                    queued += n2
+            blk, n = q.popleft()
+            queued -= n
+            finished = self._apply_decode_tokens(ex.resolve_pending_multi(blk))
+            if not q:
+                return
+            if finished or not self.active or not steady:
+                drain_rest()
+                return
 
     def _unified_interleaved(self, pending: List[PendingRequest]) -> None:
         """Mixed step: prompts that the executor chunks run piece by piece

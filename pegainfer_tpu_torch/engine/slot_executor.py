@@ -33,8 +33,7 @@ resume and decode step (``models/dsv4.py``). An echo request with logprobs
 skips the slot-cache resume and prefills whole with every row's logits,
 reduced on the device to its prompt logprobs; its snapshot goes into the
 cache with the last logits, as in the JAX executor. Not here yet, and
-refused with ``NotImplementedError``: bf16 weights (dequantized at load)
-and multi-token decode blocks.
+refused with ``NotImplementedError``: bf16 weights (dequantized at load).
 
 With ``precompile`` and ``enable_cuda_graph`` (the defaults) the decode
 step replays one CUDA graph per batch bucket (``engine/decode_graphs.py``,
@@ -46,6 +45,11 @@ B = 1 graph on the request's slot, one suffix token a replay, and keeps a
 copy of the last logits (the next replay of that graph overwrites them).
 Either option False keeps the eager step (``dsv4.decode``,
 ``dsv4.prefill_resume``).
+
+Decode blocks are ``torch_executor.py``'s ``BlockDecode`` over this
+executor's ``_decode_host`` (the slots' pages for ``1 + extra_tokens``
+writes): a block graph of the ``dsv4`` family per (B, 0, N, greedy,
+lp_k), captured at first use; the resume keeps the one-token B = 1 graph.
 """
 
 from __future__ import annotations
@@ -58,13 +62,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from pegainfer_tpu_torch.engine import torch_executor as tx
 from pegainfer_tpu_torch.engine.contract import EngineLoadOptions
-from pegainfer_tpu_torch.engine.decode_graphs import DecodeGraphs
+from pegainfer_tpu_torch.engine.decode_graphs import DecodeGraphs, Family
 from pegainfer_tpu_torch.engine.decode_graphs import dsv4 as dsv4_family
 from pegainfer_tpu_torch.engine.executor import (
     DecodePlan,
-    DecodeRequestResult,
-    DecodeResult,
     PrefillPlan,
     PrefillRequestResult,
     PrefillResult,
@@ -75,11 +78,10 @@ from pegainfer_tpu_torch.engine.kv import KvAccounting, PagePool, SlotPrefixCach
 from pegainfer_tpu_torch.engine.slots import StateSlots
 from pegainfer_tpu_torch.engine.torch_executor import (
     BATCH_BUCKETS,
+    BlockDecode,
     bucket_batch,
     first_token,
     prompt_logprobs,
-    sample_tokens,
-    token_logprobs,
     wants_prompt_logprobs,
 )
 from pegainfer_tpu_torch.models import dsv4
@@ -93,16 +95,9 @@ SLOT_CACHE_ENTRIES = 4
 SLOT_CACHE_FRACTION = 0.2
 
 
-def check_supported(opts: EngineLoadOptions) -> None:
-    """Refuse the JAX DSv4 engine's options the port does not implement."""
-    unsupported = {
-        f"quantize={opts.quantize!r}": opts.quantize not in (None, "int8-experts"),
-        "decode_block": opts.decode_block != 1,
-    }
-    named = [k for k, v in unsupported.items() if v]
-    if named:
-        raise NotImplementedError(
-            "the PyTorch port's DeepSeek-V4 engine does not support yet: " + ", ".join(named))
+# DSv4 prefills whole: TorchExecutor's chunk rules do not apply
+check_supported = partial(tx.check_supported, family="DeepSeek-V4",
+                          quantize=(None, "int8-experts"), chunked=False)
 
 
 def slot_cache_cap(snapshot_bytes: int, device: torch.device) -> int:
@@ -120,7 +115,7 @@ def slot_cache_cap(snapshot_bytes: int, device: torch.device) -> int:
     return cap
 
 
-class SlotExecutor(StateSlots):
+class SlotExecutor(StateSlots, BlockDecode):
     """Continuous-batching executor for one DSv4 model with per-slot state
     on one device."""
 
@@ -148,12 +143,13 @@ class SlotExecutor(StateSlots):
             top = bucket_batch(self.max_batch)
             self._graphs = DecodeGraphs(
                 partial(dsv4.decode, cfg, params, state, moe_chain=moe_chain), self.device,
-                [b for b in BATCH_BUCKETS if b <= top], 0, dsv4_family(max_slots))
+                [b for b in BATCH_BUCKETS if b <= top], 0, self._graph_family())
         # what ran, for callers that check the path (chip_smoke.py): fresh
-        # prefills, decode steps, and the decode steps of cache resumes
+        # prefills, the decode steps of cache resumes; decode steps and
+        # blocks (_init_blocks)
         self.prefills = 0
-        self.decode_steps = 0
         self.resume_steps = 0
+        self._init_blocks(opts)
 
     # ── scheduler-facing accounting ──────────────────────────────────
 
@@ -168,11 +164,6 @@ class SlotExecutor(StateSlots):
 
     def is_stop_token(self, token_id: int) -> bool:
         return token_id in self._stop_ids
-
-    @property
-    def graph_captures(self) -> int:
-        """CUDA graphs captured so far (0 with the eager step or on the CPU)."""
-        return 0 if self._graphs is None else len(self._graphs.capture_log)
 
     # ── prefill ──────────────────────────────────────────────────────
 
@@ -256,9 +247,10 @@ class SlotExecutor(StateSlots):
 
     # ── decode ───────────────────────────────────────────────────────
 
-    def _decode_host(self, items):
-        """One more token per request, as numpy (tokens, positions, slots);
-        padding rows take the dead slot at position 0."""
+    def _decode_host(self, items, extra_tokens: int = 0):
+        """One more token per request (pages for ``1 + extra_tokens``
+        writes), as numpy (tokens, positions, slots); padding rows take the
+        dead slot at position 0."""
         B = bucket_batch(len(items))
         tokens = np.zeros(B, np.int32)
         positions = np.zeros(B, np.int32)
@@ -266,40 +258,20 @@ class SlotExecutor(StateSlots):
         states = []
         for i, it in enumerate(items):
             st = self.acct.state(it.request_id)
-            st.ensure_capacity(self.acct.pool, st.length + 1)
+            st.ensure_capacity(self.acct.pool, st.length + 1 + extra_tokens)
             states.append(st)
             tokens[i], positions[i] = it.token_id, st.length
             slots[i] = self._slot(it.request_id)
         return (tokens, positions, slots), states
-
-    def execute_decode(self, plan: DecodePlan) -> DecodeResult:
-        items = plan.requests
-        if not items:
-            return DecodeResult()
-        if len(items) > self.max_batch:
-            raise RuntimeError(f"decode batch {len(items)} exceeds the {self.max_batch} slots")
-        host, states = self._decode_host(items)
-        if self._graphs is not None:
-            logits = self._graphs.run(*host)
-        else:
-            logits = self._decode_model(items, *[torch.from_numpy(a).to(self.device)
-                                                 for a in host])
-        for st in states:
-            st.advance(1)
-        self.decode_steps += 1
-        logits = logits[: len(items)]
-        host, dev = sample_tokens(logits, items)
-        lps = token_logprobs(logits, dev, items)
-        return DecodeResult(requests=[
-            DecodeRequestResult(request_id=it.request_id, token=host[i], logprob=lps[i])
-            for i, it in enumerate(items)
-        ])
 
     def _decode_model(self, items, tokens, positions, slots):
         """The model call of one decode step over the padded batch: logits
         [B, V]."""
         return dsv4.decode(self.cfg, self.params, self.state, tokens, positions, slots,
                            moe_chain=self.moe_chain)
+
+    def _graph_family(self) -> Family:
+        return dsv4_family(self.max_slots)
 
     # ── the slot's rows: cache snapshots, PD hooks (engine/pd.py) ────
 

@@ -36,8 +36,19 @@ each stepper piece with all its logits (never fused with decode rows),
 reduces them on the device to the piece's [Tc] target logprobs and reads
 them from the host once, after the last piece.
 
-Not here yet, and refused with ``NotImplementedError``: multi-token decode
-blocks.
+Decode blocks (``BlockDecode``, shared with ``SlotExecutor``): the JAX
+executor's async decode. ``execute_decode_async`` dispatches N steps with
+sampling on the card (a block graph of N steps under the graph options,
+``DecodeGraphs.run_block``; N = 1 replays the one-token graph and samples
+after it; eager: ``decode_block`` over the step), pages pre-extended for
+the N writes, the first tokens taken from the previous block's last row
+on the card when the batch width matches; its outputs start on their way
+to pinned host memory at once and are read by ``resolve_pending(_multi)``.
+``execute_decode`` is one such block of one token, read at once, unless a
+row asks for logprobs: then the one-token step keeps its logits and
+samples after it (the JAX executor's ``_execute_decode_with_logits``).
+``decode_steps`` counts the steps computed (tokens a row, a block's N
+included), ``decode_blocks`` the dispatches.
 """
 
 from __future__ import annotations
@@ -51,8 +62,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from pegainfer_tpu_torch.engine.contract import EngineLoadOptions, TokenLogprob
-from pegainfer_tpu_torch.engine.decode_graphs import QWEN3, DecodeGraphs, Family
+from pegainfer_tpu_torch.engine.contract import EngineLoadOptions, TokenLogprob, block_options
+from pegainfer_tpu_torch.engine.decode_graphs import (QWEN3, DecodeGraphs, Family, decode_block,
+                                                      unpack_block)
 from pegainfer_tpu_torch.engine.executor import (
     DecodePlan,
     DecodeRequestResult,
@@ -98,17 +110,16 @@ def table_cap(max_pages: int, chunk: int, page_size: int) -> int:
     return cap
 
 
-def check_supported(opts: EngineLoadOptions) -> None:
-    """Refuse the JAX engine's options the port does not implement yet, and
-    option values that cannot work."""
-    unsupported = {
-        f"quantize={opts.quantize!r}": opts.quantize not in (None, "int8"),
-        "decode_block": opts.decode_block != 1,
-    }
-    named = [k for k, v in unsupported.items() if v]
-    if named:
-        raise NotImplementedError(
-            "the PyTorch port does not support yet: " + ", ".join(named))
+def check_supported(opts: EngineLoadOptions, family: str = "Qwen3",
+                    quantize: tuple = (None, "int8"), chunked: bool = True) -> None:
+    """Refuse a ``quantize`` value outside the ``family``'s ``quantize``
+    (the error names the family and the value), then, for a family that
+    prefills in pieces (``chunked``), option values that cannot work."""
+    if opts.quantize not in quantize:
+        raise NotImplementedError(f"the PyTorch port's {family} engine does not support yet: "
+                                  f"quantize={opts.quantize!r}")
+    if not chunked:
+        return
     if opts.max_batch_size > BATCH_BUCKETS[-1]:
         raise ValueError(f"max_batch_size above {BATCH_BUCKETS[-1]}")
     if opts.prefill_chunk is not None and opts.prefill_chunk <= 0:
@@ -216,15 +227,195 @@ def first_token(item, last_logits) -> PrefillRequestResult:
 
 @dataclass
 class PendingDecode:
-    """The decode rows of a fused mixed piece, sampled but not yet applied:
-    the scheduler applies them one piece late (``resolve_pending_multi``)."""
+    """Decode rows dispatched but not yet applied: a block's outputs on
+    their way to the host (``execute_decode_async``: its tokens [N, B] on
+    the card, which the next block may take as its first tokens, and the
+    flat outputs in pinned memory once ``copied`` has passed), or a fused
+    mixed piece's decode rows, sampled and read (``tokens``,
+    ``logprobs``), which the scheduler applies one piece late
+    (``resolve_pending_multi``)."""
 
     items: list
-    tokens: List[int]
-    logprobs: List[Optional[TokenLogprob]]
+    tokens: Optional[List[int]] = None
+    logprobs: Optional[List[Optional[TokenLogprob]]] = None
+    tokens_dev: Optional[torch.Tensor] = None
+    out: Optional[torch.Tensor] = None
+    copied: Optional["torch.cuda.Event"] = None
+    n_steps: int = 1
+    lp_k: int = 0
 
 
-class TorchExecutor:
+# the most logprobs a row of a decode block computes on the card (top-k
+# over [B, V]); a row that asks for more takes the one-token step
+MAX_FUSED_LOGPROBS = 32
+
+
+class BlockDecode:
+    """The JAX executor's async decode over an executor's ``_decode_host``
+    (numpy arrays in the family's order, pages or slots for ``1 +
+    extra_tokens`` writes), ``_decode_model`` (the eager step),
+    ``_graph_family`` and ``_graphs`` (None: eager). ``_init_blocks`` sets
+    the block options and the counters."""
+
+    def _init_blocks(self, opts: EngineLoadOptions) -> None:
+        self.decode_block, self.decode_block_max, self.decode_pipeline_depth = (
+            block_options(opts))
+        self.decode_steps = 0  # steps computed: tokens a row
+        self.decode_blocks = 0  # dispatches
+        self._mixed_toks = None
+
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs captured so far (0 with the eager step or on the CPU)."""
+        return 0 if self._graphs is None else len(self._graphs.capture_log)
+
+    def supports_async_decode(self, items) -> bool:
+        return (len(items) <= self.max_batch
+                and all(it.logprobs <= MAX_FUSED_LOGPROBS for it in items))
+
+    def _decode_inputs(self, items, extra_tokens: int = 0):
+        """``_decode_host``'s arrays on the device."""
+        host, states = self._decode_host(items, extra_tokens)
+        return [torch.from_numpy(a).to(self.device) for a in host], states
+
+    def execute_decode_async(self, items, tokens_dev: Optional[torch.Tensor] = None,
+                             n_tokens: int = 1, rand_matrix=None) -> PendingDecode:
+        """Dispatch one block of ``n_tokens`` decode steps with sampling on
+        the card, without reading it. ``tokens_dev``: the previous block's
+        tokens [N, B] on the card, whose last row is this block's first
+        tokens when the batch width matches (the host's token ids are then
+        stale). ``rand_matrix``: [n_tokens, len(items)] uniform draws for
+        the sampled rows, else each item's ``random_val`` for the first
+        step."""
+        n, N = len(items), n_tokens
+        self._mixed_toks = None  # tokens advance outside the fused chain
+        if self._graphs is not None:
+            host, states = self._decode_host(items, N - 1)
+            B = host[0].shape[0]
+        else:
+            inputs, states = self._decode_inputs(items, N - 1)
+            B = inputs[0].shape[0]
+        feed = tokens_dev[-1] if tokens_dev is not None and tokens_dev.shape[-1] == B else None
+        lp_max = max((it.logprobs for it in items), default=0)
+        lp_k = bucket_pow2(lp_max, 1, MAX_FUSED_LOGPROBS) if lp_max else 0
+        sampling = None
+        if not all(it.params.is_greedy for it in items):
+            temp = np.zeros(B, np.float32)
+            top_k = np.full(B, -1, np.int32)
+            top_p = np.ones(B, np.float32)
+            rand = np.zeros((N, B), np.float32)
+            for i, it in enumerate(items):
+                temp[i], top_k[i], top_p[i] = (it.params.temperature, it.params.top_k,
+                                               it.params.top_p)
+                rand[0, i] = it.random_val
+            if rand_matrix is not None:
+                rand[:, :n] = rand_matrix
+            sampling = (temp, top_k, top_p, rand)
+        if self._graphs is not None and N > 1:
+            out = self._graphs.run_block(host, N, sampling, lp_k, feed)
+        else:
+            dev = None if sampling is None else [torch.from_numpy(a).to(self.device)
+                                                 for a in sampling]
+            with torch.no_grad():
+                if self._graphs is not None:
+                    # one token: the one-token graph (the precompiled
+                    # ladder), sampled after it
+                    out = decode_block(lambda: self._graphs.run(*host, tokens=feed), {}, (),
+                                       1, dev, lp_k)
+                else:
+                    order = self._graph_family().args
+                    args = dict(zip(order, inputs))
+                    if feed is not None:
+                        args["tokens"] = feed
+                    out = decode_block(lambda *a: self._decode_model(items, *a), args, order,
+                                       N, dev, lp_k)
+        for st in states:
+            st.advance(N)
+        self.decode_steps += N
+        self.decode_blocks += 1
+        copied = None
+        if out.is_cuda:  # to the host now, read at the resolve
+            dst = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            dst.copy_(out, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+            out, tokens_dev = dst, out[:N * B].view(N, B)
+        else:
+            tokens_dev = out[:N * B].view(N, B)
+        return PendingDecode(items=list(items), tokens_dev=tokens_dev, out=out, copied=copied,
+                             n_steps=N, lp_k=lp_k)
+
+    def _pending_rows(self, pending: PendingDecode):
+        """[(tokens, [TokenLogprob] | None)] of each item: all the block's
+        steps, the logprobs of the rows that asked for them."""
+        if pending.tokens is not None:
+            return [([t], None if lp is None else [lp])
+                    for t, lp in zip(pending.tokens, pending.logprobs)]
+        if pending.copied is not None:
+            pending.copied.synchronize()
+        N = pending.n_steps
+        toks, lp = unpack_block(pending.out.numpy(), N, pending.tokens_dev.shape[1],
+                                pending.lp_k)
+        rows = []
+        for i, it in enumerate(pending.items):
+            lps = None
+            if lp is not None and it.logprobs > 0:
+                chosen, vals, ids = lp
+                lps = [TokenLogprob(logprob=float(chosen[s, i]), top_logprobs=[
+                    (int(ids[s, i, j]), float(vals[s, i, j])) for j in range(it.logprobs)])
+                    for s in range(N)]
+            rows.append((toks[:, i].tolist(), lps))
+        return rows
+
+    def resolve_pending(self, pending: PendingDecode) -> DecodeResult:
+        """The first token of each row (a one-token block)."""
+        return DecodeResult(requests=[
+            DecodeRequestResult(request_id=it.request_id, token=toks[0],
+                                logprob=lps[0] if lps else None)
+            for it, (toks, lps) in zip(pending.items, self._pending_rows(pending))])
+
+    def resolve_pending_multi(self, pending: PendingDecode):
+        """[(request_id, [token, ...], [TokenLogprob, ...] | None), ...]:
+        every step of each row."""
+        return [(it.request_id, toks, lps)
+                for it, (toks, lps) in zip(pending.items, self._pending_rows(pending))]
+
+    def execute_decode(self, plan: DecodePlan) -> DecodeResult:
+        items = plan.requests
+        self._mixed_toks = None  # tokens advance outside the fused chain
+        if not items:
+            return DecodeResult()
+        if len(items) > self.max_batch:
+            head = self.execute_decode(DecodePlan(requests=items[: self.max_batch]))
+            tail = self.execute_decode(DecodePlan(requests=items[self.max_batch:]))
+            return DecodeResult(requests=head.requests + tail.requests)
+        if any(it.logprobs > 0 for it in items):
+            return self._execute_decode_with_logits(items)
+        return self.resolve_pending(self.execute_decode_async(items))
+
+    def _execute_decode_with_logits(self, items) -> DecodeResult:
+        """One step that keeps its logits: sampled and reduced to logprobs
+        after the step (the one-token graph, or the eager step)."""
+        if self._graphs is not None:
+            host, states = self._decode_host(items)
+            logits = self._graphs.run(*host)
+        else:
+            inputs, states = self._decode_inputs(items)
+            logits = self._decode_model(items, *inputs)
+        for st in states:
+            st.advance(1)
+        self.decode_steps += 1
+        self.decode_blocks += 1
+        logits = logits[: len(items)]
+        host, dev = sample_tokens(logits, items)
+        lps = token_logprobs(logits, dev, items)
+        return DecodeResult(requests=[
+            DecodeRequestResult(request_id=it.request_id, token=host[i], logprob=lps[i])
+            for i, it in enumerate(items)
+        ])
+
+
+class TorchExecutor(BlockDecode):
     """Continuous-batching executor for one Qwen3 model on one device."""
 
     def __init__(self, cfg: q3.Qwen3Config, params, kv_pages: torch.Tensor,
@@ -272,19 +463,19 @@ class TorchExecutor:
         self.mixed_rand = None
         self.mixed_pending: Optional[PendingDecode] = None
         self._mixed_enabled = os.environ.get("PEGAINFER_MIXED_FUSED", "1") != "0"
-        # the last fused piece's sampled tokens [B] on the device and its
-        # request ids: the scheduler applies a piece's tokens only after the
-        # next piece is dispatched, so the next piece of the same batch takes
-        # its inputs from here (the host's token ids are one behind)
-        self._mixed_toks: Optional[torch.Tensor] = None
+        # the last fused piece's sampled tokens [B] on the device (set by
+        # _init_blocks) and its request ids: the scheduler applies a piece's
+        # tokens only after the next piece is dispatched, so the next piece
+        # of the same batch takes its inputs from here (the host's token ids
+        # are one behind)
         self._mixed_rids: Optional[tuple] = None
         # what ran, for callers that check the path (chip_smoke.py): whole
         # prefills, chunked-prefill pieces (fused or not), fused mixed
-        # pieces, decode steps
+        # pieces; decode steps and blocks (_init_blocks)
         self.prefills = 0
         self.chunk_pieces = 0
         self.mixed_pieces = 0
-        self.decode_steps = 0
+        self._init_blocks(opts)
 
     # ── scheduler-facing accounting ──────────────────────────────────
 
@@ -443,11 +634,6 @@ class TorchExecutor:
 
     # ── decode ───────────────────────────────────────────────────────
 
-    @property
-    def graph_captures(self) -> int:
-        """CUDA graphs captured so far (0 with the eager step or on the CPU)."""
-        return 0 if self._graphs is None else len(self._graphs.capture_log)
-
     def precompile(self) -> None:
         """The JAX executor's ``precompile``: one decode graph per batch
         bucket up to ``bucket_batch(max_batch)`` at table width 8 (the
@@ -457,10 +643,11 @@ class TorchExecutor:
             for B in self._graphs.buckets:
                 self._graphs.prepare(B, 8)
 
-    def _decode_host(self, items):
+    def _decode_host(self, items, extra_tokens: int = 0):
         """Host-side batch assembly, as numpy: one more token per request,
-        the batch padded to its bucket with dead rows and the table to its
-        power-of-two width with null pages."""
+        pages for ``1 + extra_tokens`` writes, the batch padded to its
+        bucket with dead rows and the table, sized from the pages after
+        that growth, to its power-of-two width with null pages."""
         B = bucket_batch(len(items))
         tokens = np.zeros(B, np.int32)
         positions = np.zeros(B, np.int32)
@@ -469,7 +656,7 @@ class TorchExecutor:
         for i, it in enumerate(items):
             st = self.acct.state(it.request_id)
             pos = st.length
-            st.ensure_capacity(self.acct.pool, pos + 1)
+            st.ensure_capacity(self.acct.pool, pos + 1 + extra_tokens)
             states.append(st)
             tokens[i] = it.token_id
             positions[i] = pos
@@ -479,37 +666,6 @@ class TorchExecutor:
         for i, st in enumerate(states):
             tables[i, : len(st.pages)] = st.pages
         return (tokens, positions, tables, seq_lens), states
-
-    def _decode_inputs(self, items):
-        """``_decode_host``'s arrays on the device."""
-        host, states = self._decode_host(items)
-        return [torch.from_numpy(a).to(self.device) for a in host], states
-
-    def execute_decode(self, plan: DecodePlan) -> DecodeResult:
-        items = plan.requests
-        self._mixed_toks = None  # tokens advance outside the fused chain
-        if not items:
-            return DecodeResult()
-        if len(items) > self.max_batch:
-            head = self.execute_decode(DecodePlan(requests=items[: self.max_batch]))
-            tail = self.execute_decode(DecodePlan(requests=items[self.max_batch:]))
-            return DecodeResult(requests=head.requests + tail.requests)
-        if self._graphs is not None:
-            host, states = self._decode_host(items)
-            logits = self._graphs.run(*host)
-        else:
-            inputs, states = self._decode_inputs(items)
-            logits = self._decode_model(items, *inputs)
-        for st in states:
-            st.advance(1)
-        self.decode_steps += 1
-        logits = logits[: len(items)]
-        host, dev = sample_tokens(logits, items)
-        lps = token_logprobs(logits, dev, items)
-        return DecodeResult(requests=[
-            DecodeRequestResult(request_id=it.request_id, token=host[i], logprob=lps[i])
-            for i, it in enumerate(items)
-        ])
 
     def _decode_model(self, items, tokens, positions, tables, seq_lens):
         """The model call of one decode step over the padded batch: logits
@@ -564,12 +720,6 @@ class TorchExecutor:
         V])."""
         return q3.mixed_chunk(self.cfg, self.params, self.kv_pages, chunk_tokens, start,
                               valid, table, *dec)
-
-    def resolve_pending_multi(self, pending: PendingDecode):
-        """[(request_id, [token], [TokenLogprob] | None), ...]: the JAX
-        executor's multi-token resolve, one token a row here."""
-        return [(it.request_id, [tok], None if lp is None else [lp])
-                for it, tok, lp in zip(pending.items, pending.tokens, pending.logprobs)]
 
     # ── PD handoff hooks (engine/pd.py) ──────────────────────────────
 

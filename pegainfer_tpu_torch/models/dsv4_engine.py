@@ -5,8 +5,10 @@ It serves resident fp8 / packed-fp4 weights (the JAX engine's
 ``quantize=None``, checkpoint-exact, with its fused kernels on), or with
 ``quantize="int8-experts"`` the same weights with the routed experts
 requantized to int8 per output channel at start (the JAX engine's speed
-mode). Runs on ``cuda`` unless the caller passes another device; with no
-card it raises instead of running on the CPU.
+mode). ``decode_block``, ``decode_block_max`` and
+``decode_pipeline_depth`` go to the executor and its scheduler (blocks of
+N steps, graphed at first use). Runs on ``cuda`` unless the caller passes
+another device; with no card it raises instead of running on the CPU.
 """
 
 from __future__ import annotations
@@ -63,6 +65,8 @@ def start_engine_from_params(cfg: dsv4.DSv4Config, params,
                             dtype=torch.bfloat16, device=dev)
     log.info("DSv4: %d slots, max_model_len %d", max_slots, max_model_len)
     executor = SlotExecutor(cfg, params, state, max_slots, max_model_len, opts, moe_chain)
+    log.info("decode blocks of %d tokens (steady %d), %d in flight", executor.decode_block,
+             executor.decode_block_max, executor.decode_pipeline_depth)
     cache = executor.slot_prefix_cache
     log.info("DSv4 slot prefix cache: %s (%.2f MB a snapshot)",
              f"{cache.max_entries} entries" if cache is not None else "off",

@@ -9,10 +9,12 @@ and the hybrid prefix cache when ``prefill_chunk`` / ``enable_prefix_cache``
 ask for them. With ``precompile`` and ``enable_cuda_graph`` (the defaults)
 the decode step's graphs of every batch bucket are captured at width 8
 before the scheduler starts, as the JAX engine precompiles its ladder.
+``decode_block``, ``decode_block_max`` and ``decode_pipeline_depth`` go to
+the executor and its scheduler (blocks of N steps, graphed at first use).
 Runs on ``cuda`` unless the caller passes another device;
 with no card it raises instead of running on the CPU. Refused with
 ``NotImplementedError`` (``engine/hybrid_executor.py::check_supported``):
-any other ``quantize`` and ``decode_block != 1``.
+any other ``quantize``.
 """
 
 from __future__ import annotations
@@ -107,6 +109,8 @@ def start_engine_from_params(cfg: q35.Qwen35Config, params,
     state = q35.make_state(cfg, num_pages, DEFAULT_PAGE_SIZE, max_slots, kv_dtype=dtype,
                            device=dev)
     executor = HybridExecutor(cfg, params, state, opts)
+    log.info("decode blocks of %d tokens (steady %d), %d in flight", executor.decode_block,
+             executor.decode_block_max, executor.decode_pipeline_depth)
     if opts.precompile and opts.enable_cuda_graph:
         t = time.perf_counter()
         executor.precompile()

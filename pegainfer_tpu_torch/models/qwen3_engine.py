@@ -2,7 +2,9 @@
 pool -> executor -> (decode graphs) -> scheduler. Counterpart of
 ``pegainfer_tpu/models/qwen3_engine.py``: with ``precompile`` and
 ``enable_cuda_graph`` (the defaults) the executor captures its decode
-graph of each batch bucket before the scheduler starts.
+graph of each batch bucket before the scheduler starts; ``decode_block``,
+``decode_block_max`` and ``decode_pipeline_depth`` go to the executor and
+its scheduler (blocks of N steps, graphed at first use).
 
 Runs on ``cuda`` unless the caller passes another device; with no card it
 raises instead of running on the CPU.
@@ -77,6 +79,8 @@ def start_engine_from_params(cfg: q3.Qwen3Config, params,
     log.info("KV pool: %d pages x %d tokens", num_pages, DEFAULT_PAGE_SIZE)
     kv = q3.make_kv_pages(cfg, num_pages, DEFAULT_PAGE_SIZE, dtype=dtype, device=dev)
     executor = TorchExecutor(cfg, params, kv, opts)
+    log.info("decode blocks of %d tokens (steady %d), %d in flight", executor.decode_block,
+             executor.decode_block_max, executor.decode_pipeline_depth)
     if opts.precompile and opts.enable_cuda_graph:
         t = time.perf_counter()
         executor.precompile()

@@ -36,6 +36,10 @@ PS = 4
 OPTS = dict(prefill_chunk=16, prefill_chunk_mixed=8, enable_prefix_cache=True)
 WAIT_S = 300
 MAX_STEPS = 2000
+# one token a dispatch, each read before the next: these tests step the
+# scheduler by hand between tokens (decode blocks are
+# tests/test_torch_decode_blocks*.py's)
+ONE_TOKEN = dict(decode_block=1, decode_block_max=1, decode_pipeline_depth=1)
 
 
 def _cfg_kw(stop=(1,)):
@@ -102,7 +106,7 @@ class SteppedEngine:
         cfg = tq3.Qwen3Config(**_cfg_kw(stop))
         self.ex = TorchExecutor(cfg, tparams,
                                 tq3.make_kv_pages(cfg, num_pages, PS, dtype=torch.float32),
-                                tc.EngineLoadOptions(**{**OPTS, **opts}))
+                                tc.EngineLoadOptions(**{**OPTS, **ONE_TOKEN, **opts}))
         self.handle = tc.EngineHandle()
         self.sched = Scheduler(self.ex, self.handle)
 

@@ -112,7 +112,10 @@ class Stepped:
     """The port's executor (started as ``start_engine_from_params`` starts
     it: ``precompile`` first) and scheduler, stepped by hand, every request
     submitted before the first step; the decode steps' (rows, B, P) are
-    recorded."""
+    recorded. It decodes one token a dispatch, each read before the next
+    (``decode_block``, ``decode_block_max`` and ``decode_pipeline_depth``
+    1), so each step goes through the one-token graph's buffers; blocks are
+    tests/test_torch_decode_blocks*.py's."""
 
     def __init__(self, jparams, **opts):
         cfg = tq3.Qwen3Config(**_cfg_kw())
@@ -121,13 +124,14 @@ class Stepped:
             params = tq3.quantize_params_int8(params)
         self.ex = tex.TorchExecutor(
             cfg, params, tq3.make_kv_pages(cfg, NUM_PAGES, PS, dtype=torch.float32),
-            tc.EngineLoadOptions(max_batch_size=MAX_BATCH, **opts))
+            tc.EngineLoadOptions(max_batch_size=MAX_BATCH, decode_block=1, decode_block_max=1,
+                                 decode_pipeline_depth=1, **opts))
         self.ex.precompile()
         self.shapes = []
         host = self.ex._decode_host
 
-        def logged(items):
-            arrays, states = host(items)
+        def logged(items, *extra):
+            arrays, states = host(items, *extra)
             self.shapes.append((len(items),) + arrays[2].shape)
             return arrays, states
 

@@ -172,6 +172,11 @@ def dsv4_models():
 # ── the executors stepped by hand ────────────────────────────────────────
 
 
+# one token a dispatch (the one-token graphs' buffers take every step;
+# decode blocks are tests/test_torch_decode_blocks*.py's)
+ONE_TOKEN = dict(decode_block=1, decode_block_max=1, decode_pipeline_depth=1)
+
+
 class Stepped:
     """An executor and its scheduler, stepped by hand, every request
     submitted before the first step; the decode steps' (rows, padded
@@ -182,8 +187,8 @@ class Stepped:
         self.steps = []
         host = ex._decode_host
 
-        def logged(items):
-            arrays, states = host(items)
+        def logged(items, *extra):
+            arrays, states = host(items, *extra)
             self.steps.append((len(items), [a.copy() for a in arrays]))
             return arrays, states
 
@@ -208,7 +213,8 @@ def _hybrid(jparams, mode, **opts):
     if mode == "int8":
         params = tq.quantize_params_int8(params)
     state = tq.make_state(cfg, NUM_PAGES, PS, SLOTS, kv_dtype=torch.float32)
-    ex = HybridExecutor(cfg, params, state, tc.EngineLoadOptions(max_batch_size=SLOTS, **opts))
+    ex = HybridExecutor(cfg, params, state, tc.EngineLoadOptions(max_batch_size=SLOTS,
+                                                                 **ONE_TOKEN, **opts))
     ex.precompile()
     return Stepped(ex)
 
@@ -217,7 +223,8 @@ def _dsv4(params, moe_chain, slots=SLOTS, **opts):
     cfg = tdsv4.DSv4Config(**DSV4_TINY)
     state = tdsv4.make_state(cfg, slots, dsv4_engine.max_blocks_for(cfg, MAX_LEN))
     return SlotExecutor(cfg, params, state, slots, MAX_LEN,
-                        tc.EngineLoadOptions(max_batch_size=slots, **opts), moe_chain)
+                        tc.EngineLoadOptions(max_batch_size=slots, **ONE_TOKEN, **opts),
+                        moe_chain)
 
 
 def _check_batches(steps, table: bool):

@@ -195,19 +195,30 @@ def _collect(mod, handle, prompts, max_tokens):
     return out
 
 
-def test_engine_greedy_streams_match_jax_engine():
-    """Three requests on two slots: the third waits for a slot in both
-    engines, and every greedy stream is the same."""
-    jcfg, tcfg, jparams, tparams = _models("tiny")
+def _greedy_prompts():
     rng = np.random.default_rng(4)
     # prompt lengths in one JAX prefill bucket (9..16) keep its compiles few
-    prompts = [rng.integers(2, 128, n).tolist() for n in (9, 15, 12)]
+    return [rng.integers(2, 128, n).tolist() for n in (9, 15, 12)]
+
+
+@pytest.fixture(scope="module")
+def jax_greedy():
+    """The JAX engine's greedy streams of ``_greedy_prompts`` under its
+    defaults (decode blocks of 4, steady blocks of 16, depth 2)."""
+    jcfg, _, jparams, _ = _models("tiny")
     rt = jengine.make_runtime(jcfg, jparams, max_model_len=64, max_slots=2)
     jhandle = j_start_scheduler(JaxExecutor(rt, jc.EngineLoadOptions(precompile=False)))
     try:
-        ref = _collect(jc, jhandle, prompts, max_tokens=8)
+        return _collect(jc, jhandle, _greedy_prompts(), max_tokens=8)
     finally:
         jhandle.shutdown()
+
+
+def test_engine_greedy_streams_match_jax_engine(jax_greedy):
+    """Three requests on two slots: the third waits for a slot in both
+    engines, and every greedy stream is the same."""
+    _, tcfg, _, tparams = _models("tiny")
+    prompts, ref = _greedy_prompts(), jax_greedy
 
     thandle = tengine.start_engine_from_params(
         tcfg, tparams, tc.EngineLoadOptions(max_batch_size=2, max_model_len=64),
@@ -303,11 +314,25 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [dict(quantize="bf16"), dict(decode_block=4)])
-def test_unsupported_options_raise(option):
+def test_unsupported_options_raise(option, jax_greedy):
+    """bf16 weights raise; ``decode_block=4``, refused before decode blocks
+    were ported, serves the JAX engine's greedy streams (its default)."""
     _, tcfg, _, tparams = _models("tiny")
-    with pytest.raises(NotImplementedError):
-        tengine.start_engine_from_params(tcfg, tparams, tc.EngineLoadOptions(**option),
-                                         device="cpu")
+    if "quantize" in option:
+        with pytest.raises(NotImplementedError, match="DeepSeek-V4 engine"):
+            tengine.start_engine_from_params(tcfg, tparams, tc.EngineLoadOptions(**option),
+                                             device="cpu")
+        return
+    handle = tengine.start_engine_from_params(
+        tcfg, tparams, tc.EngineLoadOptions(max_batch_size=2, max_model_len=64, **option),
+        device="cpu")
+    ex = handle._scheduler.executor
+    try:
+        out = _collect(tc, handle, _greedy_prompts(), max_tokens=8)
+    finally:
+        handle.shutdown()
+    assert [o[0] for o in out] == [r[0] for r in jax_greedy]
+    assert ex.decode_block == 4 and ex.decode_blocks < ex.decode_steps
 
 
 @pytest.mark.parametrize("option", [

@@ -57,7 +57,10 @@ def _collect(mod, handle, prompts, max_tokens):
     return out
 
 
-def test_engine_greedy_streams_match_jax_engine():
+def _greedy_runs(**option):
+    """Three greedy streams of 10 tokens through the JAX engine and the
+    port's engine, both under ``option``: (JAX's, the port's, its
+    executor)."""
     jcfg, tcfg = jq3.Qwen3Config(**_cfg_kw()), tq3.Qwen3Config(**_cfg_kw())
     jparams = jq3.init_random_params(jcfg, seed=11, dtype=jnp.float32, scale=0.2)
     tparams = tq3.params_from_jax(jax.tree.map(np.asarray, jparams))
@@ -66,27 +69,34 @@ def test_engine_greedy_streams_match_jax_engine():
 
     rt = jq3.make_runtime(jcfg, jparams, num_pages=128, page_size=4,
                           kv_dtype=jnp.float32, use_pallas=False)
-    jhandle = j_start_scheduler(JaxExecutor(rt))
+    jhandle = j_start_scheduler(JaxExecutor(rt, jc.EngineLoadOptions(**option)))
     try:
         ref = _collect(jc, jhandle, prompts, max_tokens=10)
     finally:
         jhandle.shutdown()
 
     thandle = tengine.start_engine_from_params(
-        tcfg, tparams, tc.EngineLoadOptions(max_num_pages=32), device="cpu")
+        tcfg, tparams, tc.EngineLoadOptions(max_num_pages=32, **option), device="cpu")
     try:
         out = _collect(tc, thandle, prompts, max_tokens=10)
-        ex = thandle._scheduler.executor
-        assert isinstance(ex, TorchExecutor) and ex.prefills == 3 and ex.decode_steps > 0
     finally:
         thandle.shutdown()
+    return ref, out, thandle._scheduler.executor
 
+
+def _same_streams(ref, out):
     for (rt_toks, rfin), (ot_toks, ofin) in zip(ref, out):
         assert isinstance(rfin, jc.Finished) and isinstance(ofin, tc.Finished)
         assert ot_toks == rt_toks
         assert ofin.finish_reason.value == rfin.finish_reason.value
         assert ofin.completion_tokens == rfin.completion_tokens
     assert sum(len(t) for t, _ in out) > len(out)  # more than first tokens
+
+
+def test_engine_greedy_streams_match_jax_engine():
+    ref, out, ex = _greedy_runs()
+    assert isinstance(ex, TorchExecutor) and ex.prefills == 3 and ex.decode_steps > 0
+    _same_streams(ref, out)
 
 
 def test_executor_sampling_and_logprobs_match_jax_executor():
@@ -247,10 +257,18 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
 @pytest.mark.parametrize("option", [dict(quantize="int8-experts"), dict(quantize="bf16"),
                                     dict(decode_block=2), dict(decode_block=4)])
 def test_unsupported_options_raise(option):
+    """The quantize values Qwen3 does not serve raise, naming the family;
+    ``decode_block``, refused before decode blocks were ported, serves: 2
+    and 4 give the JAX engine's greedy streams under the same option."""
+    if "decode_block" in option:
+        ref, out, ex = _greedy_runs(**option)
+        _same_streams(ref, out)
+        assert ex.decode_block == option["decode_block"] and ex.decode_blocks < ex.decode_steps
+        return
     tcfg = tq3.Qwen3Config(**_cfg_kw())
     params = tq3.init_random_params(tcfg, seed=0, dtype=torch.float32)
     kv = tq3.make_kv_pages(tcfg, 8, 4, dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Qwen3 engine"):
         TorchExecutor(tcfg, params, kv, tc.EngineLoadOptions(**option))
 
 

@@ -40,6 +40,10 @@ SLOTS = 3
 OPTS = dict(prefill_chunk=16, prefill_chunk_mixed=8, enable_prefix_cache=True)
 WAIT_S = 300
 MAX_STEPS = 3000
+# one token a dispatch, each read before the next: these tests step the
+# scheduler by hand between tokens (decode blocks are
+# tests/test_torch_decode_blocks*.py's)
+ONE_TOKEN = dict(decode_block=1, decode_block_max=1, decode_pipeline_depth=1)
 
 
 def _cfg_kw():
@@ -220,7 +224,7 @@ class SteppedEngine:
         cfg = tq.Qwen35Config(**_cfg_kw())
         state = tq.make_state(cfg, num_pages, PS, SLOTS, kv_dtype=torch.float32)
         self.ex = HybridExecutor(cfg, tparams, state, tc.EngineLoadOptions(
-            max_batch_size=SLOTS, **{**OPTS, **opts}))
+            max_batch_size=SLOTS, **{**OPTS, **ONE_TOKEN, **opts}))
         self.handle = tc.EngineHandle()
         self.sched = Scheduler(self.ex, self.handle)
 

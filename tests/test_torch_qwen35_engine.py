@@ -218,7 +218,35 @@ def test_chunk_and_cache_options_serve(option):
 
 @pytest.mark.parametrize("option", [dict(quantize="int8-experts"), dict(decode_block=2)])
 def test_refused_options_raise(option):
+    """int8 experts raise, naming Qwen3.5; ``decode_block=2``, refused
+    before decode blocks were ported, serves the JAX engine's greedy
+    streams under the same option."""
     tcfg = tq.Qwen35Config(**_cfg_kw())
+    if "decode_block" in option:
+        jcfg = jq.Qwen35Config(**_cfg_kw())
+        jparams = jq.init_random_params(jcfg, seed=11, dtype=jnp.float32, scale=0.2)
+        prompts = [np.random.default_rng(4).integers(8, 128, n).tolist() for n in (13, 16)]
+        rt = jq.make_runtime(jcfg, jparams, num_pages=64, page_size=4, max_slots=2,
+                             kv_dtype=jnp.float32, use_pallas=False, flat_decode=False,
+                             prefill_mode="grouped")
+        jhandle = j_start_scheduler(JaxExecutor(rt, jc.EngineLoadOptions(
+            precompile=False, enable_prefix_cache=False, prefill_chunk=4096,
+            max_batch_size=2, **option)))
+        try:
+            ref = _collect(jc, jhandle, prompts, 9)
+        finally:
+            jhandle.shutdown()
+        thandle = tengine.start_engine_from_params(
+            tcfg, tq.params_from_jax(jax.tree.map(np.asarray, jparams)),
+            tc.EngineLoadOptions(max_batch_size=2, max_num_pages=64, **option), device="cpu")
+        ex = thandle._scheduler.executor
+        try:
+            out = _collect(tc, thandle, prompts, 9)
+        finally:
+            thandle.shutdown()
+        assert [t for t, _ in out] == [t for t, _ in ref]
+        assert ex.decode_block == 2 and ex.decode_blocks < ex.decode_steps
+        return
     params = tq.init_random_params(tcfg, seed=0, dtype=torch.float32)
     opts = tc.EngineLoadOptions(max_num_pages=8, max_batch_size=2, **option)
     with pytest.raises(NotImplementedError, match="Qwen3.5"):
