@@ -137,6 +137,37 @@ weights:
     step in both modes (device time, idle share, the graph's replay alone on
     CUDA events).
 
+Checkpoints and the serving entry point, on the same Qwen3-4B weights after
+the block phases:
+
+26a. the weights cut to CKPT_LAYERS layers at full width (1.18 GB, tied
+    embedding) written by the smoke's own safetensors writer as an HF
+    checkpoint (config.json, two shards and model.safetensors.index.json)
+    into a temporary directory: the port's reader gives every tensor back
+    bit for bit, so do the stacked leaves and ``start_engine(path)``'s
+    engine; its 64/16 greedy tokens equal ``start_engine_from_params``'s on
+    the same tensors; the load's wall time and GB/s (warm page cache);
+26b. ``python3 -m pegainfer_tpu_torch.server.main --sim --port 0`` in a
+    process of its own: /health, a blocking and a streamed completion with
+    ``http.client``, then SIGINT; the exit code must be 0;
+26c. ``OpenAIApp`` on ``httpd.serve`` in front of Qwen3-4B at full depth,
+    the engine's options ``load_options`` of the CLI's defaults with
+    ``--max-num-pages`` HTTP_PAGES, the tokenizer ``SimTokenizer`` (token-list
+    prompts; the ``tok<id>`` text gives the ids back): /health, /v1/models,
+    the blocking 1024/256 request with logprobs 1 (its ids equal phase 4's,
+    which [8k] held its own to), the same request streamed (its text equals
+    the blocking text; finish "length", ``data: [DONE]`` last) and on the
+    handle, each after the prefix cache is emptied (a miss, as the first),
+    and blocking again (its wall beside the handle's), then streamed again
+    (a hit: its tokens against the miss's reported), an
+    echo request with logprobs (its prompt logprobs equal a
+    handle-submitted echo request's), a stop string that
+    cuts the text, two concurrent streams HTTP_PAIR (their tokens against
+    B = 1 handle runs reported), a prompt too long for the pool and a bad
+    JSON body (400 each), /metrics counting what was sent; K2 = 36 x (whole
+    prefills + pieces), K1 = 36 x (tokens computed + fused pieces); TTFT,
+    gaps and wall at the client beside the handle's.
+
 The Qwen3.5 hybrid at the JAX package's ``qwen35.bench_config()`` (32
 layers: 8 groups of 3 Gated Delta Net layers and 1 gated full-attention
 layer, hidden 2048; full width and depth), random bf16 weights made on the
@@ -325,7 +356,8 @@ Qwen3.5 paths; K3's and K4's launches inside 13a's resumes, read from
 their counts, as ``launches_resume``; the Qwen3.5 serving and step
 records under ``qwen35``, 13a-13b's under ``dsv4_cache``, 8e's, 25a's and
 13c's under ``pd``; the graphed paths' launches as
-``launches_graphed_path``, the hybrid's as ``launches_qwen35_graphed_path``;
+``launches_graphed_path``, the hybrid's as ``launches_qwen35_graphed_path``,
+[26c]'s as ``launches_http_path``, [26]'s record under ``serving``'s ``http``;
 25g's, 13g's and 18g's records under each family's ``graphs``), the card
 line from nvidia-smi and
 ``{"ok": true, "device": {...}}``.
@@ -1336,11 +1368,16 @@ def run_qwen3(ceiling):
     log(f"  [8k] took {graphed['blocks']['phase_s']:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    http, http_launches = run_serving(cfg, q3, q3e, params, contract, {
+        "paged_decode": pd, "flash_prefill": fp}, main_prompt, eager_tokens["main"])
+    for r in records:  # the served path's launches beside the main path's
+        r["launches_http_path"] = http_launches[r["name"]]
     serving = {"ttft_ms": ttft_ms, "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
                "step_wall_p50_ms": step_wall,
                "prompt": PROMPT, "output": OUT, "paged_decode_shapes": k1_shapes,
                "flash_prefill_shapes": k2_shapes, "chunked": chunked, "pd": pd_record,
-               "int8": int8, "echo": echo, "host_profile": host_profile, "graphs": graphed}
+               "int8": int8, "echo": echo, "host_profile": host_profile, "graphs": graphed,
+               "http": http}
     return records, serving, steps_json(steps)
 
 
@@ -2954,6 +2991,524 @@ def run_blocks_qwen3(cfg, q3e, params, contract, kernels, eager_tokens, int8_tok
                                 ((64, 4), (PROMPT, OUT)), seed,
                                 pair=None if n_k6 else "arrival")
     return out
+
+
+# ── phase 26: checkpoints and the serving entry point ───────────────────
+
+
+# [26a]: Qwen3-4B at full width cut to CKPT_LAYERS layers, written as a
+# sharded safetensors checkpoint; [26c]: the CLI's engine options with the
+# pool cut to HTTP_PAGES pages (beside the weights the smoke holds)
+CKPT_LAYERS = 2
+CKPT_REQUEST = (64, 16)
+HTTP_PAGES = 256
+HTTP_PAIR = ((300, 64), (500, 64))
+HTTP_ECHO_OUT = 4
+HTTP_STOP_OUT = 16
+_ST_DTYPES = {torch.bfloat16: "BF16", torch.float32: "F32"}
+
+
+def write_safetensors(path, tensors):
+    """A safetensors file of CPU ``tensors`` (the format's header, then the
+    bytes in order), written without the safetensors package."""
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for t in tensors.values():
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy())
+
+
+def hf_state_dict(cfg, params, layers):
+    """The first ``layers`` layers of a Qwen3 tree in the HF checkpoint's
+    names and [out, in] layout, on the host (tied: no ``lm_head``)."""
+    ly, inter = params["layers"], cfg.intermediate_size
+    sd = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_ln"]}
+    for i in range(layers):
+        pre = f"model.layers.{i}."
+        gate_up = ly["w_gate_up"][i]
+        sd.update({
+            pre + "input_layernorm.weight": ly["input_ln"][i],
+            pre + "self_attn.q_proj.weight": ly["wq"][i].T,
+            pre + "self_attn.k_proj.weight": ly["wk"][i].T,
+            pre + "self_attn.v_proj.weight": ly["wv"][i].T,
+            pre + "self_attn.o_proj.weight": ly["wo"][i].T,
+            pre + "self_attn.q_norm.weight": ly["q_norm"][i],
+            pre + "self_attn.k_norm.weight": ly["k_norm"][i],
+            pre + "post_attention_layernorm.weight": ly["post_ln"][i],
+            pre + "mlp.gate_proj.weight": gate_up[:, :inter].T,
+            pre + "mlp.up_proj.weight": gate_up[:, inter:].T,
+            pre + "mlp.down_proj.weight": ly["w_down"][i].T,
+        })
+    return {k: v.contiguous().cpu() for k, v in sd.items()}
+
+
+def same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8), b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def greedy_tokens(contract, handle, prompt, n):
+    ch, _ = run_request(contract, handle, prompt, n)
+    toks, fin, _ = drain(contract, ch)
+    expect_finished(contract, f"{len(prompt)}/{n}", toks, fin, n)
+    return toks
+
+
+def run_checkpoint(cfg, q3, q3e, params, contract):
+    """Phase 26a: write, load and serve a CKPT_LAYERS-layer cut of the
+    Qwen3-4B weights as an HF checkpoint. Returns the record."""
+    import dataclasses
+    import tempfile
+
+    from pegainfer_tpu_torch.utils.weights import load_state_dict
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=CKPT_LAYERS)
+    sd = hf_state_dict(cfg, params, CKPT_LAYERS)
+    nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+    hf_config = {"architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3",
+                 "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+                 "num_hidden_layers": CKPT_LAYERS, "num_attention_heads": cfg.num_attention_heads,
+                 "num_key_value_heads": cfg.num_key_value_heads, "head_dim": cfg.head_dim,
+                 "vocab_size": cfg.vocab_size, "rms_norm_eps": cfg.rms_norm_eps,
+                 "rope_theta": cfg.rope_theta, "tie_word_embeddings": cfg.tie_word_embeddings,
+                 "eos_token_id": cfg.eos_token_id,
+                 "max_position_embeddings": cfg.max_position_embeddings,
+                 "torch_dtype": "bfloat16"}
+    shards = {"model-00001-of-00002.safetensors":
+              [k for k in sd if not k.startswith("model.layers.")],
+              "model-00002-of-00002.safetensors": [k for k in sd if k.startswith("model.layers.")]}
+    opts = contract.EngineLoadOptions(max_num_pages=64, max_batch_size=2, seed=SEED)
+    rng = np.random.default_rng(SEED + 26)
+    prompt = rng.integers(0, cfg.vocab_size, CKPT_REQUEST[0]).tolist()
+    with tempfile.TemporaryDirectory(prefix="pegainfer-ckpt-") as d:
+        t = time.perf_counter()
+        (Path(d) / "config.json").write_text(json.dumps(hf_config))
+        weight_map = {}
+        for name, keys in shards.items():
+            write_safetensors(str(Path(d) / name), {k: sd[k] for k in keys})
+            weight_map.update({k: name for k in keys})
+        (Path(d) / "model.safetensors.index.json").write_text(json.dumps(
+            {"metadata": {"total_size": nbytes}, "weight_map": weight_map}))
+        write_s = time.perf_counter() - t
+        log(f"  wrote {len(sd)} tensors, {nbytes / 1e9:.3f} GB in 2 shards with an index, in "
+            f"{write_s:.2f} s")
+        # the engine's load: the files read by the port's reader and moved
+        # to the card (the files were just written: the page cache is warm)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loaded = q3.params_from_state_dict(q3.Qwen3Config.from_model_path(d),
+                                           load_state_dict(d), device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        log(f"  load (read, stack, to the card): {load_s:.3f} s, {nbytes / load_s / 1e9:.2f} GB/s "
+            "(warm page cache)")
+        host = load_state_dict(d)
+        bad = [k for k in sd if not same_bits(host[k], sd[k])]
+        if sorted(host) != sorted(sd) or bad:
+            raise SystemExit(f"[26a] the reader's tensors differ from the written ones: {bad}")
+        ref = q3.params_from_state_dict(cfg2, sd, device="cuda")
+        bad = [f"leaf {i}" for i, (a, b) in enumerate(zip(tensors_of(loaded), tensors_of(ref)))
+               if not same_bits(a, b)]
+        del loaded, host
+        handle = q3e.start_engine(d, opts, device="cuda")
+        try:
+            ex_params = handle._scheduler.executor.params
+            bad += [f"engine leaf {i}" for i, (a, b) in enumerate(zip(tensors_of(ex_params),
+                                                                      tensors_of(ref)))
+                    if not same_bits(a, b)]
+            disk = greedy_tokens(contract, handle, prompt, CKPT_REQUEST[1])
+        finally:
+            handle.shutdown()
+            handle._thread.join(timeout=60)
+    log(f"  every tensor read back bit for bit ({len(sd)} by the reader, "
+        f"{len(list(tensors_of(ref)))} stacked leaves, the engine's too): {not bad}")
+    if bad:
+        raise SystemExit(f"[26a] loaded tensors differ from the written ones: {bad}")
+    handle = q3e.start_engine_from_params(cfg2, ref, opts, device="cuda")
+    try:
+        mem = greedy_tokens(contract, handle, prompt, CKPT_REQUEST[1])
+    finally:
+        handle.shutdown()
+        handle._thread.join(timeout=60)
+    log(f"  {CKPT_REQUEST[0]}/{CKPT_REQUEST[1]} greedy from the checkpoint equals "
+        f"start_engine_from_params on the same tensors: {disk == mem}")
+    if disk != mem:
+        raise SystemExit("[26a] the checkpoint's tokens differ from the in-memory engine's")
+    del handle, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": CKPT_LAYERS, "bytes": nbytes, "tensors": len(sd), "write_s": write_s,
+            "load_s": load_s, "load_gb_per_s": nbytes / load_s / 1e9, "page_cache": "warm",
+            "tokens_equal": True}
+
+
+def http_call(port, method, path, body=None, timeout_s=600):
+    """One request on a fresh connection: (status, headers, parsed body,
+    wall seconds from the request to the body's end)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout_s)
+    try:
+        data = body if body is None or isinstance(body, bytes) else json.dumps(body).encode()
+        t0 = time.perf_counter()
+        conn.request(method, path, body=data,
+                     headers={} if data is None else {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        raw = r.read()
+        wall = time.perf_counter() - t0
+        ctype = r.getheader("Content-Type", "")
+        parsed = json.loads(raw) if ctype.startswith("application/json") else raw.decode()
+        return r.status, dict(r.getheaders()), parsed, wall
+    finally:
+        conn.close()
+
+
+def http_stream(port, body, timeout_s=600):
+    """A streamed completion: (status, events (JSON or "[DONE]"), each
+    event's arrival time, the request's time), read chunk by chunk."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout_s)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/completions", body=json.dumps({**body, "stream": True}).encode(),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        if not r.getheader("Content-Type", "").startswith("text/event-stream"):
+            return r.status, [r.read().decode()], [], t0
+        buf, events, times = b"", [], []
+        while True:
+            data = r.read1(65536)
+            if not data:
+                break
+            now = time.perf_counter()
+            buf += data
+            while b"\n\n" in buf:
+                block, buf = buf.split(b"\n\n", 1)
+                text = block.decode()
+                if not text.startswith("data: "):
+                    raise SystemExit(f"a malformed SSE event {text!r}")
+                text = text[len("data: "):]
+                events.append(text if text == "[DONE]" else json.loads(text))
+                times.append(now)
+        return r.status, events, times, t0
+    finally:
+        conn.close()
+
+
+def stream_text(label, status, events, want_finish="length"):
+    """The streamed text, after checking the stream's form: 200, text
+    chunks, the finish reason, ``data: [DONE]`` last."""
+    if status != 200 or not events or events[-1] != "[DONE]":
+        raise SystemExit(f"{label}: status {status}, stream {events[-3:]!r}")
+    chunks = [e for e in events[:-1] if e.get("choices")]
+    if chunks[-1]["choices"][0]["finish_reason"] != want_finish:
+        raise SystemExit(f"{label}: finish reason {chunks[-1]['choices'][0]['finish_reason']}")
+    return "".join(e["choices"][0]["text"] for e in chunks)
+
+
+def text_ids(text):
+    """Token ids from ``SimTokenizer``'s ``tok<id>`` text."""
+    return [int(w[3:]) for w in text.split()]
+
+
+def run_cli():
+    """Phase 26b: the CLI as an operator starts it, ``--sim`` on a free
+    port, in a process of its own; one blocking and one streamed completion;
+    SIGINT must end it with exit code 0. Returns the record."""
+    import queue
+    import re
+    import signal
+    import threading
+
+    cmd = [sys.executable, "-m", "pegainfer_tpu_torch.server.main", "--sim", "--host",
+           "127.0.0.1", "--port", "0"]
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True)
+    reader.start()
+    out = []
+    try:
+        port = None
+        deadline = time.monotonic() + 120
+        while port is None:
+            try:
+                line = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+            except queue.Empty:
+                raise SystemExit(f"[26b] the CLI did not report its port: {out[-5:]}") from None
+            out.append(line.rstrip())
+            m = re.search(r"serving \S+ on http://[\d.]+:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        up_s = time.perf_counter() - t
+        status, _, health, _ = http_call(port, "GET", "/health")
+        status_b, _, blocking, _ = http_call(port, "POST", "/v1/completions",
+                                             {"prompt": [5, 6, 7], "max_tokens": 8})
+        status_s, events, _, _ = http_stream(port, {"prompt": [5, 6, 7], "max_tokens": 8})
+        streamed = stream_text("[26b] stream", status_s, events)
+        ok = (status, health, status_b) == (200, {"status": "ok"}, 200) and \
+            blocking["choices"][0]["text"] == streamed and len(streamed.split()) == 8
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        reader.join(timeout=10)
+    while not lines.empty():
+        out.append(lines.get().rstrip())
+    log(f"  `{' '.join(cmd[1:])}` up in {up_s:.2f} s on port {port}; /health, a blocking and "
+        f"a streamed 3/8 completion (texts equal: {ok}); exit code {rc} after SIGINT")
+    if not ok or rc != 0:
+        raise SystemExit(f"[26b] the CLI failed: rc {rc}, output {out[-10:]}")
+    return {"start_s": up_s, "exit_code": rc}
+
+
+def forget_prefixes(handle, timeout_s=60):
+    """Empty the engine's prefix cache between requests: once the scheduler
+    has retired every request (its releases done), it only waits for the
+    next submission, so the cache is not touched meanwhile."""
+    sched = handle._scheduler
+    deadline = time.monotonic() + timeout_s
+    while sched.active or sched.deferred:
+        if time.monotonic() > deadline:
+            raise SystemExit("the scheduler did not go idle")
+        time.sleep(0.01)
+    time.sleep(0.2)  # past the loop's drain into its blocking receive
+    sched.executor.prefix_cache.clear()
+
+
+def run_http(cfg, q3e, params, contract, kernels, main_prompt, want_main):
+    """Phase 26c: ``OpenAIApp`` on ``httpd.serve`` in front of a Qwen3-4B
+    engine (the CLI's options, HTTP_PAGES pages). Returns (the record, K1 /
+    K2 launches)."""
+    import threading
+
+    from pegainfer_tpu_torch.server import httpd
+    from pegainfer_tpu_torch.server import main as server_main
+    from pegainfer_tpu_torch.server.api import OpenAIApp
+    from pegainfer_tpu_torch.server.tokenizer import SimTokenizer
+
+    L = cfg.num_hidden_layers
+    args = server_main.parse_args(["--model-path", "Qwen3-4B", "--max-num-pages", str(HTTP_PAGES)])
+    opts = server_main.load_options(args)
+    t = time.perf_counter()
+    handle = q3e.start_engine_from_params(cfg, shallow_tree(params), opts, device="cuda")
+    start_s = time.perf_counter() - t
+    ex = handle._scheduler.executor
+    app = OpenAIApp(handle, SimTokenizer(vocab_size=cfg.vocab_size), "Qwen3-4B").build()
+    server = httpd.serve(app, "127.0.0.1", 0, threads=max(64, opts.max_batch_size))
+    port = server.port
+    log(f"  engine up in {start_s:.2f} s with the CLI's options ({opts}); the tokenizer is "
+        "SimTokenizer (no transformers on this machine): prompts go as token lists and the "
+        "tok<id> text gives the ids back")
+    rng = np.random.default_rng(SEED + 27)
+    body = {"prompt": main_prompt, "max_tokens": OUT, "logprobs": 1, "ignore_eos": True}
+    sent = {"requests": 0, "prompt_tokens": 0, "completion_tokens": 0, "rejected": 0}
+
+    def count(prompt_len, blocking_tokens=0, rejected=0):
+        sent["requests"] += 1
+        sent["prompt_tokens"] += prompt_len
+        sent["completion_tokens"] += blocking_tokens
+        sent["rejected"] += rejected
+
+    rec = {"engine_start_s": start_s, "options": str(opts), "tokenizer": "SimTokenizer"}
+    try:
+        status, _, health, _ = http_call(port, "GET", "/health")
+        status_m, _, models, _ = http_call(port, "GET", "/v1/models")
+        if (status, health, status_m, models["data"][0]["id"]) != (
+                200, {"status": "ok"}, 200, "Qwen3-4B"):
+            raise SystemExit(f"[26c] /health or /v1/models: {health}, {models}")
+        for mod in kernels.values():
+            mod.launches = 0
+        ex.prefills = ex.chunk_pieces = ex.mixed_pieces = ex.decode_steps = ex.decode_blocks = 0
+        # the main request, blocking: a miss, prefilled whole
+        status, _, blocking, wall_miss = http_call(port, "POST", "/v1/completions", body)
+        count(PROMPT, OUT)
+        ch = blocking["choices"][0]
+        ids, lps = text_ids(ch["text"]), ch["logprobs"]["token_logprobs"]
+        ok = (status == 200 and ch["finish_reason"] == "length" and ids == want_main
+              and len(lps) == OUT and all(np.isfinite(v) and v <= 0 for v in lps))
+        log(f"  blocking {PROMPT}/{OUT} with logprobs 1: status {status}, {len(ids)} ids equal "
+            f"[8k] bf16's main-request tokens (= [4]'s): {ids == want_main}, logprobs finite and "
+            f"<= 0: {all(np.isfinite(v) and v <= 0 for v in lps)}; wall {wall_miss * 1e3:.1f} ms")
+        if not ok:
+            raise SystemExit("[26c] the blocking request's tokens or logprobs are wrong")
+        # the same request streamed, then on the handle, each a miss too: a
+        # prefix-cache hit computes the prompt's last piece in another shape
+        # (another rounding), so the cache is emptied first, with the
+        # scheduler idle
+        forget_prefixes(handle)
+        status, events, times, t0 = http_stream(port, body)
+        count(PROMPT)
+        text = stream_text("[26c] stream", status, events)
+        log(f"  streamed (a miss): {len(events)} SSE events, [DONE] last; the joined text equals "
+            f"the blocking text: {text == ch['text']}")
+        if text != ch["text"]:
+            raise SystemExit("[26c] the streamed text differs from the blocking text")
+        token_times = [tm for e, tm in zip(events, times)
+                       if e != "[DONE]" and e.get("choices") and e["choices"][0]["text"]]
+        forget_prefixes(handle)
+        ch_h, t0_h = run_request(contract, handle, main_prompt, OUT, logprobs=1)
+        toks_h, fin_h, times_h = drain(contract, ch_h)
+        expect_finished(contract, f"handle {PROMPT}/{OUT} (a miss)", toks_h, fin_h, OUT)
+        if toks_h != want_main:
+            raise SystemExit("[26c] the handle's tokens differ from [8k]'s")
+        # blocking again, a miss: its wall beside the handle's (the first
+        # one's held the block graphs' first-use captures)
+        forget_prefixes(handle)
+        status, _, again, wall_miss2 = http_call(port, "POST", "/v1/completions", body)
+        count(PROMPT, OUT)
+        if status != 200 or again["choices"][0]["text"] != ch["text"]:
+            raise SystemExit("[26c] the repeated blocking request gave other tokens")
+        # streamed again: a prefix-cache hit (reported against the miss)
+        status, events, _, _ = http_stream(port, body)
+        count(PROMPT)
+        hit_text = stream_text("[26c] stream (hit)", status, events)
+        hit_ids = text_ids(hit_text)
+        first_diff = next((i for i, (a, b) in enumerate(zip(hit_ids, want_main)) if a != b), None)
+        log(f"  streamed again (a hit, {ex.prefix_cache.hits} so far): tokens equal the miss's: "
+            f"{hit_ids == want_main}" + ("" if first_diff is None else
+                                         f", first differing at token {first_diff}")
+            + " (reported, not gated)")
+        # echo with logprobs, against the same request on the handle
+        echo_body = {**body, "max_tokens": HTTP_ECHO_OUT, "echo": True}
+        status, _, echo, _ = http_call(port, "POST", "/v1/completions", echo_body)
+        count(PROMPT, HTTP_ECHO_OUT)
+        ch_e = contract.TokenChannel()
+        handle.submit(contract.GenerateRequest(
+            prompt_tokens=main_prompt, max_tokens=HTTP_ECHO_OUT, logprobs=1, echo=True,
+            params=contract.SamplingParams(ignore_eos=True), channel=ch_e))
+        ev_e = read_events(contract, ch_e)
+        pt = next(e for e in ev_e if isinstance(e, contract.PromptTokens))
+        want_lp = [None if lp is None else lp.logprob for lp in pt.logprobs]
+        got_lp = echo["choices"][0]["logprobs"]["token_logprobs"] if status == 200 else []
+        echo_ok = (status == 200 and got_lp[:PROMPT] == want_lp and len(got_lp) ==
+                   PROMPT + HTTP_ECHO_OUT and want_lp[0] is None)
+        log(f"  echo with logprobs 1: {PROMPT} prompt logprobs equal a handle-submitted echo "
+            f"request's: {echo_ok}")
+        if not echo_ok:
+            raise SystemExit("[26c] the echo request's prompt logprobs differ from the handle's")
+        # a stop string that cuts the text (a hit, as the stream before)
+        text16 = " ".join(hit_text.split()[:HTTP_STOP_OUT])
+        stop = text16.split()[2]
+        status, _, cut, _ = http_call(port, "POST", "/v1/completions",
+                                      {**body, "max_tokens": HTTP_STOP_OUT, "stop": stop})
+        count(PROMPT, HTTP_STOP_OUT)
+        stop_ok = (status == 200 and cut["choices"][0]["finish_reason"] == "stop"
+                   and cut["choices"][0]["text"] == text16[:text16.find(stop)])
+        log(f"  stop {stop!r}: finish_reason {cut['choices'][0]['finish_reason']}, the text cut "
+            f"before it: {stop_ok}")
+        if not stop_ok:
+            raise SystemExit("[26c] the stop string did not cut the text")
+        # two concurrent streams, then each alone on the handle (B = 1)
+        pair = [(rng.integers(0, cfg.vocab_size, n).tolist(), m) for n, m in HTTP_PAIR]
+        results = [None, None]
+
+        def go(i, p, m):
+            results[i] = http_stream(port, {"prompt": p, "max_tokens": m, "ignore_eos": True})
+
+        threads = [threading.Thread(target=go, args=(i, p, m)) for i, (p, m) in enumerate(pair)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        pair_ids, pair_equal = [], []
+        for (p, m), res in zip(pair, results):
+            count(len(p))
+            if res is None:
+                raise SystemExit("[26c] a concurrent stream did not end")
+            got = text_ids(stream_text(f"[26c] stream {len(p)}/{m}", res[0], res[1]))
+            if len(got) != m:
+                raise SystemExit(f"[26c] a concurrent stream gave {len(got)} of {m} tokens")
+            pair_ids.append(got)
+            pair_equal.append(got == greedy_tokens(contract, handle, p, m))
+        log(f"  concurrent streams {HTTP_PAIR}: each finished with its count; tokens equal "
+            f"their B = 1 handle runs: {pair_equal} (reported, not gated)")
+        # refusals
+        too_long = rng.integers(0, cfg.vocab_size, ex.max_request_pages() * PAGE + 1).tolist()
+        status_l, _, long_err, _ = http_call(port, "POST", "/v1/completions",
+                                             {"prompt": too_long, "max_tokens": 16})
+        count(len(too_long), rejected=1)
+        status_j, _, json_err, _ = http_call(port, "POST", "/v1/completions", b"{not json")
+        log(f"  a {len(too_long)}-token prompt: {status_l} ({long_err['error']['message'][:60]}"
+            f"...); a bad JSON body: {status_j} ({json_err['error']['message']})")
+        if status_l != 400 or "KV pages" not in long_err["error"]["message"] or status_j != 400:
+            raise SystemExit("[26c] a refused request did not get its 400")
+        status, _, metrics, _ = http_call(port, "GET", "/metrics")
+        got_m = {"requests": metrics["requests_total"],
+                 "prompt_tokens": metrics["prompt_tokens_total"],
+                 "completion_tokens": metrics["completion_tokens_total"],
+                 "rejected": metrics["requests_rejected"]}
+        log(f"  /metrics {got_m}; sent {sent}")
+        if status != 200 or got_m != sent or metrics["requests_errored"] != 0:
+            raise SystemExit("[26c] /metrics does not count the requests sent")
+        launches = {name: mod.launches for name, mod in kernels.items()}
+        counts = {"prefills": ex.prefills, "chunk_pieces": ex.chunk_pieces,
+                  "mixed_pieces": ex.mixed_pieces, "decode_steps": ex.decode_steps,
+                  "cache_hits": ex.prefix_cache.hits}
+        check_launches(launches, {
+            "flash_prefill": L * (counts["prefills"] + counts["chunk_pieces"]),
+            "paged_decode": L * (counts["decode_steps"] + counts["mixed_pieces"])},
+            f"{counts}: {L} x (whole prefills + pieces) K2, {L} x (tokens computed + fused "
+            "pieces) K1")
+    finally:
+        server.close()
+        handle.shutdown()
+        handle._thread.join(timeout=60)
+    k = min(2, len(token_times) - 2)
+    gaps = [(b - a) * 1e3 for a, b in zip(token_times, token_times[1:])]
+    gaps_h = [(b - a) * 1e3 for a, b in zip(times_h, times_h[1:])]
+    rec.update({
+        "http": {"ttft_ms": (token_times[0] - t0) * 1e3, "gap_p50_ms": statistics.median(gaps),
+                 "gap_p95_ms": float(np.percentile(gaps, 95)), "gap_max_ms": max(gaps),
+                 "steady_tpot_ms": (token_times[-1] - token_times[k]) * 1e3
+                 / (len(token_times) - 1 - k),
+                 "blocking_wall_ms": wall_miss2 * 1e3,
+                 "first_blocking_wall_ms": wall_miss * 1e3},
+        "handle": {"ttft_ms": (times_h[0] - t0_h) * 1e3, "gap_p50_ms": statistics.median(gaps_h),
+                   "gap_p95_ms": float(np.percentile(gaps_h, 95)), "gap_max_ms": max(gaps_h),
+                   "steady_tpot_ms": (times_h[-1] - times_h[k]) * 1e3 / (len(times_h) - 1 - k),
+                   "wall_ms": (times_h[-1] - t0_h) * 1e3},
+        "launches": launches, **counts, "concurrent_equal_b1": pair_equal,
+        "hit_equal_miss": hit_ids == want_main, "hit_first_difference": first_diff,
+        "requests": sent})
+    h, c = rec["http"], rec["handle"]
+    log(f"  {PROMPT}/{OUT} (misses), at the client over HTTP vs on the handle: "
+        f"TTFT {h['ttft_ms']:.3f} vs {c['ttft_ms']:.3f} ms; gaps p50 {h['gap_p50_ms']:.3f} vs "
+        f"{c['gap_p50_ms']:.3f}, p95 {h['gap_p95_ms']:.3f} vs {c['gap_p95_ms']:.3f}, max "
+        f"{h['gap_max_ms']:.3f} vs {c['gap_max_ms']:.3f} ms; steady TPOT {h['steady_tpot_ms']:.3f}"
+        f" vs {c['steady_tpot_ms']:.3f} ms; blocking wall {h['blocking_wall_ms']:.1f} ms vs the "
+        f"handle's last token at {c['wall_ms']:.1f} ms (the first blocking request, with the "
+        f"block graphs' first-use captures: {h['first_blocking_wall_ms']:.1f} ms)")
+    del handle, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def run_serving(cfg, q3, q3e, params, contract, kernels, main_prompt, want_main):
+    """Phase 26 on the Qwen3-4B weights of phases 4-8k. Returns (the
+    record, [26c]'s K1 / K2 launches)."""
+    t = time.perf_counter()
+    log(f"[26a] a Qwen3-4B checkpoint at full width cut to {CKPT_LAYERS} layers: written "
+        "(sharded, with an index), loaded by start_engine(path), served")
+    rec = {"checkpoint": run_checkpoint(cfg, q3, q3e, params, contract)}
+    log("[26b] the CLI: python3 -m pegainfer_tpu_torch.server.main --sim in a process of its own")
+    rec["cli"] = run_cli()
+    log(f"[26c] the OpenAI server (httpd) in front of Qwen3-4B at full depth, {HTTP_PAGES} pages")
+    rec["http"], launches = run_http(cfg, q3e, params, contract, kernels, main_prompt, want_main)
+    rec["phase_s"] = time.perf_counter() - t
+    log(f"  [26] took {rec['phase_s']:.1f} s")
+    return rec, launches
 
 
 def run_graphed(cfg, q3, q3e, params, q8, contract, kernels, eager_tokens, int8_tokens,

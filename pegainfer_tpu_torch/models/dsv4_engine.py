@@ -13,7 +13,9 @@ another device; with no card it raises instead of running on the CPU.
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import time
 from typing import Optional
 
@@ -29,6 +31,16 @@ log = logging.getLogger("pegainfer_torch.dsv4")
 
 DEFAULT_MAX_MODEL_LEN = 4096
 MAX_SLOTS = 2  # the reference serves batch <= 2
+
+
+def probe_model(model_path: str) -> bool:
+    """Whether ``model_path`` holds a DeepSeek-V4 checkpoint."""
+    try:
+        with open(os.path.join(model_path, "config.json")) as f:
+            c = json.load(f)
+    except OSError:
+        return False
+    return c.get("model_type") == "deepseek_v4"
 
 
 def max_blocks_for(cfg: dsv4.DSv4Config, max_model_len: int) -> int:

@@ -12,7 +12,9 @@ raises instead of running on the CPU.
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import time
 from typing import Optional
 
@@ -28,6 +30,16 @@ from pegainfer_tpu_torch.utils.weights import load_state_dict
 log = logging.getLogger("pegainfer_torch.qwen3")
 
 DEFAULT_PAGE_SIZE = 64
+
+
+def probe_model(model_path: str) -> bool:
+    """Whether ``model_path`` holds a Qwen3 checkpoint."""
+    try:
+        with open(os.path.join(model_path, "config.json")) as f:
+            archs = json.load(f).get("architectures", [])
+    except OSError:
+        return False
+    return "Qwen3ForCausalLM" in archs
 
 
 def compute_num_pages(cfg: q3.Qwen3Config, page_size: int, fraction: float,

@@ -3,6 +3,7 @@ JAX engine (JaxExecutor with the XLA attention path) on the same tiny
 weights, plus the port's import and device rules."""
 
 import ast
+import json
 import pathlib
 
 import jax
@@ -221,22 +222,148 @@ def test_echo_request_ends_in_error_not_silently():
     assert len(toks) == 3
 
 
+# what the card's machine lacks, or the port must not lean on: imported
+# nowhere in the port; transformers only where HFTokenizer reads a
+# checkpoint's tokenizer
+REFUSED = ("jax", "jaxlib", "pegainfer_tpu", "aiohttp", "safetensors", "ml_dtypes")
+TRANSFORMERS_AT = ("server/tokenizer.py", "HFTokenizer")
+
+
 def _imports(path):
+    """(imported module, the names of the classes and functions around the
+    import) for each import in ``path``."""
     tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
-            yield node.module
+
+    def walk(node, scope):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                yield from ((a.name, scope) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.module and child.level == 0:
+                yield child.module, scope
+            inner = scope + (child.name,) if isinstance(
+                child, (ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)) else scope
+            yield from walk(child, inner)
+
+    yield from walk(tree, ())
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Nor aiohttp, safetensors or ml_dtypes, anywhere; nor transformers
+    outside ``server/tokenizer.py``'s ``HFTokenizer``."""
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 10
+    seen_transformers = []
     for f in files:
-        for name in _imports(f):
+        rel = f.relative_to(PORT).as_posix()
+        for name, scope in _imports(f):
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "pegainfer_tpu"), f"{f}: imports {name}"
+            assert root not in REFUSED, f"{f}: imports {name}"
+            if root == "transformers":
+                assert (rel, scope[:1]) == (TRANSFORMERS_AT[0], TRANSFORMERS_AT[1:]), \
+                    f"{f}: imports {name} in {scope}"
+                seen_transformers.append(rel)
+    assert seen_transformers == [TRANSFORMERS_AT[0]]
+
+
+def _write_hf_qwen3(path):
+    """A tiny HF Qwen3ForCausalLM checkpoint (config.json,
+    generation_config.json, model.safetensors)."""
+    transformers = pytest.importorskip("transformers")
+    from safetensors.torch import save_file
+
+    hf = transformers.Qwen3Config(
+        vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=16, rms_norm_eps=1e-6,
+        rope_theta=1e6, tie_word_embeddings=False, max_position_embeddings=256,
+        eos_token_id=7, attn_implementation="eager")
+    torch.manual_seed(2)
+    model = transformers.Qwen3ForCausalLM(hf).eval()
+    cfg = hf.to_dict()
+    cfg["architectures"] = [type(model).__name__]
+    (path / "config.json").write_text(json.dumps(cfg))
+    (path / "generation_config.json").write_text(json.dumps({"eos_token_id": 7}))
+    save_file({k: v.detach().contiguous() for k, v in model.state_dict().items()},
+              str(path / "model.safetensors"))
+
+
+# run in a fresh interpreter where the refused modules cannot be imported:
+# the CLI serves one --sim request (stopped by SIGINT, as an operator stops
+# it), then a Qwen3 checkpoint is loaded and served on the CPU
+CARD_MACHINE_SCRIPT = r"""
+import json, os, signal, socket, sys, threading, time, http.client
+BLOCKED = json.loads(sys.argv[2])
+for m in BLOCKED:
+    sys.modules[m] = None
+from pegainfer_tpu_torch.server.main import main
+from pegainfer_tpu_torch.engine import contract as tc
+from pegainfer_tpu_torch.models.qwen3_engine import start_engine
+
+s = socket.socket()
+s.bind(("127.0.0.1", 0))
+port = s.getsockname()[1]
+s.close()
+out = {}
+
+def client():
+    try:
+        for _ in range(600):
+            try:
+                c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+                c.request("GET", "/health")
+                r = c.getresponse()
+                r.read()
+                if r.status == 200:
+                    break
+            except OSError:
+                time.sleep(0.05)
+        c.request("POST", "/v1/completions", body=json.dumps(
+            {"prompt": [5, 6, 7], "max_tokens": 4}).encode())
+        r = c.getresponse()
+        out["completion"] = [r.status, json.loads(r.read())["usage"]]
+    finally:
+        os.kill(os.getpid(), signal.SIGINT)
+
+t = threading.Thread(target=client)
+t.start()
+out["rc"] = main(["--sim", "--host", "127.0.0.1", "--port", str(port), "--sim-ttft", "0",
+                  "--sim-tpot", "0"])
+t.join(60)
+h = start_engine(sys.argv[1], tc.EngineLoadOptions(max_num_pages=16), device="cpu")
+ch = tc.TokenChannel()
+h.submit(tc.GenerateRequest(prompt_tokens=[9, 10, 11, 12], max_tokens=5, channel=ch,
+                            params=tc.SamplingParams(ignore_eos=True)))
+out["tokens"] = [ev.id for ev in ch if isinstance(ev, tc.Token)]
+h.shutdown()
+out["loaded"] = sorted(m for m in BLOCKED if sys.modules.get(m) is not None)
+print(json.dumps(out))
+"""
+
+
+def test_cli_and_checkpoint_run_without_the_refused_modules(tmp_path):
+    """The card's machine, here: with jax, the JAX package, aiohttp,
+    safetensors, ml_dtypes and transformers made unimportable, ``main``
+    serves a --sim request and exits 0 on SIGINT, and a Qwen3 checkpoint
+    loads and streams the tokens it streams in this process."""
+    import subprocess
+    import sys
+
+    _write_hf_qwen3(tmp_path)
+    blocked = [*REFUSED, "transformers"]
+    proc = subprocess.run(
+        [sys.executable, "-c", CARD_MACHINE_SCRIPT, str(tmp_path), json.dumps(blocked)],
+        capture_output=True, text=True, timeout=240, cwd=str(PORT.parent))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["rc"] == 0 and out["loaded"] == []
+    assert out["completion"] == [200, {"prompt_tokens": 3, "completion_tokens": 4,
+                                       "total_tokens": 7}]
+    h = tengine.start_engine(str(tmp_path), tc.EngineLoadOptions(max_num_pages=16),
+                             device="cpu")
+    try:
+        (toks, fin), = _collect(tc, h, [[9, 10, 11, 12]], max_tokens=5)
+    finally:
+        h.shutdown()
+    assert isinstance(fin, tc.Finished) and out["tokens"] == toks and len(toks) == 5
 
 
 def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
