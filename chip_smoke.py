@@ -346,6 +346,34 @@ On the same weights, the opt-in fp4 chain and then the int8-experts mode:
 18g. [13g] in int8 under the default chain against [17]'s eager run (K8 =
     8 x decode steps, K7 = 24 x prefills through the replays).
 
+DeepSeek-V4 from an mp8 checkpoint (``models/dsv4_weights.py``), between
+[14] and [15] while the fp4 weights are whole, and after [18h] once they
+are freed:
+
+27a. [9]'s layers 2 and 3 (ratio 4 with the indexer and a hash gate, ratio
+    128 with a score gate) as a 2-layer model (``num_hash_layers`` 1,
+    ``compress_ratios`` [4, 128]) written by the smoke's own writer as the
+    eight rank files ``mp8/model{r}-mp8.safetensors`` in the real dtypes
+    (``F8_E4M3`` linears, ``F8_E8M0`` scales, packed ``F4`` experts, about
+    10 GB; the temp directory's free space is checked first), then loaded
+    by ``dsv4_engine.start_engine(path)``: every leaf bit for bit against
+    [9]'s; the load's wall and GB/s (warm page cache), the process's peak
+    and current RSS before and after, device bytes against ``params_bytes``;
+27b. that engine (the defaults: graphs, decode blocks) serves 1024/64
+    twice (the second warm: the first captures the block graphs) and 16/4,
+    greedy: the ids equal an in-memory engine's on [9]'s sliced tree;
+    launches K3 = 3 x 2 x decode steps, K4 = 15 x decode steps, K5 = 3 x 2 x
+    prefills; then ``server/main.py::build_engine`` from the path behind
+    ``OpenAIApp`` + ``httpd`` (``SimTokenizer``) answers 16/4 with the same
+    ids;
+27c. after [18h], with [9]'s weights freed: the resident tree loaded again
+    and the bf16 mode (``quantize="bf16"``, about 29 GB) from the same
+    files through ``start_engine``: load wall, GB/s, RSS, bytes; the 1,024
+    prefill's last logits against the resident ones, the resident run's
+    routing replayed (rule 7 with DSV4_LOGITS_RTOL); [27b]'s requests served
+    in bf16 (no K3 / K4 / K5 launch) with their ids' agreement with [27b]'s
+    (reported) and the warm steady TPOT beside [27b]'s fp4 one.
+
 The last lines are the kernels' JSON record (the weight streams, the S3 /
 S4 kernels, K1-K9 and K6 at one expert, ``int8_gemv_dense``, with [8g]'s
 and [25b]'s sweeps under ``shapes`` and ``steps``; with the read
@@ -357,7 +385,8 @@ their counts, as ``launches_resume``; the Qwen3.5 serving and step
 records under ``qwen35``, 13a-13b's under ``dsv4_cache``, 8e's, 25a's and
 13c's under ``pd``; the graphed paths' launches as
 ``launches_graphed_path``, the hybrid's as ``launches_qwen35_graphed_path``,
-[26c]'s as ``launches_http_path``, [26]'s record under ``serving``'s ``http``;
+[26c]'s as ``launches_http_path``, [26]'s record under ``serving``'s ``http``,
+[27b]'s as ``launches_mp8_path`` and [27]'s record under ``dsv4_mp8``;
 25g's, 13g's and 18g's records under each family's ``graphs``), the card
 line from nvidia-smi and
 ``{"ok": true, "device": {...}}``.
@@ -368,9 +397,12 @@ from __future__ import annotations
 import gc
 import json
 import logging
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -830,7 +862,22 @@ def main() -> int:
         if r["name"] in resume_launches:
             r["launches_resume"] = resume_launches[r["name"]]
     k9_record, chain_serving = run_dsv4_fp4_chain(cfg, params)
-    i_records, i_serving, i_steps = run_dsv4_int8(cfg, params, k9_record)
+    mp8_dir = tempfile.mkdtemp(prefix="pegainfer-mp8-")
+    try:
+        mp8 = run_mp8(cfg, params, mp8_dir)
+        for r in d_records:  # [27b]'s launches from the checkpoint
+            if r["name"] in mp8["launches"]:
+                r["launches_mp8_path"] = mp8["launches"][r["name"]]
+        i_records, i_serving, i_steps = run_dsv4_int8(cfg, params, k9_record)
+        # [9]'s weights (int8 experts now) have no user left
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  DeepSeek-V4-Flash freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+            "allocated")
+        mp8["bf16"] = run_mp8_bf16(cfg, mp8_dir, mp8)
+    finally:
+        shutil.rmtree(mp8_dir, ignore_errors=True)
     dense = dense_record(q_serving["int8"], h_serving["int8"])
     # [8j]'s graphed paths: K1 / K2 in bf16, K6 at one expert in int8; the
     # hybrid's ([25g]) likewise
@@ -878,7 +925,8 @@ def main() -> int:
                       "pd": {"qwen3": q_serving.pop("pd"), "qwen35": h_serving.pop("pd"),
                              "dsv4": dsv4_pd},
                       "dsv4_fp4_chain": {"serving": chain_serving},
-                      "dsv4_int8": {"serving": i_serving, "steps": i_steps}}))
+                      "dsv4_int8": {"serving": i_serving, "steps": i_steps},
+                      "dsv4_mp8": mp8}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1469,8 +1517,12 @@ def profile_calls(calls, iters=5, kernels=None):
                                for label, key in kernels.items()},)
             attn = sum(e.self_device_time_total for e in ka
                        if "flash_prefill" in e.key or "paged_decode" in e.key) / iters / 1e3
+            # the profiler now and then records no device activity for a
+            # call (the hybrid's k/v gather did once): say so, not divide
+            share = (f"{attn / dev:.1%} of device time" if dev
+                     else "no device time recorded by torch.profiler")
             log(f"    {name}: wall per call {min(walls):.3f}-{max(walls):.3f} ms over {iters} "
-                f"calls; attention kernel (K1 / K2) {attn:.3f} ms, {attn / dev:.1%} of device time")
+                f"calls; attention kernel (K1 / K2) {attn:.3f} ms, {share}")
             for e in ka[:TOP_OPS]:
                 log(f"    {name}: {e.self_device_time_total / iters / 1e3:7.3f} ms in "
                     f"{e.count / iters:4.0f} x {e.key[:90]}")
@@ -3011,18 +3063,27 @@ _ST_DTYPES = {torch.bfloat16: "BF16", torch.float32: "F32"}
 def write_safetensors(path, tensors):
     """A safetensors file of CPU ``tensors`` (the format's header, then the
     bytes in order), written without the safetensors package."""
+    write_raw_safetensors(path, [(name, _ST_DTYPES[t.dtype], list(t.shape), t)
+                                 for name, t in tensors.items()])
+
+
+def write_raw_safetensors(path, entries):
+    """A safetensors file of ``entries`` [(name, dtype name, shape, tensor)]:
+    each tensor's bytes as stored (on any device; moved to the host one at a
+    time as it is written), under the given dtype and shape, so a packed F4
+    tensor of uint8 [..., n / 2] is written with its logical shape."""
     header, off = {}, 0
-    for name, t in tensors.items():
+    for name, dtype, shape, t in entries:
         n = t.numel() * t.element_size()
-        header[name] = {"dtype": _ST_DTYPES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [off, off + n]}
+        header[name] = {"dtype": dtype, "shape": shape, "data_offsets": [off, off + n]}
         off += n
     head = json.dumps(header).encode()
     head += b" " * (-len(head) % 8)
     with open(path, "wb") as f:
         f.write(len(head).to_bytes(8, "little") + head)
-        for t in tensors.values():
-            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy())
+        for _, _, _, t in entries:
+            f.write(t.contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(head) + off
 
 
 def hf_state_dict(cfg, params, layers):
@@ -5812,6 +5873,429 @@ def bmm_library(k3, xs, ws, idxs):
     log(f"  K3 library: torch.bmm on {xs.shape[0]} gathered bf16 experts: {ms * 1e3:.2f} us "
         f"(max |diff| to K3 {err:.4g}, tol {tol:.4g})")
     return ms, "torch.bmm"
+
+
+# ── phase 27: DeepSeek-V4 from an mp8 checkpoint ────────────────────────
+
+
+# [27]: [9]'s layers MP8_LAYERS as a model of their own, written as the
+# mp8 checkpoint's eight rank files; the requests served from it
+MP8_LAYERS = (2, 3)
+MP8_WORLD = 8
+MP8_REQUESTS = ((DSV4_PROMPT, DSV4_OUT), (16, 4))
+_MP8_DTYPES = {torch.bfloat16: "BF16", torch.float32: "F32", torch.int32: "I32",
+               torch.float8_e4m3fn: "F8_E4M3"}
+
+
+def mp8_config(cfg):
+    """[9]'s config cut to MP8_LAYERS: its layer 2 (ratio 4, the indexer, a
+    hash gate) and layer 3 (ratio 128, a score gate) become layers 0 and 1,
+    with one hash layer."""
+    import dataclasses
+
+    ratios = tuple(cfg.compress_ratios[i] for i in MP8_LAYERS)
+    if ratios != (4, 128) or not MP8_LAYERS[0] < cfg.n_hash_layers <= MP8_LAYERS[1]:
+        raise SystemExit(f"[27] [9]'s layers {MP8_LAYERS} are not a hash ratio-4 layer and a "
+                         "score ratio-128 layer")
+    return dataclasses.replace(cfg, n_layers=2, n_hash_layers=1, compress_ratios=ratios)
+
+
+def mp8_config_json(cfg):
+    """The checkpoint's config.json (the keys ``DSv4Config.from_model_path``
+    reads, with their published names)."""
+    return {"model_type": "deepseek_v4", "architectures": ["DeepseekV4ForCausalLM"],
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+            "moe_intermediate_size": cfg.moe_inter_dim, "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.num_attention_heads, "num_key_value_heads": 1,
+            "head_dim": cfg.head_dim, "q_lora_rank": cfg.q_lora_rank,
+            "qk_rope_head_dim": cfg.qk_rope_head_dim, "o_groups": cfg.o_groups,
+            "o_lora_rank": cfg.o_lora_rank, "sliding_window": cfg.sliding_window,
+            "n_routed_experts": cfg.n_routed_experts, "n_shared_experts": cfg.n_shared_experts,
+            "num_experts_per_tok": cfg.n_activated_experts, "num_hash_layers": cfg.n_hash_layers,
+            "scoring_func": "sqrtsoftplus", "routed_scaling_factor": cfg.routed_scaling_factor,
+            "swiglu_limit": cfg.swiglu_limit, "rms_norm_eps": cfg.rms_norm_eps,
+            "index_n_heads": cfg.index_n_heads, "index_head_dim": cfg.index_head_dim,
+            "index_topk": cfg.index_topk, "max_position_embeddings": cfg.max_position_embeddings,
+            "rope_theta": cfg.rope_theta, "compress_rope_theta": cfg.compress_rope_theta,
+            "compress_ratios": list(cfg.compress_ratios),
+            "rope_scaling": {"type": "yarn", "factor": cfg.yarn_factor,
+                             "beta_fast": cfg.yarn_beta_fast, "beta_slow": cfg.yarn_beta_slow,
+                             "original_max_position_embeddings": cfg.yarn_original_seq_len},
+            "hc_mult": cfg.hc_mult, "hc_sinkhorn_iters": cfg.hc_sinkhorn_iters,
+            "hc_eps": cfg.hc_eps, "bos_token_id": cfg.bos_token_id,
+            "eos_token_id": cfg.eos_token_id}
+
+
+def mp8_tree(params):
+    """[9]'s tree with its layers cut to MP8_LAYERS (the same tensors)."""
+    return {**{k: v for k, v in params.items() if k != "layers"},
+            "layers": [params["layers"][i] for i in MP8_LAYERS]}
+
+
+def e8m0_codes(s):
+    """bf16 powers of two -> their E8M0 codes (the exponent field), uint8,
+    on the card; a scale that is no positive normal power of two fails."""
+    bits = s.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+    if bool(((bits & 0x807F) != 0).any()) or bool(((bits >> 7) == 0).any()):
+        raise SystemExit("[27a] a scale is no positive normal power of two")
+    return (bits >> 7).to(torch.uint8)
+
+
+def mp8_rank_entries(cfg, tree, rank, codes):
+    """Rank ``rank``'s tensors [(name, dtype, shape, tensor on the card)]
+    in the mp8 layout (models/dsv4_manifest.py): vocab, head, o-group and
+    index-head shards (``wo_b`` on its input axis), experts rank x E / 8
+    onwards, the rest whole. ``codes`` caches each container's E8M0 codes."""
+    out = []
+
+    def put(name, t, dtype=None, shape=None):
+        out.append((name, dtype or _MP8_DTYPES[t.dtype], list(shape or t.shape), t))
+
+    def shard(t, axis=0):
+        n = t.shape[axis] // MP8_WORLD
+        return t.narrow(axis, rank * n, n)
+
+    def scales(w):
+        if id(w) not in codes:
+            codes[id(w)] = e8m0_codes(w["s"])
+        return codes[id(w)]
+
+    def fp8(name, w, axis=None):
+        q, s = w["q"], scales(w)
+        if axis is not None:
+            q, s = shard(q, axis), shard(s, axis)
+        put(f"{name}.weight", q)
+        put(f"{name}.scale", s, "F8_E8M0")
+
+    put("embed.weight", shard(tree["embed"]))
+    put("head.weight", shard(tree["head"]))
+    put("norm.weight", tree["norm"])
+    for k in ("hc_head_fn", "hc_head_base", "hc_head_scale"):
+        put(k, tree[k])
+    E_loc = cfg.n_routed_experts // MP8_WORLD
+    for li, lw in enumerate(tree["layers"]):
+        p = f"layers.{li}"
+        put(f"{p}.attn_norm.weight", lw["attn_norm"])
+        put(f"{p}.ffn_norm.weight", lw["ffn_norm"])
+        for k in ("hc_attn_fn", "hc_attn_base", "hc_attn_scale", "hc_ffn_fn", "hc_ffn_base",
+                  "hc_ffn_scale"):
+            put(f"{p}.{k}", lw[k])
+        put(f"{p}.attn.attn_sink", shard(lw["attn_sink"]))
+        put(f"{p}.attn.q_norm.weight", lw["q_norm"])
+        put(f"{p}.attn.kv_norm.weight", lw["kv_norm"])
+        fp8(f"{p}.attn.wq_a", lw["wq_a"])
+        fp8(f"{p}.attn.wq_b", lw["wq_b"], axis=0)
+        fp8(f"{p}.attn.wkv", lw["wkv"])
+        put(f"{p}.attn.wo_a.weight", shard(lw["wo_a"]))
+        fp8(f"{p}.attn.wo_b", lw["wo_b"], axis=1)
+        put(f"{p}.ffn.gate.weight", lw["gate_weight"])
+        if "gate_tid2eid" in lw:
+            put(f"{p}.ffn.gate.tid2eid", lw["gate_tid2eid"])
+        else:
+            put(f"{p}.ffn.gate.bias", lw["gate_bias"])
+        for k in ("w1", "w2", "w3"):
+            fp8(f"{p}.ffn.shared_experts.{k}", lw[f"shared_{k}"])
+        for le in range(E_loc):
+            ge = rank * E_loc + le
+            for k in ("w1", "w2", "w3"):
+                w = lw[f"experts_{k}"]
+                out_d, half = w["q"].shape[1:]
+                put(f"{p}.ffn.experts.{ge}.{k}.weight", w["q"][ge], "F4", (out_d, 2 * half))
+                put(f"{p}.ffn.experts.{ge}.{k}.scale", scales(w)[ge], "F8_E8M0")
+        for key, prefix in (("comp", f"{p}.attn.compressor"),
+                            ("idx_comp", f"{p}.attn.indexer.compressor")):
+            if key in lw:
+                put(f"{prefix}.ape", lw[key]["ape"])
+                for k in ("wkv", "wgate", "norm"):
+                    put(f"{prefix}.{k}.weight", lw[key][k])
+        if "idx_wq_b" in lw:
+            fp8(f"{p}.attn.indexer.wq_b", lw["idx_wq_b"], axis=0)
+            put(f"{p}.attn.indexer.weights_proj.weight", shard(lw["idx_weights_proj"]))
+    return out
+
+
+def leaves_differing(got, want, path=""):
+    """The paths where two trees differ in keys or in a leaf's bits."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return [path or "/"]
+        return [p for k in want for p in leaves_differing(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            return [path]
+        return [p for i, (g, w) in enumerate(zip(got, want))
+                for p in leaves_differing(g, w, f"{path}/{i}")]
+    return [] if same_bits(got, want) else [path]
+
+
+def rss_gb():
+    """(peak, current) resident set of this process, GB."""
+    import resource
+
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    with open("/proc/self/statm") as f:
+        cur = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    return peak / 1e9, cur / 1e9
+
+
+def timed_load(label, fn, nbytes):
+    """Run ``fn`` (a load onto the card) timed; log wall, GB/s of the files,
+    RSS before and after and the device bytes it added. Returns (result,
+    record)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before_dev = torch.cuda.memory_allocated()
+    rss0 = rss_gb()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    rss1 = rss_gb()
+    dev = torch.cuda.memory_allocated() - before_dev
+    log(f"  {label}: {wall:.3f} s, {nbytes / wall / 1e9:.2f} GB/s of the files (warm page "
+        f"cache); RSS peak {rss0[0]:.2f} -> {rss1[0]:.2f} GB, current {rss0[1]:.2f} -> "
+        f"{rss1[1]:.2f} GB; {dev / 1e9:.3f} GB more on the card")
+    return out, {"seconds": wall, "gb_per_s": nbytes / wall / 1e9, "page_cache": "warm",
+                 "rss_peak_gb": [rss0[0], rss1[0]], "rss_gb": [rss0[1], rss1[1]],
+                 "device_bytes": dev}
+
+
+def timed_greedy(contract, handle, label, prompt, n):
+    """One greedy request: (ids, record with TTFT, the JAX bench's steady
+    TPOT from the third token and the gaps' p50)."""
+    ch, t0 = run_request(contract, handle, prompt, n)
+    toks, fin, times = drain(contract, ch)
+    expect_finished(contract, label, toks, fin, n)
+    k = min(2, len(times) - 2)
+    gaps = [(b - a) * 1e3 for a, b in zip(times[k:], times[k + 1:])]
+    return toks, {"ttft_ms": (times[0] - t0) * 1e3,
+                  "steady_tpot_ms": (times[-1] - times[k]) * 1e3 / (len(times) - 1 - k),
+                  "gap_p50_ms": statistics.median(gaps) if gaps else None}
+
+
+def serve_mp8(contract, handle, prompts, kernels=None):
+    """The main request twice (the second one's times are the warm ones:
+    the first captures the block graphs at first use), then the short one,
+    one after another on ``handle`` (launch counters and the executor's
+    counts at 0 first); then shut it down. Returns (ids of the three, the
+    warm main request's timing record, launches, prefills, decode
+    steps)."""
+    ex = handle._scheduler.executor
+    for mod in (kernels or {}).values():
+        mod.launches = 0
+    ex.prefills = ex.decode_steps = 0
+    (main_in, main_out), (short_in, short_out) = MP8_REQUESTS
+    try:
+        ids, timing = [], []
+        for prompt, n in ((prompts[0], main_out), (prompts[0], main_out),
+                          (prompts[1], short_out)):
+            toks, rec = timed_greedy(contract, handle, f"{len(prompt)}/{n}", prompt, n)
+            ids.append(toks)
+            timing.append(rec)
+        if ids[1] != ids[0]:
+            raise SystemExit("[27] the repeated main request gave other ids")
+        launches = {name: mod.launches for name, mod in (kernels or {}).items()}
+        return ids, timing[1], launches, ex.prefills, ex.decode_steps
+    finally:
+        handle.shutdown()
+        handle._thread.join(timeout=60)
+
+
+def run_mp8(cfg, params, d):
+    """Phases 27a-27b on [9]'s fp4 weights: write the checkpoint into ``d``
+    (kept for 27c), load it through ``start_engine(path)`` bit for bit,
+    serve from it against the in-memory engine, and through the CLI's
+    ``build_engine``. Returns the record."""
+    from pegainfer_tpu_torch.engine import contract
+    from pegainfer_tpu_torch.models import dsv4 as d4
+    from pegainfer_tpu_torch.models import dsv4_engine as d4e
+    from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
+    from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
+    from pegainfer_tpu_torch.ops.cuda import fp8_gemv as k4
+
+    t_phase = time.perf_counter()
+    cfg2 = mp8_config(cfg)
+    tree = mp8_tree(params)
+    log(f"[27a] an mp8 checkpoint of [9]'s layers {MP8_LAYERS} ({cfg2.n_layers} layers, "
+        f"compress ratios {list(cfg2.compress_ratios)}, {cfg2.n_hash_layers} hash layer) in the "
+        "real dtypes (F8_E4M3, F8_E8M0 scales, packed F4 experts), written by the smoke's "
+        "writer; card: " + card_line())
+    codes = {}
+    ranks = [mp8_rank_entries(cfg2, tree, r, codes) for r in range(MP8_WORLD)]
+    need = sum(t.numel() * t.element_size() for es in ranks for _, _, _, t in es)
+    free = shutil.disk_usage(d).free
+    log(f"  {d}: {free / 1e9:.1f} GB free, the files need {need / 1e9:.2f} GB")
+    if free < need * 1.05:
+        raise SystemExit(f"[27a] {d} has {free / 1e9:.1f} GB free, the checkpoint needs "
+                         f"{need / 1e9:.2f} GB")
+    t = time.perf_counter()
+    (Path(d) / "mp8").mkdir()
+    (Path(d) / "config.json").write_text(json.dumps(mp8_config_json(cfg2)))
+    nbytes = sum(write_raw_safetensors(str(Path(d) / "mp8" / f"model{r}-mp8.safetensors"), es)
+                 for r, es in enumerate(ranks))
+    write_s = time.perf_counter() - t
+    n_tensors = sum(len(es) for es in ranks)
+    del ranks, codes
+    log(f"  wrote {n_tensors} tensors, {nbytes / 1e9:.3f} GB in {MP8_WORLD} rank files in "
+        f"{write_s:.2f} s")
+    if d4.DSv4Config.from_model_path(d) != cfg2:
+        raise SystemExit("[27a] config.json does not read back as the cut config")
+
+    opts = contract.EngineLoadOptions(max_batch_size=DSV4_SLOTS,
+                                      max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED)
+    handle, load = timed_load("start_engine(path), resident", lambda: d4e.start_engine(
+        d, opts, device="cuda"), nbytes)
+    ex_params = handle._scheduler.executor.params
+    load["params_bytes"] = d4.params_bytes(ex_params)
+    bad = leaves_differing(ex_params, tree)
+    log(f"  {len(list(tensors_of(ex_params)))} leaves against [9]'s "
+        f"{len(list(tensors_of(tree)))}, key by key: bit for bit {not bad}; params_bytes "
+        f"{load['params_bytes'] / 1e9:.3f} GB")
+    if bad:
+        handle.shutdown()
+        raise SystemExit(f"[27a] the loaded leaves differ from [9]'s: {bad[:8]}")
+    del ex_params
+
+    log("[27b] serving from the path under the defaults (graphs, decode blocks): "
+        f"{MP8_REQUESTS[0]} twice, then {MP8_REQUESTS[1]}, greedy, against an in-memory engine "
+        "on [9]'s sliced tree")
+    rng = np.random.default_rng(SEED + 28)
+    prompts = [rng.integers(0, cfg2.vocab_size, n).tolist() for n, _ in MP8_REQUESTS]
+    kernels = {"moe_fp4_gemv": k3, "fp8_gemv": k4, "moe_fp4_grouped": k5}
+    disk, fp4_timing, launches, prefills, steps = serve_mp8(contract, handle, prompts, kernels)
+    L = cfg2.n_layers
+    check_launches(launches, {"moe_fp4_gemv": 3 * L * steps,
+                              "fp8_gemv": fp8_per_decode_step(cfg2) * steps,
+                              "moe_fp4_grouped": 3 * L * prefills},
+                   f"{prefills} prefills, {steps} decode steps, {L} layers")
+    del handle
+    gc.collect()
+    mem, _, _, _, _ = serve_mp8(contract, d4e.start_engine_from_params(
+        cfg2, tree, opts, device="cuda"), prompts)
+    log(f"  ids from the path equal the in-memory engine's: {disk == mem}; the second "
+        f"{MP8_REQUESTS[0][0]}/{MP8_REQUESTS[0][1]} (warm): TTFT {fp4_timing['ttft_ms']:.3f} ms, "
+        f"steady TPOT {fp4_timing['steady_tpot_ms']:.3f} ms (the JAX bench's), gaps p50 "
+        f"{fp4_timing['gap_p50_ms']:.3f} ms")
+    if disk != mem:
+        raise SystemExit("[27b] the checkpoint engine's ids differ from the in-memory engine's")
+    gc.collect()
+    cli = run_mp8_cli(cfg2, d, prompts[1], disk[2])
+    rec = {"layers": list(MP8_LAYERS), "bytes": nbytes, "tensors": n_tensors,
+           "write_s": write_s, "load": load, "tokens_equal": True, "launches": launches,
+           "prefills": prefills, "decode_steps": steps, "fp4": fp4_timing, "cli": cli,
+           "ids": disk, "card": card_line()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  [27a]-[27b] took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def run_mp8_cli(cfg, d, prompt, want):
+    """[27b]'s CLI: ``build_engine(parse_args(["--model-path", d, ...]))``
+    behind ``OpenAIApp`` + ``httpd`` with ``SimTokenizer`` (no transformers
+    here); one blocking completion of ``prompt``, its ids against ``want``."""
+    from pegainfer_tpu_torch.server import httpd
+    from pegainfer_tpu_torch.server import main as server_main
+    from pegainfer_tpu_torch.server.api import OpenAIApp
+    from pegainfer_tpu_torch.server.tokenizer import SimTokenizer
+
+    argv = ["--model-path", d, "--max-batch-size", str(DSV4_SLOTS), "--seed", str(SEED)]
+    t = time.perf_counter()
+    handle = server_main.build_engine(server_main.parse_args(argv), device="cuda")
+    start_s = time.perf_counter() - t
+    try:
+        app = OpenAIApp(handle, SimTokenizer(vocab_size=cfg.vocab_size), "dsv4-mp8").build()
+        server = httpd.serve(app, "127.0.0.1", 0, threads=64)
+        try:
+            status, _, body, wall = http_call(server.port, "POST", "/v1/completions", {
+                "prompt": prompt, "max_tokens": len(want), "ignore_eos": True})
+        finally:
+            server.close()
+    finally:
+        handle.shutdown()
+        handle._thread.join(timeout=60)
+    ids = text_ids(body["choices"][0]["text"]) if status == 200 else None
+    log(f"  the CLI's build_engine({' '.join(argv[:1])} ...) up in {start_s:.2f} s; "
+        f"/v1/completions {len(prompt)}/{len(want)}: status {status}, ids equal [27b]'s: "
+        f"{ids == want}; wall {wall * 1e3:.1f} ms")
+    if ids != want:
+        raise SystemExit(f"[27b] the CLI's engine answered {status} {body}")
+    return {"engine_start_s": start_s, "status": status, "wall_ms": wall * 1e3,
+            "tokens_equal": True}
+
+
+def run_mp8_bf16(cfg, d, mp8):
+    """Phase 27c, after [9]'s weights are freed: the resident tree from the
+    path again, and the bf16 mode from the same files; the 1,024 prefill's
+    logits against the resident ones under the resident run's routing;
+    1024/64 served in bf16. Returns the record."""
+    from pegainfer_tpu_torch.engine import contract
+    from pegainfer_tpu_torch.models import dsv4 as d4
+    from pegainfer_tpu_torch.models import dsv4_engine as d4e
+    from pegainfer_tpu_torch.models import dsv4_weights as d4w
+    from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
+    from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
+    from pegainfer_tpu_torch.ops.cuda import fp8_gemv as k4
+
+    t_phase = time.perf_counter()
+    cfg2 = mp8_config(cfg)
+    log("[27c] the bf16 mode (quantize='bf16') from [27a]'s files, beside the resident tree "
+        "loaded again; card: " + card_line())
+    res, res_load = timed_load("load_params(resident=True)", lambda: d4w.load_params(
+        cfg2, d, resident=True, device="cuda"), mp8["bytes"])
+    opts = contract.EngineLoadOptions(max_batch_size=DSV4_SLOTS,
+                                      max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED,
+                                      quantize="bf16")
+    handle, load = timed_load("start_engine(path, quantize='bf16')", lambda: d4e.start_engine(
+        d, opts, device="cuda"), mp8["bytes"])
+    bf = handle._scheduler.executor.params
+    load["params_bytes"], res_load["params_bytes"] = d4.params_bytes(bf), d4.params_bytes(res)
+    ratio = load["params_bytes"] / res_load["params_bytes"]
+    log(f"  params: bf16 {load['params_bytes'] / 1e9:.3f} GB against resident "
+        f"{res_load['params_bytes'] / 1e9:.3f} GB ({ratio:.2f}x)")
+    rng = np.random.default_rng(SEED + 28)
+    prompts = [rng.integers(0, cfg2.vocab_size, n).tolist() for n, _ in MP8_REQUESTS]
+    toks_t = torch.tensor(prompts[0], dtype=torch.int32, device="cuda")
+    replay = RoutingReplay(d4)
+    try:
+        with torch.no_grad():
+            replay.record()
+            lr, _ = d4.prefill(cfg2, res, toks_t, last_only=True)
+            replay.replay()
+            lb, _ = d4.prefill(cfg2, bf, toks_t, last_only=True)
+            torch.cuda.synchronize()
+    finally:
+        replay.restore()
+    if not (bool(torch.isfinite(lb).all()) and lb.shape == (1, cfg2.vocab_size)):
+        raise SystemExit("[27c] the bf16 prefill logits are not finite [1, V]")
+    replay.report(f"{len(prompts[0])}-token prefill, bf16 routed as resident")
+    share = check_logits(lb[0], lr[0], DSV4_LOGITS_RTOL,
+                         "[27c] the bf16 mode's prefill logits disagree with the resident mode's")
+    del res, lr, lb, bf
+    kernels = {"moe_fp4_gemv": k3, "fp8_gemv": k4, "moe_fp4_grouped": k5}
+    ids, timing, launches, prefills, steps = serve_mp8(contract, handle, prompts, kernels)
+    same = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(y))
+            for x, y in zip(ids[1:], mp8["ids"][1:])]
+    log(f"  bf16 greedy ids agree with [27b]'s fp4 ids for the first {same} tokens of "
+        f"{[n for _, n in MP8_REQUESTS]} (reported, not gated); launches {launches} "
+        f"({prefills} prefills, {steps} decode steps)")
+    if any(launches.values()):
+        raise SystemExit("[27c] the bf16 mode launched a quantized kernel")
+    fp4 = mp8["fp4"]
+    log(f"  the second {MP8_REQUESTS[0][0]}/{MP8_REQUESTS[0][1]} (warm) at {cfg2.n_layers} layers: "
+        "steady TPOT bf16 "
+        f"{timing['steady_tpot_ms']:.3f} ms against fp4 {fp4['steady_tpot_ms']:.3f} ms; gaps p50 "
+        f"{timing['gap_p50_ms']:.3f} against {fp4['gap_p50_ms']:.3f} ms; TTFT "
+        f"{timing['ttft_ms']:.3f} against {fp4['ttft_ms']:.3f} ms")
+    del handle
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"resident_load": res_load, "load": load, "logits_share_of_limit": share,
+           "routing_flips": replay.flips, "ids_agree_tokens": same, "bf16": timing,
+           "launches": launches, "phase_s": time.perf_counter() - t_phase, "card": card_line()}
+    log(f"  [27c] took {rec['phase_s']:.1f} s")
+    return rec
 
 
 if __name__ == "__main__":

@@ -27,13 +27,13 @@ chunks one).
 ``slot_export`` / ``slot_import`` are the PD handoff's hooks
 (``engine/pd.py``): the slot's rows are the whole payload.
 
-``quantize="int8-experts"`` serves experts requantized to int8 at load
+``quantize="int8-experts"`` serves experts requantized to int8 at load and
+``quantize="bf16"`` weights dequantized to bf16 at load
 (``models/dsv4_engine.py``); ``moe_chain`` is handed to every prefill,
 resume and decode step (``models/dsv4.py``). An echo request with logprobs
 skips the slot-cache resume and prefills whole with every row's logits,
 reduced on the device to its prompt logprobs; its snapshot goes into the
-cache with the last logits, as in the JAX executor. Not here yet, and
-refused with ``NotImplementedError``: bf16 weights (dequantized at load).
+cache with the last logits, as in the JAX executor.
 
 With ``precompile`` and ``enable_cuda_graph`` (the defaults) the decode
 step replays one CUDA graph per batch bucket (``engine/decode_graphs.py``,
@@ -97,7 +97,7 @@ SLOT_CACHE_FRACTION = 0.2
 
 # DSv4 prefills whole: TorchExecutor's chunk rules do not apply
 check_supported = partial(tx.check_supported, family="DeepSeek-V4",
-                          quantize=(None, "int8-experts"), chunked=False)
+                          quantize=(None, "int8-experts", "bf16"), chunked=False)
 
 
 def slot_cache_cap(snapshot_bytes: int, device: torch.device) -> int:

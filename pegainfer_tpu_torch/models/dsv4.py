@@ -11,8 +11,10 @@ routed experts; the residual stream is ``hc_mult`` hyper-connection streams.
 
 Weights are served resident as in the checkpoint: fp8 dense projections and
 packed-fp4 routed experts ({"q","s"} containers, ``ops/quant.py``), or with
-the experts requantized to int8 at load (the int8-experts mode). The
-quantized products go through the kernel wrappers, on the JAX engine's
+the experts requantized to int8 at load (the int8-experts mode), or
+dequantized to plain bf16 at load (the bf16 mode, whose products are the
+JAX package's XLA paths in torch: no kernel). The quantized products go
+through the kernel wrappers, on the JAX engine's
 default routes on the TPU: fp8 linears with at most 8 rows (decode) through
 K4 (``quant.qlinear``); routed experts from 8 tokens on through the grouped
 GEMMs (K5 fp4, K7 int8) and below through the GEMVs (K3 fp4, K6 int8) or
@@ -279,6 +281,32 @@ def requantize_experts_int8(params) -> None:
                     torch.cuda.empty_cache()
 
 
+def dequantize_params(params, dtype) -> None:
+    """Dequantize every ``{"q","s"}`` container of a tree to a plain
+    ``dtype`` tensor, in place (the JAX engine's ``quantize="bf16"``, which
+    dequantizes at load): a container at a time, expert stacks 8 experts at
+    a time so their f32 temporaries stay small. Exact for fp8 and fp4
+    containers in bf16 or f32 (codes times powers of two)."""
+    chunk = 8
+    for lw in params["layers"]:
+        for k, w in list(lw.items()):
+            if not quant.is_quantized(w):
+                continue
+            if w["q"].dim() == 2:
+                lw[k] = quant.dequant_any(w, dtype)
+                continue
+            q = w["q"]  # packed fp4 holds two values a byte
+            shape = (*q.shape[:-1], 2 * q.shape[-1]) if q.dtype == torch.uint8 else q.shape
+            out = torch.empty(shape, dtype=dtype, device=q.device)
+            for e0 in range(0, out.shape[0], chunk):
+                out[e0:e0 + chunk] = quant.dequant_any(
+                    {"q": q[e0:e0 + chunk], "s": w["s"][e0:e0 + chunk]}, dtype)
+            lw[k] = out
+            del w, q
+            if out.is_cuda:
+                torch.cuda.empty_cache()
+
+
 def params_from_jax(jax_params, device="cpu"):
     """The JAX package's DSv4 params tree with numpy leaves (plain or
     resident) as the port's tree: same keys and layouts; fp8 and bf16 leaves
@@ -526,16 +554,18 @@ def score_gate(xf32, gate_weight, gate_bias, k: int, topk_scale: float):
 
 
 def _routed_experts(lw) -> str:
-    """The routed experts' format, "fp4" (packed) or "int8"; plain bf16
-    stacks are not ported."""
+    """The routed experts' format: "fp4" (packed), "int8" or "bf16" (plain
+    stacks, the dequantized-at-load mode). A layer mixing formats raises."""
     kinds = {lw[k]["q"].dtype if quant.is_quantized(lw[k]) else None for k in FP4_KEYS}
     if kinds == {torch.uint8}:
         return "fp4"
     if kinds == {torch.int8}:
         return "int8"
+    if kinds == {None}:
+        return "bf16"
     raise NotImplementedError(
-        "the port serves packed-fp4 or int8 routed experts only (bf16 expert stacks, "
-        "the JAX engine's quantize='bf16', are not ported yet)")
+        f"a layer's routed experts mix formats ({sorted(map(str, kinds))}); the port serves "
+        "packed-fp4, int8 or plain stacks, one format a layer")
 
 
 def _int8_srows(w, e: torch.Tensor) -> torch.Tensor:
@@ -569,7 +599,9 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
     flat_e = route_idx.reshape(M).to(torch.int32)
     flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
     flat_w = weights.reshape(M)
-    if T >= PREFILL_MOE_TOKENS:
+    if T >= PREFILL_MOE_TOKENS and fmt == "bf16":
+        per = _bf16_grouped(x, w1, w2, w3, flat_e, flat_t, E, limit)
+    elif T >= PREFILL_MOE_TOKENS:
         # rows sorted by expert in tiles of tm, pad rows carrying the last
         # expert id; K5 (fp4) or K7 (int8, scaled after) runs each tile's
         # expert segments
@@ -605,10 +637,16 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
         per[order] = gemm(act.to(torch.bfloat16), w2)[:M]  # back to token order
     else:
         # decode: only the routed experts' weights are read, by one chain
-        # launch a layer (K8 / K9) or three GEMVs (K6 / K3)
+        # launch a layer (K8 / K9) or three GEMVs (K6 / K3); plain bf16
+        # stacks are gathered row by row (the JAX XLA path)
         xs = xf32[flat_t]
         chain = (fmt == "int8") if moe_chain is None else moe_chain
-        if fmt == "int8" and chain and k8.int8_chain_supported(w1, w2, M):
+        if fmt == "bf16":
+            def rows(inp, w):
+                return quant.bmm_f32(inp.to(torch.bfloat16), w[flat_e.long()])
+
+            per = rows(swiglu(rows(xs, w1), rows(xs, w3), limit), w2)
+        elif fmt == "int8" and chain and k8.int8_chain_supported(w1, w2, M):
             fn = k8.moe_int8_chain_plain if plain else k8.moe_int8_chain
             per = fn(xs, w1["q"], w3["q"], w2["q"], w1["s"], w3["s"], w2["s"], flat_e, limit)
         elif fmt == "fp4" and chain and k9.fp4_chain_supported(w1, w2, M):
@@ -632,6 +670,31 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
     # atomics, so a run repeats to the bit)
     routed = (per * flat_w[:, None]).reshape(T, K, -1).sum(dim=1)
     return (routed + shared.float()).to(x.dtype)
+
+
+def _bf16_grouped(x, w1, w2, w3, flat_e, flat_t, E: int, limit: float):
+    """Prefill MoE on plain expert stacks (the JAX package's
+    ``ragged_dot_general`` on bf16 weights): rows sorted by expert, each
+    expert's run of rows times its weight in bf16 with f32 sums; returns
+    the [M, D] f32 rows in (token, k) order. The run lengths are read on the
+    host (prefill runs eagerly)."""
+    order = torch.argsort(flat_e, stable=True)
+    xs = x.to(torch.bfloat16)[flat_t[order]]
+    counts = torch.bincount(flat_e, minlength=E).tolist()
+
+    def grouped(rows, w):
+        y = torch.empty((rows.shape[0], w.shape[1]), dtype=torch.float32, device=rows.device)
+        start = 0
+        for e, n in enumerate(counts):
+            if n:
+                y[start:start + n] = quant.mm_f32(rows[start:start + n], w[e])
+                start += n
+        return y
+
+    act = swiglu(grouped(xs, w1), grouped(xs, w3), limit)  # [M, I] f32
+    per = torch.empty((xs.shape[0], x.shape[1]), dtype=torch.float32, device=x.device)
+    per[order] = grouped(act.to(torch.bfloat16), w2)
+    return per
 
 
 def _hc_branch(cfg, lw, streams, name):

@@ -1,14 +1,20 @@
-"""DeepSeek-V4 engine startup: parameters -> slot state -> SlotExecutor ->
-scheduler. Counterpart of ``pegainfer_tpu/models/dsv4_engine.py``.
+"""DeepSeek-V4 engine startup: mp8 checkpoint or parameters -> slot state
+-> SlotExecutor -> scheduler. Counterpart of
+``pegainfer_tpu/models/dsv4_engine.py`` on one device.
 
 It serves resident fp8 / packed-fp4 weights (the JAX engine's
-``quantize=None``, checkpoint-exact, with its fused kernels on), or with
-``quantize="int8-experts"`` the same weights with the routed experts
-requantized to int8 per output channel at start (the JAX engine's speed
-mode). ``decode_block``, ``decode_block_max`` and
-``decode_pipeline_depth`` go to the executor and its scheduler (blocks of
-N steps, graphed at first use). Runs on ``cuda`` unless the caller passes
-another device; with no card it raises instead of running on the CPU.
+``quantize=None``, checkpoint-exact, with its fused kernels on), with
+``quantize="int8-experts"`` (or ``PEGAINFER_DSV4_EXPERTS=int8``) the same
+weights with the routed experts requantized to int8 per output channel at
+start (the JAX engine's speed mode), or with ``quantize="bf16"`` every fp8
+/ fp4 tensor dequantized to bf16 at load (the numerics oracle; no kernel).
+``start_engine(path)`` loads the mp8 checkpoint (``models/dsv4_weights.py``,
+validated against ``dsv4_manifest.py`` first). ``decode_block``,
+``decode_block_max`` and ``decode_pipeline_depth`` go to the executor and
+its scheduler (blocks of N steps, graphed at first use). Runs on ``cuda``
+unless the caller passes another device; with no card it raises instead of
+running on the CPU. Tensor parallelism (the JAX engine's MP8 mesh) is not
+ported: ``tp_size`` above 1 raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import json
 import logging
 import os
 import time
+from dataclasses import replace
 from typing import Optional
 
 import torch
@@ -25,6 +32,8 @@ from pegainfer_tpu_torch.engine.contract import EngineHandle, EngineLoadOptions
 from pegainfer_tpu_torch.engine.scheduler import start_scheduler
 from pegainfer_tpu_torch.engine.slot_executor import SlotExecutor, check_supported
 from pegainfer_tpu_torch.models import dsv4
+from pegainfer_tpu_torch.models.dsv4_weights import load_params
+from pegainfer_tpu_torch.ops import quant
 from pegainfer_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger("pegainfer_torch.dsv4")
@@ -54,11 +63,14 @@ def max_blocks_for(cfg: dsv4.DSv4Config, max_model_len: int) -> int:
 def start_engine_from_params(cfg: dsv4.DSv4Config, params,
                              options: Optional[EngineLoadOptions] = None,
                              device=None, moe_chain: Optional[bool] = None) -> EngineHandle:
-    """Serve resident ``params`` (already on ``device``) with bf16 slot
-    state. With ``quantize="int8-experts"`` the packed-fp4 expert stacks of
-    ``params`` are requantized to int8 in place first (stacks already int8
-    stay). ``moe_chain`` picks the fused decode chain (None: on for int8
-    experts, off for fp4; ``models/dsv4.py``). Returns the submit handle;
+    """Serve ``params`` (already on ``device``) with bf16 slot state. With
+    ``quantize="int8-experts"`` the packed-fp4 expert stacks of ``params``
+    are requantized to int8 in place first (stacks already int8 stay); a
+    tree of plain expert stacks cannot be, and raises ValueError. With
+    ``quantize="bf16"`` every container of ``params`` is dequantized in
+    place to the dtype of its embedding (bf16 from a checkpoint).
+    ``moe_chain`` picks the fused decode chain (None: on for int8 experts,
+    off for fp4; ``models/dsv4.py``). Returns the submit handle;
     ``handle._scheduler.executor`` is the ``SlotExecutor``."""
     opts = options or EngineLoadOptions()
     check_supported(opts)
@@ -66,10 +78,18 @@ def start_engine_from_params(cfg: dsv4.DSv4Config, params,
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params are on {params['embed'].device}, engine on {dev}")
     if opts.quantize == "int8-experts":
+        if not all(quant.is_quantized(lw[k]) for lw in params["layers"] for k in dsv4.FP4_KEYS):
+            raise ValueError("quantize='int8-experts' requires resident (non-bf16) weights")
         before, t = dsv4.params_bytes(params), time.perf_counter()
         dsv4.requantize_experts_int8(params)
         log.info("DSv4 experts requantized to int8 per output channel in %.1f s: "
                  "%.2f GB -> %.2f GB of params", time.perf_counter() - t, before / 1e9,
+                 dsv4.params_bytes(params) / 1e9)
+    elif opts.quantize == "bf16":
+        before, t = dsv4.params_bytes(params), time.perf_counter()
+        dsv4.dequantize_params(params, params["embed"].dtype)
+        log.info("DSv4 weights dequantized to %s in %.1f s: %.2f GB -> %.2f GB of params",
+                 params["embed"].dtype, time.perf_counter() - t, before / 1e9,
                  dsv4.params_bytes(params) / 1e9)
     max_slots = min(opts.max_batch_size, MAX_SLOTS)
     max_model_len = opts.max_model_len or DEFAULT_MAX_MODEL_LEN
@@ -87,12 +107,32 @@ def start_engine_from_params(cfg: dsv4.DSv4Config, params,
 
 
 def start_engine(model_path: str, options: Optional[EngineLoadOptions] = None,
-                 device=None) -> EngineHandle:
-    """Serving a DeepSeek-V4 checkpoint needs its mp8 loader
-    (``pegainfer_tpu/models/dsv4_weights.py`` and ``dsv4_manifest.py``),
-    which is not ported yet."""
-    resolve_device(device)
-    raise NotImplementedError(
-        "the PyTorch port has no DeepSeek-V4 checkpoint loader yet (the mp8 "
-        "loader of models/dsv4_weights.py); serve parameters with "
-        f"start_engine_from_params instead of loading {model_path!r}")
+                 device=None, tp_size: Optional[int] = None) -> EngineHandle:
+    """Serve the mp8 checkpoint at ``model_path`` on one device (the JAX
+    ``start_engine`` at ``tp_size`` 1): its config, the loader (resident
+    unless ``quantize="bf16"``), the int8 requantization when asked for,
+    then ``start_engine_from_params``. ``PEGAINFER_DSV4_EXPERTS=int8`` asks
+    for int8 experts as ``quantize="int8-experts"`` does; under bf16 it is
+    ignored with a warning. Whether the options serve is known before the
+    checkpoint is read."""
+    opts = options or EngineLoadOptions()
+    check_supported(opts)
+    dev = resolve_device(device)
+    if tp_size not in (None, 0, 1):
+        raise NotImplementedError(
+            f"tp_size={tp_size}: the port serves DeepSeek-V4 on one device (tensor "
+            "parallelism over the MP8 mesh is not ported)")
+    cfg = dsv4.DSv4Config.from_model_path(model_path)
+    log.info("loading DeepSeek-V4 (%d layers, dim %d)", cfg.n_layers, cfg.dim)
+    resident = opts.quantize != "bf16"
+    if os.environ.get("PEGAINFER_DSV4_EXPERTS", "") == "int8":
+        if resident:
+            opts = replace(opts, quantize="int8-experts")
+        else:
+            log.warning("PEGAINFER_DSV4_EXPERTS=int8 ignored: requires resident (non-bf16) "
+                        "weights; serving bf16")
+    t = time.perf_counter()
+    params = load_params(cfg, model_path, resident=resident, device=dev)
+    log.info("DSv4 params: %.2f GB (%s) loaded in %.1f s", dsv4.params_bytes(params) / 1e9,
+             "fp8/fp4 resident" if resident else "bf16", time.perf_counter() - t)
+    return start_engine_from_params(cfg, params, opts, dev)

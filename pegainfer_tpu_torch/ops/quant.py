@@ -89,6 +89,15 @@ def unpack_fp4(q: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return vals.reshape(*q.shape[:-1], 2 * q.shape[-1])
 
 
+def e8m0_to_float(codes: torch.Tensor) -> torch.Tensor:
+    """E8M0 scale codes (uint8, on any device) -> their f32 values, exactly:
+    code c is 2^(c - 127), an f32 with exponent field c and no mantissa, but
+    code 0 (2^-127, a subnormal) and code 255 (NaN)."""
+    c = codes.to(torch.int32)
+    bits = torch.where(c == 0, 1 << 22, torch.where(c == 255, 0x7FC00000, c << 23))
+    return bits.view(torch.float32)
+
+
 def is_quantized(w) -> bool:
     return isinstance(w, dict) and set(w.keys()) >= {"q", "s"}
 
@@ -275,6 +284,22 @@ def int8_mm(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     cast to x's dtype (the weight made whole in device memory) and one
     product with f32 sums; on the CPU, or for f32 rows, an f32 product of
     the same values (the codes are exact in any float dtype)."""
+    return mm_f32(x, q)
+
+
+def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [N, in] @ w [out, in].T with f32 sums, f32 [N, out] (XLA's
+    ``preferred_element_type=float32``): w cast to x's dtype and one product
+    with f32 output on the card; on the CPU, or for f32 rows, an f32 product
+    of the same values."""
     if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
-        return torch.mm(x, q.T.to(x.dtype), out_dtype=torch.float32)
-    return x.float() @ q.T.float()
+        return torch.mm(x, w.T.to(x.dtype), out_dtype=torch.float32)
+    return x.float() @ w.T.to(x.dtype).float()
+
+
+def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Row by row: x [M, in] times its own weight w [M, out, in], f32 sums,
+    f32 [M, out]; the same forms as ``mm_f32``."""
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+        return torch.bmm(w.to(x.dtype), x[:, :, None], out_dtype=torch.float32)[..., 0]
+    return torch.bmm(w.to(x.dtype).float(), x.float()[:, :, None])[..., 0]

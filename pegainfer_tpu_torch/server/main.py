@@ -4,12 +4,13 @@ Counterpart of ``pegainfer_tpu/server/main.py``, with its arguments. Run as
     python -m pegainfer_tpu_torch.server.main --model-path <checkpoint dir>
     python -m pegainfer_tpu_torch.server.main --sim
 
-Qwen3 and the Qwen3.5 hybrid are served from a checkpoint through the
+Qwen3, the Qwen3.5 hybrid and DeepSeek-V4 (an mp8 checkpoint; ``--quantize
+bf16`` dequantizes it at load) are served from a checkpoint through the
 port's engines on the card; ``--sim`` serves the simulated engine with the
 ``SimTokenizer`` (no card, no model). The server runs until SIGINT. What
-the port lacks raises ``NotImplementedError``: DeepSeek-V4 and DeepSeek-V2
-Lite checkpoints, ``--tp-size`` above 1, ``--profile-dir`` and the
-multi-host variables ``PEGAINFER_COORD`` / ``_NUM_PROCS`` / ``_PROC_ID``.
+the port lacks raises ``NotImplementedError``: DeepSeek-V2-Lite
+checkpoints, ``--tp-size`` above 1, ``--profile-dir`` and the multi-host
+variables ``PEGAINFER_COORD`` / ``_NUM_PROCS`` / ``_PROC_ID``.
 A checkpoint's tokenizer is read with transformers (``HFTokenizer``).
 """
 
@@ -59,7 +60,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-batch-size", type=int, default=64)
     p.add_argument("--quantize", choices=["int8", "bf16"], default=None,
                    help="int8: weight-only int8 serving (Qwen families); bf16: "
-                        "dequantize a quantized checkpoint at load (DSv4, not ported)")
+                        "dequantize a quantized checkpoint at load (DSv4)")
     p.add_argument("--no-prefix-cache", action="store_true",
                    help="disable shared-prompt-prefix page caching")
     p.add_argument("--prefill-chunk", type=int, default=2048,
@@ -145,7 +146,10 @@ def build_engine(args: argparse.Namespace, device=None) -> EngineHandle:
     elif mtype == "qwen35":
         from pegainfer_tpu_torch.models import qwen35_engine as engine
     elif mtype == "deepseek_v4":
-        from pegainfer_tpu_torch.models import dsv4_engine as engine  # raises: no loader
+        from pegainfer_tpu_torch.models import dsv4_engine
+
+        return dsv4_engine.start_engine(args.model_path, opts, device=device,
+                                        tp_size=args.tp_size)
     else:
         raise NotImplementedError(
             f"model type {mtype}: the port has no DeepSeek-V2-Lite engine")

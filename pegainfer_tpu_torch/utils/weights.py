@@ -6,6 +6,10 @@ port needs no ``safetensors`` package: an 8-byte little-endian header
 length, a JSON header ``{name: {"dtype", "shape", "data_offsets"}}`` (and
 an optional ``"__metadata__"`` of strings), then the tensors' raw bytes,
 each at ``data_offsets`` [begin, end) from the end of the header.
+
+``load_file`` maps a whole file; ``SafetensorsReader`` reads one tensor at
+a time with a seek, and also takes the DeepSeek-V4 mp8 checkpoint's narrow
+dtypes (``F8_E8M0`` scales and packed ``F4`` weights).
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from pegainfer_tpu_torch.ops import quant
 
 # numpy dtypes that torch cannot take directly (ml_dtypes' bf16 and fp8,
 # as the JAX package's arrays come out of np.asarray), by name: their bits
@@ -32,6 +38,13 @@ SAFETENSORS_DTYPES = {
     "I32": torch.int32, "I64": torch.int64, "BOOL": torch.bool,
     "F8_E4M3": torch.float8_e4m3fn,
 }
+# the mp8 checkpoint's narrow dtypes, which only SafetensorsReader takes
+# (the safetensors package writes neither): F8_E8M0 scales, one uint8 code c
+# a value 2^(c - 127) (255 is NaN); packed E2M1 weights, two codes a byte,
+# the low nibble first, under a header that gives the logical shape, so a
+# tensor has numel / 2 bytes
+E8M0 = "F8_E8M0"
+F4_DTYPES = ("F4", "F4_E2M1", "F4_E2M1_X2")
 # a header larger than this is malformed (the safetensors package's limit)
 MAX_HEADER_BYTES = 100 * 1024 * 1024
 
@@ -58,9 +71,19 @@ def safetensor_files(model_path: str) -> list:
     return files
 
 
-def _header(path: str, f, size: int) -> tuple:
-    """(tensor entries, data start) of an open safetensors file; raises
-    ValueError on a malformed header or offsets outside the file."""
+def _nbytes(dtype: str, numel: int) -> int:
+    if dtype in F4_DTYPES:
+        return numel // 2
+    if dtype == E8M0:
+        return numel
+    return numel * SAFETENSORS_DTYPES[dtype].itemsize
+
+
+def _header(path: str, f, size: int, narrow: bool = False) -> tuple:
+    """(tensor entries {name: (dtype name, shape, begin, end)}, data start)
+    of an open safetensors file, with the narrow mp8 dtypes when
+    ``narrow``; raises ValueError on a malformed header or offsets outside
+    the file."""
     head = f.read(8)
     if len(head) != 8:
         raise ValueError(f"{path}: shorter than a safetensors header")
@@ -73,13 +96,16 @@ def _header(path: str, f, size: int) -> tuple:
         raise ValueError(f"{path}: malformed safetensors header: {e}") from None
     if not isinstance(header, dict):
         raise ValueError(f"{path}: the safetensors header is not an object")
+    known = set(SAFETENSORS_DTYPES) | ({E8M0, *F4_DTYPES} if narrow else set())
     data_len = size - 8 - n
     entries = {}
     for name, e in header.items():
         if name == "__metadata__":
             continue
         try:
-            dtype = SAFETENSORS_DTYPES[e["dtype"]]
+            dtype = e["dtype"]
+            if dtype not in known:
+                raise KeyError(dtype)
             shape = [int(d) for d in e["shape"]]
             begin, end = (int(o) for o in e["data_offsets"])
         except (KeyError, TypeError, ValueError) as err:
@@ -88,8 +114,11 @@ def _header(path: str, f, size: int) -> tuple:
         if min(shape, default=0) < 0 or not 0 <= begin <= end <= data_len:
             raise ValueError(f"{path}: tensor {name!r} at [{begin}, {end}) lies outside the "
                              f"file's {data_len} data bytes")
-        if end - begin != numel * dtype.itemsize:
-            raise ValueError(f"{path}: tensor {name!r} of shape {shape} {e['dtype']} has "
+        if dtype in F4_DTYPES and (not shape or shape[-1] % 2):
+            raise ValueError(f"{path}: packed {dtype} tensor {name!r} of shape {shape} has no "
+                             "even last dim")
+        if end - begin != _nbytes(dtype, numel):
+            raise ValueError(f"{path}: tensor {name!r} of shape {shape} {dtype} has "
                              f"{end - begin} bytes")
         entries[name] = (dtype, shape, begin, end)
     return entries, 8 + n
@@ -107,7 +136,8 @@ def load_file(path: str) -> Dict[str, torch.Tensor]:
             return {}
         buf = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
     out = {}
-    for name, (dtype, shape, begin, end) in entries.items():
+    for name, (dt, shape, begin, end) in entries.items():
+        dtype = SAFETENSORS_DTYPES[dt]
         lo = start + begin
         if end == begin:
             out[name] = torch.empty(shape, dtype=dtype)
@@ -118,6 +148,75 @@ def load_file(path: str) -> Dict[str, torch.Tensor]:
             out[name] = torch.frombuffer(buf, dtype=dtype, count=(end - begin) // dtype.itemsize,
                                          offset=lo).reshape(shape)
     return out
+
+
+class SafetensorsReader:
+    """One safetensors file read a tensor at a time (the JAX package's
+    ``models/dsv4_weights.py::SafetensorsReader``): the header is parsed
+    once, and a tensor's bytes are read with a seek when it is asked for,
+    so a rank file of the mp8 checkpoint is never held whole. Takes
+    ``load_file``'s dtypes and the narrow ``F8_E8M0`` and packed ``F4``."""
+
+    def __init__(self, path: str):
+        self.path = path
+        with open(path, "rb") as f:
+            self._entries, self._base = _header(path, f, os.fstat(f.fileno()).st_size,
+                                                narrow=True)
+
+    def keys(self):
+        return self._entries.keys()
+
+    def shape(self, name: str) -> tuple:
+        """The header's shape (no data read): a packed-F4 tensor's is its
+        logical one, two values a stored byte."""
+        return tuple(self._entries[name][1])
+
+    def stored_dtype(self, name: str) -> str:
+        return self._entries[name][0]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._entries
+
+    def read(self, name: str) -> torch.Tensor:
+        """The tensor's stored bits as a new CPU tensor: of its dtype for
+        ``load_file``'s dtypes, the uint8 codes for ``F8_E8M0``, the packed
+        uint8 bytes [..., n / 2] for ``F4``."""
+        dtype, shape, begin, end = self._entries[name]
+        buf = torch.empty(end - begin, dtype=torch.uint8)
+        with open(self.path, "rb") as f:
+            f.seek(self._base + begin)
+            got = f.readinto(buf.numpy())
+        if got != end - begin:
+            raise ValueError(f"{self.path}: tensor {name!r} is cut short ({got} of "
+                             f"{end - begin} bytes)")
+        if dtype in F4_DTYPES:
+            return buf.reshape(*shape[:-1], shape[-1] // 2)
+        if dtype == E8M0:
+            return buf.reshape(shape)
+        return buf.view(SAFETENSORS_DTYPES[dtype]).reshape(shape)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        """The tensor's values: ``read`` for ``load_file``'s dtypes, f32 for
+        ``F8_E8M0`` and packed ``F4`` (exact; the logical shape)."""
+        raw, dtype = self.read(name), self.stored_dtype(name)
+        if dtype in F4_DTYPES:
+            return quant.unpack_fp4(raw, torch.float32)
+        if dtype == E8M0:
+            return quant.e8m0_to_float(raw)
+        return raw
+
+    def read_f4_packed(self, name: str):
+        """The packed bytes [..., n / 2] uint8 of an ``F4`` tensor, or None
+        when it is stored otherwise (test fixtures hold E2M1 values in an
+        E4M3 container)."""
+        return self.read(name) if self.stored_dtype(name) in F4_DTYPES else None
+
+
+def read_safetensors_raw(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a file by its values (``SafetensorsReader[name]``),
+    for tests and tools; loaders read a tensor at a time instead."""
+    r = SafetensorsReader(path)
+    return {k: r[k] for k in r.keys()}
 
 
 def load_state_dict(model_path: str) -> Dict[str, object]:

@@ -30,12 +30,14 @@ from pegainfer_tpu.engine.jax_executor import JaxExecutor
 from pegainfer_tpu.engine.scheduler import start_scheduler as j_start_scheduler
 from pegainfer_tpu.models import dsv4 as jdsv4
 from pegainfer_tpu.models import dsv4_engine as jengine
+from pegainfer_tpu.ops import quant as jquant
 from pegainfer_tpu_torch.engine import contract as tc
 from pegainfer_tpu_torch.engine import executor as tx
 from pegainfer_tpu_torch.engine.scheduler import Scheduler
 from pegainfer_tpu_torch.engine.slot_executor import SlotExecutor
 from pegainfer_tpu_torch.models import dsv4 as tdsv4
 from pegainfer_tpu_torch.models import dsv4_engine as tengine
+from pegainfer_tpu_torch.ops import quant as tquant
 
 LOGIT_TOL = dict(rtol=0, atol=2e-2)
 CACHE_TOL = dict(rtol=0, atol=1e-2)
@@ -309,19 +311,43 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         tengine.start_engine_from_params(tcfg, tparams, tc.EngineLoadOptions())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tengine.start_engine("/nonexistent/model")
-    with pytest.raises(NotImplementedError, match="checkpoint loader"):
+    # on the CPU the checkpoint loader runs, and stops at the missing config
+    with pytest.raises(FileNotFoundError, match="config.json"):
         tengine.start_engine("/nonexistent/model", device="cpu")
+
+
+def _jax_bf16_greedy(jcfg, jparams):
+    """The JAX engine on the tree its ``quantize="bf16"`` load gives: every
+    container dequantized (here to the tree's f32)."""
+    deq = jax.tree.map(
+        lambda w: jquant.dequant_any(w, jnp.float32) if jquant.is_quantized(w) else w,
+        jparams, is_leaf=jquant.is_quantized)
+    rt = jengine.make_runtime(jcfg, deq, max_model_len=64, max_slots=2)
+    jhandle = j_start_scheduler(JaxExecutor(rt, jc.EngineLoadOptions(precompile=False)))
+    try:
+        return _collect(jc, jhandle, _greedy_prompts(), max_tokens=8)
+    finally:
+        jhandle.shutdown()
 
 
 @pytest.mark.parametrize("option", [dict(quantize="bf16"), dict(decode_block=4)])
 def test_unsupported_options_raise(option, jax_greedy):
-    """bf16 weights raise; ``decode_block=4``, refused before decode blocks
-    were ported, serves the JAX engine's greedy streams (its default)."""
-    _, tcfg, _, tparams = _models("tiny")
+    """Options the engine refused before they were ported now serve the JAX
+    engine's greedy streams: ``quantize="bf16"`` (the containers
+    dequantized at start, against the JAX engine on the dequantized tree)
+    and ``decode_block=4`` (its default)."""
+    jcfg, tcfg, jparams, tparams = _models("tiny")
     if "quantize" in option:
-        with pytest.raises(NotImplementedError, match="DeepSeek-V4 engine"):
-            tengine.start_engine_from_params(tcfg, tparams, tc.EngineLoadOptions(**option),
-                                             device="cpu")
+        handle = tengine.start_engine_from_params(
+            tcfg, tparams, tc.EngineLoadOptions(max_batch_size=2, max_model_len=64, **option),
+            device="cpu")
+        params = handle._scheduler.executor.params
+        try:
+            out = _collect(tc, handle, _greedy_prompts(), max_tokens=8)
+        finally:
+            handle.shutdown()
+        assert not any(tquant.is_quantized(w) for lw in params["layers"] for w in lw.values())
+        assert [o[0] for o in out] == [r[0] for r in _jax_bf16_greedy(jcfg, jparams)]
         return
     handle = tengine.start_engine_from_params(
         tcfg, tparams, tc.EngineLoadOptions(max_batch_size=2, max_model_len=64, **option),
@@ -379,10 +405,17 @@ def test_cache_and_chunk_options_serve(option):
 
 
 def test_unported_expert_formats_raise():
-    _, tcfg, _, _ = _models("tiny")
+    """Plain expert stacks (the bf16 mode) are served; a layer that mixes
+    formats raises."""
+    _, tcfg, _, tparams = _models("tiny")
     plain = tdsv4.init_random_params(tcfg, seed=1, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="packed-fp4 or int8"):
-        tdsv4.prefill(tcfg, plain, torch.arange(2, 12, dtype=torch.int32))
+    tokens = torch.arange(2, 12, dtype=torch.int32)
+    logits, _ = tdsv4.prefill(tcfg, plain, tokens)
+    assert logits.shape == (10, tcfg.vocab_size) and bool(torch.isfinite(logits).all())
+    mixed = {**plain, "layers": [dict(lw) for lw in plain["layers"]]}
+    mixed["layers"][1]["experts_w2"] = tparams["layers"][1]["experts_w2"]
+    with pytest.raises(NotImplementedError, match="mix formats"):
+        tdsv4.prefill(tcfg, mixed, tokens)
 
 
 def test_echo_request_ends_in_error_not_silently():

@@ -1054,8 +1054,8 @@ def _dsv4_graph_cfg():
 
 @pytest.fixture(scope="module")
 def dsv4_graph_models():
-    """{"fp4": resident params, "int8": their experts requantized} on the
-    card."""
+    """{"fp4": resident params, "int8": their experts requantized, "bf16":
+    every container dequantized (the bf16 mode)} on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from pegainfer_tpu_torch.models import dsv4 as d4
@@ -1065,7 +1065,9 @@ def dsv4_graph_models():
                                          "cuda")
     int8 = {**fp4, "layers": [dict(lw) for lw in fp4["layers"]]}
     d4.requantize_experts_int8(int8)
-    return {"fp4": fp4, "int8": int8}
+    bf16 = {**fp4, "layers": [dict(lw) for lw in fp4["layers"]]}
+    d4.dequantize_params(bf16, torch.bfloat16)
+    return {"fp4": fp4, "int8": int8, "bf16": bf16}
 
 
 def _dsv4_graph_state(slots=2):
@@ -1102,19 +1104,20 @@ def _dsv4_batch(B, slots, step):
 DSV4_GRAPH_CASES = [("fp4", False, {"fp4_gemv": 9, "fp8_gemv": 22}),
                     ("fp4", True, {"fp4_chain": 3, "fp8_gemv": 22}),
                     ("int8", None, {"int8_chain": 3, "fp8_gemv": 22}),
-                    ("int8", False, {"int8_gemv": 9, "fp8_gemv": 22})]
+                    ("int8", False, {"int8_gemv": 9, "fp8_gemv": 22}),
+                    ("bf16", None, {})]
 
 
 @pytest.mark.parametrize("B", [1, 2])
 @pytest.mark.parametrize("experts,moe_chain,per_step", DSV4_GRAPH_CASES,
-                         ids=["fp4-K3", "fp4-K9", "int8-K8", "int8-K6"])
+                         ids=["fp4-K3", "fp4-K9", "int8-K8", "int8-K6", "bf16-gathers"])
 def test_dsv4_graphed_decode_step_equals_the_eager_step(dsv4_graph_models, experts, moe_chain,
                                                         per_step, B):
     """Three steps at B (the later two replays): logits and the live slots'
     rows equal the eager step's bit for bit (the cooperative launches of K8
-    and K9 are captured), and each replay counts the step's launches (K3 /
-    K6 3 a layer, K8 / K9 one, K4 7 a layer and idx_wq_b on the ratio-4
-    layer)."""
+    and K9 are captured, and the bf16 mode's expert gathers), and each
+    replay counts the step's launches (K3 / K6 3 a layer, K8 / K9 one, K4 7
+    a layer and idx_wq_b on the ratio-4 layer; none in bf16)."""
     from functools import partial
 
     from pegainfer_tpu_torch.engine.decode_graphs import DecodeGraphs, dsv4
