@@ -159,7 +159,8 @@ the block phases:
     the blocking text; finish "length", ``data: [DONE]`` last) and on the
     handle, each after the prefix cache is emptied (a miss, as the first),
     and blocking again (its wall beside the handle's), then streamed again
-    (a hit: its tokens against the miss's reported), an
+    (a hit: its tokens against the miss's, and its first logits against
+    the miss's by rule 7, reported), an
     echo request with logprobs (its prompt logprobs equal a
     handle-submitted echo request's), a stop string that
     cuts the text, two concurrent streams HTTP_PAIR (their tokens against
@@ -374,6 +375,35 @@ are freed:
     in bf16 (no K3 / K4 / K5 launch) with their ids' agreement with [27b]'s
     (reported) and the warm steady TPOT beside [27b]'s fp4 one.
 
+DeepSeek-V2-Lite at its published config (27 layers, the first dense, 64
+routed experts top-6 and 2 shared, MLA with kv_lora_rank 512; full width
+and depth), random bf16 weights made on the card from the seed (31.4 GB),
+after every DSv4 tree is freed; no K1-K9 kernel is on its path (torch ops,
+as the JAX package leaves the family to XLA):
+
+28a. ``dsv2lite.start_engine_from_params`` under the JAX defaults (decode
+    graphs and blocks, 2 slots, 4,096 latent rows a slot): 1024/256 twice
+    (the second warm: TTFT, the JAX bench's steady TPOT and the p50 over
+    16-token windows), then 1024/32 twice at once (B 2); an eager engine
+    (``enable_cuda_graph=False``) serves 1024/32 and the pair, whose ids
+    must equal the graphed ones bit for bit; the K1-K9 launches must be 0;
+    captures, pool, latent state and peak device bytes;
+28b. the MLA identity: one ``prefill(return_all_logits=True)`` over the
+    prompt and the first DSV2_CHECK_IDS generated ids (materialized K/V,
+    grouped experts): each row's argmax must be the next generated id
+    (absorbed MLA over the latent cache, gathered experts), unless that
+    id's logit lies within rule 7's limit of the row's max;
+28c. one full-width MoE layer's gathered decode form (B 1, 2) and grouped
+    form (T 16) against ``_moe_dense`` (all 64 experts in f32), each row
+    to its limit (DSV2_GATHERED_ROW_RTOL, DSV2_GROUPED_ROW_RTOL), the
+    allocator's free memory NaN-filled first;
+28d. the dense layer 0 and one MoE layer at full width written by the
+    smoke's writer as an HF checkpoint (config.json, model.safetensors):
+    ``start_engine(path)``'s tree bit for bit against the cut, the load's
+    GB/s and RSS, its ids (64/16, 16/4) equal to an in-memory engine's on
+    the cut, then the CLI's ``build_engine`` behind ``OpenAIApp`` +
+    ``httpd`` (``SimTokenizer``) answering 16/4 with the same ids.
+
 The last lines are the kernels' JSON record (the weight streams, the S3 /
 S4 kernels, K1-K9 and K6 at one expert, ``int8_gemv_dense``, with [8g]'s
 and [25b]'s sweeps under ``shapes`` and ``steps``; with the read
@@ -386,7 +416,8 @@ records under ``qwen35``, 13a-13b's under ``dsv4_cache``, 8e's, 25a's and
 13c's under ``pd``; the graphed paths' launches as
 ``launches_graphed_path``, the hybrid's as ``launches_qwen35_graphed_path``,
 [26c]'s as ``launches_http_path``, [26]'s record under ``serving``'s ``http``,
-[27b]'s as ``launches_mp8_path`` and [27]'s record under ``dsv4_mp8``;
+[27b]'s as ``launches_mp8_path`` and [27]'s record under ``dsv4_mp8``,
+[28]'s under ``dsv2lite``;
 25g's, 13g's and 18g's records under each family's ``graphs``), the card
 line from nvidia-smi and
 ``{"ok": true, "device": {...}}``.
@@ -878,6 +909,10 @@ def main() -> int:
         mp8["bf16"] = run_mp8_bf16(cfg, mp8_dir, mp8)
     finally:
         shutil.rmtree(mp8_dir, ignore_errors=True)
+    # DeepSeek-V2-Lite, once every DSv4 tree is gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    dsv2 = run_dsv2lite()
     dense = dense_record(q_serving["int8"], h_serving["int8"])
     # [8j]'s graphed paths: K1 / K2 in bf16, K6 at one expert in int8; the
     # hybrid's ([25g]) likewise
@@ -926,7 +961,7 @@ def main() -> int:
                              "dsv4": dsv4_pd},
                       "dsv4_fp4_chain": {"serving": chain_serving},
                       "dsv4_int8": {"serving": i_serving, "steps": i_steps},
-                      "dsv4_mp8": mp8}))
+                      "dsv4_mp8": mp8, "dsv2lite": dsv2}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1429,10 +1464,11 @@ def run_qwen3(ceiling):
     return records, serving, steps_json(steps)
 
 
-def check_logits(lk, lp, rtol, message):
-    """max |diff| <= rtol x max |logit| of the plain run, and the argmax
-    agrees unless the plain run's top-2 gap is below the diff. Returns the
-    diff's share of that limit."""
+def logits_rule(lk, lp, rtol):
+    """Rule 7's figures for logits ``lk`` against ``lp``: max |diff|, the
+    limit rtol x max |lp|, the share, the argmax agreement and lp's top-2
+    gap; ``ok``: the diff within the limit, and the argmax equal unless the
+    gap is below the diff."""
     diff = (lk - lp).abs().max().item()
     scale = lp.abs().max().item()
     top2 = torch.topk(lp, 2).values
@@ -1441,9 +1477,19 @@ def check_logits(lk, lp, rtol, message):
     log(f"  max |diff| {diff:.4e}, max |logit| {scale:.4e}, tolerance "
         f"{rtol} x max |logit| = {rtol * scale:.4e} ({diff / (rtol * scale):.3f} of it); "
         f"argmax agrees: {argmax_same} (plain top-2 gap {gap:.4e})")
-    if diff > rtol * scale or (not argmax_same and gap > diff):
+    return {"max_diff": diff, "max_logit": scale, "limit": rtol * scale,
+            "share": diff / (rtol * scale), "argmax_same": argmax_same, "top2_gap": gap,
+            "ok": diff <= rtol * scale and (argmax_same or gap <= diff)}
+
+
+def check_logits(lk, lp, rtol, message):
+    """max |diff| <= rtol x max |logit| of the plain run, and the argmax
+    agrees unless the plain run's top-2 gap is below the diff. Returns the
+    diff's share of that limit."""
+    rule = logits_rule(lk, lp, rtol)
+    if not rule["ok"]:
         raise SystemExit(message)
-    return diff / (rtol * scale)
+    return rule["share"]
 
 
 def log_steps(steps):
@@ -3365,6 +3411,14 @@ def run_http(cfg, q3e, params, contract, kernels, main_prompt, want_main):
     handle = q3e.start_engine_from_params(cfg, shallow_tree(params), opts, device="cuda")
     start_s = time.perf_counter() - t
     ex = handle._scheduler.executor
+    firsts = []  # each prompt's last logits, in the order prefilled
+    first_token = ex._first_token
+
+    def logged_first(item, last_logits):
+        firsts.append(last_logits.clone())
+        return first_token(item, last_logits)
+
+    ex._first_token = logged_first
     app = OpenAIApp(handle, SimTokenizer(vocab_size=cfg.vocab_size), "Qwen3-4B").build()
     server = httpd.serve(app, "127.0.0.1", 0, threads=max(64, opts.max_batch_size))
     port = server.port
@@ -3392,7 +3446,9 @@ def run_http(cfg, q3e, params, contract, kernels, main_prompt, want_main):
             mod.launches = 0
         ex.prefills = ex.chunk_pieces = ex.mixed_pieces = ex.decode_steps = ex.decode_blocks = 0
         # the main request, blocking: a miss, prefilled whole
+        n_miss = len(firsts)
         status, _, blocking, wall_miss = http_call(port, "POST", "/v1/completions", body)
+        miss_logits = firsts[n_miss]
         count(PROMPT, OUT)
         ch = blocking["choices"][0]
         ids, lps = text_ids(ch["text"]), ch["logprobs"]["token_logprobs"]
@@ -3431,6 +3487,7 @@ def run_http(cfg, q3e, params, contract, kernels, main_prompt, want_main):
         if status != 200 or again["choices"][0]["text"] != ch["text"]:
             raise SystemExit("[26c] the repeated blocking request gave other tokens")
         # streamed again: a prefix-cache hit (reported against the miss)
+        n_hit = len(firsts)
         status, events, _, _ = http_stream(port, body)
         count(PROMPT)
         hit_text = stream_text("[26c] stream (hit)", status, events)
@@ -3439,7 +3496,10 @@ def run_http(cfg, q3e, params, contract, kernels, main_prompt, want_main):
         log(f"  streamed again (a hit, {ex.prefix_cache.hits} so far): tokens equal the miss's: "
             f"{hit_ids == want_main}" + ("" if first_diff is None else
                                          f", first differing at token {first_diff}")
-            + " (reported, not gated)")
+            + " (reported, not gated); the hit's first logits against the miss's, rule 7 "
+            "(reported):")
+        hit_rule = logits_rule(firsts[n_hit], miss_logits, LOGITS_RTOL)
+        log(f"  within rule 7: {hit_rule['ok']}")
         # echo with logprobs, against the same request on the handle
         echo_body = {**body, "max_tokens": HTTP_ECHO_OUT, "echo": True}
         status, _, echo, _ = http_call(port, "POST", "/v1/completions", echo_body)
@@ -3541,6 +3601,7 @@ def run_http(cfg, q3e, params, contract, kernels, main_prompt, want_main):
                    "wall_ms": (times_h[-1] - t0_h) * 1e3},
         "launches": launches, **counts, "concurrent_equal_b1": pair_equal,
         "hit_equal_miss": hit_ids == want_main, "hit_first_difference": first_diff,
+        "hit_first_logits": hit_rule,
         "requests": sent})
     h, c = rec["http"], rec["handle"]
     log(f"  {PROMPT}/{OUT} (misses), at the client over HTTP vs on the handle: "
@@ -6296,6 +6357,414 @@ def run_mp8_bf16(cfg, d, mp8):
            "launches": launches, "phase_s": time.perf_counter() - t_phase, "card": card_line()}
     log(f"  [27c] took {rec['phase_s']:.1f} s")
     return rec
+
+
+# ── phase 28: DeepSeek-V2-Lite at full width and depth ────────────────
+
+# the published DeepSeek-V2-Lite config.json (deepseek-ai/DeepSeek-V2-Lite)
+DSV2_CONFIG = dict(vocab_size=102400, hidden_size=2048, intermediate_size=10944,
+                   moe_intermediate_size=1408, num_hidden_layers=27, first_k_dense_replace=1,
+                   num_attention_heads=16, kv_lora_rank=512, qk_nope_head_dim=128,
+                   qk_rope_head_dim=64, v_head_dim=128, n_routed_experts=64,
+                   n_shared_experts=2, num_experts_per_token=6, routed_scaling_factor=1.0,
+                   norm_topk_prob=False, rms_norm_eps=1e-6, rope_theta=10000.0,
+                   max_position_embeddings=163840, eos_token_id=100001, bos_token_id=100000)
+DSV2_SLOTS = 2
+DSV2_MAIN = (1024, 256)  # [28a]: graphed, twice (the second warm)
+DSV2_EAGER_OUT = 32  # [28a]: 1024/32 at B 1 and B 2, graphed and eager
+DSV2_CHECK_IDS = 64  # [28b]: the prompt and this many generated ids in one prefill
+DSV2_MOE_ROWS = (1, 2, 16)  # [28c]: the decode form at B 1 and 2, the grouped form at T 16
+# [28c]'s limits, each row to a share of its max |ref| (_moe_dense, f32):
+# the gathered decode form forms the same exact f32 products of bf16 values
+# (bf16 rows, an f32 activation split exactly into three bf16 parts) and
+# only sums them in another order, as K6 against its plain version
+DSV2_GATHERED_ROW_RTOL = 1e-5
+# the grouped form also rounds the activation to bf16 before w2: each term
+# moves by at most 2^-9 of itself, about 2^-9 of the row's size over
+# random signs; 5x that
+DSV2_GROUPED_ROW_RTOL = 1e-2
+DSV2_CKPT_LAYERS = 2  # [28d]: the dense layer 0 and one MoE layer
+DSV2_CKPT_REQUESTS = ((64, 16), (16, 4))  # [28d]; the second also over HTTP
+
+
+def dsv2_config(v2, layers=None):
+    cfg = dict(DSV2_CONFIG)
+    if layers is not None:
+        cfg["num_hidden_layers"] = layers
+    return v2.DSv2LiteConfig(**cfg)
+
+
+def all_kernels():
+    """Every K1-K9 wrapper module by its record name."""
+    from pegainfer_tpu_torch.ops.cuda import (flash_prefill, fp4_chain, fp4_gemv, fp4_grouped,
+                                              fp8_gemv, int8_chain, int8_gemv, int8_grouped,
+                                              paged_decode)
+
+    return {"paged_decode": paged_decode, "flash_prefill": flash_prefill,
+            "moe_fp4_gemv": fp4_gemv, "fp8_gemv": fp8_gemv, "moe_fp4_grouped": fp4_grouped,
+            "moe_int8_gemv": int8_gemv, "moe_int8_grouped": int8_grouped,
+            "moe_int8_chain": int8_chain, "moe_fp4_chain": fp4_chain}
+
+
+def window_tpot(times, k=2, w=16):
+    """The p50 over windows of ``w`` tokens of the time a token, from the
+    (k + 1)-th token (a decode block delivers its tokens at once, so the
+    gaps between single tokens are no step time)."""
+    wins = [(times[i + w] - times[i]) * 1e3 / w for i in range(k, len(times) - w)]
+    return statistics.median(wins) if wins else None
+
+
+def run_dsv2lite():
+    """Phase 28: DeepSeek-V2-Lite at the published config (27 layers, full
+    width), random bf16 weights made on the card from the seed. Returns the
+    record."""
+    from pegainfer_tpu_torch.engine import contract
+    from pegainfer_tpu_torch.models import dsv2lite as v2
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = dsv2_config(v2)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("[28] TF32 is on: the f32 products would round their inputs")
+    log(f"[28] DeepSeek-V2-Lite at its published config ({cfg.num_hidden_layers} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.n_routed_experts} experts top-{cfg.num_experts_per_token} + "
+        f"{cfg.n_shared_experts} shared), random bf16 weights made on the card; card: {card}")
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    params = v2.init_random_device(cfg, torch.Generator("cuda").manual_seed(SEED + 28), "cuda")
+    torch.cuda.synchronize()
+    nbytes = v2.params_bytes(params)
+    rec = {"card": card, "params_bytes": nbytes, "init_s": time.perf_counter() - t}
+    log(f"  weights: {nbytes / 1e9:.3f} GB of params in {rec['init_s']:.2f} s "
+        f"({(torch.cuda.memory_allocated() - before) / 1e9:.3f} GB allocated)")
+    rng = np.random.default_rng(SEED + 28)
+    prompt = rng.integers(0, cfg.vocab_size, DSV2_MAIN[0]).tolist()
+    second = rng.integers(0, cfg.vocab_size, DSV2_MAIN[0]).tolist()
+    kernels = all_kernels()
+    rec["serving"], main_ids = dsv2_serve(v2, contract, cfg, params, prompt, second, kernels,
+                                          card)
+    gc.collect()
+    rec["identity"] = dsv2_identity(v2, cfg, params, prompt, main_ids)
+    rec["moe_forms"] = dsv2_moe_forms(v2, cfg, params)
+    gc.collect()
+    d = tempfile.mkdtemp(prefix="pegainfer-dsv2lite-")
+    try:
+        rec["checkpoint"] = dsv2_checkpoint(v2, contract, cfg, params, d, kernels)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  [28] took {rec['phase_s']:.1f} s ({card})")
+    return rec
+
+
+def dsv2_serve(v2, contract, cfg, params, prompt, second, kernels, card):
+    """[28a]: the engine under the JAX defaults (graphed decode, blocks)
+    serves 1024/256 twice (the second warm) and the pair 1024/32 x 2 at once
+    (B 2); an eager engine (``enable_cuda_graph=False``) serves 1024/32 and
+    the pair, whose ids must equal the graphed ones; no K1-K9 launch.
+    Returns (the record, the main request's ids)."""
+    n_in, n_out = DSV2_MAIN
+    pair = [(prompt, DSV2_EAGER_OUT), (second, DSV2_EAGER_OUT)]
+    log(f"[28a] serving under the JAX defaults (graphed decode, decode blocks, "
+        f"{DSV2_SLOTS} slots): {n_in}/{n_out} twice, then {n_in}/{DSV2_EAGER_OUT} x 2 at once "
+        f"(B 2); then an eager engine; card: {card}")
+    runs = {}
+    for mode, extra in (("graphed", {}), ("eager", EAGER)):
+        for mod in kernels.values():
+            mod.launches = 0
+        alloc0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        opts = contract.EngineLoadOptions(max_batch_size=DSV2_SLOTS, seed=SEED, **extra)
+        handle = v2.start_engine_from_params(cfg, params, opts, device="cuda")
+        ex = handle._scheduler.executor
+        state_bytes = sum(v.numel() * v.element_size() for v in ex.state.values())
+        out = {}
+        try:
+            if mode == "graphed":
+                main = []
+                for i in range(2):
+                    ch, t0 = run_request(contract, handle, prompt, n_out)
+                    toks, fin, times = drain(contract, ch)
+                    expect_finished(contract, f"{mode} {n_in}/{n_out} ({'cold' if i == 0 else 'warm'})",
+                                    toks, fin, n_out)
+                    k = min(2, len(times) - 2)
+                    main.append((toks, {"ttft_ms": (times[0] - t0) * 1e3,
+                                        "steady_tpot_ms": (times[-1] - times[k]) * 1e3
+                                        / (len(times) - 1 - k),
+                                        "tpot_p50_ms": window_tpot(times),
+                                        "wall_s": times[-1] - t0}))
+                if main[1][0] != main[0][0]:
+                    raise SystemExit("[28a] the repeated main request gave other ids")
+                out["main_ids"], out["cold"], out["warm"] = main[0][0], main[0][1], main[1][1]
+                one = main[0][0][:DSV2_EAGER_OUT]
+            else:
+                one = greedy_tokens(contract, handle, prompt, DSV2_EAGER_OUT)
+            t = time.perf_counter()
+            chans = submit_together(contract, handle, pair)
+            got = []
+            for ch, n, m in chans:
+                toks, fin, _ = drain(contract, ch)
+                expect_finished(contract, f"{mode} {n}/{m} (B 2)", toks, fin, m)
+                got.append(toks)
+            out["pair_wall_s"] = time.perf_counter() - t
+            out["one"], out["pair"] = one, got
+            out["launches"] = {name: mod.launches for name, mod in kernels.items()}
+            out["prefills"], out["decode_steps"] = ex.prefills, ex.decode_steps
+            out["captures"] = ex.graph_captures
+            out["capture_s"] = (sum(c[3] for c in ex._graphs.capture_log)
+                                if ex._graphs is not None else 0.0)
+            out["pool_bytes"] = ex._graphs.pool_bytes if ex._graphs is not None else 0
+            out["state_bytes"] = state_bytes
+            out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+            out["engine_allocated_bytes"] = torch.cuda.memory_allocated() - alloc0
+        finally:
+            handle.shutdown()
+            handle._thread.join(timeout=60)
+        del handle, ex
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[mode] = out
+        log(f"  {mode}: launches {out['launches']} (none may run); {out['prefills']} prefills, "
+            f"{out['decode_steps']} decode steps, {out['captures']} graphs captured in "
+            f"{out['capture_s']:.2f} s ({out['pool_bytes'] / 1e9:.3f} GB of pool); latent "
+            f"state {state_bytes / 1e9:.3f} GB; peak allocated "
+            f"{out['peak_allocated_bytes'] / 1e9:.3f} GB; card: {card}")
+        if any(out["launches"].values()):
+            raise SystemExit(f"[28a] a K1-K9 kernel ran on the DSv2-Lite path ({mode})")
+    g, e = runs["graphed"], runs["eager"]
+    same = g["one"] == e["one"] and g["pair"] == e["pair"]
+    log(f"  graphed ids equal the eager ids, {n_in}/{DSV2_EAGER_OUT} at B 1 and the pair at B 2: "
+        f"{same}")
+    if not same:
+        raise SystemExit("[28a] the graphed engine's ids differ from the eager engine's")
+    w, c = g["warm"], g["cold"]
+    log(f"  {n_in}/{n_out} graphed, warm: TTFT {w['ttft_ms']:.3f} ms, steady TPOT "
+        f"{w['steady_tpot_ms']:.3f} ms (the JAX bench's), TPOT p50 over 16-token windows "
+        f"{w['tpot_p50_ms']:.3f} ms; cold (first-use captures): TTFT {c['ttft_ms']:.3f} ms, "
+        f"steady TPOT {c['steady_tpot_ms']:.3f} ms; the pair at B 2 in {g['pair_wall_s']:.3f} s "
+        f"graphed, {e['pair_wall_s']:.3f} s eager; params {v2.params_bytes(params) / 1e9:.3f} GB; "
+        f"card: {card}")
+    main_ids = g.pop("main_ids")
+    for r in runs.values():
+        r.pop("one")
+        r.pop("pair")
+    return {"graphed": g, "eager": e, "ids_equal": True, "card": card}, main_ids
+
+
+def dsv2_identity(v2, cfg, params, prompt, main_ids):
+    """[28b]: one prefill with every row's logits over the prompt and the
+    first DSV2_CHECK_IDS generated ids: each position's argmax must be the
+    next generated id, unless that id's logit lies within rule 7's limit
+    (LOGITS_RTOL x the row's max |logit|) of the row's max. The decode that
+    made the ids ran the absorbed MLA over the latent cache and the
+    gathered experts; this prefill materializes K/V and runs them
+    grouped."""
+    n = DSV2_CHECK_IDS
+    log(f"[28b] the MLA identity at full width: prefill(return_all_logits=True) over "
+        f"{len(prompt)} + {n} tokens against the decode's first {n} ids; card: {card_line()}")
+    toks = torch.tensor(prompt + main_ids[:n - 1], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        _, every = v2.prefill(cfg, params, toks, return_all_logits=True)
+        rows = every[len(prompt) - 1:]  # row i predicts generated id i
+        want = torch.tensor(main_ids[:n], device="cuda")
+        if not (bool(torch.isfinite(rows).all()) and rows.shape == (n, cfg.vocab_size)):
+            raise SystemExit("[28b] the prefill logits are not finite [n, V]")
+        top = rows.max(dim=-1).values
+        behind = top - rows.gather(1, want[:, None].long())[:, 0]  # 0 where the id is the argmax
+        limit = LOGITS_RTOL * rows.abs().max(dim=-1).values
+        top2 = torch.topk(rows, 2).values
+        gap = top2[:, 0] - top2[:, 1]
+    differ = int((behind > 0).sum())
+    worst = float((behind / limit).max())
+    log(f"  {differ} of {n} positions have another argmax than the decode's id; the largest "
+        f"lag of the decode's id behind the row's max is {worst:.3f} of the limit "
+        f"({LOGITS_RTOL} x max |logit|, {float(limit.mean()):.4e} on average); top-2 gaps: "
+        f"min {float(gap.min()):.4e}, median {float(gap.median()):.4e}")
+    if worst > 1.0:
+        raise SystemExit("[28b] a prefill row's argmax disagrees with the decode's id beyond "
+                         "the limit")
+    return {"positions": n, "argmax_differs": differ, "worst_share_of_limit": worst,
+            "min_top2_gap": float(gap.min())}
+
+
+def _nan_pool(nbytes):
+    """Leave ``nbytes`` of NaN-filled memory in the caching allocator's
+    free blocks, so that a form's outputs and scratch start as NaN."""
+    junk = torch.full((nbytes // 4,), float("nan"), device="cuda")
+    del junk
+
+
+def dsv2_moe_forms(v2, cfg, params):
+    """[28c]: one full-width MoE layer (the first) at the rows of decode (B
+    1, 2: the gathered form) and of a short prefill (T 16: the grouped
+    form), each row against ``_moe_dense`` (every expert in f32) to its
+    limit, the allocator's free memory NaN-filled first. Returns the
+    record."""
+    log(f"[28c] one full-width MoE layer's routed forms against _moe_dense at T "
+        f"{list(DSV2_MOE_ROWS)}; card: {card_line()}")
+    mw = {k: v[0] for k, v in params["moe"].items()}
+    gen = torch.Generator("cuda").manual_seed(SEED + 281)
+    h = torch.randn((max(DSV2_MOE_ROWS), cfg.hidden_size), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    out = {}
+    with torch.no_grad():
+        for T in DSV2_MOE_ROWS:
+            idx, wts = v2._route(cfg, mw["gate_w"], h[:T])
+            ref = v2._moe_dense(cfg, mw, h[:T], idx, wts)
+            form = "grouped" if T >= v2.PREFILL_MOE_TOKENS else "gathered"
+            rtol = DSV2_GROUPED_ROW_RTOL if form == "grouped" else DSV2_GATHERED_ROW_RTOL
+            _nan_pool(1 << 30)
+            got = getattr(v2, f"_moe_{form}")(cfg, mw, h[:T], idx, wts)
+            err = ((got - ref).abs().amax(dim=-1) / ref.abs().amax(dim=-1)).max().item()
+            finite = bool(torch.isfinite(got).all())
+            out[f"T{T}"] = {"form": form, "row_err": err, "rtol": rtol,
+                            "experts": int(idx.unique().numel())}
+            log(f"  T {T} ({form}, {out[f'T{T}']['experts']} distinct experts): worst row "
+                f"{err:.3e} of its max |ref| (limit {rtol}); finite: {finite}")
+            if not finite or err > rtol:
+                raise SystemExit(f"[28c] the {form} form at T {T} disagrees with _moe_dense")
+    return out
+
+
+def dsv2_hf_state_dict(cfg, params, layers):
+    """The first ``layers`` layers of the tree in HF names and layouts
+    ([out, in] projections, expert rows as stored), on the card."""
+    Ld = cfg.first_k_dense_replace
+    a, dn, m = params["attn"], params["dense"], params["moe"]
+    sd = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_ln"],
+          "lm_head.weight": params["lm_head"].T}
+    names = {"input_ln": "input_layernorm", "post_ln": "post_attention_layernorm",
+             "wq": "self_attn.q_proj", "kv_a": "self_attn.kv_a_proj_with_mqa",
+             "kv_a_norm": "self_attn.kv_a_layernorm", "kv_b": "self_attn.kv_b_proj",
+             "wo": "self_attn.o_proj"}
+    for i in range(layers):
+        pre = f"model.layers.{i}."
+        for key, hf in names.items():
+            w = a[key][i]
+            sd[pre + hf + ".weight"] = w.T if w.dim() == 2 else w
+        if i < Ld:
+            for key, hf in (("gate", "gate_proj"), ("up", "up_proj"), ("down", "down_proj")):
+                sd[pre + f"mlp.{hf}.weight"] = dn[key][i].T
+            continue
+        j = i - Ld
+        sd[pre + "mlp.gate.weight"] = m["gate_w"][j].T
+        for key, hf in (("shared_gate", "gate_proj"), ("shared_up", "up_proj"),
+                        ("shared_down", "down_proj")):
+            sd[pre + f"mlp.shared_experts.{hf}.weight"] = m[key][j].T
+        for key, hf in (("experts_w1", "gate_proj"), ("experts_w3", "up_proj"),
+                        ("experts_w2", "down_proj")):
+            for e in range(cfg.n_routed_experts):
+                sd[pre + f"mlp.experts.{e}.{hf}.weight"] = m[key][j, e]
+    return sd
+
+
+def dsv2_config_json(cfg):
+    c = {k: getattr(cfg, k) for k in cfg.__dataclass_fields__}
+    c["num_experts_per_tok"] = c.pop("num_experts_per_token")
+    return {**c, "model_type": "deepseek_v2", "architectures": ["DeepseekV2ForCausalLM"],
+            "q_lora_rank": None, "scoring_func": "softmax", "topk_method": "greedy",
+            "torch_dtype": "bfloat16"}
+
+
+def dsv2_checkpoint(v2, contract, cfg, params, d, kernels):
+    """[28d]: the dense layer 0 and the first MoE layer at full width as an
+    HF checkpoint written by the smoke's writer into ``d``; loaded through
+    ``start_engine(path)`` bit for bit; its ids against an in-memory
+    engine's on the same tensors; then the CLI's ``build_engine`` behind
+    ``OpenAIApp`` + ``httpd`` (``SimTokenizer``) answers the short request
+    with the same ids. Returns the record."""
+    from pegainfer_tpu_torch.server import httpd
+    from pegainfer_tpu_torch.server import main as server_main
+    from pegainfer_tpu_torch.server.api import OpenAIApp
+    from pegainfer_tpu_torch.server.tokenizer import SimTokenizer
+
+    L = DSV2_CKPT_LAYERS
+    cfg2 = dsv2_config(v2, L)
+    log(f"[28d] a {L}-layer cut at full width (the dense layer 0, one MoE layer) as an HF "
+        f"checkpoint, through start_engine(path) and the CLI; card: {card_line()}")
+    sd = dsv2_hf_state_dict(cfg, params, L)
+    need = sum(t.numel() * t.element_size() for t in sd.values())
+    free = shutil.disk_usage(d).free
+    if free < need * 1.05:
+        raise SystemExit(f"[28d] {d} has {free / 1e9:.1f} GB free, the checkpoint needs "
+                         f"{need / 1e9:.2f} GB")
+    t = time.perf_counter()
+    (Path(d) / "config.json").write_text(json.dumps(dsv2_config_json(cfg2)))
+    write_safetensors(str(Path(d) / "model.safetensors"), sd)
+    write_s = time.perf_counter() - t
+    nbytes = os.path.getsize(Path(d) / "model.safetensors")
+    n_tensors = len(sd)
+    log(f"  wrote {n_tensors} tensors, {nbytes / 1e9:.3f} GB in {write_s:.2f} s ({free / 1e9:.1f} "
+        "GB were free)")
+    del sd
+    if v2.DSv2LiteConfig.from_model_path(d) != cfg2 or not v2.probe_model(d):
+        raise SystemExit("[28d] config.json does not read back as the cut config")
+    Ld = cfg.first_k_dense_replace
+    cut = {"embed": params["embed"], "attn": {k: v[:L] for k, v in params["attn"].items()},
+           "dense": params["dense"], "moe": {k: v[:L - Ld] for k, v in params["moe"].items()},
+           "final_ln": params["final_ln"], "lm_head": params["lm_head"]}
+    opts = contract.EngineLoadOptions(max_batch_size=DSV2_SLOTS, seed=SEED)
+    handle, load = timed_load("start_engine(path)", lambda: v2.start_engine(d, opts, device="cuda"),
+                              nbytes)
+    loaded = handle._scheduler.executor.params
+    bad = leaves_differing(loaded, cut)
+    log(f"  the loaded tree against the cut, leaf by leaf: bit for bit {not bad}")
+    if bad:
+        handle.shutdown()
+        raise SystemExit(f"[28d] the loaded leaves differ: {bad[:8]}")
+    del loaded
+    rng = np.random.default_rng(SEED + 282)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n, _ in DSV2_CKPT_REQUESTS]
+    for mod in kernels.values():
+        mod.launches = 0
+
+    def serve(h):
+        try:
+            return [greedy_tokens(contract, h, p, m) for p, (_, m) in zip(prompts,
+                                                                          DSV2_CKPT_REQUESTS)]
+        finally:
+            h.shutdown()
+            h._thread.join(timeout=60)
+
+    disk = serve(handle)
+    mem = serve(v2.start_engine_from_params(cfg2, cut, opts, device="cuda"))
+    log(f"  ids from the path equal the in-memory engine's: {disk == mem}")
+    if disk != mem:
+        raise SystemExit("[28d] the checkpoint engine's ids differ from the in-memory engine's")
+    argv = ["--model-path", d, "--max-batch-size", str(DSV2_SLOTS), "--seed", str(SEED)]
+    t = time.perf_counter()
+    cli = server_main.build_engine(server_main.parse_args(argv), device="cuda")
+    start_s = time.perf_counter() - t
+    try:
+        app = OpenAIApp(cli, SimTokenizer(vocab_size=cfg.vocab_size), "dsv2-lite").build()
+        server = httpd.serve(app, "127.0.0.1", 0, threads=64)
+        try:
+            status, _, body, wall = http_call(server.port, "POST", "/v1/completions", {
+                "prompt": prompts[1], "max_tokens": DSV2_CKPT_REQUESTS[1][1],
+                "ignore_eos": True})
+        finally:
+            server.close()
+    finally:
+        cli.shutdown()
+        cli._thread.join(timeout=60)
+    ids = text_ids(body["choices"][0]["text"]) if status == 200 else None
+    log(f"  the CLI's build_engine up in {start_s:.2f} s; /v1/completions "
+        f"{DSV2_CKPT_REQUESTS[1][0]}/{DSV2_CKPT_REQUESTS[1][1]}: status {status}, ids equal the "
+        f"path's: {ids == disk[1]}; wall {wall * 1e3:.1f} ms")
+    if ids != disk[1]:
+        raise SystemExit(f"[28d] the CLI's engine answered {status} {body}")
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    if any(launches.values()):
+        raise SystemExit(f"[28d] a K1-K9 kernel ran on the DSv2-Lite path: {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": L, "bytes": nbytes, "tensors": n_tensors, "write_s": write_s,
+            "load": load, "tokens_equal": True, "cli": {"engine_start_s": start_s,
+                                                        "status": status, "wall_ms": wall * 1e3}}
+
 
 
 if __name__ == "__main__":

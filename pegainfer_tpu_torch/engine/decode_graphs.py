@@ -1,15 +1,17 @@
-"""The decode step under CUDA graphs, for Qwen3, the Qwen3.5 hybrid and
-DeepSeek-V4: the port's analog of the JAX executor's one compiled decode
-program per shape (``JaxExecutor.precompile``, its bucket ladder) and of the
-modelled system's graph per bucket (``CudaGraphState::run_or_capture``).
+"""The decode step under CUDA graphs, for Qwen3, the Qwen3.5 hybrid,
+DeepSeek-V4 and DeepSeek-V2-Lite: the port's analog of the JAX executor's
+one compiled decode program per shape (``JaxExecutor.precompile``, its
+bucket ladder) and of the modelled system's graph per bucket
+(``CudaGraphState::run_or_capture``).
 
 A ``Family`` says what a model's step takes: its [B] int32 inputs in order,
 each with the value a padding row holds (a padded row's state slot is the
-dead slot, never slot 0: a padding row of the hybrid or DSv4 writes its
-slot's rows), whether a [B, P] page table follows them (padded with null
+dead slot, never slot 0: a padding row of the hybrid or a DeepSeek model
+writes its slot's rows), whether a [B, P] page table follows them (padded with null
 pages), the kernel wrappers the step reaches, and the device state those
 kernels keep (K1's ticket counters, K6's zero expert ids at one expert).
-``QWEN3``, ``hybrid(dead)`` and ``dsv4(dead)`` are the three.
+``QWEN3``, ``hybrid(dead)``, ``dsv4(dead)`` and ``dsv2lite(dead)`` are the
+four.
 
 ``DecodeGraphs`` keeps, per (B, P) (P = 0 without a table), static input
 buffers (all the inputs in one device buffer that one copy fills) and, on
@@ -112,12 +114,24 @@ def hybrid(dead_slot: int) -> Family:
                   QWEN3.counted, True, True)
 
 
+_SLOT_ARGS = ("tokens", "positions", "slots")
+
+
+def _slot_rows(dead_slot: int):
+    return (("tokens", 0), ("positions", 0), ("slots", dead_slot))
+
+
 def dsv4(dead_slot: int) -> Family:
     """DeepSeek-V4's step (``models/dsv4.py::decode``): tokens, positions
     and slots, no table; K3 / K4, K6 and the chains K8 / K9."""
-    return Family((("tokens", 0), ("positions", 0), ("slots", dead_slot)),
-                  ("tokens", "positions", "slots"),
+    return Family(_slot_rows(dead_slot), _SLOT_ARGS,
                   (fp4_gemv, fp8_gemv, int8_gemv, int8_chain, fp4_chain), False, False)
+
+
+def dsv2lite(dead_slot: int) -> Family:
+    """DeepSeek-V2-Lite's step (``models/dsv2lite.py::decode``): DSv4's
+    inputs, and no counted kernel (its step is torch ops)."""
+    return Family(_slot_rows(dead_slot), _SLOT_ARGS, (), False, False)
 
 
 def _up(n: int) -> int:

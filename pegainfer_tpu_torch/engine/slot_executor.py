@@ -1,34 +1,41 @@
-"""Slot executor: the ModelExecutor for a page-less model (DeepSeek-V4).
+"""Slot executor: the ModelExecutor for a page-less model (DeepSeek-V4,
+DeepSeek-V2-Lite).
 
 The port's counterpart of what ``pegainfer_tpu/engine/jax_executor.py`` does
-for the DSv4 runtime (``models/dsv4_engine.py::make_runtime``). DSv4 keeps
-no paged KV: each request owns a decode slot (window ring, compressed rows,
-pending projection rings), so the page accounting degenerates to page size
-1 with a budget of ``max_model_len * max_slots + 2`` pages, and admission
-is bound by the slots, which the scheduler gates on ``free_slots()``.
+for the slot runtimes (``models/dsv4_engine.py::make_runtime``,
+``models/dsv2lite.py::make_runtime``). These families keep no paged KV:
+each request owns a decode slot (DSv4: window ring, compressed rows,
+pending projection rings; DSv2-Lite: its latent cache rows), so the page
+accounting degenerates to page size 1 with a budget of ``max_model_len *
+max_slots + 2`` pages, and admission is bound by the slots, which the
+scheduler gates on ``free_slots()``.
 
-Whole-prompt prefill writes the request's slot in place; a decode step runs
-the active requests with the batch padded to its bucket by dead-slot rows
-at position 0. Sampling and logprobs are ``torch_executor.py``'s.
+The executor takes the family's functions as a ``SlotModel`` (``dsv4_model``
+by default, ``models/dsv2lite.py::slot_model``). Whole-prompt prefill
+writes the request's slot in place; a decode step runs the active requests
+with the batch padded to its bucket by dead-slot rows at position 0.
+Sampling and logprobs are ``torch_executor.py``'s.
 
 ``enable_prefix_cache`` turns on the slot prefix cache
-(``engine/kv.py::SlotPrefixCache``), as in the JAX executor: every fresh
-prefill stores a snapshot of its slot (with the prompt-end logits when the
-request asked for logprobs); a prompt that extends a cached one by a short
-suffix (at most ``max(32, T // 16)`` tokens) imports the snapshot and runs
-the suffix through the decode recurrence (``dsv4.prefill_resume``), and an
-identical prompt whose entry kept its logits skips the forward. The cache
-holds at most 4 entries and at most a fifth of the card's free memory.
+(``engine/kv.py::SlotPrefixCache``) for a family with a resume function
+(DSv4), as in the JAX executor: every fresh prefill stores a snapshot of
+its slot (with the prompt-end logits when the request asked for logprobs);
+a prompt that extends a cached one by a short suffix (at most ``max(32, T
+// 16)`` tokens) imports the snapshot and runs the suffix through the
+decode recurrence (``dsv4.prefill_resume``), and an identical prompt whose
+entry kept its logits skips the forward. The cache holds at most 4 entries
+and at most a fifth of the card's free memory. A family without a resume
+function (DSv2-Lite) has no slot prefix cache, as in the JAX executor.
 ``prefill_chunk`` and ``prefill_chunk_mixed`` are taken with the JAX
-engine's meaning for DSv4, which has no chunked prefill: every prompt
-prefills whole (there is no ``prefill_stepper``, so the scheduler never
-chunks one).
+engine's meaning for these families, which have no chunked prefill: every
+prompt prefills whole (there is no ``prefill_stepper``, so the scheduler
+never chunks one).
 
 ``slot_export`` / ``slot_import`` are the PD handoff's hooks
 (``engine/pd.py``): the slot's rows are the whole payload.
 
-``quantize="int8-experts"`` serves experts requantized to int8 at load and
-``quantize="bf16"`` weights dequantized to bf16 at load
+For DSv4, ``quantize="int8-experts"`` serves experts requantized to int8
+at load and ``quantize="bf16"`` weights dequantized to bf16 at load
 (``models/dsv4_engine.py``); ``moe_chain`` is handed to every prefill,
 resume and decode step (``models/dsv4.py``). An echo request with logprobs
 skips the slot-cache resume and prefills whole with every row's logits,
@@ -37,27 +44,27 @@ cache with the last logits, as in the JAX executor.
 
 With ``precompile`` and ``enable_cuda_graph`` (the defaults) the decode
 step replays one CUDA graph per batch bucket (``engine/decode_graphs.py``,
-the ``dsv4`` family: tokens, positions and slots, padding rows on the dead
-slot; ``moe_chain`` bound in), captured at the bucket's first use: the JAX
-DSv4 engine compiles its decode program at first use and never calls
-``precompile``, so neither does this one. A slot-cache resume replays the
-B = 1 graph on the request's slot, one suffix token a replay, and keeps a
-copy of the last logits (the next replay of that graph overwrites them).
-Either option False keeps the eager step (``dsv4.decode``,
-``dsv4.prefill_resume``).
+the family's ``Family``: tokens, positions and slots, padding rows on the
+dead slot; DSv4's ``moe_chain`` bound in), captured at the bucket's first
+use: the JAX slot engines compile their decode program at first use and
+never call ``precompile``, so neither does this one. A slot-cache resume
+replays the B = 1 graph on the request's slot, one suffix token a replay,
+and keeps a copy of the last logits (the next replay of that graph
+overwrites them). Either option False keeps the eager step (the family's
+``decode``, ``dsv4.prefill_resume``).
 
 Decode blocks are ``torch_executor.py``'s ``BlockDecode`` over this
 executor's ``_decode_host`` (the slots' pages for ``1 + extra_tokens``
-writes): a block graph of the ``dsv4`` family per (B, 0, N, greedy,
-lp_k), captured at first use; the resume keeps the one-token B = 1 graph.
+writes): a block graph of the family per (B, 0, N, greedy, lp_k), captured
+at first use; the resume keeps the one-token B = 1 graph.
 """
 
 from __future__ import annotations
 
 import logging
-from dataclasses import replace
+from dataclasses import dataclass, replace
 from functools import partial
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -95,9 +102,55 @@ SLOT_CACHE_ENTRIES = 4
 SLOT_CACHE_FRACTION = 0.2
 
 
+DSV4_QUANTIZE = (None, "int8-experts", "bf16")
 # DSv4 prefills whole: TorchExecutor's chunk rules do not apply
-check_supported = partial(tx.check_supported, family="DeepSeek-V4",
-                          quantize=(None, "int8-experts", "bf16"), chunked=False)
+check_supported = partial(tx.check_supported, family="DeepSeek-V4", quantize=DSV4_QUANTIZE,
+                          chunked=False)
+
+
+@dataclass(frozen=True)
+class SlotModel:
+    """A page-less family's functions, bound to its config and params:
+    ``prefill(tokens, state, slot, all_logits)`` -> (last logits [V], every
+    row's [T, V] with ``all_logits``, else None), the slot written in
+    place; ``decode(state, tokens, positions, slots)`` -> logits [B, V];
+    ``slot_export(state, slot)`` (a copy), ``slot_import(state, snap,
+    slot)``, ``snapshot_bytes(state)``; ``graph_family(dead_slot)``, the
+    decode graphs' ``Family``; ``resume(state, tokens, start, slot)`` -> the
+    last logits [V] of a prompt continued from a cached prefix, or None (no
+    slot prefix cache). ``family`` and ``quantize`` name the family and the
+    ``quantize`` values it serves."""
+
+    family: str
+    quantize: tuple
+    prefill: Callable
+    decode: Callable
+    slot_export: Callable
+    slot_import: Callable
+    snapshot_bytes: Callable
+    graph_family: Callable
+    resume: Optional[Callable] = None
+
+
+def dsv4_model(cfg: dsv4.DSv4Config, params, moe_chain: Optional[bool] = None) -> SlotModel:
+    """DeepSeek-V4's functions (``models/dsv4.py``, looked up at each call),
+    ``moe_chain`` bound in."""
+    def prefill(tokens, state, slot, all_logits):
+        logits, _ = dsv4.prefill(cfg, params, tokens, state=state, slot=slot,
+                                 last_only=not all_logits, moe_chain=moe_chain)
+        # a copy of an echo prompt's last row: the cache must not hold [T, V]
+        return (logits[-1].clone(), logits) if all_logits else (logits[0], None)
+
+    def decode(state, tokens, positions, slots):
+        return dsv4.decode(cfg, params, state, tokens, positions, slots, moe_chain=moe_chain)
+
+    def resume(state, tokens, start, slot):
+        return dsv4.prefill_resume(cfg, params, state, tokens, start, slot,
+                                   moe_chain=moe_chain)
+
+    return SlotModel(family="DeepSeek-V4", quantize=DSV4_QUANTIZE, prefill=prefill,
+                     decode=decode, slot_export=dsv4.slot_export, slot_import=dsv4.slot_import,
+                     snapshot_bytes=dsv4.snapshot_bytes, graph_family=dsv4_family, resume=resume)
 
 
 def slot_cache_cap(snapshot_bytes: int, device: torch.device) -> int:
@@ -116,17 +169,19 @@ def slot_cache_cap(snapshot_bytes: int, device: torch.device) -> int:
 
 
 class SlotExecutor(StateSlots, BlockDecode):
-    """Continuous-batching executor for one DSv4 model with per-slot state
-    on one device."""
+    """Continuous-batching executor for one page-less model with per-slot
+    state on one device: ``model``'s functions (DSv4's by default, with
+    ``moe_chain``)."""
 
-    def __init__(self, cfg: dsv4.DSv4Config, params, state, max_slots: int,
+    def __init__(self, cfg, params, state, max_slots: int,
                  max_model_len: int, options: Optional[EngineLoadOptions] = None,
-                 moe_chain: Optional[bool] = None):
+                 moe_chain: Optional[bool] = None, model: Optional[SlotModel] = None):
         opts = options or EngineLoadOptions()
-        check_supported(opts)
+        self.model = model if model is not None else dsv4_model(cfg, params, moe_chain)
+        tx.check_supported(opts, family=self.model.family, quantize=self.model.quantize,
+                           chunked=False)
         self.cfg = cfg
         self.params = params
-        self.moe_chain = moe_chain
         self.state = state
         self.device = params["embed"].device
         self._init_slots(max_slots)
@@ -134,15 +189,16 @@ class SlotExecutor(StateSlots, BlockDecode):
         self.max_batch = min(opts.max_batch_size, max_slots)
         self._max_pages = min(self.acct.pool.available, max_model_len)
         self._stop_ids = frozenset({cfg.eos_token_id})
-        self.snapshot_bytes = dsv4.snapshot_bytes(state)
-        cap = slot_cache_cap(self.snapshot_bytes, self.device) if opts.enable_prefix_cache else 0
+        self.snapshot_bytes = self.model.snapshot_bytes(state)
+        cap = (slot_cache_cap(self.snapshot_bytes, self.device)
+               if opts.enable_prefix_cache and self.model.resume is not None else 0)
         self.slot_prefix_cache = SlotPrefixCache(max_entries=cap) if cap > 0 else None
         # the decode step under CUDA graphs, each bucket captured at first use
         self._graphs = None
         if opts.precompile and opts.enable_cuda_graph:
             top = bucket_batch(self.max_batch)
             self._graphs = DecodeGraphs(
-                partial(dsv4.decode, cfg, params, state, moe_chain=moe_chain), self.device,
+                partial(self.model.decode, state), self.device,
                 [b for b in BATCH_BUCKETS if b <= top], 0, self._graph_family())
         # what ran, for callers that check the path (chip_smoke.py): fresh
         # prefills, the decode steps of cache resumes; decode steps and
@@ -178,10 +234,7 @@ class SlotExecutor(StateSlots, BlockDecode):
         st.ensure_capacity(self.acct.pool, T)
         slot = self._slot(item.request_id)
         tokens = torch.tensor(item.prompt_tokens, dtype=torch.int32, device=self.device)
-        logits, _ = dsv4.prefill(self.cfg, self.params, tokens, state=self.state,
-                                 slot=slot, last_only=not want_all, moe_chain=self.moe_chain)
-        # a copy of an echo prompt's last row: the cache must not hold [T, V]
-        last = logits[-1].clone() if want_all else logits[0]
+        last, logits = self.model.prefill(tokens, self.state, slot, want_all)
         st.advance(T)
         self.prefills += 1
         if self.slot_prefix_cache is not None:
@@ -230,12 +283,11 @@ class SlotExecutor(StateSlots, BlockDecode):
     def _resume(self, tokens: Sequence[int], start: int, slot: int) -> torch.Tensor:
         """Run ``tokens`` through the decode recurrence on ``slot`` from
         position ``start``; the last step's logits [V]. Graphed: one
-        replay of the B = 1 graph a token; eager: ``dsv4.prefill_resume``."""
+        replay of the B = 1 graph a token; eager: the model's ``resume``."""
         if self._graphs is None:
-            return dsv4.prefill_resume(
-                self.cfg, self.params, self.state,
-                torch.tensor(tokens, dtype=torch.int32, device=self.device), start, slot,
-                moe_chain=self.moe_chain)
+            return self.model.resume(
+                self.state, torch.tensor(tokens, dtype=torch.int32, device=self.device),
+                start, slot)
         one = np.array([slot], np.int32)
         for i, tok in enumerate(tokens):
             logits = self._graphs.run(np.array([tok], np.int32),
@@ -267,21 +319,20 @@ class SlotExecutor(StateSlots, BlockDecode):
     def _decode_model(self, items, tokens, positions, slots):
         """The model call of one decode step over the padded batch: logits
         [B, V]."""
-        return dsv4.decode(self.cfg, self.params, self.state, tokens, positions, slots,
-                           moe_chain=self.moe_chain)
+        return self.model.decode(self.state, tokens, positions, slots)
 
     def _graph_family(self) -> Family:
-        return dsv4_family(self.max_slots)
+        return self.model.graph_family(self.max_slots)
 
     # ── the slot's rows: cache snapshots, PD hooks (engine/pd.py) ────
 
     def slot_export(self, slot: int):
         """A copy of ``slot``'s rows in every layer (a PD handoff's whole
         payload)."""
-        return dsv4.slot_export(self.state, slot)
+        return self.model.slot_export(self.state, slot)
 
     def slot_import(self, snap, slot: int) -> None:
-        dsv4.slot_import(self.state, snap, slot)
+        self.model.slot_import(self.state, snap, slot)
 
     # ── unified ──────────────────────────────────────────────────────
 

@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from pegainfer_tpu_torch.ops import dsa, hc, quant
-from pegainfer_tpu_torch.ops.moe import swiglu
+from pegainfer_tpu_torch.ops.moe import bf16_grouped, swiglu
 from pegainfer_tpu_torch.ops.cuda import fp4_chain as k9
 from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
 from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
@@ -600,7 +600,7 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
     flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
     flat_w = weights.reshape(M)
     if T >= PREFILL_MOE_TOKENS and fmt == "bf16":
-        per = _bf16_grouped(x, w1, w2, w3, flat_e, flat_t, E, limit)
+        per = bf16_grouped(x, w1, w2, w3, flat_e, flat_t, E, limit)
     elif T >= PREFILL_MOE_TOKENS:
         # rows sorted by expert in tiles of tm, pad rows carrying the last
         # expert id; K5 (fp4) or K7 (int8, scaled after) runs each tile's
@@ -670,31 +670,6 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
     # atomics, so a run repeats to the bit)
     routed = (per * flat_w[:, None]).reshape(T, K, -1).sum(dim=1)
     return (routed + shared.float()).to(x.dtype)
-
-
-def _bf16_grouped(x, w1, w2, w3, flat_e, flat_t, E: int, limit: float):
-    """Prefill MoE on plain expert stacks (the JAX package's
-    ``ragged_dot_general`` on bf16 weights): rows sorted by expert, each
-    expert's run of rows times its weight in bf16 with f32 sums; returns
-    the [M, D] f32 rows in (token, k) order. The run lengths are read on the
-    host (prefill runs eagerly)."""
-    order = torch.argsort(flat_e, stable=True)
-    xs = x.to(torch.bfloat16)[flat_t[order]]
-    counts = torch.bincount(flat_e, minlength=E).tolist()
-
-    def grouped(rows, w):
-        y = torch.empty((rows.shape[0], w.shape[1]), dtype=torch.float32, device=rows.device)
-        start = 0
-        for e, n in enumerate(counts):
-            if n:
-                y[start:start + n] = quant.mm_f32(rows[start:start + n], w[e])
-                start += n
-        return y
-
-    act = swiglu(grouped(xs, w1), grouped(xs, w3), limit)  # [M, I] f32
-    per = torch.empty((xs.shape[0], x.shape[1]), dtype=torch.float32, device=x.device)
-    per[order] = grouped(act.to(torch.bfloat16), w2)
-    return per
 
 
 def _hc_branch(cfg, lw, streams, name):

@@ -4,13 +4,15 @@ Counterpart of ``pegainfer_tpu/server/main.py``, with its arguments. Run as
     python -m pegainfer_tpu_torch.server.main --model-path <checkpoint dir>
     python -m pegainfer_tpu_torch.server.main --sim
 
-Qwen3, the Qwen3.5 hybrid and DeepSeek-V4 (an mp8 checkpoint; ``--quantize
-bf16`` dequantizes it at load) are served from a checkpoint through the
-port's engines on the card; ``--sim`` serves the simulated engine with the
-``SimTokenizer`` (no card, no model). The server runs until SIGINT. What
-the port lacks raises ``NotImplementedError``: DeepSeek-V2-Lite
-checkpoints, ``--tp-size`` above 1, ``--profile-dir`` and the multi-host
-variables ``PEGAINFER_COORD`` / ``_NUM_PROCS`` / ``_PROC_ID``.
+Qwen3, the Qwen3.5 hybrid, DeepSeek-V4 (an mp8 checkpoint; ``--quantize
+bf16`` dequantizes it at load) and DeepSeek-V2-Lite (an HF checkpoint, bf16)
+are served from a checkpoint through the port's engines on the card;
+``--sim`` serves the simulated engine with the ``SimTokenizer`` (no card, no
+model). The server runs until SIGINT. What the port lacks raises
+``NotImplementedError``: ``--tp-size`` above 1 (tensor or expert
+parallelism), a ``--quantize`` value the family does not serve,
+``--profile-dir`` and the multi-host variables ``PEGAINFER_COORD`` /
+``_NUM_PROCS`` / ``_PROC_ID``.
 A checkpoint's tokenizer is read with transformers (``HFTokenizer``).
 """
 
@@ -150,9 +152,11 @@ def build_engine(args: argparse.Namespace, device=None) -> EngineHandle:
 
         return dsv4_engine.start_engine(args.model_path, opts, device=device,
                                         tp_size=args.tp_size)
-    else:
-        raise NotImplementedError(
-            f"model type {mtype}: the port has no DeepSeek-V2-Lite engine")
+    else:  # dsv2lite
+        from pegainfer_tpu_torch.models import dsv2lite
+
+        return dsv2lite.start_engine(args.model_path, opts, device=device,
+                                     ep_size=args.tp_size if args.tp_size > 0 else None)
     return engine.start_engine(args.model_path, opts, device=device)
 
 

@@ -310,10 +310,11 @@ def test_routes_the_port_lacks_raise(route, tmp_path, monkeypatch):
     else:
         _write_qwen3(tmp_path)
     argv = ["--model-path", str(tmp_path), "--max-num-pages", "16"]
-    # DSv4 serves from a path on one card: its refusal is tensor parallelism
+    # DSv4 and DSv2-Lite serve from a path on one card: their refusal is
+    # tensor (expert) parallelism
     argv += {"tp_size": ["--tp-size", "2"], "profile_dir": ["--profile-dir", str(tmp_path)],
              "quantize_bf16": ["--quantize", "bf16"],
-             "deepseek_v4": ["--tp-size", "2"]}.get(route, [])
+             "deepseek_v4": ["--tp-size", "2"], "dsv2lite": ["--tp-size", "2"]}.get(route, [])
     if route == "multihost":
         monkeypatch.setenv("PEGAINFER_COORD", "localhost:1234")
     args = tmain.parse_args(argv)
