@@ -97,18 +97,25 @@ weights:
     with ``OLD_DEFAULTS`` on a shallow copy of the same bf16 weights (the
     engine quantizes its copy; bytes before and after): 64/4, the greedy
     1024/256 request, then SHORT at once; every request ``Finished``;
-    launches K6 = 217 (6 a layer and the head) x the decode steps within
-    ``quant.INT8_GEMV_ROWS`` + 1 a prefill (the head on the prompt's last
-    row), K1 / K2 as phase 6; the prefill's last logits
-    and one B = 2 decode step against ``plain_kernels=True`` (rule 7); the
-    cosine of the int8 prefill logits with the bf16 model's (reported beside
-    the JAX package's 0.999); TTFT, TPOT and a B = 1 decode step's profile
-    (K6's share) beside phase 8's bf16 step;
-8g. K6 at one expert (``int8_gemv_dense``) on [8f]'s int8 weights, each row
-    against its plain version at every shape and 1-64 rows, y NaN-filled
-    first; then ``k6_study.dense_sweep``: K6, its plain version, bf16
-    ``x @ w``, the JAX form (``quant.int8_mm``) and
-    ``torch._weight_int8pack_mm``, and a decode step's sums by row count;
+    launches of the int8 linear kernel (``ops/cuda/int8_linear.py``) = 145
+    (4 a layer: wq / wk / wv in one, wo, w_gate_up, w_down; and the head) x
+    the decode steps within ``quant.INT8_GEMV_ROWS`` + 1 a prefill (the head
+    on the prompt's last row), K6 none, K1 / K2 as phase 6; the prefill's
+    last logits and one B = 2 decode step against ``plain_kernels=True``
+    (rule 7); the cosine of the int8 prefill logits with the bf16 model's
+    (reported beside the JAX package's 0.999); TTFT, TPOT and a B = 1 decode
+    step's profile (the kernel's share, the op count) beside phase 8's bf16
+    step;
+8g. the int8 linear kernel on [8f]'s int8 weights
+    (``int8_linear_study.sweep_forms``) at each launch of a decode step
+    (the wq / wk / wv group, wo, w_gate_up, w_down, the head) and 1-64
+    rows, each row against its plain version (outputs NaN-filled first),
+    then beside K6 at one expert with its multiply and cast, bf16 ``x @
+    w``, the JAX form (``quant.int8_mm``), ``torch._weight_int8pack_mm``
+    and its plain version; a decode step's sums and the gates (below the K6
+    route, below bf16 ``matmul``, within 2x the measured bound) by row
+    count; K6 at one expert, off the path now, still against its plain
+    version (``k6_study.dense_check``) and timed alone at w_gate_up;
 8h. echo under CHUNK_OPTS (bf16): a 4,096-token prompt alone (cached), then
     the CHUNK_STREAMS decoding and the prompt as an echo request with
     logprobs=1: ``PromptTokens`` first, 16 plain pieces, none fused, no
@@ -130,7 +137,8 @@ weights:
     1024/256, SHORT at once), whose greedy tokens must equal phase 4's, with
     K1 = 36 x decode steps and K2 = 36 x prefills through the replays'
     accounting; in int8 (``quantize="int8"``) phase 8f's, equal to 8f's
-    tokens, with K6 = 217 x decode steps + 1 a prefill; TTFT, TPOT p50 /
+    tokens, with the int8 linear kernel 145 x decode steps + 1 a prefill (K6
+    none); TTFT, TPOT p50 /
     p95, the ``execute_decode`` wall, the graphs captured at first use and
     the token gaps that held one; the allocated memory back within the
     pool's bytes after shutdown; then 8i's step measurement on the graphed
@@ -221,15 +229,17 @@ snapshots), on the same weights:
 25a. PD handoff as in 8e between two ``HybridExecutor``s of 2 slots and
     PD_PAGES pages: the payload is 16 pages (16.8 MB) and the slot's
     recurrent and conv rows (53.5 MB), imported on B's other slot;
-25b. [8f] and [8g] on the hybrid: K6 = 225 (7 a layer and the head) x the
-    decode steps within the cut + 1 a prefill, the concurrent requests on
-    its 2 slots (the third waits);
+25b. [8f] and [8g] on the hybrid: the int8 linear kernel 129 (4 a layer:
+    a GDN layer's wq / wk / wv / wz in one launch, a full layer's wq /
+    wgate / wk / wv in one, the out projection and the MLP's two; and the
+    head) x the decode steps within the cut + 1 a prefill, K6 none, the
+    concurrent requests on its 2 slots (the third waits);
 25g. the hybrid's decode step under CUDA graphs: engines under the graph
     defaults (``OLD_DEFAULTS`` otherwise, 2 slots), their B ladder captured
     at start at width 8, in bf16 on [20]'s traffic (tokens equal [20]'s)
     and in int8 on [25b]'s (tokens equal [25b]'s), with K1 = 8 x decode
-    steps, K2 = 8 x prefills and K6 = 225 x decode steps + 1 a prefill (0
-    in bf16) through the replays; TTFT, TPOT p50 / p95 against the eager
+    steps, K2 = 8 x prefills and the int8 linear kernel 129 x decode steps
+    + 1 a prefill (0 in bf16; K6 none) through the replays; TTFT, TPOT p50 / p95 against the eager
     run's (the graphed p50 must lie below the eager p50 by more than the
     eager p50-p95 spread), captures at first use, the pool's bytes, the
     memory back after shutdown; [8i]'s step measurement on a 1-slot
@@ -405,9 +415,10 @@ as the JAX package leaves the family to XLA):
     ``httpd`` (``SimTokenizer``) answering 16/4 with the same ids.
 
 The last lines are the kernels' JSON record (the weight streams, the S3 /
-S4 kernels, K1-K9 and K6 at one expert, ``int8_gemv_dense``, with [8g]'s
-and [25b]'s sweeps under ``shapes`` and ``steps``; with the read
-ceiling, and the S3 / S4 kernels, K3, K4, K6 (both), K8 and K9 also
+S4 kernels, K1-K9 and the int8 linear kernel, with [8g]'s and [25b]'s
+sweeps under ``shapes``, ``steps`` and ``gates`` and K6 at one expert,
+which it replaced, under ``replaced``; with the read ceiling, and the S3 /
+S4 kernels, K3, K4, K6, the int8 linear kernel, K8 and K9 also
 bound by their bytes over it as
 ``measured_bound_ms``; K1's and K2's launches on the chunked and the
 Qwen3.5 paths; K3's and K4's launches inside 13a's resumes, read from
@@ -606,7 +617,7 @@ Q35_K2_CHUNK_SHAPES = ((256, 4096, 3840), (2048, 4096, 2048),
 # max |W|, a GEMV to 1e-5 of max |y|; gemv_chain_study.check for the chain).
 CHAIN_L, CHAIN_N, CHAIN_K = 36, 19456, 2560  # Qwen3-4B's gate_up, 36 layers
 # the GEMV kernels whose byte bound the measured read ceiling restates
-MEASURED_BOUND_KERNELS = ("moe_fp4_gemv", "fp8_gemv", "moe_int8_gemv", "int8_gemv_dense",
+MEASURED_BOUND_KERNELS = ("moe_fp4_gemv", "fp8_gemv", "moe_int8_gemv", "int8_linear",
                           "moe_int8_chain",
                           "moe_fp4_chain", "expert_gemv_convert", "expert_gemv_native",
                           "expert_gemv_in_flight", "fp4_variant_floor", "fp4_variant_bits_noscale",
@@ -913,12 +924,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dsv2 = run_dsv2lite()
-    dense = dense_record(q_serving["int8"], h_serving["int8"])
-    # [8j]'s graphed paths: K1 / K2 in bf16, K6 at one expert in int8; the
-    # hybrid's ([25g]) likewise
+    linear = linear_record(q_serving["int8"], h_serving["int8"])
+    # [8j]'s graphed paths: K1 / K2 in bf16, the int8 linear kernel in int8;
+    # the hybrid's ([25g]) likewise; [8k]'s int8 block path
     h_graphs = h_serving["graphs"]
-    dense["launches_graphed_path"] = q_serving["graphs"]["int8"]["launches"]["moe_int8_gemv"]
-    dense["launches_qwen35_graphed_path"] = h_graphs["int8"]["launches"]["moe_int8_gemv"]
+    linear["launches_graphed_path"] = q_serving["graphs"]["int8"]["launches"]["int8_linear"]
+    linear["launches_qwen35_graphed_path"] = h_graphs["int8"]["launches"]["int8_linear"]
+    linear["launches_block_path"] = q_serving["graphs"]["blocks"]["int8"]["launches"][
+        "int8_linear"]
     for r in q_records:
         r["launches_graphed_path"] = q_serving["graphs"]["bf16"]["launches"][r["name"]]
         r["launches_qwen35_graphed_path"] = h_graphs["bf16"]["launches"][r["name"]]
@@ -933,7 +946,7 @@ def main() -> int:
         if r["name"] in graphed:
             r["launches_graphed_path"] = graphed[r["name"]]
     records = (s_records + c_records + e_records + f_records + q_records + d_records + i_records
-               + [dense])
+               + [linear])
     for r in records:
         if r["name"] in MEASURED_BOUND_KERNELS:
             # the same bytes over the measured ceiling (every one is bound by bytes)
@@ -1288,8 +1301,8 @@ def run_fp4_study():
 
 def run_qwen3(ceiling):
     """Phases 3-8h on Qwen3-4B (``ceiling``: the measured read ceiling,
-    bytes / s, for K6's dense bounds). Returns (K1/K2 records, serving,
-    steps)."""
+    bytes / s, for the int8 linear kernel's bounds). Returns (K1/K2 records,
+    serving, steps)."""
     from pegainfer_tpu_torch.engine import contract
     from pegainfer_tpu_torch.models import qwen3 as q3
     from pegainfer_tpu_torch.models.qwen3_engine import start_engine_from_params
@@ -1409,15 +1422,17 @@ def run_qwen3(ceiling):
     torch.cuda.empty_cache()
     from pegainfer_tpu_torch.models import qwen3_engine as q3e
     from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
+    from pegainfer_tpu_torch.ops.cuda import int8_linear as il
 
     log(f"[8f] Qwen3-4B int8 weight-only (quantize=\"int8\") served on the same weights: "
         f"{PROMPT}/{OUT}, then {SHORT} at once")
-    int8, q8, int8_tokens = run_int8_engine("[8f]", "qwen3", cfg, q3, q3e, params, contract, k6,
+    int8, q8, int8_tokens = run_int8_engine("[8f]", "qwen3", cfg, q3, q3e, params, contract,
                                {"paged_decode": pd, "flash_prefill": fp},
-                               6 * cfg.num_hidden_layers + 1, cfg.num_hidden_layers,
+                               qwen3_int8_launches(cfg), cfg.num_hidden_layers,
                                steps[f"decode step B=1 ctx {PROMPT + 1}"][1])
-    log("[8g] K6 at one expert on the int8 weights of [8f]")
-    int8["dense"] = run_dense_sweep("[8g]", "qwen3", q8, params, ceiling)
+    log("[8g] the int8 linear kernel on the int8 weights of [8f], beside K6 at one expert and "
+        "the other forms")
+    int8["dense"] = run_linear_sweep("[8g]", "qwen3", q8, params, ceiling)
     del q8
     gc.collect()
     torch.cuda.empty_cache()
@@ -1433,8 +1448,8 @@ def run_qwen3(ceiling):
     log("[8j] Qwen3's decode step under CUDA graphs (the defaults precompile=True, "
         "enable_cuda_graph=True), bf16 and int8, against the eager runs of [4] and [8f]")
     graphed = run_graphed(cfg, q3, q3e, params, q8, contract, {"paged_decode": pd,
-                          "flash_prefill": fp, "moe_int8_gemv": k6}, eager_tokens, int8_tokens,
-                          host_profile, main_prompt)
+                          "flash_prefill": fp, "int8_linear": il, "moe_int8_gemv": k6},
+                          eager_tokens, int8_tokens, host_profile, main_prompt)
     graphed["phases_s"] = time.perf_counter() - t_graphs
     log(f"  [8i] and [8j] took {graphed['phases_s']:.1f} s")
     del q8
@@ -1445,8 +1460,8 @@ def run_qwen3(ceiling):
         "tokens and an eager block engine")
     t = time.perf_counter()
     graphed["blocks"] = run_blocks_qwen3(cfg, q3e, params, contract, {
-        "paged_decode": pd, "flash_prefill": fp, "moe_int8_gemv": k6}, eager_tokens,
-        int8_tokens)
+        "paged_decode": pd, "flash_prefill": fp, "int8_linear": il, "moe_int8_gemv": k6},
+        eager_tokens, int8_tokens)
     graphed["blocks"]["phase_s"] = time.perf_counter() - t
     log(f"  [8k] took {graphed['blocks']['phase_s']:.1f} s")
     gc.collect()
@@ -2244,53 +2259,144 @@ def dense_stacks(family, params):
     return out
 
 
-def run_dense_sweep(label, family, q8, bf, ceiling):
-    """K6 at one expert on a family's int8 weights: against its plain
-    version row by row at every shape and DENSE_ROWS (y NaN-filled first),
-    then the sweep (``k6_study.dense_sweep``) and its decode-step sums.
-    Returns (max |diff|, the sweep's rows, the step sums by row count)."""
+def qwen3_int8_launches(cfg):
+    """The int8 linear kernel's launches a Qwen3 decode step: a layer's wq /
+    wk / wv in one, wo, w_gate_up and w_down, and the head (145 at 36
+    layers)."""
+    return 4 * cfg.num_hidden_layers + 1
+
+
+def qwen35_int8_launches(cfg):
+    """... a hybrid decode step: 4 a layer (a GDN layer's wq / wk / wv / wz in
+    one, out_proj, mlp_gate_up, mlp_down; a full layer's wq / wgate / wk /
+    wv in one, wo, mlp_gate_up, mlp_down), and the head (129 at
+    ``bench_config()``'s 32 layers)."""
+    return 4 * cfg.num_groups * cfg.period + 1
+
+
+def int8_path_launches(n_linear, run):
+    """The counted kernels of an int8 path: the int8 linear kernel
+    ``n_linear`` a decode step and 1 a prefill (the head on the prompt's
+    last row), K6 (``moe_int8_gemv``, whose count K6 at one expert shares)
+    none."""
+    return {"int8_linear": n_linear * run["decode_steps"] + run["prefills"], "moe_int8_gemv": 0}
+
+
+# the served trees' weights of each int8_linear_study.STEP_LAUNCHES launch:
+# (part of the tree or None for the root, key) a weight; the hybrid's
+# out_proj stands for the full layers' wo and its lin mlp for theirs (the
+# same shapes)
+LINEAR_KEYS = {
+    "qwen3 wq / wk / wv": (("layers", "wq"), ("layers", "wk"), ("layers", "wv")),
+    "qwen3 wo": (("layers", "wo"),), "qwen3 w_gate_up": (("layers", "w_gate_up"),),
+    "qwen3 w_down": (("layers", "w_down"),), "qwen3 lm_head": ((None, "lm_head"),),
+    "qwen35 gdn wq / wk / wv / wz": tuple(("lin", k) for k in ("wq", "wk", "wv", "wz")),
+    "qwen35 full wq / wgate / wk / wv": tuple(("full", k) for k in ("wq", "wgate", "wk", "wv")),
+    "qwen35 out_proj / wo": (("lin", "out_proj"),), "qwen35 mlp_gate_up": (("lin", "mlp_gate_up"),),
+    "qwen35 mlp_down": (("lin", "mlp_down"),), "qwen35 lm_head": ((None, "lm_head"),),
+}
+LINEAR_CALLS = 30  # timed calls of a form in [8g] / [25b], one turn (the study: 60, two)
+
+
+def linear_stacks(family, q8, bf):
+    """{STEP_LAUNCHES name: [(q [L, OUT, IN], s [L, OUT], bf16 w [L, IN,
+    OUT]) a weight]} from the served int8 tree and its bf16 tree, the shapes
+    checked against the table's."""
+    from pegainfer_tpu_torch.studies import int8_linear_study as ils
+
+    out = {}
+    for name, outs, IN, _ in ils.STEP_LAUNCHES[family]:
+        ws = []
+        for (part, key), OUT in zip(LINEAR_KEYS[name], outs):
+            c, w = (q8[key], bf[key]) if part is None else (q8[part][key], bf[part][key])
+            q, sc = c["q"].reshape(-1, OUT, IN), c["s"].reshape(-1, OUT)
+            w = w.reshape(-1, IN, OUT)
+            if q.shape[0] != w.shape[0]:
+                raise SystemExit(f"{name}: the int8 and bf16 stacks differ")
+            ws.append((q, sc, w))
+        out[name] = ws
+    return out
+
+
+def run_linear_sweep(label, family, q8, bf, ceiling):
+    """The int8 linear kernel on a family's served int8 weights
+    (``int8_linear_study.sweep_forms``): at each launch of a decode step and
+    each bucket of 1-64 rows, held row by row to its plain version (the
+    outputs NaN-filled first), then timed beside K6 at one expert with its
+    multiply and cast, bf16 ``matmul``, the JAX form, the library call and
+    its plain version; the step sums and the gates. K6 at one expert, off
+    the main path now, is still held to its plain version
+    (``k6_study.dense_check``) and timed alone at w_gate_up, 1 row, for its
+    record. Returns the record of the sweep."""
+    from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
+    from pegainfer_tpu_torch.studies import int8_linear_study as ils
     from pegainfer_tpu_torch.studies import k6_study as k6s
 
-    stacks = dense_stacks(family, (q8, bf))
-    rows = k6s.dense_check(stacks)
-    worst = max(share for _, _, share in rows)
-    err = max(e for _, e, _ in rows)
-    log(f"  {label} K6 at one expert against its plain version at {len(stacks)} shapes x M "
-        f"{list(k6s.DENSE_ROWS)}: max |diff| {err:.4g}, worst row at {worst:.3f} of its limit "
-        f"({k6s.RTOL} x the row's max |ref|, y NaN-filled first) "
-        f"{'ok' if worst <= 1.0 else 'FAIL'}")
-    if not worst <= 1.0:
+    t = time.perf_counter()
+    rows = k6s.dense_check(dense_stacks(family, (q8, bf)))
+    k6_worst, k6_err = max(r[2] for r in rows), max(r[1] for r in rows)
+    log(f"  {label} K6 at one expert against its plain version at {len(rows)} cases: max |diff| "
+        f"{k6_err:.4g}, worst row at {k6_worst:.3f} of its limit {'ok' if k6_worst <= 1 else 'FAIL'}")
+    if not k6_worst <= 1.0:
         raise SystemExit(f"{label} K6 at one expert disagrees with its plain version")
-    table = k6s.dense_sweep(stacks, ceiling)
-    totals = k6s.dense_step_totals(table, family)
-    for M, t in totals.items():
-        log(f"  {label} a decode step's int8 linears at {M} rows: "
-            + ", ".join(f"{f} {v * 1e3:.1f} us" for f, v in t.items()))
-    faster = [M for M, t in totals.items() if t["K6"] < t["dequant + mm"]]
-    log(f"  {label} K6 beats the JAX form (dequant + mm) over a step at M {faster}")
-    return err, table, totals
+    stacks = linear_stacks(family, q8, bf)
+    table = ils.sweep_forms(stacks, family, ceiling, calls=LINEAR_CALLS, log=log, turns=1)
+    worst = max(r["row_share"] for r in table)
+    err = max(r["max_abs_err"] for r in table)
+    log(f"  {label} the int8 linear kernel against its plain version at {len(table)} launches x "
+        f"rows: max |diff| {err:.4g}, worst row at {worst:.3f} of its limit (one bf16 ulp of "
+        f"the row's max |ref|) {'ok' if worst <= 1 else 'FAIL'}")
+    if not worst <= 1.0:
+        raise SystemExit(f"{label} the int8 linear kernel disagrees with its plain version")
+    totals = ils.step_totals(table, family)
+    gates = ils.gates(totals)
+    ils.log_steps(family, totals, gates, log)
+    out = {"err": err, "table": table, "steps": totals, "gates": gates,
+           "k6_err": k6_err, "k6_worst_share": k6_worst}
+    if family == "qwen3":  # K6 alone (unscaled f32) at the records' shape
+        q, _, _ = stacks["qwen3 w_gate_up"][0]
+        x = torch.randn((1, q.shape[2]), device="cuda").to(torch.bfloat16)
+        L = q.shape[0]
+        saved = k6.launches
+        out["k6_ms"] = time_ms(lambda i: k6.int8_gemv_dense(x, q[i % L]), 60)
+        out["k6_plain_ms"] = time_ms(lambda i: k6.int8_gemv_dense_plain(x, q[i % L]), 6)
+        k6.launches = saved
+    out["phase_s"] = time.perf_counter() - t
+    log(f"  {label} sweep took {out['phase_s']:.1f} s")
+    return out
 
 
-def dense_record(q_int8, h_int8):
-    """K6 at one expert in the kernels line: its numbers at Qwen3-4B's
+def linear_record(q_int8, h_int8):
+    """The int8 linear kernel in the kernels line: its numbers at Qwen3-4B's
     w_gate_up at one row (the record's own), its launches on the int8 paths
-    of [8f] (Qwen3) and [25b] (the hybrid), every shape and row count of the
-    two sweeps under ``shapes``, and each decode step's sums by row count
-    under ``steps``."""
-    err3, table3, totals3 = q_int8.pop("dense")
-    err35, table35, totals35 = h_int8.pop("dense")
-    main = next(r for r in table3 if r["shape"] == "qwen3 w_gate_up" and r["M"] == 1)
-    return {"name": "int8_gemv_dense", "route": "cuda",
-            "source": "pegainfer_tpu_torch/csrc/int8_gemv.cu",
+    of [8f] (Qwen3) and [25b] (the hybrid), every launch and row count of
+    the two sweeps under ``shapes``, each decode step's sums and gates by
+    row count under ``steps`` and ``gates``, and K6 at one expert, which it
+    replaced (off the main path: no launch there), under ``replaced``."""
+    q, h = q_int8.pop("dense"), h_int8.pop("dense")
+    main = next(r for r in q["table"] if r["shape"] == "qwen3 w_gate_up" and r["M"] == 1)
+    # K6 at one expert's bytes: the codes, x in bf16 and y in f32, once
+    gb = main["outs"][0] * main["IN"] + 2 * main["M"] * main["IN"] + 4 * main["M"] * main["outs"][0]
+    return {"name": "int8_linear", "route": "cuda",
+            "source": "pegainfer_tpu_torch/csrc/int8_linear.cu",
             "replaces": "pegainfer_tpu/ops/pallas/fp4_gemm.py:521",
-            "launches": q_int8["launches"]["moe_int8_gemv"], "max_abs_err": max(err3, err35),
-            "ms": main["K6_ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "computes": "pegainfer_tpu/ops/quant.py:117",
+            "launches": q_int8["launches"]["int8_linear"], "max_abs_err": max(q["err"], h["err"]),
+            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "library_call": main["library_call"],
-            "record_shape": f"qwen3 w_gate_up ({main['OUT']} x {main['IN']}) at M 1",
-            "launches_qwen35_int8_path": h_int8["launches"]["moe_int8_gemv"],
-            "shapes": {f"{r['shape']} M={r['M']}": r for r in table3 + table35},
-            "steps": {"qwen3": totals3, "qwen35": totals35}}
+            "record_shape": f"qwen3 w_gate_up ({main['outs'][0]} x {main['IN']}) at M 1",
+            "launches_qwen35_int8_path": h_int8["launches"]["int8_linear"],
+            "shapes": {f"{r['shape']} M={r['M']}": r for r in q["table"] + h["table"]},
+            "steps": {"qwen3": q["steps"], "qwen35": h["steps"]},
+            "gates": {"qwen3": q["gates"], "qwen35": h["gates"]},
+            "replaced": {"name": "int8_gemv_dense (K6 at one expert)",
+                         "source": "pegainfer_tpu_torch/csrc/int8_gemv.cu",
+                         "launches": q_int8["launches"]["moe_int8_gemv"],
+                         "launches_qwen35_int8_path": h_int8["launches"]["moe_int8_gemv"],
+                         "max_abs_err": max(q["k6_err"], h["k6_err"]), "ms": q["k6_ms"],
+                         "plain_ms": q["k6_plain_ms"],
+                         "bound_ms": gb / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}}
 
 
 def read_events(contract, ch, timeout_s=600):
@@ -2341,20 +2447,23 @@ def check_prompt_logprobs(label, got, all_logits, prompt_t):
     return diff / limit
 
 
-def run_int8_engine(label, family, cfg, model, engine, params, contract, k6, kernels,
-                    n_k6, base, bf16_step):
+def run_int8_engine(label, family, cfg, model, engine, params, contract, kernels, n_linear,
+                    base, bf16_step):
     """Phases 8g / 25b: the family's engine with quantize="int8" (OLD_DEFAULTS,
     its bf16 weights in ``params`` untouched, a shallow copy quantized at
     start): a warm-up, the greedy PROMPT / OUT request, then two at once
     (phase 4's SHORT; the hybrid's Q35_CONCURRENT on its slots). Launches:
-    K6 = ``n_k6`` x the decode steps within the row cut, K1 / K2 = ``base``
-    x decode steps / prefills. Logits of the prompt's prefill and of a B = 2
-    decode step against ``plain_kernels=True`` (rule 7); the cosine of the
-    int8 logits against the bf16 model's; TTFT / TPOT; a B = 1 decode step's
-    profile beside the bf16 one (``bf16_step``: its device ms); a whole
-    prefill's head on its last row is one more K6 launch. Returns
-    (record, the engine's int8 tree)."""
+    the int8 linear kernel ``n_linear`` x the decode steps within the row
+    cut (``int8_path_launches``; K6 none), K1 / K2 = ``base`` x decode steps
+    / prefills. Logits of the prompt's prefill and of a B = 2 decode step
+    against ``plain_kernels=True`` (rule 7); the cosine of the int8 logits
+    against the bf16 model's; TTFT / TPOT; a B = 1 decode step's profile
+    beside the bf16 one (``bf16_step``: its device ms); a whole prefill's
+    head on its last row is one more int8 linear launch. Returns (record,
+    the engine's int8 tree)."""
     from pegainfer_tpu_torch.ops import quant
+    from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
+    from pegainfer_tpu_torch.ops.cuda import int8_linear as il
 
     before = model.params_bytes(params)
     opts = dict(kv_memory_fraction=0.5, seed=SEED, quantize="int8", **OLD_DEFAULTS, **EAGER)
@@ -2378,7 +2487,7 @@ def run_int8_engine(label, family, cfg, model, engine, params, contract, k6, ker
         return decode(items, tokens, *args)
 
     ex._decode_model = logged
-    kernels = {**kernels, "moe_int8_gemv": k6}
+    kernels = {**kernels, "int8_linear": il, "moe_int8_gemv": k6}
     if family == "qwen3":
         run = serve_slots(cfg, contract, handle, kernels, concurrent=SHORT,
                           shapes=((64, 4), (PROMPT, OUT)))
@@ -2388,15 +2497,16 @@ def run_int8_engine(label, family, cfg, model, engine, params, contract, k6, ker
     del handle, ex
     within = sum(1 for r in rows[-run["decode_steps"]:] if r <= quant.INT8_GEMV_ROWS)
     log(f"  all requests Finished with their token counts; decode batch rows "
-        f"{sorted(set(rows))}, {within} of {run['decode_steps']} steps within the K6 row cut "
-        f"of {quant.INT8_GEMV_ROWS}")
-    # a whole prefill's head runs on its last row alone: one K6 launch
-    check_launches(run["launches"], {"moe_int8_gemv": n_k6 * within + run["prefills"],
+        f"{sorted(set(rows))}, {within} of {run['decode_steps']} steps within the kernel's row "
+        f"cut of {quant.INT8_GEMV_ROWS}")
+    # a whole prefill's head runs on its last row alone: one launch
+    check_launches(run["launches"], {**int8_path_launches(
+                       n_linear, {"decode_steps": within, "prefills": run["prefills"]}),
                                      "paged_decode": base * run["decode_steps"],
                                      "flash_prefill": base * run["prefills"]},
-                   f"{n_k6} K6 launches a decode step within the cut and 1 a prefill (its "
-                   f"head's last row), {run['prefills']} prefills, {run['decode_steps']} "
-                   "decode steps")
+                   f"{n_linear} int8 linear launches a decode step within the cut and 1 a "
+                   f"prefill (its head's last row), none of K6, {run['prefills']} prefills, "
+                   f"{run['decode_steps']} decode steps")
 
     log(f"  the {PROMPT}-token prefill's last logits and one decode step at B = 2, int8, "
         "kernels against plain_kernels=True")
@@ -2458,7 +2568,8 @@ def run_int8_engine(label, family, cfg, model, engine, params, contract, k6, ker
             (col(0),) if family == "qwen35" else ())
         prof = profile_calls({f"{family} int8 decode step B=1 ctx {PROMPT + 1}":
                               lambda: model.decode(cfg, q8, dec_state, *one)},
-                             iters=5, kernels={"K6": "int8_gemv_kernel", "K1": "paged_decode"})
+                             iters=5, kernels={"int8_linear": "int8_linear_kernel",
+                                               "K1": "paged_decode"})
     (wall, dev, n_ops, ks), = prof.values()
     gaps = run["gaps"]
     record = {"weight_bytes_bf16": before, "weight_bytes_int8": after, "engine_start_s": start_s,
@@ -2468,12 +2579,13 @@ def run_int8_engine(label, family, cfg, model, engine, params, contract, k6, ker
               "decode_steps_within_cut": within, "row_cut": quant.INT8_GEMV_ROWS,
               "launches": run["launches"], "cosine_vs_bf16": cos,
               "decode_step": {"wall_ms": wall, "device_ms": dev, "device_ops": n_ops,
-                              "K6_ms": ks["K6_ms"], "K1_ms": ks["K1_ms"],
+                              "int8_linear_ms": ks["int8_linear_ms"], "K1_ms": ks["K1_ms"],
                               "bf16_device_ms": bf16_step}}
     log(f"  int8 {PROMPT}/{OUT}: TTFT {record['ttft_ms']:.3f} ms, TPOT p50 "
         f"{record['tpot_p50_ms']:.3f} ms, p95 {record['tpot_p95_ms']:.3f} ms (host clock); "
-        f"decode step B = 1: device {dev:.3f} ms (bf16 {bf16_step:.3f} ms), K6 "
-        f"{ks['K6_ms']:.3f} ms ({ks['K6_ms'] / dev:.1%}), wall {wall:.3f} ms, idle "
+        f"decode step B = 1: device {dev:.3f} ms (bf16 {bf16_step:.3f} ms), int8 linear "
+        f"{ks['int8_linear_ms']:.3f} ms ({ks['int8_linear_ms'] / dev:.1%}), ops {n_ops:.0f}, "
+        f"wall {wall:.3f} ms, idle "
         f"{1 - dev / wall:.1%}")
     return record, q8, {"main": run["main_tokens"], "concurrent": run["concurrent_tokens"]}
 
@@ -2505,7 +2617,7 @@ def watch_steps(ex):
 
 # the kernels whose device time a step record picks out: (label, a part
 # of the CUDA kernel's name)
-QWEN_STEP_KERNELS = (("K1", "paged_decode"), ("K6", "int8_gemv_kernel"))
+QWEN_STEP_KERNELS = (("K1", "paged_decode"), ("int8_linear", "int8_linear_kernel"))
 DSV4_STEP_KERNELS = (("K3", "fp4_gemv_kernel"), ("K4", "fp8_gemv_kernel"),
                      ("K6", "int8_gemv_kernel"), ("K8", "int8_chain_kernel"),
                      ("K9", "fp4_chain_kernel"))
@@ -3062,8 +3174,8 @@ def block_phase(label, start, start_eager, cfg, contract, kernels, expected, wan
 def run_blocks_qwen3(cfg, q3e, params, contract, kernels, eager_tokens, int8_tokens):
     """Phase 8k: ``block_phase`` on Qwen3-4B in bf16 (the main request's
     oracle [8j]'s, equal to [4]'s; K1 / K2 counted) and int8 (the oracle
-    [8f]'s; K6 = 217 x tokens computed + 1 a prefill). Returns the
-    record."""
+    [8f]'s; the int8 linear kernel 145 x tokens computed + 1 a prefill, K6
+    none). Returns the record."""
     L = cfg.num_hidden_layers
 
     def start(graphs=True, **opts):
@@ -3072,22 +3184,21 @@ def run_blocks_qwen3(cfg, q3e, params, contract, kernels, eager_tokens, int8_tok
                 kv_memory_fraction=0.5, seed=SEED, precompile=graphs, **WHOLE, **opts),
             device="cuda")
 
-    def expected(n_k6):
+    def expected(n_linear):
         return lambda run: {"paged_decode": L * run["decode_steps"],
                             "flash_prefill": L * run["prefills"],
-                            **({"moe_int8_gemv": n_k6 * run["decode_steps"] + run["prefills"]}
-                               if n_k6 else {})}
+                            **(int8_path_launches(n_linear, run) if n_linear else {})}
 
     out = {}
-    for mode, opts, want, seed, n_k6 in (("bf16", {}, eager_tokens, SEED, 0),
-                                         ("int8", {"quantize": "int8"}, int8_tokens, SEED + 3,
-                                          6 * L + 1)):
+    for mode, opts, want, seed, n_linear in (("bf16", {}, eager_tokens, SEED, 0),
+                                             ("int8", {"quantize": "int8"}, int8_tokens,
+                                              SEED + 3, qwen3_int8_launches(cfg))):
         log(f"  {mode}:")
-        ks = kernels if n_k6 else {k: kernels[k] for k in ("paged_decode", "flash_prefill")}
+        ks = kernels if n_linear else {k: kernels[k] for k in ("paged_decode", "flash_prefill")}
         out[mode] = block_phase(f"[8k] {mode}", start(**opts), start(False, **opts), cfg,
-                                contract, ks, expected(n_k6), {"main": want["main"]},
+                                contract, ks, expected(n_linear), {"main": want["main"]},
                                 ((64, 4), (PROMPT, OUT)), seed,
-                                pair=None if n_k6 else "arrival")
+                                pair=None if n_linear else "arrival")
     return out
 
 
@@ -3637,9 +3748,9 @@ def run_graphed(cfg, q3, q3e, params, q8, contract, kernels, eager_tokens, int8_
                 host_profile, prompt):
     """Phase 8j: the graphed engine in bf16 (phase 4's traffic and prompts,
     its tokens the oracle; K1 / K2 counted) and in int8 (phase 8f's, its
-    tokens the oracle; K6 = 217 x decode steps + 1 a prefill), then
-    ``executor_steps`` of the graphed step in both beside [8i]'s eager
-    ones. Returns the record."""
+    tokens the oracle; the int8 linear kernel 145 x decode steps + 1 a
+    prefill, K6 none), then ``executor_steps`` of the graphed step in both
+    beside [8i]'s eager ones. Returns the record."""
     L = cfg.num_hidden_layers
     out = {}
 
@@ -3648,11 +3759,10 @@ def run_graphed(cfg, q3, q3e, params, q8, contract, kernels, eager_tokens, int8_
             cfg, shallow_tree(params), contract.EngineLoadOptions(
                 kv_memory_fraction=0.5, seed=SEED, **OLD_DEFAULTS, **opts), device="cuda")
 
-    def expected(n_k6):
+    def expected(n_linear):
         return lambda run: {"paged_decode": L * run["decode_steps"],
                             "flash_prefill": L * run["prefills"],
-                            **({"moe_int8_gemv": n_k6 * run["decode_steps"] + run["prefills"]}
-                               if n_k6 else {})}
+                            **(int8_path_launches(n_linear, run) if n_linear else {})}
 
     traffic = dict(concurrent=SHORT, shapes=((64, 4), (PROMPT, OUT)))
     log("  bf16:")
@@ -3661,7 +3771,8 @@ def run_graphed(cfg, q3, q3e, params, q8, contract, kernels, eager_tokens, int8_
                                 {**traffic, "seed": SEED}, eager_tokens, expected(0))
     log("  int8 (quantize=\"int8\" at start on a shallow copy):")
     out["int8"] = serve_graphed("[8j] int8", start(quantize="int8"), cfg, contract, kernels,
-                                {**traffic, "seed": SEED + 3}, int8_tokens, expected(6 * L + 1))
+                                {**traffic, "seed": SEED + 3}, int8_tokens,
+                                expected(qwen3_int8_launches(cfg)))
     for mode, w in (("bf16", params), ("int8", q8)):
         g = out[mode]["step"] = executor_steps(f"graphed {mode}",
                                                qwen3_executor(cfg, q3, w, contract), contract,
@@ -3704,13 +3815,14 @@ def graphed_mode(label, cfg, contract, prompt, make_ex, step_kernels, eager, sta
 def run_hybrid_graphed(cfg, q35, q35e, params, q8, contract, kernels, eager, prompt):
     """Phase 25g: the hybrid's engine under the graph defaults (its ladder
     captured at start) in bf16 and int8, against [20]'s and [25b]'s eager
-    runs (``eager``: mode -> tokens and TPOT): tokens equal, K1 / K2 / K6
-    counted through the replays (K6 0 in bf16), ``graphed_mode``'s step
-    records on a 1-slot executor. Returns the record."""
+    runs (``eager``: mode -> tokens and TPOT): tokens equal, K1 / K2 and the
+    int8 linear kernel counted through the replays (0 in bf16; K6 none),
+    ``graphed_mode``'s step records on a 1-slot executor. Returns the
+    record."""
     from pegainfer_tpu_torch.engine.hybrid_executor import HybridExecutor
 
     G = cfg.num_groups
-    n_k6 = 7 * G * (cfg.period - 1) + 7 * G + 1
+    n_linear = qwen35_int8_launches(cfg)
     traffic = dict(concurrent=Q35_CONCURRENT, shapes=(Q35_WARMUP, (PROMPT, OUT)))
 
     def start(**opts):
@@ -3726,19 +3838,19 @@ def run_hybrid_graphed(cfg, q35, q35e, params, q8, contract, kernels, eager, pro
                 max_batch_size=1, enable_cuda_graph=graphs, **OLD_DEFAULTS))
         return make
 
-    def expected(k6):
+    def expected(n):
         return lambda run: {"paged_decode": G * run["decode_steps"],
                             "flash_prefill": G * run["prefills"],
-                            "moe_int8_gemv": k6 * run["decode_steps"] + run["prefills"] if k6
-                            else 0}
+                            **(int8_path_launches(n, run) if n else
+                               {"int8_linear": 0, "moe_int8_gemv": 0})}
 
     out = {}
-    for mode, w, opts, k6 in (("bf16", params, {}, 0),
-                              ("int8", q8, {"quantize": "int8"}, n_k6)):
+    for mode, w, opts, n in (("bf16", params, {}, 0),
+                             ("int8", q8, {"quantize": "int8"}, n_linear)):
         log(f"  {mode}:")
         out[mode] = graphed_mode(f"[25g] {mode}", cfg, contract, prompt, make_ex(w),
                                  QWEN_STEP_KERNELS, eager[mode], start(**opts), kernels,
-                                 traffic, expected(k6))
+                                 traffic, expected(n))
     return out
 
 
@@ -4049,15 +4161,15 @@ def run_qwen35(ceiling):
     gc.collect()
     torch.cuda.empty_cache()
     from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
+    from pegainfer_tpu_torch.ops.cuda import int8_linear as il
 
     log(f"[25b] the hybrid int8 weight-only (quantize=\"int8\") on the same weights: "
-        f"{PROMPT}/{OUT}, then {Q35_CONCURRENT} on {Q35_SLOTS} slots; K6 at one expert")
-    n_k6 = 7 * cfg.num_groups * (cfg.period - 1) + 7 * G + 1
+        f"{PROMPT}/{OUT}, then {Q35_CONCURRENT} on {Q35_SLOTS} slots; the int8 linear kernel")
     int8, q8, int8_tokens = run_int8_engine(
-        "[25b]", "qwen35", cfg, q35, q35e, params, contract, k6,
-        {"paged_decode": pd, "flash_prefill": fp}, n_k6, G,
+        "[25b]", "qwen35", cfg, q35, q35e, params, contract,
+        {"paged_decode": pd, "flash_prefill": fp}, qwen35_int8_launches(cfg), G,
         steps_prof[f"qwen35 decode step B=1 ctx {PROMPT + 1}"][1])
-    int8["dense"] = run_dense_sweep("[25b]", "qwen35", q8, params, ceiling)
+    int8["dense"] = run_linear_sweep("[25b]", "qwen35", q8, params, ceiling)
     serving["int8"] = int8
     eager["int8"] = {"tokens": int8_tokens, "tpot_p50_ms": int8["tpot_p50_ms"],
                      "tpot_p95_ms": int8["tpot_p95_ms"]}
@@ -4069,7 +4181,8 @@ def run_qwen35(ceiling):
     t = time.perf_counter()
     serving["graphs"] = run_hybrid_graphed(cfg, q35, q35e, params, q8, contract,
                                            {"paged_decode": pd, "flash_prefill": fp,
-                                            "moe_int8_gemv": k6}, eager, run["main_prompt"])
+                                            "int8_linear": il, "moe_int8_gemv": k6}, eager,
+                                           run["main_prompt"])
     serving["graphs"]["phase_s"] = time.perf_counter() - t
     log(f"  [25g] took {serving['graphs']['phase_s']:.1f} s")
     del q8
@@ -4087,9 +4200,9 @@ def run_qwen35(ceiling):
 
     serving["blocks"] = block_phase(
         "[25h] bf16", start, None, cfg, contract,
-        {"paged_decode": pd, "flash_prefill": fp, "moe_int8_gemv": k6},
+        {"paged_decode": pd, "flash_prefill": fp, "int8_linear": il, "moe_int8_gemv": k6},
         lambda r: {"paged_decode": G * r["decode_steps"], "flash_prefill": G * r["prefills"],
-                   "moe_int8_gemv": 0},
+                   "int8_linear": 0, "moe_int8_gemv": 0},
         {"main": eager["bf16"]["tokens"]["main"]}, (Q35_WARMUP, (PROMPT, OUT)), SEED + 3,
         sampled=False)
     serving["blocks"]["phase_s"] = time.perf_counter() - t
@@ -6395,15 +6508,17 @@ def dsv2_config(v2, layers=None):
 
 
 def all_kernels():
-    """Every K1-K9 wrapper module by its record name."""
+    """Every wrapper module of K1-K9 and the int8 linear kernel by its record
+    name."""
     from pegainfer_tpu_torch.ops.cuda import (flash_prefill, fp4_chain, fp4_gemv, fp4_grouped,
                                               fp8_gemv, int8_chain, int8_gemv, int8_grouped,
-                                              paged_decode)
+                                              int8_linear, paged_decode)
 
     return {"paged_decode": paged_decode, "flash_prefill": flash_prefill,
             "moe_fp4_gemv": fp4_gemv, "fp8_gemv": fp8_gemv, "moe_fp4_grouped": fp4_grouped,
             "moe_int8_gemv": int8_gemv, "moe_int8_grouped": int8_grouped,
-            "moe_int8_chain": int8_chain, "moe_fp4_chain": fp4_chain}
+            "moe_int8_chain": int8_chain, "moe_fp4_chain": fp4_chain,
+            "int8_linear": int8_linear}
 
 
 def window_tpot(times, k=2, w=16):

@@ -9,7 +9,7 @@ each with the value a padding row holds (a padded row's state slot is the
 dead slot, never slot 0: a padding row of the hybrid or a DeepSeek model
 writes its slot's rows), whether a [B, P] page table follows them (padded with null
 pages), the kernel wrappers the step reaches, and the device state those
-kernels keep (K1's ticket counters, K6's zero expert ids at one expert).
+kernels keep (K1's ticket counters).
 ``QWEN3``, ``hybrid(dead)``, ``dsv4(dead)`` and ``dsv2lite(dead)`` are the
 four.
 
@@ -30,7 +30,7 @@ make. The capture follows, under ``no_grad``, on that stream, into the
 memory pool that every graph shares (replays run in one stream order, so
 the graphs' scratch may overlap). The family's kernel state is made before
 the first capture: K1's ticket counters of the capture stream, sized for
-the largest bucket, and K6's zero expert ids of every bucket. A failed
+the largest bucket (the int8 linear kernel keeps none). A failed
 capture raises; nothing falls back to the eager step.
 
 Block graphs (``run_block``): the JAX executor's ``_decode_sampled``, one
@@ -72,7 +72,7 @@ import torch
 from pegainfer_tpu_torch.engine.kv import PagePool
 from pegainfer_tpu_torch.ops import sampling as smp
 from pegainfer_tpu_torch.ops.cuda import (fp4_chain, fp4_gemv, fp8_gemv, int8_chain, int8_gemv,
-                                          paged_decode)
+                                          int8_linear, paged_decode)
 
 log = logging.getLogger("pegainfer_torch.decode_graphs")
 
@@ -87,14 +87,13 @@ class Family:
     inputs in buffer order, each with a padding row's value; ``args``: the
     step's positional arguments by name, "table" the [B, P] page table that
     follows the rows in the buffer; ``counted``: the kernel wrappers it
-    reaches; ``k1`` / ``k6_one_expert``: the kernel state made before the
-    first capture (K1's ticket counters; K6's zero ids of a dense launch)."""
+    reaches; ``k1``: whether K1's ticket counters, kernel state, are made
+    before the first capture."""
 
     rows: Tuple[Tuple[str, int], ...]
     args: Tuple[str, ...]
     counted: Tuple[ModuleType, ...]
     k1: bool
-    k6_one_expert: bool
 
     @property
     def table(self) -> bool:
@@ -103,15 +102,15 @@ class Family:
 
 _PAGED_ROWS = (("tokens", 0), ("positions", 0), ("seq_lens", 0))
 _PAGED_ARGS = ("tokens", "positions", "table", "seq_lens")
-# K1, and K6 at one expert in the int8 mode
-QWEN3 = Family(_PAGED_ROWS, _PAGED_ARGS, (paged_decode, int8_gemv), True, True)
+# K1, and the int8 linear kernel in the int8 mode
+QWEN3 = Family(_PAGED_ROWS, _PAGED_ARGS, (paged_decode, int8_linear), True)
 
 
 def hybrid(dead_slot: int) -> Family:
     """The Qwen3.5 hybrid's step (``models/qwen35.py::decode``): Qwen3's
     inputs and the rows' state slots, padding rows on ``dead_slot``."""
     return Family(_PAGED_ROWS + (("slots", dead_slot),), _PAGED_ARGS + ("slots",),
-                  QWEN3.counted, True, True)
+                  QWEN3.counted, True)
 
 
 _SLOT_ARGS = ("tokens", "positions", "slots")
@@ -125,13 +124,13 @@ def dsv4(dead_slot: int) -> Family:
     """DeepSeek-V4's step (``models/dsv4.py::decode``): tokens, positions
     and slots, no table; K3 / K4, K6 and the chains K8 / K9."""
     return Family(_slot_rows(dead_slot), _SLOT_ARGS,
-                  (fp4_gemv, fp8_gemv, int8_gemv, int8_chain, fp4_chain), False, False)
+                  (fp4_gemv, fp8_gemv, int8_gemv, int8_chain, fp4_chain), False)
 
 
 def dsv2lite(dead_slot: int) -> Family:
     """DeepSeek-V2-Lite's step (``models/dsv2lite.py::decode``): DSv4's
     inputs, and no counted kernel (its step is torch ops)."""
-    return Family(_slot_rows(dead_slot), _SLOT_ARGS, (), False, False)
+    return Family(_slot_rows(dead_slot), _SLOT_ARGS, (), False)
 
 
 def _up(n: int) -> int:
@@ -297,9 +296,6 @@ class DecodeGraphs:
             self.pool = torch.cuda.graph_pool_handle()
             if family.k1:
                 paged_decode.ticket_buffer(device, self.stream, max(self.buckets) * kv_heads)
-            if family.k6_one_expert:
-                for B in self.buckets:
-                    int8_gemv.zero_idx(B, device)
 
     def _buffers(self, B: int, P: int, N: int = 1, greedy: bool = True,
                  lp_k: int = 0) -> GraphStep:

@@ -22,9 +22,10 @@ a CPU tensor they run the plain version. So do the int8 weight-only
 projections (``quantize_params_int8``, the JAX package's ``quantize="int8"``
 mode): every projection and the head go through ``_proj``, which applies a
 bf16 ``[in, out]`` weight as ``x @ w`` and an int8 container through
-``ops/quant.py::int8_linear`` (decode-shaped rows: K6). ``plain_kernels=True``
-runs every kernel's plain version (K1, K2, K6) on any device, as the
-oracle of the kernels.
+``ops/quant.py::int8_linear`` (decode-shaped rows: the int8 linear kernel,
+``ops/cuda/int8_linear.py``; wq / wk / wv in one launch through ``_projs``).
+``plain_kernels=True`` runs every kernel's plain version (K1, K2, the int8
+linear) on any device, as the oracle of the kernels.
 """
 
 from __future__ import annotations
@@ -375,13 +376,25 @@ def _proj(container, name: str, x, plain_kernels: bool):
     return x @ w
 
 
+def _projs(container, names, x, plain_kernels: bool):
+    """x [N, in] through the projections ``container[name]`` that read it:
+    bf16 weights one product each, int8 containers one launch for all of
+    them on decode rows (``ops/quant.py::int8_linears``). A list, in
+    ``names``' order."""
+    ws = [container[n] for n in names]
+    if quant.is_quantized(ws[0]):
+        return quant.int8_linears(x, ws, plain_kernels)
+    return [x @ w for w in ws]
+
+
 def _qkv(cfg: Qwen3Config, lw, x, cos, sin, plain_kernels: bool):
     """x: [T, D] -> q [T, Hq, hd], k, v [T, Hkv, hd] with qk-norm + RoPE."""
     T = x.shape[0]
     hd = cfg.head_dim
-    q = _proj(lw, "wq", x, plain_kernels).reshape(T, cfg.num_attention_heads, hd)
-    k = _proj(lw, "wk", x, plain_kernels).reshape(T, cfg.num_key_value_heads, hd)
-    v = _proj(lw, "wv", x, plain_kernels).reshape(T, cfg.num_key_value_heads, hd)
+    q, k, v = _projs(lw, ("wq", "wk", "wv"), x, plain_kernels)
+    q = q.reshape(T, cfg.num_attention_heads, hd)
+    k = k.reshape(T, cfg.num_key_value_heads, hd)
+    v = v.reshape(T, cfg.num_key_value_heads, hd)
     q = rms_norm(q, lw["q_norm"], cfg.rms_norm_eps)
     k = rms_norm(k, lw["k_norm"], cfg.rms_norm_eps)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v

@@ -33,9 +33,11 @@ the plain version. The GDN layers are torch ops (``ops/gdn.py``).
 The int8 weight-only mode (``quantize_params_int8``, the JAX package's
 ``quantize="int8"``): every projection but ``wb`` / ``wa`` and the head go
 through ``qwen3._proj`` (an int8 container through
-``ops/quant.py::int8_linear``, decode-shaped rows on K6).
-``plain_kernels=True`` runs every kernel's plain version (K1, K2, K6) on
-any device.
+``ops/quant.py::int8_linear``, decode-shaped rows on the int8 linear
+kernel); the projections that read the same rows are one launch
+(``ops/quant.py::int8_linears``: the GDN layer's wq, wk, wv and wz, the full
+layer's wq, wgate, wk and wv). ``plain_kernels=True`` runs every kernel's
+plain version (K1, K2, the int8 linear) on any device.
 
 Not ported here: the fused ``qkvzba`` / ``qgkv`` layout and the flat union
 layout (the executor refuses the options that need them).
@@ -53,7 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from pegainfer_tpu_torch.models import qwen3 as q3
-from pegainfer_tpu_torch.models.qwen3 import _proj, chunk_attention, chunk_rows, decode_attention
+from pegainfer_tpu_torch.models.qwen3 import (_proj, _projs, chunk_attention, chunk_rows,
+                                              decode_attention)
 from pegainfer_tpu_torch.ops import attention as att
 from pegainfer_tpu_torch.ops import gdn, quant
 from pegainfer_tpu_torch.ops.cuda.flash_prefill import flash_prefill
@@ -487,8 +490,15 @@ def _gdn_project(cfg: Qwen35Config, lw, h, pk: bool):
     """h: [N, D] -> the conv input [N, conv_dim] (q ‖ k ‖ v), z [N, Hv, dv],
     g and beta [N, Hv] f32."""
     Hv, dv = cfg.linear_num_value_heads, cfg.linear_value_head_dim
-    mixed = torch.cat([_proj(lw, k, h, pk) for k in ("wq", "wk", "wv")], dim=-1)
-    z = _proj(lw, "wz", h, pk).reshape(-1, Hv, dv)
+    if quant.is_quantized(lw["wq"]):
+        # the four projections of h side by side from one int8 launch on
+        # decode rows: mixed and z are views of its output, no copy
+        y = quant.int8_linears(h, [lw[k] for k in ("wq", "wk", "wv", "wz")], pk, joined=True)
+        mixed, z = y[:, :cfg.conv_dim], y[:, cfg.conv_dim:]
+    else:
+        mixed = torch.cat([h @ lw[k] for k in ("wq", "wk", "wv")], dim=-1)
+        z = h @ lw["wz"]
+    z = z.reshape(-1, Hv, dv)
     beta = torch.sigmoid((h @ lw["wb"]).float())
     g = -torch.exp(lw["A_log"].float()) * F.softplus(
         (h @ lw["wa"]).float() + lw["dt_bias"].float())
@@ -531,10 +541,10 @@ def _full_qkv(cfg: Qwen35Config, fw, h, cos, sin, pk: bool):
     from q_proj, k / v [N, Hkv, hd]; q and k normed, then RoPE over their
     first ``rotary_dim`` dims."""
     N, hd = h.shape[0], cfg.head_dim
-    q = _proj(fw, "wq", h, pk).reshape(N, cfg.num_attention_heads, hd)
-    gate = _proj(fw, "wgate", h, pk)
-    k = _proj(fw, "wk", h, pk).reshape(N, cfg.num_key_value_heads, hd)
-    v = _proj(fw, "wv", h, pk).reshape(N, cfg.num_key_value_heads, hd)
+    q, gate, k, v = _projs(fw, ("wq", "wgate", "wk", "wv"), h, pk)
+    q = q.reshape(N, cfg.num_attention_heads, hd)
+    k = k.reshape(N, cfg.num_key_value_heads, hd)
+    v = v.reshape(N, cfg.num_key_value_heads, hd)
     q = rms_norm(q, fw["q_norm"], cfg.rms_norm_eps)
     k = rms_norm(k, fw["k_norm"], cfg.rms_norm_eps)
     rd = cfg.rotary_dim

@@ -8,6 +8,7 @@
 | K4 fp8 dense GEMV (decode linears) | csrc/fp8_gemv.cu | ops/pallas/fp4_gemm.py::fp8_gemv |
 | K5 fp4 grouped GEMM (prefill MoE) | csrc/fp4_grouped.cu | ops/pallas/fp4_gemm.py::moe_fp4_grouped |
 | K6 int8 expert GEMV (decode MoE) | csrc/int8_gemv.cu | ops/pallas/fp4_gemm.py::moe_int8_gemv |
+| int8 weight-only linears, decode rows, up to 4 weights that share x (K6 at one expert's place) | csrc/int8_linear.cu | ops/pallas/fp4_gemm.py::moe_int8_gemv at one expert; computes ops/quant.py::int8_linear |
 | K7 int8 grouped GEMM (prefill MoE) | csrc/int8_grouped.cu | ops/pallas/fp4_gemm.py::moe_int8_grouped |
 | K8 int8 routed-expert chain (decode MoE) | csrc/int8_chain.cu | ops/pallas/fp4_gemm.py::moe_int8_chain |
 | K9 fp4 routed-expert chain (decode MoE) | csrc/fp4_chain.cu | ops/pallas/fp4_gemm.py::moe_fp4_chain |

@@ -22,8 +22,8 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build"
 SOURCES = ("paged_decode", "flash_prefill", "fp8_gemv", "fp4_gemv", "fp4_grouped",
-           "int8_gemv", "int8_grouped", "int8_chain", "fp4_chain", "gemv_stream", "gemv_chain",
-           "expert_stream", "fp4_study")
+           "int8_gemv", "int8_linear", "int8_grouped", "int8_chain", "fp4_chain", "gemv_stream",
+           "gemv_chain", "expert_stream", "fp4_study")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -127,6 +127,7 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
                    i, i, i,  # plan: rt, ks; expert slots
                    p]  # stream
     fn.restype = i
+    _declare_int8_linear(libs["int8_linear"])
     fn = libs["int8_grouped"].int8_grouped
     fn.argtypes = [p, p, p, p, p, p, p,  # x, q, plan: row_e, owner, items, n_items; y
                    i, i, i, i, i,  # Mp, E, OUT, IN, n_slots
@@ -174,6 +175,16 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
                    i, i, i, i, i, i, i,  # M, E, OUT, IN, S, variant, rows
                    p]  # stream
     fn.restype = i
+
+
+def _declare_int8_linear(lib: ctypes.CDLL) -> None:
+    """``csrc/int8_linear.cu``'s C interface (also its study's variants)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.int8_linear.argtypes = [p, i, p, p, p, p, p,  # x, n weights; arrays: q, s, y, out, ldy
+                                i, i, i,  # M, IN, out_f32
+                                i, i, i,  # plan: groups, rt, ks
+                                p]  # stream
+    lib.int8_linear.restype = i
 
 
 def check_launch(name: str, err: int) -> None:

@@ -8,10 +8,11 @@ Each code is an exact bf16 value and the sums are f32. A row whose expert
 id lies outside [0, E) gives 0.
 
 ``int8_gemv_dense`` is the same kernel on one int8 weight [OUT, IN] with
-every row on it: the decode-shaped rows of the int8 weight-only linears of
-Qwen3 and Qwen3.5 (``ops/quant.py::int8_linear``, the JAX package's
-``ops/quant.py::int8_linear``, which XLA compiles there). Its launch asks
-for one expert slot a chunk of 16 rows, the only slot with work.
+every row on it. It carried the decode-shaped rows of the int8 weight-only
+linears of Qwen3 and Qwen3.5 until the int8 linear kernel
+(``ops/cuda/int8_linear.py``) took them; it stays off the main path as the
+yardstick the studies and the smoke time beside that kernel. Its launch
+asks for one expert slot a chunk of 16 rows, the only slot with work.
 
 The wrappers dispatch on the device of ``x``: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. ``launches`` counts

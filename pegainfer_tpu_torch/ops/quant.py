@@ -13,8 +13,9 @@ DeepSeek-V4 formats. A quantized weight travels the params tree as
   ``[.., out]``: the int8-experts mode, a requantization of the fp4 expert
   stacks at load (``quantize_int8_stack``, ``requantize_int8_stack``), and
   the int8 weight-only mode of Qwen3 and Qwen3.5 (``quantize_int8_linear``,
-  applied by ``int8_linear``; a layer's ``q[li]`` is a contiguous
-  ``[out, in]`` matrix).
+  applied by ``int8_linear`` and, for the projections that read the same
+  rows, ``int8_linears``; a layer's ``q[li]`` is a contiguous ``[out, in]``
+  matrix).
 
 Block and group sizes follow from the shape ratios, as in the JAX package.
 Scales are bf16 powers of two, so a decoded weight ``code x scale`` is exact
@@ -220,13 +221,12 @@ def requantize_int8_stack(w, chunk: int = 8) -> dict:
     return {"q": q8, "s": s8}
 
 
-# decode-shaped rows: at most this many rows of x go to kernel K6 in
-# int8_linear, every decode batch bucket. Over a decode step's int8 linears
-# K6 beats the JAX form (the codes made bf16, then one product) at each
-# bucket, 1 to 64 rows: 2.62 against 14.82 ms at one row and 10.46 against
-# 15.02 ms at 64 for Qwen3-4B (studies/k6_study.py --dense on an H100, PERF.md).
-# Past 8 rows each 16-row chunk and each pass of 8 rows streams the codes
-# again, so K6 then loses to the bf16 mode's matmul (ROADMAP queue 2)
+# decode-shaped rows: at most this many rows of x go to the int8 linear
+# kernel (csrc/int8_linear.cu) in int8_linear / int8_linears, every decode
+# batch bucket. The kernel streams each weight once for any of them, with
+# the scale and the cast in its epilogue and one launch for the weights
+# that read the same x (studies/int8_linear_study.py on an H100, PERF.md);
+# longer rows take the JAX form (int8_mm), a product the tensor cores fill
 INT8_GEMV_ROWS = 64
 _QUANT_COLS = 4096  # output channels quantized at a time (f32 temporaries)
 
@@ -264,19 +264,28 @@ def int8_linear(x: torch.Tensor, w, plain_kernels: bool = False) -> torch.Tensor
     the f32 sums of x against the exact codes, times ``s`` in f32, cast to
     x's dtype (``s`` is never folded into a rounded weight).
 
-    At most ``INT8_GEMV_ROWS`` rows on a CUDA tensor go to kernel K6 with
-    one expert (``ops.cuda.int8_gemv.int8_gemv_dense``; its plain version
-    when ``plain_kernels``), as ``qlinear`` routes decode-shaped fp8 rows to
-    K4. Other rows take the JAX form (``int8_mm``)."""
-    q, s = w["q"], w["s"]
-    if x.is_cuda and x.shape[0] <= INT8_GEMV_ROWS:
-        from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
+    At most ``INT8_GEMV_ROWS`` rows on a CUDA tensor are one launch of the
+    int8 linear kernel (``ops.cuda.int8_linear``; its plain version when
+    ``plain_kernels``), with x rounded to bf16, as ``qlinear`` routes
+    decode-shaped fp8 rows to K4. Other rows take the JAX form
+    (``int8_mm``), then the scale and the cast."""
+    return int8_linears(x, [w], plain_kernels)[0]
 
-        fn = k6.int8_gemv_dense_plain if plain_kernels else k6.int8_gemv_dense
-        y = fn(x, q)
-    else:
-        y = int8_mm(x, q)
-    return (y * s).to(x.dtype)
+
+def int8_linears(x: torch.Tensor, ws, plain_kernels: bool = False, joined: bool = False):
+    """``int8_linear`` of x through each container of ``ws`` (at most four,
+    all reading x): a list of [N, out_w], or with ``joined`` one [N, sum
+    out_w], the outputs side by side. At most ``INT8_GEMV_ROWS`` rows on a
+    CUDA tensor are one kernel launch for all of them (the list: contiguous
+    views of one buffer); other rows, and CPU tensors, take ``int8_linear``
+    weight by weight, the JAX form, with the same bits as separate calls."""
+    if x.is_cuda and x.shape[0] <= INT8_GEMV_ROWS:
+        from pegainfer_tpu_torch.ops.cuda import int8_linear as il
+
+        fn = il.int8_linear_plain if plain_kernels else il.int8_linear
+        return fn(x, [w["q"] for w in ws], [w["s"] for w in ws], joined)
+    ys = [(int8_mm(x, w["q"]) * w["s"]).to(x.dtype) for w in ws]
+    return torch.cat(ys, dim=-1) if joined else ys
 
 
 def int8_mm(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

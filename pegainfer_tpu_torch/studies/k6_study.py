@@ -68,14 +68,16 @@ of invalid ids never zeroed. It reports, for each, the cases it fails and
 by what factor. ``check`` fills the block that y will take with NaN first,
 so an element left unwritten fails.
 
-``--dense`` runs K6 at one expert (``int8_gemv_dense``, the decode rows of
-the int8 weight-only linears of Qwen3 and Qwen3.5) on random stacks at
-``DENSE_SHAPES`` and ``DENSE_ROWS``: each row against its plain version
-(y NaN-filled first), then each beside its plain version, bf16
+``--dense`` runs K6 at one expert (``int8_gemv_dense``, which carried the
+decode rows of the int8 weight-only linears of Qwen3 and Qwen3.5 until the
+int8 linear kernel took them, ``studies/int8_linear_study.py``) on random
+stacks at ``DENSE_SHAPES`` and ``DENSE_ROWS``: each row against its plain
+version (y NaN-filled first), then each beside its plain version, bf16
 ``torch.matmul``, the JAX form (``quant.int8_mm``: codes made bf16, then
 one product) and ``torch._weight_int8pack_mm`` where this torch runs it on
-the card, and each family's decode-step sums (``chip_smoke.py`` runs the
-same sweep on the served models' weights).
+the card, and each family's decode-step sums (``chip_smoke.py`` holds K6
+at one expert to its plain version on the served models' weights with
+``dense_check``).
 
 ``--cpu`` prints the plans of the cases on 132 SMs and runs the plain
 version through the wrapper on CPU tensors against a numpy reference at a

@@ -29,7 +29,11 @@ passes a kernel that drops one product of one row). The chains K8
 and K9 round act to bf16, where an f32 sum-order difference moves an
 element by one bf16 ulp now and then: K8 is held to 2e-3 of max |y|, K9
 each row to CHAIN_ROW_RTOL of its own max |y| (a row of an invalid expert
-id exactly 0). Routed experts are drawn from a 16-expert stack.
+id exactly 0). Routed experts are drawn from a 16-expert stack. The int8
+linear kernel (``csrc/int8_linear.cu``) forms its plain version's exact
+f32 products in another order, then scales and rounds once: f32 outputs
+each row to INT8_GEMV_RTOL of its own max |y|, bf16 outputs each row to one
+bf16 ulp of its max (``int8_linear_study.row_err``).
 """
 
 import numpy as np
@@ -44,9 +48,11 @@ from pegainfer_tpu_torch.ops.cuda import fp8_gemv as k4
 from pegainfer_tpu_torch.ops.cuda import int8_chain as k8
 from pegainfer_tpu_torch.ops.cuda import int8_gemv as k6
 from pegainfer_tpu_torch.ops.cuda import int8_grouped as k7
+from pegainfer_tpu_torch.ops.cuda import int8_linear as il
 from pegainfer_tpu_torch.ops.cuda import paged_decode as pd
 from pegainfer_tpu_torch.studies import k3_study as k3s
 from pegainfer_tpu_torch.studies import k4_study as k4s
+from pegainfer_tpu_torch.studies import int8_linear_study as ils
 from pegainfer_tpu_torch.studies import k6_study as k6s
 
 pytestmark = pytest.mark.cuda
@@ -479,10 +485,12 @@ def test_int8_gemv_dense_matches_plain(dev, case):
 
 
 def test_int8_linear_routes_decode_rows_to_k6(dev):
-    """``quant.int8_linear`` on the card: at most INT8_GEMV_ROWS rows launch
-    K6 (its plain version with ``plain_kernels``, the scaled plain product
-    bit for bit), more take the JAX form; each within a bf16 rounding of
-    the scaled plain product."""
+    """``quant.int8_linear`` on the card: at most INT8_GEMV_ROWS rows are one
+    launch of the int8 linear kernel, which took K6 at one expert's place
+    (its plain version with ``plain_kernels``, the scaled plain product bit
+    for bit), more take the JAX form; K6 launches no more; each within a
+    bf16 rounding of the scaled plain product. ``int8_linears`` on three
+    weights is one launch."""
     from pegainfer_tpu_torch.ops import quant
 
     gen = _gen(dev, 77)
@@ -492,17 +500,91 @@ def test_int8_linear_routes_decode_rows_to_k6(dev):
     for M in (1, quant.INT8_GEMV_ROWS, quant.INT8_GEMV_ROWS + 1, 300):
         x = torch.randn((M, 2560), generator=gen, device=dev).to(torch.bfloat16)
         ref = (k6.int8_gemv_dense_plain(x, w["q"]) * w["s"]).to(torch.bfloat16)
-        before = k6.launches
+        before, k6_before = il.launches, k6.launches
         y = quant.int8_linear(x, w)
         plain = quant.int8_linear(x, w, plain_kernels=True)
         torch.cuda.synchronize()
-        assert k6.launches == before + (M <= quant.INT8_GEMV_ROWS)
-        assert y.dtype == torch.bfloat16
+        assert il.launches == before + (M <= quant.INT8_GEMV_ROWS)
+        assert k6.launches == k6_before and y.dtype == torch.bfloat16
         if M <= quant.INT8_GEMV_ROWS:
             assert torch.equal(plain, ref)
         err = (y.float() - ref.float()).abs().amax(dim=1)
         # bf16 outputs: one rounding apart at most
         assert (err <= 2 ** -7 * ref.float().abs().amax(dim=1)).all()
+        before = il.launches
+        ys = quant.int8_linears(x, [w, w, w])
+        torch.cuda.synchronize()
+        assert il.launches == before + (M <= quant.INT8_GEMV_ROWS)
+        assert all(torch.equal(a, y) for a in ys)
+
+
+@pytest.mark.parametrize("case", ils.check_cases(), ids=lambda c: c[0])
+def test_int8_linear_kernel_matches_plain(dev, case):
+    """The int8 linear kernel (one launch for the case's weights: Qwen3-4B's
+    wq, wk, a ragged OUT 1000 x IN 400, Qwen3's wq / wk / wv and the
+    hybrid's two groups of four, a wide OUT 16384 x IN 512) at 1-64 rows (17
+    and 33: a last n8 group of one row; the groups at 64 rows and the wide
+    weight past 16 in the warpgroup form), bf16 and f32 rows: each row within one bf16 ulp (f32:
+    INT8_GEMV_RTOL) of its own max |ref|, the outputs' block NaN-filled
+    first (``int8_linear_study.run_case``), so an unwritten element fails."""
+    before = il.launches
+    ys, refs = ils.run_case(case, dev)
+    torch.cuda.synchronize()
+    assert il.launches == before + 1 and len(ys) == len(case[1])
+    for y, ref in zip(ys, refs):
+        assert y.shape == ref.shape and y.dtype == ref.dtype and y.is_contiguous()
+        assert ils.row_err(y, ref)[1] <= 1.0
+
+
+@pytest.mark.parametrize("M", [1, 16, 64])
+def test_int8_linear_kernel_same_bits_twice_and_joined(dev, M):
+    """A block's K parts meet in a fixed order and each y element is
+    written once: two calls give the same bits, and the joined outputs are
+    the listed ones side by side."""
+    gen = _gen(dev, 200 + M)
+    ws = [ils.random_weight(gen, 1, o, 2048, dev) for o in (2048, 2048, 4096, 4096)]
+    qs, ss = [q[0] for q, _, _ in ws], [s[0] for _, s, _ in ws]
+    x = torch.randn((M, 2048), generator=gen, device=dev).to(torch.bfloat16)
+    a, b = il.int8_linear(x, qs, ss), il.int8_linear(x, qs, ss)
+    joined = il.int8_linear(x, qs, ss, joined=True)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert torch.equal(joined, torch.cat(a, dim=-1))
+
+
+def test_int8_linear_kernel_in_a_cuda_graph(dev):
+    """Captured in a CUDA graph (no host read, no lazily made state) and
+    replayed on new rows, it equals the eager launch bit for bit."""
+    gen = _gen(dev, 210)
+    ws = [ils.random_weight(gen, 1, o, 2560, dev) for o in (4096, 1024, 1024)]
+    qs, ss = [q[0] for q, _, _ in ws], [s[0] for _, s, _ in ws]
+    x = torch.randn((8, 2560), generator=gen, device=dev).to(torch.bfloat16)
+    il.int8_linear(x, qs, ss)  # the first launch sets the kernel's attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = il.int8_linear(x, qs, ss, joined=True)
+    x.copy_(torch.randn((8, 2560), generator=gen, device=dev).to(torch.bfloat16))
+    before = il.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert il.launches == before
+    assert torch.equal(out, il.int8_linear(x, qs, ss, joined=True))
+
+
+def test_int8_linear_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q = torch.zeros((64, 256), dtype=torch.int8, device=dev)
+    s = torch.ones(64, device=dev)
+    x = torch.zeros((4, 256), dtype=torch.bfloat16, device=dev)
+    for bad in (lambda: il.int8_linear(x, [q] * 5, [s] * 5),  # more than 4 weights
+                lambda: il.int8_linear(torch.zeros((65, 256), dtype=torch.bfloat16, device=dev),
+                                       [q], [s]),  # more than 64 rows
+                lambda: il.int8_linear(x[:, :200], [q[:, :200]], [s]),  # IN not a multiple of 16
+                lambda: il.int8_linear(x.half(), [q], [s]),  # fp16 rows
+                lambda: il.int8_linear(x, [q.float()], [s]),  # q not int8
+                lambda: il.int8_linear(x, [q], [s.half()]),  # s not f32
+                lambda: il.int8_linear(x, [q[:, ::2]], [s])):  # q not contiguous
+        with pytest.raises(ValueError):
+            bad()
 
 
 def _k7_routing(gen, dev, M, E, routing):
@@ -854,9 +936,10 @@ def test_graphed_decode_step_equals_the_eager_step(graph_models, mode, B, P):
 
 @pytest.mark.parametrize("mode", ["bf16", "int8"])
 def test_graph_replayed_first_equals_the_eager_step(graph_models, mode):
-    """K1's ticket counters and K6's zero expert ids are cached device
-    tensors: made first inside a capture, their zeroing would run only in
-    that graph. With both caches emptied, graphs at B 1, 2 and 8 are
+    """K1's ticket counters are cached device tensors: made first inside a
+    capture, their zeroing would run only in that graph (the int8 linear
+    kernel keeps none; K6's zero expert ids, emptied too, are made on no
+    graphed path now). With the caches emptied, graphs at B 1, 2 and 8 are
     captured, then the first one replays before any other graph and before
     any eager step at its B: it equals the eager step."""
     from pegainfer_tpu_torch.models import qwen3 as q3
@@ -884,19 +967,21 @@ def test_graph_replayed_first_equals_the_eager_step(graph_models, mode):
 @pytest.mark.parametrize("mode", ["bf16", "int8"])
 def test_graph_replays_count_their_launches(graph_models, mode):
     """After n steps of one (B, P) (the capture and n replays) K1 counts n x
-    layers launches and K6 n x (6 x layers + 1) in the int8 mode (six
-    projections a layer and the head), 0 in bf16: the warm-up's and the
-    capture's own calls are not counted."""
+    layers launches and the int8 linear kernel n x (4 x layers + 1) in the
+    int8 mode (wq / wk / wv in one launch, wo, w_gate_up, w_down a layer and
+    the head), 0 in bf16, K6 none: the warm-up's and the capture's own calls
+    are not counted."""
     cfg, params = _graph_cfg(), graph_models[mode]
     graphs = _graphs(cfg, params, _graph_pool())
     rows = _graph_rows(2, 8)
-    k1, k6_0 = pd.launches, k6.launches
+    k1, k6_0, il_0 = pd.launches, k6.launches, il.launches
     n = 5
     for step in range(n):
         graphs.run(*_graph_batch([(ctx + step, pages) for ctx, pages in rows], 2, 8, step))
     torch.cuda.synchronize()
     assert pd.launches - k1 == n * GRAPH_LAYERS
-    assert k6.launches - k6_0 == (n * (6 * GRAPH_LAYERS + 1) if mode == "int8" else 0)
+    assert il.launches - il_0 == (n * (4 * GRAPH_LAYERS + 1) if mode == "int8" else 0)
+    assert k6.launches == k6_0
 
 
 @pytest.mark.parametrize("mode", ["bf16", "int8"])
@@ -1017,7 +1102,9 @@ def test_hybrid_graphed_decode_step_equals_the_eager_step(q35_graph_models, mode
     """Two steps (the second a replay) at (B, P), the rows on slots in
     reverse order: logits, every live slot's rows and the pool past the
     null page equal the eager step's bit for bit; K1 counts a launch a
-    step and K6 7 x 3 + 7 + 1 = 29 in int8 through the replay."""
+    step and the int8 linear kernel 4 x 3 + 4 + 1 = 17 in int8 through the
+    replay (a layer's projections of the same rows in one launch), K6
+    none."""
     cfg, params = _q35_graph_cfg(), q35_graph_models[mode]
     st_e = _q35_graph_state()
     st_g = _clone_state(st_e)
@@ -1028,14 +1115,15 @@ def test_hybrid_graphed_decode_step_equals_the_eager_step(q35_graph_models, mode
         batch = _q35_graph_batch([(ctx + step, pages) for ctx, pages in rows], slots, B, P,
                                  seed=step)
         want = _q35_eager(cfg, params, st_e, batch)
-        k1, k6_0 = pd.launches, k6.launches
+        k1, k6_0, il_0 = pd.launches, k6.launches, il.launches
         got = graphs.run(*batch).clone()
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"step {step}: {(got - want).abs().max().item()}"
         assert _q35_state_equal(st_g, st_e)
         if step:  # a replay
             assert pd.launches - k1 == 1
-            assert k6.launches - k6_0 == (29 if mode == "int8" else 0)
+            assert il.launches - il_0 == (17 if mode == "int8" else 0)
+            assert k6.launches == k6_0
     assert list(graphs.steps) == [(B, P)] and len(graphs.capture_log) == 1
 
 
