@@ -143,7 +143,12 @@ weights:
     the token gaps that held one; the allocated memory back within the
     pool's bytes after shutdown; then 8i's step measurement on the graphed
     step in both modes (device time, idle share, the graph's replay alone on
-    CUDA events).
+    CUDA events);
+8k. on the first BLOCK_LAYERS = 12 layers at full width (to keep the smoke
+    within its limit beside [29]): decode blocks under the JAX defaults,
+    graphed, bf16 and int8, against the one-token eager engine's tokens at
+    that depth (``block_oracles``: [4]'s and [8f]'s prompts) and an eager
+    block engine (``block_phase``).
 
 Checkpoints and the serving entry point, on the same Qwen3-4B weights after
 the block phases:
@@ -163,8 +168,8 @@ the block phases:
     ``--max-num-pages`` HTTP_PAGES, the tokenizer ``SimTokenizer`` (token-list
     prompts; the ``tok<id>`` text gives the ids back): /health, /v1/models,
     the blocking 1024/256 request with logprobs 1 (its ids equal phase 4's,
-    which [8k] held its own to), the same request streamed (its text equals
-    the blocking text; finish "length", ``data: [DONE]`` last) and on the
+    as [8j]'s graphed engine's do), the same request streamed (its text
+    equals the blocking text; finish "length", ``data: [DONE]`` last) and on the
     handle, each after the prefix cache is emptied (a miss, as the first),
     and blocking again (its wall beside the handle's), then streamed again
     (a hit: its tokens against the miss's, and its first logits against
@@ -176,6 +181,35 @@ the block phases:
     JSON body (400 each), /metrics counting what was sent; K2 = 36 x (whole
     prefills + pieces), K1 = 36 x (tokens computed + fused pieces); TTFT,
     gaps and wall at the client beside the handle's.
+
+Tensor parallelism, last on the Qwen3 weights (``parallel/``): two ranks
+on the one card (``device_ordinals=[0, 0]``: the device group is gloo,
+through the host), eager (``precompile=False``), ``OLD_DEFAULTS``; it
+checks the sharded path at full width and measures no TP speed:
+
+29a. K1 and K2 at one rank's heads (Hq / Hkv 16 / 4): timed beside their
+    bounds, plain versions and SDPA (K1 at contexts 1,152 and {1,088,
+    532}; K2 at T = S = 1,024 and a 256-row chunk at q_offset 1,024), and
+    phase 3's checks at those heads; the int8 linear kernel at Qwen3-4B's
+    TP 2 and TP 4 shards (``int8_linear_study.tp_launches``; wo and w_down
+    through its f32-output epilogue) at 1, 8, 16, 64 rows, each row
+    against its plain version, timed beside its bound, the plain version
+    and bf16 ``torch.mm``;
+29b. bf16 through ``start_engine_from_params(..., tp_size=2)``: TP_MAIN
+    (1024/64), then TP_PAIR (300/32 + 500/32) at once, on phase 4's prompts
+    (drawn again, ``tp_prompts``); every request ``Finished``; rank 0's K1
+    / K2 launches and each rank's (read back
+    from the workers, ``rank_stats``) equal 36 x decode steps / 36 x
+    prefills, every rank's counters equal, 2 x 36 + 1 collectives a
+    forward; rank 0's 1,024-token prefill logits and one B = 2 decode step
+    (``tp_decode_logits``, on the idle engine) against the one-process
+    port's by rule 7, the fraction printed; the streams equal phase 4's
+    one-process eager ones up to the first step whose one-process top-2
+    gap is within the measured diff; no worker alive after the shutdown; the
+    backend, each rank's parameter bytes, TTFT, TPOT p50 and the seconds;
+29c. [29b] in ``quantize="int8"`` on [8f]'s prompts and streams (quantized
+    in rank 0 before the split; the int8 linear kernel 145 x decode steps +
+    1 a prefill on each rank).
 
 The Qwen3.5 hybrid at the JAX package's ``qwen35.bench_config()`` (32
 layers: 8 groups of 3 Gated Delta Net layers and 1 gated full-attention
@@ -428,7 +462,8 @@ records under ``qwen35``, 13a-13b's under ``dsv4_cache``, 8e's, 25a's and
 ``launches_graphed_path``, the hybrid's as ``launches_qwen35_graphed_path``,
 [26c]'s as ``launches_http_path``, [26]'s record under ``serving``'s ``http``,
 [27b]'s as ``launches_mp8_path`` and [27]'s record under ``dsv4_mp8``,
-[28]'s under ``dsv2lite``;
+[28]'s under ``dsv2lite``, [29]'s under ``serving``'s ``tp`` (K1's, K2's and the int8
+linear kernel's ``launches_tp_path`` and ``tp_shapes``);
 25g's, 13g's and 18g's records under each family's ``graphs``), the card
 line from nvidia-smi and
 ``{"ok": true, "device": {...}}``.
@@ -625,7 +660,12 @@ MEASURED_BOUND_KERNELS = ("moe_fp4_gemv", "fp8_gemv", "moe_int8_gemv", "int8_lin
 INT8_OPS = 1979e12  # H100 SXM dense int8 (NVIDIA data sheet)
 
 
+T_START = time.perf_counter()  # a phase's header carries the seconds since
+
+
 def log(msg: str) -> None:
+    if msg.startswith("["):  # a phase's header: the seconds since the start
+        msg = f"{msg}  (at {time.perf_counter() - T_START:.1f} s)"
     print(msg, flush=True)
 
 
@@ -932,6 +972,9 @@ def main() -> int:
     linear["launches_qwen35_graphed_path"] = h_graphs["int8"]["launches"]["int8_linear"]
     linear["launches_block_path"] = q_serving["graphs"]["blocks"]["int8"]["launches"][
         "int8_linear"]
+    # [29]'s int8 path at TP 2 (rank 0's launches) and the TP 2 / TP 4 shards
+    linear["launches_tp_path"] = q_serving["tp"]["launches"]["int8_linear"]
+    linear["tp_shapes"] = q_serving["tp"]["kernel_shapes"]["int8_linear"]
     for r in q_records:
         r["launches_graphed_path"] = q_serving["graphs"]["bf16"]["launches"][r["name"]]
         r["launches_qwen35_graphed_path"] = h_graphs["bf16"]["launches"][r["name"]]
@@ -1455,13 +1498,18 @@ def run_qwen3(ceiling):
     del q8
     gc.collect()
     torch.cuda.empty_cache()
-    log("[8k] Qwen3-4B decode blocks under the JAX defaults (decode_block 4, decode_block_max "
-        "16, decode_pipeline_depth 2), graphed, bf16 and int8, against [8j]'s one-token graphed "
-        "tokens and an eager block engine")
+    log(f"[8k] Qwen3-4B cut to its first {BLOCK_LAYERS} layers: decode blocks under the JAX "
+        "defaults (decode_block 4, decode_block_max 16, decode_pipeline_depth 2), graphed, bf16 "
+        "and int8, against the one-token eager engine's tokens at that depth and an eager block "
+        "engine")
     t = time.perf_counter()
-    graphed["blocks"] = run_blocks_qwen3(cfg, q3e, params, contract, {
+    bcfg, bparams = cut_depth(cfg, params, BLOCK_LAYERS)
+    b_eager, b_int8 = block_oracles(bcfg, q3e, bparams, contract)
+    graphed["blocks"] = run_blocks_qwen3(bcfg, q3e, bparams, contract, {
         "paged_decode": pd, "flash_prefill": fp, "int8_linear": il, "moe_int8_gemv": k6},
-        eager_tokens, int8_tokens)
+        b_eager, b_int8)
+    graphed["blocks"]["layers"] = BLOCK_LAYERS
+    del bparams
     graphed["blocks"]["phase_s"] = time.perf_counter() - t
     log(f"  [8k] took {graphed['blocks']['phase_s']:.1f} s")
     gc.collect()
@@ -1470,12 +1518,20 @@ def run_qwen3(ceiling):
         "paged_decode": pd, "flash_prefill": fp}, main_prompt, eager_tokens["main"])
     for r in records:  # the served path's launches beside the main path's
         r["launches_http_path"] = http_launches[r["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = run_tp(cfg, q3, q3e, params, contract, {"paged_decode": pd, "flash_prefill": fp,
+                                                 "int8_linear": il}, att, ceiling,
+                {"bf16": eager_tokens, "int8": int8_tokens})
+    for r in records:  # rank 0's launches at TP 2 (bf16) and the rank's shapes
+        r["launches_tp_path"] = tp["launches"][r["name"]]
+        r["tp_shapes"] = tp["kernel_shapes"][r["name"]]
     serving = {"ttft_ms": ttft_ms, "tpot_p50_ms": tpot, "tpot_p95_ms": tpot95,
                "step_wall_p50_ms": step_wall,
                "prompt": PROMPT, "output": OUT, "paged_decode_shapes": k1_shapes,
                "flash_prefill_shapes": k2_shapes, "chunked": chunked, "pd": pd_record,
                "int8": int8, "echo": echo, "host_profile": host_profile, "graphs": graphed,
-               "http": http}
+               "http": http, "tp": tp}
     return records, serving, steps_json(steps)
 
 
@@ -3171,6 +3227,38 @@ def block_phase(label, start, start_eager, cfg, contract, kernels, expected, wan
     return rec
 
 
+# [8k]'s depth: Qwen3-4B's first 12 of 36 layers at full width keep the
+# smoke within its time limit beside [29] (its block graphs, captures and
+# eager twin a third of the full depth's; the oracle made at that depth)
+BLOCK_LAYERS = 12
+
+
+def cut_depth(cfg, params, n):
+    """A Qwen3 config and tree of the first ``n`` layers (the layer stacks'
+    leading views; the embedding, norms and head shared)."""
+    import dataclasses
+
+    return (dataclasses.replace(cfg, num_hidden_layers=n),
+            {**params, "layers": {k: v[:n] for k, v in params["layers"].items()}})
+
+
+def block_oracles(cfg, q3e, params, contract):
+    """[8k]'s oracles at ``cfg``'s depth: the one-token eager engine's
+    (``OLD_DEFAULTS``, ``EAGER``) main-request streams on [4]'s (bf16) and
+    [8f]'s (int8, quantized at start) prompts, as [4] and [8f] make them at
+    full depth. Returns (bf16, int8) token records."""
+    out = []
+    for mode, seed in ((None, SEED), ("int8", SEED + 3)):
+        handle = q3e.start_engine_from_params(
+            cfg, shallow_tree(params), contract.EngineLoadOptions(
+                kv_memory_fraction=0.5, seed=SEED, quantize=mode, **OLD_DEFAULTS, **EAGER),
+            device="cuda")
+        run = serve_slots(cfg, contract, handle, {}, concurrent=(),
+                          shapes=((64, 4), (PROMPT, OUT)), seed=seed)
+        out.append({"main": run["main_tokens"], "concurrent": []})
+    return out
+
+
 def run_blocks_qwen3(cfg, q3e, params, contract, kernels, eager_tokens, int8_tokens):
     """Phase 8k: ``block_phase`` on Qwen3-4B in bf16 (the main request's
     oracle [8j]'s, equal to [4]'s; K1 / K2 counted) and int8 (the oracle
@@ -3566,7 +3654,7 @@ def run_http(cfg, q3e, params, contract, kernels, main_prompt, want_main):
         ok = (status == 200 and ch["finish_reason"] == "length" and ids == want_main
               and len(lps) == OUT and all(np.isfinite(v) and v <= 0 for v in lps))
         log(f"  blocking {PROMPT}/{OUT} with logprobs 1: status {status}, {len(ids)} ids equal "
-            f"[8k] bf16's main-request tokens (= [4]'s): {ids == want_main}, logprobs finite and "
+            f"[4]'s main-request tokens: {ids == want_main}, logprobs finite and "
             f"<= 0: {all(np.isfinite(v) and v <= 0 for v in lps)}; wall {wall_miss * 1e3:.1f} ms")
         if not ok:
             raise SystemExit("[26c] the blocking request's tokens or logprobs are wrong")
@@ -4038,6 +4126,352 @@ def run_dsv4_echo(cfg, params):
     del every, cache
     return {"prompt": len(ext), "logprobs_share_of_limit": share,
             "routing_flips": replay.flips, "routing_decisions": replay.decisions}
+
+
+# ── phase 29: tensor parallelism, two ranks on the one card ─────────────
+
+TP_SIZE = 2
+TP_ORDINALS = [0, 0]  # both ranks on card 0: the device group is gloo
+TP_MAIN = (1024, 64)
+TP_PAIR = ((300, 32), (500, 32))  # at once: decode at B = 2
+TP_OPTS = dict(precompile=False, **OLD_DEFAULTS)  # the eager step, as TP runs it
+TP_REF_PAGES = 64  # the one-process executor of the B = 2 logits check
+TP_KV_FRACTION = 0.2  # the TP engine's pool: each rank half of it (two ranks a card)
+TP_DECODE_IDS = (90000, 90001)  # request ids of the B = 2 logits check
+TP_LINEAR_CALLS = 30
+
+
+def tp_children():
+    import multiprocessing
+
+    return [p for p in multiprocessing.active_children() if p.name.startswith("pegainfer-tp")]
+
+
+def tp_prompts(cfg, seed):
+    """The prompts of [4]'s traffic (seed SEED) or [8f]'s (SEED + 3), drawn
+    again in their order (the 64-token warm-up's, the main request's, the
+    pair's): TP_MAIN's prompt and TP_PAIR's, whose one-process eager
+    tokens are the first TP_MAIN[1] / TP_PAIR's of those phases' streams
+    (greedy, one token a step, the pair at B = 2 throughout)."""
+    rng = np.random.default_rng(seed)
+    rng.integers(0, cfg.vocab_size, 64)
+    main_prompt = rng.integers(0, cfg.vocab_size, PROMPT).tolist()
+    pair = [(rng.integers(0, cfg.vocab_size, n).tolist(), m)
+            for (n, _), (_, m) in zip(SHORT, TP_PAIR)]
+    return main_prompt, pair
+
+
+def tp_traffic(contract, handle, main_prompt, pair):
+    """[29]'s traffic: TP_MAIN alone, then TP_PAIR at once; every request
+    must finish. Returns the streams and the main request's TTFT / TPOT p50
+    (host clock)."""
+    ch, t0 = run_request(contract, handle, main_prompt, TP_MAIN[1])
+    toks, fin, times = drain(contract, ch)
+    expect_finished(contract, f"TP {TP_MAIN[0]}/{TP_MAIN[1]}", toks, fin, TP_MAIN[1])
+    out = {"main": toks, "pair": [], "ttft_ms": (times[0] - t0) * 1e3,
+           "tpot_p50_ms": statistics.median((b - a) * 1e3 for a, b in zip(times, times[1:]))}
+    for ch, n, m in submit_together(contract, handle, pair):
+        toks_s, fin_s, _ = drain(contract, ch)
+        expect_finished(contract, f"TP concurrent {n}/{m}", toks_s, fin_s, m)
+        out["pair"].append(toks_s)
+    return out
+
+
+def tp_decode_logits(ex, local, prompts, tokens):
+    """One B = 2 decode step's logits [2, V] on executor ``ex`` (``local``:
+    the executor whose model call runs here, rank 0's under TP): the two
+    prompts prefilled, then one step with logprobs on, fed ``tokens``."""
+    from pegainfer_tpu_torch.engine.executor import (DecodePlan, DecodeStepItem, PrefillPlan,
+                                                     PrefillStepItem)
+    from pegainfer_tpu_torch.engine.contract import SamplingParams
+
+    caught = []
+    model = local._decode_model
+    local._decode_model = lambda items, *a: caught.append(model(items, *a)) or caught[-1]
+    try:
+        ex.execute_prefill(PrefillPlan(requests=[
+            PrefillStepItem(request_id=r, prompt_tokens=p, params=SamplingParams())
+            for r, p in zip(TP_DECODE_IDS, prompts)]))
+        ex.execute_decode(DecodePlan(requests=[
+            DecodeStepItem(request_id=r, token_id=t, params=SamplingParams(), logprobs=1)
+            for r, t in zip(TP_DECODE_IDS, tokens)]))
+    finally:
+        del local._decode_model
+        for r in TP_DECODE_IDS:
+            ex.release_request(r)
+    return caught[0][:len(prompts)].float()
+
+
+def tp_token_check(label, cfg, q3, tree, prompt, got, want, limit):
+    """``got`` must equal the one-process engine's ``want`` up to the first
+    step whose one-process top-2 gap (its logits given the same prefix, by
+    one prefill) is within ``limit``, the measured diff."""
+    k = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if k is None:
+        log(f"  {label}: {len(got)} tokens equal the one-process engine's")
+        return {"equal": True}
+    ids = torch.tensor(prompt + want[:k], dtype=torch.int32, device="cuda")
+    n_pages = -(-ids.shape[0] // PAGE)
+    kv = q3.make_kv_pages(cfg, n_pages + 1, PAGE, device="cuda")
+    with torch.no_grad():
+        lp, _ = q3.prefill(cfg, tree, kv, ids, torch.arange(1, n_pages + 1, dtype=torch.int32,
+                                                            device="cuda"))
+    top2 = torch.topk(lp, 2).values
+    gap = (top2[0] - top2[1]).item()
+    log(f"  {label}: equal for {k} of {len(got)} tokens; at step {k} the one-process "
+        f"top-2 gap is {gap:.4e} against the measured diff {limit:.4e}")
+    if gap > limit:
+        raise SystemExit(f"[29] {label}: the TP tokens leave the one-process engine's at step "
+                         f"{k}, where its top-2 gap {gap:.4e} exceeds the measured diff")
+    return {"equal": False, "first_diff_step": k, "top2_gap": gap, "limit": limit}
+
+
+def tp_delta(after, before):
+    """Each rank's counters run between two ``rank_stats`` reads."""
+    keys = ("prefills", "chunk_pieces", "mixed_pieces", "decode_steps", "decode_blocks",
+            "collectives")
+    return [{**{k: a[k] - b[k] for k in keys},
+             "launches": {n: a["launches"][n] - b["launches"][n] for n in a["launches"]}}
+            for a, b in zip(after, before)]
+
+
+def tp_mode(label, mode, cfg, q3, q3e, params, contract, kernels, oracle, seed):
+    """[29b] / [29c] in one weight mode (None: bf16, "int8"): the TP engine
+    (two ranks on card 0) on [4]'s (bf16) or [8f]'s (int8) prompts
+    (``tp_prompts(cfg, seed)``), its counts, every rank's; rank 0's prefill
+    logits and a B = 2 decode step against the one-process model (rule 7);
+    the streams against those phases' one-process eager streams
+    (``oracle``); no worker left after the shutdown."""
+    from pegainfer_tpu_torch.engine.torch_executor import TorchExecutor
+
+    pd, fp, il = kernels["paged_decode"], kernels["flash_prefill"], kernels["int8_linear"]
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    opts = dict(seed=SEED, quantize=mode, **TP_OPTS)
+    main_prompt, pair = tp_prompts(cfg, seed)
+    want = {"main": oracle["main"][:TP_MAIN[1]],
+            "pair": [t[:m] for t, (_, m) in zip(oracle["concurrent"], pair)]}
+
+    t_start = time.perf_counter()
+    handle = q3e.start_engine_from_params(
+        cfg, shallow_tree(params), contract.EngineLoadOptions(
+            kv_memory_fraction=TP_KV_FRACTION, device_ordinals=TP_ORDINALS, **opts),
+        device="cuda", tp_size=TP_SIZE)
+    start_s = time.perf_counter() - t_start
+    ex = handle._scheduler.executor
+    prefill_logits = []
+    first = ex.local._first_token
+    ex.local._first_token = lambda item, last: (prefill_logits.append(last.float().clone()),
+                                                first(item, last))[1]
+    try:
+        pd.launches = fp.launches = il.launches = 0
+        before = ex.rank_stats()  # the workers' counts at the start
+        got = tp_traffic(contract, handle, main_prompt, pair)
+        launches = {"paged_decode": pd.launches, "flash_prefill": fp.launches,
+                    "int8_linear": il.launches}
+        after = ex.rank_stats()
+        del ex.local._first_token
+        tp_step = tp_decode_logits(ex, ex.local, [p for p, _ in pair],
+                                   [t[0] for t in want["pair"]])
+    finally:
+        handle.shutdown()
+        handle._thread.join(timeout=120)
+    alive = tp_children()
+    if alive or handle._thread.is_alive():
+        raise SystemExit(f"[29] {label}: workers {alive} or the scheduler outlived the shutdown")
+    final = ex.final_stats
+    del handle, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    deltas = tp_delta(after, before)
+    run = deltas[0]
+    want_launches = {"flash_prefill": L * run["prefills"], "paged_decode": L * run["decode_steps"],
+                     "int8_linear": ((4 * L + 1) * run["decode_steps"] + run["prefills"]
+                                     if mode else 0)}
+    log(f"  [29] {label}: rank 0's launches {launches}; each rank's "
+        f"{[d['launches'] for d in deltas]}; expected {want_launches} ({run['prefills']} "
+        f"prefills, {run['decode_steps']} decode steps, {L} layers)")
+    if launches != want_launches or any(d["launches"] != want_launches for d in deltas):
+        raise SystemExit(f"[29] {label}: kernel launch counts do not match the path")
+    if any({k: v for k, v in d.items() if k != "launches"}
+           != {k: v for k, v in run.items() if k != "launches"} for d in deltas):
+        raise SystemExit(f"[29] {label}: the ranks' executors ran different calls: {deltas}")
+    forwards = run["prefills"] + run["decode_steps"]
+    per_forward = run["collectives"] / forwards
+    if run["collectives"] != (2 * L + 1) * forwards:
+        raise SystemExit(f"[29] {label}: {run['collectives']} collectives for {forwards} "
+                         f"forwards, not {2 * L + 1} each")
+
+    # rank 0's logits against the one-process model on the same inputs
+    ref_tree = q3.quantize_params_int8(shallow_tree(params)) if mode else params
+    n_pages = TP_MAIN[0] // PAGE + 1
+    kv = q3.make_kv_pages(cfg, n_pages + 1, PAGE, device="cuda")
+    toks_t = torch.tensor(main_prompt, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        lp, _ = q3.prefill(cfg, ref_tree, kv, toks_t,
+                           torch.arange(1, n_pages + 1, dtype=torch.int32, device="cuda"))
+    del kv
+    log(f"  [29] {label}: rank 0's {TP_MAIN[0]}-token prefill logits against the one-process "
+        "port's (rule 7)")
+    prefill_rule = logits_rule(prefill_logits[0], lp.float(), LOGITS_RTOL)
+    ref_ex = TorchExecutor(cfg, ref_tree, q3.make_kv_pages(cfg, TP_REF_PAGES, PAGE,
+                                                           device="cuda"),
+                           contract.EngineLoadOptions(max_num_pages=TP_REF_PAGES, **opts))
+    ref_step = tp_decode_logits(ref_ex, ref_ex, [p for p, _ in pair],
+                                [t[0] for t in want["pair"]])
+    del ref_ex
+    decode_rules = []
+    for b in range(len(pair)):
+        log(f"  [29] {label}: B = 2 decode step, row {b}, against the one-process port's (rule 7)")
+        decode_rules.append(logits_rule(tp_step[b], ref_step[b], LOGITS_RTOL))
+    if not (prefill_rule["ok"] and all(r["ok"] for r in decode_rules)):
+        raise SystemExit(f"[29] {label}: rank 0's logits disagree with the one-process port")
+    limit = max([prefill_rule["max_diff"]] + [r["max_diff"] for r in decode_rules])
+    tokens = {"main": tp_token_check(f"{label} main", cfg, q3, ref_tree, main_prompt,
+                                     got["main"], want["main"], limit)}
+    tokens["pair"] = [tp_token_check(f"{label} pair {i}", cfg, q3, ref_tree, p, g, w, limit)
+                      for i, ((p, _), g, w) in enumerate(zip(pair, got["pair"], want["pair"]))]
+    del ref_tree
+    out = {"backend": after[0]["backend"], "devices": [st["device"] for st in after],
+           "params_bytes": [st["params_bytes"] for st in after],
+           "num_pages": after[0]["num_pages"], "start_s": start_s,
+           "ttft_ms": got["ttft_ms"], "tpot_p50_ms": got["tpot_p50_ms"],
+           "launches": launches, "launches_each_rank": [d["launches"] for d in deltas],
+           "collectives_per_forward": per_forward, "counters": run,
+           "final_stats": final, "prefill_logits": prefill_rule, "decode_logits": decode_rules,
+           "tokens": tokens, "phase_s": time.perf_counter() - t0}
+    log(f"  [29] {label}: device group {out['backend']} on {out['devices']}; parameters "
+        f"{[round(b / 1e9, 3) for b in out['params_bytes']]} GB a rank; {out['num_pages']} pages "
+        f"a rank; start {start_s:.1f} s; TTFT {got['ttft_ms']:.1f} ms, TPOT p50 "
+        f"{got['tpot_p50_ms']:.2f} ms; {per_forward:.0f} collectives a forward; "
+        f"{out['phase_s']:.1f} s; two ranks on one card through the host, not a TP speed; "
+        f"{card_line()}")
+    return out
+
+
+def tp_linear_shapes(il, ils, gen, ceiling):
+    """The int8 linear kernel at one rank's launches at TP 2 and TP 4
+    (``int8_linear_study.tp_launches``: wo and w_down through the f32-output
+    epilogue) and TP_ROWS rows: each row against its plain version, then
+    the kernel, the plain version and bf16 ``torch.mm`` on the same
+    weights, layers rotated past 2 x L2, one turn; the bound by these
+    inputs."""
+    table = {}
+    saved = il.launches
+    for tp in (2, 4):
+        for name, outs, IN, per_step, f32 in ils.tp_launches(tp):
+            L = max(2, -(-2 * ils.L2_BYTES // (sum(outs) * IN)) + 1)
+            ws = [ils.random_weight(gen, L, o, IN, "cuda", bf16=True) for o in outs]
+            qs, ss, bw = [w[0] for w in ws], [w[1] for w in ws], [w[2] for w in ws]
+            for M in ils.TP_ROWS:
+                x = torch.randn((M, IN), generator=gen, device="cuda").to(torch.bfloat16)
+                ils.nan_poison(M * sum(outs) * (2 if f32 else 1))
+                ys = il.int8_linear(x, [q[0] for q in qs], [s[0] for s in ss], f32_out=f32)
+                refs = il.int8_linear_plain(x, [q[0] for q in qs], [s[0] for s in ss],
+                                            f32_out=f32)
+                errs = [ils.row_err(y, r) for y, r in zip(ys, refs)]
+                share = max(e[1] for e in errs)
+                if not share <= 1.0:
+                    raise SystemExit(f"[29a] the int8 linear kernel disagrees with its plain "
+                                     f"version at {name} M={M} ({share:.3f} of its limit)")
+                fns = {"kernel": lambda i: il.int8_linear(x, [q[i % L] for q in qs],
+                                                          [s[i % L] for s in ss], f32_out=f32),
+                       "plain": lambda i: il.int8_linear_plain(x, [q[i % L] for q in qs],
+                                                               [s[i % L] for s in ss],
+                                                               f32_out=f32),
+                       "library": lambda i: [torch.mm(x, w[i % L]) for w in bw]}
+                ms = {f: sum(t) / len(t) for f, t in ils.timed_in_turns(
+                    fns, max(L, TP_LINEAR_CALLS - TP_LINEAR_CALLS % L), L, 1).items()}
+                b = ils.bounds(outs, IN, M, ceiling, 4 if f32 else 2)
+                table[f"{name} M={M}"] = {
+                    "outs": list(outs), "IN": IN, "M": M, "f32_out": f32,
+                    "launches_a_step": per_step, "max_abs_err": max(e[0] for e in errs),
+                    "row_share": share, "ms": ms["kernel"], "plain_ms": ms["plain"],
+                    "library_ms": ms.get("library"), "library_call": "torch.mm (bf16 weights)",
+                    "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                    "measured_bound_ms": b["measured_bound_ms"]}
+                log(f"  {name} ({'+'.join(map(str, outs))} x {IN}) M={M:2d}"
+                    f"{' f32 out' if f32 else ''}: kernel {ms['kernel'] * 1e3:.2f} us, bound "
+                    f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}), plain "
+                    f"{ms['plain'] * 1e3:.2f} us, torch.mm "
+                    + (f"{ms['library'] * 1e3:.2f} us" if "library" in ms else "-")
+                    + f"; worst row {share:.3f} of its limit")
+            del ws, qs, ss, bw
+            torch.cuda.empty_cache()
+    il.launches = saved
+    steps = {}  # a rank's decode step: each launch's time x its launches a step
+    for tp in (2, 4):
+        for M in ils.TP_ROWS:
+            rows = [table[f"{name} M={M}"] for name, *_ in ils.tp_launches(tp)]
+            steps[f"tp{tp} M={M}"] = st = {
+                k: sum(r["launches_a_step"] * r[k] for r in rows)
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms", "measured_bound_ms")}
+            log(f"  a TP {tp} rank's decode step at {M} rows: the kernel's 145 launches "
+                f"{st['ms'] * 1e3:.1f} us, bound {st['bound_ms'] * 1e3:.1f} (measured "
+                f"{st['measured_bound_ms'] * 1e3:.1f}), plain {st['plain_ms'] * 1e3:.1f}, "
+                f"torch.mm {st['library_ms'] * 1e3:.1f}")
+    return {"shapes": table, "steps": steps}
+
+
+def run_tp(cfg, q3, q3e, params, contract, kernels, att, ceiling, oracles):
+    """Phase 29: Qwen3-4B (36 layers, [4]'s weights) tensor-parallel at TP
+    2 with both ranks on the one card (``device_ordinals=[0, 0]``, gloo):
+    [29a] the kernels at one rank's shapes (K1 and K2 at Hq / Hkv 16 / 4,
+    the int8 linear kernel at the TP 2 and TP 4 shards) against their
+    plain versions and timed; [29b] bf16, [29c] int8: the traffic, the
+    counts, rule 7, the streams against ``oracles`` ([4]'s and [8f]'s
+    one-process eager streams; ``tp_mode``). Checks the sharded path at
+    full width; measures no TP speed."""
+    from pegainfer_tpu_torch.parallel import sharding
+    from pegainfer_tpu_torch.studies import int8_linear_study as ils
+
+    t0 = time.perf_counter()
+    pd, fp, il = kernels["paged_decode"], kernels["flash_prefill"], kernels["int8_linear"]
+    lcfg = sharding.local_config(cfg, TP_SIZE)
+    Hq, Hkv, hd = lcfg.num_attention_heads, lcfg.num_key_value_heads, lcfg.head_dim
+    log(f"[29a] the kernels at one rank's shapes of TP {TP_SIZE} (Hq / Hkv {Hq} / {Hkv}) and "
+        "the int8 linear kernel at the TP 2 and TP 4 shards, each against its plain version")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    k1 = [time_decode(gen, lcfg, pd, s, plain=True) for s in ([PROMPT + OUT // 2], [1088, 532])]
+    k2 = [time_prefill(gen, fp, att, PROMPT, Hq, Hkv, hd, plain=True),
+          time_chunk(gen, fp, att, 256, 1280, 1024, Hq, Hkv, hd)]
+    for r in k1:
+        log(f"  paged_decode at TP {TP_SIZE} heads, contexts {r['seq_lens']}: "
+            f"{r['ms'] * 1e3:.2f} us vs bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
+            f"plain {r['plain_ms'] * 1e3:.2f} us, library "
+            + (f"{r['library_ms'] * 1e3:.2f} us" if r["library_ms"] is not None
+               else r["library_call"]))
+    for r in k2:
+        log(f"  flash_prefill at TP {TP_SIZE} heads, T {r['T']}"
+            + (f" at q_offset {r['q_offset']}" if "q_offset" in r else "")
+            + f": {r['ms'] * 1e3:.2f} us vs bound {r['bound_ms'] * 1e3:.2f} us "
+            f"({r['bound_by']}), plain {r['plain_ms'] * 1e3:.2f} us, library "
+            + (f"{r['library_ms'] * 1e3:.2f} us" if r["library_ms"] is not None
+               else r["library_call"]))
+    # K1's and K2's checks at these heads (their timings above check nothing)
+    errs = check_kernels(lcfg, pd, fp)
+    linear = tp_linear_shapes(il, ils, gen, ceiling)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"tp_size": TP_SIZE, "device_ordinals": TP_ORDINALS,
+           "note": "two ranks on one card through the host (gloo): the sharded path checked "
+                   "at full width, no TP speed",
+           "kernel_shapes": {"paged_decode": k1, "flash_prefill": k2, "int8_linear": linear},
+           "kernel_errs": errs}
+    for mode, seed in ((None, SEED), ("int8", SEED + 3)):
+        label = mode or "bf16"
+        log(f"[29{'b' if mode is None else 'c'}] Qwen3-4B {label} at TP {TP_SIZE} on "
+            f"device_ordinals {TP_ORDINALS}: {TP_MAIN[0]}/{TP_MAIN[1]}, then {TP_PAIR} at once, "
+            f"on {'[4]' if mode is None else '[8f]'}'s prompts, against its one-process streams")
+        out[label] = tp_mode(label, mode, cfg, q3, q3e, params, contract, kernels,
+                             oracles[label], seed)
+    out["launches"] = {"paged_decode": out["bf16"]["launches"]["paged_decode"],
+                       "flash_prefill": out["bf16"]["launches"]["flash_prefill"],
+                       "int8_linear": out["int8"]["launches"]["int8_linear"]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  [29] took {out['phase_s']:.1f} s ({card_line()})")
+    return out
 
 
 def time_chunk(gen, fp, att, T, S, q_offset, Hq, Hkv, hd):

@@ -6,10 +6,12 @@
 // XLA op there, which a Pallas kernel never took): x [M, IN] rounded to
 // bf16, each weight's int8 codes q [OUT, IN] and f32 scales s [OUT], y
 // [M, OUT] = (the f32 sums of x against the exact codes) · s, rounded to
-// bf16 (or kept f32 for f32 rows). Each code is an exact bf16 value, each
-// product of a code and a bf16 x is exact in f32, the sums are f32, and the
-// scale and the rounding are the epilogue's, as (y · s).to(bfloat16) does
-// them. It takes the decode rows of the int8 linears of Qwen3 and Qwen3.5
+// bf16, or kept f32 (out_f32: f32 rows, and the f32-output form for bf16
+// rows, whose partial sums tensor parallelism reduces before one rounding:
+// wo and w_down of a rank, models/qwen3.py). Each code is an exact bf16
+// value, each product of a code and a bf16 x is exact in f32, the sums are
+// f32, and the scale and the rounding are the epilogue's, as (y ·
+// s).to(bfloat16) does them. It takes the decode rows of the int8 linears of Qwen3 and Qwen3.5
 // (ops/quant.py int8_linear / int8_linears: M <= 64); it replaces K6 at one
 // expert (int8_gemv.cu with every id 0), which streamed the codes again for
 // each 16 rows and each 8 rows and left the scale and the cast to two more

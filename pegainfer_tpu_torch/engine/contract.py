@@ -72,10 +72,16 @@ class EngineLoadOptions:
     so no option is silently ignored: None everywhere; ``"int8"`` (int8
     weight-only projections and head) for Qwen3 and the Qwen3.5 hybrid;
     ``"int8-experts"`` (experts requantized to int8) for DeepSeek-V4.
+
+    ``device_ordinals`` (``[0]``, as in the JAX engine): the cards of a
+    tensor-parallel engine's ranks. Listing one ordinal a rank puts rank r
+    on ``cuda:{device_ordinals[r]}`` (a repeat puts two ranks on one card);
+    otherwise the ranks take the first cards, one each.
     """
 
     precompile: bool = True
     enable_cuda_graph: bool = True  # with precompile: the graphed decode step
+    device_ordinals: List[int] = field(default_factory=lambda: [0])
     seed: int = 42
     # Fraction of free device memory given to the paged KV pool.
     kv_memory_fraction: float = 0.85

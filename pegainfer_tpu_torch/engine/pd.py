@@ -52,9 +52,16 @@ def _to_host(tree):
     return tree
 
 
+def _check_one_process(ex) -> None:
+    if getattr(ex, "tp_size", 1) > 1:
+        raise NotImplementedError("PD handoff under tensor parallelism is not ported")
+
+
 def prefill_and_export(ex, item: PrefillStepItem) -> HandoffPayload:
     """Prefill ``item`` on executor ``ex``, gather its pages and slot rows
-    into a host payload, and release everything it held on ``ex``."""
+    into a host payload, and release everything it held on ``ex``. A
+    tensor-parallel executor raises ``NotImplementedError`` first."""
+    _check_one_process(ex)
     export_pages = getattr(ex, "export_pages", None)
     slot_export = getattr(ex, "slot_export", None)
     if export_pages is None and slot_export is None:
@@ -73,7 +80,9 @@ def prefill_and_export(ex, item: PrefillStepItem) -> HandoffPayload:
 def import_request(ex, payload: HandoffPayload) -> None:
     """Materialize a handed-off request on executor ``ex``: allocate its
     pages, scatter the shipped rows, seed a slot and advance the
-    accounting. Its first decode input is ``payload.first_token``."""
+    accounting. Its first decode input is ``payload.first_token``. A
+    tensor-parallel executor raises ``NotImplementedError``."""
+    _check_one_process(ex)
     if payload.kv_rows is not None and getattr(ex, "import_pages", None) is None:
         raise ValueError("payload has pages but the executor has no import_pages")
     if payload.state_snap is not None and getattr(ex, "slot_import", None) is None:

@@ -167,6 +167,9 @@ class Scheduler:
             self.step()
         log.info("scheduler exiting")
         self.executor_release_all()
+        shutdown = getattr(self.executor, "shutdown", None)
+        if shutdown is not None:  # an executor of several processes stops them
+            shutdown()
 
     def executor_release_all(self) -> None:
         for st in self.active:

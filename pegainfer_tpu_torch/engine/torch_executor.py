@@ -27,6 +27,13 @@ are the PD handoff's hooks (``engine/pd.py``).
 (``models/qwen3.py::quantize_params_int8``, applied at engine start); the
 executor runs them as it runs bf16 weights.
 
+Tensor parallelism: with ``tp`` (a rank's ``parallel/group.py::
+RankGroups``) the executor holds one rank's shard and pool under the
+rank's ``local_config`` and passes ``tp`` to every model call; each rank of
+an engine runs one such executor, driven in the same order
+(``parallel/tp_executor.py``). The decode step is then eager: the graph
+options raise ``NotImplementedError``.
+
 Echo: a request with ``echo`` gets its prompt back first
 (``PromptTokens``, sent by the scheduler). With ``logprobs`` as well, the
 executor computes each prompt token's logprob given the tokens before it,
@@ -132,6 +139,16 @@ def check_supported(opts: EngineLoadOptions, family: str = "Qwen3",
         # chunk path
         raise ValueError("enable_prefix_cache needs prefill_chunk (the cached prefix is "
                          "continued by the chunked prefill)")
+
+
+def check_tp_supported(opts: EngineLoadOptions) -> None:
+    """Under tensor parallelism the decode step is eager: gloo collectives
+    cannot be captured in a CUDA graph, and a graph of NCCL collectives
+    needs a card a rank, which this port has not run."""
+    if opts.precompile and opts.enable_cuda_graph:
+        raise NotImplementedError(
+            "tensor parallelism runs the eager decode step: pass precompile=False "
+            "(--no-precompile) or enable_cuda_graph=False")
 
 
 # the tail piece of a chunked prefill (a short remainder, such as a
@@ -419,9 +436,12 @@ class TorchExecutor(BlockDecode):
     """Continuous-batching executor for one Qwen3 model on one device."""
 
     def __init__(self, cfg: q3.Qwen3Config, params, kv_pages: torch.Tensor,
-                 options: Optional[EngineLoadOptions] = None):
+                 options: Optional[EngineLoadOptions] = None, tp=None):
         opts = options or EngineLoadOptions()
         check_supported(opts)
+        if tp is not None:
+            check_tp_supported(opts)
+        self.tp = tp
         self.cfg = cfg
         self.params = params
         self.kv_pages = kv_pages
@@ -619,7 +639,7 @@ class TorchExecutor(BlockDecode):
         """The model call of one whole-prompt prefill: last logits [V], or
         with ``all_logits`` every row's [T, V]."""
         last_logits, every = q3.prefill(self.cfg, self.params, self.kv_pages, tokens, table,
-                                        return_all_logits=all_logits)
+                                        return_all_logits=all_logits, tp=self.tp)
         return every if all_logits else last_logits
 
     def _chunk_model(self, item, chunk_tokens, start: int, valid: int, table,
@@ -627,7 +647,7 @@ class TorchExecutor(BlockDecode):
         """The model call of one prefill piece: last logits [V], or with
         ``all_logits`` every row's [valid, V]."""
         return q3.prefill_chunk(self.cfg, self.params, self.kv_pages, chunk_tokens, start,
-                                valid, table, return_all_logits=all_logits)
+                                valid, table, return_all_logits=all_logits, tp=self.tp)
 
     def execute_prefill(self, plan: PrefillPlan) -> PrefillResult:
         return PrefillResult(requests=[self._prefill_one(it) for it in plan.requests])
@@ -671,7 +691,7 @@ class TorchExecutor(BlockDecode):
         """The model call of one decode step over the padded batch: logits
         [B, V]."""
         return q3.decode(self.cfg, self.params, self.kv_pages, tokens, positions, tables,
-                         seq_lens)
+                         seq_lens, tp=self.tp)
 
     def _graph_step(self):
         """The decode step the graphs capture, over ``_decode_host``'s
@@ -719,7 +739,7 @@ class TorchExecutor(BlockDecode):
         tables, seq_lens). Returns (last logits [V], decode logits [B,
         V])."""
         return q3.mixed_chunk(self.cfg, self.params, self.kv_pages, chunk_tokens, start,
-                              valid, table, *dec)
+                              valid, table, *dec, tp=self.tp)
 
     # ── PD handoff hooks (engine/pd.py) ──────────────────────────────
 

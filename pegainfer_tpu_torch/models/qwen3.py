@@ -26,6 +26,17 @@ bf16 ``[in, out]`` weight as ``x @ w`` and an int8 container through
 ``ops/cuda/int8_linear.py``; wq / wk / wv in one launch through ``_projs``).
 ``plain_kernels=True`` runs every kernel's plain version (K1, K2, the int8
 linear) on any device, as the oracle of the kernels.
+
+Tensor parallelism (``tp``, a rank's ``parallel/group.py::RankGroups``):
+``prefill``, ``prefill_chunk``, ``mixed_chunk`` and ``decode`` then run one
+rank's shard (``parallel/sharding.py::shard_qwen3``) with the rank's
+``local_config`` (its heads, its intermediate width) over the rank's pool.
+wo's and w_down's products are partial sums over the rank's slice of their
+input axis, kept f32 (``torch.mm(..., out_dtype=float32)``; in int8 the
+kernel's f32-output epilogue) and reduced in f32 across the ranks before
+the one rounding and the residual add; the head's vocab shard is gathered,
+so every rank holds the same full logits bit for bit. ``tp=None`` (one
+process) runs the same ops as before it existed.
 """
 
 from __future__ import annotations
@@ -400,15 +411,35 @@ def _qkv(cfg: Qwen3Config, lw, x, cos, sin, plain_kernels: bool):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _mlp(lw, x, plain_kernels: bool):
+def _proj_f32(container, name: str, x, plain_kernels: bool):
+    """``_proj`` with its f32 sums left unrounded: [N, out] f32."""
+    w = container[name]
+    if quant.is_quantized(w):
+        return quant.int8_linear(x, w, plain_kernels, f32_out=True)
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return x.float() @ w.float()
+
+
+def _row_proj(container, name: str, x, plain_kernels: bool, tp):
+    """A row-parallel projection (wo, w_down): under ``tp`` this rank's f32
+    partial sums, reduced in f32 across the ranks and rounded once."""
+    if tp is None:
+        return _proj(container, name, x, plain_kernels)
+    return tp.all_reduce_sum(_proj_f32(container, name, x, plain_kernels)).to(x.dtype)
+
+
+def _mlp(lw, x, plain_kernels: bool, tp=None):
     gate, up = _proj(lw, "w_gate_up", x, plain_kernels).chunk(2, dim=-1)
     act = F.silu(gate.float()).to(x.dtype) * up
-    return _proj(lw, "w_down", act, plain_kernels)
+    return _row_proj(lw, "w_down", act, plain_kernels, tp)
 
 
-def _head(params, x, plain_kernels: bool):
-    """Logits [N, V] f32 of final-normed rows x [N, D]."""
-    return _proj(params, "lm_head", x, plain_kernels).float()
+def _head(params, x, plain_kernels: bool, tp=None):
+    """Logits [N, V] f32 of final-normed rows x [N, D] (under ``tp`` the
+    ranks' vocab shards gathered)."""
+    logits = _proj(params, "lm_head", x, plain_kernels).float()
+    return logits if tp is None else tp.gather_vocab(logits)
 
 
 def _scale(cfg: Qwen3Config) -> float:
@@ -426,12 +457,12 @@ def _write_kv(kv_pages, li: int, k, v, page_ids, slots):
 
 
 def prefill(cfg: Qwen3Config, params, kv_pages, tokens, page_table,
-            return_all_logits: bool = False, plain_kernels: bool = False):
+            return_all_logits: bool = False, plain_kernels: bool = False, tp=None):
     """Prefill one prompt and write its KV into ``kv_pages`` in place.
 
     tokens: [T] int (the prompt, unpadded); page_table: [>= ceil(T/ps)] int
-    pages of this request. Returns (last_logits [V] f32, all_logits [T, V]
-    f32 | None).
+    pages of this request; ``tp``: a rank's groups (module docstring).
+    Returns (last_logits [V] f32, all_logits [T, V] f32 | None).
     """
     T = tokens.shape[0]
     ps = kv_pages.shape[4]
@@ -450,15 +481,15 @@ def prefill(cfg: Qwen3Config, params, kv_pages, tokens, page_table,
         else:
             o = flash_prefill(q, k, v, T, scale)
         _write_kv(kv_pages, li, k, v, page_ids, slots)
-        x = x + _proj(lw, "wo", o.reshape(T, -1), plain_kernels)
+        x = x + _row_proj(lw, "wo", o.reshape(T, -1), plain_kernels, tp)
         h = rms_norm(x, lw["post_ln"], cfg.rms_norm_eps)
-        x = x + _mlp(lw, h, plain_kernels)
+        x = x + _mlp(lw, h, plain_kernels, tp)
     if return_all_logits:
         all_logits = _head(params, rms_norm(x, params["final_ln"], cfg.rms_norm_eps),
-                           plain_kernels)
+                           plain_kernels, tp)
         return all_logits[T - 1], all_logits
     x = rms_norm(x[T - 1:], params["final_ln"], cfg.rms_norm_eps)
-    return _head(params, x, plain_kernels)[0], None
+    return _head(params, x, plain_kernels, tp)[0], None
 
 
 # ── Chunked prefill continuation ─────────────────────────────────────────
@@ -490,7 +521,7 @@ def chunk_attention(kv_pages, li: int, q, page_table, start_pos: int, scale: flo
 
 def prefill_chunk(cfg: Qwen3Config, params, kv_pages, tokens, start_pos: int,
                   valid: int, page_table, plain_kernels: bool = False,
-                  return_all_logits: bool = False):
+                  return_all_logits: bool = False, tp=None):
     """Prefill continuation: run prompt positions ``[start_pos, start_pos +
     valid)`` of one request whose earlier positions are already in its
     pages, and write the chunk's k/v into ``kv_pages`` in place.
@@ -504,6 +535,7 @@ def prefill_chunk(cfg: Qwen3Config, params, kv_pages, tokens, start_pos: int,
     chunk row ``valid - 1``; with ``return_all_logits`` (the JAX
     ``prefill_chunk_wa_all``, for echo's prompt logprobs) the logits of
     every chunk row [valid, V] f32, the last row those last logits.
+    ``tp``: a rank's groups (module docstring).
     """
     ps = kv_pages.shape[4]
     x = params["embed"][tokens[:valid].long()]
@@ -516,18 +548,19 @@ def prefill_chunk(cfg: Qwen3Config, params, kv_pages, tokens, start_pos: int,
         q, k, v = _qkv(cfg, lw, h, cos, sin, plain_kernels)
         _write_kv(kv_pages, li, k, v, page_ids, slots)
         o = chunk_attention(kv_pages, li, q, page_table, start_pos, scale, plain_kernels)
-        x = x + _proj(lw, "wo", o.reshape(valid, -1), plain_kernels)
+        x = x + _row_proj(lw, "wo", o.reshape(valid, -1), plain_kernels, tp)
         h = rms_norm(x, lw["post_ln"], cfg.rms_norm_eps)
-        x = x + _mlp(lw, h, plain_kernels)
+        x = x + _mlp(lw, h, plain_kernels, tp)
     if return_all_logits:
-        return _head(params, rms_norm(x, params["final_ln"], cfg.rms_norm_eps), plain_kernels)
+        return _head(params, rms_norm(x, params["final_ln"], cfg.rms_norm_eps), plain_kernels,
+                     tp)
     x = rms_norm(x[valid - 1:], params["final_ln"], cfg.rms_norm_eps)
-    return _head(params, x, plain_kernels)[0]
+    return _head(params, x, plain_kernels, tp)[0]
 
 
 def mixed_chunk(cfg: Qwen3Config, params, kv_pages, chunk_tokens, start_pos: int,
                 valid: int, page_table, dec_tokens, dec_positions, dec_tables,
-                dec_seq_lens, plain_kernels: bool = False):
+                dec_seq_lens, plain_kernels: bool = False, tp=None):
     """The fused mixed step: a prefill chunk's ``valid`` rows and one decode
     row per active stream through shared GEMMs, attention split between
     them (the JAX ``mixed_chunk_wa`` and both flushes).
@@ -536,8 +569,9 @@ def mixed_chunk(cfg: Qwen3Config, params, kv_pages, chunk_tokens, start_pos: int
     ``q_offset``); the decode rows are ``decode``'s (K1 over the pages with
     the in-flight k/v, written after). The prefilling request never also
     decodes, so the two row sets touch disjoint pages. Arguments as in
-    ``prefill_chunk`` and ``decode``. Returns (last_logits [V] f32 for chunk
-    row ``valid - 1``, dec_logits [B, V] f32).
+    ``prefill_chunk`` and ``decode``, ``tp`` a rank's groups (module
+    docstring). Returns (last_logits [V] f32 for chunk row ``valid - 1``,
+    dec_logits [B, V] f32).
     """
     B = dec_tokens.shape[0]
     ps = kv_pages.shape[4]
@@ -561,11 +595,11 @@ def mixed_chunk(cfg: Qwen3Config, params, kv_pages, chunk_tokens, start_pos: int
                                 scale, plain_kernels)
         _write_kv(kv_pages, li, kd, vd, dec_page_ids, dec_slots)
         o = torch.cat([o_p.reshape(valid, -1), o_d.reshape(B, -1)])
-        x = x + _proj(lw, "wo", o, plain_kernels)
+        x = x + _row_proj(lw, "wo", o, plain_kernels, tp)
         h = rms_norm(x, lw["post_ln"], cfg.rms_norm_eps)
-        x = x + _mlp(lw, h, plain_kernels)
+        x = x + _mlp(lw, h, plain_kernels, tp)
     x = rms_norm(x[valid - 1:], params["final_ln"], cfg.rms_norm_eps)  # last chunk row ‖ B
-    logits = _head(params, x, plain_kernels)
+    logits = _head(params, x, plain_kernels, tp)
     return logits[0], logits[1:]
 
 
@@ -585,15 +619,15 @@ def decode_attention(kv_pages, li: int, q, k, v, page_tables, seq_lens, scale: f
 
 
 def decode(cfg: Qwen3Config, params, kv_pages, tokens, positions, page_tables,
-           seq_lens, plain_kernels: bool = False):
+           seq_lens, plain_kernels: bool = False, tp=None):
     """One decode step for a batch, with ``decode_wa``'s semantics: attention
     reads the past from the pages plus the current token's in-flight k/v,
     and each layer then writes that k/v into the pool in place.
 
     tokens, positions, seq_lens: [B] int32 — seq_lens counts tokens
     INCLUDING the one processed this step. page_tables: [B, P] int32;
-    padding rows use the null page, position 0 and seq_len 0.
-    Returns logits [B, V] f32.
+    padding rows use the null page, position 0 and seq_len 0. ``tp``: a
+    rank's groups (module docstring). Returns logits [B, V] f32.
     """
     B = tokens.shape[0]
     ps = kv_pages.shape[4]
@@ -610,8 +644,8 @@ def decode(cfg: Qwen3Config, params, kv_pages, tokens, positions, page_tables,
         o = decode_attention(kv_pages, li, q, k, v, page_tables, seq_lens, scale,
                               plain_kernels)
         _write_kv(kv_pages, li, k, v, page_ids, slots)
-        x = x + _proj(lw, "wo", o.reshape(B, -1), plain_kernels)
+        x = x + _row_proj(lw, "wo", o.reshape(B, -1), plain_kernels, tp)
         h = rms_norm(x, lw["post_ln"], cfg.rms_norm_eps)
-        x = x + _mlp(lw, h, plain_kernels)
+        x = x + _mlp(lw, h, plain_kernels, tp)
     x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
-    return _head(params, x, plain_kernels)
+    return _head(params, x, plain_kernels, tp)

@@ -9,6 +9,11 @@ Qwen3.5 (``ops/quant.py::int8_linear`` / ``int8_linears``, at most
 ``quant.INT8_GEMV_ROWS`` rows) in place of K6 at one expert
 (``ops/cuda/int8_gemv.py::int8_gemv_dense``) and its multiply and cast.
 
+With ``f32_out`` the epilogue keeps the f32 sums times the scale and
+writes them unrounded, for bf16 rows too: the partial sums of a
+row-parallel projection under tensor parallelism (wo and w_down), reduced
+across the ranks in f32 before the one rounding (``models/qwen3.py``).
+
 The wrapper dispatches on the device of ``x``: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises. ``launches``
 counts kernel launches. The plan (``plan``) comes from the shapes alone.
@@ -83,37 +88,39 @@ def plan(outs: Sequence[int], IN: int, M: int) -> Plan:
     return Plan(G, 1, ks)
 
 
-def out_dtype(x: torch.Tensor) -> torch.dtype:
-    """The output dtype: x's (bf16 or f32)."""
+def out_dtype(x: torch.Tensor, f32_out: bool = False) -> torch.dtype:
+    """The output dtype: x's (bf16 or f32), or f32 with ``f32_out``."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"int8_linear takes bf16 or f32 rows; got {x.dtype}")
-    return x.dtype
+    return torch.float32 if f32_out else x.dtype
 
 
-def int8_linear_plain(x, qs, ss, joined: bool = False):
+def int8_linear_plain(x, qs, ss, joined: bool = False, f32_out: bool = False):
     """The kernel's function in plain PyTorch, weight by weight: x rounded
     to bf16, the exact codes, one f32 product, times s in f32, cast to x's
-    dtype. A list of [M, OUT_w], or with ``joined`` one [M, sum OUT_w]."""
-    dt = out_dtype(x)
+    dtype (kept f32 with ``f32_out``). A list of [M, OUT_w], or with
+    ``joined`` one [M, sum OUT_w]."""
+    dt = out_dtype(x, f32_out)
     xb = x.to(torch.bfloat16).float()
     ys = [((xb @ q.float().T) * s).to(dt) for q, s in zip(qs, ss)]
     return torch.cat(ys, dim=-1) if joined else ys
 
 
-def int8_linear(x, qs, ss, joined: bool = False):
+def int8_linear(x, qs, ss, joined: bool = False, f32_out: bool = False):
     """y_w = (x @ q_w.T with f32 sums) * s_w in x's dtype (bf16 or f32),
-    x rounded to bf16, for each weight (q_w int8 [OUT_w, IN], s_w f32
-    [OUT_w]) of ``qs`` / ``ss``: a list of [M, OUT_w] (contiguous views of
-    one buffer), or with ``joined`` one [M, sum OUT_w], the outputs side by
-    side. One launch for up to MAX_WEIGHTS weights and MAX_ROWS rows."""
+    or in f32 with ``f32_out``, x rounded to bf16, for each weight (q_w
+    int8 [OUT_w, IN], s_w f32 [OUT_w]) of ``qs`` / ``ss``: a list of [M,
+    OUT_w] (contiguous views of one buffer), or with ``joined`` one [M, sum
+    OUT_w], the outputs side by side. One launch for up to MAX_WEIGHTS
+    weights and MAX_ROWS rows."""
     if x.device.type == "cpu":
-        return int8_linear_plain(x, qs, ss, joined)
+        return int8_linear_plain(x, qs, ss, joined, f32_out)
     if x.device.type != "cuda":
         raise ValueError(f"int8_linear: no kernel for device {x.device}")
-    return _launch(x, list(qs), list(ss), joined)
+    return _launch(x, list(qs), list(ss), joined, f32_out=f32_out)
 
 
-def _launch(x, qs, ss, joined, p=None, lib=None):
+def _launch(x, qs, ss, joined, p=None, lib=None, f32_out: bool = False):
     """One launch; ``p`` (a ``Plan``) and ``lib`` (a library of the same C
     interface) default to ``plan``'s and the built kernel's."""
     global launches
@@ -124,7 +131,7 @@ def _launch(x, qs, ss, joined, p=None, lib=None):
     if x.dim() != 2:
         raise ValueError("int8_linear takes x [M, IN]")
     M, IN = x.shape
-    dt = out_dtype(x)
+    dt = out_dtype(x, f32_out)
     if M > MAX_ROWS:
         raise ValueError(f"int8_linear kernel takes at most {MAX_ROWS} rows; got M={M}")
     if IN % 16:

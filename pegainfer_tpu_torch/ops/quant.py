@@ -258,33 +258,39 @@ def quantize_int8_linear(w) -> dict:
     return {"q": q.reshape(*lead, OUT, IN), "s": s.reshape(*lead, OUT)}
 
 
-def int8_linear(x: torch.Tensor, w, plain_kernels: bool = False) -> torch.Tensor:
+def int8_linear(x: torch.Tensor, w, plain_kernels: bool = False,
+                f32_out: bool = False) -> torch.Tensor:
     """x [N, in] times an int8 container ``{"q": [out, in], "s": [out]}`` ->
     [N, out] in x's dtype: the JAX package's ``ops/quant.py::int8_linear``,
     the f32 sums of x against the exact codes, times ``s`` in f32, cast to
-    x's dtype (``s`` is never folded into a rounded weight).
+    x's dtype (``s`` is never folded into a rounded weight). With
+    ``f32_out`` the product times ``s`` stays f32, unrounded (a
+    tensor-parallel rank's partial sums, reduced before the cast).
 
     At most ``INT8_GEMV_ROWS`` rows on a CUDA tensor are one launch of the
     int8 linear kernel (``ops.cuda.int8_linear``; its plain version when
     ``plain_kernels``), with x rounded to bf16, as ``qlinear`` routes
     decode-shaped fp8 rows to K4. Other rows take the JAX form
     (``int8_mm``), then the scale and the cast."""
-    return int8_linears(x, [w], plain_kernels)[0]
+    return int8_linears(x, [w], plain_kernels, f32_out=f32_out)[0]
 
 
-def int8_linears(x: torch.Tensor, ws, plain_kernels: bool = False, joined: bool = False):
+def int8_linears(x: torch.Tensor, ws, plain_kernels: bool = False, joined: bool = False,
+                 f32_out: bool = False):
     """``int8_linear`` of x through each container of ``ws`` (at most four,
     all reading x): a list of [N, out_w], or with ``joined`` one [N, sum
     out_w], the outputs side by side. At most ``INT8_GEMV_ROWS`` rows on a
     CUDA tensor are one kernel launch for all of them (the list: contiguous
     views of one buffer); other rows, and CPU tensors, take ``int8_linear``
-    weight by weight, the JAX form, with the same bits as separate calls."""
+    weight by weight, the JAX form, with the same bits as separate calls;
+    ``f32_out`` as in ``int8_linear``."""
     if x.is_cuda and x.shape[0] <= INT8_GEMV_ROWS:
         from pegainfer_tpu_torch.ops.cuda import int8_linear as il
 
         fn = il.int8_linear_plain if plain_kernels else il.int8_linear
-        return fn(x, [w["q"] for w in ws], [w["s"] for w in ws], joined)
-    ys = [(int8_mm(x, w["q"]) * w["s"]).to(x.dtype) for w in ws]
+        return fn(x, [w["q"] for w in ws], [w["s"] for w in ws], joined, f32_out)
+    dt = torch.float32 if f32_out else x.dtype
+    ys = [(int8_mm(x, w["q"]) * w["s"]).to(dt) for w in ws]
     return torch.cat(ys, dim=-1) if joined else ys
 
 

@@ -8,9 +8,12 @@ Qwen3, the Qwen3.5 hybrid, DeepSeek-V4 (an mp8 checkpoint; ``--quantize
 bf16`` dequantizes it at load) and DeepSeek-V2-Lite (an HF checkpoint, bf16)
 are served from a checkpoint through the port's engines on the card;
 ``--sim`` serves the simulated engine with the ``SimTokenizer`` (no card, no
-model). The server runs until SIGINT. What the port lacks raises
-``NotImplementedError``: ``--tp-size`` above 1 (tensor or expert
-parallelism), a ``--quantize`` value the family does not serve,
+model). ``--tp-size N --no-precompile`` serves a Qwen3 checkpoint tensor-
+parallel, one process a rank on the first N cards
+(``models/qwen3_engine.py``). The server runs until SIGINT. What the port
+lacks raises ``NotImplementedError``: ``--tp-size`` above 1 for the other
+families (tensor or expert parallelism) or with the decode graphs (without
+``--no-precompile``), a ``--quantize`` value the family does not serve,
 ``--profile-dir`` and the multi-host variables ``PEGAINFER_COORD`` /
 ``_NUM_PROCS`` / ``_PROC_ID``.
 A checkpoint's tokenizer is read with transformers (``HFTokenizer``).
@@ -56,7 +59,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000, help="0: a free port (logged)")
     p.add_argument("--tp-size", type=int, default=0,
-                   help="tensor-parallel world (0 or 1: one card; more is not ported)")
+                   help="tensor-parallel world (0 or 1: one card; N > 1: Qwen3 on N "
+                        "processes, with --no-precompile)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--max-num-pages", type=int, default=None)
     p.add_argument("--max-batch-size", type=int, default=64)
@@ -121,14 +125,20 @@ def check_supported(args: argparse.Namespace) -> None:
             "--profile-dir: the port has no tracing of the serving process yet")
     if args.sim:
         return
-    if args.tp_size > 1:
-        raise NotImplementedError(
-            f"--tp-size {args.tp_size}: the port serves on one card (tensor parallelism "
-            "is not ported)")
     set_vars = [v for v in MULTIHOST_ENV if os.environ.get(v)]
     if set_vars:
         raise NotImplementedError(
             f"{', '.join(set_vars)} set: the port has no multi-host serving")
+    if args.tp_size > 1:
+        family = detect_model_type(args.model_path)
+        if family != "qwen3":
+            raise NotImplementedError(
+                f"--tp-size {args.tp_size}: the port's tensor parallelism serves Qwen3, "
+                f"not {family}")
+        if not args.no_precompile:
+            raise NotImplementedError(
+                f"--tp-size {args.tp_size}: tensor parallelism runs the eager decode step; "
+                "pass --no-precompile")
 
 
 def build_engine(args: argparse.Namespace, device=None) -> EngineHandle:
@@ -144,20 +154,23 @@ def build_engine(args: argparse.Namespace, device=None) -> EngineHandle:
                             opts)
     mtype = detect_model_type(args.model_path)
     if mtype == "qwen3":
-        from pegainfer_tpu_torch.models import qwen3_engine as engine
-    elif mtype == "qwen35":
-        from pegainfer_tpu_torch.models import qwen35_engine as engine
-    elif mtype == "deepseek_v4":
+        from pegainfer_tpu_torch.models import qwen3_engine
+
+        return qwen3_engine.start_engine(args.model_path, opts, device=device,
+                                         tp_size=args.tp_size)
+    if mtype == "qwen35":
+        from pegainfer_tpu_torch.models import qwen35_engine
+
+        return qwen35_engine.start_engine(args.model_path, opts, device=device)
+    if mtype == "deepseek_v4":
         from pegainfer_tpu_torch.models import dsv4_engine
 
         return dsv4_engine.start_engine(args.model_path, opts, device=device,
                                         tp_size=args.tp_size)
-    else:  # dsv2lite
-        from pegainfer_tpu_torch.models import dsv2lite
+    from pegainfer_tpu_torch.models import dsv2lite
 
-        return dsv2lite.start_engine(args.model_path, opts, device=device,
-                                     ep_size=args.tp_size if args.tp_size > 0 else None)
-    return engine.start_engine(args.model_path, opts, device=device)
+    return dsv2lite.start_engine(args.model_path, opts, device=device,
+                                 ep_size=args.tp_size if args.tp_size > 0 else None)
 
 
 def build_tokenizer(args: argparse.Namespace):

@@ -110,6 +110,21 @@ STEP_LAUNCHES = {
                ("qwen35 lm_head", (151936,), 2048, 1)),
 }
 FORMS = ("kernel", "K6 + scale + cast", "bf16 matmul", "JAX form", "library", "plain")
+TP_ROWS = (1, 8, 16, 64)  # rows of the shard-shape cases
+
+
+def tp_launches(tp: int):
+    """Qwen3-4B's int8 launches on one rank of a tensor-parallel engine at
+    width ``tp`` (``parallel/sharding.py``: wq / wk / wv and w_gate_up cut on
+    their outputs, wo and w_down on their inputs, their partial sums kept
+    f32 by the f32-output epilogue, the head on the vocab): (name, OUT of
+    each weight, IN, launches a decode step, f32_out)."""
+    return ((f"qwen3 tp{tp} wq / wk / wv", (4096 // tp, 1024 // tp, 1024 // tp), 2560, 36,
+             False),
+            (f"qwen3 tp{tp} wo", (2560,), 4096 // tp, 36, True),
+            (f"qwen3 tp{tp} w_gate_up", (19456 // tp,), 2560, 36, False),
+            (f"qwen3 tp{tp} w_down", (2560,), 9728 // tp, 36, True),
+            (f"qwen3 tp{tp} lm_head", (151936 // tp,), 2560, 1, False))
 LIBRARY_CALL = "torch._weight_int8pack_mm"
 
 # text of csrc/int8_linear.cu the variants and the mutants replace
@@ -176,14 +191,15 @@ def step_shapes(family: str):
     return STEP_LAUNCHES[family]
 
 
-def launch_bytes(outs, IN: int, M: int) -> int:
-    """Codes, f32 scales, x and the bf16 y of one launch, each once."""
+def launch_bytes(outs, IN: int, M: int, y_bytes: int = 2) -> int:
+    """Codes, f32 scales, x and the y (bf16, or f32 with ``y_bytes`` 4) of
+    one launch, each once."""
     total = sum(outs)
-    return total * IN + 4 * total + 2 * M * IN + 2 * M * total
+    return total * IN + 4 * total + 2 * M * IN + y_bytes * M * total
 
 
-def bounds(outs, IN: int, M: int, ceiling: float) -> dict:
-    nbytes = launch_bytes(outs, IN, M)
+def bounds(outs, IN: int, M: int, ceiling: float, y_bytes: int = 2) -> dict:
+    nbytes = launch_bytes(outs, IN, M, y_bytes)
     ops = 2 * M * sum(outs) * IN
     return {"bytes": nbytes, "ops": ops,
             "bound_ms": max(nbytes / NOMINAL_BPS, ops / BF16_FLOPS) * 1e3,
@@ -517,9 +533,19 @@ def check_cases() -> list:
     return cases
 
 
+def tp_check_cases() -> list:
+    """The card tests' cases at Qwen3-4B's shard shapes of TP 2 and TP 4
+    (``tp_launches``) at ``TP_ROWS``: bf16 rows, the outputs bf16, or f32
+    (``"f32_out"``) for wo and w_down."""
+    return [(f"{name} M={M}", outs, IN, M, "f32_out" if f32 else "bf16")
+            for tp in (2, 4) for name, outs, IN, _, f32 in tp_launches(tp) for M in TP_ROWS]
+
+
 def run_case(case, device="cuda", weights=None):
     """One check case through the wrapper after a NaN fill of a block of
-    the outputs' size: (outputs, the plain version's outputs)."""
+    the outputs' size: (outputs, the plain version's outputs). The rows are
+    f32 for ``"f32"``, else bf16; the outputs f32 for ``"f32"`` and
+    ``"f32_out"``."""
     _, outs, IN, M, dt = case
     gen = torch.Generator(device=device).manual_seed(sum(outs) + IN + M)
     key = (outs, IN)
@@ -531,9 +557,11 @@ def run_case(case, device="cuda", weights=None):
         ws = weights[key]
     qs, ss = [q[0] for q, _, _ in ws], [s[0] for _, s, _ in ws]
     dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    f32_out = dt == "f32_out"
     x = torch.randn((M, IN), generator=gen, device=device).to(dtype)
-    nan_poison(M * sum(outs) * (1 if dtype == torch.bfloat16 else 2), device)
-    return il.int8_linear(x, qs, ss), il.int8_linear_plain(x, qs, ss)
+    nan_poison(M * sum(outs) * (2 if dtype == torch.float32 or f32_out else 1), device)
+    return (il.int8_linear(x, qs, ss, f32_out=f32_out),
+            il.int8_linear_plain(x, qs, ss, f32_out=f32_out))
 
 
 def check() -> list:

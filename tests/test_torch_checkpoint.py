@@ -289,10 +289,10 @@ def test_load_options_match_the_jax_cli(argv, monkeypatch):
     jcfg, jopts = _jax_options(argv, monkeypatch)
     args = tmain.parse_args(argv)
     opts = tmain.load_options(args)
-    # every field of the port's; the JAX one also has device_ordinals (its
-    # mesh's devices), which the CLI leaves at its default
+    # every field, device_ordinals (the ranks' cards) too, which the CLI
+    # leaves at its default
     fields = sorted(tc.EngineLoadOptions.__dataclass_fields__)
-    assert set(jc.EngineLoadOptions.__dataclass_fields__) - set(fields) == {"device_ordinals"}
+    assert set(jc.EngineLoadOptions.__dataclass_fields__) == set(fields)
     assert jopts.device_ordinals == jc.EngineLoadOptions().device_ordinals
     assert {f: getattr(opts, f) for f in fields} == {f: getattr(jopts, f) for f in fields}
     assert (args.sim_ttft, args.sim_tpot) == (jcfg.ttft_s, jcfg.tpot_s)

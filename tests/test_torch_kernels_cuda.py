@@ -151,6 +151,26 @@ def test_paged_decode_kernel_matches_plain(dev, form, hd, Hq, Hkv, seq_lens, wid
     assert out[-1].abs().max().item() == 0.0  # dead row
 
 
+# Qwen3-4B's heads on one rank of a tensor-parallel engine (hd 128, G 4):
+# Hq / Hkv 16 / 4 at TP 2 and 8 / 2 at TP 4, at 1, 2 and 8 rows
+TP_DECODE_CASES = [
+    pytest.param(Hq, Hkv, seq_lens, id=f"tp{tp}-B{len(seq_lens)}")
+    for tp, Hq, Hkv in ((2, 16, 4), (4, 8, 2))
+    for seq_lens in ([1152], [1025, 0], [1088, 300, 532, 64, 1, 2000, 700, 0])]
+
+
+@pytest.mark.parametrize("form", ["pool_cur", "layer"])
+@pytest.mark.parametrize("Hq,Hkv,seq_lens", TP_DECODE_CASES)
+def test_paged_decode_kernel_at_the_tp_shard_heads(dev, form, Hq, Hkv, seq_lens):
+    rng = np.random.default_rng(Hq + Hkv + len(seq_lens))
+    args, kw = _decode_inputs(rng, dev, form, 128, Hq, Hkv, seq_lens)
+    before = pd.launches
+    out = pd.paged_attention_decode(*args, **kw)
+    torch.cuda.synchronize()
+    assert pd.launches == before + 1
+    _assert_decode_close(out, pd.paged_attention_decode_plain(*args, **kw))
+
+
 def test_paged_decode_kernel_on_two_streams(dev):
     """Calls on two streams at once, each many splits: each stream has its
     own ticket counters, so the splits of one call never meet those of a
@@ -213,6 +233,12 @@ FLASH_CASES = [
     pytest.param(200, 712, 650, 512, 256, 16, 2, id="hd256-G8-chunk"),
     pytest.param(777, 777, 777, 0, 128, 8, 8, id="hd128-G1-T777"),
     pytest.param(130, 130, 130, 0, 64, 64, 1, id="hd64-G64-T130"),
+    # one rank's heads under tensor parallelism: TP 2 (16 / 4) and TP 4
+    # (8 / 2), a whole prompt and a chunk at a query offset
+    pytest.param(1024, 1024, 1024, 0, 128, 16, 4, id="hd128-G4-tp2-T1024"),
+    pytest.param(256, 1280, 1280, 1024, 128, 16, 4, id="hd128-G4-tp2-chunk"),
+    pytest.param(1024, 1024, 1024, 0, 128, 8, 2, id="hd128-G4-tp4-T1024"),
+    pytest.param(256, 1280, 1280, 1024, 128, 8, 2, id="hd128-G4-tp4-chunk"),
 ]
 
 
@@ -532,6 +558,23 @@ def test_int8_linear_kernel_matches_plain(dev, case):
     torch.cuda.synchronize()
     assert il.launches == before + 1 and len(ys) == len(case[1])
     for y, ref in zip(ys, refs):
+        assert y.shape == ref.shape and y.dtype == ref.dtype and y.is_contiguous()
+        assert ils.row_err(y, ref)[1] <= 1.0
+
+
+@pytest.mark.parametrize("case", ils.tp_check_cases(), ids=lambda c: c[0])
+def test_int8_linear_kernel_at_the_tp_shard_shapes(dev, case):
+    """The int8 linear kernel at Qwen3-4B's shard shapes of TP 2 and TP 4
+    (``int8_linear_study.tp_check_cases``) at 1, 8, 16 and 64 rows, wo and
+    w_down through the f32-output epilogue (the partial sums a rank
+    reduces): each row within one bf16 ulp (f32: INT8_GEMV_RTOL) of its own
+    max |ref|, the outputs' block NaN-filled first."""
+    before = il.launches
+    ys, refs = ils.run_case(case, dev)
+    torch.cuda.synchronize()
+    assert il.launches == before + 1
+    for y, ref in zip(ys, refs):
+        assert y.dtype == (torch.float32 if case[4] == "f32_out" else torch.bfloat16)
         assert y.shape == ref.shape and y.dtype == ref.dtype and y.is_contiguous()
         assert ils.row_err(y, ref)[1] <= 1.0
 
@@ -1312,3 +1355,39 @@ def test_dsv4_resume_through_the_graph_equals_the_eager_resume(dsv4_graph_models
     assert cap == 1 and tg == te and torch.equal(lg, le)
     assert all(torch.equal(a[k], b[k]) for a, b in zip(rows_g["layers"], rows_e["layers"])
                for k in a)
+
+
+# ── tensor parallelism's collectives on the card ─────────────────────────
+
+
+def test_tp_collectives_on_the_card(dev, tmp_path):
+    """``parallel/group.py``'s model collectives on CUDA tensors: two gloo
+    ranks on the one card (threads; the smoke's [29] runs processes) reduce
+    f32 partial sums to the same bits on both, a + b, and gather vocab
+    shards in rank order; a one-rank NCCL group (the backend of a card a
+    rank, whose call sites are the same) hands its input back."""
+    import threading
+
+    from pegainfer_tpu_torch.parallel import group
+
+    gen = _gen(dev, 300)
+    parts = [torch.randn((8, 2560), generator=gen, device=dev) for _ in range(2)]
+    shards = [torch.randn((8, 64), generator=gen, device=dev) for _ in range(2)]
+    out = [None, None]
+
+    def rank(r):
+        g = group.RankGroups(r, 2, str(tmp_path / "gloo"), "gloo", 60)
+        out[r] = (g.all_reduce_sum(parts[r].clone()), g.gather_vocab(shards[r]))
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert all(o is not None for o in out), "a rank failed"
+    for summed, gathered in out:
+        assert torch.equal(summed, parts[0] + parts[1])
+        assert torch.equal(gathered, torch.cat(shards, dim=-1))
+    one = group.RankGroups(0, 1, str(tmp_path / "nccl"), "nccl", 60)
+    assert torch.equal(one.all_reduce_sum(parts[0].clone()), parts[0])
+    assert torch.equal(one.gather_vocab(shards[0]), shards[0])
