@@ -37,6 +37,13 @@ step's decode rows stay eager. Either option False keeps the eager step.
 Decode blocks are ``TorchExecutor``'s (``BlockDecode``): a block graph of
 the ``hybrid`` family holds N steps on the same slots, its padding rows on
 the dead slot.
+
+Tensor parallelism: with ``tp`` (a rank's ``parallel/group.py::RankGroups``)
+the executor holds one rank's shard and state (made at the rank's
+``local_config_qwen35``) and passes ``tp`` to every model call; the decode
+step is then eager (``TorchExecutor``'s ``check_tp_supported``). The slot
+map, the page accounting and the snapshots of each rank's executor follow
+the same calls in the same order (``parallel/tp_executor.py``).
 """
 
 from __future__ import annotations
@@ -64,14 +71,15 @@ class HybridExecutor(StateSlots, TorchExecutor):
     its dead one) are the requests' state slots."""
 
     def __init__(self, cfg: q35.Qwen35Config, params, state,
-                 options: Optional[EngineLoadOptions] = None):
+                 options: Optional[EngineLoadOptions] = None, tp=None):
         opts = options or EngineLoadOptions()
         check_supported(opts)  # on the options as given, before the slots cap the batch
         self.state = state
         self._init_slots(state["rec"].shape[2] - 1)
         # a decode batch fits the slots, and so do the graphs' buckets
         super().__init__(cfg, params, state["kv"],
-                         replace(opts, max_batch_size=min(opts.max_batch_size, self.max_slots)))
+                         replace(opts, max_batch_size=min(opts.max_batch_size, self.max_slots)),
+                         tp=tp)
         self._hybrid_cache = self.prefix_cache is not None
 
     def _slots_of(self, items, B: int) -> np.ndarray:
@@ -89,22 +97,22 @@ class HybridExecutor(StateSlots, TorchExecutor):
     def _prefill_model(self, item, tokens, table, all_logits: bool = False):
         last_logits, every = q35.prefill(self.cfg, self.params, self.state, tokens, table,
                                          self._slot(item.request_id),
-                                         return_all_logits=all_logits)
+                                         return_all_logits=all_logits, tp=self.tp)
         return every if all_logits else last_logits
 
     def _chunk_model(self, item, chunk_tokens, start: int, valid: int, table,
                      all_logits: bool = False):
         return q35.prefill_chunk(self.cfg, self.params, self.state, chunk_tokens, start,
                                  valid, table, self._slot(item.request_id),
-                                 return_all_logits=all_logits)
+                                 return_all_logits=all_logits, tp=self.tp)
 
     def _mixed_model(self, item, items, chunk_tokens, start: int, valid: int, table, dec):
         return q35.mixed_chunk(self.cfg, self.params, self.state, chunk_tokens, start, valid,
-                               table, self._slot(item.request_id), *dec)
+                               table, self._slot(item.request_id), *dec, tp=self.tp)
 
     def _decode_model(self, items, tokens, positions, tables, seq_lens, slots):
         return q35.decode(self.cfg, self.params, self.state, tokens, positions, tables,
-                          seq_lens, slots)
+                          seq_lens, slots, tp=self.tp)
 
     def _graph_step(self):
         return partial(q35.decode, self.cfg, self.params, self.state)

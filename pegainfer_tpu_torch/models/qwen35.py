@@ -39,6 +39,17 @@ kernel); the projections that read the same rows are one launch
 layer's wq, wgate, wk and wv). ``plain_kernels=True`` runs every kernel's
 plain version (K1, K2, the int8 linear) on any device.
 
+Tensor parallelism (``tp``, a rank's ``parallel/group.py::RankGroups``):
+each rank holds its shard (``parallel/sharding.py::shard_qwen35``) and runs
+these functions at its ``local_config_qwen35`` on a state made there (its
+value heads' recurrent rows, its own conv channels ``q_r ‖ k_r ‖ v_r``, its
+kv heads' pages). out_proj, the full layers' wo and every mlp_down keep
+their partial sums f32 and reduce them across the ranks before one rounding
+(``qwen3._row_proj``), and the head's vocab shards are gathered
+(``qwen3._head``): 2 collectives a layer and 1 a forward, so every rank
+holds the same logits bit for bit. ``tp=None`` is the one-process
+forward.
+
 Not ported here: the fused ``qkvzba`` / ``qgkv`` layout and the flat union
 layout (the executor refuses the options that need them).
 """
@@ -481,9 +492,9 @@ def slot_bytes(cfg: Qwen35Config) -> int:
 # ── Forward building blocks ──────────────────────────────────────────────
 
 
-def _mlp(lw, x, pk: bool):
+def _mlp(lw, x, pk: bool, tp=None):
     gate, up = _proj(lw, "mlp_gate_up", x, pk).chunk(2, dim=-1)
-    return _proj(lw, "mlp_down", F.silu(gate.float()).to(x.dtype) * up, pk)
+    return q3._row_proj(lw, "mlp_down", F.silu(gate.float()).to(x.dtype) * up, pk, tp)
 
 
 def _gdn_project(cfg: Qwen35Config, lw, h, pk: bool):
@@ -553,10 +564,10 @@ def _full_qkv(cfg: Qwen35Config, fw, h, cos, sin, pk: bool):
     return q, k, v, gate
 
 
-def _gated_out(fw, x, o, gate, pk: bool):
+def _gated_out(fw, x, o, gate, pk: bool, tp=None):
     """x + wo (o ∘ sigmoid(gate)), the sigmoid in f32 cast to x's dtype."""
     o = o.reshape(x.shape[0], -1) * torch.sigmoid(gate.float()).to(x.dtype)
-    return x + _proj(fw, "wo", o, pk)
+    return x + q3._row_proj(fw, "wo", o, pk, tp)
 
 
 def _write_kv(kv, gi: int, k, v, page_ids, slots):
@@ -618,13 +629,14 @@ def _gdn_chunk_rows(cfg: Qwen35Config, lw, state, gi: int, j: int, slot: int,
 
 def prefill(cfg: Qwen35Config, params, state, tokens, page_table, slot: int,
             return_all_logits: bool = False, plain_kernels: bool = False,
-            gdn_chunk_size: int = gdn.CHUNK):
+            gdn_chunk_size: int = gdn.CHUNK, tp=None):
     """Prefill one prompt: write its KV into the pool and its slot's
     recurrent and conv rows (whole), in place.
 
     tokens: [T] int (the prompt, unpadded); page_table: [>= ceil(T/ps)] int
-    pages of this request; slot: its state slot. Returns (last_logits [V]
-    f32, all_logits [T, V] f32 | None).
+    pages of this request; slot: its state slot; ``tp``: a rank's groups
+    (module docstring). Returns (last_logits [V] f32, all_logits [T, V] f32
+    | None).
     """
     T = tokens.shape[0]
     eps = cfg.rms_norm_eps
@@ -647,8 +659,8 @@ def prefill(cfg: Qwen35Config, params, state, tokens, page_table, slot: int,
             state["conv"][gi, j, slot] = conv_state
             state["rec"][gi, j, slot] = rec_state
             out = _gated_norm(cfg, lw["norm_w"], out, z).to(x.dtype)
-            x = x + _proj(lw, "out_proj", out.reshape(T, -1), plain_kernels)
-            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps), plain_kernels)
+            x = x + q3._row_proj(lw, "out_proj", out.reshape(T, -1), plain_kernels, tp)
+            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps), plain_kernels, tp)
         fw = _full_weights(params, gi)
         q, k, v, gate = _full_qkv(cfg, fw, rms_norm(x, fw["input_ln"], eps), cos, sin,
                                   plain_kernels)
@@ -657,12 +669,13 @@ def prefill(cfg: Qwen35Config, params, state, tokens, page_table, slot: int,
         else:
             o = flash_prefill(q, k, v, T, scale)
         _write_kv(state["kv"], gi, k, v, page_ids, pslots)
-        x = _gated_out(fw, x, o, gate, plain_kernels)
-        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps), plain_kernels)
+        x = _gated_out(fw, x, o, gate, plain_kernels, tp)
+        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps), plain_kernels, tp)
     if return_all_logits:
-        all_logits = q3._head(params, rms_norm(x, params["final_ln"], eps), plain_kernels)
+        all_logits = q3._head(params, rms_norm(x, params["final_ln"], eps), plain_kernels, tp)
         return all_logits[T - 1], all_logits
-    return q3._head(params, rms_norm(x[T - 1:], params["final_ln"], eps), plain_kernels)[0], None
+    return q3._head(params, rms_norm(x[T - 1:], params["final_ln"], eps), plain_kernels,
+                    tp)[0], None
 
 
 # ── Chunked prefill continuation and the fused mixed step ────────────────
@@ -670,7 +683,7 @@ def prefill(cfg: Qwen35Config, params, state, tokens, page_table, slot: int,
 
 def _chunk_forward(cfg: Qwen35Config, params, state, chunk_tokens, start_pos: int,
                    valid: int, page_table, slot: int, dec, plain_kernels: bool,
-                   gdn_chunk_size: int, all_rows: bool = False):
+                   gdn_chunk_size: int, all_rows: bool = False, tp=None):
     """A prompt's chunk of ``valid`` rows, and with ``dec`` = (tokens,
     positions, page tables, seq_lens, slots) one decode row per stream,
     through shared GEMMs; only the sequence mixing splits. Returns logits
@@ -704,8 +717,8 @@ def _chunk_forward(cfg: Qwen35Config, params, state, chunk_tokens, start_pos: in
                                                      mixed[valid:], g[valid:],
                                                      beta[valid:])])
             out = _gated_norm(cfg, lw["norm_w"], out, z).to(x.dtype)
-            x = x + _proj(lw, "out_proj", out.reshape(N, -1), plain_kernels)
-            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps), plain_kernels)
+            x = x + q3._row_proj(lw, "out_proj", out.reshape(N, -1), plain_kernels, tp)
+            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps), plain_kernels, tp)
         fw = _full_weights(params, gi)
         q, k, v, gate = _full_qkv(cfg, fw, rms_norm(x, fw["input_ln"], eps), cos, sin,
                                   plain_kernels)
@@ -718,15 +731,16 @@ def _chunk_forward(cfg: Qwen35Config, params, state, chunk_tokens, start_pos: in
                                    plain_kernels)
             _write_kv(kv, gi, kd, vd, dec_page_ids, dec_pslots)
             o = torch.cat([o, o_d.reshape(N - valid, -1)])
-        x = _gated_out(fw, x, o, gate, plain_kernels)
-        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps), plain_kernels)
+        x = _gated_out(fw, x, o, gate, plain_kernels, tp)
+        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps), plain_kernels, tp)
     x = rms_norm(x if all_rows else x[valid - 1:], params["final_ln"], eps)  # ‖ B
-    return q3._head(params, x, plain_kernels)
+    return q3._head(params, x, plain_kernels, tp)
 
 
 def prefill_chunk(cfg: Qwen35Config, params, state, tokens, start_pos: int, valid: int,
                   page_table, slot: int, plain_kernels: bool = False,
-                  gdn_chunk_size: int = gdn.CHUNK, return_all_logits: bool = False):
+                  gdn_chunk_size: int = gdn.CHUNK, return_all_logits: bool = False,
+                  tp=None):
     """Prefill continuation: prompt positions ``[start_pos, start_pos +
     valid)`` of one request whose earlier positions are in its pages and its
     slot's rows, written in place (the function of the JAX
@@ -741,29 +755,31 @@ def prefill_chunk(cfg: Qwen35Config, params, state, tokens, start_pos: int, vali
     ``valid - 1``; with ``return_all_logits`` (the JAX
     ``prefill_chunk_wa_all``, for echo's prompt logprobs) the logits of
     every chunk row [valid, V] f32, the last row those last logits.
+    ``tp``: a rank's groups (module docstring).
     """
     logits = _chunk_forward(cfg, params, state, tokens, start_pos, valid, page_table, slot,
-                            None, plain_kernels, gdn_chunk_size, return_all_logits)
+                            None, plain_kernels, gdn_chunk_size, return_all_logits, tp)
     return logits if return_all_logits else logits[0]
 
 
 def mixed_chunk(cfg: Qwen35Config, params, state, chunk_tokens, start_pos: int,
                 valid: int, page_table, slot: int, dec_tokens, dec_positions, dec_tables,
                 dec_seq_lens, dec_slots, plain_kernels: bool = False,
-                gdn_chunk_size: int = gdn.CHUNK):
+                gdn_chunk_size: int = gdn.CHUNK, tp=None):
     """The fused mixed step: a prompt's chunk rows and one decode row per
     active stream through shared GEMMs (the JAX ``mixed_chunk_wa`` and both
     flushes). The chunk rows are ``prefill_chunk``'s; the decode rows are
     ``decode``'s (conv and recurrence steps on their slots, K1 over the
     pages with the in-flight k/v at ``layer_id`` = the group; padding rows
     on the dead slot). The prefilling request's slot is never among
-    ``dec_slots``. Arguments as in ``prefill_chunk`` and ``decode``.
+    ``dec_slots``. Arguments as in ``prefill_chunk`` and ``decode``, ``tp``
+    a rank's groups (module docstring).
     Returns (last_logits [V] f32 for chunk row ``valid - 1``, dec_logits
     [B, V] f32).
     """
     logits = _chunk_forward(cfg, params, state, chunk_tokens, start_pos, valid, page_table,
                             slot, (dec_tokens, dec_positions, dec_tables, dec_seq_lens,
-                                   dec_slots), plain_kernels, gdn_chunk_size)
+                                   dec_slots), plain_kernels, gdn_chunk_size, tp=tp)
     return logits[0], logits[1:]
 
 
@@ -801,7 +817,7 @@ def slot_import(state, snap, slot: int) -> None:
 
 
 def decode(cfg: Qwen35Config, params, state, tokens, positions, page_tables, seq_lens,
-           slots, plain_kernels: bool = False):
+           slots, plain_kernels: bool = False, tp=None):
     """One decode step for a batch, with ``decode_wa``'s semantics: each GDN
     layer reads its rows of ``slots`` and writes them back in place, and
     each full layer attends over the pages plus the current token's
@@ -810,7 +826,8 @@ def decode(cfg: Qwen35Config, params, state, tokens, positions, page_tables, seq
     tokens, positions, seq_lens, slots: [B] int32 — seq_lens counts tokens
     INCLUDING this one; page_tables: [B, P] int32. Padding rows carry
     seq_len 0, position 0, the null page and the dead slot (``max_slots``);
-    live rows carry distinct slots. Returns logits [B, V] f32.
+    live rows carry distinct slots; ``tp``: a rank's groups (module
+    docstring). Returns logits [B, V] f32.
     """
     B = tokens.shape[0]
     eps = cfg.rms_norm_eps
@@ -829,14 +846,14 @@ def decode(cfg: Qwen35Config, params, state, tokens, positions, page_tables, seq
             mixed, z, g, beta = _gdn_project(cfg, lw, rms_norm(x, lw["input_ln"], eps), plain_kernels)
             out = _gdn_step_rows(cfg, lw, state, gi, j, rows, mixed, g, beta)
             out = _gated_norm(cfg, lw["norm_w"], out, z).to(x.dtype)
-            x = x + _proj(lw, "out_proj", out.reshape(B, -1), plain_kernels)
-            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps), plain_kernels)
+            x = x + q3._row_proj(lw, "out_proj", out.reshape(B, -1), plain_kernels, tp)
+            x = x + _mlp(lw, rms_norm(x, lw["post_ln"], eps), plain_kernels, tp)
         fw = _full_weights(params, gi)
         q, k, v, gate = _full_qkv(cfg, fw, rms_norm(x, fw["input_ln"], eps), cos, sin,
                                   plain_kernels)
         o = decode_attention(kv, gi, q, k, v, page_tables, seq_lens, scale, plain_kernels)
         _write_kv(kv, gi, k, v, page_ids, pslots)
-        x = _gated_out(fw, x, o, gate, plain_kernels)
-        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps), plain_kernels)
+        x = _gated_out(fw, x, o, gate, plain_kernels, tp)
+        x = x + _mlp(fw, rms_norm(x, fw["post_ln"], eps), plain_kernels, tp)
     x = rms_norm(x, params["final_ln"], eps)
-    return q3._head(params, x, plain_kernels)
+    return q3._head(params, x, plain_kernels, tp)

@@ -15,6 +15,17 @@ Runs on ``cuda`` unless the caller passes another device;
 with no card it raises instead of running on the CPU. Refused with
 ``NotImplementedError`` (``engine/hybrid_executor.py::check_supported``):
 any other ``quantize``.
+
+``tp_size`` > 1 serves the hybrid tensor-parallel, as Qwen3's engine does
+(``models/qwen3_engine.py``; the JAX engine's ``shard_qwen35``): one process
+a rank (``parallel/tp_executor.py``), each holding its shard
+(``parallel/sharding.py::shard_qwen35``; int8 quantized before the split),
+its ``max_batch_size`` state slots at its ``local_config_qwen35`` (its value
+heads' recurrent rows, its own conv channels) and a pool sized from its own
+free memory less its slots and snapshots, the fraction divided among the
+ranks that share its card, the ranks agreeing on the least. The decode
+step is eager: the graph options and the PD hooks raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,7 +42,9 @@ from pegainfer_tpu_torch.engine.contract import EngineHandle, EngineLoadOptions
 from pegainfer_tpu_torch.engine.hybrid_executor import HybridExecutor, check_supported
 from pegainfer_tpu_torch.engine.kv import DEFAULT_MAX_SNAPSHOTS
 from pegainfer_tpu_torch.engine.scheduler import start_scheduler
+from pegainfer_tpu_torch.engine.torch_executor import check_tp_supported
 from pegainfer_tpu_torch.models import qwen35 as q35
+from pegainfer_tpu_torch.parallel import sharding, tp_executor
 from pegainfer_tpu_torch.utils.device import resolve_device
 from pegainfer_tpu_torch.utils.weights import load_state_dict
 
@@ -86,18 +99,25 @@ def quantize_int8(params, device: torch.device):
 
 def start_engine_from_params(cfg: q35.Qwen35Config, params,
                              options: Optional[EngineLoadOptions] = None,
-                             device=None) -> EngineHandle:
+                             device=None, tp_size: int = 1,
+                             store: Optional[str] = None) -> EngineHandle:
     """Serve ``params`` (already on ``device``). The pool takes the
     embedding's dtype; ``max_batch_size`` sets the number of state slots.
     With ``quantize="int8"`` the projections and the head are quantized
     first, in the caller's tree (``quantize_int8``). Returns the submit
-    handle; ``handle._scheduler.executor`` is the ``HybridExecutor``."""
+    handle; ``handle._scheduler.executor`` is the ``HybridExecutor``, or
+    with ``tp_size`` > 1 rank 0's ``TPExecutor`` (``store``: the ranks'
+    ``FileStore`` path or ``tcp://host:port``, None a temporary file; 0 or
+    1 is one process, as the JAX engine reads ``tp_size or 1``)."""
     opts = options or EngineLoadOptions()
     check_supported(opts)
     dev = resolve_device(device)
     dtype = params["embed"].dtype
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params are on {params['embed'].device}, engine on {dev}")
+    if (tp_size or 1) > 1:
+        return start_scheduler(start_tp_executor(cfg, opts, dev, tp_size, params=params,
+                                                 store=store), seed=opts.seed)
     if opts.quantize == "int8":
         params = quantize_int8(params, dev)
     max_slots = opts.max_batch_size
@@ -120,13 +140,63 @@ def start_engine_from_params(cfg: q35.Qwen35Config, params,
 
 
 def start_engine(model_path: str, options: Optional[EngineLoadOptions] = None,
-                 device=None) -> EngineHandle:
+                 device=None, tp_size: int = 1, store: Optional[str] = None) -> EngineHandle:
     """Load an HF Qwen3Next-format checkpoint (safetensors) in bf16 and serve
-    it."""
+    it; with ``tp_size`` > 1 each rank loads it and keeps its shard
+    (``start_engine_from_params``)."""
     dev = resolve_device(device)
     cfg = q35.Qwen35Config.from_model_path(model_path)
     log.info("loading %s (%d layers: %d linear + 1 full per period-%d group)", model_path,
              cfg.num_hidden_layers, cfg.period - 1, cfg.period)
+    if (tp_size or 1) > 1:
+        opts = options or EngineLoadOptions()
+        check_supported(opts)
+        return start_scheduler(start_tp_executor(cfg, opts, dev, tp_size,
+                                                 model_path=model_path, store=store),
+                               seed=opts.seed)
     params = q35.params_from_state_dict(cfg, load_state_dict(model_path),
                                         dtype=torch.bfloat16, device=dev)
     return start_engine_from_params(cfg, params, options, dev)
+
+
+# ── tensor parallelism ───────────────────────────────────────────────────
+
+
+def start_tp_executor(cfg: q35.Qwen35Config, opts: EngineLoadOptions, dev: torch.device,
+                      tp: int, params=None, model_path: Optional[str] = None,
+                      store: Optional[str] = None) -> tp_executor.TPExecutor:
+    """The ranks of a tensor-parallel hybrid engine (module docstring) from
+    the caller's ``params`` (int8 quantized here first, in the caller's
+    tree) or from ``model_path``: rank 0's ``TPExecutor``, which the engine
+    puts behind its scheduler. Never falls back to one process."""
+    sharding.validate_qwen35_tp(cfg, tp)
+    check_tp_supported(opts)
+    return tp_executor.start_engine_ranks(cfg, opts, dev, tp, tp_rank_executor, params,
+                                          model_path, store, quantize_int8)
+
+
+def tp_rank_executor(spec, rank: int, tp, params) -> HybridExecutor:
+    """Rank ``rank``'s executor of a tensor-parallel hybrid engine
+    (``spec``: a ``parallel/tp_executor.py::TPSpec``; ``tp``: the rank's
+    groups): its shard of ``params``, or of the checkpoint at
+    ``spec.model_path`` loaded on its device (and quantized there before the
+    split), its state slots and its pool at the local config."""
+    dev = torch.device(spec.devices[rank])
+    opts = spec.options
+    if params is None:
+        params = q35.params_from_state_dict(spec.cfg, load_state_dict(spec.model_path),
+                                            dtype=torch.bfloat16, device=dev)
+        if opts.quantize == "int8":
+            params = quantize_int8(params, dev)
+    shard = sharding.shard_qwen35(spec.cfg, params, rank, spec.size, dev)
+    del params
+    lcfg = sharding.local_config_qwen35(spec.cfg, spec.size)
+    dtype = shard["embed"].dtype
+    max_slots = opts.max_batch_size
+    num_pages = tp_executor.agree_num_pages(
+        spec, rank, tp, dev,
+        lambda fraction: compute_num_pages(lcfg, DEFAULT_PAGE_SIZE, fraction, max_slots, dev,
+                                           dtype, prefix_cache=opts.enable_prefix_cache))
+    state = q35.make_state(lcfg, num_pages, DEFAULT_PAGE_SIZE, max_slots, kv_dtype=dtype,
+                           device=dev)
+    return HybridExecutor(lcfg, shard, state, opts, tp=tp)

@@ -36,7 +36,7 @@ from pegainfer_tpu_torch.engine.scheduler import start_scheduler
 from pegainfer_tpu_torch.engine.torch_executor import (TorchExecutor, check_supported,
                                                        check_tp_supported)
 from pegainfer_tpu_torch.models import qwen3 as q3
-from pegainfer_tpu_torch.parallel import group, sharding, tp_executor
+from pegainfer_tpu_torch.parallel import sharding, tp_executor
 from pegainfer_tpu_torch.utils.device import resolve_device
 from pegainfer_tpu_torch.utils.weights import load_state_dict
 
@@ -153,20 +153,8 @@ def start_tp_executor(cfg: q3.Qwen3Config, opts: EngineLoadOptions, dev: torch.d
     behind its scheduler. Never falls back to one process."""
     sharding.validate_qwen3_tp(cfg, tp)
     check_tp_supported(opts)
-    devices = group.rank_devices(opts.device_ordinals, dev, tp)
-    if params is not None and opts.quantize == "int8":
-        params = quantize_int8(params, dev)
-    if dev.type == "cuda":  # built here once, before the ranks load them
-        from pegainfer_tpu_torch.ops.cuda import build
-
-        build.load("paged_decode")
-    ex = tp_executor.start_ranks(
-        dict(cfg=cfg, options=opts, devices=[str(d) for d in devices],
-             backend=group.choose_backend(devices), model_path=model_path),
-        tp_rank_executor, params, store)
-    log.info("decode blocks of %d tokens (steady %d), %d in flight", ex.decode_block,
-             ex.decode_block_max, ex.decode_pipeline_depth)
-    return ex
+    return tp_executor.start_engine_ranks(cfg, opts, dev, tp, tp_rank_executor, params,
+                                          model_path, store, quantize_int8)
 
 
 def tp_rank_executor(spec, rank: int, tp, params) -> TorchExecutor:
@@ -185,13 +173,8 @@ def tp_rank_executor(spec, rank: int, tp, params) -> TorchExecutor:
     del params
     lcfg = sharding.local_config(spec.cfg, spec.size)
     dtype = shard["embed"].dtype
-    num_pages = opts.max_num_pages
-    if not num_pages:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-            torch.cuda.empty_cache()
-        tp.barrier()  # every rank's shard is in place before any reads free memory
-        num_pages = tp.agree_min(compute_num_pages(
-            lcfg, DEFAULT_PAGE_SIZE, opts.kv_memory_fraction / spec.sharers(rank), dev, dtype))
+    num_pages = tp_executor.agree_num_pages(
+        spec, rank, tp, dev,
+        lambda fraction: compute_num_pages(lcfg, DEFAULT_PAGE_SIZE, fraction, dev, dtype))
     kv = q3.make_kv_pages(lcfg, num_pages, DEFAULT_PAGE_SIZE, dtype=dtype, device=dev)
     return TorchExecutor(lcfg, shard, kv, opts, tp=tp)

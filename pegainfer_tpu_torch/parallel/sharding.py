@@ -1,5 +1,7 @@
-"""Megatron-style tensor parallelism for Qwen3: which axis of each parameter
-a rank keeps. The Qwen3 part of ``pegainfer_tpu/parallel/sharding.py``.
+"""Megatron-style tensor parallelism for Qwen3 and the Qwen3.5 hybrid:
+which axis of each parameter a rank keeps. The Qwen3 and Qwen3.5 parts of
+``pegainfer_tpu/parallel/sharding.py`` (the hybrid's rules under
+``shard_qwen35`` below).
 
 The JAX package places the whole tree on a mesh and lets GSPMD insert the
 collectives; here each rank is a process of its own that holds only its
@@ -132,6 +134,89 @@ def shard_qwen3(cfg, params, rank: int, tp: int, device=None):
         "embed": shard_leaf(params["embed"], None, rank, tp, device),
         "layers": {k: shard_leaf(v, QWEN3_SPLIT.get(k), rank, tp, device)
                    for k, v in params["layers"].items()},
+        "final_ln": shard_leaf(params["final_ln"], None, rank, tp, device),
+        "lm_head": shard_leaf(params["lm_head"], HEAD_SPLIT, rank, tp, device),
+    }
+
+
+# ── the Qwen3.5 hybrid (the JAX qwen35_param_specs / qwen35_state_specs) ──
+# GDN layers: the key and value heads cut into contiguous runs (wq / wk on
+# the key heads, wv / wz / wb / wa, dt_bias and A_log on the value heads),
+# out_proj and mlp_down on their inputs; full layers as Qwen3's. conv_w is
+# cut by its own rule (``conv_channels``). Leaves not listed are whole.
+QWEN35_LIN_SPLIT = {
+    "wq": "out", "wk": "out", "wv": "out", "wz": "out", "wb": "out", "wa": "out",
+    "dt_bias": "out", "A_log": "out",  # [G, pl, Hv]: the value-head axis, last
+    "out_proj": "in", "mlp_gate_up": "gate_up", "mlp_down": "in",
+}
+QWEN35_FULL_SPLIT = {
+    "wq": "out", "wgate": "out", "wk": "out", "wv": "out", "wo": "in",
+    "mlp_gate_up": "gate_up", "mlp_down": "in",
+}
+
+
+def validate_qwen35_tp(cfg, tp: int) -> None:
+    """The JAX ``validate_qwen35_tp``: ``tp`` divides the GDN key and value
+    heads, the full layers' query and kv heads, the intermediate width and
+    the vocab."""
+    for name, v in (
+        ("linear_num_key_heads", cfg.linear_num_key_heads),
+        ("linear_num_value_heads", cfg.linear_num_value_heads),
+        ("num_attention_heads", cfg.num_attention_heads),
+        ("num_key_value_heads", cfg.num_key_value_heads),
+        ("intermediate_size", cfg.intermediate_size),
+        ("vocab_size", cfg.vocab_size),
+    ):
+        if v % tp:
+            raise ValueError(f"tp={tp} must divide {name}={v}")
+
+
+def local_config_qwen35(cfg, tp: int):
+    """A rank's hybrid config: its GDN key and value heads, its full layers'
+    query and kv heads and its intermediate width (``key_dim``,
+    ``value_dim`` and ``conv_dim`` follow; the state and the pool take
+    them); the vocab stays whole, since the head's logits are gathered."""
+    validate_qwen35_tp(cfg, tp)
+    return replace(cfg, num_attention_heads=cfg.num_attention_heads // tp,
+                   num_key_value_heads=cfg.num_key_value_heads // tp,
+                   intermediate_size=cfg.intermediate_size // tp,
+                   linear_num_key_heads=cfg.linear_num_key_heads // tp,
+                   linear_num_value_heads=cfg.linear_num_value_heads // tp)
+
+
+def conv_channels(cfg, t: torch.Tensor, dim: int, rank: int, tp: int) -> torch.Tensor:
+    """The conv channels ``q ‖ k ‖ v`` along ``dim`` -> this rank's
+    ``q shard ‖ k shard ‖ v shard`` (its own key and value heads)."""
+    kd = cfg.key_dim
+    q, k, v = torch.split(t, [kd, kd, cfg.value_dim], dim=dim)
+    return torch.cat([_cut(q, dim, rank, tp), _cut(k, dim, rank, tp),
+                      _cut(v, dim, rank, tp)], dim=dim)
+
+
+def shard_qwen35(cfg, params, rank: int, tp: int, device=None):
+    """Rank ``rank``'s tree of the hybrid's ``params`` (bf16 / f32 leaves or
+    int8 containers) at tensor-parallel width ``tp``: every leaf a
+    contiguous copy on ``device`` (None: where the leaf lies).
+
+    ``conv_w`` [G, pl, conv_dim, K] is the depthwise conv over the channels
+    ``q ‖ k ‖ v`` (``models/qwen35.py::_gdn_project``), which
+    ``_gdn_split_heads`` reads back as key and value heads: a contiguous run
+    of that axis would give rank 0 all of q and k and another rank all of
+    v, so rank r takes ``q[r] ‖ k[r] ‖ v[r]`` (``conv_channels``), the
+    channels of its own heads. The JAX spec's contiguous run works there
+    only because GSPMD reshards the logical array before the split, as for
+    ``mlp_gate_up`` (``gate shard ‖ up shard``, ``shard_qwen3``). A tied
+    head is cut out of the embedding's view; the norms, ``norm_w``, the
+    embedding and ``final_ln`` stay whole."""
+    validate_qwen35_tp(cfg, tp)
+    lin = {k: shard_leaf(v, QWEN35_LIN_SPLIT.get(k), rank, tp, device)
+           for k, v in params["lin"].items() if k != "conv_w"}
+    lin["conv_w"] = _own(conv_channels(cfg, params["lin"]["conv_w"], -2, rank, tp), device)
+    return {
+        "embed": shard_leaf(params["embed"], None, rank, tp, device),
+        "lin": lin,
+        "full": {k: shard_leaf(v, QWEN35_FULL_SPLIT.get(k), rank, tp, device)
+                 for k, v in params["full"].items()},
         "final_ln": shard_leaf(params["final_ln"], None, rank, tp, device),
         "lm_head": shard_leaf(params["lm_head"], HEAD_SPLIT, rank, tp, device),
     }

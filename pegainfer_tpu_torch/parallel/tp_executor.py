@@ -2,22 +2,23 @@
 executor to the others. What GSPMD does for the JAX engine, with no single
 JAX counterpart.
 
-Every rank runs its own executor (a ``TorchExecutor`` with ``tp``) on its
-shard and its pool. Rank 0 serves the scheduler through ``TPExecutor``,
-which sends each call that changes an executor's state or runs the model
-to the other ranks over the CPU group, in rank 0's order, before running
-it on its own executor: ``execute_prefill``, ``execute_decode``,
+Every rank runs its own executor (a ``TorchExecutor`` with ``tp``, or the
+hybrid's ``HybridExecutor``) on its shard and its pool (and state slots).
+Rank 0 serves the scheduler through ``TPExecutor``, which sends each call
+that changes an executor's state or runs the model to the other ranks over
+the CPU group, in rank 0's order, before running it on its own executor: ``execute_prefill``, ``execute_decode``,
 ``execute_decode_async``, ``resolve_pending(_multi)``, ``execute_unified``,
 ``release_request``, each ``next`` of a ``prefill_stepper`` (with the
 scheduler's ``decode_active`` / ``mixed_items`` / ``mixed_rand`` of that
 moment) and the shutdown. The calls are plans of host data, so the ranks'
-host state (page accounting, prefix cache, decode blocks) stays identical
-by construction, and the collectives inside the model calls keep the
-shards in step. Every rank samples from the same gathered logits with the
+host state (page accounting, prefix cache, decode blocks; the hybrid's
+slot map and state snapshots) stays identical by construction, and the
+collectives inside the model calls keep the shards in step. Every rank samples from the same gathered logits with the
 draws that rank 0's scheduler put in the items, so no token is sent
 inside a decode block; a block that feeds on the last one's tokens on the
 device names that block, and each rank takes its own. Pure queries
-(``page_size``, ``available_pages``, ...) are rank 0's alone.
+(``page_size``, ``available_pages``, ``free_slots``, ...) are rank 0's
+alone.
 
 Each mirrored call holds rank 0's lock from its message to the end of its
 own run, so calls from two threads (the scheduler's, a caller's) reach
@@ -30,6 +31,12 @@ raise (the scheduler turns it into ``Error`` events), within the groups'
 timeout at worst; after one, every call raises. ``shutdown`` gathers
 every rank's counters (``rank_stats``), joins the workers and drops the
 groups.
+
+``start_engine_ranks`` and ``agree_num_pages`` are what the families'
+engines (``models/qwen3_engine.py``, ``models/qwen35_engine.py``) share:
+the ranks' devices and start, and each rank's pool sized from its own
+free memory, the fraction divided among the ranks on its card, the ranks
+agreeing on the least.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from typing import Any, Callable, List, Optional
 import torch
 import torch.multiprocessing as mp
 
+from pegainfer_tpu_torch.parallel import group
 from pegainfer_tpu_torch.parallel.group import GroupError, RankGroups
 
 log = logging.getLogger("pegainfer_torch.parallel")
@@ -76,15 +84,33 @@ class TPSpec:
         return self.devices.count(self.devices[rank])
 
 
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors of a tree of dicts (int8 containers included),
+    each storage counted once (a tied head, a view of the embedding, adds
+    nothing)."""
+    seen, n = set(), 0
+    stack = [tree]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            n += t.numel() * t.element_size()
+    return n
+
+
 def rank_stats(ex) -> dict:
     """A rank's executor counters, kernel launches, collectives and bytes
-    of parameters."""
-    from pegainfer_tpu_torch.models import qwen3 as q3
+    of parameters; for an executor with state slots (the hybrid) also its
+    slot map (request -> slot), its free slots in the order they are given
+    out, its cached state snapshots (chain key, position) and its state's
+    bytes."""
     from pegainfer_tpu_torch.ops.cuda import flash_prefill, int8_linear, paged_decode
 
-    return {
+    st = {
         "rank": ex.tp.rank, "device": str(ex.device), "backend": ex.tp.backend,
-        "params_bytes": q3.params_bytes(ex.params), "num_pages": ex.kv_pages.shape[2],
+        "params_bytes": tree_bytes(ex.params), "num_pages": ex.kv_pages.shape[2],
         "prefills": ex.prefills, "chunk_pieces": ex.chunk_pieces,
         "mixed_pieces": ex.mixed_pieces, "decode_steps": ex.decode_steps,
         "decode_blocks": ex.decode_blocks, "collectives": ex.tp.collectives,
@@ -93,6 +119,13 @@ def rank_stats(ex) -> dict:
                      "flash_prefill": flash_prefill.launches,
                      "int8_linear": int8_linear.launches},
     }
+    if hasattr(ex, "_slots"):
+        st["slots"] = dict(ex._slots)
+        st["free_slots"] = list(ex._free_slots)
+        st["snapshots"] = ([] if ex.prefix_cache is None else
+                           [(k, pos) for k, (pos, _) in ex.prefix_cache._snaps.items()])
+        st["state_bytes"] = tree_bytes(ex.state)
+    return st
 
 
 # ── the workers ──────────────────────────────────────────────────────────
@@ -308,6 +341,12 @@ class TPExecutor:
     def import_pages(self, rows, page_ids) -> None:
         raise NotImplementedError("PD handoff under tensor parallelism is not ported")
 
+    def slot_export(self, slot: int):
+        raise NotImplementedError("PD handoff under tensor parallelism is not ported")
+
+    def slot_import(self, snap, slot: int) -> None:
+        raise NotImplementedError("PD handoff under tensor parallelism is not ported")
+
     # ── shutdown ─────────────────────────────────────────────────────
 
     def shutdown(self) -> None:
@@ -396,3 +435,48 @@ def start_ranks(spec_kw: dict, build: Callable, params=None,
         log.info("rank %d on %s: %.2f GB of parameters, %d pages", st["rank"], st["device"],
                  st["params_bytes"] / 1e9, st["num_pages"])
     return TPExecutor(local, groups, procs, store_dir)
+
+
+# ── what the families' engines share ─────────────────────────────────────
+
+
+def start_engine_ranks(cfg, opts, dev: torch.device, tp: int, build: Callable, params=None,
+                       model_path: Optional[str] = None, store: Optional[str] = None,
+                       quantize: Optional[Callable] = None) -> TPExecutor:
+    """The ranks of one family's tensor-parallel engine on ``dev``'s kind
+    (``group.rank_devices``), from the caller's ``params`` (passed through
+    ``quantize(params, dev)`` first for ``opts.quantize == "int8"``, in the
+    caller's tree) or from ``model_path``; ``build``: the family's rank
+    executor (``start_ranks``). The kernels are built here once, before the
+    ranks load them. Returns rank 0's ``TPExecutor``."""
+    devices = group.rank_devices(opts.device_ordinals, dev, tp)
+    if params is not None and opts.quantize == "int8":
+        params = quantize(params, dev)
+    if dev.type == "cuda":
+        from pegainfer_tpu_torch.ops.cuda import build as kernels
+
+        kernels.load("paged_decode")
+    ex = start_ranks(
+        dict(cfg=cfg, options=opts, devices=[str(d) for d in devices],
+             backend=group.choose_backend(devices), model_path=model_path),
+        build, params, store)
+    log.info("decode blocks of %d tokens (steady %d), %d in flight", ex.decode_block,
+             ex.decode_block_max, ex.decode_pipeline_depth)
+    return ex
+
+
+def agree_num_pages(spec: TPSpec, rank: int, groups: RankGroups, dev: torch.device,
+                    count: Callable[[float], int]) -> int:
+    """A rank's pool pages: the options' ``max_num_pages``, else the least
+    over the ranks of ``count(fraction)`` (the family's ``compute_num_pages``
+    on this rank's free memory, read once every rank's shard is in place),
+    ``fraction`` the options' ``kv_memory_fraction`` divided among the
+    ranks on this rank's device."""
+    opts = spec.options
+    if opts.max_num_pages:
+        return opts.max_num_pages
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+    groups.barrier()  # every rank's shard is in place before any reads free memory
+    return groups.agree_min(count(opts.kv_memory_fraction / spec.sharers(rank)))

@@ -8,12 +8,12 @@ Qwen3, the Qwen3.5 hybrid, DeepSeek-V4 (an mp8 checkpoint; ``--quantize
 bf16`` dequantizes it at load) and DeepSeek-V2-Lite (an HF checkpoint, bf16)
 are served from a checkpoint through the port's engines on the card;
 ``--sim`` serves the simulated engine with the ``SimTokenizer`` (no card, no
-model). ``--tp-size N --no-precompile`` serves a Qwen3 checkpoint tensor-
-parallel, one process a rank on the first N cards
-(``models/qwen3_engine.py``). The server runs until SIGINT. What the port
-lacks raises ``NotImplementedError``: ``--tp-size`` above 1 for the other
-families (tensor or expert parallelism) or with the decode graphs (without
-``--no-precompile``), a ``--quantize`` value the family does not serve,
+model). ``--tp-size N --no-precompile`` serves a Qwen3 or a Qwen3.5 hybrid
+checkpoint tensor-parallel, one process a rank on the first N cards
+(``models/qwen3_engine.py``, ``models/qwen35_engine.py``). The server runs
+until SIGINT. What the port lacks raises ``NotImplementedError``:
+``--tp-size`` above 1 for DeepSeek-V4 and DeepSeek-V2-Lite (tensor or expert
+parallelism) or with the decode graphs (without ``--no-precompile``), a ``--quantize`` value the family does not serve,
 ``--profile-dir`` and the multi-host variables ``PEGAINFER_COORD`` /
 ``_NUM_PROCS`` / ``_PROC_ID``.
 A checkpoint's tokenizer is read with transformers (``HFTokenizer``).
@@ -31,6 +31,7 @@ import time
 from pegainfer_tpu_torch.engine.contract import EngineHandle, EngineLoadOptions
 
 MULTIHOST_ENV = ("PEGAINFER_COORD", "PEGAINFER_NUM_PROCS", "PEGAINFER_PROC_ID")
+TP_FAMILIES = ("qwen3", "qwen35")  # the families served tensor-parallel
 
 log = logging.getLogger("pegainfer_torch.server")
 
@@ -59,8 +60,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000, help="0: a free port (logged)")
     p.add_argument("--tp-size", type=int, default=0,
-                   help="tensor-parallel world (0 or 1: one card; N > 1: Qwen3 on N "
-                        "processes, with --no-precompile)")
+                   help="tensor-parallel world (0 or 1: one card; N > 1: Qwen3 or "
+                        "Qwen3.5 on N processes, with --no-precompile)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--max-num-pages", type=int, default=None)
     p.add_argument("--max-batch-size", type=int, default=64)
@@ -131,10 +132,10 @@ def check_supported(args: argparse.Namespace) -> None:
             f"{', '.join(set_vars)} set: the port has no multi-host serving")
     if args.tp_size > 1:
         family = detect_model_type(args.model_path)
-        if family != "qwen3":
+        if family not in TP_FAMILIES:
             raise NotImplementedError(
-                f"--tp-size {args.tp_size}: the port's tensor parallelism serves Qwen3, "
-                f"not {family}")
+                f"--tp-size {args.tp_size}: the port's tensor parallelism serves Qwen3 "
+                f"and Qwen3.5, not {family}")
         if not args.no_precompile:
             raise NotImplementedError(
                 f"--tp-size {args.tp_size}: tensor parallelism runs the eager decode step; "
@@ -161,7 +162,8 @@ def build_engine(args: argparse.Namespace, device=None) -> EngineHandle:
     if mtype == "qwen35":
         from pegainfer_tpu_torch.models import qwen35_engine
 
-        return qwen35_engine.start_engine(args.model_path, opts, device=device)
+        return qwen35_engine.start_engine(args.model_path, opts, device=device,
+                                          tp_size=args.tp_size)
     if mtype == "deepseek_v4":
         from pegainfer_tpu_torch.models import dsv4_engine
 

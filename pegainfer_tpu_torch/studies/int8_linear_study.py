@@ -113,18 +113,29 @@ FORMS = ("kernel", "K6 + scale + cast", "bf16 matmul", "JAX form", "library", "p
 TP_ROWS = (1, 8, 16, 64)  # rows of the shard-shape cases
 
 
-def tp_launches(tp: int):
-    """Qwen3-4B's int8 launches on one rank of a tensor-parallel engine at
-    width ``tp`` (``parallel/sharding.py``: wq / wk / wv and w_gate_up cut on
-    their outputs, wo and w_down on their inputs, their partial sums kept
-    f32 by the f32-output epilogue, the head on the vocab): (name, OUT of
-    each weight, IN, launches a decode step, f32_out)."""
-    return ((f"qwen3 tp{tp} wq / wk / wv", (4096 // tp, 1024 // tp, 1024 // tp), 2560, 36,
-             False),
-            (f"qwen3 tp{tp} wo", (2560,), 4096 // tp, 36, True),
-            (f"qwen3 tp{tp} w_gate_up", (19456 // tp,), 2560, 36, False),
-            (f"qwen3 tp{tp} w_down", (2560,), 9728 // tp, 36, True),
-            (f"qwen3 tp{tp} lm_head", (151936 // tp,), 2560, 1, False))
+# the launches whose weights a rank cuts on their inputs (their partial sums
+# kept f32 by the f32-output epilogue and reduced across the ranks)
+ROW_PARALLEL = ("qwen3 wo", "qwen3 w_down", "qwen35 out_proj / wo", "qwen35 mlp_down")
+TP_WIDTHS = {"qwen3": (2, 4), "qwen35": (2,)}  # the widths the family's heads divide
+
+
+def tp_launches(tp: int, family: str = "qwen3"):
+    """``STEP_LAUNCHES[family]`` on one rank of a tensor-parallel engine at
+    width ``tp`` (``parallel/sharding.py``: Qwen3's wq / wk / wv and
+    w_gate_up, the hybrid's GDN and full-layer groups and mlp_gate_up cut
+    on their outputs; ``ROW_PARALLEL`` on their inputs, their partial sums
+    kept f32 by the f32-output epilogue; the head on the vocab): (name, OUT
+    of each weight, IN, launches a decode step, f32_out)."""
+    out = []
+    for name, outs, IN, per_step in STEP_LAUNCHES[family]:
+        label = name.replace(f"{family} ", f"{family} tp{tp} ", 1)
+        if name in ROW_PARALLEL:
+            out.append((label, outs, IN // tp, per_step, True))
+        else:
+            out.append((label, tuple(o // tp for o in outs), IN, per_step, False))
+    return tuple(out)
+
+
 LIBRARY_CALL = "torch._weight_int8pack_mm"
 
 # text of csrc/int8_linear.cu the variants and the mutants replace
@@ -533,12 +544,14 @@ def check_cases() -> list:
     return cases
 
 
-def tp_check_cases() -> list:
-    """The card tests' cases at Qwen3-4B's shard shapes of TP 2 and TP 4
-    (``tp_launches``) at ``TP_ROWS``: bf16 rows, the outputs bf16, or f32
-    (``"f32_out"``) for wo and w_down."""
+def tp_check_cases(family: str = "qwen3") -> list:
+    """The card tests' cases at the family's shard shapes (``tp_launches``;
+    Qwen3-4B at TP 2 and TP 4, the hybrid's ``bench_config()`` at TP 2) at
+    ``TP_ROWS``: bf16 rows, the outputs bf16, or f32 (``"f32_out"``) for the
+    ``ROW_PARALLEL`` launches."""
     return [(f"{name} M={M}", outs, IN, M, "f32_out" if f32 else "bf16")
-            for tp in (2, 4) for name, outs, IN, _, f32 in tp_launches(tp) for M in TP_ROWS]
+            for tp in TP_WIDTHS[family] for name, outs, IN, _, f32 in tp_launches(tp, family)
+            for M in TP_ROWS]
 
 
 def run_case(case, device="cuda", weights=None):

@@ -171,6 +171,24 @@ def test_paged_decode_kernel_at_the_tp_shard_heads(dev, form, Hq, Hkv, seq_lens)
     _assert_decode_close(out, pd.paged_attention_decode_plain(*args, **kw))
 
 
+# the Qwen3.5 hybrid's full attention on one rank of TP 2 (hd 256, Hq / Hkv
+# 8 / 1: G 8 with one kv head): the smoke's [30a] contexts and a ragged 8
+HYBRID_TP_DECODE_CASES = [pytest.param(seq_lens, id=f"B{len(seq_lens)}") for seq_lens in
+                          ([1025], [300, 500], [1088, 300, 532, 64, 1, 2000, 700, 0])]
+
+
+@pytest.mark.parametrize("form", ["pool_cur", "layer"])
+@pytest.mark.parametrize("seq_lens", HYBRID_TP_DECODE_CASES)
+def test_paged_decode_kernel_at_the_hybrid_tp_shard_heads(dev, form, seq_lens):
+    rng = np.random.default_rng(256 + len(seq_lens))
+    args, kw = _decode_inputs(rng, dev, form, 256, 8, 1, seq_lens)
+    before = pd.launches
+    out = pd.paged_attention_decode(*args, **kw)
+    torch.cuda.synchronize()
+    assert pd.launches == before + 1
+    _assert_decode_close(out, pd.paged_attention_decode_plain(*args, **kw))
+
+
 def test_paged_decode_kernel_on_two_streams(dev):
     """Calls on two streams at once, each many splits: each stream has its
     own ticket counters, so the splits of one call never meet those of a
@@ -239,6 +257,9 @@ FLASH_CASES = [
     pytest.param(256, 1280, 1280, 1024, 128, 16, 4, id="hd128-G4-tp2-chunk"),
     pytest.param(1024, 1024, 1024, 0, 128, 8, 2, id="hd128-G4-tp4-T1024"),
     pytest.param(256, 1280, 1280, 1024, 128, 8, 2, id="hd128-G4-tp4-chunk"),
+    # the Qwen3.5 hybrid's full attention on one rank of TP 2 (hd 256, 8 / 1)
+    pytest.param(1024, 1024, 1024, 0, 256, 8, 1, id="hd256-G8-tp2-T1024"),
+    pytest.param(256, 1280, 1280, 1024, 256, 8, 1, id="hd256-G8-tp2-chunk"),
 ]
 
 
@@ -569,6 +590,23 @@ def test_int8_linear_kernel_at_the_tp_shard_shapes(dev, case):
     w_down through the f32-output epilogue (the partial sums a rank
     reduces): each row within one bf16 ulp (f32: INT8_GEMV_RTOL) of its own
     max |ref|, the outputs' block NaN-filled first."""
+    before = il.launches
+    ys, refs = ils.run_case(case, dev)
+    torch.cuda.synchronize()
+    assert il.launches == before + 1
+    for y, ref in zip(ys, refs):
+        assert y.dtype == (torch.float32 if case[4] == "f32_out" else torch.bfloat16)
+        assert y.shape == ref.shape and y.dtype == ref.dtype and y.is_contiguous()
+        assert ils.row_err(y, ref)[1] <= 1.0
+
+
+@pytest.mark.parametrize("case", ils.tp_check_cases("qwen35"), ids=lambda c: c[0])
+def test_int8_linear_kernel_at_the_hybrid_tp_shard_shapes(dev, case):
+    """The int8 linear kernel at the Qwen3.5 ``bench_config()`` hybrid's
+    shard shapes of TP 2 (``int8_linear_study.tp_check_cases("qwen35")``:
+    the GDN and full-layer groups, mlp_gate_up, the head's vocab shard of
+    75,968, and out_proj / wo and mlp_down through the f32-output epilogue)
+    at 1, 8, 16 and 64 rows, as the Qwen3 shard shapes above."""
     before = il.launches
     ys, refs = ils.run_case(case, dev)
     torch.cuda.synchronize()
