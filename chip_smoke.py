@@ -357,6 +357,10 @@ DeepSeek-V4's slot prefix cache and PD handoff, on the same weights:
     the chain off against [11]'s eager run (K3 = 24 and K4 = 59 x decode
     steps through the replays), then with ``moe_chain=True`` against an
     eager run of the same traffic here (K9 = 8 x decode steps, no K3);
+13h. (on the first DSV4_BLOCK_LAYERS = 4 layers, beside [31])
+    decode blocks under the JAX defaults, graphed, fp4 with the chain off,
+    against the one-token eager engine's tokens made at that depth
+    (``dsv4_blocks``, ``dsv4_cut``);
 13a. an engine under the defaults (``EngineLoadOptions(max_batch_size=2,
     max_model_len=2048, seed=SEED)``: the slot prefix cache on, chunks of
     2,048, the decode step as CUDA graphs) serves, one after another, (a) P (1,024 tokens) / 16 with
@@ -426,7 +430,8 @@ On the same weights, the opt-in fp4 chain and then the int8-experts mode:
     K7 at w1, at w2 and at skewed routing, each beside one grouped_mm, and
     its plan's time;
 18g. [13g] in int8 under the default chain against [17]'s eager run (K8 =
-    8 x decode steps, K7 = 24 x prefills through the replays).
+    8 x decode steps, K7 = 24 x prefills through the replays);
+18h. [13h] in int8 with K8, on the first 4 layers likewise.
 
 DeepSeek-V4 from an mp8 checkpoint (``models/dsv4_weights.py``), between
 [14] and [15] while the fp4 weights are whole, and after [18h] once they
@@ -455,6 +460,34 @@ are freed:
     routing replayed (rule 7 with DSV4_LOGITS_RTOL); [27b]'s requests served
     in bf16 (no K3 / K4 / K5 launch) with their ids' agreement with [27b]'s
     (reported) and the warm steady TPOT beside [27b]'s fp4 one.
+31. after [27c], on [27a]'s files: the two layers split as mp8 ranks at TP
+    2, both ranks on card 0 (``device_ordinals=[0, 0]``, gloo, eager,
+    ``dsv4_engine.start_engine(path, tp_size=2)``; each rank loads its
+    four rank files, ``dsv4_weights.load_params_rank``):
+31a. K4 at rank 0's wq_b / wo_b / idx_wq_b shards of TP 2 and TP 8 (M 1,
+    2, 8), K3 on 128 and 32 local experts with rows of other ranks'
+    experts (exact zero rows), K5 on a rank's rows of a 1,024-token
+    prefill and of 300 rows (the others sorted last, owned by no work
+    item), each against its plain version; timed at TP 2's shapes beside
+    their bounds, plain versions and library calls (``torch.matmul``,
+    ``torch.bmm``, ``grouped_mm``);
+31b. fp4 resident: each rank read its four files only and its load peak
+    stays below the one-process tree's bytes; each rank's tree is
+    ``shard_dsv4`` of the one-process tree bit for bit (per-leaf digests,
+    ``on_ranks``); TP_MAIN then TP_PAIR at once against the one-process
+    eager engine's streams (equal, or parting at a step where the two
+    runs' logits, each a prefill of the same prefix, differ by more than
+    the gap between the two tokens); K3 / K4 / K5 launches on both ranks =
+    the path's;
+    ``collectives_per_forward`` (2L + ratio-4 layers + 2 = 7) a forward;
+    the route tapes (expert ids, top-k selections) equal on both ranks;
+    rank 0's prefill logits and a B = 2 step against one process with the
+    one-process routing and selections replayed (rule 7, DSV4_LOGITS_RTOL),
+    the flips of the ranks' own decisions reported; TTFT / TPOT, not a TP
+    speed;
+31c. bf16 (``quantize="bf16"``) from the same files at TP 2: 64/4, no
+    quantized kernel launched, rank 0's prefill logits against the
+    resident one-process model's under its routing.
 
 DeepSeek-V2-Lite at its published config (27 layers, the first dense, 64
 routed experts top-6 and 2 shared, MLA with kv_lora_rank 512; full width
@@ -502,7 +535,8 @@ records under ``qwen35``, 13a-13b's under ``dsv4_cache``, 8e's, 25a's and
 [28]'s under ``dsv2lite``, [29]'s under ``serving``'s ``tp`` (K1's, K2's and the int8
 linear kernel's ``launches_tp_path`` and ``tp_shapes``), [30]'s under
 ``qwen35``'s ``serving``'s ``tp`` (their ``launches_qwen35_tp_path`` and
-``qwen35_tp_shapes``);
+``qwen35_tp_shapes``), [31]'s under ``dsv4_tp`` (K3's, K4's and K5's
+``launches_tp_path`` and ``tp_shapes``);
 25g's, 13g's and 18g's records under each family's ``graphs``), the card
 line from nvidia-smi and
 ``{"ok": true, "device": {...}}``.
@@ -510,6 +544,7 @@ line from nvidia-smi and
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -1000,8 +1035,18 @@ def main() -> int:
         log(f"  DeepSeek-V4-Flash freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
             "allocated")
         mp8["bf16"] = run_mp8_bf16(cfg, mp8_dir, mp8)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_dsv4 = run_tp_dsv4(cfg, mp8_dir, ceiling)
     finally:
         shutil.rmtree(mp8_dir, ignore_errors=True)
+    for r in d_records:  # [31]: rank 0's launches on the split path, the rank shapes
+        key = {"moe_fp4_gemv": "fp4_gemv", "fp8_gemv": "fp8_gemv",
+               "moe_fp4_grouped": "fp4_grouped"}.get(r["name"])
+        if key is not None:
+            r["launches_tp_path"] = tp_dsv4["fp4"]["launches_each_rank"][0][key]
+            r["tp_shapes"] = tp_dsv4["kernel_shapes"][r["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], tp_dsv4["kernel_errs"][r["name"]])
     # DeepSeek-V2-Lite, once every DSv4 tree is gone
     gc.collect()
     torch.cuda.empty_cache()
@@ -1062,7 +1107,7 @@ def main() -> int:
                              "dsv4": dsv4_pd},
                       "dsv4_fp4_chain": {"serving": chain_serving},
                       "dsv4_int8": {"serving": i_serving, "steps": i_steps},
-                      "dsv4_mp8": mp8, "dsv2lite": dsv2}))
+                      "dsv4_mp8": mp8, "dsv4_tp": tp_dsv4, "dsv2lite": dsv2}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4510,7 +4555,10 @@ def tp_mode(label, mode, fam, cfg, params, contract, kernels, oracle, prompts, g
     log(f"  {tag} {label}: rank 0's launches {launches}; each rank's "
         f"{[d['launches'] for d in deltas]}; expected {want_launches} ({run['prefills']} "
         f"prefills, {run['decode_steps']} decode steps, {A} full-attention layers)")
-    if launches != want_launches or any(d["launches"] != want_launches for d in deltas):
+    # the ranks also count DSv4's kernels (K3 / K4 / K5), none of them here
+    if launches != want_launches or any(
+            d["launches"] != {**dict.fromkeys(d["launches"], 0), **want_launches}
+            for d in deltas):
         raise SystemExit(f"{tag} {label}: kernel launch counts do not match the path")
     if any({k: v for k, v in d.items() if k != "launches"}
            != {k: v for k, v in run.items() if k != "launches"} for d in deltas):
@@ -5457,31 +5505,56 @@ def run_dsv4():
     serving["graphs"] = run_dsv4_graphed(cfg, params, contract, run, kernels)
     serving["graphs"]["phase_s"] = time.perf_counter() - t
     log(f"  [13g] took {serving['graphs']['phase_s']:.1f} s")
-    log("[13h] DSv4 decode blocks under the JAX defaults, graphed, fp4 with the chain off "
-        "(K3 / K4), against [11]'s tokens (equal to [13g]'s one-token graphed ones)")
+    log(f"[13h] DSv4 decode blocks under the JAX defaults, graphed, fp4 with the chain off "
+        f"(K3 / K4), on the first {DSV4_BLOCK_LAYERS} layers against the one-token eager "
+        "engine's tokens at that depth")
     t = time.perf_counter()
-    serving["blocks"] = dsv4_blocks("[13h] fp4", cfg, params, contract, run, kernels,
-                                    lambda r: {"moe_fp4_gemv": 3 * L * r["decode_steps"],
-                                               "fp8_gemv": fp8_per_decode_step(cfg)
-                                               * r["decode_steps"],
-                                               "moe_fp4_grouped": 3 * L * r["prefills"]})
+    serving["blocks"] = dsv4_blocks(
+        "[13h] fp4", cfg, params, contract, kernels,
+        lambda r, n: {"moe_fp4_gemv": 3 * n * r["decode_steps"],
+                      "fp8_gemv": fp8_per_decode_step(dsv4_cut(cfg, params, n)[0])
+                      * r["decode_steps"],
+                      "moe_fp4_grouped": 3 * n * r["prefills"]})
     serving["blocks"]["phase_s"] = time.perf_counter() - t
     log(f"  [13h] took {serving['blocks']['phase_s']:.1f} s")
     return cfg, params, records, serving, steps_json(steps)
 
 
-def dsv4_blocks(label, cfg, params, contract, run, kernels, expected, quantize=None):
+# [13h] and [18h] run on [9]'s first layers (a ratio-0, a ratio-4 and a
+# ratio-128 layer among them), each against its oracle made at that depth,
+# to keep the smoke within its limit beside [31]
+DSV4_BLOCK_LAYERS = 4
+
+
+def dsv4_cut(cfg, params, n):
+    """A DSv4 config and tree of the first ``n`` layers (the same tensors)."""
+    return (dataclasses.replace(cfg, n_layers=n, compress_ratios=cfg.compress_ratios[:n],
+                                n_hash_layers=min(cfg.n_hash_layers, n)),
+            {**params, "layers": params["layers"][:n]})
+
+
+def dsv4_blocks(label, cfg, params, contract, kernels, expected, quantize=None):
     """Phases 13h / 18h: ``block_phase`` on phase 11's traffic (the main
-    request and DSV4_CONCURRENT, its tokens ``run``'s), with its idle
-    window over the main request's steady blocks."""
+    request and DSV4_CONCURRENT) on the first DSV4_BLOCK_LAYERS layers,
+    against the one-token eager engine's tokens made here at that depth,
+    with its idle window over the main request's steady blocks;
+    ``expected(run, layers)``: the launches."""
     from pegainfer_tpu_torch.models import dsv4_engine as d4e
+
+    cfg, params = dsv4_cut(cfg, params, DSV4_BLOCK_LAYERS)
+    t = time.perf_counter()
+    run = serve_slots(cfg, contract, dsv4_engine(cfg, contract, d4e, params, quantize=quantize),
+                      {})
+    log(f"  {label}: the one-token eager engine's tokens on the first {DSV4_BLOCK_LAYERS} "
+        f"layers ({time.perf_counter() - t:.1f} s)")
 
     def start():
         return d4e.start_engine_from_params(cfg, params, contract.EngineLoadOptions(
             max_batch_size=DSV4_SLOTS, max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED,
             quantize=quantize, **WHOLE), device="cuda")
 
-    return block_phase(label, start, None, cfg, contract, kernels, expected,
+    return block_phase(label, start, None, cfg, contract, kernels,
+                       lambda r: expected(r, DSV4_BLOCK_LAYERS),
                        {"main": run["main_tokens"], "concurrent": run["concurrent_tokens"]},
                        (DSV4_WARMUP, (DSV4_PROMPT, DSV4_OUT)), SEED + 3,
                        pair="concurrent", sampled=False)
@@ -6120,13 +6193,16 @@ def run_dsv4_int8(cfg, params, k9_record):
                             "fp8_gemv": f8 * r["decode_steps"]}, quantize="int8-experts")
     graphs["phase_s"] = time.perf_counter() - t
     log(f"  [18g] took {graphs['phase_s']:.1f} s")
-    log("[18h] int8-experts decode blocks under the JAX defaults, graphed, with K8, against "
-        "[17]'s tokens (equal to [18g]'s one-token graphed ones)")
+    log(f"[18h] int8-experts decode blocks under the JAX defaults, graphed, with K8, on the "
+        f"first {DSV4_BLOCK_LAYERS} layers against the one-token eager engine's tokens at that "
+        "depth")
     t = time.perf_counter()
     graphs["blocks"] = dsv4_blocks(
-        "[18h] int8 + K8", cfg, params, contract, run, kernels,
-        lambda r: {**zero, "moe_int8_grouped": 3 * L * r["prefills"],
-                   "moe_int8_chain": L * r["decode_steps"], "fp8_gemv": f8 * r["decode_steps"]},
+        "[18h] int8 + K8", cfg, params, contract, kernels,
+        lambda r, n: {**zero, "moe_int8_grouped": 3 * n * r["prefills"],
+                      "moe_int8_chain": n * r["decode_steps"],
+                      "fp8_gemv": fp8_per_decode_step(dsv4_cut(cfg, params, n)[0])
+                      * r["decode_steps"]},
         quantize="int8-experts")
     graphs["blocks"]["phase_s"] = time.perf_counter() - t
     log(f"  [18h] took {graphs['blocks']['phase_s']:.1f} s")
@@ -6340,18 +6416,20 @@ def time_int8_gemv(layers, k6, gen, E):
     return out
 
 
-def time_grouped(mod, label, x, tm, e_sorted, seg, ws, E):
+def time_grouped(mod, label, x, tm, e_sorted, seg, ws, E, own_tail=True):
     """K5 (``mod`` the fp4_grouped module) or K7 (int8_grouped) on the rows
     ``x`` (sorted by ``e_sorted``, segments ``seg``), each call on the next
     layer's stack of ``ws``, with a plan built once; its bound from these
-    inputs (each hit expert's codes, and K5's scales, read once); the plan's
-    own time; one bf16 grouped GEMM on the first layer's stack as its
-    library yardstick (K5: dequantized with its scales; K7: its codes,
-    unscaled as K7's output is). Returns (ms, bound_ms, bound_by,
-    library_ms, library_call, plan_ms)."""
+    inputs (each hit expert's codes, and K5's scales, read once; the rows
+    of ids below E); the plan's own time; one bf16 grouped GEMM on the
+    first layer's stack as its library yardstick (K5: dequantized with its
+    scales; K7: its codes, unscaled as K7's output is), on the rows of ids
+    below E. ``own_tail`` False: a model-parallel rank's rows, the others'
+    (id E) sorted last and owned by no work item. Returns (ms, bound_ms,
+    bound_by, library_ms, library_call, plan_ms)."""
     fp4 = hasattr(mod, "moe_fp4_grouped")
     name = "K5" if fp4 else "K7"
-    L, (M, IN) = len(ws), x.shape
+    L, IN = len(ws), x.shape[1]
     OUT = ws[0]["q"].shape[1]
 
     def call(w, work):
@@ -6359,13 +6437,14 @@ def time_grouped(mod, label, x, tm, e_sorted, seg, ws, E):
             return mod.moe_fp4_grouped(x, w["q"], w["s"], *seg, tm=tm, plan=work)
         return mod.moe_int8_grouped(x, w["q"], *seg, tm=tm, plan=work)
 
-    work = mod.plan(*seg, tm, E)
+    work = mod.plan(*seg, tm, E, own_tail=own_tail)
     saved = mod.launches
     ms = time_ms(lambda i: call(ws[i % L], work), 24)
-    plan_ms = time_ms(lambda i: mod.plan(*seg, tm, E), 10)  # about 60 launches a plan
-    hit = int(torch.unique(e_sorted).numel())
+    plan_ms = time_ms(lambda i: mod.plan(*seg, tm, E, own_tail=own_tail), 10)  # ~60 launches
+    M = int((e_sorted < E).sum())  # the rows sorted first: all, or the rank's
+    hit = int(torch.unique(e_sorted[:M]).numel())
     w_bytes = ws[0]["q"][0].nbytes + (ws[0]["s"][0].nbytes if fp4 else 0)  # one expert
-    b_ms, by = bound(hit * w_bytes + x.numel() * 2 + M * OUT * 4, 2 * M * OUT * IN)
+    b_ms, by = bound(hit * w_bytes + M * IN * 2 + M * OUT * 4, 2 * M * OUT * IN)
     y = call(ws[0], work)
     mod.launches = saved
     log(f"  {name} at {label}: {M} rows over {hit} experts, {int(work.n_items[0])} row "
@@ -6374,7 +6453,8 @@ def time_grouped(mod, label, x, tm, e_sorted, seg, ws, E):
         f"plan {plan_ms * 1e3:.2f} us")
     # the stack in bf16 [E, IN, OUT] (column-major per expert; 4.3 GB at w1)
     wb = dequant_stack_bf16(ws[0]) if fp4 else ws[0]["q"].to(torch.bfloat16)
-    lib_ms, lib_call = grouped_mm_library(name, x, e_sorted, wb.transpose(1, 2), y, label)
+    lib_ms, lib_call = grouped_mm_library(name, x[:M], e_sorted[:M], wb.transpose(1, 2), y[:M],
+                                          label)
     del y, wb
     torch.cuda.empty_cache()
     return ms, b_ms, by, lib_ms, lib_call, plan_ms
@@ -7072,25 +7152,12 @@ def serve_mp8(contract, handle, prompts, kernels=None):
         handle._thread.join(timeout=60)
 
 
-def run_mp8(cfg, params, d):
-    """Phases 27a-27b on [9]'s fp4 weights: write the checkpoint into ``d``
-    (kept for 27c), load it through ``start_engine(path)`` bit for bit,
-    serve from it against the in-memory engine, and through the CLI's
-    ``build_engine``. Returns the record."""
-    from pegainfer_tpu_torch.engine import contract
+def write_mp8(cfg2, tree, d):
+    """``tree`` (of config ``cfg2``) as an mp8 checkpoint in ``d``: config.json
+    and the eight rank files (``mp8_rank_entries``), free space checked
+    first. Returns (bytes, tensors, seconds)."""
     from pegainfer_tpu_torch.models import dsv4 as d4
-    from pegainfer_tpu_torch.models import dsv4_engine as d4e
-    from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
-    from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
-    from pegainfer_tpu_torch.ops.cuda import fp8_gemv as k4
 
-    t_phase = time.perf_counter()
-    cfg2 = mp8_config(cfg)
-    tree = mp8_tree(params)
-    log(f"[27a] an mp8 checkpoint of [9]'s layers {MP8_LAYERS} ({cfg2.n_layers} layers, "
-        f"compress ratios {list(cfg2.compress_ratios)}, {cfg2.n_hash_layers} hash layer) in the "
-        "real dtypes (F8_E4M3, F8_E8M0 scales, packed F4 experts), written by the smoke's "
-        "writer; card: " + card_line())
     codes = {}
     ranks = [mp8_rank_entries(cfg2, tree, r, codes) for r in range(MP8_WORLD)]
     need = sum(t.numel() * t.element_size() for es in ranks for _, _, _, t in es)
@@ -7111,6 +7178,29 @@ def run_mp8(cfg, params, d):
         f"{write_s:.2f} s")
     if d4.DSv4Config.from_model_path(d) != cfg2:
         raise SystemExit("[27a] config.json does not read back as the cut config")
+    return nbytes, n_tensors, write_s
+
+
+def run_mp8(cfg, params, d):
+    """Phases 27a-27b on [9]'s fp4 weights: write the checkpoint into ``d``
+    (kept for 27c), load it through ``start_engine(path)`` bit for bit,
+    serve from it against the in-memory engine, and through the CLI's
+    ``build_engine``. Returns the record."""
+    from pegainfer_tpu_torch.engine import contract
+    from pegainfer_tpu_torch.models import dsv4 as d4
+    from pegainfer_tpu_torch.models import dsv4_engine as d4e
+    from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
+    from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
+    from pegainfer_tpu_torch.ops.cuda import fp8_gemv as k4
+
+    t_phase = time.perf_counter()
+    cfg2 = mp8_config(cfg)
+    tree = mp8_tree(params)
+    log(f"[27a] an mp8 checkpoint of [9]'s layers {MP8_LAYERS} ({cfg2.n_layers} layers, "
+        f"compress ratios {list(cfg2.compress_ratios)}, {cfg2.n_hash_layers} hash layer) in the "
+        "real dtypes (F8_E4M3, F8_E8M0 scales, packed F4 experts), written by the smoke's "
+        "writer; card: " + card_line())
+    nbytes, n_tensors, write_s = write_mp8(cfg2, tree, d)
 
     opts = contract.EngineLoadOptions(max_batch_size=DSV4_SLOTS,
                                       max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED)
@@ -7266,6 +7356,423 @@ def run_mp8_bf16(cfg, d, mp8):
            "routing_flips": replay.flips, "ids_agree_tokens": same, "bf16": timing,
            "launches": launches, "phase_s": time.perf_counter() - t_phase, "card": card_line()}
     log(f"  [27c] took {rec['phase_s']:.1f} s")
+    return rec
+
+
+# ── phase 31: DeepSeek-V4 split over two ranks (the mp8 split) ──────────
+
+TP_DSV4_BF16 = (64, 4)  # [31c]: the bf16 mode's request
+TP_DSV4_SEED = SEED + 31
+TP_DSV4_SIZES = (2, 8)  # the rank shapes [31a] checks (TP 2 also timed)
+
+
+def tree_digest(tree):
+    """{path: (dtype, shape, two int64 sums of the leaf's 32-bit words, the
+    second weighted by position)} of a tree's leaves: what moves a word of
+    a leaf, or a leaf, changes it."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{path}/{k}")
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                walk(v, f"{path}/{i}")
+        else:
+            b = t.contiguous().reshape(-1).view(torch.uint8)
+            if b.numel() % 4:
+                b = torch.cat([b, b.new_zeros(4 - b.numel() % 4)])
+            w = b.view(torch.int32)
+            s1 = s2 = 0
+            for i in range(0, w.numel(), 1 << 26):
+                c = w[i:i + (1 << 26)].long()
+                pos = torch.arange(i, i + c.numel(), device=c.device) % 1000003 + 1
+                s1 += int(c.sum())
+                s2 += int((c * pos).sum())
+            out[path] = (str(t.dtype), tuple(t.shape), s1, s2)
+
+    walk(tree, "")
+    return out
+
+
+def params_digest(ex):
+    """``TPExecutor.on_ranks`` function: the rank's ``tree_digest``."""
+    return tree_digest(ex.params)
+
+
+def rank_ids(gen, M, E, tp):
+    """M expert ids drawn from E, as rank 0 of ``tp`` sees them: its own
+    below E / tp, every other rank's expert the sentinel E / tp (what
+    models/dsv4.py's ``_moe`` hands the kernels)."""
+    ids = torch.randint(0, E, (M,), generator=gen, device="cuda", dtype=torch.int32)
+    return torch.where(ids < E // tp, ids, E // tp)
+
+
+def rank_grouped_inputs(gen, M, IN, E, tp):
+    """x_sorted, tm, the sorted local ids and segments of one K5 call on a
+    rank's rows: M rows routed over E experts, the other ranks' sorted last
+    (the sentinel), padded as models/dsv4.py pads them."""
+    from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
+
+    tm = 128 if M >= 128 else -(-M // 8) * 8
+    Mp = -(-M // tm) * tm
+    e = torch.sort(rank_ids(gen, M, E, tp)).values
+    e = torch.cat([e, e[-1:].expand(Mp - M)])
+    x = torch.randn((Mp, IN), generator=gen, device="cuda").to(torch.bfloat16)
+    return x, tm, e, k5.tile_segments(e, tm, E // tp)
+
+
+def check_tp_dsv4_kernels(cfg, whole, k3, k4, k5):
+    """[31a]'s checks: K4 at each rank shard of TP_DSV4_SIZES (wq_b's and
+    idx_wq_b's rows, wo_b's input columns) at M 1, 2, 8; K3 on E / tp local
+    experts at M 1, 6, 12 with ids of other ranks' experts (exact zero
+    rows); K5 on a rank's rows of a 1,024-token prefill and of 300 rows with
+    the others' sorted last and no work item (``plan(own_tail=False)``),
+    each covered row within GROUPED_ROW_RTOL of its max |ref|. Returns the
+    largest errors."""
+    from pegainfer_tpu_torch.parallel import sharding
+
+    gen = torch.Generator(device="cuda").manual_seed(TP_DSV4_SEED)
+    errs = {}
+    lw4, lw = whole["layers"][0], whole["layers"][1]  # the ratio-4 and ratio-128 layers
+    E = cfg.n_routed_experts
+    for tp in TP_DSV4_SIZES:
+        for key, src in (("wq_b", lw), ("wo_b", lw), ("idx_wq_b", lw4)):
+            w = sharding.shard_dsv4_leaf(key, src[key], 0, tp)
+            for M in (1, 2, 8):
+                x = torch.randn((M, w["q"].shape[1]), generator=gen, device="cuda")
+                y = k4.fp8_gemv(x, w["q"], w["s"])
+                torch.cuda.synchronize()
+                err = (y - k4.fp8_gemv_plain(x, w["q"], w["s"])).abs().max().item()
+                max_err_verdict(errs, "fp8_gemv", f"TP {tp} {key} {tuple(w['q'].shape)} M={M}",
+                                err, QUANT_GEMV_TOL)
+        for key in ("experts_w1", "experts_w2"):
+            w = sharding.shard_dsv4_leaf(key, lw[key], 0, tp)
+            for M in (1, 6, 12):
+                idx = rank_ids(gen, M, E, tp)
+                x = torch.randn((M, 2 * w["q"].shape[2]), generator=gen, device="cuda")
+                y = k3.moe_fp4_gemv(x, w["q"], w["s"], idx)
+                torch.cuda.synchronize()
+                ref = k3.moe_fp4_gemv_plain(x, w["q"], w["s"], idx)
+                err = (y - ref).abs().max().item()
+                other = idx == E // tp
+                if bool(other.any()) and not bool((y[other] == 0).all()):
+                    err = float("inf")  # another rank's expert: a row of exact zeros
+                max_err_verdict(errs, "moe_fp4_gemv",
+                                f"TP {tp} {key} E {E // tp} M={M} ({int(other.sum())} rows of "
+                                "other ranks' experts)", err, QUANT_GEMV_TOL)
+            del w
+        w = sharding.shard_dsv4_leaf("experts_w1", lw["experts_w1"], 0, tp)
+        for M in (6 * DSV4_PROMPT, 300):
+            x, tm, e, seg = rank_grouped_inputs(gen, M, 2 * w["q"].shape[2], E, tp)
+            work = k5.plan(*seg, tm, E // tp, own_tail=False)
+            y = k5.moe_fp4_grouped(x, w["q"], w["s"], *seg, tm=tm, plan=work)
+            torch.cuda.synchronize()
+            mine = e < E // tp
+            ref = k5.moe_fp4_grouped_plain(x, w["q"], w["s"], *seg, tm=tm)
+            err, share = grouped_err(y[mine], ref[mine])
+            tail = int((work.owner < 0).sum())
+            log(f"  moe_fp4_grouped TP {tp} w1 E {E // tp}: {int(mine.sum())} of {M} rows "
+                f"(tm {tm}), {tail} tail rows owned by no item, {int(work.n_items[0])} row "
+                f"chunks: max_abs_err {err:.3e}, worst row at {share:.3f} of "
+                f"{GROUPED_ROW_RTOL:g} x its max |ref| {'ok' if share <= 1.0 else 'FAIL'}")
+            if not share <= 1.0 or tail < int((~mine).sum()):
+                raise SystemExit("moe_fp4_grouped disagrees with its plain version on a rank's "
+                                 "rows, or a work item took another rank's rows")
+            errs["moe_fp4_grouped"] = max(errs.get("moe_fp4_grouped", 0.0), err)
+        del w
+        torch.cuda.empty_cache()
+    return errs
+
+
+def time_tp_dsv4_kernels(cfg, shard, k3, k4, k5, ceiling):
+    """[31a]'s times at rank 0's shapes of TP 2 (``shard``: its tree): K4 at
+    each fp8 linear of a decode step (``time_fp8_shapes``: wq_b, wo_b and
+    idx_wq_b cut, the rest whole) beside ``torch.matmul``; K3 at w1 / w2 on
+    E / 2 local experts (``time_fp4_gemv``) beside ``torch.bmm``; K5 on the
+    rank's rows of a 1,024-token prefill routed over all E experts
+    (``time_grouped`` with the plan's ``own_tail=False``) beside
+    ``grouped_mm``; each with its bound from these inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(TP_DSV4_SEED + 1)
+    layers = shard["layers"]
+    E_loc = layers[0]["experts_w1"]["q"].shape[0]
+    k4_shapes = time_fp8_shapes(layers, k4, gen)
+    k3_cases = time_fp4_gemv(layers, k3, gen, E_loc)
+    w1 = [lw["experts_w1"] for lw in layers]
+    x5, tm, e5, seg = rank_grouped_inputs(gen, 6 * DSV4_PROMPT, 2 * w1[0]["q"].shape[2],
+                                          cfg.n_routed_experts, TP_SIZE)
+    ms, b, by, lib, call, plan_ms = time_grouped(k5, "TP 2 rank 0's rows", x5, tm, e5, seg, w1,
+                                                 E_loc, own_tail=False)
+    mine = int((e5 < E_loc).sum())
+    plain_ms = time_synced_ms(lambda i: k5.moe_fp4_grouped_plain(
+        x5, w1[i % len(w1)]["q"], w1[i % len(w1)]["s"], *seg, tm=tm), 2)
+    k5_rec = {"M": 6 * DSV4_PROMPT, "rank_rows": mine, "experts": E_loc, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": lib,
+              "library_call": call, "plan_ms": plan_ms}
+    for rec in (*k4_shapes.values(), *k3_cases.values(), k5_rec):
+        if rec["bound_by"] == "bytes":
+            rec["measured_bound_ms"] = rec["bound_ms"] * HBM_BYTES_PER_S / ceiling
+    del x5
+    return {"fp8_gemv": k4_shapes, "moe_fp4_gemv": k3_cases, "moe_fp4_grouped": {"w1": k5_rec}}
+
+
+def run_tp_dsv4(cfg, d, ceiling):
+    """Phase 31, after [27c] on [27a]'s checkpoint in ``d`` ([9]'s layers
+    MP8_LAYERS at full width: a hash-gated ratio-4 layer with the indexer,
+    a score-gated ratio-128 layer): the model split over TP 2 ranks on the
+    one card (``device_ordinals=[0, 0]``, gloo, eager), each rank loading
+    its four rank files. [31a] K3, K4 and K5 at rank shapes against their
+    plain versions, timed at TP 2's; [31b] fp4 resident: each rank's files,
+    tree (bit for bit ``shard_dsv4`` of the one-process tree, by digest) and
+    load peak, TP_MAIN then TP_PAIR against the one-process eager streams,
+    the launches and collectives, the route tapes equal on both ranks;
+    then the same traffic with the one-process engine's route tape replayed
+    on both ranks: the calls the one-process ones, and rank 0's streams
+    holding rule 7 against the one-process logits at every step up to the
+    first where they part (``dsv4_tp_study.hold_streams``), its flips the
+    routing flips of the ranks' own decisions; [31c] bf16: one 64/4
+    request, no quantized kernel, its prefill logits against the resident
+    one-process model's under its routing. Returns the record."""
+    from pegainfer_tpu_torch.engine import contract
+    from pegainfer_tpu_torch.models import dsv4 as d4
+    from pegainfer_tpu_torch.models import dsv4_engine as d4e
+    from pegainfer_tpu_torch.models import dsv4_manifest as d4m
+    from pegainfer_tpu_torch.models import dsv4_weights as d4w
+    from pegainfer_tpu_torch.ops.cuda import fp4_gemv as k3
+    from pegainfer_tpu_torch.ops.cuda import fp4_grouped as k5
+    from pegainfer_tpu_torch.ops.cuda import fp8_gemv as k4
+    from pegainfer_tpu_torch.parallel import sharding
+    from pegainfer_tpu_torch.studies import dsv4_tp_study as tps
+
+    t_phase = time.perf_counter()
+    cfg2 = mp8_config(cfg)
+    L = cfg2.n_layers
+    log(f"[31] DeepSeek-V4-Flash's layers {MP8_LAYERS} at full width split as mp8 ranks at TP "
+        f"{TP_SIZE} on device_ordinals {TP_ORDINALS} (gloo, eager), from [27a]'s files; "
+        + card_line())
+    whole = d4w.load_params(cfg2, d, resident=True, device="cuda")
+    whole_bytes = d4.params_bytes(whole)
+    log(f"[31a] K3, K4, K5 at rank 0's shapes of TP {TP_DSV4_SIZES} against their plain "
+        "versions; timed at TP 2's")
+    errs = check_tp_dsv4_kernels(cfg2, whole, k3, k4, k5)
+    shard0 = sharding.shard_dsv4(cfg2, whole, 0, TP_SIZE, "cuda")
+    shapes = time_tp_dsv4_kernels(cfg2, shard0, k3, k4, k5, ceiling)
+    want_digests = [tree_digest(shard0)]
+    del shard0
+    torch.cuda.empty_cache()
+    want_digests.append(tree_digest(sharding.shard_dsv4(cfg2, whole, 1, TP_SIZE, "cuda")))
+    torch.cuda.empty_cache()
+
+    main_prompt, pair = tp_prompts(cfg2, TP_DSV4_SEED)
+    t = time.perf_counter()
+    one = d4e.start_engine_from_params(cfg2, whole, contract.EngineLoadOptions(
+        max_batch_size=DSV4_SLOTS, max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED, **OLD_DEFAULTS,
+        **EAGER), device="cuda")
+    one_ex = one._scheduler.executor
+    d4e.start_route_tape(one_ex)
+    logs, order, _ = tps.catch_step_logits(one_ex)
+    try:
+        oracle = tp_traffic(contract, one, main_prompt, pair)
+    finally:
+        one.shutdown()
+        one._thread.join(timeout=60)
+    one_tape = d4e.take_route_tape(one_ex)["entries"]
+    want_logs = [logs[r] for r in order]
+    want_streams = [oracle["main"], *oracle["pair"]]
+    del one, one_ex, logs
+    log(f"  the one-process eager engine's streams on the TP traffic, each token's logits and "
+        f"its route tape ({len(one_tape)} decisions; {time.perf_counter() - t:.1f} s)")
+
+    log(f"[31b] fp4 resident at TP {TP_SIZE}: d4e.start_engine(path, tp_size={TP_SIZE}); "
+        f"{TP_MAIN[0]}/{TP_MAIN[1]}, then {TP_PAIR} at once")
+    opts = dict(max_batch_size=DSV4_SLOTS, max_model_len=DSV4_MAX_MODEL_LEN, seed=SEED,
+                device_ordinals=TP_ORDINALS, **TP_OPTS)
+    gc.collect()
+    t = time.perf_counter()
+    handle = d4e.start_engine(d, contract.EngineLoadOptions(**opts), device="cuda",
+                              tp_size=TP_SIZE)
+    start_s = time.perf_counter() - t
+    ex = handle._scheduler.executor
+    files = d4m.rank_files(d)
+    try:
+        ready = ex.rank_stats()
+        loads = [st["load"] for st in ready]
+        for r, ld in enumerate(loads):
+            mine = sorted(os.path.basename(f) for f in files[4 * r:4 * r + 4])
+            log(f"  rank {r}: read {sorted(ld['files'])} "
+                f"({sum(ld['files'].values()) / 1e9:.3f} GB) in {ld['seconds']:.2f} s, load "
+                f"peak {ld['peak_bytes'] / 1e9:.3f} GB on the card against the one-process "
+                f"tree's {whole_bytes / 1e9:.3f} GB; params {ready[r]['params_bytes'] / 1e9:.3f}"
+                " GB")
+            if sorted(ld["files"]) != mine or not ld["peak_bytes"] < whole_bytes:
+                raise SystemExit(f"[31b] rank {r} read other files than its own, or its load "
+                                 "peak reached the one-process tree's bytes")
+        digests = ex.on_ranks(params_digest)
+        bad = [[p for p in want if got.get(p) != want[p]] + sorted(set(got) - set(want))
+               for got, want in zip(digests, want_digests)]
+        log(f"  each rank's tree against shard_dsv4 of the one-process tree, leaf by leaf "
+            f"({len(want_digests[0])} leaves): bit for bit {not any(bad)}")
+        if any(bad):
+            raise SystemExit(f"[31b] a rank's tree differs from its shard: {bad}")
+        ex.on_ranks(d4e.start_route_tape)
+        before = ex.rank_stats()
+        own_logs, own_order, restore = tps.catch_step_logits(ex.local)
+        try:
+            got = tp_traffic(contract, handle, main_prompt, pair)
+            wait_released(ex)
+        finally:
+            restore()
+        after = ex.rank_stats()
+        tapes = ex.on_ranks(d4e.take_route_tape)
+        log("  [31b] the same traffic, the one-process route tape replayed on both ranks")
+        ex.on_ranks(d4e.start_route_tape, one_tape)
+        rep_logs, rep_order, restore = tps.catch_step_logits(ex.local)
+        try:
+            replayed = tp_traffic(contract, handle, main_prompt, pair)
+            wait_released(ex)
+        finally:
+            restore()
+        rep_tapes = ex.on_ranks(d4e.take_route_tape)
+    finally:
+        handle.shutdown()
+        handle._thread.join(timeout=120)
+    alive = tp_children()
+    if alive or handle._thread.is_alive():
+        raise SystemExit(f"[31b] workers {alive} or the scheduler outlived the shutdown")
+    del handle, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    deltas = tp_delta(after, before)
+    run = deltas[0]
+    names = {"moe_fp4_gemv": "fp4_gemv", "fp8_gemv": "fp8_gemv",
+             "moe_fp4_grouped": "fp4_grouped"}
+    want_launches = {"fp4_gemv": 3 * L * run["decode_steps"],
+                     "fp8_gemv": fp8_per_decode_step(cfg2) * run["decode_steps"],
+                     "fp4_grouped": 3 * L * run["prefills"]}
+    each = [{k: dl["launches"][k] for k in want_launches} for dl in deltas]
+    log(f"  [31b] each rank's launches {each}; expected {want_launches} ({run['prefills']} "
+        f"prefills, {run['decode_steps']} decode steps, {L} layers)")
+    if any(e != want_launches for e in each) or any(
+            any(dl["launches"][k] for k in ("paged_decode", "flash_prefill", "int8_linear"))
+            for dl in deltas):
+        raise SystemExit("[31b] kernel launch counts do not match the path")
+    if any({k: v for k, v in dl.items() if k != "launches"}
+           != {k: v for k, v in run.items() if k != "launches"} for dl in deltas):
+        raise SystemExit(f"[31b] the ranks' executors ran different calls: {deltas}")
+    forwards = run["prefills"] + run["decode_steps"]
+    per_fwd = d4.collectives_per_forward(cfg2)
+    log(f"  [31b] collectives {run['collectives']} for {forwards} forwards: "
+        f"{run['collectives'] / forwards:.0f} a forward against 2L + (ratio-4 layers) + 2 = "
+        f"{per_fwd}")
+    if run["collectives"] != per_fwd * forwards:
+        raise SystemExit("[31b] the collectives a forward do not match the formula")
+    t0, t1 = tapes
+    same = (len(t0["entries"]) == len(t1["entries"]) > 0 and all(
+        k0 == k1 and all(torch.equal(a, b) for a, b in zip(x0, x1))
+        for (k0, x0), (k1, x1) in zip(t0["entries"], t1["entries"])))
+    kinds = collections.Counter(k for k, _ in t0["entries"])
+    log(f"  [31b] the route tapes of the traffic ({dict(kinds)} decisions a rank): equal on "
+        f"both ranks {same}")
+    if not same:
+        raise SystemExit("[31b] the ranks' route ids or top-k selections differ")
+    own_streams = [got["main"], *got["pair"]]
+    parts = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+             for g, w in zip(own_streams, want_streams)]
+    log(f"  [31b] own routing (reported, not gated): the streams' first step that differs from "
+        f"one process's {parts} (None: equal); rank 0's {TP_MAIN[0]}-token prefill logits "
+        "against one process's")
+    own_prefill = logits_rule(own_logs[own_order[0]][0], want_logs[0][0], DSV4_LOGITS_RTOL)
+    calls = [len(t["entries"]) for t in rep_tapes]
+    flips = [(t["flips"], t["rows"]) for t in rep_tapes]
+    held = tps.hold_streams([replayed["main"], *replayed["pair"]], want_streams,
+                            [rep_logs[r] for r in rep_order], want_logs, DSV4_LOGITS_RTOL)
+    log(f"  [31b] routing replayed: decisions a rank {calls} against the one-process "
+        f"{len(one_tape)}; flips of the ranks' own choices (rows flipped, of rows) {flips}; "
+        f"rank 0's streams against one process's, rule 7 at each step up to the first that "
+        f"parts: {held['streams']}")
+    if any(c != len(one_tape) for c in calls) or not held["ok"]:
+        raise SystemExit("[31b] with the one-process routing replayed the ranks made other "
+                         "calls, or rank 0's logits left rule 7 before the streams parted")
+    host = [{k: st[k] for k in ("slots", "free_slots", "snapshots", "resume_steps")}
+            for st in after]
+    if any(h != host[0] for h in host):
+        raise SystemExit(f"[31b] the ranks' host state differs: {host}")
+    fp4 = {"start_s": start_s, "loads": loads, "params_bytes": [st["params_bytes"] for st in ready],
+           "state_bytes": [st["state_bytes"] for st in ready], "whole_bytes": whole_bytes,
+           "backend": ready[0]["backend"], "devices": [st["device"] for st in ready],
+           "ttft_ms": got["ttft_ms"], "tpot_p50_ms": got["tpot_p50_ms"],
+           "launches_each_rank": each, "counters": run, "collectives_per_forward": per_fwd,
+           "decisions": dict(kinds), "own_routing": {"first_diff_step": parts,
+                                                     "prefill_logits": own_prefill},
+           "replayed": {"decisions": calls, "flips": flips, **held}}
+    log(f"  [31b] start {start_s:.1f} s; TTFT {got['ttft_ms']:.1f} ms, TPOT p50 "
+        f"{got['tpot_p50_ms']:.2f} ms: two ranks on one card through the host, not a TP "
+        f"speed; {card_line()}")
+
+    log(f"[31c] bf16 (quantize='bf16') at TP {TP_SIZE} from the same files: "
+        f"{TP_DSV4_BF16[0]}/{TP_DSV4_BF16[1]}")
+    prompt = np.random.default_rng(TP_DSV4_SEED + 1).integers(
+        0, cfg2.vocab_size, TP_DSV4_BF16[0]).tolist()
+    res_tape = d4.RouteTape()
+    with torch.no_grad():
+        lr = d4.prefill(cfg2, whole, torch.tensor(prompt, dtype=torch.int32, device="cuda"),
+                        last_only=True, tape=res_tape)[0][0].float()
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    handle = d4e.start_engine(d, contract.EngineLoadOptions(**opts, quantize="bf16"),
+                              device="cuda", tp_size=TP_SIZE)
+    bf_start = time.perf_counter() - t
+    ex = handle._scheduler.executor
+    bf_logs, bf_order, restore = tps.catch_step_logits(ex.local)
+    try:
+        before = ex.rank_stats()
+        ex.on_ranks(d4e.start_route_tape, res_tape.host())
+        ch, t0_ = run_request(contract, handle, prompt, TP_DSV4_BF16[1])
+        toks_bf, fin, times = drain(contract, ch)
+        expect_finished(contract, f"TP bf16 {TP_DSV4_BF16[0]}/{TP_DSV4_BF16[1]}", toks_bf, fin,
+                        TP_DSV4_BF16[1])
+        wait_released(ex)
+        bf_tapes = ex.on_ranks(d4e.take_route_tape)
+        after = ex.rank_stats()
+        bf_params = [st["params_bytes"] for st in after]
+    finally:
+        restore()
+        handle.shutdown()
+        handle._thread.join(timeout=120)
+    if tp_children() or handle._thread.is_alive():
+        raise SystemExit("[31c] workers or the scheduler outlived the shutdown")
+    del handle, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf_deltas = tp_delta(after, before)
+    quantized = [{k: dl["launches"][k] for k in want_launches} for dl in bf_deltas]
+    log(f"  [31c] rank 0's prefill logits against the resident one-process model's, its "
+        "routing replayed (the [27c] check)")
+    bf_rule = logits_rule(bf_logs[bf_order[0]][0], lr, DSV4_LOGITS_RTOL)
+    log(f"  [31c] engine up in {bf_start:.1f} s, params {[round(b / 1e9, 3) for b in bf_params]}"
+        f" GB a rank; quantized launches {quantized}; collectives "
+        f"{[dl['collectives'] for dl in bf_deltas]}; flips against the resident routing "
+        f"{[(x['flips'], x['rows']) for x in bf_tapes]}; tokens {toks_bf}")
+    if any(any(q.values()) for q in quantized) or not bf_rule["ok"]:
+        raise SystemExit("[31c] the bf16 mode launched a quantized kernel, or its logits "
+                         "disagree with the resident model's")
+    if bf_deltas[0]["collectives"] != per_fwd * (bf_deltas[0]["prefills"]
+                                                 + bf_deltas[0]["decode_steps"]):
+        raise SystemExit("[31c] the collectives a forward do not match the formula")
+    rec = {"tp_size": TP_SIZE, "device_ordinals": TP_ORDINALS, "layers": list(MP8_LAYERS),
+           "note": "two ranks on one card through the host (gloo): the split path checked at "
+                   "full width, no TP speed",
+           "kernel_errs": errs, "kernel_shapes": shapes, "fp4": fp4,
+           "bf16": {"start_s": bf_start, "params_bytes": bf_params, "tokens": toks_bf,
+                    "launches_each_rank": quantized, "prefill_logits": bf_rule,
+                    "flips": [(x["flips"], x["rows"]) for x in bf_tapes],
+                    "ttft_ms": (times[0] - t0_) * 1e3},
+           "card": card_line(), "phase_s": time.perf_counter() - t_phase}
+    log(f"  [31] took {rec['phase_s']:.1f} s")
     return rec
 
 

@@ -132,21 +132,26 @@ class SlotModel:
     resume: Optional[Callable] = None
 
 
-def dsv4_model(cfg: dsv4.DSv4Config, params, moe_chain: Optional[bool] = None) -> SlotModel:
+def dsv4_model(cfg: dsv4.DSv4Config, params, moe_chain: Optional[bool] = None,
+               tp=None, tape: Callable = lambda: None) -> SlotModel:
     """DeepSeek-V4's functions (``models/dsv4.py``, looked up at each call),
-    ``moe_chain`` bound in."""
+    ``moe_chain`` and ``tp`` (a rank's groups: its shard ``params`` at its
+    local ``cfg``) bound in; each call takes the route tape that ``tape()``
+    returns at that moment (None: none)."""
     def prefill(tokens, state, slot, all_logits):
         logits, _ = dsv4.prefill(cfg, params, tokens, state=state, slot=slot,
-                                 last_only=not all_logits, moe_chain=moe_chain)
+                                 last_only=not all_logits, moe_chain=moe_chain, tp=tp,
+                                 tape=tape())
         # a copy of an echo prompt's last row: the cache must not hold [T, V]
         return (logits[-1].clone(), logits) if all_logits else (logits[0], None)
 
     def decode(state, tokens, positions, slots):
-        return dsv4.decode(cfg, params, state, tokens, positions, slots, moe_chain=moe_chain)
+        return dsv4.decode(cfg, params, state, tokens, positions, slots, moe_chain=moe_chain,
+                           tp=tp, tape=tape())
 
     def resume(state, tokens, start, slot):
         return dsv4.prefill_resume(cfg, params, state, tokens, start, slot,
-                                   moe_chain=moe_chain)
+                                   moe_chain=moe_chain, tp=tp, tape=tape())
 
     return SlotModel(family="DeepSeek-V4", quantize=DSV4_QUANTIZE, prefill=prefill,
                      decode=decode, slot_export=dsv4.slot_export, slot_import=dsv4.slot_import,
@@ -171,13 +176,22 @@ def slot_cache_cap(snapshot_bytes: int, device: torch.device) -> int:
 class SlotExecutor(StateSlots, BlockDecode):
     """Continuous-batching executor for one page-less model with per-slot
     state on one device: ``model``'s functions (DSv4's by default, with
-    ``moe_chain``)."""
+    ``moe_chain``). With ``tp`` (a rank's groups) it is one rank of a
+    model-parallel DSv4 engine (``parallel/tp_executor.py``): its shard and
+    local config, the whole slot state, the eager decode step, and a slot
+    prefix cache of as many entries as every rank can hold."""
 
     def __init__(self, cfg, params, state, max_slots: int,
                  max_model_len: int, options: Optional[EngineLoadOptions] = None,
-                 moe_chain: Optional[bool] = None, model: Optional[SlotModel] = None):
+                 moe_chain: Optional[bool] = None, model: Optional[SlotModel] = None,
+                 tp=None):
         opts = options or EngineLoadOptions()
-        self.model = model if model is not None else dsv4_model(cfg, params, moe_chain)
+        if tp is not None:
+            tx.check_tp_supported(opts)
+        self.tp = tp
+        self.tape = None  # DeepSeek-V4's route tape (models/dsv4.py::RouteTape), when set
+        self.model = (model if model is not None
+                      else dsv4_model(cfg, params, moe_chain, tp, lambda: self.tape))
         tx.check_supported(opts, family=self.model.family, quantize=self.model.quantize,
                            chunked=False)
         self.cfg = cfg
@@ -192,6 +206,8 @@ class SlotExecutor(StateSlots, BlockDecode):
         self.snapshot_bytes = self.model.snapshot_bytes(state)
         cap = (slot_cache_cap(self.snapshot_bytes, self.device)
                if opts.enable_prefix_cache and self.model.resume is not None else 0)
+        if tp is not None:  # ranks that share a card see different free memory
+            cap = tp.agree_min(cap)
         self.slot_prefix_cache = SlotPrefixCache(max_entries=cap) if cap > 0 else None
         # the decode step under CUDA graphs, each bucket captured at first use
         self._graphs = None

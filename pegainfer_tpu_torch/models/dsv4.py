@@ -30,6 +30,24 @@ grouping only keeps XLA's compile time down). Caches update in place:
 ``prefill`` with a state writes the slot's rows, ``decode`` writes each
 batch row's slot, and padding rows write to the dead slot (row
 ``max_slots`` of every cache).
+
+Model parallelism (``tp``, a rank's ``parallel/group.py::RankGroups``, with
+its shard ``parallel/sharding.py::shard_dsv4`` and ``local_config_dsv4``):
+the reference's mp8 split, as the JAX package runs it under GSPMD on its MP8
+mesh. A rank embeds its vocabulary rows (masked, all-reduced: one rank's
+row and zeros, so the sum is exact), computes its attention heads and its
+o-groups (``wo_b``'s input columns: an f32 partial sum, all-reduced), scores
+the ratio-4 layers' compressed rows with its index heads (the partial
+scores all-reduced in f32 before the top-k), runs its E / tp routed experts
+on the tokens routed to them (``moe_ep``: ids shifted by ``rank * E / tp``,
+rows of other ranks' experts contribute 0, the weighted routed sum
+all-reduced in f32 before the whole shared expert is added) and gathers the
+head's vocabulary shards. A forward makes ``collectives_per_forward(cfg)``
+collectives: 2 a layer, 1 more a ratio-4 layer, the embedding and the head.
+Every rank then holds the same streams to the bit, so the gates, the
+indexer's top-k and the hyper-connection mixes decide alike on every rank;
+a ``RouteTape`` (``tape``) records those decisions, or replays another
+run's.
 """
 
 from __future__ import annotations
@@ -56,6 +74,69 @@ from pegainfer_tpu_torch.ops.cuda import int8_grouped as k7
 from pegainfer_tpu_torch.utils.weights import numpy_to_torch
 
 PREFILL_MOE_TOKENS = 8  # from this many tokens on, routed experts run grouped
+
+
+def collectives_per_forward(cfg) -> int:
+    """The collectives of one model-parallel forward: the embedding's
+    reduce, two a layer (the attention output's and the routed experts'
+    reduces), one more a ratio-4 layer (the indexer's scores) and the head's
+    gather."""
+    return 2 * cfg.n_layers + sum(r == 4 for r in cfg.compress_ratios) + 2
+
+
+def _world(tp) -> int:
+    return 1 if tp is None else tp.size
+
+
+class RouteTape:
+    """The decisions a run takes from its streams, in call order: each MoE
+    call's gate (``"route"``: route weights [T, K] f32, expert ids [T, K])
+    and each ratio-4 layer's indexer selection (``"select"``: the prefill's
+    top-k mask [T, C], or the decode step's ids [B, k] and their validity).
+    Recording (``replay`` None) keeps them on the device. Replaying hands
+    back ``replay``'s entries (an earlier tape's ``host()``) in place of the
+    run's own and counts in ``flips`` the rows whose own choice differs, of
+    ``rows``: a near-tie that the rounding of another order of sums swaps.
+    An entry of another kind or shape than the decision raises RuntimeError
+    (the two runs made other calls). Past the end of ``replay`` the run
+    decides for itself again."""
+
+    def __init__(self, replay=None):
+        self.entries = []
+        self.replay = replay
+        self.flips = self.rows = 0
+
+    def __call__(self, kind: str, own: tuple) -> tuple:
+        if self.replay is None or len(self.entries) >= len(self.replay):
+            self.entries.append((kind, own))
+            return own
+        want, theirs = self.replay[len(self.entries)]
+        shapes = [tuple(t.shape) for t in theirs], [tuple(t.shape) for t in own]
+        if want != kind or shapes[0] != shapes[1]:
+            raise RuntimeError(f"route tape: replaying a {want!r} entry of shapes {shapes[0]} "
+                               f"at a {kind!r} decision of shapes {shapes[1]}")
+        theirs = tuple(t.to(own[0].device) for t in theirs)
+        self.entries.append((kind, theirs))
+        differ = _decision_rows(kind, own) != _decision_rows(kind, theirs)
+        self.flips += int(differ.any(dim=-1).sum())
+        self.rows += differ.shape[0]
+        return theirs
+
+    def host(self) -> list:
+        """The entries as CPU tensors (to hand to another process)."""
+        return [(kind, tuple(t.cpu() for t in ts)) for kind, ts in self.entries]
+
+
+def _decision_rows(kind: str, entry: tuple) -> torch.Tensor:
+    """What a decision chose, a row a token, in a form that compares by
+    equality: the sorted expert ids, the selection mask, or the sorted
+    selected ids (-1 for invalid picks)."""
+    if kind == "route":
+        return torch.sort(entry[1], dim=-1).values
+    if len(entry) == 1:
+        return entry[0]
+    ids, valid = entry
+    return torch.sort(torch.where(valid, ids, -1), dim=-1).values
 
 
 @dataclass(frozen=True)
@@ -475,13 +556,17 @@ def _attn_kv(cfg, lw, x, positions, inv_freq, plain):
     return dsa.fp8_round_nope(kv, cfg.qk_rope_head_dim)
 
 
-def _attn_out(cfg, lw, o, plain):
-    """o: [T, H, hd] -> [T, D] through the grouped o-LoRA."""
+def _attn_out(cfg, lw, o, plain, tp=None):
+    """o: [T, H, hd] -> [T, D] through the grouped o-LoRA. Under ``tp`` the
+    rank's o-groups give an f32 partial sum of wo_b's product, reduced
+    across the ranks."""
     T, G = o.shape[0], cfg.o_groups
     per_g = cfg.num_attention_heads * cfg.head_dim // G
     wo_a = lw["wo_a"].reshape(G, cfg.o_lora_rank, per_g)
     oa = torch.einsum("tgp,grp->tgr", o.reshape(T, G, per_g), wo_a)
-    return quant.qlinear(oa.reshape(T, G * cfg.o_lora_rank), lw["wo_b"], plain)
+    y = quant.qlinear(oa.reshape(T, G * cfg.o_lora_rank), lw["wo_b"], plain,
+                      f32_out=tp is not None)
+    return y if tp is None else tp.all_reduce_sum(y).to(o.dtype)
 
 
 def _compress_scores_values(x, comp):
@@ -576,8 +661,11 @@ def _int8_srows(w, e: torch.Tensor) -> torch.Tensor:
 
 
 def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
-         moe_chain: Optional[bool] = None):
-    """x: [T, D] -> MoE output [T, D] (shared + routed experts)."""
+         moe_chain: Optional[bool] = None, tp=None, tape=None):
+    """x: [T, D] -> MoE output [T, D] (shared + routed experts). Under ``tp``
+    the gate stays global (E whole, ``gate_weight`` whole) and the rank runs
+    its E / tp experts (``cfg.n_routed_experts``, its local config's) on the
+    rows routed to them: the JAX ``ops/moe_ep.py::moe_ep``."""
     T = x.shape[0]
     E, K = cfg.n_routed_experts, cfg.n_activated_experts
     limit = cfg.swiglu_limit
@@ -588,6 +676,8 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
     else:
         weights, route_idx = score_gate(xf32, lw["gate_weight"], lw["gate_bias"], K,
                                         cfg.routed_scaling_factor)
+    if tape is not None:
+        weights, route_idx = tape("route", (weights, route_idx))
 
     g = quant.qlinear(x, lw["shared_w1"], plain).float()
     u = quant.qlinear(x, lw["shared_w3"], plain).float()
@@ -599,6 +689,20 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
     flat_e = route_idx.reshape(M).to(torch.int32)
     flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
     flat_w = weights.reshape(M)
+    mine = None  # under tp: the rows routed to this rank's experts
+    if tp is not None:
+        if moe_chain:
+            raise NotImplementedError("the fused expert chains (moe_chain=True) do not run "
+                                      "under model parallelism, as in the JAX engine")
+        if fmt == "int8":
+            raise NotImplementedError("int8 experts do not run under model parallelism, "
+                                      "as in the JAX engine")
+        moe_chain = False
+        # local ids; another rank's expert becomes E, which sorts last and
+        # takes no work item of the grouped kernels; its rows are zeroed below
+        flat_e = flat_e - tp.rank * E
+        mine = (flat_e >= 0) & (flat_e < E)
+        flat_e = torch.where(mine, flat_e, E)
     if T >= PREFILL_MOE_TOKENS and fmt == "bf16":
         per = bf16_grouped(x, w1, w2, w3, flat_e, flat_t, E, limit)
     elif T >= PREFILL_MOE_TOKENS:
@@ -627,7 +731,9 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
             def gemm(rows, w):
                 return k5.moe_fp4_grouped_plain(rows, w["q"], w["s"], *seg, tm=tm)
         else:
-            work = k5.plan(*seg, tm, E)  # K5's work items, shared by w1, w3 and w2
+            # under tp the rows of other ranks' experts (the sorted tail) are
+            # owned by no work item, so K5 leaves them unwritten
+            work = k5.plan(*seg, tm, E, own_tail=tp is None)  # shared by w1, w3 and w2
 
             def gemm(rows, w):
                 return k5.moe_fp4_grouped(rows, w["q"], w["s"], *seg, tm=tm, plan=work)
@@ -642,8 +748,10 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
         xs = xf32[flat_t]
         chain = (fmt == "int8") if moe_chain is None else moe_chain
         if fmt == "bf16":
+            rows_e = flat_e.long() if tp is None else flat_e.long().clamp(max=E - 1)
+
             def rows(inp, w):
-                return quant.bmm_f32(inp.to(torch.bfloat16), w[flat_e.long()])
+                return quant.bmm_f32(inp.to(torch.bfloat16), w[rows_e])
 
             per = rows(swiglu(rows(xs, w1), rows(xs, w3), limit), w2)
         elif fmt == "int8" and chain and k8.int8_chain_supported(w1, w2, M):
@@ -666,9 +774,13 @@ def _moe(cfg: DSv4Config, lw, is_hash: bool, x, token_ids, plain: bool = False,
 
             act = swiglu(rows(xs, w1), rows(xs, w3), limit)  # [M, I] f32
             per = rows(act, w2)
+    if mine is not None:  # rows of other ranks' experts: 0, whatever was left there
+        per = torch.where(mine[:, None], per, 0.0)
     # each token's K routed rows, weighted and summed in a fixed order (no
     # atomics, so a run repeats to the bit)
     routed = (per * flat_w[:, None]).reshape(T, K, -1).sum(dim=1)
+    if tp is not None:
+        routed = tp.all_reduce_sum(routed)
     return (routed + shared.float()).to(x.dtype)
 
 
@@ -683,25 +795,40 @@ def _hc_branch(cfg, lw, streams, name):
 # ── Prefill ──────────────────────────────────────────────────────────────
 
 
+def _embed(params, tokens, tp=None):
+    """The embedding rows of ``tokens``; under ``tp`` the rank's vocabulary
+    rows looked up (zeros for the others' tokens) and summed across the
+    ranks, which is exact."""
+    emb = params["embed"]
+    if tp is None:
+        return emb[tokens.long()]
+    n = emb.shape[0]
+    local = tokens.long() - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    rows = torch.where(mine[:, None], emb[local.clamp(0, n - 1)], 0)
+    return tp.all_reduce_sum(rows).to(emb.dtype)
+
+
 def prefill(cfg: DSv4Config, params, tokens, state=None, slot=None,
             last_only: bool = False, plain_kernels: bool = False,
-            moe_chain: Optional[bool] = None):
+            moe_chain: Optional[bool] = None, tp=None, tape: Optional[RouteTape] = None):
     """Prefill one (unpadded) prompt. Returns (logits, caches | state):
     logits [T, V] f32, or [1, V] for the last token with ``last_only``.
     Without ``state`` the second value is the per-layer cache dicts; with
     ``state`` and ``slot``, the slot's decode caches are written in place
-    and ``state`` is returned. ``moe_chain``: see the module docstring."""
+    and ``state`` is returned. ``moe_chain``, ``tp`` and ``tape``: see the
+    module docstring."""
     T = tokens.shape[0]
     positions = torch.arange(T, device=tokens.device)
-    streams = hc.hc_expand(params["embed"][tokens.long()], cfg.hc_mult)
+    streams = hc.hc_expand(_embed(params, tokens, tp), cfg.hc_mult)
     caches: List[Dict[str, Any]] = []
     for li, lw in enumerate(params["layers"]):
         streams, cache = _prefill_layer(
             cfg, lw, streams, tokens, positions, cfg.compress_ratios[li],
             li < cfg.n_hash_layers, _inv_freq(cfg, li, tokens.device), plain_kernels,
-            moe_chain)
+            moe_chain, tp, tape)
         caches.append(cache)
-    logits = _head_logits(cfg, params, streams[-1:] if last_only else streams)
+    logits = _head_logits(cfg, params, streams[-1:] if last_only else streams, tp)
     if state is None:
         return logits, caches
     _seed_state(cfg, state, caches, T, slot)
@@ -709,7 +836,7 @@ def prefill(cfg: DSv4Config, params, tokens, state=None, slot=None,
 
 
 def _prefill_layer(cfg, lw, streams, tokens, positions, ratio, is_hash, inv_freq, plain,
-                   moe_chain):
+                   moe_chain, tp=None, tape=None):
     T = tokens.shape[0]
     h_in, post, comb = _hc_branch(cfg, lw, streams, "attn")
     h_norm = _rms(h_in, lw["attn_norm"], cfg.rms_norm_eps)
@@ -732,19 +859,23 @@ def _prefill_layer(cfg, lw, streams, tokens, positions, ratio, is_hash, inv_freq
             ick, i_s, i_v = _compress_layer(cfg, lw["idx_comp"], h_norm, ratio, inv_freq)
             cache["ick"], cache["idx_sv"] = ick, (i_s, i_v)
             iw = h_norm @ lw["idx_weights_proj"].T  # [T, idx_heads]
-            score_scale = 1.0 / math.sqrt(ihd) / math.sqrt(cfg.index_n_heads)
+            score_scale = 1.0 / math.sqrt(ihd) / math.sqrt(cfg.index_n_heads * _world(tp))
             scores = dsa.indexer_scores(iq, ick, iw, score_scale)
+            if tp is not None:  # this rank's index heads: a partial sum
+                scores = tp.all_reduce_sum(scores)
             sel = dsa.topk_mask(scores, cfg.index_topk, valid)
+            if tape is not None:
+                (sel,) = tape("select", (sel,))
         else:  # non-overlap: the causal prefix of compressed rows
             sel = torch.arange(ckv.shape[0], device=tokens.device)[None, :] < valid[:, None]
         parts = [win_part, (ckv, sel)]
 
     o = dsa.sparse_attention_parts(q, parts, lw["attn_sink"], cfg.head_dim ** -0.5)
-    streams = hc.hc_post(_attn_out(cfg, lw, o, plain), streams, post, comb)
+    streams = hc.hc_post(_attn_out(cfg, lw, o, plain, tp), streams, post, comb)
 
     f_in, post, comb = _hc_branch(cfg, lw, streams, "ffn")
     f_norm = _rms(f_in, lw["ffn_norm"], cfg.rms_norm_eps)
-    ffn_out = _moe(cfg, lw, is_hash, f_norm, tokens, plain, moe_chain)
+    ffn_out = _moe(cfg, lw, is_hash, f_norm, tokens, plain, moe_chain, tp, tape)
     return hc.hc_post(ffn_out, streams, post, comb), cache
 
 
@@ -785,7 +916,7 @@ def _seed_state(cfg: DSv4Config, state, caches, seq_len: int, slot: int) -> None
 
 
 def _decode_layer(cfg, lw, ls, streams, tokens, positions, slots, ratio, is_hash,
-                  inv_freq, plain, moe_chain):
+                  inv_freq, plain, moe_chain, tp=None, tape=None):
     """One decode layer; updates this layer's slot caches ``ls`` in place."""
     W = cfg.sliding_window
     pos, sl = positions.long(), slots.long()
@@ -826,13 +957,17 @@ def _decode_layer(cfg, lw, ls, streams, tokens, positions, slots, ratio, is_hash
             iq = quant.qlinear(qa, lw["idx_wq_b"], plain).reshape(-1, cfg.index_n_heads, ihd)
             iq = dsa.rope_interleaved(iq, positions[:, None], inv_freq, cfg.qk_rope_head_dim)
             iw = h_norm @ lw["idx_weights_proj"].T
-            score_scale = 1.0 / math.sqrt(ihd) / math.sqrt(cfg.index_n_heads)
+            score_scale = 1.0 / math.sqrt(ihd) / math.sqrt(cfg.index_n_heads * _world(tp))
             dots = torch.einsum("bhd,bcd->bhc", iq.float(),
                                 ls["ick"][sl, :max_blocks].float())
             scores = torch.einsum("bh,bhc->bc", iw.float(), torch.relu(dots)) * score_scale
+            if tp is not None:  # this rank's index heads: a partial sum
+                scores = tp.all_reduce_sum(scores)
             # gather only the top-k compressed rows; invalid picks read the
             # dead column and are masked out of the softmax
             top_ids, top_valid = dsa.topk_select(scores, cfg.index_topk, n_blocks)
+            if tape is not None:
+                top_ids, top_valid = tape("select", (top_ids, top_valid))
             safe_ids = torch.where(top_valid, top_ids.long(), max_blocks)
             parts = [(win_rows, win_valid), (ls["ckv"][sl[:, None], safe_ids], top_valid)]
         else:  # every valid block
@@ -842,34 +977,38 @@ def _decode_layer(cfg, lw, ls, streams, tokens, positions, slots, ratio, is_hash
 
     # B queries of one token each: per-query candidate rows
     o = dsa.sparse_attention_parts(q, parts, lw["attn_sink"], cfg.head_dim ** -0.5)
-    streams = hc.hc_post(_attn_out(cfg, lw, o, plain), streams, post, comb)
+    streams = hc.hc_post(_attn_out(cfg, lw, o, plain, tp), streams, post, comb)
 
     f_in, post, comb = _hc_branch(cfg, lw, streams, "ffn")
     f_norm = _rms(f_in, lw["ffn_norm"], cfg.rms_norm_eps)
-    ffn_out = _moe(cfg, lw, is_hash, f_norm, tokens, plain, moe_chain)
+    ffn_out = _moe(cfg, lw, is_hash, f_norm, tokens, plain, moe_chain, tp, tape)
     return hc.hc_post(ffn_out, streams, post, comb)
 
 
-def _head_logits(cfg: DSv4Config, params, streams):
+def _head_logits(cfg: DSv4Config, params, streams, tp=None):
+    """Logits [N, V] f32; under ``tp`` the rank's vocabulary shard, gathered."""
     mixes = hc.hc_mixes(streams, params["hc_head_fn"], cfg.rms_norm_eps)
     pre = hc.hc_head_pre(mixes, params["hc_head_scale"], params["hc_head_base"],
                          cfg.hc_mult, cfg.hc_eps)
     xf = _rms(hc.hc_pre(streams, pre), params["norm"], cfg.rms_norm_eps)
-    return (xf @ params["head"].T).float()
+    logits = (xf @ params["head"].T).float()
+    return logits if tp is None else tp.gather_vocab(logits)
 
 
 def decode(cfg: DSv4Config, params, state, tokens, positions, slots,
-           plain_kernels: bool = False, moe_chain: Optional[bool] = None):
+           plain_kernels: bool = False, moe_chain: Optional[bool] = None, tp=None,
+           tape: Optional[RouteTape] = None):
     """One decode step for a batch. tokens/positions/slots: [B] int32
     (padding rows: the dead slot, position 0). Updates ``state`` in place;
-    returns logits [B, V] f32. ``moe_chain``: see the module docstring."""
-    streams = hc.hc_expand(params["embed"][tokens.long()], cfg.hc_mult)
+    returns logits [B, V] f32. ``moe_chain``, ``tp`` and ``tape``: see the
+    module docstring."""
+    streams = hc.hc_expand(_embed(params, tokens, tp), cfg.hc_mult)
     for li, lw in enumerate(params["layers"]):
         streams = _decode_layer(
             cfg, lw, state["layers"][li], streams, tokens, positions, slots,
             cfg.compress_ratios[li], li < cfg.n_hash_layers,
-            _inv_freq(cfg, li, tokens.device), plain_kernels, moe_chain)
-    return _head_logits(cfg, params, streams)
+            _inv_freq(cfg, li, tokens.device), plain_kernels, moe_chain, tp, tape)
+    return _head_logits(cfg, params, streams, tp)
 
 
 # ── Slot snapshots (the slot prefix cache, PD handoff) ───────────────────
@@ -899,7 +1038,8 @@ def snapshot_bytes(state) -> int:
 
 
 def prefill_resume(cfg: DSv4Config, params, state, tokens, start_pos: int, slot: int,
-                   plain_kernels: bool = False, moe_chain: Optional[bool] = None):
+                   plain_kernels: bool = False, moe_chain: Optional[bool] = None, tp=None,
+                   tape: Optional[RouteTape] = None):
     """Continue a prompt from a cached prefix (the JAX
     ``prefill_resume_grouped``): feed the suffix ``tokens`` [n] one token a
     step through ``decode`` at B = 1 on ``slot``, at positions ``start_pos
@@ -908,7 +1048,7 @@ def prefill_resume(cfg: DSv4Config, params, state, tokens, start_pos: int, slot:
     steps. The JAX function pads the suffix to a power of two and sends the
     padding steps to the dead slot to bound its compiles; eager code has no
     compiles to bound, so this runs exactly n steps. Returns the last
-    step's logits [V] f32."""
+    step's logits [V] f32. ``tp`` and ``tape``: see the module docstring."""
     if tokens.shape[0] == 0:
         raise ValueError("prefill_resume needs at least one token")
     n, dev = tokens.shape[0], tokens.device
@@ -917,5 +1057,5 @@ def prefill_resume(cfg: DSv4Config, params, state, tokens, start_pos: int, slot:
     positions = torch.arange(start_pos, start_pos + n, dtype=torch.int32, device=dev)
     for i in range(n):
         logits = decode(cfg, params, state, tokens[i:i + 1], positions[i:i + 1], slots,
-                        plain_kernels=plain_kernels, moe_chain=moe_chain)
+                        plain_kernels=plain_kernels, moe_chain=moe_chain, tp=tp, tape=tape)
     return logits[0]

@@ -24,11 +24,19 @@ The load streams: each tensor (one expert's, one rank's shard) is read
 with a seek, copied to the device and written into its leaf, which is
 allocated once there; the bf16 mode dequantizes on the device. The host
 holds one tensor at a time, never a rank file or a stack.
+
+``load_params_rank`` is the model-parallel load (the JAX
+``load_params_sharded``): rank r of N reads only the checkpoint ranks r·8/N
+… (r+1)·8/N − 1, joins their pieces into its shard (8 / N checkpoint ranks
+folded into one) and takes the whole tensors from the first of them, so
+the whole tree is never built; the shard is ``parallel/sharding.py::
+shard_dsv4``'s of the whole tree, bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+import os
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,19 +57,53 @@ def check_grid(q_shape: Sequence[int], s_shape: Sequence[int], prefix: str) -> N
                              f"{tuple(q_shape)}")
 
 
+def _validate(cfg: DSv4Config, model_path: str) -> None:
+    problems = validate_checkpoint(cfg, model_path)
+    if problems:
+        raise ValueError(f"mp8 checkpoint fails manifest validation ({len(problems)} "
+                         f"problems): {'; '.join(problems[:5])}")
+
+
 def load_params(cfg: DSv4Config, model_path: str, resident: bool = True,
                 validate: bool = True, device=None) -> Dict[str, Any]:
     """The params tree of an mp8 checkpoint on ``device`` (``cuda`` unless
     the caller asks for another). With ``validate`` the headers are held to
     the manifest first and a checkpoint with problems raises ValueError
     before any tensor is read."""
-    dev = resolve_device(device)
     if validate:
-        problems = validate_checkpoint(cfg, model_path)
-        if problems:
-            raise ValueError(f"mp8 checkpoint fails manifest validation ({len(problems)} "
-                             f"problems): {'; '.join(problems[:5])}")
-    ranks = [SafetensorsReader(p) for p in rank_files(model_path)]
+        _validate(cfg, model_path)
+    ranks = list(enumerate(SafetensorsReader(p) for p in rank_files(model_path)))
+    return _load(cfg, ranks, resident, resolve_device(device))
+
+
+def load_params_rank(cfg: DSv4Config, model_path: str, rank: int, tp: int,
+                     resident: bool = True, device=None, validate: bool = True,
+                     files_read: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
+    """Rank ``rank``'s shard of an mp8 checkpoint at model-parallel width
+    ``tp`` (1, 2, 4 or 8) on ``device``: the manifest check over every
+    file's header first (``validate``), then only its own rank files'
+    tensors (module docstring). ``files_read``, when given, gets each file
+    this load read tensors from, with the bytes read."""
+    if tp not in (1, 2, 4, 8) or not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} of tp={tp}: tp must divide the mp8 world {WORLD}")
+    if validate:
+        _validate(cfg, model_path)
+    per = WORLD // tp
+    paths = rank_files(model_path)[rank * per:(rank + 1) * per]
+    ranks = [(rank * per + i, SafetensorsReader(p)) for i, p in enumerate(paths)]
+    tree = _load(cfg, ranks, resident, resolve_device(device))
+    if files_read is not None:
+        for _, r in ranks:
+            files_read[os.path.basename(r.path)] = r.bytes_read
+    return tree
+
+
+def _load(cfg: DSv4Config, readers: List[Tuple[int, SafetensorsReader]], resident: bool,
+          dev: torch.device) -> Dict[str, Any]:
+    """The tree of the checkpoint ranks ``readers`` ((mp8 rank, reader), in
+    rank order): their pieces of the sharded tensors joined, the whole
+    tensors from the first."""
+    ranks = [r for _, r in readers]
     bf16 = torch.bfloat16
 
     def get(r, name):  # one tensor's stored bits on the device
@@ -108,30 +150,31 @@ def load_params(cfg: DSv4Config, model_path: str, resident: bool = True,
         """Every rank's ``{pre}.ffn.experts.{ge}.{name}`` into one [E, out,
         in] stack: packed fp4 (fixtures' E4M3 containers of E2M1 values
         repacked on the host, exactly) or bf16."""
-        first = f"{pre}.ffn.experts.0.{name}"
+        first = f"{pre}.ffn.experts.{readers[0][0] * E_loc}.{name}"
         out_d, in_d = ranks[0].shape(f"{first}.weight")
         s_shape = ranks[0].shape(f"{first}.scale")
         if not (s_shape[-1] == 1 or in_d == 32 * s_shape[-1]):
             raise ValueError(f"{first}: scales {s_shape} are no 32-group grid of "
                              f"[{out_d}, {in_d}]")
-        E = WORLD * E_loc
+        E = len(ranks) * E_loc
         if resident:
             q = torch.empty((E, out_d, in_d // 2), dtype=torch.uint8, device=dev)
             s = torch.empty((E, *s_shape), dtype=quant.SCALE_DTYPE, device=dev)
         else:
             w = torch.empty((E, out_d, in_d), dtype=bf16, device=dev)
-        for rank, r in enumerate(ranks):
+        for i, (rank, r) in enumerate(readers):
             for le in range(E_loc):
                 ge = rank * E_loc + le
                 base = f"{pre}.ffn.experts.{ge}.{name}"
                 wn, sn = f"{base}.weight", f"{base}.scale"
                 packed = r.stored_dtype(wn) in F4_DTYPES
+                at = i * E_loc + le  # the expert's place in this stack
                 if resident:
-                    q[ge] = get(r, wn) if packed else torch.from_numpy(
+                    q[at] = get(r, wn) if packed else torch.from_numpy(
                         quant.pack_fp4(r.read(wn).float().numpy()))
-                    s[ge] = scale(r, sn)
+                    s[at] = scale(r, sn)
                 else:  # an E4M3 container dequantizes as a [1, 32] block grid
-                    w[ge] = quant.dequant_any({"q": get(r, wn), "s": scale(r, sn)}, bf16)
+                    w[at] = quant.dequant_any({"q": get(r, wn), "s": scale(r, sn)}, bf16)
         return {"q": q, "s": s} if resident else w
 
     def compressor(prefix):

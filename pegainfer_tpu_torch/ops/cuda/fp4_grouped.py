@@ -83,7 +83,9 @@ class Plan(NamedTuple):
         expert is outside [0, E)); the kernel loads x[r] only for row_e[r].
     owner: [Mp] the expert whose work item writes row r: its own, else the
         nearest covered row's before it (expert 0 for leading rows), so each
-        expert's owned rows are one range [lo, hi) for sorted rows.
+        expert's owned rows are one range [lo, hi) for sorted rows; with
+        ``own_tail`` False, -1 for the rows past the last covered one (no
+        item writes them).
     items: [E * ceil(Mp / ROW_CHUNK), 3] (expert, lo, hi) of each work item,
         experts in order, chunks of ROW_CHUNK rows of the expert's owned
         range; entries past the live count are (0, 0, 0).
@@ -96,9 +98,13 @@ class Plan(NamedTuple):
     n_items: torch.Tensor
 
 
-def plan(seg_expert, seg_lo, seg_hi, n_seg, tm: int, E: int) -> Plan:
+def plan(seg_expert, seg_lo, seg_hi, n_seg, tm: int, E: int, own_tail: bool = True) -> Plan:
     """The work items of K5 and K7 from the tiles' segments (see ``Plan``):
-    about 60 small device operations, no value read back to the host."""
+    about 60 small device operations, no value read back to the host.
+    ``own_tail`` False leaves the rows past the last covered row to no work
+    item, so they cost nothing and y keeps whatever its buffer held there:
+    a model-parallel rank's rows of other ranks' experts, which sort last
+    (``models/dsv4.py``)."""
     T = n_seg.shape[0]
     Mp, dev = T * tm, n_seg.device
     live = ((torch.arange(tm, device=dev) < n_seg[:, None]) & (seg_lo < seg_hi)
@@ -116,10 +122,15 @@ def plan(seg_expert, seg_lo, seg_hi, n_seg, tm: int, E: int) -> Plan:
     # rows of no segment go to the last covered row's expert (expert 0 before
     # the first), which for sorted rows keeps each expert's rows one range
     owner = torch.where(row_e >= 0, row_e, row_e.cummax(0).values.clamp(min=0))
-
     r = torch.arange(Mp, device=dev)
-    lo_e = torch.full((E,), Mp, device=dev).scatter_reduce_(0, owner, r, "amin")
-    hi_e = torch.zeros(E, dtype=torch.long, device=dev).scatter_reduce_(0, owner, r + 1, "amax")
+    slot, n = owner, E
+    if not own_tail:  # rows past the last covered one go to a slot E, dropped
+        last = torch.where(row_e >= 0, r, -1).max()
+        owner = torch.where(r > last, -1, owner)
+        slot, n = torch.where(owner >= 0, owner, E), E + 1
+    lo_e = torch.full((n,), Mp, device=dev).scatter_reduce_(0, slot, r, "amin")[:E]
+    hi_e = torch.zeros(n, dtype=torch.long, device=dev).scatter_reduce_(
+        0, slot, r + 1, "amax")[:E]
     chunks = (hi_e - lo_e).clamp(min=0).add(ROW_CHUNK - 1).div(ROW_CHUNK, rounding_mode="floor")
     ends = chunks.cumsum(0)
     j = torch.arange(E * -(-Mp // ROW_CHUNK), device=dev)
@@ -158,6 +169,7 @@ def moe_fp4_grouped_plain(x_sorted, q, s, seg_expert, seg_lo, seg_hi, n_seg, tm=
     time so the whole stack is never decoded at once."""
     Mp = x_sorted.shape[0]
     row_e, covered = _row_experts(seg_expert, seg_lo, seg_hi, n_seg, tm)
+    covered &= (row_e >= 0) & (row_e < q.shape[0])  # as the plan: no expert outside [0, E)
     xb = x_sorted.to(torch.bfloat16).float()
     out = torch.zeros((Mp, q.shape[1]), dtype=torch.float32, device=x_sorted.device)
     for e in torch.unique(row_e[covered]).tolist():

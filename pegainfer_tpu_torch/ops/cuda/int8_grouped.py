@@ -40,6 +40,7 @@ def moe_int8_grouped_plain(x_sorted, q, seg_expert, seg_lo, seg_hi, n_seg, tm=12
     ``moe_fp4_grouped_plain``."""
     Mp = x_sorted.shape[0]
     row_e, covered = _row_experts(seg_expert, seg_lo, seg_hi, n_seg, tm)
+    covered &= (row_e >= 0) & (row_e < q.shape[0])  # as the plan: no expert outside [0, E)
     xb = x_sorted.to(torch.bfloat16).float()
     out = torch.zeros((Mp, q.shape[1]), dtype=torch.float32, device=x_sorted.device)
     for e in torch.unique(row_e[covered]).tolist():

@@ -35,11 +35,13 @@ def bf16_grouped(x, w1, w2, w3, flat_e, flat_t, E: int, limit: float,
     activation rounded to ``dtype`` before w2. w1 / w3 [E, I, D], w2 [E, D,
     I]; ``limit`` 0 is the plain SwiGLU. DeepSeek-V4 rounds to bf16;
     DeepSeek-V2-Lite passes its activations' dtype, which the JAX form
-    keeps. Returns the [M, D] f32 rows in (token, k) order. The run lengths
-    are read on the host (prefill runs eagerly)."""
+    keeps. Rows of id E (a model-parallel rank's rows of another rank's
+    experts, which sort last) are left unwritten. Returns the [M, D] f32 rows
+    in (token, k) order. The run lengths are read on the host (prefill runs
+    eagerly)."""
     order = torch.argsort(flat_e, stable=True)
     xs = x.to(dtype)[flat_t[order]]
-    counts = torch.bincount(flat_e, minlength=E).tolist()
+    counts = torch.bincount(flat_e, minlength=E)[:E].tolist()
 
     def grouped(rows, w):
         y = torch.empty((rows.shape[0], w.shape[1]), dtype=torch.float32, device=rows.device)

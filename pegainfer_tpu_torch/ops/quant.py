@@ -136,22 +136,26 @@ def gather_dequant(w, idx: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return w[idx].to(dtype)
 
 
-def qlinear(x: torch.Tensor, w, plain_kernels: bool = False) -> torch.Tensor:
+def qlinear(x: torch.Tensor, w, plain_kernels: bool = False,
+            f32_out: bool = False) -> torch.Tensor:
     """y = x @ W.T for a plain [out, in] weight or a {"q","s"} container.
 
     An fp8 container with at most 8 rows of ``x`` on a CUDA tensor goes to
     kernel K4 (``ops.cuda.fp8_gemv``; its plain version when
     ``plain_kernels``), as the JAX package routes decode-shaped fp8 linears
     to its fused GEMV. Everything else dequantizes and multiplies, as the
-    JAX package leaves it to XLA."""
+    JAX package leaves it to XLA. ``f32_out``: the f32 sums, unrounded (a
+    model-parallel rank's partial sum, reduced before its one rounding)."""
     if not is_quantized(w):
-        return x @ w.T
+        return mm_f32(x, w) if f32_out else x @ w.T
     if w["q"].dtype == F8 and x.dim() == 2 and x.shape[0] <= 8 and x.is_cuda:
         from pegainfer_tpu_torch.ops.cuda import fp8_gemv as k4
 
         fn = k4.fp8_gemv_plain if plain_kernels else k4.fp8_gemv
-        return fn(x, w["q"], w["s"]).to(x.dtype)
-    return x @ dequant_any(w, x.dtype).T
+        y = fn(x, w["q"], w["s"])
+        return y if f32_out else y.to(x.dtype)
+    wd = dequant_any(w, x.dtype)
+    return mm_f32(x, wd) if f32_out else x @ wd.T
 
 
 def quantize_fp8_tensor(w, block: int = 128) -> dict:

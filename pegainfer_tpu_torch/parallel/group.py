@@ -184,9 +184,15 @@ class RankGroups:
     def barrier(self) -> None:
         self.agree_min(0)
 
+    def close_device(self) -> None:
+        """Shut the device group down and drop it (the CPU group stays)."""
+        if self._dev is not None:
+            self._dev.shutdown()
+        self._dev = None
+
     def close(self) -> None:
         """Shut both groups down and drop them."""
-        for pg in (self._dev, self._ctrl):
-            if pg is not None:
-                pg.shutdown()
-        self._ctrl = self._dev = None
+        self.close_device()
+        if self._ctrl is not None:
+            self._ctrl.shutdown()
+        self._ctrl = None

@@ -1,7 +1,8 @@
-"""Megatron-style tensor parallelism for Qwen3 and the Qwen3.5 hybrid:
-which axis of each parameter a rank keeps. The Qwen3 and Qwen3.5 parts of
+"""Megatron-style tensor parallelism for Qwen3 and the Qwen3.5 hybrid, and
+DeepSeek-V4's mp8 model parallelism: which axis of each parameter a rank
+keeps. The Qwen3, Qwen3.5 and DeepSeek-V4 parts of
 ``pegainfer_tpu/parallel/sharding.py`` (the hybrid's rules under
-``shard_qwen35`` below).
+``shard_qwen35``, DeepSeek-V4's under ``shard_dsv4`` below).
 
 The JAX package places the whole tree on a mesh and lets GSPMD insert the
 collectives; here each rank is a process of its own that holds only its
@@ -220,3 +221,91 @@ def shard_qwen35(cfg, params, rank: int, tp: int, device=None):
         "final_ln": shard_leaf(params["final_ln"], None, rank, tp, device),
         "lm_head": shard_leaf(params["lm_head"], HEAD_SPLIT, rank, tp, device),
     }
+
+
+# ── DeepSeek-V4 (the JAX DSV4_LAYER_SHARDED / dsv4_param_specs) ──────────
+# The reference's mp8 rank split: each rank keeps its attention heads
+# (wq_b's rows, attn_sink), its o-groups (wo_a's rows, wo_b's input
+# columns), its index heads (idx_wq_b's and idx_weights_proj's rows), its
+# E / tp routed experts and its vocabulary rows (embed, head). Every other
+# leaf is whole on every rank: wq_a, wkv, the compressors, the shared
+# experts, the gate and the hc_* mixes. The value is the axis a leaf is cut
+# on (a container's q and s alike; [out, in] weights, [E, out, in] stacks).
+DSV4_LAYER_SPLIT = {
+    "attn_sink": 0, "wq_b": 0, "wo_a": 0, "wo_b": 1, "idx_wq_b": 0,
+    "idx_weights_proj": 0, "experts_w1": 0, "experts_w2": 0, "experts_w3": 0,
+}
+DSV4_TOP_SPLIT = {"embed": 0, "head": 0}
+
+
+def validate_dsv4_mp8(cfg, world: int = 8) -> None:
+    """The JAX ``validate_dsv4_mp8``: ``world`` divides the attention heads,
+    the o-groups, the routed experts, the index heads and the vocab."""
+    for name, v in (
+        ("num_attention_heads", cfg.num_attention_heads),
+        ("o_groups", cfg.o_groups),
+        ("n_routed_experts", cfg.n_routed_experts),
+        ("index_n_heads", cfg.index_n_heads),
+        ("vocab_size", cfg.vocab_size),
+    ):
+        if v % world:
+            raise ValueError(f"mp8 world={world} must divide {name}={v}")
+
+
+def local_config_dsv4(cfg, tp: int):
+    """A rank's DeepSeek-V4 config: its attention heads, o-groups, index
+    heads and routed experts (the reshapes and the local expert ids follow
+    them). The vocab stays whole: the embedding's rows are looked up masked
+    and the head's logits gathered. The indexer's score scale keeps the
+    whole count of index heads (``models/dsv4.py`` takes it times ``tp``)."""
+    validate_dsv4_mp8(cfg, tp)
+    return replace(cfg, num_attention_heads=cfg.num_attention_heads // tp,
+                   o_groups=cfg.o_groups // tp, index_n_heads=cfg.index_n_heads // tp,
+                   n_routed_experts=cfg.n_routed_experts // tp)
+
+
+def _cut_scales(name: str, q: torch.Tensor, s: torch.Tensor, axis: int, rank: int,
+                tp: int) -> torch.Tensor:
+    """A block-scaled container's scales for ``q``'s cut on ``axis``: the
+    grid follows the shape ratio (``quant.dequant_any``), so s is cut with
+    q when tp divides its blocks on that axis, and kept whole when one
+    block spans the axis (its one scale covers every rank's piece). A cut
+    inside a block raises ValueError."""
+    n = s.shape[axis]
+    if n == 1:
+        return s
+    if n % tp:
+        raise ValueError(f"{name}: a cut of {q.shape[axis]} into {tp} falls inside its scale "
+                         f"blocks of {q.shape[axis] // n}")
+    return _cut(s, axis, rank, tp)
+
+
+def shard_dsv4_leaf(name: str, w, rank: int, tp: int, device=None):
+    """Rank ``rank``'s piece of one DeepSeek-V4 leaf (``DSV4_LAYER_SPLIT``,
+    ``DSV4_TOP_SPLIT``; a leaf not listed whole), a contiguous copy on
+    ``device`` (None: the leaf's own)."""
+    axis = DSV4_LAYER_SPLIT.get(name, DSV4_TOP_SPLIT.get(name))
+    if isinstance(w, dict) and not quant.is_quantized(w):  # a compressor
+        return {k: _own(v, device) for k, v in w.items()}
+    if quant.is_quantized(w):
+        q, s = w["q"], w["s"]
+        if axis is not None:
+            q, s = _cut(q, axis, rank, tp), _cut_scales(name, q, s, axis, rank, tp)
+        return {"q": _own(q, device), "s": _own(s, device)}
+    return _own(w if axis is None else _cut(w, axis, rank, tp), device)
+
+
+def shard_dsv4(cfg, params, rank: int, tp: int, device=None):
+    """Rank ``rank``'s tree of DeepSeek-V4 ``params`` (plain leaves, fp8 /
+    packed-fp4 / int8 containers) at model-parallel width ``tp`` (1, 2, 4
+    or 8: the reference's mp8 split folded 8 / tp checkpoint ranks a rank):
+    every leaf a contiguous copy on ``device`` (None: where the leaf lies).
+    The slot state is whole on every rank (the attention is multi-query:
+    one joint KV row a position, which every head reads), so it has no
+    shard."""
+    validate_dsv4_mp8(cfg, tp)
+    out = {k: shard_dsv4_leaf(k, v, rank, tp, device)
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: shard_dsv4_leaf(k, v, rank, tp, device) for k, v in lw.items()}
+                     for lw in params["layers"]]
+    return out

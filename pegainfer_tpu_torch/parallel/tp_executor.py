@@ -2,8 +2,9 @@
 executor to the others. What GSPMD does for the JAX engine, with no single
 JAX counterpart.
 
-Every rank runs its own executor (a ``TorchExecutor`` with ``tp``, or the
-hybrid's ``HybridExecutor``) on its shard and its pool (and state slots).
+Every rank runs its own executor (a ``TorchExecutor`` with ``tp``, the
+hybrid's ``HybridExecutor``, or DeepSeek-V4's ``SlotExecutor``) on its shard
+and its pool (and state slots).
 Rank 0 serves the scheduler through ``TPExecutor``, which sends each call
 that changes an executor's state or runs the model to the other ranks over
 the CPU group, in rank 0's order, before running it on its own executor: ``execute_prefill``, ``execute_decode``,
@@ -18,7 +19,9 @@ draws that rank 0's scheduler put in the items, so no token is sent
 inside a decode block; a block that feeds on the last one's tokens on the
 device names that block, and each rank takes its own. Pure queries
 (``page_size``, ``available_pages``, ``free_slots``, ...) are rank 0's
-alone.
+alone. ``on_ranks(fn, *args)`` runs a module-level ``fn(executor, *args)``
+on every rank and gathers the results (a check reads or sets each rank's
+state so: DeepSeek-V4's route tapes).
 
 Each mirrored call holds rank 0's lock from its message to the end of its
 own run, so calls from two threads (the scheduler's, a caller's) reach
@@ -33,7 +36,8 @@ every rank's counters (``rank_stats``), joins the workers and drops the
 groups.
 
 ``start_engine_ranks`` and ``agree_num_pages`` are what the families'
-engines (``models/qwen3_engine.py``, ``models/qwen35_engine.py``) share:
+engines (``models/qwen3_engine.py``, ``models/qwen35_engine.py``,
+``models/dsv4_engine.py``) share:
 the ranks' devices and start, and each rank's pool sized from its own
 free memory, the fraction divided among the ranks on its card, the ranks
 agreeing on the least.
@@ -85,15 +89,17 @@ class TPSpec:
 
 
 def tree_bytes(tree) -> int:
-    """Bytes of the tensors of a tree of dicts (int8 containers included),
-    each storage counted once (a tied head, a view of the embedding, adds
-    nothing)."""
+    """Bytes of the tensors of a tree of dicts and lists (int8 containers
+    included), each storage counted once (a tied head, a view of the
+    embedding, adds nothing)."""
     seen, n = set(), 0
     stack = [tree]
     while stack:
         t = stack.pop()
         if isinstance(t, dict):
             stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
         elif t.data_ptr() not in seen:
             seen.add(t.data_ptr())
             n += t.numel() * t.element_size()
@@ -102,28 +108,44 @@ def tree_bytes(tree) -> int:
 
 def rank_stats(ex) -> dict:
     """A rank's executor counters, kernel launches, collectives and bytes
-    of parameters; for an executor with state slots (the hybrid) also its
-    slot map (request -> slot), its free slots in the order they are given
-    out, its cached state snapshots (chain key, position) and its state's
-    bytes."""
-    from pegainfer_tpu_torch.ops.cuda import flash_prefill, int8_linear, paged_decode
+    of parameters; for an executor with state slots (the hybrid, DSv4) also
+    its slot map (request -> slot), its free slots in the order they are
+    given out, its cached state snapshots (the hybrid's (chain key,
+    position), DSv4's (prompt hash, length)) and its state's bytes; for
+    DSv4 also its resume steps, and what its load read and took
+    (``load``)."""
+    from pegainfer_tpu_torch.ops.cuda import (flash_prefill, fp4_gemv, fp4_grouped, fp8_gemv,
+                                              int8_linear, paged_decode)
 
+    kv = getattr(ex, "kv_pages", None)
+    cache = getattr(ex, "prefix_cache", None)
+    slot_cache = getattr(ex, "slot_prefix_cache", None)
     st = {
         "rank": ex.tp.rank, "device": str(ex.device), "backend": ex.tp.backend,
-        "params_bytes": tree_bytes(ex.params), "num_pages": ex.kv_pages.shape[2],
-        "prefills": ex.prefills, "chunk_pieces": ex.chunk_pieces,
-        "mixed_pieces": ex.mixed_pieces, "decode_steps": ex.decode_steps,
+        "params_bytes": tree_bytes(ex.params),
+        "num_pages": None if kv is None else kv.shape[2],
+        "prefills": ex.prefills, "chunk_pieces": getattr(ex, "chunk_pieces", 0),
+        "mixed_pieces": getattr(ex, "mixed_pieces", 0), "decode_steps": ex.decode_steps,
         "decode_blocks": ex.decode_blocks, "collectives": ex.tp.collectives,
-        "prefix_hits": None if ex.prefix_cache is None else ex.prefix_cache.hits,
+        "prefix_hits": (cache.hits if cache is not None else
+                        slot_cache.hits if slot_cache is not None else None),
         "launches": {"paged_decode": paged_decode.launches,
                      "flash_prefill": flash_prefill.launches,
-                     "int8_linear": int8_linear.launches},
+                     "int8_linear": int8_linear.launches,
+                     "fp4_gemv": fp4_gemv.launches, "fp8_gemv": fp8_gemv.launches,
+                     "fp4_grouped": fp4_grouped.launches},
     }
     if hasattr(ex, "_slots"):
         st["slots"] = dict(ex._slots)
         st["free_slots"] = list(ex._free_slots)
-        st["snapshots"] = ([] if ex.prefix_cache is None else
-                           [(k, pos) for k, (pos, _) in ex.prefix_cache._snaps.items()])
+        if hasattr(ex, "slot_prefix_cache"):
+            st["snapshots"] = ([] if slot_cache is None else
+                               [(hash(k), len(k)) for k in slot_cache._entries])
+            st["resume_steps"] = ex.resume_steps
+            st["load"] = getattr(ex, "load_report", None)
+        else:
+            st["snapshots"] = ([] if cache is None else
+                               [(k, pos) for k, (pos, _) in cache._snaps.items()])
         st["state_bytes"] = tree_bytes(ex.state)
     return st
 
@@ -162,6 +184,13 @@ def serve_rank(ex, groups: RankGroups) -> None:
     while True:
         msg = groups.recv()
         kind = msg[0]
+        if kind == "call":
+            try:
+                res = msg[1](ex, *msg[2])
+            except Exception as e:  # noqa: BLE001 — rank 0 raises it
+                res = RankCallError(f"rank {groups.rank}: {e!r}")
+            groups.all_gather_objects(res)
+            continue
         if kind in ("stats", "shutdown"):
             groups.all_gather_objects(rank_stats(ex))
             if kind == "shutdown":
@@ -205,6 +234,10 @@ def _apply(ex, msg, live, steppers) -> None:
             ex.mixed_pending = None  # rank 0's scheduler applies its own copy
     else:
         raise ValueError(f"unknown call {kind!r}")
+
+
+class RankCallError(RuntimeError):
+    """An ``on_ranks`` function raised on a worker rank."""
 
 
 # ── rank 0 ───────────────────────────────────────────────────────────────
@@ -323,6 +356,22 @@ class TPExecutor:
                 return done.value
             yield end
 
+    def on_ranks(self, fn: Callable, *args) -> List[Any]:
+        """``fn(executor, *args)`` on every rank's executor (``fn`` a
+        module-level function, pickled by name), the results in rank order.
+        Raises when it raised on any rank."""
+        with self._lock:
+            self._send(("call", fn, args))
+            try:
+                mine = fn(self.local, *args)
+            except Exception as e:  # noqa: BLE001 — the workers' results first
+                mine = RankCallError(f"rank 0: {e!r}")
+            res = self._guard(self._groups.all_gather_objects, mine)
+        for r in res:
+            if isinstance(r, RankCallError):
+                raise r
+        return res
+
     def rank_stats(self) -> List[dict]:
         """Every rank's ``rank_stats``, in rank order."""
         with self._lock:
@@ -364,6 +413,11 @@ class TPExecutor:
             except RuntimeError as e:  # a group that is down gathers nothing
                 log.warning("tensor-parallel shutdown without the ranks' counters: %s", e)
             finally:
+                # the device group before the joins: a worker shuts its
+                # own down on the way out, and NCCL's shutdown waits for
+                # the other ranks' (a card a rank: 60 s and a terminate
+                # each otherwise, on four H100s)
+                self._groups.close_device()
                 stop_workers(self._procs)
                 self._groups.close()
                 if self._store_dir is not None:
@@ -432,7 +486,7 @@ def start_ranks(spec_kw: dict, build: Callable, params=None,
             shutil.rmtree(store_dir, ignore_errors=True)
         raise
     for st in ready:
-        log.info("rank %d on %s: %.2f GB of parameters, %d pages", st["rank"], st["device"],
+        log.info("rank %d on %s: %.2f GB of parameters, %s pages", st["rank"], st["device"],
                  st["params_bytes"] / 1e9, st["num_pages"])
     return TPExecutor(local, groups, procs, store_dir)
 
@@ -447,8 +501,10 @@ def start_engine_ranks(cfg, opts, dev: torch.device, tp: int, build: Callable, p
     (``group.rank_devices``), from the caller's ``params`` (passed through
     ``quantize(params, dev)`` first for ``opts.quantize == "int8"``, in the
     caller's tree) or from ``model_path``; ``build``: the family's rank
-    executor (``start_ranks``). The kernels are built here once, before the
-    ranks load them. Returns rank 0's ``TPExecutor``."""
+    executor (``start_ranks``). Every kernel (each family's: the first
+    ``load`` builds every source) is built here once, before the ranks
+    load them, so that no two ranks compile one library at once. Returns
+    rank 0's ``TPExecutor``."""
     devices = group.rank_devices(opts.device_ordinals, dev, tp)
     if params is not None and opts.quantize == "int8":
         params = quantize(params, dev)

@@ -9,11 +9,13 @@ bf16`` dequantizes it at load) and DeepSeek-V2-Lite (an HF checkpoint, bf16)
 are served from a checkpoint through the port's engines on the card;
 ``--sim`` serves the simulated engine with the ``SimTokenizer`` (no card, no
 model). ``--tp-size N --no-precompile`` serves a Qwen3 or a Qwen3.5 hybrid
-checkpoint tensor-parallel, one process a rank on the first N cards
-(``models/qwen3_engine.py``, ``models/qwen35_engine.py``). The server runs
-until SIGINT. What the port lacks raises ``NotImplementedError``:
-``--tp-size`` above 1 for DeepSeek-V4 and DeepSeek-V2-Lite (tensor or expert
-parallelism) or with the decode graphs (without ``--no-precompile``), a ``--quantize`` value the family does not serve,
+checkpoint tensor-parallel, or a DeepSeek-V4 one split as its mp8 ranks
+(N of 2, 4 or 8), one process a rank on the first N cards
+(``models/qwen3_engine.py``, ``models/qwen35_engine.py``,
+``models/dsv4_engine.py``). The server runs until SIGINT. What the port
+lacks raises ``NotImplementedError``: ``--tp-size`` above 1 for
+DeepSeek-V2-Lite (expert parallelism) or with the decode graphs (without
+``--no-precompile``), a ``--quantize`` value the family does not serve,
 ``--profile-dir`` and the multi-host variables ``PEGAINFER_COORD`` /
 ``_NUM_PROCS`` / ``_PROC_ID``.
 A checkpoint's tokenizer is read with transformers (``HFTokenizer``).
@@ -31,7 +33,7 @@ import time
 from pegainfer_tpu_torch.engine.contract import EngineHandle, EngineLoadOptions
 
 MULTIHOST_ENV = ("PEGAINFER_COORD", "PEGAINFER_NUM_PROCS", "PEGAINFER_PROC_ID")
-TP_FAMILIES = ("qwen3", "qwen35")  # the families served tensor-parallel
+TP_FAMILIES = ("qwen3", "qwen35", "deepseek_v4")  # the families served split over ranks
 
 log = logging.getLogger("pegainfer_torch.server")
 
@@ -60,8 +62,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000, help="0: a free port (logged)")
     p.add_argument("--tp-size", type=int, default=0,
-                   help="tensor-parallel world (0 or 1: one card; N > 1: Qwen3 or "
-                        "Qwen3.5 on N processes, with --no-precompile)")
+                   help="tensor-parallel world (0 or 1: one card, whatever the card "
+                        "count; N > 1: Qwen3, Qwen3.5 or DeepSeek-V4 on N processes, "
+                        "with --no-precompile)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--max-num-pages", type=int, default=None)
     p.add_argument("--max-batch-size", type=int, default=64)
@@ -134,8 +137,8 @@ def check_supported(args: argparse.Namespace) -> None:
         family = detect_model_type(args.model_path)
         if family not in TP_FAMILIES:
             raise NotImplementedError(
-                f"--tp-size {args.tp_size}: the port's tensor parallelism serves Qwen3 "
-                f"and Qwen3.5, not {family}")
+                f"--tp-size {args.tp_size}: the port's tensor parallelism serves Qwen3, "
+                f"Qwen3.5 and DeepSeek-V4, not {family}")
         if not args.no_precompile:
             raise NotImplementedError(
                 f"--tp-size {args.tp_size}: tensor parallelism runs the eager decode step; "

@@ -159,6 +159,7 @@ class SafetensorsReader:
 
     def __init__(self, path: str):
         self.path = path
+        self.bytes_read = 0  # tensor bytes read so far (the header not counted)
         with open(path, "rb") as f:
             self._entries, self._base = _header(path, f, os.fstat(f.fileno()).st_size,
                                                 narrow=True)
@@ -189,6 +190,7 @@ class SafetensorsReader:
         if got != end - begin:
             raise ValueError(f"{self.path}: tensor {name!r} is cut short ({got} of "
                              f"{end - begin} bytes)")
+        self.bytes_read += got
         if dtype in F4_DTYPES:
             return buf.reshape(*shape[:-1], shape[-1] // 2)
         if dtype == E8M0:

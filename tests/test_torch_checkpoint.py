@@ -310,8 +310,9 @@ def test_routes_the_port_lacks_raise(route, tmp_path, monkeypatch):
     else:
         _write_qwen3(tmp_path)
     argv = ["--model-path", str(tmp_path), "--max-num-pages", "16"]
-    # DSv4 and DSv2-Lite serve from a path on one card: their refusal is
-    # tensor (expert) parallelism
+    # DSv2-Lite serves from a path on one card: its refusal is expert
+    # parallelism; DSv4's model parallelism runs the eager step only, so
+    # --tp-size without --no-precompile is refused
     argv += {"tp_size": ["--tp-size", "2"], "profile_dir": ["--profile-dir", str(tmp_path)],
              "quantize_bf16": ["--quantize", "bf16"],
              "deepseek_v4": ["--tp-size", "2"], "dsv2lite": ["--tp-size", "2"]}.get(route, [])

@@ -32,6 +32,7 @@ from pegainfer_tpu.models import dsv4_engine as jengine
 from pegainfer_tpu.models import dsv4_manifest as jman
 from pegainfer_tpu.models import dsv4_weights as jweights
 from pegainfer_tpu_torch.engine import contract as tc
+from pegainfer_tpu_torch.engine.slot_executor import SlotExecutor
 from pegainfer_tpu_torch.models import dsv4 as tdsv4
 from pegainfer_tpu_torch.models import dsv4_engine as tengine
 from pegainfer_tpu_torch.models import dsv4_manifest as tman
@@ -354,32 +355,33 @@ def _collect(mod, handle, logprobs=0):
 _JAX_STREAMS = {}
 
 
-def jax_streams(ckpt, quantize):
-    """The JAX ``start_engine(path)``'s greedy streams on one device, with
-    each step's top-2 logprob gap, once a mode."""
-    if quantize not in _JAX_STREAMS:
+def jax_streams(ckpt, quantize, tp_size=1):
+    """The JAX ``start_engine(path)``'s greedy streams on ``tp_size``
+    devices of its mesh, with each step's top-2 logprob gap, once a mode."""
+    if (quantize, tp_size) not in _JAX_STREAMS:
         h = jengine.start_engine(ckpt["fixture"], jc.EngineLoadOptions(
-            precompile=False, quantize=quantize, **OPTS), tp_size=1)
+            precompile=False, quantize=quantize, **OPTS), tp_size=tp_size)
         try:
-            _JAX_STREAMS[quantize] = _collect(jc, h, logprobs=2)
+            _JAX_STREAMS[quantize, tp_size] = _collect(jc, h, logprobs=2)
         finally:
             h.shutdown()
-    return _JAX_STREAMS[quantize]
+    return _JAX_STREAMS[quantize, tp_size]
 
 
-def assert_streams_agree(handle, ckpt, quantize):
-    """The port engine's greedy ids against the JAX engine's, under
-    tests/test_torch_dsv4.py's logit tolerance. The checkpoint's weights are
-    bf16, so both models run in bf16, whose roundings the two packages take
-    in different orders (logits differ by about 1e-2 here): each stream is
-    equal to its end, or up to a step where the JAX engine's top-2 gap is
-    within LOGIT_TOL's atol (a near tie either side may break), where the
-    streams part."""
+def assert_streams_agree(handle, ckpt, quantize, tp_size=1):
+    """The port engine's greedy ids against the JAX engine's at
+    ``tp_size``, under tests/test_torch_dsv4.py's logit tolerance. The
+    checkpoint's weights are bf16, so both models run in bf16, whose
+    roundings the two packages take in different orders (logits differ by
+    about 1e-2 here): each stream is equal to its end, or up to a step
+    where the JAX engine's top-2 gap is within LOGIT_TOL's atol (a near tie
+    either side may break), where the streams part."""
     try:
         got = _collect(tc, handle)
     finally:
         handle.shutdown()
-    for (ids, _), (want, gaps) in zip(got, jax_streams(ckpt, quantize)):
+        handle._thread.join(WAIT_S)
+    for (ids, _), (want, gaps) in zip(got, jax_streams(ckpt, quantize, tp_size)):
         n = next((i for i, (a, b) in enumerate(zip(ids, want)) if a != b), len(want))
         assert len(ids) == len(want) and (n == len(want) or gaps[n] <= LOGIT_TOL["atol"]), (
             ids, want, gaps)
@@ -482,9 +484,33 @@ def test_experts_env_variable(quantize, ckpt, monkeypatch, caplog):
 
 
 def test_tp_size_above_one_raises(ckpt):
-    with pytest.raises(NotImplementedError, match="tp_size=2"):
+    """Model parallelism (served in ``tests/test_torch_tp_dsv4_engine.py``)
+    runs the eager decode step: ``tp_size=2`` with the graph options on
+    raises before a tensor is read; a tp that does not divide the mp8 world
+    raises the JAX ValueError."""
+    with pytest.raises(NotImplementedError, match="no-precompile"):
         tengine.start_engine(ckpt["fixture"], tc.EngineLoadOptions(**OPTS), device="cpu",
                              tp_size=2)
+    with pytest.raises(ValueError, match="must divide mp8 world 8, got 3"):
+        tengine.start_engine(ckpt["fixture"], tc.EngineLoadOptions(**OPTS), device="cpu",
+                             tp_size=3)
+
+
+@pytest.mark.parametrize("tp_size", [None, 0], ids=["none", "cli_default"])
+def test_unset_tp_size_serves_one_process_on_eight_cards(ckpt, tp_size, monkeypatch):
+    """With ``tp_size`` unset (the CLI's default is 0) the engine serves one
+    process under the default options (the decode graphs, which do not run
+    split), whatever the devices: here ``n_devices`` counts eight cards,
+    where the JAX auto rule would pick 8."""
+    monkeypatch.setattr(tengine, "n_devices", lambda dev, opts, tp: 8)
+    handle = tengine.start_engine(ckpt["fixture"], tc.EngineLoadOptions(**OPTS), device="cpu",
+                                  tp_size=tp_size)
+    try:
+        ex = handle._scheduler.executor
+        assert isinstance(ex, SlotExecutor) and ex.tp is None
+    finally:
+        handle.shutdown()
+        handle._thread.join(WAIT_S)
 
 
 @pytest.mark.parametrize("argv", [[], ["--quantize", "bf16"]], ids=["resident", "bf16"])

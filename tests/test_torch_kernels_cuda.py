@@ -1429,3 +1429,125 @@ def test_tp_collectives_on_the_card(dev, tmp_path):
     one = group.RankGroups(0, 1, str(tmp_path / "nccl"), "nccl", 60)
     assert torch.equal(one.all_reduce_sum(parts[0].clone()), parts[0])
     assert torch.equal(one.gather_vocab(shards[0]), shards[0])
+
+
+# ── DeepSeek-V4's model parallelism: K3, K4 and K5 at a rank's shapes ───
+# The shapes of rank 0 of DSv4-Flash split as TP 2 and TP 8 mp8 ranks
+# (parallel/sharding.py::shard_dsv4): wq_b's and idx_wq_b's rows and wo_b's
+# input columns for K4, E / tp local experts for K3 and K5, whose ids of
+# other ranks' experts are E / tp (models/dsv4.py's _moe): K3 gives them
+# exact zero rows, K5's plan (own_tail=False) leaves them to no work item.
+
+DSV4_TP_K4 = [(32768 // tp, 1024) for tp in (2, 8)] + [(4096, 8192 // tp) for tp in (2, 8)] + [
+    (8192 // tp, 1024) for tp in (2, 8)]
+
+
+def _rank_ids(gen, dev, M, E, tp):
+    ids = torch.randint(0, E, (M,), generator=gen, device=dev, dtype=torch.int32)
+    return torch.where(ids < E // tp, ids, E // tp)
+
+
+@pytest.mark.parametrize("M", [1, 2, 8])
+@pytest.mark.parametrize("OUT,IN", DSV4_TP_K4)
+def test_fp8_gemv_kernel_at_the_dsv4_tp_shard_shapes(dev, M, OUT, IN):
+    gen = _gen(dev, OUT + 3 * IN + M)
+    q, s = k4s.fp8_weight(gen, OUT, IN, dev, mantissa=True)
+    x = torch.randn((M, IN), generator=gen, device=dev).to(torch.bfloat16)
+    before = k4.launches
+    y = k4s.run_poisoned(x, q, s)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1 and y.shape == (M, OUT)
+    assert k3s.max_err(y, k4.fp8_gemv_plain(x, q, s)) <= GEMV_TOL
+
+
+@pytest.mark.parametrize("M", [1, 6, 12])
+@pytest.mark.parametrize("OUT,IN", [(2048, 4096), (4096, 2048)])
+@pytest.mark.parametrize("tp", [2, 8])
+def test_fp4_gemv_kernel_at_the_dsv4_tp_expert_counts(dev, tp, OUT, IN, M):
+    gen = _gen(dev, 7 * tp + OUT + M)
+    E = 256
+    q, s = _fp4(dev, gen, E // tp, OUT, IN, pow2=False)
+    x = torch.randn((M, IN), generator=gen, device=dev)
+    idx = _rank_ids(gen, dev, M, E, tp)
+    y = k3.moe_fp4_gemv(x, q, s, idx)
+    torch.cuda.synchronize()
+    ref = k3.moe_fp4_gemv_plain(x, q, s, idx)
+    assert k3s.max_err(y, ref) <= GEMV_TOL
+    other = idx == E // tp
+    assert bool((y[other] == 0).all()) and bool((ref[other] == 0).all())
+
+
+@pytest.mark.parametrize("M", [6144, 300, 8])
+@pytest.mark.parametrize("tp", [2, 8])
+def test_fp4_grouped_kernel_on_a_dsv4_tp_rank_s_rows(dev, tp, M):
+    """K5 on E / tp experts and a rank's rows, the other ranks' sorted last:
+    each of the rank's rows within GROUPED_ROW_RTOL of its max |ref|, and
+    no work item reaches a row of another rank (the plan owns none)."""
+    gen = _gen(dev, 11 * tp + M)
+    E, OUT, IN = 256, 2048, 4096
+    q, s = _fp4(dev, gen, E // tp, OUT, IN)
+    tm = 128 if M >= 128 else -(-M // 8) * 8
+    Mp = -(-M // tm) * tm
+    e = torch.sort(_rank_ids(gen, dev, M, E, tp)).values
+    e = torch.cat([e, e[-1:].expand(Mp - M)])
+    seg = k5.tile_segments(e, tm, E // tp)
+    work = k5.plan(*seg, tm, E // tp, own_tail=False)
+    x = torch.randn((Mp, IN), generator=gen, device=dev).to(torch.bfloat16)
+    mine = e < E // tp
+    y = k5.moe_fp4_grouped(x, q, s, *seg, tm=tm, plan=work)
+    torch.cuda.synchronize()
+    ref = k5.moe_fp4_grouped_plain(x, q, s, *seg, tm=tm)
+    if bool(mine.any()):  # 8 rows at TP 8 may hold none of the rank's
+        assert _row_share(y[mine], ref[mine], GROUPED_ROW_RTOL) <= 1.0
+    assert int((work.owner < 0).sum()) == int((~mine).sum())
+    items = work.items[:int(work.n_items[0])]
+    assert bool((items[:, 2] <= int(mine.sum())).all())  # no item reaches the tail
+    assert not bool(ref[~mine].any())
+
+
+@pytest.mark.parametrize("tp", [2, 8])
+def test_shard_dsv4_on_cuda_tensors(dev, tp):
+    """``shard_dsv4`` of a resident tree on the card: every leaf the CPU
+    shard's bits, contiguous, on the card, a copy of its own."""
+    from pegainfer_tpu_torch.models import dsv4
+    from pegainfer_tpu_torch.parallel import sharding
+
+    cfg = dsv4.DSv4Config(
+        vocab_size=256, dim=256, moe_inter_dim=128, n_layers=2, num_attention_heads=16,
+        head_dim=64, q_lora_rank=128, qk_rope_head_dim=32, o_groups=8, o_lora_rank=128,
+        sliding_window=16, n_routed_experts=16, n_shared_experts=1, n_activated_experts=2,
+        n_hash_layers=1, routed_scaling_factor=1.5, swiglu_limit=7.0, rms_norm_eps=1e-6,
+        index_n_heads=8, index_head_dim=128, index_topk=4, max_position_embeddings=4096,
+        rope_theta=1e4, compress_rope_theta=1e4, compress_ratios=(4, 128),
+        yarn_original_seq_len=256, yarn_factor=4.0)
+    host = dsv4.quantize_params_resident(dsv4.init_random_params(cfg, seed=5,
+                                                                 dtype=torch.float32))
+
+    def to_dev(t):
+        if isinstance(t, dict):
+            return {k: to_dev(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_dev(v) for v in t]
+        return t.to(dev)
+
+    card = to_dev(host)
+
+    def leaves(t, path=""):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                yield from leaves(v, f"{path}/{k}")
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                yield from leaves(v, f"{path}/{i}")
+        else:
+            yield path, t
+
+    ptrs = {t.data_ptr() for _, t in leaves(card)}
+    for r in range(tp):
+        got = dict(leaves(sharding.shard_dsv4(cfg, card, r, tp)))
+        want = dict(leaves(sharding.shard_dsv4(cfg, host, r, tp)))
+        assert sorted(got) == sorted(want)
+        for path, t in got.items():
+            assert t.is_cuda and t.is_contiguous() and t.data_ptr() not in ptrs, path
+            assert t.dtype == want[path].dtype and torch.equal(
+                t.cpu().reshape(-1).view(torch.uint8), want[path].reshape(-1).view(torch.uint8))

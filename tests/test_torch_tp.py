@@ -16,9 +16,9 @@ CPU.
   reduction), and every rank's logits the same bits.
 - ``validate_qwen3_tp``'s errors (JAX's messages), ``local_config``, the
   device group's backend, the ranks' devices, and the refusals: the graph
-  options, a tp that does not divide, DeepSeek-V4 and DeepSeek-V2-Lite and
-  the multi-host variables at the CLI (Qwen3 and the Qwen3.5 hybrid pass
-  its checks).
+  options, a tp that does not divide, DeepSeek-V2-Lite and the multi-host
+  variables at the CLI (Qwen3, the Qwen3.5 hybrid and DeepSeek-V4 pass its
+  checks).
 
 The engine under tensor parallelism (processes, the scheduler) is
 ``tests/test_torch_tp_engine.py``.
@@ -356,7 +356,6 @@ def test_the_graph_options_and_a_tp_that_does_not_divide_raise(setup):
 
 
 @pytest.mark.parametrize("family", [
-    {"model_type": "deepseek_v4", "architectures": ["DeepseekV4ForCausalLM"]},
     {"model_type": "deepseek_v2", "architectures": ["DeepseekV2ForCausalLM"]}])
 def test_the_cli_refuses_tp_for_the_other_families(family, tmp_path):
     (tmp_path / "config.json").write_text(json.dumps(family))
@@ -377,7 +376,19 @@ def test_the_cli_accepts_tp_for_the_qwen35_hybrid(tmp_path):
     assert tmain.detect_model_type(str(tmp_path)) in tmain.TP_FAMILIES
 
 
-@pytest.mark.parametrize("arch", ["Qwen3ForCausalLM", "Qwen3NextForCausalLM"])
+def test_the_cli_accepts_tp_for_dsv4(tmp_path):
+    """``--tp-size 2 --no-precompile`` passes the CLI's checks for a
+    DeepSeek-V4 checkpoint (served in ``tests/test_torch_tp_dsv4_engine.py``)."""
+    (tmp_path / "config.json").write_text(json.dumps(
+        {"model_type": "deepseek_v4", "architectures": ["DeepseekV4ForCausalLM"]}))
+    args = tmain.parse_args(["--model-path", str(tmp_path), "--tp-size", "2",
+                             "--no-precompile"])
+    tmain.check_supported(args)
+    assert tmain.detect_model_type(str(tmp_path)) in tmain.TP_FAMILIES
+
+
+@pytest.mark.parametrize("arch", ["Qwen3ForCausalLM", "Qwen3NextForCausalLM",
+                                  "DeepseekV4ForCausalLM"])
 def test_the_cli_refuses_tp_with_graphs_and_multihost(arch, tmp_path, monkeypatch):
     (tmp_path / "config.json").write_text(json.dumps({"architectures": [arch]}))
     argv = ["--model-path", str(tmp_path), "--tp-size", "2"]
